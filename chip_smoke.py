@@ -7,16 +7,26 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, drives the segmentation path through the
-session API on 512x512 synthetic slices (K = 2, then K = 3), checks that
-the path went through the kernels, and prints its findings as one JSON
-object per line.  The line before the last lists every kernel with its
-launches on the main path, its largest error against its plain version
-and its times; the last line is ``{"ok": true, "device": {...}}``.  Any
-failed check raises, and the script exits non-zero without that line.
-It also exits non-zero when CUDA is absent or the package is not beside
-it.  ``--profile`` adds device-time breakdowns from ``torch.profiler``
-(each kernel alone, and one K = 2 solve with its device idle share).
+PyTorch version on the card, and drives two paths on 512x512 synthetic
+slices (K = 2, then K = 3):
+
+* the single-device path: planned and solved through the session API
+  (one ``fused_em_tick`` per MAP iteration);
+* the sharded route: ``distributed_em`` on the same plans over a
+  one-rank NCCL process group made in this process (one
+  ``fused_map_step`` per MAP iteration, with the collectives around it).
+
+For each path it sets the launch counts to 0 just before and reads them
+just after, checks that the path went through its kernels, and holds it
+against the other route and against its own plain path.  It prints its
+findings as one JSON object per line.  The line before the last lists
+every kernel with its launches on its path, its largest error against its
+plain version and its times; the last line is ``{"ok": true, "device":
+{...}}``.  Any failed check raises, and the script exits non-zero without
+that line.  It also exits non-zero when CUDA is absent or the package is
+not beside it.  ``--profile`` adds device-time breakdowns from
+``torch.profiler`` (each kernel alone, and one K = 2 solve of each path
+with its device idle share).
 
 Tolerances (kernel against plain version, same inputs, on the card):
 
@@ -27,8 +37,16 @@ Tolerances (kernel against plain version, same inputs, on the card):
   hood energies and M-step sums within rtol 1e-5 (atol 1e-4): the kernel
   sums them in another order.  At bf16: at least 95 % label agreement and
   sums within 2 %.
+* fused_map_step (at the slices' quantile-init operands): min_e, arg and
+  votes exact; hood energies within rtol 1e-5 (atol 1e-4): atomics sum
+  them in another order.  The votes of the four element blocks of
+  ``partition_hoods(hoods, 4)`` add up to the whole problem's exactly.
+* mrf_min_energy (at the K = 2 slice's operands, n1 = label-1 counts):
+  min_e and arg exact.
 * The slice: kernel path against plain path at least 99.5 % pixel
-  agreement, and kernel-path accuracy no more than 0.01 below.
+  agreement, and kernel-path accuracy no more than 0.01 below.  The
+  sharded route is held to the same limits against the single-device
+  route and against its own plain path.
 """
 
 from __future__ import annotations
@@ -36,7 +54,10 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -85,7 +106,10 @@ def device_profile(torch, fn) -> dict:
     """Run ``fn`` under ``torch.profiler`` and sum the device time of every
     kernel, memset and copy it launched: total busy microseconds and the
     largest contributors by name.  Only device-side events count (a host
-    op's own entry repeats the time of the kernels it launched)."""
+    op's own entry repeats the time of the kernels it launched).
+    ``host_top`` lists the host ops with the most self time on the CPU,
+    where a host-bound solve spends its time (the profiler's own cost
+    included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -93,9 +117,10 @@ def device_profile(torch, fn) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    by_name = {}
+    by_name, host = {}, []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
+            host.append((float(e.self_cpu_time_total), e.key, e.count))
             continue
         us = float(e.self_device_time_total)
         if us > 0.0:
@@ -104,14 +129,14 @@ def device_profile(torch, fn) -> dict:
     return {
         "device_busy_us": sum(us for us, _ in by_name.values()),
         "top": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in top],
+        "host_top": [{"name": k[:60], "self_us": us, "count": n}
+                     for us, k, n in sorted(host, reverse=True)[:10]],
     }
 
 
 def check_segment_reduce(torch, ops, dev) -> float:
     """Kernel against plain version: 7, 24,784 (about a 512x512 slice's hood elements)
     and 10**6 elements into 1, 1555 and 10**5 segments, with padding ids."""
-    import numpy as np
-
     rng = np.random.default_rng(0)
     worst = 0.0
     for n in (7, 24_784, 1_000_000):
@@ -264,7 +289,152 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int) -> dict:
         fail(f"kernel path and plain path agree on {agree:.4f} of the pixels")
     if acc < acc_p - 0.01:
         fail(f"kernel-path accuracy {acc} more than 0.01 below the plain path's {acc_p}")
-    out["plan"] = plan
+    out.update(plan=plan, config=config, result=res, accuracy_of=accuracy)
+    return out
+
+
+def map_step_operands(torch, plan, E, em_mod, hoods):
+    """The ``fused_map_step`` call of the first MAP iteration of a sharded
+    solve of ``plan`` on ``hoods`` (the plan's or a partition of them):
+    ``cnt_e`` counts the quantile-init labels in each hood."""
+    prob = plan.problem
+    sctx = E.make_static_context(hoods, prob.model, backend="torch")
+    labels, mu, sigma = em_mod.quantile_init(prob.graph.region_mean, prob.graph.n_regions, prob.model.n_labels)
+    return E.map_step_operands(hoods, prob.model, sctx, labels, mu, sigma, backend="torch")
+
+
+def compare_map_step(torch, k, p, what: str) -> float:
+    """Hold a kernel MAP step ``k`` against the plain one ``p``; returns the
+    largest absolute error over the four outputs."""
+    names = ("min_e", "arg", "hood_e", "votes")
+    err = max((a.float() - b.float()).abs().max().item() if a.numel() else 0.0 for a, b in zip(k, p))
+    for name, a, b in zip(names, k, p):
+        if name == "hood_e":
+            if not torch.allclose(a, b, rtol=1e-5, atol=1e-4):
+                fail(f"{what}: hood_e differs beyond rtol 1e-5 (err {err})")
+        elif not torch.equal(a, b):
+            fail(f"{what}: {name} differs")
+    return err
+
+
+def check_map_step(torch, ops, D, E, em_mod, plan, n_labels: int):
+    """fused_map_step at the slice's operands against its plain version,
+    then on each element block of a four-way partition: the blocks' votes
+    must add up to the whole problem's exactly.  Returns ``(err, args,
+    kw)``."""
+    hoods = plan.problem.hoods
+    args, kw = map_step_operands(torch, plan, E, em_mod, hoods)
+    k = ops.fused_map_step(*args, **kw)
+    p = ops.fused_map_step(*args, **kw, backend="torch")
+    torch.cuda.synchronize()
+    err = compare_map_step(torch, k, p, f"fused_map_step K={n_labels}")
+
+    parts = D.partition_hoods(hoods, 4)
+    (y, w, cnt, nall, xf, valid, hid, vtx, mu, sig, beta), pkw = map_step_operands(torch, plan, E, em_mod, parts)
+    block = parts.capacity // 4
+    votes = torch.zeros_like(k[3])
+    hood_e = torch.zeros_like(k[2])
+    for s in range(4):
+        sl = slice(s * block, (s + 1) * block)
+        kb = ops.fused_map_step(y[sl], w[sl], cnt[:, sl].contiguous(), nall[sl], xf[sl], valid[sl],
+                                hid[sl], vtx[sl], mu, sig, beta, **pkw)
+        pb = ops.fused_map_step(y[sl], w[sl], cnt[:, sl].contiguous(), nall[sl], xf[sl], valid[sl],
+                                hid[sl], vtx[sl], mu, sig, beta, **pkw, backend="torch")
+        err = max(err, compare_map_step(torch, kb, pb, f"fused_map_step K={n_labels} block {s}"))
+        votes += kb[3]
+        hood_e += kb[2]
+    torch.cuda.synchronize()
+    if not torch.equal(votes, k[3]):
+        fail(f"fused_map_step K={n_labels}: the four blocks' votes do not add up to the whole")
+    if not torch.allclose(hood_e, k[2], rtol=1e-5, atol=1e-4):
+        fail(f"fused_map_step K={n_labels}: the four blocks' hood sums differ from the whole")
+    # The route's plurality vote takes the first maximum; check it on these votes.
+    best, first = k[3][0].clone(), torch.zeros(k[3].shape[1], dtype=torch.int64, device=k[3].device)
+    for l in range(1, n_labels):
+        take = k[3][l] > best
+        best = torch.where(take, k[3][l], best)
+        first = torch.where(take, l, first)
+    if not torch.equal(torch.argmax(k[3], dim=0), first):
+        fail(f"fused_map_step K={n_labels}: argmax over the votes does not take the first maximum")
+    top2 = k[3].topk(2, dim=0).values
+    tied = int(((top2[0] == top2[1]) & (top2[0] > 0)).sum().item())
+    emit({"phase": "fused_map_step_check", "operands": "512x512 slice, quantile-init counts",
+          "K": n_labels, "ok": True, "max_abs_err": err, "blocks": 4, "block": block,
+          "votes_cast": int(k[3].sum().item()), "tied_vertices": tied})
+    return err, args, kw
+
+
+def check_mrf_energy(torch, ops, args) -> tuple:
+    """mrf_min_energy at the K = 2 slice's operands, n1 = label-1 counts."""
+    y, w, cnt, nall, xf, _valid, _hid, _vtx, mu, sig, beta = args
+    margs = (y, w, cnt[1].contiguous(), nall, xf, mu, sig, beta)
+    k = ops.mrf_min_energy(*margs)
+    p = ops.mrf_min_energy(*margs, backend="torch")
+    torch.cuda.synchronize()
+    err = (k[0] - p[0]).abs().max().item()
+    if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
+        fail(f"mrf_min_energy: not exact (min_e err {err})")
+    emit({"phase": "mrf_min_energy_check", "operands": "512x512 slice K=2", "ok": True,
+          "max_abs_err": err, "label1_share": k[1].float().mean().item()})
+    return err, margs
+
+
+def run_sharded(torch, D, pipeline, ops, sl) -> dict:
+    """The sharded route on a slice's plan over the one-rank group: launch
+    counts reset just before and read just after; then its plain path.
+    Both are held to the single-device result of the same plan."""
+    plan, config, single, accuracy = sl["plan"], sl["config"], sl["result"], sl["accuracy_of"]
+    prob = plan.problem
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
+
+    def solve(cfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = D.distributed_em(prob.hoods, prob.model, labels0, mu0, sigma0, config=cfg)
+        torch.cuda.synchronize()
+        return pipeline.assemble_result(prob, res, plan.init_seconds, time.perf_counter() - t0)
+
+    ops.reset_launch_counts()
+    res = solve(config.em_config())
+    launches = ops.launch_counts()
+    before = ops.launch_counts()
+    res_p = solve(config.with_(backend="torch").em_config())
+    if ops.launch_counts() != before:
+        fail("the sharded plain path (backend='torch') launched a kernel")
+
+    n_labels = sl["K"]
+    acc, acc_p, acc_1 = accuracy(res), accuracy(res_p), sl["accuracy"]
+    agree_1 = float((res.segmentation == single.segmentation).mean())
+    agree_p = float((res.segmentation == res_p.segmentation).mean())
+    iters = lambda r: (r.em_iters, r.map_iters)
+    out = {
+        "phase": "sharded_slice", "K": n_labels, "ranks": 1, "optimize_s": res.optimize_seconds,
+        "em_iters": res.em_iters, "map_iters": res.map_iters, "status": res.status,
+        "accuracy": acc, "launches": launches,
+        "single_device_accuracy": acc_1, "pixel_agreement_single": agree_1,
+        "labels_equal_single": bool(np.array_equal(res.region_labels, single.region_labels)),
+        "iters_equal_single": iters(res) == iters(single),
+        "plain_optimize_s": res_p.optimize_seconds, "plain_accuracy": acc_p,
+        "plain_em_iters": res_p.em_iters, "plain_map_iters": res_p.map_iters,
+        "pixel_agreement_plain": agree_p,
+        "labels_equal_plain": bool(np.array_equal(res.region_labels, res_p.region_labels)),
+        "iters_equal_plain": iters(res) == iters(res_p),
+    }
+    emit(out)
+    if launches["fused_map_step"] != res.map_iters:
+        fail(f"fused_map_step launched {launches['fused_map_step']} times for {res.map_iters} MAP iterations")
+    if launches["fused_em_tick"] != 0:
+        fail("the sharded route ran the single-device tick")
+    if launches["segment_reduce"] < res.map_iters:
+        fail("the sharded route's label counts did not go through segment_reduce")
+    if res.status not in ("converged", "max_iters"):
+        fail(f"sharded slice status {res.status}")
+    for what, agree, ref_acc in (("single-device route", agree_1, acc_1), ("sharded plain path", agree_p, acc_p)):
+        if agree < 0.995:
+            fail(f"sharded route and {what} agree on {agree:.4f} of the pixels")
+        if acc < ref_acc - 0.01:
+            fail(f"sharded-route accuracy {acc} more than 0.01 below the {what}'s {ref_acc}")
+    out["solve"] = lambda: solve(config.em_config())
     return out
 
 
@@ -309,7 +479,7 @@ def main(argv=None) -> int:
     check_tick_synthetic(torch, ops, dev)
 
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
-    plan = slice2.pop("plan")
+    plan = slice2["plan"]
 
     # The tick at the slice's real operands: check and time.
     args, kw = real_tick_operands(torch, plan, E, em_mod)
@@ -366,9 +536,60 @@ def main(argv=None) -> int:
           "segment_reduce_index_add_ms": sr_lib_ms, "tick_bytes": tick_bytes,
           "segment_reduce_shape": [n, n_seg]})
 
-    run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=3)
+    slice3 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=3)
+
+    # Second path: the sharded route's kernels at the slices' operands.
+    from repro_torch.core.pmrf import distributed as D
+    from repro_torch.core.pmrf import pipeline
+
+    ms_err, ms_args, ms_kw = check_map_step(torch, ops, D, E, em_mod, plan, 2)
+    ms_err = max(ms_err, check_map_step(torch, ops, D, E, em_mod, slice3["plan"], 3)[0])
+    mrf_err, mrf_args = check_mrf_energy(torch, ops, ms_args)
+
+    # The sharded route end to end, over a one-rank NCCL group.
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        sharded = {sl["K"]: run_sharded(torch, D, pipeline, ops, sl) for sl in (slice2, slice3)}
+        if profile:
+            solve = sharded[2]["solve"]
+            wall = min(solve().optimize_seconds for _ in range(3))
+            prof = device_profile(torch, solve)
+            emit({"phase": "profile", "what": "K=2 sharded solve (distributed_em, 1 rank)",
+                  "optimize_s_unprofiled": wall,
+                  "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / wall, **prof})
+    finally:
+        dist.destroy_process_group()
+
+    # Timing of the two new kernels at the K = 2 slice's operands.
+    ms_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw))
+    ms_plain_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw, backend="torch"))
+    mrf_ms = time_ms(lambda: ops.mrf_min_energy(*mrf_args))
+    mrf_plain_ms = time_ms(lambda: ops.mrf_min_energy(*mrf_args, backend="torch"))
+    h = int(ms_args[0].shape[0])
+    nh, nv, k2 = ms_kw["n_hoods"], ms_kw["n_vertices"], 2
+    ms_bytes = (h * (7 * 4 + k2 * 4) + 2 * k2 * 4 + 4      # inputs: 7 element arrays, cnt_e, mu, sigma, beta
+                + h * 8 + nh * 4 + k2 * nv * 4)            # outputs: min_e, arg, hood_e, votes
+    ms_bound, ms_by = bound(ms_bytes, h * (2 + 15 * k2))
+    mrf_bytes = h * 5 * 4 + 2 * 2 * 4 + 4 + h * 8
+    mrf_bound, mrf_by = bound(mrf_bytes, h * 32)
+    # The sharded route's per-iteration segment_reduce: the (hood, label) counts.
+    count_args = (ms_args[5], E.dpp.compound_key(hoods.hood_id, ms_args[4].int(), 2).int(), (nh + 1) * 2, "add")
+    counts_ms = time_ms(lambda: ops.segment_reduce(*count_args))
+    if profile:
+        emit({"phase": "profile", "what": "20 fused_map_step calls",
+              **device_profile(torch, lambda: [ops.fused_map_step(*ms_args, **ms_kw) for _ in range(20)])})
+        emit({"phase": "profile", "what": "20 mrf_min_energy calls",
+              **device_profile(torch, lambda: [ops.mrf_min_energy(*mrf_args) for _ in range(20)])})
+    emit({"phase": "timing", "fused_map_step_ms": ms_ms, "fused_map_step_plain_ms": ms_plain_ms,
+          "mrf_min_energy_ms": mrf_ms, "mrf_min_energy_plain_ms": mrf_plain_ms,
+          "segment_reduce_counts_ms": counts_ms, "counts_segments": (nh + 1) * 2,
+          "fused_map_step_bytes": ms_bytes, "mrf_min_energy_bytes": mrf_bytes, "elements": h})
 
     launches = slice2["launches"]
+    sharded_launches = sharded[2]["launches"]
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
@@ -382,6 +603,18 @@ def main(argv=None) -> int:
          "launches": launches["segment_reduce"], "max_abs_err": sr_err,
          "ms": sr_ms, "plain_ms": sr_plain_ms, "bound_ms": sr_bound,
          "bound_by": sr_by, "library_ms": sr_lib_ms},
+        {"name": "fused_map_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/map_step.cu",
+         "replaces": "src/repro/kernels/map_step.py:148",
+         "launches": sharded_launches["fused_map_step"], "max_abs_err": ms_err,
+         "ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound,
+         "bound_by": ms_by, "library_ms": None},
+        {"name": "mrf_min_energy", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mrf_energy.cu",
+         "replaces": "src/repro/kernels/mrf_energy.py:62",
+         "launches": sharded_launches["mrf_min_energy"], "max_abs_err": mrf_err,
+         "ms": mrf_ms, "plain_ms": mrf_plain_ms, "bound_ms": mrf_bound,
+         "bound_by": mrf_by, "library_ms": None},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

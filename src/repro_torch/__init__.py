@@ -1,9 +1,10 @@
 """DPP-PMRF on PyTorch and CUDA (NVIDIA Hopper).
 
 A second implementation of the ``repro`` package's PMRF engine, module for
-module at the same relative paths.  Plain tensor code is PyTorch; the two
-kernels on the segmentation path (``fused_em_tick`` and
-``segment_reduce``) are CUDA C++ built for ``sm_90a`` at first use
+module at the same relative paths.  Plain tensor code is PyTorch; the
+kernels (``fused_em_tick`` and ``segment_reduce`` on the single-device
+path, ``fused_map_step`` on the sharded route, and the binary
+``mrf_min_energy``) are CUDA C++ built for ``sm_90a`` at first use
 (``repro_torch.kernels``).  The package imports ``torch`` and ``numpy``
 only.
 

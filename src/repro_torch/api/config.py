@@ -2,9 +2,15 @@
 
 Counterpart of ``repro.api.config.ExecutionConfig`` for what this package
 runs: mode ``static-pallas``, its precision, the label count, the EM
-limits, the init and the oversegmentation.  ``backend`` is ``"auto"``
-(the CUDA kernels for tensors on the card, the plain PyTorch versions on
-the CPU) or ``"torch"`` (the plain versions on any device).
+limits, the init, the oversegmentation and the shard count.  ``backend``
+is ``"auto"`` (the CUDA kernels for tensors on the card, the plain
+PyTorch versions on the CPU) or ``"torch"`` (the plain versions on any
+device).
+
+``shards > 1`` runs the sharded route over the default
+``torch.distributed`` process group, one rank per shard (``torchrun
+--nproc-per-node shards``); that group takes the place of the
+reference's ``mesh_axis``, so there is no such field here.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ class ExecutionConfig:
     init: str = "random"           # random | quantile
     overseg_grid: Tuple[int, int] = (16, 16)
     overseg_iters: int = 5
+    shards: int = 1                # ranks of the default process group
 
     def __post_init__(self):
         if self.backend not in kops.BACKENDS:
@@ -48,6 +55,8 @@ class ExecutionConfig:
             raise ValueError(f"init must be 'random' or 'quantile', got {self.init!r}")
         if self.n_labels < 2:
             raise ValueError(f"n_labels must be >= 2, got {self.n_labels}")
+        if self.shards < 1:
+            raise ValueError(f"shards must be >= 1, got {self.shards}")
         object.__setattr__(self, "overseg_grid", tuple(self.overseg_grid))
 
     def em_config(self) -> em_mod.EMConfig:

@@ -7,7 +7,10 @@ eagerly, so there is no compile phase to cache yet.
 
 * :meth:`Segmenter.plan`: oversegmentation, region graph, cliques and
   neighborhoods (the paper's untimed init phase);
-* :meth:`Segmenter.execute`: the EM solve (the paper's timed phase);
+* :meth:`Segmenter.execute`: the EM solve (the paper's timed phase), on
+  the sharded route when ``config.shards > 1``: every rank of the default
+  ``torch.distributed`` group calls it with the same plan and solves its
+  block of the hood elements;
 * :meth:`Segmenter.segment`: both.
 
 Both phases are timed on the host clock around work that ends in
@@ -17,14 +20,18 @@ Both phases are timed on the host clock around work that ends in
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device, to_tensor
 from repro_torch.api.config import ExecutionConfig
 from repro_torch.api.errors import PlanError
+from repro_torch.core.pmrf import distributed as distributed_mod
 from repro_torch.core.pmrf import pipeline as pipeline_mod
+from repro_torch.core.pmrf.hoods import Hoods
 
 
 @dataclass
@@ -33,6 +40,8 @@ class Plan:
 
     problem: pipeline_mod.Problem
     init_seconds: float
+    # partition_hoods results by shard count, made at the first sharded solve
+    partitions: Dict[int, Hoods] = field(default_factory=dict, repr=False)
 
 
 class Segmenter:
@@ -76,13 +85,44 @@ class Segmenter:
         self._sync()
         return Plan(problem=problem, init_seconds=time.perf_counter() - t0)
 
+    def _check_group(self) -> None:
+        """The sharded route's process group: the default group, with one
+        rank per shard; raises with what to do otherwise."""
+        n = self.config.shards
+        if not dist.is_initialized():
+            found = "torch.distributed is not initialised"
+        elif dist.get_world_size() != n:
+            found = f"the default process group has {dist.get_world_size()} ranks"
+        else:
+            return
+        raise RuntimeError(
+            f"ExecutionConfig(shards={n}) runs one process per shard over the "
+            f"default torch.distributed process group, but {found}; launch "
+            f"with `torchrun --nproc-per-node {n}` and call "
+            "torch.distributed.init_process_group first (`python -m "
+            f"repro_torch.launch.segment --shards {n}` under torchrun does both)"
+        )
+
     def execute(self, plan: Plan, *, seed: int = 0) -> pipeline_mod.SegmentationResult:
         """The EM solve of one plan (``seed`` drives the random init)."""
+        shards = self.config.shards
+        if shards > 1:
+            self._check_group()
+            if shards not in plan.partitions:
+                plan.partitions[shards] = distributed_mod.partition_hoods(plan.problem.hoods, shards)
         self._sync()
         t0 = time.perf_counter()
-        res = pipeline_mod.optimize(
-            plan.problem, seed=seed, config=self.config.em_config(), init=self.config.init
-        )
+        if shards > 1:
+            p = plan.problem
+            labels0, mu0, sigma0 = pipeline_mod.initial_params(p, seed, self.config.init)
+            res = distributed_mod.run_em_sharded(
+                plan.partitions[shards], p.model, labels0, mu0, sigma0,
+                config=self.config.em_config(),
+            )
+        else:
+            res = pipeline_mod.optimize(
+                plan.problem, seed=seed, config=self.config.em_config(), init=self.config.init
+            )
         self._sync()
         opt_s = time.perf_counter() - t0
         return pipeline_mod.assemble_result(plan.problem, res, plan.init_seconds, opt_s)

@@ -1,6 +1,7 @@
 """DPP-PMRF: the paper's probabilistic-graphical-model optimizer."""
 
 from repro_torch.core.pmrf.cliques import CliqueSet, enumerate_maximal_cliques
+from repro_torch.core.pmrf.collectives import LOCAL, ReduceCtx
 from repro_torch.core.pmrf.convert import problem_from_numpy
 from repro_torch.core.pmrf.em import EMConfig, EMResult, run_em
 from repro_torch.core.pmrf.energy import EnergyModel, make_energy_model
@@ -16,6 +17,8 @@ from repro_torch.core.pmrf.pipeline import (
 __all__ = [
     "CliqueSet",
     "enumerate_maximal_cliques",
+    "LOCAL",
+    "ReduceCtx",
     "problem_from_numpy",
     "EMConfig",
     "EMResult",

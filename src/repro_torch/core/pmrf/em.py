@@ -1,12 +1,20 @@
 """EM / MAP optimization driver (paper Alg. 2, lines 6-12).
 
-Counterpart of ``repro.core.pmrf.em`` for the single-device
-``static-pallas`` route.  An outer EM loop (parameter estimation) wraps an
-inner MAP loop (label inference); each MAP iteration is one
-``fused_em_tick`` call, which also returns the M-step sums and the
-per-hood convergence predicate.  Convergence follows §3.2.2: per-hood
-energy sums over the last L=3 iterations, converged when every change is
-below 1e-4 (relative).
+Counterpart of ``repro.core.pmrf.em`` for the ``static-pallas`` route.  An
+outer EM loop (parameter estimation) wraps an inner MAP loop (label
+inference).  Convergence follows §3.2.2: per-hood energy sums over the
+last L=3 iterations, converged when every change is below 1e-4
+(relative).
+
+There is one driver (:func:`_em_driver`), parametrised by a collective
+context (``collectives.ReduceCtx``): :func:`run_em` binds the
+single-device context, where each MAP iteration is one ``fused_em_tick``
+call that also returns the M-step sums and the convergence predicate;
+``distributed.run_em_sharded`` binds a sharded context, where each MAP
+iteration is ``energy.map_step_fused`` (collectives around one
+``fused_map_step`` launch) and the M-step is
+``energy.update_parameters_stats``.  Every convergence decision goes
+through the context, so all ranks take the same trajectory.
 
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
@@ -20,6 +28,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
@@ -65,7 +74,9 @@ class EMConfig(NamedTuple):
     beta: float = 0.75
     sigma_min: float = 2.0
     backend: str = "auto"         # kernel dispatch (kernels/ops.py BACKENDS)
-    precision: str = "f32"        # fused-tick energy arithmetic: "f32" | "bf16"
+    precision: str = "f32"        # fused-tick energy arithmetic: "f32" | "bf16";
+                                  # the sharded route computes in f32, as the
+                                  # reference's does
 
 
 def validate_config(config: EMConfig) -> None:
@@ -151,21 +162,29 @@ def _boundary_status(
     return STATUS_OK
 
 
-def run_em(
+def _em_driver(
     hoods: Hoods,
     model: E.EnergyModel,
     labels0: Tensor,
     mu0: Tensor,
     sigma0: Tensor,
-    config: EMConfig = EMConfig(),
+    config: EMConfig,
+    ctx: collectives.ReduceCtx,
 ) -> EMResult:
-    """EM on one problem, on the device its tensors live on."""
+    """The EM driver of both routes; only the collective context differs.
+
+    When ``ctx`` is sharded, ``hoods`` is this rank's element block (with
+    globally indexed ``vertex``/``hood_id``) while ``model``, ``labels0``,
+    ``mu0`` and ``sigma0`` are the same on every rank, and so is all label
+    and parameter state after each step.
+    """
     validate_config(config)
     backend = config.backend
     n_hoods = hoods.n_hoods
     dev = labels0.device
     f32 = torch.float32
-    sctx = E.make_static_context(hoods, model, backend=backend)
+    fused_tick = not ctx.sharded
+    sctx = E.make_static_context(hoods, model, backend=backend, ctx=ctx)
 
     labels, mu, sigma = labels0, mu0, sigma0
     hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)  # if max_em_iters == 0
@@ -175,7 +194,7 @@ def run_em(
     status = STATUS_OK
     done = False
     while em_i < config.max_em_iters and not done:
-        # MAP loop: one fused tick per iteration.
+        # MAP loop: one fused tick (or one sharded MAP step) per iteration.
         hist = torch.zeros((WINDOW + 1, n_hoods), dtype=f32, device=dev)
         hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
         msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
@@ -183,26 +202,44 @@ def run_em(
         i = 0
         map_done = False
         while i < config.max_map_iters and not map_done:
-            labels, hood_e, conv, sum_w, sum_wy, sum_wyy = E.em_tick_fused(
-                hoods, model, sctx, labels, mu, sigma, hist,
-                backend=backend, precision=config.precision, conv_tol=CONV_TOL,
-            )
-            msums = torch.stack([sum_w, sum_wy, sum_wyy])
+            if fused_tick:
+                labels, hood_e, conv, sum_w, sum_wy, sum_wyy = E.em_tick_fused(
+                    hoods, model, sctx, labels, mu, sigma, hist,
+                    backend=backend, precision=config.precision, conv_tol=CONV_TOL,
+                )
+                msums = torch.stack([sum_w, sum_wy, sum_wyy])
+            else:
+                labels, hood_e = E.map_step_fused(
+                    hoods, model, sctx, labels, mu, sigma, backend=backend, ctx=ctx
+                )
             hist = torch.cat([hood_e[None], hist[:-1]])
             hood_energy = hood_e
             i += 1
             diverged = ~torch.all(torch.isfinite(hood_e))
-            # The kernel reduced the window predicate; the gate on the
-            # iteration count stays here.
-            stop = (conv | diverged) if i > WINDOW else diverged
+            stop = diverged
+            if i > WINDOW:
+                # The fused tick reduced the window predicate in-kernel; the
+                # gate on the iteration count stays here (every rank has the
+                # same i, so all skip or all join the collective).
+                if not fused_tick:
+                    conv = _window_converged(hist)
+                stop = ctx.all_converged(conv) | diverged
             map_done = bool(stop)
 
-        mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
+        if fused_tick:
+            mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
+        else:
+            mu, sigma, sum_w = E.update_parameters_stats(
+                model, labels, config.mode, backend=backend
+            )
         div_t = diverged | ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)
         total_hist = torch.cat([torch.sum(hood_energy)[None], total_hist[:-1]])
         em_i += 1
-        conv_t = _window_converged(total_hist) if em_i > WINDOW else torch.zeros_like(div_t)
+        if em_i > WINDOW:
+            conv_t = ctx.all_converged(_window_converged(total_hist))
+        else:
+            conv_t = torch.zeros_like(div_t)
         div, deg, em_conv = (bool(v) for v in torch.stack([div_t, deg_t, conv_t]).tolist())
         map_total += i
         finished = div or not (em_i < config.max_em_iters and not em_conv)
@@ -219,3 +256,15 @@ def run_em(
         map_iters=map_total,
         status=status,
     )
+
+
+def run_em(
+    hoods: Hoods,
+    model: E.EnergyModel,
+    labels0: Tensor,
+    mu0: Tensor,
+    sigma0: Tensor,
+    config: EMConfig = EMConfig(),
+) -> EMResult:
+    """EM on one problem, on the device its tensors live on."""
+    return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL)

@@ -8,10 +8,16 @@ element ``e`` (vertex v) is
             + beta * #{ u in hood(e), u != e : x_u != l } / max(|hood|-1, 1)
 
 with y_v the region mean intensity, w_v the region pixel count normalized
-to unit mean and x the current label field.  One MAP iteration of the
-static-pallas route is one ``fused_em_tick`` launch; everything that does
-not change across iterations lives in a :class:`StaticMapContext` built
-once per solve.
+to unit mean and x the current label field.  Everything that does not
+change across iterations lives in a :class:`StaticMapContext` built once
+per solve.  One MAP iteration of the static-pallas route is
+
+* on one device, one ``fused_em_tick`` launch (:func:`em_tick_fused`),
+  which also yields the M-step sums;
+* sharded, :func:`map_step_fused`: the label counts (a ``segment_reduce``
+  launch plus an all-reduce), one ``fused_map_step`` launch, and the
+  all-reduce of its hood sums and votes; the M-step is then
+  :func:`update_parameters_stats`.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import dpp
+from repro_torch.core.pmrf.collectives import LOCAL, ReduceCtx
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
 
@@ -85,15 +92,18 @@ class StaticMapContext(NamedTuple):
 
 
 def make_static_context(
-    hoods: Hoods, model: EnergyModel, *, backend: Optional[str] = None
+    hoods: Hoods,
+    model: EnergyModel,
+    *,
+    backend: Optional[str] = None,
+    ctx: ReduceCtx = LOCAL,
 ) -> StaticMapContext:
     """Gather the region statistics per element and count each hood's
-    size (one ``segment_reduce`` launch on the CUDA route)."""
+    size (one ``segment_reduce`` launch on the CUDA route, all-reduced
+    when sharded)."""
     v = hoods.vertex.long()
     validf = hoods.valid.to(torch.float32)
-    nall = dpp.reduce_by_key(
-        hoods.hood_id, validf, hoods.n_hoods + 1, op="add", backend=backend
-    )
+    nall = ctx.segment_sum(hoods.hood_id, validf, hoods.n_hoods + 1, backend=backend)
     return StaticMapContext(
         y=model.region_mean[v],
         w=model.region_weight[v] * validf,
@@ -146,6 +156,86 @@ def em_tick_fused(
         backend=backend,
     )
     return new_labels, hood_e, conv, sum_w, sum_wy, sum_wyy
+
+
+def map_step_operands(
+    hoods: Hoods,
+    model: EnergyModel,
+    sctx: StaticMapContext,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    *,
+    backend: Optional[str] = None,
+    ctx: ReduceCtx = LOCAL,
+) -> Tuple[tuple, dict]:
+    """The ``fused_map_step`` call of one MAP iteration, as ``(args,
+    kwargs)``: the per-(hood, label) counts are one keyed reduction (K
+    folded into the key space), all-reduced across ranks when sharded,
+    and gathered per element into the kernel's (K, H) layout."""
+    n_labels = int(mu.shape[0])
+    x = labels[hoods.vertex.long()]
+    xf = x.to(torch.float32) * sctx.validf
+    key = dpp.compound_key(hoods.hood_id, x, n_labels, major_span=hoods.n_hoods + 1)
+    counts = ctx.segment_sum(
+        key, sctx.validf, (hoods.n_hoods + 1) * n_labels, backend=backend
+    ).reshape(hoods.n_hoods + 1, n_labels)
+    cnt_e = counts[hoods.hood_id.long()].T.contiguous()
+    sig = torch.maximum(sigma, model.sigma_min)
+    args = (sctx.y, sctx.w, cnt_e, sctx.nall_e, xf, sctx.validf, hoods.hood_id,
+            hoods.vertex, mu, sig, model.beta)
+    return args, dict(n_hoods=hoods.n_hoods, n_vertices=hoods.n_regions + 1)
+
+
+def map_step_fused(
+    hoods: Hoods,
+    model: EnergyModel,
+    sctx: StaticMapContext,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    *,
+    backend: Optional[str] = None,
+    ctx: ReduceCtx = LOCAL,
+) -> Tuple[Tensor, Tensor]:
+    """One MAP iteration of the sharded static-pallas route: ``(new
+    labels, hood sums)``.
+
+    The global label counts come first (:func:`map_step_operands`); the
+    kernel then runs on this rank's elements, and its hood sums and
+    (K, V+1) votes are all-reduced after it: the collectives stay outside
+    the launch.  Votes are integer-valued, so every rank takes the same
+    plurality labels (ties to the lowest label; the sentinel vertex 0).
+    """
+    args, kw = map_step_operands(
+        hoods, model, sctx, labels, mu, sigma, backend=backend, ctx=ctx
+    )
+    _min_e, _arg, hood_e, votes = kops.fused_map_step(*args, **kw, backend=backend)
+    hood_e = ctx.psum(hood_e)
+    votes = ctx.psum(votes)
+    new = torch.argmax(votes, dim=0).to(torch.int32)  # first maximum on ties
+    new[hoods.n_regions] = 0
+    return new, hood_e
+
+
+def update_parameters_stats(
+    model: EnergyModel, labels: Tensor, mode: str, *, backend: Optional[str] = None
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """M-step from the labels: per-label weighted region sums (three
+    ReduceByKey launches), then :func:`params_from_stats`.  ``faithful``
+    groups the regions by SortByKey(label) first, as the paper does; the
+    other modes key by label directly.  Returns ``(mu, sigma, sum_w)``.
+    """
+    n_labels = model.n_labels
+    y, w = model.region_mean, model.region_weight  # sentinel lane has weight 0
+    if mode == "faithful":
+        seg, y, w = dpp.sort_by_key(labels, y, w)
+    else:
+        seg = labels
+    sum_w = dpp.reduce_by_key(seg, w, n_labels, op="add", backend=backend)
+    sum_wy = dpp.reduce_by_key(seg, w * y, n_labels, op="add", backend=backend)
+    sum_wyy = dpp.reduce_by_key(seg, w * y * y, n_labels, op="add", backend=backend)
+    return params_from_stats(model, sum_w, sum_wy, sum_wyy)
 
 
 def params_from_stats(

@@ -12,15 +12,15 @@ steps on top of the DPP layer, on the graph's device.
 
 The sort leaves the elements ordered by (hood, vertex), valid elements
 first: hood ``h`` owns elements ``offsets[h]:offsets[h+1]``, the layout
-the EM-tick kernel walks.  The reference also builds the paper's
-label-replication arrays (``rep_*``) for the faithful mode; that mode is
-not ported yet, and neither are they.
+the EM-tick kernel walks.  It also builds the paper's label-replication
+arrays (testLabel, oldIndex, hoodId: the memory-free "repHoods" Gather),
+which ``distributed.partition_hoods`` relocalises per shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,17 +34,25 @@ class Hoods:
     """Flat neighborhood arrays, padded to ``capacity``.
 
     Padding lanes carry ``vertex == n_regions`` / ``hood_id == n_hoods`` so
-    gathers stay in bounds against sentinel-extended region arrays.
+    gathers stay in bounds against sentinel-extended region arrays.  The
+    shard-local ``Hoods`` of the sharded route holds one element block and
+    no ``sizes``/``offsets`` (``None``): its hoods are not whole runs.
     """
 
-    vertex: torch.Tensor   # (capacity,) int32: vertex id per hood element
-    hood_id: torch.Tensor  # (capacity,) int32: neighborhood id per element
-    valid: torch.Tensor    # (capacity,) bool
-    sizes: torch.Tensor    # (n_hoods,) int32
-    offsets: torch.Tensor  # (n_hoods + 1,) int32, over the packed prefix
+    vertex: torch.Tensor             # (capacity,) int32: vertex id per hood element
+    hood_id: torch.Tensor            # (capacity,) int32: neighborhood id per element
+    valid: torch.Tensor              # (capacity,) bool
+    sizes: Optional[torch.Tensor]    # (n_hoods,) int32
+    offsets: Optional[torch.Tensor]  # (n_hoods + 1,) int32, over the packed prefix
     n_hoods: int
     n_regions: int
-    n_elements: int        # valid-element count
+    n_elements: int                  # valid-element count
+    # Label replication (paper layout: per hood, its label-0 block then its
+    # label-1 block), each (2 * capacity,):
+    rep_old_index: torch.Tensor      # int32 element index per rep lane
+    rep_test_label: torch.Tensor     # int32 label the lane tests
+    rep_hood_id: torch.Tensor        # int32, n_hoods on unused lanes
+    rep_valid: torch.Tensor          # bool
 
     @property
     def capacity(self) -> int:
@@ -116,15 +124,21 @@ def build_hoods(graph: RegionGraph, cliques: CliqueSet) -> Hoods:
     sizes = dpp.reduce_by_key(
         torch.where(valid, hood_id, c), valid.to(i32), c + 1, op="add"
     )[:c]
+    hood_offsets = dpp.counts_to_offsets(sizes)
+    rep = _build_replication(valid, sizes, hood_offsets, c, int(vertex.shape[0]))
     return Hoods(
         vertex=vertex,
         hood_id=torch.where(valid, hood_id, c).to(i32),
         valid=valid,
         sizes=sizes,
-        offsets=dpp.counts_to_offsets(sizes),
+        offsets=hood_offsets,
         n_hoods=c,
         n_regions=n,
         n_elements=int(valid.sum()),
+        rep_old_index=rep[0],
+        rep_test_label=rep[1],
+        rep_hood_id=rep[2],
+        rep_valid=rep[3],
     )
 
 
@@ -159,14 +173,64 @@ def pad_hoods(
         out[: x.shape[0]] = x
         return out
 
+    i32 = torch.int32
     valid = pad1(h.valid, False, capacity)
+    rep_valid = pad1(h.rep_valid, False, 2 * capacity)
     return Hoods(
-        vertex=torch.where(valid, pad1(h.vertex, 0, capacity), n_regions).to(torch.int32),
-        hood_id=torch.where(valid, pad1(h.hood_id, 0, capacity), n_hoods).to(torch.int32),
+        vertex=torch.where(valid, pad1(h.vertex, 0, capacity), n_regions).to(i32),
+        hood_id=torch.where(valid, pad1(h.hood_id, 0, capacity), n_hoods).to(i32),
         valid=valid,
         sizes=pad1(h.sizes, 0, n_hoods),
         offsets=torch.cat([h.offsets, h.offsets[-1:].expand(n_hoods - h.n_hoods)]),
         n_hoods=n_hoods,
         n_regions=n_regions,
         n_elements=n_elements,
+        rep_old_index=torch.where(
+            rep_valid, pad1(h.rep_old_index, 0, 2 * capacity), capacity - 1
+        ).to(i32),
+        rep_test_label=torch.where(rep_valid, pad1(h.rep_test_label, 0, 2 * capacity), 0).to(i32),
+        rep_hood_id=torch.where(rep_valid, pad1(h.rep_hood_id, 0, 2 * capacity), n_hoods).to(i32),
+        rep_valid=rep_valid,
+    )
+
+
+def _build_replication(
+    valid: torch.Tensor,
+    sizes: torch.Tensor,
+    hood_offsets: torch.Tensor,
+    n_hoods: int,
+    h_pad: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The paper's testLabel / oldIndex / hoodId arrays of size 2 * h_pad.
+
+    Hood ``h`` of size ``s`` at packed offset ``o`` owns rep lanes
+    ``[2o, 2o+s)`` (its elements with testLabel 0) and ``[2o+s, 2o+2s)``
+    (testLabel 1), the worked example of the paper's section 3.2.2.
+    ``oldIndex`` counts in the packed (valid-only) order, so the
+    packed-to-padded map is folded in and ``rep_old_index`` indexes the
+    padded arrays.  Returns ``(old_index, test_label, hood_id, valid)``.
+    """
+    dev = valid.device
+    i32 = torch.int32
+    # The padded index of each packed element (an exclusive scan of valid).
+    lanes = torch.arange(h_pad, dtype=i32, device=dev)
+    vi = valid.to(i32)
+    packed_pos = (torch.cumsum(vi, 0) - vi).long()
+    pad_of_packed = torch.full((h_pad,), h_pad - 1, dtype=i32, device=dev)
+    pad_of_packed[packed_pos[valid]] = lanes[valid]
+
+    rep_hood, rep_rank = dpp.expand_with_rank((2 * sizes).to(i32), 2 * h_pad)
+    rep_hood, rep_rank = rep_hood.long(), rep_rank.long()
+    lane_valid = rep_hood < n_hoods
+    safe_hood = torch.clamp_max(rep_hood, n_hoods - 1)
+    s = sizes.long()[safe_hood]
+    o = hood_offsets.long()[safe_hood]
+    second = rep_rank >= s
+    packed_idx = torch.clamp_max(o + torch.where(second, rep_rank - s, rep_rank), h_pad - 1)
+    old_index = pad_of_packed[packed_idx]
+    return (
+        torch.where(lane_valid, old_index, h_pad - 1).to(i32),
+        torch.where(lane_valid, second.to(i32), 0).to(i32),
+        torch.where(lane_valid, rep_hood, n_hoods).to(i32),
+        lane_valid,
     )

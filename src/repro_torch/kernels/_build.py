@@ -11,7 +11,8 @@ rebuilt and a stale library is never loaded.  Nothing here runs at import:
 the first CUDA tensor that needs a kernel builds it (``load``), and
 ``build_all`` starts one ``nvcc`` per source at once.  The compiler's
 ``-Xptxas=-v`` report (registers, shared memory, spills) is kept beside
-each library as ``<name>-<hash>.log``.
+each library as ``<name>-<hash>.log``.  ``require`` is the operand check
+every wrapper runs before it hands pointers to a kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +25,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -141,3 +144,19 @@ def function(name: str, symbol: str, argtypes: List[type]) -> Callable[..., None
             raise RuntimeError(f"{symbol}: CUDA error {rc} ({msg})")
 
     return call
+
+
+def require(
+    fn: str, t: torch.Tensor, name: str, dtype: torch.dtype, shape: Sequence[int],
+    device: torch.device,
+) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``; the message names the wrapper ``fn`` and the operand."""
+    if t.device != device:
+        raise ValueError(f"{fn}: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{fn}: {name} is {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{fn}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} is not contiguous")

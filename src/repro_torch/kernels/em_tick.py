@@ -12,6 +12,7 @@ takes ``offsets``, the (n_hoods + 1,) run boundaries (``Hoods.offsets``).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -43,17 +44,7 @@ def _bind():
     return _kernel
 
 
-def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"fused_em_tick_cuda: {name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"fused_em_tick_cuda: {name} is {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(
-            f"fused_em_tick_cuda: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}"
-        )
-    if not t.is_contiguous():
-        raise ValueError(f"fused_em_tick_cuda: {name} is not contiguous")
+_require = functools.partial(_build.require, "fused_em_tick_cuda")
 
 
 def fused_em_tick_cuda(

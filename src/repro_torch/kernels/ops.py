@@ -21,6 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import em_tick as _em_tick
+from repro_torch.kernels import map_step as _map_step
+from repro_torch.kernels import mrf_energy as _mrf_energy
 from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _segment_reduce
 
@@ -47,13 +49,15 @@ def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
     return {
         "fused_em_tick": _em_tick.launches,
+        "fused_map_step": _map_step.launches,
+        "mrf_min_energy": _mrf_energy.launches,
         "segment_reduce": _segment_reduce.launches,
     }
 
 
 def reset_launch_counts() -> None:
-    _em_tick.launches = 0
-    _segment_reduce.launches = 0
+    for module in (_em_tick, _map_step, _mrf_energy, _segment_reduce):
+        module.launches = 0
 
 
 def segment_reduce(
@@ -109,3 +113,51 @@ def fused_em_tick(
         hist, mu, sigma, beta, n_hoods=n_hoods, n_vertices=n_vertices,
         precision=precision, conv_tol=conv_tol,
     )
+
+
+def fused_map_step(
+    y: torch.Tensor,
+    w: torch.Tensor,
+    cnt_e: torch.Tensor,
+    nall_e: torch.Tensor,
+    xf: torch.Tensor,
+    valid: torch.Tensor,
+    hood_id: torch.Tensor,
+    vertex: torch.Tensor,
+    mu: torch.Tensor,
+    sigma: torch.Tensor,
+    beta,
+    *,
+    n_hoods: int,
+    n_vertices: int,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One MAP step from per-element label counts ``cnt_e`` (K, H):
+    ``(min_e, arg, hood_e, votes)`` with ``votes`` (K, n_vertices)."""
+    if _use_kernel(backend, y):
+        return _map_step.fused_map_step_cuda(
+            y, w, cnt_e, nall_e, xf, valid, hood_id, vertex, mu, sigma, beta,
+            n_hoods=n_hoods, n_vertices=n_vertices,
+        )
+    return ref.fused_map_step(
+        y, w, cnt_e, nall_e, xf, valid, hood_id, vertex, mu, sigma, beta,
+        n_hoods=n_hoods, n_vertices=n_vertices,
+    )
+
+
+def mrf_min_energy(
+    y: torch.Tensor,
+    w: torch.Tensor,
+    n1_e: torch.Tensor,
+    nall_e: torch.Tensor,
+    xf: torch.Tensor,
+    mu: torch.Tensor,
+    sigma: torch.Tensor,
+    beta,
+    *,
+    backend: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Binary energies and their per-element minimum: ``(min_e, arg)``."""
+    if _use_kernel(backend, y):
+        return _mrf_energy.mrf_min_energy_cuda(y, w, n1_e, nall_e, xf, mu, sigma, beta)
+    return ref.mrf_min_energy(y, w, n1_e, nall_e, xf, mu, sigma, beta)

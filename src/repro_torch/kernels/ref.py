@@ -87,6 +87,73 @@ def label_energies_blocked(
     ) / denom[None, :] * valid[None, :]
 
 
+def mrf_min_energy(
+    y: Tensor,
+    w: Tensor,
+    n1_e: Tensor,
+    nall_e: Tensor,
+    xf: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    beta,
+) -> Tuple[Tensor, Tensor]:
+    """Binary (K = 2) energies and their per-element minimum, from
+    pre-gathered per-element arrays: ``(min_e, arg)`` with label 1 only
+    where its energy is strictly lower.  The op order of
+    ``repro.kernels.ref.mrf_min_energy``; ``n1_e`` counts label 1 in the
+    element's neighbourhood, and the energies carry no ``valid`` factor."""
+    denom = torch.clamp_min(nall_e - 1.0, 1.0)
+    beta = torch.as_tensor(beta, dtype=torch.float32, device=y.device)
+
+    def energy(l: int) -> Tensor:
+        d = y - mu[l]
+        data = w * (d * d / (2.0 * sigma[l] * sigma[l]) + torch.log(sigma[l]))
+        diff = (nall_e - n1_e) - (1.0 - xf) if l == 1 else n1_e - xf
+        return data + beta * torch.clamp_min(diff, 0.0) / denom
+
+    e0, e1 = energy(0), energy(1)
+    return torch.minimum(e0, e1), (e1 < e0).to(torch.int32)
+
+
+def fused_map_step(
+    y: Tensor,
+    w: Tensor,
+    cnt_e: Tensor,
+    nall_e: Tensor,
+    xf: Tensor,
+    valid: Tensor,
+    hood_id: Tensor,
+    vertex: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    beta,
+    *,
+    n_hoods: int,
+    n_vertices: int,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One MAP step given the per-element label counts ``cnt_e`` (K, H):
+    the K energies (``label_energies_blocked`` at f32, the op order of
+    ``repro.kernels.ref.fused_map_step``), per-element ``min_e`` and
+    ``arg`` (ties to the lowest label), per-hood sums of ``min_e * valid``
+    and the (K, n_vertices) votes.  Lanes with ``valid == 0`` and ids
+    outside ``[0, n_hoods)`` / ``[0, n_vertices)`` add to no sum.
+
+    Returns ``(min_e, arg, hood_e, votes)``.
+    """
+    n_labels = int(mu.shape[0])
+    energies = label_energies_blocked(y, w, cnt_e, nall_e, xf, valid, mu, sigma, beta)
+    min_e, arg = torch.min(energies, dim=0)  # first minimum on ties
+    seg_h = torch.where(valid > 0, hood_id.long(), n_hoods)
+    hood_e = keyed_sum(min_e * valid, seg_h, n_hoods + 1)[:n_hoods]
+    seg_v = torch.where(valid > 0, vertex.long(), n_vertices)
+    votes = (
+        keyed_sum(valid, seg_v * n_labels + arg, (n_vertices + 1) * n_labels)
+        .reshape(n_vertices + 1, n_labels)
+        .T[:, :n_vertices]
+    )
+    return min_e, arg.to(torch.int32), hood_e, votes.contiguous()
+
+
 def fused_em_tick(
     y: Tensor,
     w: Tensor,

@@ -6,21 +6,62 @@ each slice with ``Segmenter`` in mode ``static-pallas`` and prints one
 JSON line per slice: accuracy against the ground truth, ``em_iters``,
 ``map_iters``, ``status``, ``init_s`` and ``optimize_s``.
 
+``--shards N`` runs the sharded route with one process per shard, under
+``torchrun --nproc-per-node N``: each rank joins the default process group
+from torchrun's environment (NCCL on the card, each rank on
+``cuda:$LOCAL_RANK``; gloo with ``--device cpu``), all ranks solve the
+same slices, and only rank 0 prints.  A group that the caller initialised
+already is used as it is.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.segment --size 512 --grid 32 --labels 2 --seed 0
     PYTHONPATH=src python -m repro_torch.launch.segment --size 64 --grid 8 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.segment --shards 2
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import List, Optional
+
+import torch
+import torch.distributed as dist
 
 from repro_torch import api, resolve_device
 from repro_torch.core import metrics as M
 from repro_torch.core import synthetic as S
+
+
+def _shards(value: str) -> int:
+    if value == "auto":
+        raise NotImplementedError(
+            "--shards auto picks the shard count from the calibrated cost "
+            "model, which is not ported to repro_torch yet (ROADMAP.md Queue 1 "
+            "item 9); pass a number"
+        )
+    n = int(value)
+    if n < 1:
+        raise ValueError(f"--shards must be >= 1, got {n}")
+    return n
+
+
+def _join_group(device: torch.device) -> bool:
+    """Join the default process group from torchrun's environment unless
+    one exists; returns True when this call created it."""
+    if dist.is_initialized():
+        return False
+    if "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "--shards N > 1 runs one process per shard: launch it with "
+            "`torchrun --nproc-per-node N -m repro_torch.launch.segment --shards N`"
+        )
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return True
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
@@ -32,9 +73,26 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     ap.add_argument("--init", choices=("random", "quantile"), default="quantile")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA device")
+    ap.add_argument("--shards", default="1", metavar="N",
+                    help="ranks of the sharded route, one process each under torchrun")
     args = ap.parse_args(argv)
+    shards = _shards(args.shards)
 
     device = resolve_device(args.device)
+    created = False
+    if shards > 1:
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        created = _join_group(device)
+    try:
+        return _run(args, device, shards)
+    finally:
+        if created:
+            dist.destroy_process_group()
+
+
+def _run(args, device: torch.device, shards: int) -> List[dict]:
+    rank0 = shards == 1 or dist.get_rank() == 0
     shape = (args.size, args.size)
     if args.labels > 2:
         vol = S.make_kary_volume(
@@ -50,6 +108,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             n_labels=args.labels,
             init=args.init,
             overseg_grid=(args.grid, args.grid),
+            shards=shards,
         ),
         device=device,
     )
@@ -70,8 +129,10 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             "init_s": res.init_seconds,
             "optimize_s": res.optimize_seconds,
             "device": str(device),
+            "shards": shards,
         }
-        print(json.dumps(row))
+        if rank0:
+            print(json.dumps(row))
         rows.append(row)
     return rows
 

@@ -40,7 +40,9 @@ def test_segmenter_end_to_end_on_cpu():
     )
     ops.reset_launch_counts()
     res = seg.segment(vol.images[0])
-    assert ops.launch_counts() == {"fused_em_tick": 0, "segment_reduce": 0}
+    assert ops.launch_counts() == {
+        "fused_em_tick": 0, "fused_map_step": 0, "mrf_min_energy": 0, "segment_reduce": 0,
+    }
     assert res.segmentation.shape == (64, 64) and res.segmentation.dtype == np.int32
     assert res.region_labels.shape == (64,)
     assert res.ok and res.em_iters >= 1 and res.map_iters >= res.em_iters

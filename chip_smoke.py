@@ -7,26 +7,37 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives two paths on 512x512 synthetic
-slices (K = 2, then K = 3):
+PyTorch version on the card, and drives three paths:
 
-* the single-device path: planned and solved through the session API
-  (one ``fused_em_tick`` per MAP iteration);
+* the single-device segmentation path on 512x512 synthetic slices (K = 2,
+  then K = 3), planned and solved through the session API (one
+  ``fused_em_tick`` per MAP iteration);
 * the sharded route: ``distributed_em`` on the same plans over a
   one-rank NCCL process group made in this process (one
-  ``fused_map_step`` per MAP iteration, with the collectives around it).
+  ``fused_map_step`` per MAP iteration, with the collectives around it);
+* LM serving: ``qwen2-1.5b`` at full width and depth (28 layers, bf16,
+  random weights from a ``torch.Generator`` seeded 0) behind
+  ``ServingEngine(max_batch=4, max_seq=2048)``, greedy, 8 requests (4
+  prompts of 512 tokens, 4 of 1024, from ``numpy.random.default_rng(0)``)
+  of 32 new tokens each: one ``flash_attention`` launch per layer and
+  prefilled request, 224 in all.
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
-against the other route and against its own plain path.  It prints its
-findings as one JSON object per line.  The line before the last lists
-every kernel with its launches on its path, its largest error against its
-plain version and its times; the last line is ``{"ok": true, "device":
-{...}}``.  Any failed check raises, and the script exits non-zero without
-that line.  It also exits non-zero when CUDA is absent or the package is
-not beside it.  ``--profile`` adds device-time breakdowns from
-``torch.profiler`` (each kernel alone, and one K = 2 solve of each path
-with its device idle share).
+against its own plain path (``backend="torch"``, which must launch no
+kernel) and, for the sharded route, against the single-device route.  It
+prints its findings as one JSON object per line.  The last three lines
+are: the ``kernels`` line, which lists every kernel with its launches on
+its path, its largest error against its plain version, its times and its
+bound; then the card's name and power limit as ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader`` prints them; then
+``{"ok": true, "device": {...}}``.  Any failed check raises, and the
+script exits non-zero without that last line.  It also exits non-zero
+when CUDA is absent or the package is not beside it.  ``--profile`` adds
+device-time breakdowns from ``torch.profiler`` (each kernel alone, one
+K = 2 solve of each segmentation path, and one LM prefill at S = 1024 and
+one decode step, with their device idle shares).  Float32 products run in
+full float32 (TF32 off, the defaults, set explicitly).
 
 Tolerances (kernel against plain version, same inputs, on the card):
 
@@ -43,10 +54,24 @@ Tolerances (kernel against plain version, same inputs, on the card):
   ``partition_hoods(hoods, 4)`` add up to the whole problem's exactly.
 * mrf_min_energy (at the K = 2 slice's operands, n1 = label-1 counts):
   min_e and arg exact.
+* flash_attention: the reference tests' shapes (B, Hq, Hkv, S, D) =
+  (1,2,2,128,32), (2,4,2,256,64), (1,8,1,128,16), (1,2,1,512,64) and a
+  ragged (1,4,2,200,32), causal and not, within 2e-4 (rtol and atol) at
+  f32 and 2e-2 at bf16, the tiers of ``tests/test_kernels.py``; the
+  model's (1,12,2,S,128) at S = 512 and 1024, bf16, causal, within 2e-2.
+  Both compute in float32; they differ in the order of the sums.
 * The slice: kernel path against plain path at least 99.5 % pixel
   agreement, and kernel-path accuracy no more than 0.01 below.  The
   sharded route is held to the same limits against the single-device
   route and against its own plain path.
+* LM serving: every request completes with 32 tokens in the vocabulary.
+  Kernel path against plain path on the same weights: (a) a 2-layer f32
+  variant at full width (d_model 1536, vocab 151,936) gives identical
+  greedy tokens for every request and last-position prefill logits
+  within rtol 1e-4 (atol 1e-5); (b) the 28-layer bf16 model gives the
+  same first token on at least 7 of 8 requests and prefill logits with
+  cosine similarity at least 0.99 (bf16 rounds the attention output
+  differently in the two paths, and 28 layers carry it on).
 """
 
 from __future__ import annotations
@@ -64,8 +89,18 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM memory rate (data sheet)
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core rate
 
 SLICE = dict(size=512, grid=32, seed=0)
+# The LM serving path: qwen2-1.5b at full width and depth, random weights.
+LM = dict(arch="qwen2-1.5b", max_batch=4, max_seq=2048, lengths=(512, 1024), per_length=4,
+          max_new=32, seed=0)
+# flash_attention checks: (B, Hq, Hkv, S, D).  The reference tests' shapes
+# and a ragged S, f32 and bf16, causal and not; the model's shape, bf16 causal.
+FLASH_REF_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 16),
+                    (1, 2, 1, 512, 64), (1, 4, 2, 200, 32)]
+FLASH_MODEL_SHAPES = [(1, 12, 2, 512, 128), (1, 12, 2, 1024, 128)]
+FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 
 
@@ -94,11 +129,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple:
-    """Least time (ms) for the work: bytes over HBM rate vs float32 ops
-    over the non-tensor-core rate; returns (ms, "bytes" | "operations")."""
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
+    """Least time (ms) for the work: bytes over HBM rate vs ops over the
+    card's peak for their type (default float32 outside the tensor cores);
+    returns (ms, "bytes" | "operations")."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -438,6 +474,261 @@ def run_sharded(torch, D, pipeline, ops, sl) -> dict:
     return out
 
 
+def flash_inputs(torch, shape, dtype: str, dev, seed: int) -> tuple:
+    """q, k, v for a (B, Hq, Hkv, S, D) case, made with numpy from ``seed``
+    (the scales of ``tests/test_kernels.py``)."""
+    b, hq, hkv, s, d = shape
+    rng = np.random.default_rng(seed)
+    arrays = ((rng.standard_normal((b, hq, s, d)) * 0.3), (rng.standard_normal((b, hkv, s, d)) * 0.3),
+              rng.standard_normal((b, hkv, s, d)))
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev, getattr(torch, dtype)) for a in arrays)
+
+
+def check_flash(torch, ops, dev) -> float:
+    """flash_attention kernel against its plain version on the card: the
+    reference tests' shapes and a ragged S in f32 and bf16, causal and not,
+    and the model's shape in bf16 causal.  Returns the largest error."""
+    cases = [(sh, dt, c) for sh in FLASH_REF_SHAPES for dt in FLASH_TOL for c in (False, True)]
+    cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES]
+    worst, rows = 0.0, []
+    for i, (shape, dtype, causal) in enumerate(cases):
+        q, k, v = flash_inputs(torch, shape, dtype, dev, seed=i)
+        kern = ops.flash_attention(q, k, v, causal=causal)
+        plain = ops.flash_attention(q, k, v, causal=causal, backend="torch")
+        torch.cuda.synchronize()
+        what = f"flash_attention {shape} {dtype} causal={causal}"
+        if kern.dtype != q.dtype or kern.shape != q.shape:
+            fail(f"{what}: output {kern.dtype} {tuple(kern.shape)}")
+        if not bool(torch.isfinite(kern.float()).all()):
+            fail(f"{what}: non-finite output")
+        err = (kern.float() - plain.float()).abs().max().item()
+        tol = FLASH_TOL[dtype]
+        if not torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol):
+            fail(f"{what}: differs from the plain version beyond {tol} (err {err})")
+        worst = max(worst, err)
+        rows.append({"shape": list(shape), "dtype": dtype, "causal": causal, "max_abs_err": err})
+    emit({"phase": "flash_attention_check", "ok": True, "max_abs_err": worst, "cases": rows})
+    return worst
+
+
+def lm_prompts(cfg) -> list:
+    """The LM path's prompts: ``per_length`` of each length, from
+    ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(LM["seed"])
+    return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+            for n in LM["lengths"] for _ in range(LM["per_length"])]
+
+
+def serve(torch, serving, cfg, params, prompts, dev, backend: str, max_new: int = 0) -> dict:
+    """Drive ``ServingEngine`` (greedy) over ``prompts``, all submitted at
+    the start.  Each request's prefill time (its ``_insert``: one prefill
+    and the first token's read, which waits for the card) and the moment
+    its first token is known are recorded beside the completions.
+    ``max_new`` defaults to the LM path's."""
+
+    class TimedEngine(serving.ServingEngine):
+        def _insert(self, slot, req):
+            t0 = time.perf_counter()
+            super()._insert(slot, req)
+            t1 = time.perf_counter()
+            prefill_s[req.rid], first_at[req.rid] = t1 - t0, t1
+
+    prefill_s, first_at = {}, {}
+    engine = TimedEngine(cfg, params, max_batch=LM["max_batch"], max_seq=LM["max_seq"],
+                         sampler=serving.SamplerConfig(temperature=0.0), seed=LM["seed"],
+                         device=dev, backend=backend)
+    for rid, p in enumerate(prompts):
+        engine.submit(serving.Request(rid=rid, prompt=p, max_new_tokens=max_new or LM["max_new"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    comps = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"completions": {c.rid: c for c in comps}, "wall_s": wall, "ticks": engine.ticks,
+            "prefill_s": prefill_s, "ttft_s": {r: t - t0 for r, t in first_at.items()}}
+
+
+def prefill_last_logits(torch, api, cfg, params, prompts, dev, backend: str) -> list:
+    """Last-position prefill logits (V,) float32 of each prompt."""
+    out = []
+    with torch.inference_mode():
+        for p in prompts:
+            tokens = torch.from_numpy(p.astype(np.int64))[None].to(dev)
+            logits, _ = api.prefill(params, {"tokens": tokens}, cfg, backend=backend)
+            out.append(logits[0, -1])
+    torch.cuda.synchronize()
+    return out
+
+
+def run_lm(torch, ops, dev, profile: bool) -> dict:
+    """The LM serving path at qwen2-1.5b's full width and depth, then the
+    kernel path held against the plain path: (a) a 2-layer f32 variant at
+    full width, (b) the 28-layer bf16 model."""
+    import dataclasses
+
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_api
+
+    cfg = get_config(LM["arch"])
+    api = get_api(cfg)
+    prompts = lm_prompts(cfg)
+    n_req = len(prompts)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    emit({"phase": "lm_model", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads, "head_dim": cfg.head_dim,
+          "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.param_dtype,
+          "params": n_params, "init_s": time.perf_counter() - t0})
+
+    # Warm-up (cuBLAS handles and heuristics at these shapes): one request
+    # of each length, outside the counted run.
+    serve(torch, serving, cfg, params, [prompts[0], prompts[-1]], dev, "auto", max_new=2)
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    main = serve(torch, serving, cfg, params, prompts, dev, "auto")
+    launches = ops.launch_counts()
+    comps = main["completions"]
+    generated = sum(len(c.tokens) for c in comps.values())
+    by_len = {n: [r for r, p in enumerate(prompts) if len(p) == n] for n in LM["lengths"]}
+    out = {
+        "phase": "lm_serve", "arch": cfg.name, "requests": n_req, "prompt_lengths": list(LM["lengths"]),
+        "max_new_tokens": LM["max_new"], "max_batch": LM["max_batch"], "max_seq": LM["max_seq"],
+        "launches": launches, "completed": len(comps), "generated_tokens": generated,
+        "ticks": main["ticks"], "wall_s": main["wall_s"], "tok_per_s": generated / main["wall_s"],
+        "ttft_s": [main["ttft_s"][r] for r in range(n_req)],
+        "prefill_ms": {str(n): [main["prefill_s"][r] * 1e3 for r in rids] for n, rids in by_len.items()},
+        "mean_prefill_ms": {str(n): float(np.mean([main["prefill_s"][r] for r in rids])) * 1e3
+                            for n, rids in by_len.items()},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    want = cfg.n_layers * n_req
+    if launches["flash_attention"] != want:
+        fail(f"flash_attention launched {launches['flash_attention']} times on the LM path, not {want}")
+    if any(n for name, n in launches.items() if name != "flash_attention"):
+        fail(f"the LM path launched a segmentation kernel: {launches}")
+    if sorted(comps) != list(range(n_req)):
+        fail(f"LM path completed {sorted(comps)} of {n_req} requests")
+    for rid, c in comps.items():
+        if len(c.tokens) != LM["max_new"] or c.finish_reason != "length":
+            fail(f"request {rid}: {len(c.tokens)} tokens, finish {c.finish_reason}")
+        if not bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()):
+            fail(f"request {rid}: token ids outside the vocabulary")
+
+    # (a) 2 layers at full width in float32: kernel path against plain path.
+    cfg_a = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params_a = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg_a)
+    ops.reset_launch_counts()
+    kern_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "auto")
+    launches_a = ops.launch_counts()["flash_attention"]
+    plain_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "torch")
+    logits_k = prefill_last_logits(torch, api, cfg_a, params_a, prompts, dev, "auto")
+    before = ops.launch_counts()
+    logits_p = prefill_last_logits(torch, api, cfg_a, params_a, prompts, dev, "torch")
+    if ops.launch_counts() != before or launches_a != cfg_a.n_layers * n_req:
+        fail(f"f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
+    tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
+                       for r in range(n_req))
+    err_a = max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p))
+    close_a = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(logits_k, logits_p))
+    res_a = {"layers": 2, "dtype": "float32", "greedy_tokens_equal": tokens_equal,
+             "logits_max_abs_err": err_a, "logits_within_rtol_1e-4": close_a,
+             "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
+
+    # (b) the 28-layer bf16 model: first generated token and logits cosine.
+    logits_k = prefill_last_logits(torch, api, cfg, params, prompts, dev, "auto")
+    before = ops.launch_counts()
+    logits_p = prefill_last_logits(torch, api, cfg, params, prompts, dev, "torch")
+    if ops.launch_counts() != before:
+        fail("bf16 check: the plain path launched a kernel")
+    first_equal = sum(int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p))
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
+    engine_first = sum(int(comps[r].tokens[0] == int(logits_k[r].argmax())) for r in range(n_req))
+    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, "first_token_equal": first_equal,
+             "of": n_req, "min_cosine": min(cos), "cosine": cos,
+             "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p)),
+             "engine_first_token_equal_kernel_prefill": engine_first}
+    emit({"phase": "lm_kernel_vs_plain", "f32_2_layers": res_a, "bf16_28_layers": res_b})
+    if not tokens_equal:
+        fail("f32 2-layer model: greedy tokens differ between the kernel and plain paths")
+    if not close_a:
+        fail(f"f32 2-layer model: prefill logits differ beyond rtol 1e-4 (err {err_a})")
+    if first_equal < n_req - 1:
+        fail(f"bf16 model: first token equal on {first_equal} of {n_req} requests")
+    if min(cos) < 0.99:
+        fail(f"bf16 model: prefill logits cosine {min(cos)} below 0.99")
+    del params_a
+
+    if profile:
+        long_prompt = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
+
+        def prefill():
+            with torch.inference_mode():
+                api.prefill(params, {"tokens": long_prompt}, cfg)
+
+        cache = api.init_cache(cfg, LM["max_batch"], LM["max_seq"], device=dev)
+        cache["t"] = torch.tensor(max(LM["lengths"]), dtype=torch.int32)
+        last = torch.zeros((LM["max_batch"], 1), dtype=torch.int64, device=dev)
+
+        def decode():
+            with torch.inference_mode():
+                api.decode_step(params, dict(cache), {"tokens": last}, cfg)
+
+        for what, fn in ((f"prefill S={max(LM['lengths'])}", prefill),
+                         (f"decode step B={LM['max_batch']} t={max(LM['lengths'])}", decode)):
+            fn()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = device_profile(torch, fn)
+            emit({"phase": "profile", "what": f"LM {what}, {cfg.n_layers} layers {cfg.param_dtype}",
+                  "wall_s_unprofiled": min(walls),
+                  "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / min(walls), **prof})
+    return {"launches": launches["flash_attention"], "serve": out}
+
+
+def time_flash(torch, ops, dev, profile: bool) -> dict:
+    """The flash kernel at the LM path's largest call (S = 1024, bf16,
+    causal): its time, the plain version's, one library call's, and the
+    bound from this call's bytes and operations."""
+    import torch.nn.functional as F
+
+    shape = FLASH_MODEL_SHAPES[-1]
+    b, hq, hkv, s, d = shape
+    q, k, v = flash_inputs(torch, shape, "bfloat16", dev, seed=99)
+    kern = lambda: ops.flash_attention(q, k, v, causal=True)
+    plain = lambda: ops.flash_attention(q, k, v, causal=True, backend="torch")
+    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+    lib_err = (lib().float() - plain().float()).abs().max().item()
+    if lib_err > FLASH_TOL["bfloat16"]:
+        fail(f"scaled_dot_product_attention differs from the plain version by {lib_err}")
+    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+    n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()   # q, k, v in; out
+    pairs = s * (s + 1) // 2                                          # causal (q, k) pairs
+    n_ops = 4 * b * hq * d * pairs                                    # QK^T and PV, 2 ops per MAC
+    bound_ms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+    out = {"phase": "timing", "flash_attention_shape": list(shape), "dtype": "bfloat16", "causal": True,
+           "flash_attention_ms": ms, "flash_attention_plain_ms": plain_ms,
+           "flash_attention_sdpa_ms": lib_ms, "sdpa_max_abs_err_vs_plain": lib_err,
+           "flash_attention_bytes": n_bytes, "flash_attention_ops": n_ops,
+           "achieved_tflops": n_ops / (ms * 1e-3) / 1e12}
+    if profile:
+        prof = device_profile(torch, lambda: [kern() for _ in range(20)])
+        out["flash_attention_device_us_per_call"] = prof["device_busy_us"] / 20
+        emit({"phase": "profile", "what": "20 flash_attention calls (S=1024 bf16 causal)", **prof})
+    emit(out)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -465,6 +756,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, ops
 
     dev = torch.device(DEVICE)
+    # float32 products in full float32 (the defaults, stated): the plain
+    # versions the kernels are held to must not drop to TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -477,6 +772,7 @@ def main(argv=None) -> int:
 
     sr_err = check_segment_reduce(torch, ops, dev)
     check_tick_synthetic(torch, ops, dev)
+    flash_err = check_flash(torch, ops, dev)
 
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
     plan = slice2["plan"]
@@ -588,6 +884,10 @@ def main(argv=None) -> int:
           "segment_reduce_counts_ms": counts_ms, "counts_segments": (nh + 1) * 2,
           "fused_map_step_bytes": ms_bytes, "mrf_min_energy_bytes": mrf_bytes, "elements": h})
 
+    # Third path: LM serving at qwen2-1.5b's full width and depth.
+    lm = run_lm(torch, ops, dev, profile)
+    flash = time_flash(torch, ops, dev, profile)
+
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     emit({"kernels": [
@@ -615,6 +915,10 @@ def main(argv=None) -> int:
          "launches": sharded_launches["mrf_min_energy"], "max_abs_err": mrf_err,
          "ms": mrf_ms, "plain_ms": mrf_plain_ms, "bound_ms": mrf_bound,
          "bound_by": mrf_by, "library_ms": None},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
+         "launches": lm["launches"], "max_abs_err": flash_err, **flash},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

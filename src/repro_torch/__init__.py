@@ -1,12 +1,13 @@
 """DPP-PMRF on PyTorch and CUDA (NVIDIA Hopper).
 
-A second implementation of the ``repro`` package's PMRF engine, module for
-module at the same relative paths.  Plain tensor code is PyTorch; the
-kernels (``fused_em_tick`` and ``segment_reduce`` on the single-device
-path, ``fused_map_step`` on the sharded route, and the binary
-``mrf_min_energy``) are CUDA C++ built for ``sm_90a`` at first use
-(``repro_torch.kernels``).  The package imports ``torch`` and ``numpy``
-only.
+A second implementation of the ``repro`` package, module for module at
+the same relative paths: the PMRF engine and the LM serving stack of the
+dense family.  Plain tensor code is PyTorch; the kernels
+(``fused_em_tick`` and ``segment_reduce`` on the single-device path,
+``fused_map_step`` on the sharded route, the binary ``mrf_min_energy``,
+and ``flash_attention`` for LM prefill) are CUDA C++ built for ``sm_90a``
+at first use (``repro_torch.kernels``).  The package imports ``torch``
+and ``numpy`` only.
 
 Every entry point takes ``device=``.  ``None`` means the card: without
 CUDA it raises instead of carrying on on the CPU.  Pass ``device="cpu"``

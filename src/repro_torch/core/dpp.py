@@ -1,5 +1,6 @@
 """Data-parallel primitives (DPPs): the paper's building-block vocabulary,
-the part of it the segmentation path uses, on PyTorch tensors.
+the part of it the segmentation path and the LM sampler use, on PyTorch
+tensors.
 
 Counterpart of ``repro.core.dpp``.  PyTorch has dynamic shapes, but the
 compacting primitives keep the reference's padded form (a full-length
@@ -30,6 +31,13 @@ def sort_by_key(keys: Tensor, *values: Tensor) -> Tuple[Tensor, ...]:
     """SortByKey: stable ascending sort of ``keys`` carrying ``values``."""
     sorted_keys, order = torch.sort(keys, stable=True)
     return (sorted_keys,) + tuple(v[order] for v in values)
+
+
+def scan_(values: Tensor, *, exclusive: bool = False, axis: int = 0) -> Tensor:
+    """Scan: prefix sum.  ``exclusive=True`` shifts by one (identity first),
+    formed as the reference forms it: the inclusive sum less each value."""
+    inc = torch.cumsum(values, dim=axis)
+    return inc - values if exclusive else inc
 
 
 def compound_key(
@@ -120,6 +128,7 @@ def expand_with_rank(counts: Tensor, total: int) -> Tuple[Tensor, Tensor]:
 
 __all__ = [
     "sort_by_key",
+    "scan_",
     "compound_key",
     "reduce_by_key",
     "unique_",

@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import em_tick as _em_tick
+from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import map_step as _map_step
 from repro_torch.kernels import mrf_energy as _mrf_energy
 from repro_torch.kernels import ref
@@ -48,6 +49,7 @@ def _use_kernel(backend: Optional[str], tensor: torch.Tensor) -> bool:
 def launch_counts() -> Dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
     return {
+        "flash_attention": _flash_attention.launches,
         "fused_em_tick": _em_tick.launches,
         "fused_map_step": _map_step.launches,
         "mrf_min_energy": _mrf_energy.launches,
@@ -56,7 +58,7 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for module in (_em_tick, _map_step, _mrf_energy, _segment_reduce):
+    for module in (_em_tick, _flash_attention, _map_step, _mrf_energy, _segment_reduce):
         module.launches = 0
 
 
@@ -161,3 +163,19 @@ def mrf_min_energy(
     if _use_kernel(backend, y):
         return _mrf_energy.mrf_min_energy_cuda(y, w, n1_e, nall_e, xf, mu, sigma, beta)
     return ref.mrf_min_energy(y, w, n1_e, nall_e, xf, mu, sigma, beta)
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    backend: Optional[str] = None,
+) -> torch.Tensor:
+    """Attention ``softmax(scale * Q K^T) V`` with the GQA head map: q
+    ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``; output in q's dtype."""
+    if _use_kernel(backend, q):
+        return _flash_attention.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale)

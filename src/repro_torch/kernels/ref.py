@@ -218,3 +218,31 @@ def fused_em_tick(
         ok = ok & (torch.abs(hist[r, :n_hoods] - hist[r + 1, :n_hoods]) < conv_tol * scale)
     conv = torch.all(ok)
     return labels, hood_e, votes.contiguous(), conv, sum_w, sum_wy, sum_wyy
+
+
+def flash_attention(
+    q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False, scale: float | None = None
+) -> Tensor:
+    """Naive ``softmax(scale * Q K^T [causal-masked]) V`` with the GQA head
+    map (kv head = q head // group): the contract of the flash kernel.
+
+    q: (B, Hq, S, D), k/v: (B, Hkv, S, D) with Hq % Hkv == 0.  Computed in
+    float32 whatever the input type, as the kernel does; the output is in
+    q's dtype.  ``repro.kernels.ref.flash_attention`` computes the same
+    function (in the input type up to the softmax).
+    """
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"flash_attention: {hq} q heads do not split into {hkv} kv heads")
+    group = hq // hkv
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * scale
+    if causal:
+        mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vv).to(q.dtype)

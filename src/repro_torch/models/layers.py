@@ -1,0 +1,72 @@
+"""Shared model building blocks: dtypes, initialisers, RMS norm and RoPE.
+
+Counterpart of ``repro.models.layers`` (the part the dense decoder uses).
+Initialisers draw from an explicit ``torch.Generator``; they give other
+numbers than ``jax.random`` from the same seed, so the parity tests carry
+the JAX package's weights across with ``models.convert`` instead.  The
+norm and the rotary embedding upcast to float32 exactly where the
+reference does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+Tensor = torch.Tensor
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def frozen(t: Tensor) -> nn.Parameter:
+    """``t`` as a parameter that takes no gradient (the port serves only)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(
+    gen: torch.Generator, d_in: int, d_out: int, dtype: torch.dtype,
+    *, scale: Optional[float] = None,
+) -> Tensor:
+    """A ``(d_in, d_out)`` weight, normal with std ``d_in**-0.5`` (or
+    ``scale``), drawn in float32 on the generator's device."""
+    scale = scale if scale is not None else 1.0 / (d_in ** 0.5)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device, dtype=torch.float32)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype) -> Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device, dtype=torch.float32)
+    return (w * 0.02).to(dtype)
+
+
+def rms_norm(x: Tensor, gamma: Tensor, eps: float) -> Tensor:
+    dt = x.dtype
+    x32 = x.float()
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
+    """(head_dim/2,) inverse frequencies (float32).  ``theta`` stays a
+    Python scalar: a tensor made from it on the card would be a blocking
+    host-to-device copy on every call."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(theta, exponent)
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """x: (..., S, D_head) with rotary over the last dim; positions (..., S)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, device=x.device)
+    ang = positions[..., None].float() * inv  # (..., S, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -172,7 +172,8 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
     ops.fused_em_tick(*_torch(arrays), 0.75, **TICK_KW)
     ops.segment_reduce(torch.ones(5), torch.zeros(5, dtype=torch.int32), 3)
     assert ops.launch_counts() == {
-        "fused_em_tick": 0, "fused_map_step": 0, "mrf_min_energy": 0, "segment_reduce": 0,
+        "flash_attention": 0, "fused_em_tick": 0, "fused_map_step": 0, "mrf_min_energy": 0,
+        "segment_reduce": 0,
     }
 
 
@@ -202,7 +203,7 @@ def test_kernel_modules_import_without_nvcc():
     """Importing builds nothing: the kernels compile at first CUDA use."""
     for name in ("repro_torch.kernels.em_tick", "repro_torch.kernels.segment_reduce",
                  "repro_torch.kernels.map_step", "repro_torch.kernels.mrf_energy",
-                 "repro_torch.kernels.ops"):
+                 "repro_torch.kernels.flash_attention", "repro_torch.kernels.ops"):
         importlib.import_module(name)
-    assert _build.sources() == ["em_tick", "map_step", "mrf_energy", "segment_reduce"]
+    assert _build.sources() == ["em_tick", "flash_attention", "map_step", "mrf_energy", "segment_reduce"]
     assert _build._libs == {}

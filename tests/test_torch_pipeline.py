@@ -41,7 +41,8 @@ def test_segmenter_end_to_end_on_cpu():
     ops.reset_launch_counts()
     res = seg.segment(vol.images[0])
     assert ops.launch_counts() == {
-        "fused_em_tick": 0, "fused_map_step": 0, "mrf_min_energy": 0, "segment_reduce": 0,
+        "flash_attention": 0, "fused_em_tick": 0, "fused_map_step": 0, "mrf_min_energy": 0,
+        "segment_reduce": 0,
     }
     assert res.segmentation.shape == (64, 64) and res.segmentation.dtype == np.int32
     assert res.region_labels.shape == (64,)
@@ -133,7 +134,7 @@ def test_port_never_imports_jax_or_the_jax_package():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = "import sys, repro_torch, repro_torch.api, repro_torch.launch.segment; print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"
+    code = "import sys, repro_torch, repro_torch.api, repro_torch.launch.segment, repro_torch.launch.serve_lm, repro_torch.models.convert; print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr

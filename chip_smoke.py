@@ -20,7 +20,8 @@ PyTorch version on the card, and drives three paths:
   ``ServingEngine(max_batch=4, max_seq=2048)``, greedy, 8 requests (4
   prompts of 512 tokens, 4 of 1024, from ``numpy.random.default_rng(0)``)
   of 32 new tokens each: one ``flash_attention`` launch per layer and
-  prefilled request, 224 in all.
+  prefilled request, 224 in all, every one on the bf16 tensor-core
+  kernel (``flash_attention.launches_tc``).
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -37,7 +38,14 @@ when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
 K = 2 solve of each segmentation path, and one LM prefill at S = 1024 and
 one decode step, with their device idle shares).  Float32 products run in
-full float32 (TF32 off, the defaults, set explicitly).
+full float32 (TF32 off, the defaults, set explicitly).  After the build
+a ``ptxas`` line gives the registers and spills of the tensor-core flash
+kernels (any spill in the flash library fails the run); the
+``flash_attention`` timing lines give both model shapes with their device
+times (``torch.profiler``), ``scaled_dot_product_attention`` beside them
+and the share of the bound; the ``kernels`` line adds the count of
+``HGMMA`` instructions in the flash library's SASS where ``cuobjdump``
+exists.
 
 Tolerances (kernel against plain version, same inputs, on the card):
 
@@ -58,8 +66,20 @@ Tolerances (kernel against plain version, same inputs, on the card):
   (1,2,2,128,32), (2,4,2,256,64), (1,8,1,128,16), (1,2,1,512,64) and a
   ragged (1,4,2,200,32), causal and not, within 2e-4 (rtol and atol) at
   f32 and 2e-2 at bf16, the tiers of ``tests/test_kernels.py``; the
-  model's (1,12,2,S,128) at S = 512 and 1024, bf16, causal, within 2e-2.
-  Both compute in float32; they differ in the order of the sums.
+  model's (1,12,2,S,128) at S = 512 and 1024, bf16, causal, within 2e-2;
+  and, for the tensor-core kernel off the model's shapes, (2,4,2,200,128)
+  and (1,2,1,33,64) in bf16, causal and not, within 2e-2.  The CUDA-core
+  kernel (float32, and bf16 at D other than 64 and 128) computes in
+  float32 and differs in the order of the sums; the tensor-core kernel
+  (bf16 at D = 64, 128) also rounds the probabilities to bf16 before the
+  value product, as the JAX reference does.  Each case names the kernel
+  the C entry point reported it ran.  Those inputs give an almost flat
+  softmax, so the tensor-core kernel is also held on peaked scores
+  (``repro_torch.testing.flash_cases.PEAKED_CASES``: the model's shapes
+  with q scaled by 10, 30 and 1000, and (2,4,2,256,64) by 30, causal and
+  not): each output row within ``ROW_TOL`` = 4 * 2^-8 of the row's
+  largest |value|.  A kernel that does not rescale its accumulator when
+  the running max grows, or does not subtract the max, fails it.
 * The slice: kernel path against plain path at least 99.5 % pixel
   agreement, and kernel-path accuracy no more than 0.01 below.  The
   sharded route is held to the same limits against the single-device
@@ -71,7 +91,9 @@ Tolerances (kernel against plain version, same inputs, on the card):
   within rtol 1e-4 (atol 1e-5); (b) the 28-layer bf16 model gives the
   same first token on at least 7 of 8 requests and prefill logits with
   cosine similarity at least 0.99 (bf16 rounds the attention output
-  differently in the two paths, and 28 layers carry it on).
+  differently in the two paths, and 28 layers carry it on).  Beside (b)
+  each request's top-1 minus top-2 logit on the plain path is printed, so
+  that a differing first token reads as a near-tie or as an error.
 """
 
 from __future__ import annotations
@@ -100,6 +122,9 @@ LM = dict(arch="qwen2-1.5b", max_batch=4, max_seq=2048, lengths=(512, 1024), per
 FLASH_REF_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 16),
                     (1, 2, 1, 512, 64), (1, 4, 2, 200, 32)]
 FLASH_MODEL_SHAPES = [(1, 12, 2, 512, 128), (1, 12, 2, 1024, 128)]
+# Shapes that reach the bf16 tensor-core kernel off the model's path: a
+# ragged S with B = 2 at D = 128, and S shorter than one 64-row tile at D = 64.
+FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 
@@ -484,16 +509,29 @@ def flash_inputs(torch, shape, dtype: str, dev, seed: int) -> tuple:
     return tuple(torch.from_numpy(a.astype(np.float32)).to(dev, getattr(torch, dtype)) for a in arrays)
 
 
+def flash_launch(ops, q, k, v, causal: bool) -> tuple:
+    """One launch of the flash kernel; returns the output and the kernel
+    the C entry point reported it ran (``flash_attention.launches_tc``)."""
+    from repro_torch.kernels import flash_attention
+
+    before = flash_attention.launches_tc
+    out = ops.flash_attention(q, k, v, causal=causal)
+    return out, "tensor_cores" if flash_attention.launches_tc > before else "cuda_cores"
+
+
 def check_flash(torch, ops, dev) -> float:
     """flash_attention kernel against its plain version on the card: the
     reference tests' shapes and a ragged S in f32 and bf16, causal and not,
-    and the model's shape in bf16 causal.  Returns the largest error."""
+    the model's shapes in bf16 causal, and two more shapes of the bf16
+    tensor-core kernel.  Each case names the kernel it went to.  Returns
+    the largest error."""
     cases = [(sh, dt, c) for sh in FLASH_REF_SHAPES for dt in FLASH_TOL for c in (False, True)]
     cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES]
+    cases += [(sh, "bfloat16", c) for sh in FLASH_TC_SHAPES for c in (False, True)]
     worst, rows = 0.0, []
     for i, (shape, dtype, causal) in enumerate(cases):
         q, k, v = flash_inputs(torch, shape, dtype, dev, seed=i)
-        kern = ops.flash_attention(q, k, v, causal=causal)
+        kern, variant = flash_launch(ops, q, k, v, causal)
         plain = ops.flash_attention(q, k, v, causal=causal, backend="torch")
         torch.cuda.synchronize()
         what = f"flash_attention {shape} {dtype} causal={causal}"
@@ -506,8 +544,44 @@ def check_flash(torch, ops, dev) -> float:
         if not torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol):
             fail(f"{what}: differs from the plain version beyond {tol} (err {err})")
         worst = max(worst, err)
-        rows.append({"shape": list(shape), "dtype": dtype, "causal": causal, "max_abs_err": err})
+        rows.append({"shape": list(shape), "dtype": dtype, "causal": causal, "max_abs_err": err,
+                     "variant": variant})
     emit({"phase": "flash_attention_check", "ok": True, "max_abs_err": worst, "cases": rows})
+    return worst
+
+
+def check_flash_peaked(torch, ops, dev) -> float:
+    """The bf16 tensor-core kernel against its plain version where the
+    softmax is peaked (``repro_torch.testing.flash_cases``): q scaled by 10
+    to 1000, so the running max moves from tile to tile and, in one case,
+    ``exp`` overflows unless the max is subtracted.  Each output row's
+    error over its largest |value| must stay within ``ROW_TOL``; every case
+    must reach the tensor-core kernel.  Returns the largest such error."""
+    from repro_torch.testing import flash_cases as fc
+
+    worst, rows = 0.0, []
+    for i, (shape, q_scale, causal) in enumerate(fc.PEAKED_CASES):
+        arrays = fc.peaked_inputs(shape, q_scale, seed=100 + i)
+        spread = fc.score_spread(*arrays[:2], causal)
+        what = f"flash_attention peaked {shape} q x{q_scale} causal={causal}"
+        if spread < fc.MIN_SPREAD:
+            fail(f"{what}: scores spread by {spread}, less than {fc.MIN_SPREAD}")
+        q, k, v = (torch.from_numpy(a).to(dev, torch.bfloat16) for a in arrays)
+        kern, variant = flash_launch(ops, q, k, v, causal)
+        plain = ops.flash_attention(q, k, v, causal=causal, backend="torch")
+        torch.cuda.synchronize()
+        if variant != "tensor_cores":
+            fail(f"{what}: went to the {variant} kernel")
+        err = fc.row_relative_error(kern.float().cpu().numpy(), plain.float().cpu().numpy())
+        if not err <= fc.ROW_TOL:
+            fail(f"{what}: a row differs from the plain version by {err} of its largest value, "
+                 f"beyond {fc.ROW_TOL}")
+        worst = max(worst, err)
+        rows.append({"shape": list(shape), "q_scale": q_scale, "causal": causal, "score_spread": spread,
+                     "row_relative_err": err,
+                     "max_abs_err": (kern.float() - plain.float()).abs().max().item()})
+    emit({"phase": "flash_attention_peaked_check", "ok": True, "row_tol": fc.ROW_TOL,
+          "row_relative_err": worst, "cases": rows})
     return worst
 
 
@@ -588,17 +662,21 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     # of each length, outside the counted run.
     serve(torch, serving, cfg, params, [prompts[0], prompts[-1]], dev, "auto", max_new=2)
 
+    from repro_torch.kernels import flash_attention
+
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     main = serve(torch, serving, cfg, params, prompts, dev, "auto")
     launches = ops.launch_counts()
+    launches_tc = flash_attention.launches_tc
     comps = main["completions"]
     generated = sum(len(c.tokens) for c in comps.values())
     by_len = {n: [r for r, p in enumerate(prompts) if len(p) == n] for n in LM["lengths"]}
     out = {
         "phase": "lm_serve", "arch": cfg.name, "requests": n_req, "prompt_lengths": list(LM["lengths"]),
         "max_new_tokens": LM["max_new"], "max_batch": LM["max_batch"], "max_seq": LM["max_seq"],
-        "launches": launches, "completed": len(comps), "generated_tokens": generated,
+        "launches": launches, "flash_attention_tensor_core_launches": launches_tc,
+        "completed": len(comps), "generated_tokens": generated,
         "ticks": main["ticks"], "wall_s": main["wall_s"], "tok_per_s": generated / main["wall_s"],
         "ttft_s": [main["ttft_s"][r] for r in range(n_req)],
         "prefill_ms": {str(n): [main["prefill_s"][r] * 1e3 for r in rids] for n, rids in by_len.items()},
@@ -610,6 +688,8 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     want = cfg.n_layers * n_req
     if launches["flash_attention"] != want:
         fail(f"flash_attention launched {launches['flash_attention']} times on the LM path, not {want}")
+    if launches_tc != want:
+        fail(f"{launches_tc} of the LM path's {want} flash_attention launches went to the tensor-core kernel")
     if any(n for name, n in launches.items() if name != "flash_attention"):
         fail(f"the LM path launched a segmentation kernel: {launches}")
     if sorted(comps) != list(range(n_req)):
@@ -646,11 +726,17 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     logits_p = prefill_last_logits(torch, api, cfg, params, prompts, dev, "torch")
     if ops.launch_counts() != before:
         fail("bf16 check: the plain path launched a kernel")
-    first_equal = sum(int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p))
+    equal = [int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p)]
+    first_equal = sum(equal)
     cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
     engine_first = sum(int(comps[r].tokens[0] == int(logits_k[r].argmax())) for r in range(n_req))
+    # Each request's top-1 minus top-2 logit on the plain path: a first
+    # token that differs at a small margin is a near-tie, at a large one an error.
+    top2 = [b.float().topk(2).values for b in logits_p]
     res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, "first_token_equal": first_equal,
-             "of": n_req, "min_cosine": min(cos), "cosine": cos,
+             "of": n_req, "first_token_equal_by_request": equal,
+             "plain_top1_minus_top2": [(t[0] - t[1]).item() for t in top2],
+             "min_cosine": min(cos), "cosine": cos,
              "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p)),
              "engine_first_token_equal_kernel_prefill": engine_first}
     emit({"phase": "lm_kernel_vs_plain", "f32_2_layers": res_a, "bf16_28_layers": res_b})
@@ -693,40 +779,91 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
             emit({"phase": "profile", "what": f"LM {what}, {cfg.n_layers} layers {cfg.param_dtype}",
                   "wall_s_unprofiled": min(walls),
                   "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / min(walls), **prof})
-    return {"launches": launches["flash_attention"], "serve": out}
+    return {"launches": launches["flash_attention"], "launches_tc": launches_tc, "serve": out}
 
 
 def time_flash(torch, ops, dev, profile: bool) -> dict:
-    """The flash kernel at the LM path's largest call (S = 1024, bf16,
-    causal): its time, the plain version's, one library call's, and the
-    bound from this call's bytes and operations."""
+    """The flash kernel at the LM path's two calls (S = 512 and 1024, bf16,
+    causal): its time per call (CUDA events over back-to-back calls, the
+    host's share included) and on the device (``torch.profiler``), the
+    plain version's time, one library call's (``scaled_dot_product_attention``,
+    per call and on the device), and the bound from the call's bytes and
+    operations, with the kernel's share of it.  Returns the S = 1024
+    numbers for the ``kernels`` line, the S = 512 ones under ``by_shape``."""
     import torch.nn.functional as F
 
-    shape = FLASH_MODEL_SHAPES[-1]
-    b, hq, hkv, s, d = shape
-    q, k, v = flash_inputs(torch, shape, "bfloat16", dev, seed=99)
-    kern = lambda: ops.flash_attention(q, k, v, causal=True)
-    plain = lambda: ops.flash_attention(q, k, v, causal=True, backend="torch")
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
-    lib_err = (lib().float() - plain().float()).abs().max().item()
-    if lib_err > FLASH_TOL["bfloat16"]:
-        fail(f"scaled_dot_product_attention differs from the plain version by {lib_err}")
-    ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
-    n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()   # q, k, v in; out
-    pairs = s * (s + 1) // 2                                          # causal (q, k) pairs
-    n_ops = 4 * b * hq * d * pairs                                    # QK^T and PV, 2 ops per MAC
-    bound_ms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
-    out = {"phase": "timing", "flash_attention_shape": list(shape), "dtype": "bfloat16", "causal": True,
-           "flash_attention_ms": ms, "flash_attention_plain_ms": plain_ms,
-           "flash_attention_sdpa_ms": lib_ms, "sdpa_max_abs_err_vs_plain": lib_err,
-           "flash_attention_bytes": n_bytes, "flash_attention_ops": n_ops,
-           "achieved_tflops": n_ops / (ms * 1e-3) / 1e12}
-    if profile:
+    rows = []
+    for shape in FLASH_MODEL_SHAPES:
+        b, hq, hkv, s, d = shape
+        q, k, v = flash_inputs(torch, shape, "bfloat16", dev, seed=99)
+        kern = lambda: ops.flash_attention(q, k, v, causal=True)
+        plain = lambda: ops.flash_attention(q, k, v, causal=True, backend="torch")
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        lib_err = (lib().float() - plain().float()).abs().max().item()
+        if lib_err > FLASH_TOL["bfloat16"]:
+            fail(f"scaled_dot_product_attention differs from the plain version by {lib_err}")
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
         prof = device_profile(torch, lambda: [kern() for _ in range(20)])
-        out["flash_attention_device_us_per_call"] = prof["device_busy_us"] / 20
-        emit({"phase": "profile", "what": "20 flash_attention calls (S=1024 bf16 causal)", **prof})
-    emit(out)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": by}
+        lib_prof = device_profile(torch, lambda: [lib() for _ in range(20)])
+        n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()   # q, k, v in; out
+        pairs = s * (s + 1) // 2                                          # causal (q, k) pairs
+        n_ops = 4 * b * hq * d * pairs                                    # QK^T and PV, 2 ops per MAC
+        bound_ms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
+        device_ms = prof["device_busy_us"] / 20 * 1e-3
+        row = {"shape": list(shape), "variant": flash_launch(ops, q, k, v, True)[1],
+               "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_device_ms": lib_prof["device_busy_us"] / 20 * 1e-3,
+               "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms,
+               "device_share_of_bound": bound_ms / device_ms, "bytes": n_bytes, "ops": n_ops,
+               "achieved_tflops": n_ops / (ms * 1e-3) / 1e12,
+               "device_tflops": n_ops / (device_ms * 1e-3) / 1e12, "sdpa_max_abs_err_vs_plain": lib_err}
+        emit({"phase": "timing", "what": "flash_attention bf16 causal", **row})
+        if profile:
+            emit({"phase": "profile", "what": f"20 flash_attention calls (S={s} bf16 causal)", **prof})
+            emit({"phase": "profile", "what": f"20 scaled_dot_product_attention calls (S={s})", **lib_prof})
+        rows.append(row)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by")
+    return {**{k: rows[-1][k] for k in keys},
+            "by_shape": {str(r["shape"][3]): {k: r[k] for k in keys} for r in rows}}
+
+
+def flash_sass_hgmma() -> dict:
+    """Count ``HGMMA`` (wgmma) instructions in the built flash_attention
+    library's SASS with ``cuobjdump``; empty where the tool is absent."""
+    import shutil
+
+    from repro_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build._target("flash_attention"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    return {"hgmma_in_sass": sum(line.count("HGMMA") for line in sass.splitlines())}
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers, stack and spills of each kernel in ``csrc/<name>.cu``
+    from the ``-Xptxas=-v`` report kept beside its library."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    log = _build._target(name).with_suffix(".log").read_text()
+    out, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = {"kernel": m.group(1)}
+            out.append(current)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+    return {"library": _build._target(name).name, "kernels": out,
+            "spill_bytes": sum(k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in out)}
 
 
 def main(argv=None) -> int:
@@ -769,10 +906,16 @@ def main(argv=None) -> int:
                      "torch": torch.__version__, "cuda": torch.version.cuda}})
 
     emit({"phase": "build", "build_s": _build.build_all(), "dir": str(_build.BUILD_DIR)})
+    ptxas = ptxas_report("flash_attention")
+    emit({"phase": "ptxas", **ptxas,
+          "kernels": [k for k in ptxas["kernels"] if "flash_attention_tc_kernel" in k["kernel"]]})
+    if ptxas["spill_bytes"]:
+        fail(f"flash_attention spills {ptxas['spill_bytes']} bytes (ptxas)")
 
     sr_err = check_segment_reduce(torch, ops, dev)
     check_tick_synthetic(torch, ops, dev)
     flash_err = check_flash(torch, ops, dev)
+    check_flash_peaked(torch, ops, dev)
 
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
     plan = slice2["plan"]
@@ -918,7 +1061,8 @@ def main(argv=None) -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
-         "launches": lm["launches"], "max_abs_err": flash_err, **flash},
+         "launches": lm["launches"], "launches_tensor_cores": lm["launches_tc"],
+         "max_abs_err": flash_err, **flash, **flash_sass_hgmma()},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 under ``build/repro_torch_kernels/`` at the repository root.  The file
-name carries a hash of the source and the flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at import:
+name carries a hash of the source, the headers under ``csrc/`` and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  Nothing here runs at import:
 the first CUDA tensor that needs a kernel builds it (``load``), and
 ``build_all`` starts one ``nvcc`` per source at once.  The compiler's
 ``-Xptxas=-v`` report (registers, shared memory, spills) is kept beside
@@ -60,8 +61,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``: its name hashes the source, every
+    header under ``csrc/`` (any source may include them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 

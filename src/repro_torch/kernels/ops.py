@@ -11,7 +11,8 @@ one explicit override:
 There is no fallback: a CUDA tensor that reaches a kernel that fails to
 build or launch raises.  Each kernel module counts its launches;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts`
-zeroes them.
+zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
+of the flash launches).
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for module in (_em_tick, _flash_attention, _map_step, _mrf_energy, _segment_reduce):
         module.launches = 0
+    _flash_attention.launches_tc = 0
 
 
 def segment_reduce(

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch import DeviceLike
+from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -33,8 +33,10 @@ def _tensor(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
     return torch.tensor(a).to(device=device, dtype=dtype)
 
 
-def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLike = "cpu") -> T.Decoder:
-    """A ``Decoder`` for ``cfg`` holding the arrays of ``params_np``."""
+def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLike = None) -> T.Decoder:
+    """A ``Decoder`` for ``cfg`` holding the arrays of ``params_np``, on
+    ``device`` (``None``: the card, through ``resolve_device``)."""
+    device = resolve_device(device)
     dtype = L.dtype_of(cfg.param_dtype)
     conv = lambda a: _tensor(a, dtype, device)
     stacked = params_np["layers"]

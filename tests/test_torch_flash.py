@@ -22,8 +22,11 @@ from repro.models import attention as jax_attention
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as torch_ref
+from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models import attention as torch_attention
+from repro_torch.testing import flash_cases as fc
+from repro_torch.testing import flash_faults
 
 SHAPES = [
     (1, 2, 2, 128, 32),   # MHA
@@ -104,3 +107,122 @@ def test_flash_wrapper_refuses_cpu_tensors_and_unknown_backends():
         ops.flash_attention(q, k, v, backend="cuda")
     with pytest.raises(ValueError, match="kv heads"):
         torch_ref.flash_attention(q, k[:, :1].expand(1, 3, 32, 16), v, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif(not torch.cuda.is_available(),
+                    reason="needs a CUDA card: the C entry point makes the choice and reports it")
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 128, "tensor_cores"),
+    (torch.bfloat16, 16, "cuda_cores"),
+    (torch.bfloat16, 256, "cuda_cores"),
+    (torch.float32, 64, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores"),
+])
+def test_flash_variant_by_dtype_and_head_dim(dtype, d, want):
+    """bfloat16 at D = 64 and 128 goes to the tensor-core kernel; float32
+    at any D, and bfloat16 at other D, to the CUDA-core kernel.  The C
+    entry point reports its choice and the wrapper counts it."""
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(1, 2, 1, 64, d, 4))
+    before = flash_module.launches, flash_module.launches_tc
+    flash_attention_cuda(q, k, v, causal=True)
+    after = flash_module.launches, flash_module.launches_tc
+    assert (after[0] - before[0], after[1] - before[1]) == (1, int(want == "tensor_cores"))
+
+
+def _refusal_cases():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(1, 4, 2, 64, 64, 3))
+    return {
+        "q not contiguous": ((q.transpose(2, 3).contiguous().transpose(2, 3), k, v), "contiguous"),
+        "k not contiguous": ((q, k.transpose(2, 3).contiguous().transpose(2, 3), v), "contiguous"),
+        "v not contiguous": ((q, k, v.transpose(2, 3).contiguous().transpose(2, 3)), "contiguous"),
+        "head dim 8": ((q[..., :8], k[..., :8], v[..., :8]), "head dim"),
+        "head dim 24": ((q[..., :24].contiguous(), k[..., :24].contiguous(), v[..., :24].contiguous()),
+                        "head dim"),
+        "head dim 272": ((q.repeat(1, 1, 1, 5)[..., :272].contiguous(),) * 3, "head dim"),
+        "3 q heads on 2 kv heads": ((q[:, :3].contiguous(), k, v), "kv heads"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_refusal_cases()))
+def test_flash_wrapper_refuses_bad_operands(case):
+    """The wrapper's checks run before the device is looked at, so they
+    hold on the CPU: non-contiguous operands, D outside [16, 256] or not a
+    multiple of 16, and Hq not a multiple of Hkv raise; nothing is built
+    or launched."""
+    args, match = _refusal_cases()[case]
+    before = flash_module.launches, flash_module.launches_tc
+    with pytest.raises(ValueError, match=match):
+        flash_attention_cuda(*args, causal=True)
+    assert (flash_module.launches, flash_module.launches_tc) == before
+
+
+# The peaked-softmax cases that hold the tensor-core kernel on the card
+# (chip_smoke.check_flash_peaked): the check must tell a right online
+# softmax from a broken one.  The kernel's algorithm is modelled in numpy.
+
+_CASE_IDS = [f"{'x'.join(map(str, sh))}-q{qs:g}-{'causal' if c else 'full'}" for sh, qs, c in fc.PEAKED_CASES]
+
+
+def _peaked(i):
+    shape, q_scale, causal = fc.PEAKED_CASES[i]
+    q, k, v = fc.peaked_inputs(shape, q_scale, seed=100 + i)
+    plain = torch_ref.flash_attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                                      causal=causal)
+    return (q, k, v), causal, plain.float().numpy()
+
+
+@pytest.mark.parametrize("i", range(len(fc.PEAKED_CASES)), ids=_CASE_IDS)
+def test_peaked_case_scores_spread(i):
+    """Every peaked case spreads its scores by at least MIN_SPREAD; the
+    usual inputs at the same shape spread by less than one unit."""
+    shape, q_scale, causal = fc.PEAKED_CASES[i]
+    q, k, _ = fc.peaked_inputs(shape, q_scale, seed=100 + i)
+    assert fc.score_spread(q, k, causal) >= fc.MIN_SPREAD
+    q, k, _ = fc.peaked_inputs(shape, 1.0, seed=100 + i)
+    assert fc.score_spread(q, k, causal) < 1.0
+
+
+@pytest.mark.parametrize("i", range(len(fc.PEAKED_CASES)), ids=_CASE_IDS)
+def test_online_softmax_model_within_row_tol(i):
+    """The tensor-core kernel's algorithm (bf16 P, 64-key tiles) stays
+    within ROW_TOL of the plain version on every peaked case."""
+    qkv, causal, plain = _peaked(i)
+    assert fc.row_relative_error(fc.online_softmax(*qkv, causal), plain) <= fc.ROW_TOL
+
+
+_BROKEN = [(i, "no_rescale") for i in range(len(fc.PEAKED_CASES))]
+_BROKEN += [(i, "no_max") for i, (_, q_scale, _) in enumerate(fc.PEAKED_CASES) if q_scale >= 1000]
+
+
+@pytest.mark.parametrize("i,fault", _BROKEN, ids=[f"{_CASE_IDS[i]}-{f}" for i, f in _BROKEN])
+def test_row_tol_rejects_broken_online_softmax(i, fault):
+    """Without the accumulator's rescale every peaked case fails the limit;
+    without the max subtraction the overflowing case does."""
+    qkv, causal, plain = _peaked(i)
+    kw = {"rescale": False} if fault == "no_rescale" else {"subtract_max": False}
+    assert not fc.row_relative_error(fc.online_softmax(*qkv, causal, **kw), plain) <= fc.ROW_TOL
+
+
+def test_row_relative_error_scales_by_row():
+    """A row of small values is held as tightly as a row of large ones."""
+    want = np.array([[1.0, -2.0], [0.01, 0.02]])
+    assert fc.row_relative_error(want, want) == 0.0
+    assert fc.row_relative_error(want + [[0.0, 0.0], [0.0, 0.001]], want) == pytest.approx(0.05)
+    assert fc.row_relative_error(want + [[0.01, 0.0], [0.0, 0.0]], want) == pytest.approx(0.005)
+    assert fc.row_relative_error(np.full((2, 2), np.nan), want) == float("inf")
+    x = np.array([1.0, 1.00390625, 1.01171875, -3.3e38, 0.0], np.float32)
+    np.testing.assert_array_equal(fc.bf16_round(x), torch.from_numpy(x).to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("fault", sorted(flash_faults.FAULTS))
+def test_flash_fault_edits_apply_to_the_source(fault):
+    """Each deliberate fault of ``flash_faults`` finds its text exactly once
+    in today's flash source, so the on-card fault run still breaks what it
+    says it breaks."""
+    text = (flash_faults.ROOT / "src/repro_torch/kernels/csrc/flash_attention.cu").read_text()
+    broken = flash_faults.apply_fault(text, fault)
+    assert (broken == text) == (fault == "none")
+    with pytest.raises(ValueError, match="exactly once"):
+        flash_faults.apply_fault(text + text, "no_rescale")

@@ -207,3 +207,21 @@ def test_kernel_modules_import_without_nvcc():
         importlib.import_module(name)
     assert _build.sources() == ["em_tick", "flash_attention", "map_step", "mrf_energy", "segment_reduce"]
     assert _build._libs == {}
+
+
+def test_build_target_follows_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source, every ``csrc/*.cuh`` and the
+    flags: editing a header that a source may include names a new library,
+    so the stale one is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("#define A 1\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._target("k")
+    assert _build._target("k") == first
+    header.write_text("#define A 2\n")
+    second = _build._target("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("\n")
+    assert _build._target("k") not in (first, second)
+    assert _build.sources() == ["k"]

@@ -56,7 +56,7 @@ def model():
     for name in ("bq", "bk", "bv"):
         attn[name] = jnp.asarray(rng.normal(0, 0.1, attn[name].shape).astype(np.float32))
     jparams = {**jparams, "layers": {**jparams["layers"], "attn": attn}}
-    return jcfg, cfg, jparams, convert.params_from_jax(_tree_np(jparams), cfg)
+    return jcfg, cfg, jparams, convert.params_from_jax(_tree_np(jparams), cfg, device="cpu")
 
 
 def test_configs_are_copies_of_the_reference():
@@ -251,6 +251,17 @@ def test_other_families_and_default_device_raise(model):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingEngine(cfg, tparams, max_batch=1, max_seq=32)
     assert repro_torch.resolve_device("cpu").type == "cpu"
+
+
+def test_params_from_jax_defaults_to_the_card(model, monkeypatch):
+    """Like every entry point, ``params_from_jax`` runs on the card unless
+    asked for the CPU: without CUDA its default raises as
+    ``resolve_device`` does."""
+    _, cfg, jparams, _ = model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.params_from_jax(_tree_np(jparams), cfg)
+    assert convert.params_from_jax(_tree_np(jparams), cfg, device="cpu").embed.device.type == "cpu"
 
 
 def test_serve_lm_launcher_on_cpu(capsys):

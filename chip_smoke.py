@@ -10,8 +10,9 @@ It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 PyTorch version on the card, and drives three paths:
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
-  then K = 3), planned and solved through the session API (one
-  ``fused_em_tick`` per MAP iteration);
+  then K = 3, then K = 9 labels on the three-phase image, which runs the
+  tick's runtime-K variant), planned and solved through the session API
+  (one ``fused_em_tick`` per MAP iteration);
 * the sharded route: ``distributed_em`` on the same plans over a
   one-rank NCCL process group made in this process (one
   ``fused_map_step`` per MAP iteration, with the collectives around it);
@@ -36,8 +37,9 @@ bound; then the card's name and power limit as ``nvidia-smi
 script exits non-zero without that last line.  It also exits non-zero
 when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
-K = 2 solve of each segmentation path, and one LM prefill at S = 1024 and
-one decode step, with their device idle shares).  Float32 products run in
+K = 2 solve of each segmentation path after 10 timed warm solves, and one
+LM prefill at S = 1024 and one decode step, with their device idle
+shares).  Float32 products run in
 full float32 (TF32 off, the defaults, set explicitly).  After the build
 a ``ptxas`` line gives the registers and spills of the tensor-core flash
 kernels (any spill in the flash library fails the run); the
@@ -50,16 +52,30 @@ exists.
 Tolerances (kernel against plain version, same inputs, on the card):
 
 * segment_reduce: integer-valued ``add`` and every ``min`` exact; random
-  float ``add`` within 1e-5 of the segment's sum of magnitudes (both sum
-  with atomics, in an order that changes from run to run).
+  float ``add`` within 1e-5 of the segment's sum of magnitudes (+ 1e-6):
+  the plain version sums with atomics in an order that changes from run to
+  run, the kernel on a fixed-point grid.  Float ``add`` is order-free: at
+  24,784 and 10**6 shuffled values into 1555 and 10**5 segments, and at
+  the solve's and the plan's real calls, 20 calls and a permutation of the
+  elements give the first call's bits, and the kernel equals the numpy
+  model of its arithmetic (``repro_torch.testing.segsum``) bit for bit.
+  With NaN and infinities (NaN in ``add`` and ``min``, +inf with -inf in
+  ``add``) it equals the plain version exactly, NaN equal to NaN.
 * fused_em_tick at f32: labels, votes and the convergence flag exact;
   hood energies and M-step sums within rtol 1e-5 (atol 1e-4): the kernel
   sums them in another order.  At bf16: at least 95 % label agreement and
-  sums within 2 %.
-* fused_map_step (at the slices' quantile-init operands): min_e, arg and
-  votes exact; hood energies within rtol 1e-5 (atol 1e-4): atomics sum
-  them in another order.  The votes of the four element blocks of
-  ``partition_hoods(hoods, 4)`` add up to the whole problem's exactly.
+  sums within 2 %.  K = 2, 3, 5 and the runtime-K variant at 9, 16, 33 on
+  synthetic operands; K = 2 and 9 at the slices' operands.  The runtime-K
+  variant (K >= 9) sums in element order, so at f32 it also equals the
+  plain tick on the CPU (where ``index_add_`` adds in element order) bit
+  for bit in every output.
+* fused_map_step (at the slices' quantile-init operands, and on hoods of
+  100 and 300 elements): min_e, arg and votes exact; hood energies within
+  rtol 1e-5 (atol 1e-4): the kernel rounds a fixed-point sum once, the
+  plain version sums in element order.  On the long hoods 20 calls give
+  the first call's hood sums bit for bit, the numpy model's.  The votes
+  of the four element blocks of ``partition_hoods(hoods, 4)`` add up to
+  the whole problem's exactly.
 * mrf_min_energy (at the K = 2 slice's operands, n1 = label-1 counts):
   min_e and arg exact.
 * flash_attention: the reference tests' shapes (B, Hq, Hkv, S, D) =
@@ -81,7 +97,11 @@ Tolerances (kernel against plain version, same inputs, on the card):
   largest |value|.  A kernel that does not rescale its accumulator when
   the running max grows, or does not subtract the max, fails it.
 * The slice: kernel path against plain path at least 99.5 % pixel
-  agreement, and kernel-path accuracy no more than 0.01 below.  The
+  agreement, and kernel-path accuracy no more than 0.01 below; at K = 9
+  also the status and EM and MAP iteration counts of the plain path on
+  the CPU, which sums in element order as the runtime-K tick does (on the
+  card the plain path's ``index_add_`` adds by atomics, and its counts
+  moved by one MAP iteration between runs).  The
   sharded route is held to the same limits against the single-device
   route and against its own plain path.
 * LM serving: every request completes with 32 tokens in the vocabulary.
@@ -127,6 +147,9 @@ FLASH_MODEL_SHAPES = [(1, 12, 2, 512, 128), (1, 12, 2, 1024, 128)]
 FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
+REPEATS = 20  # calls of an order-free kernel that must agree bit for bit
+SOLVES = 10   # warm K=2 solves timed under --profile (min, median, max)
+TICK_LABELS = (2, 3, 5, 9, 16, 33)  # synthetic tick checks; K >= 9 is the runtime-K variant
 
 
 def emit(obj) -> None:
@@ -154,6 +177,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def spread(values: list) -> dict:
+    """Min, median and max of repeated measurements."""
+    v = sorted(values)
+    return {"n": len(v), "min": v[0], "median": v[len(v) // 2], "max": v[-1]}
+
+
 def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     """Least time (ms) for the work: bytes over HBM rate vs ops over the
     card's peak for their type (default float32 outside the tensor cores);
@@ -166,7 +195,9 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
 def device_profile(torch, fn) -> dict:
     """Run ``fn`` under ``torch.profiler`` and sum the device time of every
     kernel, memset and copy it launched: total busy microseconds and the
-    largest contributors by name.  Only device-side events count (a host
+    largest contributors by name, and every kernel of the order-free keyed
+    reductions (``segsum::``: ``segment_reduce``'s passes and
+    ``fused_map_step``'s hood sums).  Only device-side events count (a host
     op's own entry repeats the time of the kernels it launched).
     ``host_top`` lists the host ops with the most self time on the CPU,
     where a host-bound solve spends its time (the profiler's own cost
@@ -190,6 +221,8 @@ def device_profile(torch, fn) -> dict:
     return {
         "device_busy_us": sum(us for us, _ in by_name.values()),
         "top": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in top],
+        "segsum": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in by_name.items()
+                   if k.startswith(("segsum::", "void segsum::"))],
         "host_top": [{"name": k[:60], "self_us": us, "count": n}
                      for us, k, n in sorted(host, reverse=True)[:10]],
     }
@@ -228,6 +261,99 @@ def check_segment_reduce(torch, ops, dev) -> float:
     return worst
 
 
+def random_add_cases() -> list:
+    """Float ``add`` cases for the order-free checks: 24,784 and 10**6
+    normal values into 1555 and 10**5 segments, ids shuffled, with the
+    padding ids of ``check_segment_reduce``."""
+    rng = np.random.default_rng(1)
+    cases = []
+    for n in (24_784, 1_000_000):
+        for segs in (1555, 100_000):
+            ids = rng.integers(-2, segs + segs // 10 + 2, n).astype(np.int32)
+            ids[::13] = 2**30
+            cases.append((f"random n={n} segs={segs}", rng.normal(0.0, 1.0, n).astype(np.float32),
+                          ids, segs))
+    return cases
+
+
+def bits(t) -> np.ndarray:
+    return t.detach().cpu().numpy().view(np.uint32)
+
+
+def check_segment_reduce_order_free(torch, ops, dev, cases) -> list:
+    """Float ``add`` on each ``(what, values, ids, segments)`` case: 20
+    calls bitwise equal to the first, a permutation of the elements too;
+    equal bit for bit to the numpy model of the kernel's arithmetic
+    (``repro_torch.testing.segsum``); within 1e-5 of each segment's sum of
+    magnitudes (+ 1e-6) of the plain version.  Returns one row per case."""
+    from repro_torch.testing import segsum
+
+    rows = []
+    for what, vals, ids, segs in cases:
+        v, i = torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev)
+        first = bits(ops.segment_reduce(v, i, segs, "add"))
+        repeats_equal = all(np.array_equal(bits(ops.segment_reduce(v, i, segs, "add")), first)
+                            for _ in range(REPEATS - 1))
+        perm = torch.randperm(len(vals), generator=torch.Generator().manual_seed(0)).to(dev)
+        permuted_equal = np.array_equal(bits(ops.segment_reduce(v[perm], i[perm], segs, "add")), first)
+        model_equal = np.array_equal(segsum.segment_sum(vals, ids, segs).view(np.uint32), first)
+        p = ops.segment_reduce(v, i, segs, "add", backend="torch")
+        mag = ops.segment_reduce(v.abs(), i, segs, "add", backend="torch")
+        k = torch.from_numpy(first.view(np.float32)).to(dev)
+        err = (k - p).abs().max().item() if segs else 0.0
+        row = {"case": what, "n": len(vals), "segments": segs, "repeats": REPEATS,
+               "repeats_bitwise_equal": repeats_equal, "permuted_bitwise_equal": permuted_equal,
+               "model_bitwise_equal": model_equal, "max_abs_err_vs_plain": err}
+        rows.append(row)
+        if not (repeats_equal and permuted_equal and model_equal):
+            fail(f"segment_reduce add {what}: not order-free or not the model's result: {row}")
+        if not bool(((k - p).abs() <= 1e-5 * mag + 1e-6).all()):
+            fail(f"segment_reduce add {what}: err {err} against the plain version")
+    emit({"phase": "segment_reduce_order_free_check", "ok": True, "cases": rows})
+    return rows
+
+
+def check_segment_reduce_nonfinite(torch, ops, dev) -> None:
+    """NaN in ``add`` and ``min``, +inf with -inf in ``add``: the kernel
+    equals the plain version exactly on every non-finite result and every
+    minimum (NaN equal to NaN; finite sums within the float tier) and the
+    numpy model bit for bit.  A small hand-made case and 24,784 values with
+    NaN and infinities scattered over 1555 segments."""
+    from repro_torch.testing import segsum
+
+    rng = np.random.default_rng(2)
+    big = rng.normal(0.0, 1.0, 24_784).astype(np.float32)
+    big[rng.integers(0, big.size, 40)] = np.nan
+    big[rng.integers(0, big.size, 60)] = np.inf
+    big[rng.integers(0, big.size, 60)] = -np.inf
+    cases = [
+        ("hand-made", np.array([1, np.nan, 3, -np.inf, np.inf, 2, np.inf, 5, -np.inf, np.nan, -7,
+                                -np.inf], np.float32),
+         np.array([0, 0, 1, 2, 2, 3, 5, 5, 6, 6, 2**30, 7], np.int32), 9),
+        ("scattered", big, rng.integers(0, 1555, big.size).astype(np.int32), 1555),
+    ]
+    rows = []
+    for what, vals, ids, segs in cases:
+        v, i = torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev)
+        for op, model in (("add", segsum.segment_sum), ("min", segsum.segment_min)):
+            k = ops.segment_reduce(v, i, segs, op)
+            p = ops.segment_reduce(v, i, segs, op, backend="torch")
+            same = (k == p) | (k.isnan() & p.isnan())
+            finite = k.isfinite() & p.isfinite()
+            if op == "add":  # finite sums: the float tier of check_segment_reduce
+                mag = ops.segment_reduce(v.abs().nan_to_num(0.0, 0.0, 0.0), i, segs, "add", backend="torch")
+                same |= finite & ((k - p).abs() <= 1e-5 * mag + 1e-6)
+            equal = bool(same.all())
+            model_equal = np.array_equal(bits(k), model(vals, ids, segs).view(np.uint32))
+            row = {"case": what, "op": op, "nan_segments": int(k.isnan().sum()),
+                   "inf_segments": int(k.isinf().sum()), "equal_plain": equal,
+                   "model_bitwise_equal": model_equal}
+            rows.append(row)
+            if not (equal and model_equal):
+                fail(f"segment_reduce {op} non-finite {what}: {row}")
+    emit({"phase": "segment_reduce_nonfinite_check", "ok": True, "cases": rows})
+
+
 def compare_tick(torch, k, p, precision: str, what: str) -> float:
     """Hold a kernel tick ``k`` against the plain tick ``p``; returns the
     largest absolute error over the float outputs."""
@@ -255,10 +381,16 @@ def compare_tick(torch, k, p, precision: str, what: str) -> float:
     return err
 
 
+def same_bits(torch, a, b) -> bool:
+    """Two tensors equal bit for bit (floats by their bits)."""
+    as_bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
+    return torch.equal(as_bits(a), as_bits(b))
+
+
 def check_tick_synthetic(torch, ops, dev) -> None:
     from repro_torch.testing.tick_problems import sorted_tick_problem
 
-    for n_labels in (2, 3, 5):
+    for n_labels in TICK_LABELS:
         arrays, offsets = sorted_tick_problem(n_labels, n_labels, 1554, 1025, 24_784)
         args = [torch.from_numpy(a).to(dev) for a in arrays]
         off = torch.from_numpy(offsets).to(dev)
@@ -268,8 +400,40 @@ def check_tick_synthetic(torch, ops, dev) -> None:
             p = ops.fused_em_tick(*args, 0.75, backend="torch", **kw)
             torch.cuda.synchronize()
             err = compare_tick(torch, k, p, precision, f"fused_em_tick K={n_labels} {precision}")
-            emit({"phase": "fused_em_tick_check", "operands": "synthetic", "K": n_labels,
-                  "precision": precision, "ok": True, "max_abs_err": err})
+            row = {"phase": "fused_em_tick_check", "operands": "synthetic", "K": n_labels,
+                   "precision": precision, "ok": True, "max_abs_err": err}
+            if n_labels >= 9:
+                row.update(check_tick_against_cpu(
+                    torch, ops, k, [*args, 0.75], dict(n_hoods=1554, n_vertices=1025), precision,
+                    f"synthetic K={n_labels}"))
+            emit(row)
+
+
+TICK_OUTPUTS = ("labels", "hood_e", "votes", "conv", "sum_w", "sum_wy", "sum_wyy")
+
+
+def check_tick_against_cpu(torch, ops, k, args, kw, precision: str, what: str) -> dict:
+    """The runtime-K tick (K >= 9) sums in the plain version's element
+    order, so at f32 it equals bit for bit the plain tick on the CPU, where
+    ``index_add_`` adds in element order (on the card it adds by atomics).
+    Every output must, except where the host's ``log`` of the tick's
+    sigmas differs from the card's in the last bit (``log_sigma_equal_cpu``
+    false): then the energies differ by an ulp and the hood sums are held
+    to the tier of ``compare_tick`` alone.  Returns the flags."""
+    from repro_torch.testing.tick_problems import FIELDS
+
+    host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    p = ops.fused_em_tick(*host, precision=precision, backend="torch", **kw)
+    sigma = args[FIELDS.index("sigma")]
+    same_log = torch.equal(torch.log(sigma[:, None]).cpu(), torch.log(sigma.cpu()[:, None]))
+    unequal = [n for n, a, b in zip(TICK_OUTPUTS, k, p) if not same_bits(torch, a.cpu(), b)]
+    out = {"bitwise_equal_plain_cpu": not unequal, "log_sigma_equal_cpu": same_log}
+    if unequal:
+        out["unequal"] = unequal
+    allowed = set() if same_log else {"hood_e"}
+    if precision == "f32" and not set(unequal) <= allowed:
+        fail(f"fused_em_tick {what} f32: {unequal} not bitwise equal to the plain tick on the CPU")
+    return out
 
 
 def real_tick_operands(torch, plan, E, em_mod):
@@ -291,15 +455,149 @@ def real_tick_operands(torch, plan, E, em_mod):
     return args, kw
 
 
-def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int) -> dict:
+def check_time_tick(torch, ops, E, em_mod, plan, profile: bool) -> dict:
+    """The tick at a slice plan's real operands (``real_tick_operands``):
+    held against its plain version at f32 and bf16, then timed (CUDA
+    events; device time under ``--profile``) beside its plain version and
+    its bound.  Returns the figures for the ``kernels`` line."""
+    args, kw = real_tick_operands(torch, plan, E, em_mod)
+    hoods = plan.problem.hoods
+    n_labels = plan.problem.model.n_labels
+    out = {"K": n_labels}
+    for precision in ("f32", "bf16"):
+        k = ops.fused_em_tick(*args, offsets=hoods.offsets, precision=precision, **kw)
+        p = ops.fused_em_tick(*args, precision=precision, backend="torch", **kw)
+        torch.cuda.synchronize()
+        err = compare_tick(torch, k, p, precision, f"fused_em_tick slice K={n_labels} {precision}")
+        if precision == "f32":
+            out["max_abs_err"] = err
+        row = {"phase": "fused_em_tick_check", "operands": "512x512 slice", "K": n_labels,
+               "precision": precision, "ok": True, "max_abs_err": err, "conv": bool(p[3])}
+        if n_labels >= 9:
+            row.update(check_tick_against_cpu(torch, ops, k, args, kw, precision, f"slice K={n_labels}"))
+        emit(row)
+    kern = lambda: ops.fused_em_tick(*args, offsets=hoods.offsets, **kw)
+    out["ms"] = time_ms(kern)
+    out["plain_ms"] = time_ms(lambda: ops.fused_em_tick(*args, backend="torch", **kw))
+    n_run = int(hoods.offsets[-1] - hoods.offsets[0])
+    nh, nv = hoods.n_hoods, hoods.n_regions + 1
+    n_bytes = (n_run * 6 * 4 + (nh + 1) * 4 + 2 * nv * 4 + (em_mod.WINDOW + 1) * nh * 4
+               + 2 * n_labels * 4 + 4                       # inputs
+               + nv * 4 + nh * 4 + n_labels * nv * 4 + 3 * n_labels * 4 + 4)  # outputs
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_run * n_labels * 16 + nv * 6)
+    out["bytes"] = n_bytes
+    if profile:
+        prof = device_profile(torch, lambda: [kern() for _ in range(20)])
+        emit({"phase": "profile", "what": f"20 fused_em_tick calls (K={n_labels})", **prof})
+        out["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
+    emit({"phase": "timing", "what": f"fused_em_tick K={n_labels}", **out})
+    return out
+
+
+def real_add_cases(torch, oversegment, sl) -> list:
+    """The main path's float ``add`` calls at a slice, as order-free cases:
+    the solve's neighbourhood sizes (``energy.make_static_context``: hood
+    validity by hood id into n_hoods + 1, ids hood-sorted) and the plan's
+    region intensity sums (``graph.region_stats``: the pixels by SLIC
+    superpixel into n_regions, raster order)."""
+    hoods, config = sl["plan"].problem.hoods, sl["config"]
+    image = sl["image"].to(torch.float32)
+    labels_px = oversegment.slic(image, grid=config.overseg_grid, iters=config.overseg_iters,
+                                 device=image.device)
+    n_regions = config.overseg_grid[0] * config.overseg_grid[1]
+    np_ = lambda t: t.reshape(-1).cpu().numpy()
+    return [
+        ("solve: neighbourhood sizes", np_(hoods.valid.float()), np_(hoods.hood_id), hoods.n_hoods + 1),
+        ("plan: region intensity sums", np_(image), np_(labels_px.to(torch.int32)), n_regions),
+    ]
+
+
+def segment_reduce_timing(torch, ops, hoods, profile: bool) -> dict:
+    """``segment_reduce`` timed at the solve's call (``add`` of the hoods'
+    validity into n_hoods + 1 segments) and, for ``min``, at the shape of
+    the faithful mode's per-element minimum (``repro/core/pmrf/energy.py``
+    min over K = 2 label energies: 2 x capacity values by hood-element lane,
+    sorted, into capacity + 1 segments; normal values from a seed).  Each
+    beside its plain version, one library call (``index_add_``;
+    ``scatter_reduce_(..., "amin")``) and its bound; device time under
+    ``--profile``."""
+    dev = hoods.hood_id.device
+    validf = hoods.valid.float()
+    n_seg = hoods.n_hoods + 1
+    ids_long = hoods.hood_id.long()
+    lib_out = torch.zeros(n_seg, device=dev)
+    add = lambda: ops.segment_reduce(validf, hoods.hood_id, n_seg, "add")
+    if not torch.equal(add(), lib_out.index_add_(0, ids_long, validf)):
+        fail("segment_reduce and index_add_ disagree on the neighbourhood sizes")
+    n = hoods.capacity
+    out = {"ms": time_ms(add),
+           "plain_ms": time_ms(lambda: ops.segment_reduce(validf, hoods.hood_id, n_seg, "add",
+                                                          backend="torch")),
+           "library_ms": time_ms(lambda: lib_out.zero_().index_add_(0, ids_long, validf)),
+           "shape": [n, n_seg]}
+    out["bound_ms"], out["bound_by"] = bound(n * 8 + n_seg * 4, n)
+
+    lane = torch.arange(n, dtype=torch.int32, device=dev)
+    min_ids = torch.where(hoods.valid, lane, n).repeat(2).sort().values.contiguous()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    min_vals = torch.randn(2 * n, generator=gen, device=dev)
+    min_ids_long = min_ids.long()
+    inf_out = torch.full((n + 1,), float("inf"), device=dev)
+    mn = lambda: ops.segment_reduce(min_vals, min_ids, n + 1, "min")
+    lib_min = lambda: inf_out.fill_(float("inf")).scatter_reduce_(0, min_ids_long, min_vals, "amin")
+    if not torch.equal(mn(), lib_min()):
+        fail("segment_reduce min and scatter_reduce_ amin disagree")
+    mins = {"ms": time_ms(mn),
+            "plain_ms": time_ms(lambda: ops.segment_reduce(min_vals, min_ids, n + 1, "min",
+                                                           backend="torch")),
+            "library_ms": time_ms(lib_min), "shape": [2 * n, n + 1]}
+    mins["bound_ms"], mins["bound_by"] = bound(2 * n * 8 + (n + 1) * 4, 2 * n)
+    if profile:
+        for what, fn, row in (("add at the solve's call", add, out), ("min, faithful shape", mn, mins)):
+            prof = device_profile(torch, lambda: [fn() for _ in range(20)])
+            emit({"phase": "profile", "what": f"20 segment_reduce calls ({what})", **prof})
+            row["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
+        for what, fn, row in (("index_add_", lambda: lib_out.zero_().index_add_(0, ids_long, validf), out),
+                              ("scatter_reduce_ amin", lib_min, mins)):
+            prof = device_profile(torch, lambda: [fn() for _ in range(20)])
+            row["library_device_ms"] = prof["device_busy_us"] / 20 * 1e-3
+    out["min"] = mins
+    emit({"phase": "timing", "what": "segment_reduce", **out})
+    return out
+
+
+def plain_solve_on_cpu(plan, config, seed: int):
+    """The plan's solve on the plain path with the problem copied to the
+    CPU, where the keyed sums add in element order (the JAX package's
+    order); the same initial parameters as on the card."""
+    from repro_torch.core.pmrf import convert, em as em_mod, pipeline
+
+    prob = plan.problem
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, seed, config.init)
+    d = {f: getattr(prob.hoods, f) for f in convert.HOODS_ARRAYS + convert.HOODS_SIZES}
+    d.update({f: getattr(prob.model, f) for f in convert.MODEL_FIELDS})
+    d.update(labels0=labels0, mu0=mu0, sigma0=sigma0)
+    t0 = time.perf_counter()
+    res = em_mod.run_em(*convert.problem_from_numpy(d, device="cpu"),
+                        config.with_(backend="torch").em_config())
+    return pipeline.assemble_result(prob, res, plan.init_seconds, time.perf_counter() - t0)
+
+
+def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases: int = 0) -> dict:
     """The main path: a 512x512 slice planned and solved through the
     session API, with the launch counts reset just before and read just
-    after; then the same plan solved on the plain path for comparison."""
+    after; then the same plan solved on the plain path for comparison.
+    The image has ``n_phases`` phases (default ``n_labels``); with fewer
+    phases than labels (K = 9, the tick's runtime-K variant, which sums in
+    element order) the solve must also give the status and iteration
+    counts of the plain path on the CPU, which sums in element order too
+    (``plain_solve_on_cpu``)."""
     size, grid, seed = SLICE["size"], SLICE["grid"], SLICE["seed"]
-    if n_labels == 2:
+    n_phases = n_phases or n_labels
+    if n_phases == 2:
         vol = synthetic.make_synthetic_volume(seed=seed, n_slices=1, shape=(size, size), device=dev)
     else:
-        vol = synthetic.make_kary_volume(seed=seed, n_slices=1, shape=(size, size), n_phases=n_labels, device=dev)
+        vol = synthetic.make_kary_volume(seed=seed, n_slices=1, shape=(size, size), n_phases=n_phases, device=dev)
     config = api.ExecutionConfig(
         mode="static-pallas", n_labels=n_labels, overseg_grid=(grid, grid), init="quantile"
     )
@@ -313,7 +611,7 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int) -> dict:
     hoods = plan.problem.hoods
     sizes = {"n_regions": hoods.n_regions, "n_hoods": hoods.n_hoods,
              "n_elements": hoods.n_elements, "capacity": hoods.capacity}
-    emit({"phase": "problem_sizes", "K": n_labels, **sizes})
+    emit({"phase": "problem_sizes", "K": n_labels, "phases": n_phases, **sizes})
 
     gt = vol.ground_truth[0]
 
@@ -331,7 +629,7 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int) -> dict:
     acc, acc_p = accuracy(res), accuracy(res_p)
     agree = float((res.segmentation == res_p.segmentation).mean())
     out = {
-        "phase": "slice", "K": n_labels, "size": size, "grid": grid,
+        "phase": "slice", "K": n_labels, "phases": n_phases, "size": size, "grid": grid,
         "plan_s": plan.init_seconds, "optimize_s": res.optimize_seconds,
         "em_iters": res.em_iters, "map_iters": res.map_iters, "status": res.status,
         "accuracy": acc, "launches": launches,
@@ -350,7 +648,16 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int) -> dict:
         fail(f"kernel path and plain path agree on {agree:.4f} of the pixels")
     if acc < acc_p - 0.01:
         fail(f"kernel-path accuracy {acc} more than 0.01 below the plain path's {acc_p}")
-    out.update(plan=plan, config=config, result=res, accuracy_of=accuracy)
+    if n_phases != n_labels:
+        cpu = plain_solve_on_cpu(plan, config, seed)
+        emit({"phase": "slice_plain_cpu", "K": n_labels, "status": cpu.status,
+              "em_iters": cpu.em_iters, "map_iters": cpu.map_iters,
+              "pixel_agreement": float((res.segmentation == cpu.segmentation).mean())})
+        trajectory = lambda r: (r.status, r.em_iters, r.map_iters)
+        if trajectory(res) != trajectory(cpu):
+            fail(f"K={n_labels} solve: status and iterations {trajectory(res)}, "
+                 f"plain path on the CPU {trajectory(cpu)}")
+    out.update(plan=plan, config=config, result=res, accuracy_of=accuracy, image=vol.images[0])
     return out
 
 
@@ -423,6 +730,40 @@ def check_map_step(torch, ops, D, E, em_mod, plan, n_labels: int):
           "K": n_labels, "ok": True, "max_abs_err": err, "blocks": 4, "block": block,
           "votes_cast": int(k[3].sum().item()), "tied_vertices": tied})
     return err, args, kw
+
+
+def check_map_step_long_hoods(torch, ops, dev) -> float:
+    """fused_map_step on hoods of 100 and 300 elements, each spanning 4 to
+    11 warps (``tick_problems.long_hood_map_step_problem``), K = 2 and 3:
+    20 calls give bitwise equal hood sums, equal bit for bit to the numpy
+    model of the order-free sum over the kernel's ``min_e * valid``; against
+    the plain version the tiers of ``compare_map_step``.  Returns the
+    largest error against the plain version."""
+    from repro_torch.testing import segsum
+    from repro_torch.testing.tick_problems import long_hood_map_step_problem
+
+    worst, rows = 0.0, []
+    for n_labels in (2, 3):
+        arrays, kw = long_hood_map_step_problem(n_labels, n_labels)
+        args = [torch.from_numpy(a).to(dev) for a in arrays]
+        k = ops.fused_map_step(*args, 0.75, **kw)
+        p = ops.fused_map_step(*args, 0.75, **kw, backend="torch")
+        torch.cuda.synchronize()
+        worst = max(worst, compare_map_step(torch, k, p, f"fused_map_step long hoods K={n_labels}"))
+        first = bits(k[2])
+        repeats_equal = all(np.array_equal(bits(ops.fused_map_step(*args, 0.75, **kw)[2]), first)
+                            for _ in range(REPEATS - 1))
+        valid, hood_id = arrays[5], arrays[6]
+        part = k[0].cpu().numpy() * valid
+        keys = np.where(valid > 0, hood_id, -1).astype(np.int32)
+        model_equal = np.array_equal(segsum.segment_sum(part, keys, kw["n_hoods"]).view(np.uint32), first)
+        row = {"K": n_labels, "hood_sizes": [100, 300], "elements": len(valid), "repeats": REPEATS,
+               "hood_e_repeats_bitwise_equal": repeats_equal, "hood_e_model_bitwise_equal": model_equal}
+        rows.append(row)
+        if not (repeats_equal and model_equal):
+            fail(f"fused_map_step long hoods: hood_e not order-fixed or not the model's: {row}")
+    emit({"phase": "fused_map_step_long_hood_check", "ok": True, "max_abs_err": worst, "cases": rows})
+    return worst
 
 
 def check_mrf_energy(torch, ops, args) -> tuple:
@@ -887,7 +1228,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
 
     from repro_torch import api
-    from repro_torch.core import metrics, synthetic
+    from repro_torch.core import metrics, oversegment, synthetic
     from repro_torch.core.pmrf import em as em_mod
     from repro_torch.core.pmrf import energy as E
     from repro_torch.kernels import _build, ops
@@ -913,6 +1254,8 @@ def main(argv=None) -> int:
         fail(f"flash_attention spills {ptxas['spill_bytes']} bytes (ptxas)")
 
     sr_err = check_segment_reduce(torch, ops, dev)
+    check_segment_reduce_order_free(torch, ops, dev, random_add_cases())
+    check_segment_reduce_nonfinite(torch, ops, dev)
     check_tick_synthetic(torch, ops, dev)
     flash_err = check_flash(torch, ops, dev)
     check_flash_peaked(torch, ops, dev)
@@ -920,62 +1263,28 @@ def main(argv=None) -> int:
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
     plan = slice2["plan"]
 
-    # The tick at the slice's real operands: check and time.
-    args, kw = real_tick_operands(torch, plan, E, em_mod)
     hoods = plan.problem.hoods
-    tick_err = 0.0
-    for precision in ("f32", "bf16"):
-        k = ops.fused_em_tick(*args, offsets=hoods.offsets, precision=precision, **kw)
-        p = ops.fused_em_tick(*args, precision=precision, backend="torch", **kw)
-        torch.cuda.synchronize()
-        err = compare_tick(torch, k, p, precision, f"fused_em_tick slice {precision}")
-        if precision == "f32":
-            tick_err = err
-        emit({"phase": "fused_em_tick_check", "operands": "512x512 slice", "K": 2,
-              "precision": precision, "ok": True, "max_abs_err": err, "conv": bool(p[3])})
-    tick_ms = time_ms(lambda: ops.fused_em_tick(*args, offsets=hoods.offsets, **kw))
-    tick_plain_ms = time_ms(lambda: ops.fused_em_tick(*args, backend="torch", **kw))
-    n_labels = 2
-    n_run = int(hoods.offsets[-1] - hoods.offsets[0])
-    nh, nv = hoods.n_hoods, hoods.n_regions + 1
-    tick_bytes = (n_run * 6 * 4 + (nh + 1) * 4 + 2 * nv * 4 + (em_mod.WINDOW + 1) * nh * 4
-                  + 2 * n_labels * 4 + 4                       # inputs
-                  + nv * 4 + nh * 4 + n_labels * nv * 4 + 3 * n_labels * 4 + 4)  # outputs
-    tick_ops = n_run * n_labels * 16 + nv * 6
-    tick_bound, tick_by = bound(tick_bytes, tick_ops)
+    check_segment_reduce_order_free(torch, ops, dev, real_add_cases(torch, oversegment, slice2))
+    tick2 = check_time_tick(torch, ops, E, em_mod, plan, profile)
 
-    # segment_reduce at the solve's call: neighbourhood sizes.
-    validf = hoods.valid.float()
-    n_seg = nh + 1
-    sr = lambda: ops.segment_reduce(validf, hoods.hood_id, n_seg, "add")
-    sr_ms = time_ms(sr)
-    sr_plain_ms = time_ms(lambda: ops.segment_reduce(validf, hoods.hood_id, n_seg, "add", backend="torch"))
-    ids_long = hoods.hood_id.long()
-    lib_out = torch.zeros(n_seg, device=dev)
-    sr_lib_ms = time_ms(lambda: lib_out.zero_().index_add_(0, ids_long, validf))
-    if not torch.equal(sr(), lib_out):
-        fail("segment_reduce and index_add_ disagree on the neighbourhood sizes")
-    n = hoods.capacity
-    sr_bound, sr_by = bound(n * 8 + n_seg * 4, n)
+    # segment_reduce at the solve's call (neighbourhood sizes), and its min
+    # at the shape of the faithful mode's per-element minimum.
+    sr = segment_reduce_timing(torch, ops, hoods, profile)
     if profile:
-        # Device time alone: the per-call times above include the host's share.
-        emit({"phase": "profile", "what": "20 fused_em_tick calls",
-              **device_profile(torch, lambda: [ops.fused_em_tick(*args, offsets=hoods.offsets, **kw) for _ in range(20)])})
-        emit({"phase": "profile", "what": "20 segment_reduce calls",
-              **device_profile(torch, lambda: [sr() for _ in range(20)])})
         solve = api.Segmenter(
             api.ExecutionConfig(n_labels=2, overseg_grid=(SLICE["grid"],) * 2, init="quantile"), device=dev
         )
-        wall = min(solve.execute(plan, seed=SLICE["seed"]).optimize_seconds for _ in range(3))
+        walls = spread([solve.execute(plan, seed=SLICE["seed"]).optimize_seconds for _ in range(SOLVES)])
+        wall = walls["min"]
         prof = device_profile(torch, lambda: solve.execute(plan, seed=SLICE["seed"]))
         emit({"phase": "profile", "what": "K=2 slice solve (execute)", "optimize_s_unprofiled": wall,
+              "optimize_s_spread": walls,
               "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / wall, **prof})
-    emit({"phase": "timing", "fused_em_tick_ms": tick_ms, "fused_em_tick_plain_ms": tick_plain_ms,
-          "segment_reduce_ms": sr_ms, "segment_reduce_plain_ms": sr_plain_ms,
-          "segment_reduce_index_add_ms": sr_lib_ms, "tick_bytes": tick_bytes,
-          "segment_reduce_shape": [n, n_seg]})
 
     slice3 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=3)
+    # K = 9 on the three-phase image: the tick's runtime-K variant on the main path.
+    slice9 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=9, n_phases=3)
+    tick9 = check_time_tick(torch, ops, E, em_mod, slice9["plan"], profile)
 
     # Second path: the sharded route's kernels at the slices' operands.
     from repro_torch.core.pmrf import distributed as D
@@ -983,6 +1292,7 @@ def main(argv=None) -> int:
 
     ms_err, ms_args, ms_kw = check_map_step(torch, ops, D, E, em_mod, plan, 2)
     ms_err = max(ms_err, check_map_step(torch, ops, D, E, em_mod, slice3["plan"], 3)[0])
+    ms_err = max(ms_err, check_map_step_long_hoods(torch, ops, dev))
     mrf_err, mrf_args = check_mrf_energy(torch, ops, ms_args)
 
     # The sharded route end to end, over a one-rank NCCL group.
@@ -994,10 +1304,11 @@ def main(argv=None) -> int:
         sharded = {sl["K"]: run_sharded(torch, D, pipeline, ops, sl) for sl in (slice2, slice3)}
         if profile:
             solve = sharded[2]["solve"]
-            wall = min(solve().optimize_seconds for _ in range(3))
+            walls = spread([solve().optimize_seconds for _ in range(SOLVES)])
+            wall = walls["min"]
             prof = device_profile(torch, solve)
             emit({"phase": "profile", "what": "K=2 sharded solve (distributed_em, 1 rank)",
-                  "optimize_s_unprofiled": wall,
+                  "optimize_s_unprofiled": wall, "optimize_s_spread": walls,
                   "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / wall, **prof})
     finally:
         dist.destroy_process_group()
@@ -1033,19 +1344,19 @@ def main(argv=None) -> int:
 
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
+    tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
          "replaces": "src/repro/kernels/em_tick.py:253",
-         "launches": launches["fused_em_tick"], "max_abs_err": tick_err,
-         "ms": tick_ms, "plain_ms": tick_plain_ms, "bound_ms": tick_bound,
-         "bound_by": tick_by, "library_ms": None},
+         "launches": launches["fused_em_tick"], **{k: tick2[k] for k in tick_keys if k in tick2},
+         "library_ms": None,
+         "K9": {"launches": slice9["launches"]["fused_em_tick"],
+                **{k: tick9[k] for k in tick_keys if k in tick9}}},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",
-         "launches": launches["segment_reduce"], "max_abs_err": sr_err,
-         "ms": sr_ms, "plain_ms": sr_plain_ms, "bound_ms": sr_bound,
-         "bound_by": sr_by, "library_ms": sr_lib_ms},
+         "launches": launches["segment_reduce"], "max_abs_err": sr_err, **sr},
         {"name": "fused_map_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/map_step.cu",
          "replaces": "src/repro/kernels/map_step.py:148",

@@ -9,12 +9,13 @@
 //
 // What bounds it on an H100: memory and launch time.  Each element is read
 // once (y, w, nall, xf, valid, hood_id, vertex and its K counts: 28 + 4K B)
-// and writes min_e and arg (8 B); the keyed sums add one vote atomic per
-// valid element and about one hood atomic per warp.  At a 512x512 slice
-// that is about 2 MB, well under a microsecond of HBM time, so the launch
-// dominates.  There is no tensor-core work.
+// and writes min_e and arg (8 B); the hood sums read min_e, valid and the
+// hood id once more, and the keyed sums add one vote atomic per valid
+// element and a few hood atomics per warp.  At a 512x512 slice that is
+// about 2 MB, well under a microsecond of HBM time, so the launches
+// dominate.  There is no tensor-core work.
 //
-// Design: one thread per element, one launch.
+// Design: one thread per element.
 //   * The per-label terms (mu, 2 sigma^2, log sigma) are formed once per
 //     block in shared memory; K is a runtime count, so any K works.
 //   * Each thread computes its K energies in registers with the op order of
@@ -22,45 +23,48 @@
 //     go to the lowest label) and writes both, padding lanes included.
 //   * Lanes with valid == 0 add nothing: a padded problem's padding lanes
 //     all carry one sentinel id, and their atomics would serialise on it.
-//   * Hood sums: elements arrive sorted by hood inside a shard's block, so
-//     a warp sums each run of equal hood ids among its lanes (a segmented
-//     shuffle reduction) and its first lane issues one atomicAdd.  Unsorted
-//     ids only make more, shorter runs: the result does not depend on the
-//     order.
+//   * Hood sums, order-fixed: the order-free keyed sum of segsum.cuh over
+//     min_e * valid.  The main launch also does its exponent pass (each
+//     warp combines its runs of equal hood ids, then one integer atomicMax
+//     per run); a sum pass then adds each value on its hood's fixed-point
+//     grid with 64-bit integer atomics, and a read-out rounds each hood's
+//     sum once.  The sum is the same bit for bit whatever the warps'
+//     schedule and whatever the order of the elements, so a hood that spans
+//     many warps gets one answer; a NaN energy gives a NaN hood sum.
 //   * Votes: one atomicAdd of the lane's valid weight (1.0) into
 //     votes[arg * n_vertices + vertex].  Votes are integers below 2^24, so
 //     the sum is exact in any order.
-// The caller zeroes hood_e and votes.
+// Three launches in all.  The caller zeroes the votes and the workspace.
 //
 // Arithmetic: every energy op is an explicitly rounded intrinsic (__fmul_rn,
 // __fdiv_rn, ...) so nvcc cannot contract it into an FMA and each op rounds
 // as PyTorch's separate ops do: min_e, arg and votes equal the plain version
-// bit for bit.  hood_e is summed in another order (shuffle tree, then
-// atomics) and agrees to rounding.
+// bit for bit.  hood_e is a fixed-point sum rounded once, so it agrees with
+// the plain version's element-order float sum to rounding.
 
 #include <cuda_runtime.h>
+
+#include "segsum.cuh"
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-constexpr unsigned kFull = 0xffffffffu;
 
-// Sum `v` over each run of lanes that hold the same `key`; the first lane of
-// a run returns the run's sum (other lanes return partial sums).
-__device__ __forceinline__ float run_sum(int key, float v, int lane, bool* first) {
-  const int prev = __shfl_up_sync(kFull, key, 1);
-  *first = lane == 0 || prev != key;
-  const unsigned heads = __ballot_sync(kFull, *first);
-  const unsigned later = heads & ~((2u << lane) - 1u);  // run starts after this lane
-  const int last = later ? __ffs(later) - 2 : kWarp - 1;  // last lane of this run
-#pragma unroll
-  for (int o = 1; o < kWarp; o <<= 1) {
-    const float up = __shfl_down_sync(kFull, v, o);
-    if (lane + o <= last) v = __fadd_rn(v, up);
+// The hood sums' source: min_e * valid of each valid element with a hood
+// id in range (the product the main kernel forms), keyed by that hood.
+struct HoodEnergy {
+  const float* min_e;
+  const float* valid;
+  const int* hood_id;
+  int n_hoods;
+  __device__ int operator()(long long e, float* v) const {
+    const float vv = valid[e];
+    const int h = hood_id[e];
+    *v = __fmul_rn(min_e[e], vv);
+    return (vv > 0.0f && h >= 0 && h < n_hoods) ? h : -1;
   }
-  return v;
-}
+};
 
 __global__ void __launch_bounds__(kThreads) map_step_kernel(
     const float* __restrict__ y, const float* __restrict__ w,
@@ -70,7 +74,7 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(
     const float* __restrict__ mu, const float* __restrict__ sigma,
     const float* __restrict__ beta_p, long long n, int n_labels, int n_hoods,
     int n_vertices, float* __restrict__ min_e, int* __restrict__ arg_out,
-    float* __restrict__ hood_e, float* __restrict__ votes) {
+    segsum::Workspace ws, float* __restrict__ votes) {
   extern __shared__ float terms[];  // [mu | 2 sigma^2 | log sigma], K each
   for (int l = threadIdx.x; l < n_labels; l += blockDim.x) {
     const float s = sigma[l];
@@ -123,9 +127,7 @@ __global__ void __launch_bounds__(kThreads) map_step_kernel(
       }
     }
   }
-  bool first;
-  const float sum = run_sum(key, part, lane, &first);  // every lane takes part
-  if (first && key >= 0) atomicAdd(hood_e + key, sum);
+  segsum::note_exponent(key, part, lane, ws);  // every lane takes part
 }
 
 }  // namespace
@@ -138,24 +140,28 @@ const char* repro_error_string(int code) {
 
 // Inputs: y, w, nall, xf, valid (n,) f32; cnt (n_labels, n) f32; hood_id,
 // vertex (n,) i32; mu, sigma (n_labels,) f32; beta (1,) f32.  Outputs:
-// min_e (n,) f32; arg (n,) i32; hood_e (n_hoods,) f32 and votes
-// (n_labels, n_vertices) f32, both zeroed by the caller.  Returns
-// cudaGetLastError() after the launch.
+// min_e (n,) f32; arg (n,) i32; hood_e (n_hoods,) f32; votes (n_labels,
+// n_vertices) f32, zeroed by the caller.  workspace: 16 B per hood, zeroed
+// by the caller.  Returns cudaGetLastError() after the launches.
 int repro_fused_map_step(const float* y, const float* w, const float* cnt,
                          const float* nall, const float* xf, const float* valid,
                          const int* hood_id, const int* vertex, const float* mu,
                          const float* sigma, const float* beta, long long n,
                          int n_labels, int n_hoods, int n_vertices, float* min_e,
-                         int* arg, float* hood_e, float* votes, void* stream) {
+                         int* arg, float* hood_e, float* votes, void* workspace,
+                         void* stream) {
   if (n_labels < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const segsum::Workspace ws = segsum::carve(workspace, n_hoods);
   if (n > 0) {
     const long long blocks = (n + kThreads - 1) / kThreads;
     const size_t smem = 3 * static_cast<size_t>(n_labels) * sizeof(float);
-    map_step_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+    map_step_kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, s>>>(
         y, w, cnt, nall, xf, valid, hood_id, vertex, mu, sigma, beta, n,
-        n_labels, n_hoods, n_vertices, min_e, arg, hood_e, votes);
+        n_labels, n_hoods, n_vertices, min_e, arg, ws, votes);
+    if (cudaPeekAtLastError() != cudaSuccess) return static_cast<int>(cudaGetLastError());
   }
+  segsum::launch_sum(HoodEnergy{min_e, valid, hood_id, n_hoods}, n, n_hoods, ws, hood_e, s);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -3,10 +3,12 @@
 Counterpart of ``repro.kernels.em_tick.fused_em_tick_pallas``: the whole
 tick of the static-pallas route (counts, energies, min/argmin, hood sums,
 votes, labels, M-step sums, convergence flag) in two launches on the
-current stream.  The kernel walks each hood as a contiguous run of the
-(hood, vertex)-sorted element arrays, so besides the JAX signature it
-takes ``offsets``, the (n_hoods + 1,) run boundaries (``Hoods.offsets``).
-``ref.fused_em_tick`` is its plain version.
+current stream, for any K from 2 to ``MAX_LABELS``.  The kernel walks
+each hood as a contiguous run of the (hood, vertex)-sorted element
+arrays, so besides the JAX signature it takes ``offsets``, the
+(n_hoods + 1,) run boundaries (``Hoods.offsets``).  ``ref.fused_em_tick``
+is its plain version; from K = 9 on the kernel adds its float sums in
+that version's element order.
 """
 
 from __future__ import annotations
@@ -19,7 +21,13 @@ import torch
 
 from repro_torch.kernels import _build
 
-MAX_LABELS = 8  # the kernel is instantiated for K = 2 .. MAX_LABELS
+#: Most labels the kernel takes (5,282).  K = 2..8 are template
+#: instantiations; any larger K runs a runtime-K variant whose hood pass
+#: holds 3 K per-label terms and K counts for each of its 8 warps in shared
+#: memory: 44 K bytes a block, within the 227 KB (232,448 bytes) a block
+#: may use on an H100.
+SMEM_PER_BLOCK = 232_448
+MAX_LABELS = SMEM_PER_BLOCK // (4 * (3 + 8))
 
 #: Launches of the kernel in this process (``ops.launch_counts``).
 launches = 0
@@ -79,12 +87,16 @@ def fused_em_tick_cuda(
     global launches
     if precision not in ("f32", "bf16"):
         raise ValueError(f"unknown precision {precision!r}; have ('f32', 'bf16')")
+    n_labels = int(mu.shape[0])
+    if not 2 <= n_labels <= MAX_LABELS:
+        raise ValueError(
+            f"fused_em_tick_cuda takes 2..{MAX_LABELS} labels, got {n_labels}: above that "
+            f"the hood pass's shared memory passes the {SMEM_PER_BLOCK} bytes (227 KB) "
+            "a block may use on an H100"
+        )
     if not y.is_cuda:
         raise ValueError(f"fused_em_tick_cuda needs CUDA tensors, got {y.device}")
     dev = y.device
-    n_labels = int(mu.shape[0])
-    if not 2 <= n_labels <= MAX_LABELS:
-        raise ValueError(f"fused_em_tick_cuda takes 2..{MAX_LABELS} labels, got {n_labels}")
     h = int(y.shape[0])
     f32, i32 = torch.float32, torch.int32
     for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("xf", xf), ("valid", valid)):

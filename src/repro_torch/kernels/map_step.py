@@ -1,10 +1,13 @@
 """CUDA MAP step: ``csrc/map_step.cu`` bound through ``ctypes``.
 
 Counterpart of ``repro.kernels.map_step.fused_map_step_pallas``: given each
-element's neighbourhood label counts, one launch computes the K label
-energies, the per-element min/argmin, the per-hood energy sums and the
-(label, vertex) votes.  It is the kernel of the sharded static-pallas
-route, where the counts before it and the sums after it cross shards.
+element's neighbourhood label counts, it computes the K label energies,
+the per-element min/argmin, the per-hood energy sums and the (label,
+vertex) votes, in three launches on the current stream.  The hood sums
+are order-free (``csrc/segsum.cuh``): the same bit for bit from call to
+call and whatever the order of the elements.  It is the kernel of the
+sharded static-pallas route, where the counts before it and the sums
+after it cross shards.
 ``ref.fused_map_step`` is its plain version.
 """
 
@@ -28,8 +31,9 @@ _ARGTYPES = [
     _P, _P, _P, _P, _P,            # hood_id, vertex, mu, sigma, beta
     ctypes.c_longlong, _I, _I, _I,  # n, n_labels, n_hoods, n_vertices
     _P, _P, _P, _P,                # min_e, arg, hood_e, votes
-    _P,                            # stream
+    _P, _P,                        # workspace, stream
 ]
+_WORKSPACE_FLOATS = 4  # per hood: the order-free hood sum's int64 sum, exponent key, flags
 _kernel = None
 
 _require = functools.partial(_build.require, "fused_map_step_cuda")
@@ -84,9 +88,10 @@ def fused_map_step_cuda(
 
     min_e = torch.empty((h,), dtype=f32, device=dev)
     arg = torch.empty((h,), dtype=i32, device=dev)
-    sums = torch.zeros((n_hoods + n_labels * n_vertices,), dtype=f32, device=dev)  # one memset
-    hood_e = sums[:n_hoods]
-    votes = sums[n_hoods:].view(n_labels, n_vertices)
+    hood_e = torch.empty((n_hoods,), dtype=f32, device=dev)
+    ws_len = _WORKSPACE_FLOATS * n_hoods
+    zeroed = torch.zeros((ws_len + n_labels * n_vertices,), dtype=f32, device=dev)  # one memset
+    votes = zeroed[ws_len:].view(n_labels, n_vertices)
     kernel = _bind()
     with torch.cuda.device(dev):
         kernel(
@@ -95,7 +100,7 @@ def fused_map_step_cuda(
             mu.data_ptr(), sigma.data_ptr(), beta_t.data_ptr(),
             h, n_labels, n_hoods, n_vertices,
             min_e.data_ptr(), arg.data_ptr(), hood_e.data_ptr(), votes.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            zeroed.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     launches += 1
     return min_e, arg, hood_e, votes

@@ -1,7 +1,10 @@
 """CUDA ReduceByKey: ``csrc/segment_reduce.cu`` bound through ``ctypes``.
 
 Counterpart of ``repro.kernels.segment_reduce.segment_reduce_pallas``.
-The kernel is one atomic per element (see the note in the source);
+Float ``add`` is order-free: the kernel sums on a fixed-point grid per
+segment with integer atomics (``csrc/segsum.cuh``), so its result is the
+same bit for bit whatever order the ids come in;
+``repro_torch.testing.segsum`` models it.  ``min`` lets a NaN win.
 ``ref.segment_reduce`` is its plain version.
 """
 
@@ -20,7 +23,8 @@ launches = 0
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P]
+_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P]
+_WORKSPACE_BYTES = 16  # per segment, for ``add``: int64 sum, exponent key, flags
 _kernel = None
 
 
@@ -61,13 +65,19 @@ def segment_reduce_cuda(
         raise ValueError("segment_reduce_cuda takes contiguous tensors")
     if num_segments < 0 or num_segments > 2**31 - 1:
         raise ValueError(f"num_segments out of range: {num_segments}")
-    fill = 0.0 if op == "add" else float("inf")
-    out = torch.full((num_segments,), fill, dtype=torch.float32, device=values.device)
+    dev = values.device
+    if op == "add":
+        out = torch.empty((num_segments,), dtype=torch.float32, device=dev)
+        workspace = torch.empty((num_segments * _WORKSPACE_BYTES,), dtype=torch.uint8, device=dev)
+        ws_ptr = workspace.data_ptr()
+    else:
+        out = torch.full((num_segments,), float("inf"), dtype=torch.float32, device=dev)
+        ws_ptr = None
     kernel = _bind()
-    with torch.cuda.device(values.device):
+    with torch.cuda.device(dev):
         kernel(
             values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            values.numel(), num_segments, _OPS[op],
+            values.numel(), num_segments, _OPS[op], ws_ptr,
             torch.cuda.current_stream().cuda_stream,
         )
     launches += 1

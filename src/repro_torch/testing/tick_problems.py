@@ -59,3 +59,39 @@ def sorted_tick_problem(
         arrays[i] = np.ascontiguousarray(arrays[i][order])
     offsets = np.searchsorted(arrays[5], np.arange(n_hoods + 1)).astype(np.int32)
     return arrays, offsets
+
+
+def long_hood_map_step_problem(
+    seed: int,
+    n_labels: int,
+    sizes: Tuple[int, ...] = (100, 300),
+    n_hoods: int = 64,
+    n_vertices: int = 1025,
+    n_pad: int = 700,
+) -> Tuple[List[np.ndarray], dict]:
+    """Operands of ``fused_map_step`` (``y, w, cnt_e, nall_e, xf, valid,
+    hood_id, vertex, mu, sigma`` and its keywords) whose hoods hold
+    ``sizes`` elements in turn, sorted by hood as a shard's block is, then
+    ``n_pad`` padding lanes (``valid == 0``, hood id ``n_hoods``).  The
+    counts are those of each hood's labels, so ``cnt_e`` and ``nall_e``
+    agree as the route makes them."""
+    rng = np.random.default_rng(seed)
+    lengths = np.resize(np.asarray(sizes), n_hoods)
+    hood_id = np.concatenate(
+        [np.repeat(np.arange(n_hoods), lengths), np.full(n_pad, n_hoods)]
+    ).astype(np.int32)
+    n = hood_id.shape[0]
+    valid = (hood_id < n_hoods).astype(np.float32)
+    vertex = np.where(valid > 0, rng.integers(0, n_vertices - 1, n), n_vertices - 1).astype(np.int32)
+    labels = rng.integers(0, n_labels, n_vertices).astype(np.int32)
+    xf = labels[vertex].astype(np.float32) * valid
+    counts = np.zeros((n_hoods + 1, n_labels), np.float32)
+    np.add.at(counts, (hood_id, xf.astype(np.int64)), valid)
+    cnt_e = np.ascontiguousarray(counts[hood_id].T)
+    nall_e = counts.sum(axis=1)[hood_id].astype(np.float32)
+    y = rng.normal(100, 30, n).astype(np.float32) * valid
+    w = rng.random(n).astype(np.float32) * valid
+    mu = np.linspace(60, 140, n_labels).astype(np.float32)
+    sigma = np.linspace(8, 14, n_labels).astype(np.float32)
+    arrays = [y, w, cnt_e, nall_e, xf, valid, hood_id, vertex, mu, sigma]
+    return arrays, dict(n_hoods=n_hoods, n_vertices=n_vertices)

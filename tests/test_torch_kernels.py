@@ -8,7 +8,8 @@ both sides.  Tolerances:
 
 * ``segment_reduce``: integer-valued ``add`` and every ``min`` exact;
   random-float ``add`` within rtol 1e-6 (both sum in element order on
-  the CPU, so in practice they agree bit for bit).
+  the CPU, so in practice they agree bit for bit); NaN and infinities
+  exact, NaN equal to NaN.
 * ``fused_em_tick`` at f32: labels, votes and the convergence flag exact;
   hood energies and M-step sums within rtol 1e-5.  At bf16 the drift tier
   of ``tests/test_golden.py``: at least 95 % label agreement, sums and
@@ -27,7 +28,7 @@ from repro.kernels import em_tick as jax_em_tick
 from repro.kernels import ref as jax_ref
 
 import repro_torch
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, em_tick, ops
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.em_tick import fused_em_tick_cuda
 from repro_torch.kernels.segment_reduce import segment_reduce_cuda
@@ -90,6 +91,22 @@ def test_segment_reduce_empty_segments_and_padding():
         np.testing.assert_array_equal(got, np.asarray(want))
 
 
+def test_segment_reduce_nonfinite_matches_jax():
+    """NaN wins in ``add`` and ``min``; +inf with -inf sums to NaN, one
+    infinity to itself; an empty segment gives 0 / +inf (NaN equal to NaN)."""
+    vals = np.array([1, np.nan, 3, -np.inf, np.inf, 2, np.inf, 5, -np.inf, np.nan, -7, -np.inf],
+                    np.float32)
+    ids = np.array([0, 0, 1, 2, 2, 3, 5, 5, 6, 6, PAD_ID, 7], np.int32)
+    for op in ("add", "min"):
+        got = ops.segment_reduce(torch.from_numpy(vals), torch.from_numpy(ids), 9, op).numpy()
+        want = np.asarray(jax_ref.segment_reduce(jnp.asarray(vals), jnp.asarray(ids), 9, op))
+        np.testing.assert_array_equal(got, want, err_msg=op)
+    add = ops.segment_reduce(torch.from_numpy(vals), torch.from_numpy(ids), 9, "add").numpy()
+    mn = ops.segment_reduce(torch.from_numpy(vals), torch.from_numpy(ids), 9, "min").numpy()
+    np.testing.assert_array_equal(add, [np.nan, 3, np.nan, 2, 0, np.inf, np.nan, -np.inf, 0])
+    np.testing.assert_array_equal(mn, [np.nan, 3, -np.inf, 2, np.inf, 5, np.nan, -np.inf, np.inf])
+
+
 def _compare_tick(want, got, precision):
     labels_w, hood_w, votes_w, conv_w, *sums_w = [np.asarray(x) for x in want]
     labels_g, hood_g, votes_g, conv_g, *sums_g = [x.numpy() for x in got]
@@ -111,7 +128,7 @@ TICK_KW = dict(n_hoods=37, n_vertices=61, conv_tol=1e-4)
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("n_labels", [2, 3, 5])
+@pytest.mark.parametrize("n_labels", [2, 3, 5, 9, 16])
 def test_fused_em_tick_matches_jax(n_labels, precision):
     arrays = random_tick_problem(n_labels, n_labels, 37, 61, 900)
     want = jax_ref.fused_em_tick(*_jax(arrays), 0.75, precision=precision, **TICK_KW)
@@ -119,7 +136,7 @@ def test_fused_em_tick_matches_jax(n_labels, precision):
     _compare_tick(want, got, precision)
 
 
-@pytest.mark.parametrize("n_labels", [2, 3, 5])
+@pytest.mark.parametrize("n_labels", [2, 3, 5, 9, 16])
 def test_fused_em_tick_sorted_layout(n_labels):
     """The (hood, vertex)-sorted layout the CUDA kernel takes: offsets
     delimit each hood's run, and the results match the reference on the
@@ -189,6 +206,26 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_building():
     for backend in ("cuda", "xla"):
         with pytest.raises(ValueError, match="backend"):
             ops.segment_reduce(torch.ones(5), torch.zeros(5, dtype=torch.int32), 3, backend=backend)
+    assert _build._libs == {}
+
+
+def test_fused_em_tick_label_limit_names_shared_memory():
+    """Any K from 2 to MAX_LABELS reaches the kernel (K >= 9 by its runtime-K
+    variant); above that the wrapper refuses and names the 227 KB a block
+    may use, before it looks at the device or builds anything."""
+    assert em_tick.MAX_LABELS == em_tick.SMEM_PER_BLOCK // 44 == 5282
+    for k in (9, 16, 33, em_tick.MAX_LABELS):
+        arrays = random_tick_problem(0, 2, 37, 61, 300)
+        arrays[FIELDS.index("mu")] = np.linspace(60, 140, k).astype(np.float32)
+        arrays[FIELDS.index("sigma")] = np.linspace(8, 14, k).astype(np.float32)
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_em_tick_cuda(*_torch(arrays), 0.75, offsets=torch.zeros(38, dtype=torch.int32),
+                               **TICK_KW)
+    arrays[FIELDS.index("mu")] = np.zeros(em_tick.MAX_LABELS + 1, np.float32)
+    arrays[FIELDS.index("sigma")] = np.ones(em_tick.MAX_LABELS + 1, np.float32)
+    with pytest.raises(ValueError, match="227 KB"):
+        fused_em_tick_cuda(*_torch(arrays), 0.75, offsets=torch.zeros(38, dtype=torch.int32),
+                           **TICK_KW)
     assert _build._libs == {}
 
 

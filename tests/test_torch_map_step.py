@@ -9,7 +9,8 @@ to both sides; they include padding lanes (``valid == 0``), hood and
 vertex ids past the segment counts, and exact ties between labels.
 Tolerances: ``min_e``, ``arg`` and ``votes`` exact (votes are integers);
 ``hood_e`` within rtol 1e-5 / atol 1e-4 (both sum in element order on the
-CPU, so in practice they agree bit for bit).
+CPU, so in practice they agree bit for bit; the kernel's order-free hood
+sum, modelled by ``repro_torch.testing.segsum``, rounds once).
 """
 
 import jax.numpy as jnp
@@ -23,6 +24,8 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.map_step import fused_map_step_cuda
 from repro_torch.kernels.mrf_energy import mrf_min_energy_cuda
+from repro_torch.testing import segsum
+from repro_torch.testing.tick_problems import long_hood_map_step_problem
 
 N_HOODS, N_VERTICES = 57, 81
 
@@ -92,6 +95,27 @@ def test_fused_map_step_element_blocks_sum_to_the_whole():
         hood_e += h
     assert torch.equal(votes, whole[3])
     torch.testing.assert_close(hood_e, whole[2], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_labels", [2, 3])
+def test_fused_map_step_long_hoods_matches_jax(n_labels):
+    """Hoods of 100 and 300 elements, each spanning several warps of the
+    kernel (``long_hood_map_step_problem``, the operands ``chip_smoke.py``
+    holds the kernel's order-fixed hood sums on): the plain version
+    against the JAX reference, and the kernel's order-free hood sum (the
+    numpy model) within the same tier."""
+    arrays, kw = long_hood_map_step_problem(n_labels, n_labels)
+    assert np.bincount(arrays[6])[:2].tolist() == [100, 300]
+    (min_w, arg_w, hood_w, votes_w), (min_g, arg_g, hood_g, votes_g) = _both(
+        jax_ref.fused_map_step, ops.fused_map_step, arrays, 0.75, **kw
+    )
+    np.testing.assert_array_equal(min_g, min_w)
+    np.testing.assert_array_equal(arg_g, arg_w)
+    np.testing.assert_array_equal(votes_g, votes_w)
+    np.testing.assert_allclose(hood_g, hood_w, rtol=1e-5, atol=1e-4)
+    valid, hood_id = arrays[5], arrays[6]
+    model = segsum.segment_sum(min_g * valid, np.where(valid > 0, hood_id, -1), kw["n_hoods"])
+    np.testing.assert_allclose(model, hood_w, rtol=1e-5, atol=1e-4)
 
 
 def _binary_problem(seed, n=3000):

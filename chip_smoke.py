@@ -12,7 +12,8 @@ PyTorch version on the card, and drives three paths:
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
   tick's runtime-K variant), planned and solved through the session API
-  (one ``fused_em_tick`` per MAP iteration);
+  (one ``fused_em_tick`` launch and one flag read per MAP iteration, on
+  the plan's ``TickWorkspace``);
 * the sharded route: ``distributed_em`` on the same plans over a
   one-rank NCCL process group made in this process (one
   ``fused_map_step`` per MAP iteration, with the collectives around it);
@@ -69,6 +70,19 @@ Tolerances (kernel against plain version, same inputs, on the card):
   variant (K >= 9) sums in element order, so at f32 it also equals the
   plain tick on the CPU (where ``index_add_`` adds in element order) bit
   for bit in every output.
+* The MAP step (``TickWorkspace.step``, the main path's entry of the
+  tick) at the K = 2, 3 and 9 slices' real state (MAP iteration WINDOW+2,
+  computed on the CPU): against the plain MAP iteration on the card in the
+  tiers above, flag words equal at f32; bit for bit equal to the
+  JAX-signature entry of the same kernel; at K = 9 bit for bit equal to the
+  plain MAP iteration on the CPU.  Repeat check: 20 steps from one state
+  (labels, ring, head restored) give the same bits.  Profiler check: 20
+  steps with their flag reads issue exactly 20 kernels, all the tick, no
+  memset and at most 20 device-to-host copies (the flag goes to mapped
+  pinned memory, so none).  Printed: ms per MAP step (step and flag), ms
+  per back-to-back step, device us per step, the bound, the device
+  operations of one warm K = 2 solve, and the tick's ``ptxas`` registers
+  and spills.
 * fused_map_step (at the slices' quantile-init operands, and on hoods of
   100 and 300 elements): min_e, arg and votes exact; hood energies within
   rtol 1e-5 (atol 1e-4): the kernel rounds a fixed-point sum once, the
@@ -97,11 +111,11 @@ Tolerances (kernel against plain version, same inputs, on the card):
   largest |value|.  A kernel that does not rescale its accumulator when
   the running max grows, or does not subtract the max, fails it.
 * The slice: kernel path against plain path at least 99.5 % pixel
-  agreement, and kernel-path accuracy no more than 0.01 below; at K = 9
+  agreement, and kernel-path accuracy no more than 0.01 below; at every K
   also the status and EM and MAP iteration counts of the plain path on
   the CPU, which sums in element order as the runtime-K tick does (on the
   card the plain path's ``index_add_`` adds by atomics, and its counts
-  moved by one MAP iteration between runs).  The
+  moved by one MAP iteration between runs at K = 9).  The
   sharded route is held to the same limits against the single-device
   route and against its own plain path.
 * LM serving: every request completes with 32 tokens in the vocabulary.
@@ -150,6 +164,9 @@ DEVICE = "cuda"
 REPEATS = 20  # calls of an order-free kernel that must agree bit for bit
 SOLVES = 10   # warm K=2 solves timed under --profile (min, median, max)
 TICK_LABELS = (2, 3, 5, 9, 16, 33)  # synthetic tick checks; K >= 9 is the runtime-K variant
+MAP_STEPS = 20  # MAP steps of the repeat and profiler checks
+PROFILE_ATTEMPTS = 3  # profiles of MAP_STEPS steps, for the records the profiler drops
+PROFILER_SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock, before each traced window
 
 
 def emit(obj) -> None:
@@ -201,12 +218,21 @@ def device_profile(torch, fn) -> dict:
     op's own entry repeats the time of the kernels it launched).
     ``host_top`` lists the host ops with the most self time on the CPU,
     where a host-bound solve spends its time (the profiler's own cost
-    included)."""
+    included).  ``device_ops`` counts the device operations, split into
+    ``kernels``, ``memsets`` and ``memcpys``.
+
+    The tracing drops the device records of a trace's first milliseconds
+    on the H100 (it lost 1 of 20 ticks in one run and all 20 flash
+    launches in another, while its record buffer was requested), so each
+    trace first spins the card for about 10 ms (``torch.cuda._sleep``,
+    kernel ``spin_kernel``), which is left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(PROFILER_SPIN_CYCLES)
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     by_name, host = {}, []
@@ -214,12 +240,18 @@ def device_profile(torch, fn) -> dict:
         if e.device_type != DeviceType.CUDA:
             host.append((float(e.self_cpu_time_total), e.key, e.count))
             continue
+        if "spin_kernel" in e.key:
+            continue
         us = float(e.self_device_time_total)
         if us > 0.0:
             by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us, e.count)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    kinds = {"kernels": 0, "memsets": 0, "memcpys": 0}
+    for k, (_, n) in by_name.items():
+        kinds["memsets" if k.startswith("Memset") else "memcpys" if k.startswith("Memcpy") else "kernels"] += n
     return {
         "device_busy_us": sum(us for us, _ in by_name.values()),
+        "device_ops": sum(kinds.values()), **kinds,
         "top": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in top],
         "segsum": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in by_name.items()
                    if k.startswith(("segsum::", "void segsum::"))],
@@ -436,21 +468,53 @@ def check_tick_against_cpu(torch, ops, k, args, kw, precision: str, what: str) -
     return out
 
 
-def real_tick_operands(torch, plan, E, em_mod):
-    """The fused tick's operands at MAP iteration WINDOW+2 of the plan's
-    solve (quantile init), so that the history ring holds real energies."""
+def real_map_state(torch, plan, E, em_mod):
+    """The single-device MAP loop's state at iteration WINDOW+2 of the
+    plan's solve (quantile init), so that the history ring holds real
+    energies: computed on the plain path with the problem copied to the
+    CPU (element-order sums, the same bits in every run), then moved to
+    the card.  ``cpu`` holds the CPU copies (problem, state)."""
+    from repro_torch.core.pmrf import convert, pipeline
+    from repro_torch.kernels import ref
+
     prob = plan.problem
-    hoods, model = prob.hoods, prob.model
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, 0, "quantile")
+    d = {f: getattr(prob.hoods, f) for f in convert.HOODS_ARRAYS + convert.HOODS_SIZES}
+    d.update({f: getattr(prob.model, f) for f in convert.MODEL_FIELDS})
+    d.update(labels0=labels0, mu0=mu0, sigma0=sigma0)
+    hoods, model, labels, mu, sigma = convert.problem_from_numpy(d, device="cpu")
     sctx = E.make_static_context(hoods, model, backend="torch")
-    labels, mu, sigma = em_mod.quantile_init(prob.graph.region_mean, prob.graph.n_regions, model.n_labels)
-    hist = torch.zeros((em_mod.WINDOW + 1, hoods.n_hoods), device=labels.device)
+    sig = torch.maximum(sigma, model.sigma_min)
+    ws = ref.PlainTickWorkspace(hoods, model, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+    ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels)
+    ws.begin_em(mu, sig)
     for _ in range(em_mod.WINDOW + 1):
-        labels, hood_e, *_ = E.em_tick_fused(hoods, model, sctx, labels, mu, sigma, hist, backend="torch")
-        hist = torch.cat([hood_e[None], hist[:-1]])
-    x = labels[hoods.vertex.long()]
-    args = (sctx.y, sctx.w, sctx.nall_e, x.float() * sctx.validf, sctx.validf, hoods.hood_id,
-            hoods.vertex, model.region_mean, model.region_weight, hist, mu,
-            torch.maximum(sigma, model.sigma_min), model.beta)
+        ws.step(False)
+    cpu = dict(hoods=hoods, model=model, elements=(sctx.y, sctx.w, sctx.nall_e, sctx.validf),
+               labels=ws.labels, ring=ws.ring.clone(), head=ws.head, mu=mu, sig=sig)
+    dev = prob.hoods.vertex.device
+    on = {k: (v.to(dev) if isinstance(v, torch.Tensor) else v) for k, v in cpu.items()
+          if k not in ("hoods", "model")}
+    on["elements"] = tuple(t.to(dev) for t in cpu["elements"])
+    return {**on, "cpu": cpu}
+
+
+def newest_first(ring, head: int):
+    """The ring's rows newest first, as the JAX kernel's ``hist``."""
+    rows = int(ring.shape[0])
+    return ring[[(head + r) % rows for r in range(rows)]].contiguous()
+
+
+def real_tick_operands(torch, plan, E, em_mod):
+    """The fused tick's operands (the JAX kernel's signature) at the state
+    of ``real_map_state``."""
+    st = real_map_state(torch, plan, E, em_mod)
+    hoods, model = plan.problem.hoods, plan.problem.model
+    y, w, nall_e, validf = st["elements"]
+    xf = st["labels"][hoods.vertex.long()].float() * validf
+    args = (y, w, nall_e, xf, validf, hoods.hood_id, hoods.vertex, model.region_mean,
+            model.region_weight, newest_first(st["ring"], st["head"]), st["mu"], st["sig"],
+            model.beta)
     kw = dict(n_hoods=hoods.n_hoods, n_vertices=hoods.n_regions + 1)
     return args, kw
 
@@ -491,6 +555,171 @@ def check_time_tick(torch, ops, E, em_mod, plan, profile: bool) -> dict:
         emit({"phase": "profile", "what": f"20 fused_em_tick calls (K={n_labels})", **prof})
         out["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
     emit({"phase": "timing", "what": f"fused_em_tick K={n_labels}", **out})
+    return out
+
+
+def map_step_workspace(ops, em_mod, hoods, model, st, precision="f32", backend=None):
+    """A MAP-iteration workspace (the kernel's on the card, the plain one
+    with ``backend="torch"`` or on the CPU) holding the state ``st`` of
+    ``real_map_state`` (or its ``cpu`` part)."""
+    ws = ops.tick_workspace(hoods, model, precision=precision, conv_tol=em_mod.CONV_TOL,
+                            window=em_mod.WINDOW, backend=backend)
+    ws.start(*st["elements"], st["labels"])
+    ws.begin_em(st["mu"], st["sig"])
+    load_state(ws, st)
+    return ws
+
+
+def load_state(ws, st) -> None:
+    """Put the labels, the ring and its head of ``st`` back into ``ws``."""
+    ws.labels.copy_(st["labels"])
+    ws.ring.copy_(st["ring"])
+    ws.head = st["head"]
+
+
+def map_step(ws) -> tuple:
+    """One gated MAP step and its flag: ``(labels, hood_e, votes, flag,
+    sum_w, sum_wy, sum_wyy)``, copied out of the workspace."""
+    ws.step(True)
+    flag = ws.flag()
+    return (ws.labels.clone(), ws.hood_e.clone(), ws.votes.clone(), flag, *ws.stats.clone())
+
+
+def check_map_iteration(torch, ops, E, em_mod, plan) -> dict:
+    """The main path's entry (``TickWorkspace.step``) at a slice plan's real
+    state, f32 and bf16: held to the plain MAP iteration on the card in
+    ``compare_tick``'s tiers (flag words equal at f32), to the JAX-signature
+    entry of the same kernel bit for bit, and for K >= 9 to the plain MAP
+    iteration on the CPU bit for bit (``check_tick_against_cpu``'s rule)."""
+    st = real_map_state(torch, plan, E, em_mod)
+    hoods, model = plan.problem.hoods, plan.problem.model
+    n_labels = model.n_labels
+    y, w, nall_e, validf = st["elements"]
+    xf = st["labels"][hoods.vertex.long()].float() * validf
+    entry_args = (y, w, nall_e, xf, validf, hoods.hood_id, hoods.vertex, model.region_mean,
+                  model.region_weight, newest_first(st["ring"], st["head"]), st["mu"], st["sig"],
+                  model.beta)
+    kw = dict(n_hoods=hoods.n_hoods, n_vertices=hoods.n_regions + 1, offsets=hoods.offsets)
+    out = {"K": n_labels}
+    for precision in ("f32", "bf16"):
+        what = f"MAP iteration slice K={n_labels} {precision}"
+        k = map_step(map_step_workspace(ops, em_mod, hoods, model, st, precision))
+        p = map_step(map_step_workspace(ops, em_mod, hoods, model, st, precision, backend="torch"))
+        err = compare_tick(torch, k, p, precision, what)
+        if precision == "f32" and k[3] != p[3]:
+            fail(f"{what}: flag word {k[3]}, plain {p[3]}")
+        e = ops.fused_em_tick(*entry_args, precision=precision, **kw)
+        same_entry = (bool(e[3]) == bool(k[3] & ops.FLAG_CONVERGED) and
+                      all(same_bits(torch, a, b) for a, b in zip(k[:3] + k[4:], e[:3] + e[4:])))
+        if not same_entry:
+            fail(f"{what}: the workspace step and the JAX-signature entry of the same kernel differ")
+        row = {"phase": "map_iteration_check", "operands": "512x512 slice", "K": n_labels,
+               "precision": precision, "ok": True, "max_abs_err": err, "flag": k[3],
+               "plain_flag": p[3], "equal_jax_signature_entry": same_entry}
+        if n_labels >= 9:
+            cpu = st["cpu"]
+            c = map_step(map_step_workspace(ops, em_mod, cpu["hoods"], cpu["model"], cpu, precision))
+            same_log = torch.equal(torch.log(st["sig"][:, None]).cpu(), torch.log(cpu["sig"][:, None]))
+            unequal = [n for n, a, b in zip(TICK_OUTPUTS, k, c)
+                       if (a != b if n == "conv" else not same_bits(torch, a.cpu(), b))]
+            row.update(bitwise_equal_plain_cpu=not unequal, log_sigma_equal_cpu=same_log)
+            if unequal:
+                row["unequal"] = unequal
+            if precision == "f32" and not set(unequal) <= (set() if same_log else {"hood_e"}):
+                fail(f"{what}: {unequal} not bitwise equal to the plain MAP iteration on the CPU")
+        if precision == "f32":
+            out["max_abs_err"] = err
+        emit(row)
+    return out
+
+
+def check_tick_step(torch, ops, E, em_mod, plan) -> dict:
+    """The main path's MAP step at a slice plan's real state (f32):
+
+    * repeat: ``MAP_STEPS`` steps, each from the same labels, ring and
+      head, give the same bits (labels, hood_e, votes, sums, ring, flag),
+      so the kernel resets its ticket, its vote buffer and its flag
+      accumulator itself;
+    * profiler: ``MAP_STEPS`` steps with their flag reads issue exactly one
+      kernel each (the tick), no memset and at most one device-to-host
+      copy each;
+    * times: ms per MAP step (step and flag, host clock, what the driver
+      pays), ms per step back to back (CUDA events), device us per step
+      (profiler), the plain MAP iteration's ms, and the bound.
+    """
+    st = real_map_state(torch, plan, E, em_mod)
+    hoods, model = plan.problem.hoods, plan.problem.model
+    n_labels = model.n_labels
+    ws = map_step_workspace(ops, em_mod, hoods, model, st)
+    first = None
+    for _ in range(MAP_STEPS):
+        load_state(ws, st)
+        got = map_step(ws) + (ws.ring.clone(),)
+        first = first or got
+        if not all(a == b if isinstance(a, int) else same_bits(torch, a, b) for a, b in zip(got, first)):
+            fail(f"MAP step K={n_labels}: {MAP_STEPS} steps from one state differ")
+    emit({"phase": "map_step_repeat_check", "K": n_labels, "steps": MAP_STEPS, "ok": True,
+          "flag": first[3]})
+
+    # The profiler has dropped a kernel's record (19 of 20 in one run): an
+    # attempt that shows fewer tick kernels than steps and nothing else is
+    # made again, up to PROFILE_ATTEMPTS times.  Any attempt that shows
+    # another kernel, a memset or more copies than steps fails at once.
+    steps = lambda: [(ws.step(True), ws.flag()) for _ in range(MAP_STEPS)]
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        load_state(ws, st)
+        before = ops.launch_counts()["fused_em_tick"]
+        prof = device_profile(torch, steps)
+        ticks = sum(t["count"] for t in prof["top"] if "tick_kernel" in t["name"])
+        a = {"launches": ops.launch_counts()["fused_em_tick"] - before, "kernels": prof["kernels"],
+             "tick_kernels": ticks, "memsets": prof["memsets"], "memcpys": prof["memcpys"],
+             "device_us_per_step": prof["device_busy_us"] / max(ticks, 1)}
+        attempts.append(a)
+        if (a["launches"] != MAP_STEPS or a["kernels"] != ticks or ticks > MAP_STEPS
+                or a["memsets"] or a["memcpys"] > MAP_STEPS):
+            fail(f"MAP step K={n_labels}: {MAP_STEPS} steps issued {a}")
+        if ticks == MAP_STEPS:
+            break
+    row = {"phase": "map_step_profile_check", "K": n_labels, "steps": MAP_STEPS, **a,
+           "attempts": len(attempts)}
+    emit(row)
+    if ticks != MAP_STEPS:
+        fail(f"MAP step K={n_labels}: no profile of {MAP_STEPS} steps saw all of them: {attempts}")
+
+    load_state(ws, st)
+    n = 10 * MAP_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        ws.step(True)
+        ws.flag()
+    out = {"K": n_labels, "ms_per_map_step": (time.perf_counter() - t0) / n * 1e3,
+           "ms": time_ms(lambda: ws.step(True)), "device_ms": row["device_us_per_step"] * 1e-3}
+    plain = map_step_workspace(ops, em_mod, hoods, model, st, backend="torch")
+    out["plain_ms"] = time_ms(lambda: plain.step(True))
+    n_run = int(hoods.offsets[-1] - hoods.offsets[0])
+    nh, nv, rows = hoods.n_hoods, hoods.n_regions + 1, em_mod.WINDOW + 1
+    n_bytes = (n_run * 5 * 4 + nv * 4 + (nh + 1) * 4 + 2 * nv * 4 + (rows - 1) * nh * 4
+               + 2 * n_labels * 4 + 4                               # inputs (labels gathered once)
+               + nh * 4 + nh * 4 + nv * 4 + 2 * n_labels * nv * 4  # ring row, hood_e, labels, votes, cleared votes
+               + 3 * n_labels * 4 + 2 * 4)                          # sums, flag words
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_run * n_labels * 16 + nv * 6)
+    out["bytes"] = n_bytes
+    emit({"phase": "timing", "what": f"MAP step (TickWorkspace) K={n_labels}", **out})
+    return out
+
+
+def warm_solve_ops(torch, api, plan, config) -> dict:
+    """Device operations of one warm single-device solve of ``plan`` (the
+    workspace built by an earlier solve), from ``torch.profiler``."""
+    seg = api.Segmenter(config, device=plan.problem.hoods.vertex.device)
+    wall = seg.execute(plan, seed=SLICE["seed"]).optimize_seconds
+    prof = device_profile(torch, lambda: seg.execute(plan, seed=SLICE["seed"]))
+    out = {"phase": "warm_solve_device_ops", "K": config.n_labels, "optimize_s_unprofiled": wall,
+           **{k: prof[k] for k in ("device_ops", "kernels", "memsets", "memcpys", "device_busy_us")},
+           "top": prof["top"]}
+    emit(out)
     return out
 
 
@@ -587,11 +816,12 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
     """The main path: a 512x512 slice planned and solved through the
     session API, with the launch counts reset just before and read just
     after; then the same plan solved on the plain path for comparison.
-    The image has ``n_phases`` phases (default ``n_labels``); with fewer
-    phases than labels (K = 9, the tick's runtime-K variant, which sums in
-    element order) the solve must also give the status and iteration
-    counts of the plain path on the CPU, which sums in element order too
-    (``plain_solve_on_cpu``)."""
+    The image has ``n_phases`` phases (default ``n_labels``).  The solve
+    must give the status and iteration counts of the plain path on the
+    CPU, which sums in element order (``plain_solve_on_cpu``; the card's
+    plain path adds by atomics): K = 2 7 EM / 32 MAP iterations, K = 3
+    10 / 46, K = 9 on the three-phase image (the tick's runtime-K variant,
+    which sums in element order too) 17 / 99."""
     size, grid, seed = SLICE["size"], SLICE["grid"], SLICE["seed"]
     n_phases = n_phases or n_labels
     if n_phases == 2:
@@ -648,15 +878,14 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
         fail(f"kernel path and plain path agree on {agree:.4f} of the pixels")
     if acc < acc_p - 0.01:
         fail(f"kernel-path accuracy {acc} more than 0.01 below the plain path's {acc_p}")
-    if n_phases != n_labels:
-        cpu = plain_solve_on_cpu(plan, config, seed)
-        emit({"phase": "slice_plain_cpu", "K": n_labels, "status": cpu.status,
-              "em_iters": cpu.em_iters, "map_iters": cpu.map_iters,
-              "pixel_agreement": float((res.segmentation == cpu.segmentation).mean())})
-        trajectory = lambda r: (r.status, r.em_iters, r.map_iters)
-        if trajectory(res) != trajectory(cpu):
-            fail(f"K={n_labels} solve: status and iterations {trajectory(res)}, "
-                 f"plain path on the CPU {trajectory(cpu)}")
+    cpu = plain_solve_on_cpu(plan, config, seed)
+    emit({"phase": "slice_plain_cpu", "K": n_labels, "status": cpu.status,
+          "em_iters": cpu.em_iters, "map_iters": cpu.map_iters, "accuracy": accuracy(cpu),
+          "pixel_agreement": float((res.segmentation == cpu.segmentation).mean())})
+    trajectory = lambda r: (r.status, r.em_iters, r.map_iters)
+    if trajectory(res) != trajectory(cpu):
+        fail(f"K={n_labels} solve: status and iterations {trajectory(res)}, "
+             f"plain path on the CPU {trajectory(cpu)}")
     out.update(plan=plan, config=config, result=res, accuracy_of=accuracy, image=vol.images[0])
     return out
 
@@ -1155,9 +1384,10 @@ def time_flash(torch, ops, dev, profile: bool) -> dict:
                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "library_device_ms": lib_prof["device_busy_us"] / 20 * 1e-3,
                "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms,
-               "device_share_of_bound": bound_ms / device_ms, "bytes": n_bytes, "ops": n_ops,
-               "achieved_tflops": n_ops / (ms * 1e-3) / 1e12,
-               "device_tflops": n_ops / (device_ms * 1e-3) / 1e12, "sdpa_max_abs_err_vs_plain": lib_err}
+               "device_share_of_bound": bound_ms / device_ms if device_ms else None,
+               "bytes": n_bytes, "ops": n_ops, "achieved_tflops": n_ops / (ms * 1e-3) / 1e12,
+               "device_tflops": n_ops / (device_ms * 1e-3) / 1e12 if device_ms else None,
+               "sdpa_max_abs_err_vs_plain": lib_err}
         emit({"phase": "timing", "what": "flash_attention bf16 causal", **row})
         if profile:
             emit({"phase": "profile", "what": f"20 flash_attention calls (S={s} bf16 causal)", **prof})
@@ -1247,6 +1477,8 @@ def main(argv=None) -> int:
                      "torch": torch.__version__, "cuda": torch.version.cuda}})
 
     emit({"phase": "build", "build_s": _build.build_all(), "dir": str(_build.BUILD_DIR)})
+    tick_ptxas = ptxas_report("em_tick")
+    emit({"phase": "ptxas", **tick_ptxas})
     ptxas = ptxas_report("flash_attention")
     emit({"phase": "ptxas", **ptxas,
           "kernels": [k for k in ptxas["kernels"] if "flash_attention_tc_kernel" in k["kernel"]]})
@@ -1266,6 +1498,9 @@ def main(argv=None) -> int:
     hoods = plan.problem.hoods
     check_segment_reduce_order_free(torch, ops, dev, real_add_cases(torch, oversegment, slice2))
     tick2 = check_time_tick(torch, ops, E, em_mod, plan, profile)
+    step2 = {**check_map_iteration(torch, ops, E, em_mod, plan),
+             **check_tick_step(torch, ops, E, em_mod, plan)}
+    solve_ops = warm_solve_ops(torch, api, plan, slice2["config"])
 
     # segment_reduce at the solve's call (neighbourhood sizes), and its min
     # at the shape of the faithful mode's per-element minimum.
@@ -1285,6 +1520,9 @@ def main(argv=None) -> int:
     # K = 9 on the three-phase image: the tick's runtime-K variant on the main path.
     slice9 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=9, n_phases=3)
     tick9 = check_time_tick(torch, ops, E, em_mod, slice9["plan"], profile)
+    check_map_iteration(torch, ops, E, em_mod, slice3["plan"])
+    step9 = {**check_map_iteration(torch, ops, E, em_mod, slice9["plan"]),
+             **check_tick_step(torch, ops, E, em_mod, slice9["plan"])}
 
     # Second path: the sharded route's kernels at the slices' operands.
     from repro_torch.core.pmrf import distributed as D
@@ -1345,14 +1583,18 @@ def main(argv=None) -> int:
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
+    step_keys = tick_keys + ("ms_per_map_step",)
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
          "replaces": "src/repro/kernels/em_tick.py:253",
-         "launches": launches["fused_em_tick"], **{k: tick2[k] for k in tick_keys if k in tick2},
-         "library_ms": None,
-         "K9": {"launches": slice9["launches"]["fused_em_tick"],
-                **{k: tick9[k] for k in tick_keys if k in tick9}}},
+         "launches": launches["fused_em_tick"], **{k: step2[k] for k in step_keys},
+         "library_ms": None, "device_ops_per_warm_solve": solve_ops["device_ops"],
+         "ptxas": {"spill_bytes": tick_ptxas["spill_bytes"],
+                   "registers": {k["kernel"]: k.get("registers") for k in tick_ptxas["kernels"]}},
+         "jax_signature_entry": {k: tick2[k] for k in tick_keys if k in tick2},
+         "K9": {"launches": slice9["launches"]["fused_em_tick"], **{k: step9[k] for k in step_keys},
+                "jax_signature_entry": {k: tick9[k] for k in tick_keys if k in tick9}}},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",

@@ -10,7 +10,8 @@ eagerly, so there is no compile phase to cache yet.
 * :meth:`Segmenter.execute`: the EM solve (the paper's timed phase), on
   the sharded route when ``config.shards > 1``: every rank of the default
   ``torch.distributed`` group calls it with the same plan and solves its
-  block of the hood elements;
+  block of the hood elements.  On one device the plan keeps the MAP
+  loop's workspace, so a warm solve allocates nothing in that loop;
 * :meth:`Segmenter.segment`: both.
 
 Both phases are timed on the host clock around work that ends in
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -30,6 +31,7 @@ from repro_torch import DeviceLike, resolve_device, to_tensor
 from repro_torch.api.config import ExecutionConfig
 from repro_torch.api.errors import PlanError
 from repro_torch.core.pmrf import distributed as distributed_mod
+from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import pipeline as pipeline_mod
 from repro_torch.core.pmrf.hoods import Hoods
 
@@ -42,6 +44,9 @@ class Plan:
     init_seconds: float
     # partition_hoods results by shard count, made at the first sharded solve
     partitions: Dict[int, Hoods] = field(default_factory=dict, repr=False)
+    # MAP-iteration workspaces (em.make_workspace) by (precision, backend),
+    # made at the first single-device solve and reused by the later ones
+    workspaces: Dict[Tuple[str, str], object] = field(default_factory=dict, repr=False)
 
 
 class Segmenter:
@@ -106,22 +111,29 @@ class Segmenter:
     def execute(self, plan: Plan, *, seed: int = 0) -> pipeline_mod.SegmentationResult:
         """The EM solve of one plan (``seed`` drives the random init)."""
         shards = self.config.shards
+        em_config = self.config.em_config()
         if shards > 1:
             self._check_group()
             if shards not in plan.partitions:
                 plan.partitions[shards] = distributed_mod.partition_hoods(plan.problem.hoods, shards)
+        else:
+            key = (em_config.precision, em_config.backend)
+            if key not in plan.workspaces:
+                plan.workspaces[key] = em_mod.make_workspace(
+                    plan.problem.hoods, plan.problem.model, em_config
+                )
         self._sync()
         t0 = time.perf_counter()
         if shards > 1:
             p = plan.problem
             labels0, mu0, sigma0 = pipeline_mod.initial_params(p, seed, self.config.init)
             res = distributed_mod.run_em_sharded(
-                plan.partitions[shards], p.model, labels0, mu0, sigma0,
-                config=self.config.em_config(),
+                plan.partitions[shards], p.model, labels0, mu0, sigma0, config=em_config,
             )
         else:
             res = pipeline_mod.optimize(
-                plan.problem, seed=seed, config=self.config.em_config(), init=self.config.init
+                plan.problem, seed=seed, config=em_config, init=self.config.init,
+                workspace=plan.workspaces[key],
             )
         self._sync()
         opt_s = time.perf_counter() - t0

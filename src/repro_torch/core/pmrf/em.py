@@ -9,7 +9,8 @@ last L=3 iterations, converged when every change is below 1e-4
 There is one driver (:func:`_em_driver`), parametrised by a collective
 context (``collectives.ReduceCtx``): :func:`run_em` binds the
 single-device context, where each MAP iteration is one ``fused_em_tick``
-call that also returns the M-step sums and the convergence predicate;
+launch on a workspace the plan owns (label gather, history ring,
+convergence and finiteness flags and the M-step sums all in the kernel);
 ``distributed.run_em_sharded`` binds a sharded context, where each MAP
 iteration is ``energy.map_step_fused`` (collectives around one
 ``fused_map_step`` launch) and the M-step is
@@ -18,7 +19,7 @@ through the context, so all ranks take the same trajectory.
 
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
-reads one flag from the device, and each EM boundary reads three.
+reads one flag word from the device, and each EM boundary reads three.
 """
 
 from __future__ import annotations
@@ -162,6 +163,16 @@ def _boundary_status(
     return STATUS_OK
 
 
+def make_workspace(hoods: Hoods, model: E.EnergyModel, config: EMConfig):
+    """The single-device route's MAP-iteration workspace for ``config``
+    (``kernels.ops.tick_workspace``); a plan keeps one and its solves
+    reuse it (``run_em(..., workspace=)``)."""
+    return kops.tick_workspace(
+        hoods, model, precision=config.precision, conv_tol=CONV_TOL, window=WINDOW,
+        backend=config.backend,
+    )
+
+
 def _em_driver(
     hoods: Hoods,
     model: E.EnergyModel,
@@ -170,13 +181,15 @@ def _em_driver(
     sigma0: Tensor,
     config: EMConfig,
     ctx: collectives.ReduceCtx,
+    workspace=None,
 ) -> EMResult:
     """The EM driver of both routes; only the collective context differs.
 
     When ``ctx`` is sharded, ``hoods`` is this rank's element block (with
     globally indexed ``vertex``/``hood_id``) while ``model``, ``labels0``,
     ``mu0`` and ``sigma0`` are the same on every rank, and so is all label
-    and parameter state after each step.
+    and parameter state after each step.  On one device each MAP
+    iteration is ``workspace.step`` and one flag read, nothing else.
     """
     validate_config(config)
     backend = config.backend
@@ -185,6 +198,14 @@ def _em_driver(
     f32 = torch.float32
     fused_tick = not ctx.sharded
     sctx = E.make_static_context(hoods, model, backend=backend, ctx=ctx)
+    if fused_tick:
+        ws = workspace if workspace is not None else make_workspace(hoods, model, config)
+        if (ws.precision, ws.n_labels) != (config.precision, model.n_labels):
+            raise ValueError(
+                f"workspace built for precision {ws.precision!r} and K = {ws.n_labels}, "
+                f"the solve has {config.precision!r} and K = {model.n_labels}"
+            )
+        ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
 
     labels, mu, sigma = labels0, mu0, sigma0
     hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)  # if max_em_iters == 0
@@ -194,45 +215,48 @@ def _em_driver(
     status = STATUS_OK
     done = False
     while em_i < config.max_em_iters and not done:
-        # MAP loop: one fused tick (or one sharded MAP step) per iteration.
-        hist = torch.zeros((WINDOW + 1, n_hoods), dtype=f32, device=dev)
-        hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
-        msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
-        diverged = torch.zeros((), dtype=torch.bool, device=dev)
         i = 0
-        map_done = False
-        while i < config.max_map_iters and not map_done:
-            if fused_tick:
-                labels, hood_e, conv, sum_w, sum_wy, sum_wyy = E.em_tick_fused(
-                    hoods, model, sctx, labels, mu, sigma, hist,
-                    backend=backend, precision=config.precision, conv_tol=CONV_TOL,
-                )
-                msums = torch.stack([sum_w, sum_wy, sum_wyy])
+        if fused_tick:
+            # MAP loop: one launch and one flag read per iteration.
+            ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
+            flag = 0
+            while i < config.max_map_iters and not flag:
+                i += 1
+                ws.step(i > WINDOW)
+                flag = ws.flag()
+            map_div = bool(flag & kops.FLAG_DIVERGED)
+            if i:
+                hood_energy, msums = ws.hood_e, ws.stats
             else:
+                hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
+                msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
+            mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
+            div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
+        else:
+            # MAP loop: one sharded MAP step per iteration.
+            hist = torch.zeros((WINDOW + 1, n_hoods), dtype=f32, device=dev)
+            hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
+            diverged = torch.zeros((), dtype=torch.bool, device=dev)
+            map_done = False
+            while i < config.max_map_iters and not map_done:
                 labels, hood_e = E.map_step_fused(
                     hoods, model, sctx, labels, mu, sigma, backend=backend, ctx=ctx
                 )
-            hist = torch.cat([hood_e[None], hist[:-1]])
-            hood_energy = hood_e
-            i += 1
-            diverged = ~torch.all(torch.isfinite(hood_e))
-            stop = diverged
-            if i > WINDOW:
-                # The fused tick reduced the window predicate in-kernel; the
-                # gate on the iteration count stays here (every rank has the
-                # same i, so all skip or all join the collective).
-                if not fused_tick:
-                    conv = _window_converged(hist)
-                stop = ctx.all_converged(conv) | diverged
-            map_done = bool(stop)
-
-        if fused_tick:
-            mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
-        else:
+                hist = torch.cat([hood_e[None], hist[:-1]])
+                hood_energy = hood_e
+                i += 1
+                diverged = ~torch.all(torch.isfinite(hood_e))
+                stop = diverged
+                if i > WINDOW:
+                    # Every rank has the same i, so all skip or all join
+                    # the collective.
+                    stop = ctx.all_converged(_window_converged(hist)) | diverged
+                map_done = bool(stop)
+            map_div = False
             mu, sigma, sum_w = E.update_parameters_stats(
                 model, labels, config.mode, backend=backend
             )
-        div_t = diverged | ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
+            div_t = diverged | ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)
         total_hist = torch.cat([torch.sum(hood_energy)[None], total_hist[:-1]])
         em_i += 1
@@ -241,11 +265,14 @@ def _em_driver(
         else:
             conv_t = torch.zeros_like(div_t)
         div, deg, em_conv = (bool(v) for v in torch.stack([div_t, deg_t, conv_t]).tolist())
+        div = div or map_div
         map_total += i
         finished = div or not (em_i < config.max_em_iters and not em_conv)
         done = em_conv or div
         status = _boundary_status(div, deg, finished, em_conv, em_i, config.max_em_iters)
 
+    if fused_tick:  # the workspace's buffers belong to the plan
+        labels, hood_energy = ws.labels.clone(), hood_energy.clone()
     return EMResult(
         labels=labels,
         mu=mu,
@@ -265,6 +292,10 @@ def run_em(
     mu0: Tensor,
     sigma0: Tensor,
     config: EMConfig = EMConfig(),
+    *,
+    workspace=None,
 ) -> EMResult:
-    """EM on one problem, on the device its tensors live on."""
-    return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL)
+    """EM on one problem, on the device its tensors live on.  ``workspace``
+    (``make_workspace``) carries the MAP loop's buffers across solves of
+    one plan; without it the solve builds its own."""
+    return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)

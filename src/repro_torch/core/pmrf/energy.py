@@ -12,8 +12,9 @@ to unit mean and x the current label field.  Everything that does not
 change across iterations lives in a :class:`StaticMapContext` built once
 per solve.  One MAP iteration of the static-pallas route is
 
-* on one device, one ``fused_em_tick`` launch (:func:`em_tick_fused`),
-  which also yields the M-step sums;
+* on one device, one ``fused_em_tick`` launch on the plan's workspace
+  (``kernels.ops.tick_workspace``): the label gather, the history ring
+  and the flag are in the kernel, which also yields the M-step sums;
 * sharded, :func:`map_step_fused`: the label counts (a ``segment_reduce``
   launch plus an all-reduce), one ``fused_map_step`` launch, and the
   all-reduce of its hood sums and votes; the M-step is then
@@ -110,52 +111,6 @@ def make_static_context(
         validf=validf,
         nall_e=nall[hoods.hood_id.long()],
     )
-
-
-def em_tick_fused(
-    hoods: Hoods,
-    model: EnergyModel,
-    sctx: StaticMapContext,
-    labels: Tensor,
-    mu: Tensor,
-    sigma: Tensor,
-    hist: Tensor,
-    *,
-    backend: Optional[str] = None,
-    precision: str = "f32",
-    conv_tol: float = 1.0e-4,
-) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
-    """One whole EM tick in one kernel call: counts, energies, hood sums,
-    votes, new labels, M-step sums and the window predicate over ``hist``
-    (the ring before this iteration's roll).
-
-    Returns ``(labels, hood_e, conv, sum_w, sum_wy, sum_wyy)``.
-    """
-    x = labels[hoods.vertex.long()]
-    xf = x.to(torch.float32) * sctx.validf
-    sig = torch.maximum(sigma, model.sigma_min)
-    new_labels, hood_e, _votes, conv, sum_w, sum_wy, sum_wyy = kops.fused_em_tick(
-        sctx.y,
-        sctx.w,
-        sctx.nall_e,
-        xf,
-        sctx.validf,
-        hoods.hood_id,
-        hoods.vertex,
-        model.region_mean,
-        model.region_weight,
-        hist,
-        mu,
-        sig,
-        model.beta,
-        n_hoods=hoods.n_hoods,
-        n_vertices=hoods.n_regions + 1,
-        offsets=hoods.offsets,
-        precision=precision,
-        conv_tol=conv_tol,
-        backend=backend,
-    )
-    return new_labels, hood_e, conv, sum_w, sum_wy, sum_wyy
 
 
 def map_step_operands(

@@ -108,10 +108,14 @@ def optimize(
     seed: int = 0,
     config: em_mod.EMConfig = em_mod.EMConfig(),
     init: str = "random",
+    workspace=None,
 ) -> em_mod.EMResult:
-    """Optimization phase (the paper's timed region)."""
+    """Optimization phase (the paper's timed region); ``workspace`` as in
+    ``em.run_em``."""
     labels0, mu0, sigma0 = initial_params(problem, seed, init)
-    return em_mod.run_em(problem.hoods, problem.model, labels0, mu0, sigma0, config)
+    return em_mod.run_em(
+        problem.hoods, problem.model, labels0, mu0, sigma0, config, workspace=workspace
+    )
 
 
 def assemble_result(

@@ -29,6 +29,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import segment_reduce as _segment_reduce
 
 BACKENDS = ("auto", "torch")
+FLAG_CONVERGED, FLAG_DIVERGED = ref.FLAG_CONVERGED, ref.FLAG_DIVERGED
 
 
 def _use_kernel(backend: Optional[str], tensor: torch.Tensor) -> bool:
@@ -117,6 +118,23 @@ def fused_em_tick(
         hist, mu, sigma, beta, n_hoods=n_hoods, n_vertices=n_vertices,
         precision=precision, conv_tol=conv_tol,
     )
+
+
+def tick_workspace(
+    hoods,
+    model,
+    *,
+    precision: str = "f32",
+    conv_tol: float = 1.0e-4,
+    window: int = 3,
+    backend: Optional[str] = None,
+):
+    """The single-device EM driver's MAP-iteration workspace for a plan's
+    ``hoods`` and energy ``model``: :class:`em_tick.TickWorkspace` (one
+    kernel launch per MAP iteration) for CUDA tensors, else
+    :class:`ref.PlainTickWorkspace` (``ref.fused_map_iteration``)."""
+    cls = _em_tick.TickWorkspace if _use_kernel(backend, hoods.vertex) else ref.PlainTickWorkspace
+    return cls(hoods, model, precision=precision, conv_tol=conv_tol, window=window)
 
 
 def fused_map_step(

@@ -16,6 +16,11 @@ import torch
 
 Tensor = torch.Tensor
 
+#: Bits of the flag word of a MAP iteration (``fused_map_iteration``, and
+#: the CUDA kernel's ``TickWorkspace``).
+FLAG_CONVERGED = 1  # every hood inside its convergence window, gate open
+FLAG_DIVERGED = 2   # a hood energy is not finite
+
 
 def _spare_bucket(keys: Tensor, num_segments: int) -> Tensor:
     """``keys`` as int64, with those outside ``[0, num_segments)`` sent to
@@ -218,6 +223,98 @@ def fused_em_tick(
         ok = ok & (torch.abs(hist[r, :n_hoods] - hist[r + 1, :n_hoods]) < conv_tol * scale)
     conv = torch.all(ok)
     return labels, hood_e, votes.contiguous(), conv, sum_w, sum_wy, sum_wyy
+
+
+def fused_map_iteration(
+    y: Tensor,
+    w: Tensor,
+    nall_e: Tensor,
+    valid: Tensor,
+    hood_id: Tensor,
+    vertex: Tensor,
+    region_mean: Tensor,
+    region_weight: Tensor,
+    ring: Tensor,
+    head: int,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    beta,
+    *,
+    gate: bool,
+    n_hoods: int,
+    n_vertices: int,
+    precision: str = "f32",
+    conv_tol: float = 1.0e-4,
+) -> Tuple[Tensor, ...]:
+    """One MAP iteration of the single-device route: the label gather
+    (``xf = labels[vertex] * valid``), :func:`fused_em_tick` with the
+    history ring's rows newest first from row ``head``, then ``hood_e``
+    written into the ring's oldest row (in place) and the flag word:
+    ``FLAG_CONVERGED`` for the window predicate with ``gate`` open,
+    ``FLAG_DIVERGED`` for a hood energy that is not finite.  ``sigma`` is already
+    clamped at ``sigma_min``.
+
+    Returns ``(labels, hood_e, votes, flag, sum_w, sum_wy, sum_wyy)``,
+    ``flag`` a 0-dim int32 tensor.  The next iteration's ``head`` is
+    ``(head - 1) % rows``.
+    """
+    rows = int(ring.shape[0])
+    order = [(head + r) % rows for r in range(rows)]
+    xf = labels[vertex.long()].to(torch.float32) * valid
+    new_labels, hood_e, votes, conv, sum_w, sum_wy, sum_wyy = fused_em_tick(
+        y, w, nall_e, xf, valid, hood_id, vertex, region_mean, region_weight,
+        ring[order], mu, sigma, beta, n_hoods=n_hoods, n_vertices=n_vertices,
+        precision=precision, conv_tol=conv_tol,
+    )
+    ring[order[-1]] = hood_e
+    flag = (conv & bool(gate)).to(torch.int32) * FLAG_CONVERGED | (
+        ~torch.all(torch.isfinite(hood_e))).to(torch.int32) * FLAG_DIVERGED
+    return new_labels, hood_e, votes, flag, sum_w, sum_wy, sum_wyy
+
+
+class PlainTickWorkspace:
+    """The plain version of ``em_tick.TickWorkspace`` (same methods and
+    views), one :func:`fused_map_iteration` per step: the single-device
+    EM driver's route on the CPU, or on the card with ``backend="torch"``.
+    """
+
+    def __init__(self, hoods, model, *, precision: str = "f32", conv_tol: float = 1.0e-4,
+                 window: int = 3):
+        self.device, self.precision, self.n_labels = hoods.vertex.device, precision, model.n_labels
+        self._hoods, self._model, self._conv_tol = hoods, model, conv_tol
+        n_vertices = hoods.n_regions + 1
+        self.ring = torch.zeros((window + 1, hoods.n_hoods), dtype=torch.float32, device=self.device)
+        self.labels = torch.zeros((n_vertices,), dtype=torch.int32, device=self.device)
+        self.hood_e = torch.zeros((hoods.n_hoods,), dtype=torch.float32, device=self.device)
+        self.votes = torch.zeros((model.n_labels, n_vertices), dtype=torch.float32, device=self.device)
+        self.stats = torch.zeros((3, model.n_labels), dtype=torch.float32, device=self.device)
+        self.head = 0
+        self._flag = torch.zeros((), dtype=torch.int32)
+
+    def start(self, y, w, nall_e, valid, labels0) -> None:
+        self._elements = (y, w, nall_e, valid)
+        self.labels = labels0.clone()
+
+    def begin_em(self, mu, sigma) -> None:
+        self._params = (mu, sigma)
+        self.ring.zero_()
+        self.head = 0
+
+    def step(self, gate: bool) -> None:
+        h, m = self._hoods, self._model
+        y, w, nall_e, valid = self._elements
+        self.labels, self.hood_e, self.votes, self._flag, *sums = fused_map_iteration(
+            y, w, nall_e, valid, h.hood_id, h.vertex, m.region_mean, m.region_weight,
+            self.ring, self.head, self.labels, *self._params, m.beta, gate=gate,
+            n_hoods=h.n_hoods, n_vertices=h.n_regions + 1, precision=self.precision,
+            conv_tol=self._conv_tol,
+        )
+        self.stats = torch.stack(sums)
+        self.head = (self.head - 1) % int(self.ring.shape[0])
+
+    def flag(self) -> int:
+        return int(self._flag)
 
 
 def flash_attention(

@@ -14,9 +14,11 @@ PyTorch version on the card, and drives three paths:
   tick's runtime-K variant), planned and solved through the session API
   (one ``fused_em_tick`` launch and one flag read per MAP iteration, on
   the plan's ``TickWorkspace``);
-* the sharded route: ``distributed_em`` on the same plans over a
-  one-rank NCCL process group made in this process (one
-  ``fused_map_step`` per MAP iteration, with the collectives around it);
+* the sharded route: ``run_em_sharded`` on the same plans over a
+  one-rank NCCL process group made in this process, on the rank's
+  ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
+  one all-reduce of its hood sums and votes, one flag read and, past the
+  window, the AND of the flag word);
 * LM serving: ``qwen2-1.5b`` at full width and depth (28 layers, bf16,
   random weights from a ``torch.Generator`` seeded 0) behind
   ``ServingEngine(max_batch=4, max_seq=2048)``, greedy, 8 requests (4
@@ -83,8 +85,24 @@ Tolerances (kernel against plain version, same inputs, on the card):
   per back-to-back step, device us per step, the bound, the device
   operations of one warm K = 2 solve, and the tick's ``ptxas`` registers
   and spills.
-* fused_map_step (at the slices' quantile-init operands, and on hoods of
-  100 and 300 elements): min_e, arg and votes exact; hood energies within
+* The plan: a second ``Segmenter.plan`` of the K = 2 slice's image on the
+  card equals the first bit for bit (the label map and every ``Hoods``
+  array); whether it equals the plan the plain path makes on the CPU is
+  printed, not held.
+* The sharded MAP step (``MapStepWorkspace.step``, the route's entry of
+  ``fused_map_step``), step by step over whole sharded solves of the
+  K = 2, 3 and 9 slices: from the same state as the kernel, the plain
+  workspace on the card gives the same labels, flag words and ring bit for
+  bit, the same votes and hood sums within rtol 1e-5 (atol 1e-4); the
+  JAX-signature entry on the counts of the same labels gives the step's
+  hood sums and votes bit for bit.  Profiler check: 20 MAP iterations as
+  the driver runs them (step, flag AND, flag read, all-reduce) issue 20
+  map-step kernels and no memset, no copy and no other kernel than
+  NCCL's (counted apart).  Printed: ms per MAP iteration, ms per step
+  back to back, device us per step, the plain step's ms, the bound.
+* fused_map_step's JAX-signature entry (at the slices' quantile-init
+  operands, and on hoods of 100 and 300 elements): min_e, arg and votes
+  exact; hood energies within
   rtol 1e-5 (atol 1e-4): the kernel rounds a fixed-point sum once, the
   plain version sums in element order.  On the long hoods 20 calls give
   the first call's hood sums bit for bit, the numpy model's.  The votes
@@ -117,7 +135,12 @@ Tolerances (kernel against plain version, same inputs, on the card):
   card the plain path's ``index_add_`` adds by atomics, and its counts
   moved by one MAP iteration between runs at K = 9).  The
   sharded route is held to the same limits against the single-device
-  route and against its own plain path.
+  route and against its own plain path; its ``sharded_slice`` line counts
+  its collectives (all-reduces per solve: one per MAP iteration, the flag
+  ANDs, the EM window's ANDs and three per solve), and its
+  ``fused_map_step`` launches must be its MAP plus its EM iterations and
+  its ``segment_reduce`` launches one plus three per EM iteration (the
+  label counts no longer go through it).
 * LM serving: every request completes with 32 tokens in the vocabulary.
   Kernel path against plain path on the same weights: (a) a 2-layer f32
   variant at full width (d_model 1536, vocab 151,936) gives identical
@@ -162,7 +185,7 @@ FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 REPEATS = 20  # calls of an order-free kernel that must agree bit for bit
-SOLVES = 10   # warm K=2 solves timed under --profile (min, median, max)
+SOLVES = 10   # warm solves timed under --profile (min, median, max)
 TICK_LABELS = (2, 3, 5, 9, 16, 33)  # synthetic tick checks; K >= 9 is the runtime-K variant
 MAP_STEPS = 20  # MAP steps of the repeat and profiler checks
 PROFILE_ATTEMPTS = 3  # profiles of MAP_STEPS steps, for the records the profiler drops
@@ -257,7 +280,22 @@ def device_profile(torch, fn) -> dict:
                    if k.startswith(("segsum::", "void segsum::"))],
         "host_top": [{"name": k[:60], "self_us": us, "count": n}
                      for us, k, n in sorted(host, reverse=True)[:10]],
+        "allreduces": sum(n for _, k, n in host if k == "c10d::allreduce_"),
     }
+
+
+def profile_solve(torch, what: str, solve) -> dict:
+    """``optimize_s`` of ``SOLVES`` warm calls of ``solve`` (min, median,
+    max), then one more under ``device_profile``: its device operations,
+    all-reduces and the device's idle share against the best unprofiled
+    solve."""
+    walls = spread([solve().optimize_seconds for _ in range(SOLVES)])
+    prof = device_profile(torch, solve)
+    out = {"phase": "profile", "what": what, "optimize_s_unprofiled": walls["min"],
+           "optimize_s_spread": walls,
+           "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / walls["min"], **prof}
+    emit(out)
+    return out
 
 
 def check_segment_reduce(torch, ops, dev) -> float:
@@ -795,21 +833,28 @@ def segment_reduce_timing(torch, ops, hoods, profile: bool) -> dict:
     return out
 
 
-def plain_solve_on_cpu(plan, config, seed: int):
-    """The plan's solve on the plain path with the problem copied to the
-    CPU, where the keyed sums add in element order (the JAX package's
-    order); the same initial parameters as on the card."""
-    from repro_torch.core.pmrf import convert, em as em_mod, pipeline
+def problem_on_cpu(plan, config, seed: int):
+    """The plan's problem (hoods, model, initial labels and parameters, the
+    same as on the card) copied to the CPU."""
+    from repro_torch.core.pmrf import convert, pipeline
 
     prob = plan.problem
     labels0, mu0, sigma0 = pipeline.initial_params(prob, seed, config.init)
     d = {f: getattr(prob.hoods, f) for f in convert.HOODS_ARRAYS + convert.HOODS_SIZES}
     d.update({f: getattr(prob.model, f) for f in convert.MODEL_FIELDS})
     d.update(labels0=labels0, mu0=mu0, sigma0=sigma0)
+    return convert.problem_from_numpy(d, device="cpu")
+
+
+def plain_solve_on_cpu(plan, config, seed: int):
+    """The plan's solve on the plain path with the problem copied to the
+    CPU, where the keyed sums add in element order (the JAX package's
+    order); the same initial parameters as on the card."""
+    from repro_torch.core.pmrf import em as em_mod, pipeline
+
     t0 = time.perf_counter()
-    res = em_mod.run_em(*convert.problem_from_numpy(d, device="cpu"),
-                        config.with_(backend="torch").em_config())
-    return pipeline.assemble_result(prob, res, plan.init_seconds, time.perf_counter() - t0)
+    res = em_mod.run_em(*problem_on_cpu(plan, config, seed), config.with_(backend="torch").em_config())
+    return pipeline.assemble_result(plan.problem, res, plan.init_seconds, time.perf_counter() - t0)
 
 
 def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases: int = 0) -> dict:
@@ -1010,26 +1055,69 @@ def check_mrf_energy(torch, ops, args) -> tuple:
     return err, margs
 
 
-def run_sharded(torch, D, pipeline, ops, sl) -> dict:
-    """The sharded route on a slice's plan over the one-rank group: launch
-    counts reset just before and read just after; then its plain path.
-    Both are held to the single-device result of the same plan."""
+class CollectiveCount:
+    """While active, counts ``torch.distributed.all_reduce`` calls (every
+    collective of the sharded route is one) and, among them, the sharded
+    driver's all-reduces of a step's buffer (``ReduceCtx.psum``) and ANDs of
+    the flag word (``ReduceCtx.and_flags``)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        from repro_torch.core.pmrf import collectives
+
+        self.n = {"all_reduce": 0, "psum": 0, "and_flags": 0}
+        self._saved = [(dist, "all_reduce", dist.all_reduce)]
+        self._saved += [(collectives.ReduceCtx, m, getattr(collectives.ReduceCtx, m))
+                        for m in ("psum", "and_flags")]
+        for owner, name, fn in self._saved:
+            def counted(*a, _fn=fn, _name=name, **kw):
+                self.n[_name] += 1
+                return _fn(*a, **kw)
+            setattr(owner, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def run_sharded(torch, D, pipeline, ops, em_mod, sl) -> dict:
+    """The sharded route on a slice's plan over the one-rank group, on the
+    rank's workspace built beforehand (as the session builds it, outside
+    the timed region): launch counts and collectives reset just before and
+    read just after; then its plain path.  Both are held to the
+    single-device result of the same plan.  Per MAP iteration the route
+    makes one ``fused_map_step`` launch, one all-reduce and, past the
+    window, the AND of the flag word, and per EM iteration one launch more
+    (the one that stops the MAP loop); its label counts no longer go
+    through ``segment_reduce``, which runs once for the neighbourhood sizes
+    and three times per EM iteration for the M-step.  Its labels, iteration
+    counts and status must equal the single-device route's (both sum in a
+    fixed order); against its plain path on the card, which adds by
+    atomics, the pixel and accuracy limits hold."""
     plan, config, single, accuracy = sl["plan"], sl["config"], sl["result"], sl["accuracy_of"]
     prob = plan.problem
     labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
+    parts = D.partition_hoods(prob.hoods, 1)
+    configs = {b: config.with_(backend=b).em_config() for b in ("auto", "torch")}
+    workspaces = {b: D.make_workspace(parts, prob.model, c) for b, c in configs.items()}
 
-    def solve(cfg):
+    def solve(backend):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = D.distributed_em(prob.hoods, prob.model, labels0, mu0, sigma0, config=cfg)
+        res = D.run_em_sharded(parts, prob.model, labels0, mu0, sigma0, config=configs[backend],
+                               workspace=workspaces[backend])
         torch.cuda.synchronize()
         return pipeline.assemble_result(prob, res, plan.init_seconds, time.perf_counter() - t0)
 
     ops.reset_launch_counts()
-    res = solve(config.em_config())
+    with CollectiveCount() as coll:
+        res = solve("auto")
     launches = ops.launch_counts()
     before = ops.launch_counts()
-    res_p = solve(config.with_(backend="torch").em_config())
+    res_p = solve("torch")
     if ops.launch_counts() != before:
         fail("the sharded plain path (backend='torch') launched a kernel")
 
@@ -1038,13 +1126,17 @@ def run_sharded(torch, D, pipeline, ops, sl) -> dict:
     agree_1 = float((res.segmentation == single.segmentation).mean())
     agree_p = float((res.segmentation == res_p.segmentation).mean())
     iters = lambda r: (r.em_iters, r.map_iters)
+    em_ands = max(res.em_iters - em_mod.WINDOW, 0)
     out = {
         "phase": "sharded_slice", "K": n_labels, "ranks": 1, "optimize_s": res.optimize_seconds,
         "em_iters": res.em_iters, "map_iters": res.map_iters, "status": res.status,
         "accuracy": acc, "launches": launches,
+        "allreduces": coll.n["all_reduce"], "step_allreduces": coll.n["psum"],
+        "flag_ands": coll.n["and_flags"], "em_ands": em_ands,
         "single_device_accuracy": acc_1, "pixel_agreement_single": agree_1,
         "labels_equal_single": bool(np.array_equal(res.region_labels, single.region_labels)),
         "iters_equal_single": iters(res) == iters(single),
+        "status_equal_single": res.status == single.status,
         "plain_optimize_s": res_p.optimize_seconds, "plain_accuracy": acc_p,
         "plain_em_iters": res_p.em_iters, "plain_map_iters": res_p.map_iters,
         "pixel_agreement_plain": agree_p,
@@ -1052,21 +1144,255 @@ def run_sharded(torch, D, pipeline, ops, sl) -> dict:
         "iters_equal_plain": iters(res) == iters(res_p),
     }
     emit(out)
-    if launches["fused_map_step"] != res.map_iters:
-        fail(f"fused_map_step launched {launches['fused_map_step']} times for {res.map_iters} MAP iterations")
+    if launches["fused_map_step"] != res.map_iters + res.em_iters:
+        fail(f"fused_map_step launched {launches['fused_map_step']} times for {res.map_iters} MAP "
+             f"and {res.em_iters} EM iterations")
     if launches["fused_em_tick"] != 0:
         fail("the sharded route ran the single-device tick")
-    if launches["segment_reduce"] < res.map_iters:
-        fail("the sharded route's label counts did not go through segment_reduce")
+    if launches["segment_reduce"] != 1 + 3 * res.em_iters:
+        fail(f"segment_reduce launched {launches['segment_reduce']} times on the sharded route, "
+             f"not once for the neighbourhood sizes and 3 per EM iteration: the label counts "
+             f"went through it")
+    # One all-reduce per MAP iteration, the flag ANDs, the EM window's ANDs,
+    # the neighbourhood sizes and the two of the problem's fingerprint.
+    if coll.n["psum"] != res.map_iters or coll.n["all_reduce"] != (
+            coll.n["psum"] + coll.n["and_flags"] + em_ands + 3):
+        fail(f"sharded K={n_labels} solve: collectives {coll.n} for {res.map_iters} MAP iterations")
     if res.status not in ("converged", "max_iters"):
         fail(f"sharded slice status {res.status}")
+    if not (out["labels_equal_single"] and out["iters_equal_single"] and out["status_equal_single"]):
+        fail(f"sharded K={n_labels} solve: labels, iterations or status differ from the single-device "
+             f"route's on the same plan")
     for what, agree, ref_acc in (("single-device route", agree_1, acc_1), ("sharded plain path", agree_p, acc_p)):
         if agree < 0.995:
             fail(f"sharded route and {what} agree on {agree:.4f} of the pixels")
         if acc < ref_acc - 0.01:
             fail(f"sharded-route accuracy {acc} more than 0.01 below the {what}'s {ref_acc}")
-    out["solve"] = lambda: solve(config.em_config())
+    out["solve"] = lambda: solve("auto")
     return out
+
+
+class LockstepWorkspace:
+    """A kernel ``MapStepWorkspace`` that, at every launch, also steps a
+    plain one (``backend="torch"``, on the card) from the same state and
+    holds the two together: the head's labels, the flag word and the ring
+    bit for bit, the step's votes exactly and its hood sums in the tiers of
+    ``compare_map_step``; and the step's hood sums and votes bit for bit to
+    the JAX-signature entry (``ops.fused_map_step``) on the same counts.
+    Everything else is the kernel workspace's."""
+
+    def __init__(self, torch, ops, kern, plain, hoods, model):
+        self.torch, self.ops, self.kern, self.plain = torch, ops, kern, plain
+        self.hoods, self.model = hoods, model
+        self.launches = self.steps = 0
+        self.worst = 0.0
+        self.entry_equal = True
+
+    def __getattr__(self, name):
+        return getattr(self.kern, name)
+
+    def start(self, y, w, nall_e, valid, labels0):
+        self.kern.start(y, w, nall_e, valid, labels0)
+        self.plain.start(y, w, nall_e, valid, labels0)
+        self.elements = (y, w, nall_e, valid)
+
+    def begin_em(self, mu, sigma):
+        self.kern.begin_em(mu, sigma)
+        self.plain.begin_em(mu, sigma)
+        self.params = (mu, sigma)
+
+    def step(self, gate, step=True):
+        torch, k, p = self.torch, self.kern, self.plain
+        p._labels.copy_(k.labels)
+        p._buffers.copy_(k._buffers)
+        p.ring.copy_(k.ring)
+        p.rot, p.head, p.first = k.rot, k.head, k.first
+        k.step(gate, step)
+        p.step(gate, step)
+        self.launches += 1
+        what = f"sharded MAP step K={k.n_labels} launch {self.launches}"
+        fk, fp = k.flag(), p.flag()
+        if fk != fp or not torch.equal(k.labels, p.labels) or not same_bits(torch, k.ring, p.ring):
+            fail(f"{what}: flag {fk} / plain {fp}, or the labels or the ring differ")
+        if not step:
+            return
+        self.steps += 1
+        nh = k.n_hoods
+        kb, pb = k.buffer, p.buffer
+        if not torch.equal(kb[nh:], pb[nh:]):
+            fail(f"{what}: votes differ from the plain step's")
+        self.worst = max(self.worst, (kb[:nh] - pb[:nh]).abs().max().item())
+        if not torch.allclose(kb[:nh], pb[:nh], rtol=1e-5, atol=1e-4):
+            fail(f"{what}: hood_e differs from the plain step's beyond rtol 1e-5")
+        # The JAX-signature entry on the counts of the labels this step used.
+        h, n_labels = self.hoods, k.n_labels
+        y, w, nall_e, valid = self.elements
+        x = p.labels[h.vertex.long()]
+        seg = torch.where(h.valid, h.hood_id.long(), nh)
+        counts = self.ops.ref.keyed_sum(valid, seg * n_labels + x.long(), (nh + 1) * n_labels)
+        cnt_e = counts.reshape(nh + 1, n_labels)[h.hood_id.long()].T.contiguous()
+        e = self.ops.fused_map_step(y, w, cnt_e, nall_e, x.float() * valid, valid, h.hood_id,
+                                    h.vertex, *self.params, self.model.beta, n_hoods=nh,
+                                    n_vertices=k.n_vertices)
+        if not (same_bits(torch, e[2], kb[:nh]) and torch.equal(e[3].reshape(-1), kb[nh:])):
+            self.entry_equal = False
+            fail(f"{what}: hood_e or votes differ from the JAX-signature entry's bits")
+
+
+def check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group, hold_cpu: bool) -> dict:
+    """The sharded route's workspace kernel held to its plain version step
+    by step over a whole sharded solve of the slice's plan (one rank,
+    ``LockstepWorkspace``).  Beside it, the route's plain path with the
+    problem copied to the CPU (``cpu_group``: a gloo group of the one
+    rank), which sums in element order: where ``hold_cpu``, the solve's
+    status and iteration counts must equal it, else they are reported
+    (the kernel's order-free hood sums may part from element order at a
+    threshold).  Returns the kernel workspace (its state is that of the
+    solve's end) and the figures."""
+    plan, config = sl["plan"], sl["config"]
+    prob = plan.problem
+    parts = D.partition_hoods(prob.hoods, 1)
+    cfg, plain_cfg = config.em_config(), config.with_(backend="torch").em_config()
+    kern = D.make_workspace(parts, prob.model, cfg)
+    plain = D.make_workspace(parts, prob.model, plain_cfg)
+    ws = LockstepWorkspace(torch, ops, kern, plain, parts, prob.model)
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
+    res = D.run_em_sharded(parts, prob.model, labels0, mu0, sigma0, config=cfg, workspace=ws)
+    hoods_c, model_c, *init_c = problem_on_cpu(plan, config, SLICE["seed"])
+    cpu = D.run_em_sharded(D.partition_hoods(hoods_c, 1), model_c, *init_c, config=plain_cfg,
+                           group=cpu_group)
+    single = sl["result"]
+    name = lambda r: em_mod.STATUS_NAMES.get(r.status, "running")
+    trajectory = lambda r: [name(r), r.em_iters, r.map_iters]
+    row = {"phase": "sharded_map_step_check", "K": sl["K"], "ok": True, "launches": ws.launches,
+           "steps": ws.steps, "max_abs_err": ws.worst, "entry_bitwise_equal": ws.entry_equal,
+           "status": name(res), "em_iters": res.em_iters, "map_iters": res.map_iters,
+           "single_device": [single.status, single.em_iters, single.map_iters],
+           "labels_equal_single": bool(np.array_equal(
+               res.labels.cpu().numpy()[: prob.graph.n_regions], single.region_labels)),
+           "plain_cpu": trajectory(cpu), "held_to_plain_cpu": hold_cpu,
+           "labels_equal_plain_cpu": bool(torch.equal(res.labels.cpu(), cpu.labels))}
+    emit(row)
+    if ws.launches != res.map_iters + res.em_iters:
+        fail(f"sharded K={sl['K']}: {ws.launches} launches for {res.map_iters} MAP and {res.em_iters} EM iterations")
+    if hold_cpu and trajectory(res) != trajectory(cpu):
+        fail(f"sharded K={sl['K']}: status and iterations {trajectory(res)}, the route's plain path "
+             f"on the CPU {trajectory(cpu)}")
+    return {"workspace": kern, "plain": plain, "max_abs_err": ws.worst, "parts": parts}
+
+
+def check_sharded_step(torch, ops, collectives, checked, profile: bool) -> dict:
+    """The sharded MAP iteration as the driver runs it (``step``, the AND of
+    the flag word, the flag read, the all-reduce of the step's buffer) from
+    the state a ``check_sharded_map_step`` solve ended in, K = 2:
+
+    * profiler: ``MAP_STEPS`` iterations issue exactly one map-step kernel
+      each, no memset, no copy, and no other kernel but NCCL's (counted
+      apart);
+    * times: ms per MAP iteration (host clock, what the driver pays; also
+      without the flag AND, and without both collectives), ms per step
+      back to back (CUDA events), device us per step (profiler), the plain
+      workspace's step, and the bound.
+    """
+    import torch.distributed as dist
+
+    ws, plain, parts = checked["workspace"], checked["plain"], checked["parts"]
+    ctx = collectives.ReduceCtx(group=dist.group.WORLD)
+    n_labels = ws.n_labels
+
+    def iteration():
+        ws.step(True)
+        ctx.and_flags(ws.flag_word)
+        ws.flag()
+        ctx.psum(ws.buffer)
+
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        before = ops.launch_counts()["fused_map_step"]
+        prof = device_profile(torch, lambda: [iteration() for _ in range(MAP_STEPS)])
+        steps = sum(t["count"] for t in prof["top"] if "map_iteration_kernel" in t["name"])
+        nccl = sum(t["count"] for t in prof["top"] if "nccl" in t["name"].lower())
+        step_us = sum(t["us"] for t in prof["top"] if "map_iteration_kernel" in t["name"])
+        a = {"launches": ops.launch_counts()["fused_map_step"] - before, "kernels": prof["kernels"],
+             "map_step_kernels": steps, "nccl_kernels": nccl, "memsets": prof["memsets"],
+             "memcpys": prof["memcpys"], "device_us_per_step": step_us / max(steps, 1)}
+        attempts.append(a)
+        if (a["launches"] != MAP_STEPS or a["kernels"] != steps + nccl or steps > MAP_STEPS
+                or a["memsets"] or a["memcpys"]):
+            fail(f"sharded MAP iteration K={n_labels}: {MAP_STEPS} iterations issued {a}")
+        if steps == MAP_STEPS:
+            break
+    row = {"phase": "sharded_step_profile_check", "K": n_labels, "steps": MAP_STEPS, **a,
+           "attempts": len(attempts)}
+    emit(row)
+    if steps != MAP_STEPS:
+        fail(f"sharded MAP iteration K={n_labels}: no profile of {MAP_STEPS} steps saw all of them: {attempts}")
+
+    def host_ms(fn, n=10 * MAP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    # The iteration and its parts: the step with its flag read, then with
+    # the all-reduce of the step, then the whole (with the flag AND).
+    out = {"K": n_labels, "ms_per_map_iteration": host_ms(iteration),
+           "ms_step_and_flag": host_ms(lambda: (ws.step(True), ws.flag())),
+           "ms_step_flag_allreduce": host_ms(lambda: (ws.step(True), ws.flag(), ctx.psum(ws.buffer))),
+           "ms": time_ms(lambda: ws.step(True)), "device_ms": row["device_us_per_step"] * 1e-3,
+           "plain_ms": time_ms(lambda: plain.step(True))}
+    from repro_torch.kernels import map_step
+
+    ranges = map_step.hood_runs(parts, 0, 1)[0]
+    # Each input byte once: y, w, nall and valid (f32) of the rank's own
+    # elements; vertex (i32) and valid (bool) of the whole runs it counts,
+    # which hold its own elements.
+    n_run = int((ranges[:, 3] - ranges[:, 2]).sum())      # this rank's elements
+    n_count = int((ranges[:, 1] - ranges[:, 0]).sum())    # the whole runs it counts
+    nh, nv, rows = ws.n_hoods, ws.n_vertices, ws.ring.shape[0]
+    n_bytes = (n_run * 4 * 4 + n_count * 5 + ranges.size * 4 + 2 * n_labels * 4 + 4  # elements, runs
+               + nh * 4 + n_labels * nv * 4 + (rows - 1) * nh * 4                   # previous step, ring
+               + nh * 4 + nv * 4                                                     # ring row, labels
+               + nh * 4 + 2 * n_labels * nv * 4 + 4)                                 # step, cleared votes, flag
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_run * n_labels * 16 + (n_count + nv) * n_labels)
+    out["bytes"] = n_bytes
+    if profile:
+        out["profile_top"] = prof["top"]
+    emit({"phase": "timing", "what": f"sharded MAP step (MapStepWorkspace) K={n_labels}", **out})
+    return out
+
+
+def check_plan_repeat(torch, api, sl) -> dict:
+    """A second plan of the slice's image on the card equals the first (the
+    main path's) bit for bit: the label map and every ``Hoods`` array
+    (SLIC's centroid sums are ``segment_reduce``'s order-free ``add``).
+    Also whether the card's plan equals the plain path's on the CPU,
+    reported and not held: the image's normalisation reduces in another
+    order there."""
+    from repro_torch.core.pmrf import convert
+
+    image, config, first = sl["image"], sl["config"], sl["plan"]
+    again = api.Segmenter(config, device=image.device).plan(image)
+    on_cpu = api.Segmenter(config, device="cpu").plan(image.cpu())
+
+    def unequal(a, b):
+        out = [] if np.array_equal(a.problem.labels_px, b.problem.labels_px) else ["labels_px"]
+        ha, hb = a.problem.hoods, b.problem.hoods
+        for f in convert.HOODS_ARRAYS:
+            x, y = getattr(ha, f).cpu(), getattr(hb, f).cpu()
+            if x.shape != y.shape or not torch.equal(x, y):
+                out.append(f)
+        return out + [f for f in convert.HOODS_SIZES if getattr(ha, f) != getattr(hb, f)]
+
+    repeat, vs_cpu = unequal(first, again), unequal(first, on_cpu)
+    emit({"phase": "plan_repeat_check", "K": sl["K"], "plans": 2, "ok": not repeat,
+          "unequal": repeat, "plan_s": [first.init_seconds, again.init_seconds],
+          "equal_cpu_plain_plan": not vs_cpu, "unequal_cpu_plain_plan": vs_cpu,
+          "cpu_plan_s": on_cpu.init_seconds})
+    if repeat:
+        fail(f"two plans of one image differ in {repeat}")
+    return {"equal_cpu_plain_plan": not vs_cpu}
 
 
 def flash_inputs(torch, shape, dtype: str, dev, seed: int) -> tuple:
@@ -1479,6 +1805,8 @@ def main(argv=None) -> int:
     emit({"phase": "build", "build_s": _build.build_all(), "dir": str(_build.BUILD_DIR)})
     tick_ptxas = ptxas_report("em_tick")
     emit({"phase": "ptxas", **tick_ptxas})
+    step_ptxas = ptxas_report("map_step")
+    emit({"phase": "ptxas", **step_ptxas})
     ptxas = ptxas_report("flash_attention")
     emit({"phase": "ptxas", **ptxas,
           "kernels": [k for k in ptxas["kernels"] if "flash_attention_tc_kernel" in k["kernel"]]})
@@ -1494,6 +1822,7 @@ def main(argv=None) -> int:
 
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
     plan = slice2["plan"]
+    check_plan_repeat(torch, api, slice2)
 
     hoods = plan.problem.hoods
     check_segment_reduce_order_free(torch, ops, dev, real_add_cases(torch, oversegment, slice2))
@@ -1509,12 +1838,7 @@ def main(argv=None) -> int:
         solve = api.Segmenter(
             api.ExecutionConfig(n_labels=2, overseg_grid=(SLICE["grid"],) * 2, init="quantile"), device=dev
         )
-        walls = spread([solve.execute(plan, seed=SLICE["seed"]).optimize_seconds for _ in range(SOLVES)])
-        wall = walls["min"]
-        prof = device_profile(torch, lambda: solve.execute(plan, seed=SLICE["seed"]))
-        emit({"phase": "profile", "what": "K=2 slice solve (execute)", "optimize_s_unprofiled": wall,
-              "optimize_s_spread": walls,
-              "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / wall, **prof})
+        profile_solve(torch, "K=2 slice solve (execute)", lambda: solve.execute(plan, seed=SLICE["seed"]))
 
     slice3 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=3)
     # K = 9 on the three-phase image: the tick's runtime-K variant on the main path.
@@ -1525,6 +1849,7 @@ def main(argv=None) -> int:
              **check_tick_step(torch, ops, E, em_mod, slice9["plan"])}
 
     # Second path: the sharded route's kernels at the slices' operands.
+    from repro_torch.core.pmrf import collectives
     from repro_torch.core.pmrf import distributed as D
     from repro_torch.core.pmrf import pipeline
 
@@ -1539,19 +1864,38 @@ def main(argv=None) -> int:
     torch.cuda.set_device(0)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
-        sharded = {sl["K"]: run_sharded(torch, D, pipeline, ops, sl) for sl in (slice2, slice3)}
+        sharded = {sl["K"]: run_sharded(torch, D, pipeline, ops, em_mod, sl) for sl in (slice2, slice3)}
+        # The route's workspace kernel against its plain version and the
+        # JAX-signature entry, step by step over whole solves, and the
+        # solves against the route's plain path on the CPU (K = 9: the
+        # sharded route at a K the main path does not take, reported).
+        cpu_group = dist.new_group(backend="gloo")
+        checked = {sl["K"]: check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group,
+                                                   hold_cpu=sl["K"] != 9)
+                   for sl in (slice2, slice3, slice9)}
+        sstep = check_sharded_step(torch, ops, collectives, checked[2], profile)
         if profile:
-            solve = sharded[2]["solve"]
-            walls = spread([solve().optimize_seconds for _ in range(SOLVES)])
-            wall = walls["min"]
-            prof = device_profile(torch, solve)
-            emit({"phase": "profile", "what": "K=2 sharded solve (distributed_em, 1 rank)",
-                  "optimize_s_unprofiled": wall, "optimize_s_spread": walls,
-                  "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / wall, **prof})
+            for n_labels in (2, 3):
+                profile_solve(torch, f"K={n_labels} sharded solve (run_em_sharded on its workspace, 1 rank)",
+                              sharded[n_labels]["solve"])
+            # The entry that partitions and builds the workspace in each call,
+            # as earlier checkouts of this script profiled it.
+            cfg2 = slice2["config"].em_config()
+            init2 = pipeline.initial_params(plan.problem, SLICE["seed"], slice2["config"].init)
+
+            def entry_solve():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = D.distributed_em(hoods, plan.problem.model, *init2, config=cfg2)
+                torch.cuda.synchronize()
+                return pipeline.assemble_result(plan.problem, res, plan.init_seconds, time.perf_counter() - t0)
+
+            profile_solve(torch, "K=2 sharded solve (distributed_em, 1 rank)", entry_solve)
     finally:
         dist.destroy_process_group()
 
-    # Timing of the two new kernels at the K = 2 slice's operands.
+    # Timing of the JAX-signature map step and mrf_min_energy at the K = 2
+    # slice's operands.
     ms_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw))
     ms_plain_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw, backend="torch"))
     mrf_ms = time_ms(lambda: ops.mrf_min_energy(*mrf_args))
@@ -1563,17 +1907,15 @@ def main(argv=None) -> int:
     ms_bound, ms_by = bound(ms_bytes, h * (2 + 15 * k2))
     mrf_bytes = h * 5 * 4 + 2 * 2 * 4 + 4 + h * 8
     mrf_bound, mrf_by = bound(mrf_bytes, h * 32)
-    # The sharded route's per-iteration segment_reduce: the (hood, label) counts.
-    count_args = (ms_args[5], E.dpp.compound_key(hoods.hood_id, ms_args[4].int(), 2).int(), (nh + 1) * 2, "add")
-    counts_ms = time_ms(lambda: ops.segment_reduce(*count_args))
+    ms_entry = {"ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by}
     if profile:
-        emit({"phase": "profile", "what": "20 fused_map_step calls",
-              **device_profile(torch, lambda: [ops.fused_map_step(*ms_args, **ms_kw) for _ in range(20)])})
+        prof = device_profile(torch, lambda: [ops.fused_map_step(*ms_args, **ms_kw) for _ in range(20)])
+        emit({"phase": "profile", "what": "20 fused_map_step calls (JAX-signature entry)", **prof})
+        ms_entry["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
         emit({"phase": "profile", "what": "20 mrf_min_energy calls",
               **device_profile(torch, lambda: [ops.mrf_min_energy(*mrf_args) for _ in range(20)])})
     emit({"phase": "timing", "fused_map_step_ms": ms_ms, "fused_map_step_plain_ms": ms_plain_ms,
           "mrf_min_energy_ms": mrf_ms, "mrf_min_energy_plain_ms": mrf_plain_ms,
-          "segment_reduce_counts_ms": counts_ms, "counts_segments": (nh + 1) * 2,
           "fused_map_step_bytes": ms_bytes, "mrf_min_energy_bytes": mrf_bytes, "elements": h})
 
     # Third path: LM serving at qwen2-1.5b's full width and depth.
@@ -1602,9 +1944,14 @@ def main(argv=None) -> int:
         {"name": "fused_map_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/map_step.cu",
          "replaces": "src/repro/kernels/map_step.py:148",
-         "launches": sharded_launches["fused_map_step"], "max_abs_err": ms_err,
-         "ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound,
-         "bound_by": ms_by, "library_ms": None},
+         "launches": sharded_launches["fused_map_step"],
+         "max_abs_err": max([ms_err] + [c["max_abs_err"] for c in checked.values()]),
+         **{k: sstep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                  "ms_per_map_iteration")},
+         "library_ms": None, "allreduces_per_solve": sharded[2]["allreduces"],
+         "ptxas": {"spill_bytes": step_ptxas["spill_bytes"],
+                   "registers": {k["kernel"]: k.get("registers") for k in step_ptxas["kernels"]}},
+         "jax_signature_entry": ms_entry},
         {"name": "mrf_min_energy", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mrf_energy.cu",
          "replaces": "src/repro/kernels/mrf_energy.py:62",

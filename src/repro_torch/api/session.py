@@ -10,8 +10,9 @@ eagerly, so there is no compile phase to cache yet.
 * :meth:`Segmenter.execute`: the EM solve (the paper's timed phase), on
   the sharded route when ``config.shards > 1``: every rank of the default
   ``torch.distributed`` group calls it with the same plan and solves its
-  block of the hood elements.  On one device the plan keeps the MAP
-  loop's workspace, so a warm solve allocates nothing in that loop;
+  block of the hood elements.  The plan keeps the MAP loop's workspace
+  (on the sharded route, this rank's), so a warm solve allocates nothing
+  in that loop;
 * :meth:`Segmenter.segment`: both.
 
 Both phases are timed on the host clock around work that ends in
@@ -22,7 +23,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 import torch.distributed as dist
@@ -44,9 +45,11 @@ class Plan:
     init_seconds: float
     # partition_hoods results by shard count, made at the first sharded solve
     partitions: Dict[int, Hoods] = field(default_factory=dict, repr=False)
-    # MAP-iteration workspaces (em.make_workspace) by (precision, backend),
-    # made at the first single-device solve and reused by the later ones
-    workspaces: Dict[Tuple[str, str], object] = field(default_factory=dict, repr=False)
+    # MAP-iteration workspaces by (precision, backend) on one device
+    # (em.make_workspace) and by (precision, backend, shards) on the sharded
+    # route (distributed.make_workspace: this rank's), made at the first
+    # solve and reused by the later ones
+    workspaces: Dict[tuple, object] = field(default_factory=dict, repr=False)
 
 
 class Segmenter:
@@ -112,16 +115,20 @@ class Segmenter:
         """The EM solve of one plan (``seed`` drives the random init)."""
         shards = self.config.shards
         em_config = self.config.em_config()
+        key = (em_config.precision, em_config.backend)
         if shards > 1:
             self._check_group()
             if shards not in plan.partitions:
                 plan.partitions[shards] = distributed_mod.partition_hoods(plan.problem.hoods, shards)
-        else:
-            key = (em_config.precision, em_config.backend)
+            key += (shards,)
             if key not in plan.workspaces:
-                plan.workspaces[key] = em_mod.make_workspace(
-                    plan.problem.hoods, plan.problem.model, em_config
+                plan.workspaces[key] = distributed_mod.make_workspace(
+                    plan.partitions[shards], plan.problem.model, em_config
                 )
+        elif key not in plan.workspaces:
+            plan.workspaces[key] = em_mod.make_workspace(
+                plan.problem.hoods, plan.problem.model, em_config
+            )
         self._sync()
         t0 = time.perf_counter()
         if shards > 1:
@@ -129,6 +136,7 @@ class Segmenter:
             labels0, mu0, sigma0 = pipeline_mod.initial_params(p, seed, self.config.init)
             res = distributed_mod.run_em_sharded(
                 plan.partitions[shards], p.model, labels0, mu0, sigma0, config=em_config,
+                workspace=plan.workspaces[key],
             )
         else:
             res = pipeline_mod.optimize(

@@ -5,6 +5,12 @@ Counterpart of ``repro.core.oversegment.slic``: grid-seeded k-means over
 its first-index tie rule.  The reference builds the whole (pixels x seeds)
 distance matrix; at a 512x512 slice with 1024 seeds that is 268 M floats
 for each temporary, so here the pixels are taken in chunks.
+
+The centroid sums of a Lloyd iteration are one ``dpp.reduce_by_key``:
+on the card ``segment_reduce``'s order-free ``add``, so that a plan is the
+same bit for bit from run to run (float atomics would add the intensities
+in a different order each time); on the CPU the plain version, which adds
+in pixel order as ``jax.ops.segment_sum`` does.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device, to_tensor
+from repro_torch.core import dpp
 
 #: Distance-matrix entries per chunk (pixels x seeds), 128 MB of float32.
 CHUNK_ENTRIES = 1 << 25
@@ -89,15 +96,15 @@ def slic(
             lab[s:e] = torch.argmin(d, dim=1)  # first index on ties
         return lab
 
-    def seg_sum(values, lab):
-        return torch.zeros(k, dtype=f32, device=dev).index_add_(0, lab, values)
-
-    ones = torch.ones_like(feats_i)
+    # The four value rows (ones, y, x, intensity), keyed j * k + label.
+    values = torch.cat([torch.ones_like(feats_i), feats_y, feats_x, feats_i])
+    rows = torch.arange(0, 4 * k, k, device=dev, dtype=torch.int32).repeat_interleave(n_pix)
     for _ in range(iters):
         lab = assign(c_y, c_x, c_i)
-        cnt = seg_sum(ones, lab)
+        keys = rows + lab.to(torch.int32).repeat(4)
+        cnt, sy, sx, si = dpp.reduce_by_key(keys, values, 4 * k, op="add").reshape(4, k)
         safe = torch.clamp_min(cnt, 1.0)
-        c_y = torch.where(cnt > 0, seg_sum(feats_y, lab) / safe, c_y)
-        c_x = torch.where(cnt > 0, seg_sum(feats_x, lab) / safe, c_x)
-        c_i = torch.where(cnt > 0, seg_sum(feats_i, lab) / safe, c_i)
+        c_y = torch.where(cnt > 0, sy / safe, c_y)
+        c_x = torch.where(cnt > 0, sx / safe, c_x)
+        c_i = torch.where(cnt > 0, si / safe, c_i)
     return assign(c_y, c_x, c_i).to(torch.int32).reshape(h, w)

@@ -19,6 +19,12 @@ primitive in the matching ``dpp_sharded`` collective.  Counts and votes
 are integer-valued floats, so their cross-rank sums are exact and sharded
 labels equal single-device labels; the label count K rides in the key
 spaces (``dpp.compound_key``) and needs no hook of its own.
+
+The sharded route's MAP iteration (``kernels.ops.map_step_workspace``)
+needs no collective for touch point 1: each rank counts its hoods over
+their whole runs of the partition, which it holds, and that is the
+all-reduced count exactly.  Touch points 2 and 3 are one :meth:`psum` of
+the step's buffer, and 4 is :meth:`and_flags` on its flag word.
 """
 
 from __future__ import annotations
@@ -91,6 +97,19 @@ class ReduceCtx:
         if where is not None:
             values = torch.where(where, values, torch.zeros((), dtype=values.dtype, device=values.device))
         return self.psum(kref.keyed_sum(values, indices, out_size))
+
+    def and_flags(self, word: Tensor) -> Tensor:
+        """Touch point 4 on a MAP loop's flag word (``kernels.ref.FLAG_*``,
+        an int32 tensor of one element), in place: its minimum over the
+        ranks, so that every rank reads one word.  The minimum is the AND
+        of the converged bits and keeps the diverged bit only because every
+        rank holds the same word: the words test all-reduced sums, so ranks
+        agree by construction, and the collective keeps the decision one
+        decision.  Words that differed could lose a diverged bit (the
+        minimum of 1 and 2 is 1).  Returns ``word``."""
+        if self.group is not None:
+            dist.all_reduce(word, op=dist.ReduceOp.MIN, group=self.group)
+        return word
 
     def all_converged(self, flags: Tensor) -> Tensor:
         """Touch point 4: the global convergence AND, a 0-d bool tensor.

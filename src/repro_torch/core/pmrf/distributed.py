@@ -7,8 +7,11 @@ every rank under a sharded ``collectives.ReduceCtx``; this module only
 
   1. block-partitions the hood elements over the ranks
      (:func:`partition_hoods`, on the host; its shapes depend only on the
-     capacity and the shard count), and
-  2. runs the driver on this rank's block (:func:`run_em_sharded`).
+     capacity and the shard count),
+  2. builds the rank's MAP-iteration workspace (:func:`make_workspace`),
+     which counts each local hood's labels over its whole run of the
+     partition, so that the counts need no collective, and
+  3. runs the driver on this rank's block (:func:`run_em_sharded`).
 
 Ranks are processes, one per device (``torchrun --nproc-per-node N``);
 the process group is the JAX mesh axis's counterpart.  Labels and
@@ -36,6 +39,7 @@ from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.em import EMConfig, EMResult
 from repro_torch.core.pmrf.hoods import Hoods
+from repro_torch.kernels import ops as kops
 
 Tensor = torch.Tensor
 
@@ -126,6 +130,29 @@ def partition_hoods(hoods: Hoods, n_shards: int) -> Hoods:
     )
 
 
+def shard_block(hoods: Hoods, rank: int, n_shards: int) -> Hoods:
+    """Rank ``rank``'s element block of a partition (:func:`partition_hoods`
+    for ``n_shards``) and its relocalised replication lanes, with global
+    ``vertex``/``hood_id`` and no ``sizes``/``offsets``."""
+    block = hoods.capacity // n_shards
+    e = slice(rank * block, (rank + 1) * block)
+    r = slice(2 * rank * block, 2 * (rank + 1) * block)
+    return Hoods(
+        vertex=hoods.vertex[e],
+        hood_id=hoods.hood_id[e],
+        valid=hoods.valid[e],
+        sizes=None,
+        offsets=None,
+        n_hoods=hoods.n_hoods,
+        n_regions=hoods.n_regions,
+        n_elements=-1,
+        rep_old_index=hoods.rep_old_index[r],
+        rep_test_label=hoods.rep_test_label[r],
+        rep_hood_id=hoods.rep_hood_id[r],
+        rep_valid=hoods.rep_valid[r],
+    )
+
+
 def _group(group: Optional[dist.ProcessGroup]) -> dist.ProcessGroup:
     if not dist.is_initialized():
         raise RuntimeError(
@@ -157,6 +184,23 @@ def _check_same_problem(hoods: Hoods, labels0: Tensor, group: dist.ProcessGroup)
         )
 
 
+def make_workspace(
+    hoods: Hoods,
+    model: E.EnergyModel,
+    config: EMConfig,
+    group: Optional[dist.ProcessGroup] = None,
+):
+    """This rank's MAP-iteration workspace (``kernels.ops.map_step_workspace``)
+    for the partition ``hoods`` (from :func:`partition_hoods` for the size
+    of ``group``); a plan keeps one and its solves reuse it
+    (``run_em_sharded(..., workspace=)``)."""
+    group = _group(group)
+    return kops.map_step_workspace(
+        hoods, model, rank=dist.get_rank(group), n_shards=dist.get_world_size(group),
+        conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW, backend=config.backend,
+    )
+
+
 def run_em_sharded(
     hoods: Hoods,
     model: E.EnergyModel,
@@ -166,6 +210,7 @@ def run_em_sharded(
     *,
     config: EMConfig,
     group: Optional[dist.ProcessGroup] = None,
+    workspace=None,
 ) -> EMResult:
     """Run the EM driver on this rank's element block of ``hoods``.
 
@@ -175,7 +220,9 @@ def run_em_sharded(
     replication lanes relocalised to it; the block keeps global
     ``vertex``/``hood_id`` and carries no ``sizes``/``offsets``.  Ranks
     whose problems differ raise ``ValueError`` before the first collective
-    of the solve.  Returns the same result on every rank.
+    of the solve.  ``workspace`` (:func:`make_workspace`) carries the MAP
+    loop's buffers across solves of one partition; without it the solve
+    builds its own.  Returns the same result on every rank.
     """
     em_mod.validate_config(config)
     group = _group(group)
@@ -189,24 +236,15 @@ def run_em_sharded(
         )
     block = cap // n_shards
     rank = dist.get_rank(group)
-    e = slice(rank * block, (rank + 1) * block)
-    r = slice(2 * rank * block, 2 * (rank + 1) * block)
-    local = Hoods(
-        vertex=hoods.vertex[e],
-        hood_id=hoods.hood_id[e],
-        valid=hoods.valid[e],
-        sizes=None,
-        offsets=None,
-        n_hoods=hoods.n_hoods,
-        n_regions=hoods.n_regions,
-        n_elements=-1,
-        rep_old_index=hoods.rep_old_index[r],
-        rep_test_label=hoods.rep_test_label[r],
-        rep_hood_id=hoods.rep_hood_id[r],
-        rep_valid=hoods.rep_valid[r],
-    )
+    local = shard_block(hoods, rank, n_shards)
+    ws = workspace if workspace is not None else make_workspace(hoods, model, config, group)
+    if (ws.base, ws.block) != (rank * block, block):
+        raise ValueError(
+            f"workspace built for the block at {ws.base} of {ws.block} elements, this rank "
+            f"solves the block at {rank * block} of {block}"
+        )
     ctx = collectives.ReduceCtx(group=group)
-    return em_mod._em_driver(local, model, labels0, mu0, sigma0, config, ctx)
+    return em_mod._em_driver(local, model, labels0, mu0, sigma0, config, ctx, ws)
 
 
 def distributed_em(

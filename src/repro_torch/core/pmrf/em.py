@@ -12,8 +12,10 @@ single-device context, where each MAP iteration is one ``fused_em_tick``
 launch on a workspace the plan owns (label gather, history ring,
 convergence and finiteness flags and the M-step sums all in the kernel);
 ``distributed.run_em_sharded`` binds a sharded context, where each MAP
-iteration is ``energy.map_step_fused`` (collectives around one
-``fused_map_step`` launch) and the M-step is
+iteration is one ``fused_map_step`` launch on the rank's workspace (the
+last step's labels and tests, this step's counts, energies, hood sums and
+votes), one all-reduce of the step's hood sums and votes and, past the
+window, the AND of the flag word; its M-step is
 ``energy.update_parameters_stats``.  Every convergence decision goes
 through the context, so all ranks take the same trajectory.
 
@@ -188,8 +190,11 @@ def _em_driver(
     When ``ctx`` is sharded, ``hoods`` is this rank's element block (with
     globally indexed ``vertex``/``hood_id``) while ``model``, ``labels0``,
     ``mu0`` and ``sigma0`` are the same on every rank, and so is all label
-    and parameter state after each step.  On one device each MAP
-    iteration is ``workspace.step`` and one flag read, nothing else.
+    and parameter state after each step; ``workspace`` is then the rank's
+    ``kernels.ops.map_step_workspace`` (``distributed.make_workspace``).
+    On one device each MAP iteration is ``workspace.step`` and one flag
+    read, nothing else; sharded, one step, one flag read and one
+    all-reduce, with the AND of the flag word past the window.
     """
     validate_config(config)
     backend = config.backend
@@ -205,9 +210,15 @@ def _em_driver(
                 f"workspace built for precision {ws.precision!r} and K = {ws.n_labels}, "
                 f"the solve has {config.precision!r} and K = {model.n_labels}"
             )
-        ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    else:
+        if workspace is None:
+            raise ValueError("the sharded route needs its rank's workspace (distributed.make_workspace)")
+        ws = workspace
+        if ws.n_labels != model.n_labels:
+            raise ValueError(f"workspace built for K = {ws.n_labels}, the solve has K = {model.n_labels}")
+    ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
 
-    labels, mu, sigma = labels0, mu0, sigma0
+    mu, sigma = mu0, sigma0
     hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)  # if max_em_iters == 0
     total_hist = torch.zeros((WINDOW + 1,), dtype=f32, device=dev)
     em_i = 0
@@ -216,47 +227,43 @@ def _em_driver(
     done = False
     while em_i < config.max_em_iters and not done:
         i = 0
+        flag = 0
+        ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
         if fused_tick:
             # MAP loop: one launch and one flag read per iteration.
-            ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
-            flag = 0
             while i < config.max_map_iters and not flag:
                 i += 1
                 ws.step(i > WINDOW)
                 flag = ws.flag()
-            map_div = bool(flag & kops.FLAG_DIVERGED)
             if i:
                 hood_energy, msums = ws.hood_e, ws.stats
             else:
                 hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
                 msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
             mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
-            div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         else:
-            # MAP loop: one sharded MAP step per iteration.
-            hist = torch.zeros((WINDOW + 1, n_hoods), dtype=f32, device=dev)
-            hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
-            diverged = torch.zeros((), dtype=torch.bool, device=dev)
-            map_done = False
-            while i < config.max_map_iters and not map_done:
-                labels, hood_e = E.map_step_fused(
-                    hoods, model, sctx, labels, mu, sigma, backend=backend, ctx=ctx
-                )
-                hist = torch.cat([hood_e[None], hist[:-1]])
-                hood_energy = hood_e
-                i += 1
-                diverged = ~torch.all(torch.isfinite(hood_e))
-                stop = diverged
+            # MAP loop: per iteration one launch (the head tests iteration
+            # i, the step computes i + 1), the AND of the flag word past
+            # the window, one flag read and one all-reduce of the step.  The
+            # launch that stops the loop only tests: its step is dropped.
+            while True:
+                more = i < config.max_map_iters
+                ws.step(i > WINDOW, step=more)
                 if i > WINDOW:
                     # Every rank has the same i, so all skip or all join
                     # the collective.
-                    stop = ctx.all_converged(_window_converged(hist)) | diverged
-                map_done = bool(stop)
-            map_div = False
+                    ctx.and_flags(ws.flag_word)
+                flag = ws.flag()
+                if flag or not more:
+                    break
+                ctx.psum(ws.buffer)
+                i += 1
+            hood_energy = ws.hood_e if i else torch.zeros((n_hoods,), dtype=f32, device=dev)
             mu, sigma, sum_w = E.update_parameters_stats(
-                model, labels, config.mode, backend=backend
+                model, ws.labels, config.mode, backend=backend
             )
-            div_t = diverged | ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
+        map_div = bool(flag & kops.FLAG_DIVERGED)
+        div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)
         total_hist = torch.cat([torch.sum(hood_energy)[None], total_hist[:-1]])
         em_i += 1
@@ -271,8 +278,8 @@ def _em_driver(
         done = em_conv or div
         status = _boundary_status(div, deg, finished, em_conv, em_i, config.max_em_iters)
 
-    if fused_tick:  # the workspace's buffers belong to the plan
-        labels, hood_energy = ws.labels.clone(), hood_energy.clone()
+    # The workspace's buffers belong to the plan.
+    labels, hood_energy = ws.labels.clone(), hood_energy.clone()
     return EMResult(
         labels=labels,
         mu=mu,

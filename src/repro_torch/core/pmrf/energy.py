@@ -15,10 +15,17 @@ per solve.  One MAP iteration of the static-pallas route is
 * on one device, one ``fused_em_tick`` launch on the plan's workspace
   (``kernels.ops.tick_workspace``): the label gather, the history ring
   and the flag are in the kernel, which also yields the M-step sums;
-* sharded, :func:`map_step_fused`: the label counts (a ``segment_reduce``
-  launch plus an all-reduce), one ``fused_map_step`` launch, and the
-  all-reduce of its hood sums and votes; the M-step is then
+* sharded, one ``fused_map_step`` launch on the rank's workspace
+  (``kernels.ops.map_step_workspace``: the last step's labels and tests,
+  this step's label counts over whole hood runs, energies, hood sums and
+  votes) and one all-reduce of its hood sums and votes; the M-step is then
   :func:`update_parameters_stats`.
+
+:func:`map_step_operands` and :func:`map_step_fused` are the sharded MAP
+step as a composition of separate operations (counts by a keyed reduction
+and an all-reduce, the JAX-signature kernel, two all-reduces, the argmax),
+which the workspace replaced on the route; the tests and ``chip_smoke.py``
+hold the workspace to them.
 """
 
 from __future__ import annotations
@@ -153,8 +160,8 @@ def map_step_fused(
     backend: Optional[str] = None,
     ctx: ReduceCtx = LOCAL,
 ) -> Tuple[Tensor, Tensor]:
-    """One MAP iteration of the sharded static-pallas route: ``(new
-    labels, hood sums)``.
+    """One MAP iteration of the sharded static-pallas route as separate
+    operations: ``(new labels, hood sums)``.
 
     The global label counts come first (:func:`map_step_operands`); the
     kernel then runs on this rank's elements, and its hood sums and

@@ -85,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "flagword.cuh"
+
 namespace {
 
 constexpr int kWarp = 32;
@@ -104,11 +106,6 @@ constexpr size_t rt_smem_bytes(int n_labels) {
   return hood_rt_smem_bytes(n_labels) > kTileBytes ? hood_rt_smem_bytes(n_labels) : kTileBytes;
 }
 constexpr int kMaxLabels = kSmemPerBlock / static_cast<int>(hood_rt_smem_bytes(1));
-
-// Flag accumulator and flag word bits.
-constexpr unsigned kNotConverged = 1u;  // accumulator: some hood outside its window
-constexpr unsigned kNonFinite = 2u;     // accumulator and flag: some hood_e not finite
-constexpr int kConverged = 1;           // flag: every hood converged, gate open
 
 struct TickParams {
   const float* y;
@@ -170,28 +167,15 @@ __device__ __forceinline__ float element_label(const TickParams& p, int e, float
 // [he, ring row 0, ..., ring row rows-2] (newest first) and write he into
 // the oldest row.  Returns the hood's accumulator bits.
 __device__ __forceinline__ unsigned close_hood(const TickParams& p, int hood, float he) {
-  const int rows = p.hist_rows;
-  const float* col = p.ring + hood;
-  auto row = [&](int r) {
-    const int q = p.head + r;
-    return col[(q < rows ? q : q - rows) * p.n_hoods];
-  };
-  const float tol = __fmul_rn(p.conv_tol, fmaxf(fabsf(he), 1.0f));
-  bool ok = fabsf(__fsub_rn(he, row(0))) < tol;
-  for (int r = 0; r + 2 < rows; ++r) ok = ok && fabsf(__fsub_rn(row(r), row(r + 1))) < tol;
   p.hood_e[hood] = he;
-  if (p.ring_write) {
-    const int q = p.head + rows - 1;
-    p.ring[(q < rows ? q : q - rows) * p.n_hoods + hood] = he;
-  }
-  return (ok ? 0u : kNotConverged) | (isfinite(he) ? 0u : kNonFinite);
+  return flagword::close_window(p.ring, p.hist_rows, p.head, p.n_hoods, hood, he, p.conv_tol,
+                                p.ring_write != 0);
 }
 
-// Every block: zero the previous launch's vote buffer, fold the block's
-// hood bits into the accumulator, fence and draw a ticket.  True in the
-// block that draws the last one (uniform in the block).
+// Every block: zero the previous launch's vote buffer, then join the
+// launch's ticket (flagword.cuh).  True in the block that draws the last
+// ticket (uniform in the block).
 __device__ __forceinline__ bool last_block_done(const TickParams& p, unsigned bits) {
-  __shared__ unsigned int is_last;
   if (p.votes_clear != nullptr) {
     const long long n = static_cast<long long>(p.n_labels) * p.n_vertices;
     for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
@@ -199,28 +183,13 @@ __device__ __forceinline__ bool last_block_done(const TickParams& p, unsigned bi
       p.votes_clear[i] = 0.0f;
     }
   }
-  const unsigned block_bits = (__syncthreads_or(bits & kNotConverged) ? kNotConverged : 0u) |
-                              (__syncthreads_or(bits & kNonFinite) ? kNonFinite : 0u);
-  if (threadIdx.x == 0 && block_bits != 0u) atomicOr(p.sync + 1, block_bits);
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) is_last = atomicAdd(p.sync, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (is_last) __threadfence();
-  return is_last != 0u;
+  return flagword::last_block_done(p.sync, bits);
 }
 
 // Last block, one thread, after the labels and sums: publish the flag and
 // reset the ticket and the accumulator for the next launch.
 __device__ __forceinline__ void publish_flag(const TickParams& p) {
-  const unsigned acc = atomicExch(p.sync + 1, 0u);
-  const int flag = ((p.gate && !(acc & kNotConverged)) ? kConverged : 0) |
-                   static_cast<int>(acc & kNonFinite);
-  p.flag_dev[0] = flag;
-  // No system-scope fence: the host reads the word only after the stream
-  // has finished this launch.
-  if (p.flag_host != nullptr) *reinterpret_cast<volatile int*>(p.flag_host) = flag;
-  atomicExch(p.sync, 0u);
+  flagword::publish(p.sync, p.gate, p.flag_dev, p.flag_host);
 }
 
 inline unsigned int grid_blocks(int n_hoods, int warps) {

@@ -1,6 +1,8 @@
 // Keyed float32 reductions whose result does not depend on the order in
 // which elements arrive: an order-free sum and a NaN-true minimum.  Used by
-// segment_reduce.cu (the ReduceByKey kernel) and map_step.cu (its hood sums).
+// segment_reduce.cu (the ReduceByKey kernel) and map_step.cu (its hood sums,
+// in three passes for the JAX-signature entry and by WarpSegment, one warp
+// per hood, in the sharded route's MAP iteration).
 // src/repro_torch/testing/segsum.py is a numpy model of the same arithmetic;
 // the kernels equal it bit for bit.
 //
@@ -19,6 +21,11 @@
 //      or +inf with -inf, gives NaN; one infinity gives itself.
 // Each value keeps at least fbits - 1 bits below its segment's top
 // exponent: 41 at n = 10^6, against float32's 24.
+//
+// WarpSegment is the same sum when one warp holds a whole segment: a warp
+// maximum of the exponent keys and an OR of the flags, each value rounded
+// to the same grid, an exact int64 warp sum and the same read-out, so it
+// gives the three passes' result bit for bit.
 //
 // Minimum: a compare-and-swap on the float's bits under a total order in
 // which NaN is least, then -inf .. -0.0 < +0.0 .. +inf, so a NaN lands and
@@ -100,6 +107,34 @@ __device__ __forceinline__ float readout(unsigned long long acc, int key, int fl
   const float f = __ll2float_rn(static_cast<long long>(acc));
   return __double2float_rn(__dmul_rn(static_cast<double>(f), pow2(key - 126 - fbits)));
 }
+
+// One segment summed by the 32 lanes of one warp: note() each lane's
+// values (the exponent pass), close_exponent() in every lane, add() the same
+// values again (the sum pass), then result() in every lane (the read-out).
+// fbits is frac_bits(n) of the call the sum belongs to.
+struct WarpSegment {
+  int key = 0;
+  int flags = 0;
+  long long acc = 0;
+
+  __device__ __forceinline__ void note(float v) {
+    key = max(key, exponent_key(v));
+    flags |= nonfinite_flag(v);
+  }
+  __device__ __forceinline__ void close_exponent() {
+    key = __reduce_max_sync(kFull, key);
+    flags = static_cast<int>(__reduce_or_sync(kFull, static_cast<unsigned>(flags)));
+  }
+  __device__ __forceinline__ void add(float v, int fbits) {
+    if (isfinite(v) && v != 0.0f) acc += quantize(v, key, fbits);
+  }
+  __device__ __forceinline__ float result(int fbits) const {
+    long long s = acc;
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o >>= 1) s += __shfl_xor_sync(kFull, s, o);
+    return readout(static_cast<unsigned long long>(s), key, flags, fbits);
+  }
+};
 
 // The minimum under the total order above.
 __device__ __forceinline__ float min_total(float a, float b) {

@@ -137,6 +137,24 @@ def tick_workspace(
     return cls(hoods, model, precision=precision, conv_tol=conv_tol, window=window)
 
 
+def map_step_workspace(
+    hoods,
+    model,
+    *,
+    rank: int = 0,
+    n_shards: int = 1,
+    conv_tol: float = 1.0e-4,
+    window: int = 3,
+    backend: Optional[str] = None,
+):
+    """The sharded EM driver's MAP-iteration workspace for rank ``rank`` of
+    a partition (``distributed.partition_hoods(hoods, n_shards)``):
+    :class:`map_step.MapStepWorkspace` (one kernel launch per MAP
+    iteration) for CUDA tensors, else :class:`ref.PlainMapStepWorkspace`."""
+    cls = _map_step.MapStepWorkspace if _use_kernel(backend, hoods.vertex) else ref.PlainMapStepWorkspace
+    return cls(hoods, model, rank=rank, n_shards=n_shards, conv_tol=conv_tol, window=window)
+
+
 def fused_map_step(
     y: torch.Tensor,
     w: torch.Tensor,

@@ -317,6 +317,107 @@ class PlainTickWorkspace:
         return int(self._flag)
 
 
+class PlainMapStepWorkspace:
+    """The plain version of ``map_step.MapStepWorkspace`` (same methods and
+    views): the sharded EM driver's route on the CPU, or on the card with
+    ``backend="torch"``.
+
+    A step's head takes the labels from the last buffer's votes (first
+    maximum, the sentinel vertex 0), tests its hood sums against the
+    history ring (the window predicate of :func:`fused_em_tick`, gated, and
+    finiteness) and writes them into the ring; the step counts the labels
+    of every hood over the whole partition, gathers the counts per element
+    of this rank's block and runs :func:`fused_map_step` on the block.  Its
+    hood sums are zero for hoods with no element in the block, since the
+    keyed sum gives those nothing.
+    """
+
+    def __init__(self, hoods, model, *, rank: int = 0, n_shards: int = 1,
+                 conv_tol: float = 1.0e-4, window: int = 3):
+        cap = hoods.capacity
+        if n_shards < 1 or cap % n_shards or not 0 <= rank < n_shards:
+            raise ValueError(f"rank {rank} of {n_shards} does not split capacity {cap}")
+        self.device, self.n_labels = hoods.vertex.device, model.n_labels
+        self.block = cap // n_shards
+        self.base = rank * self.block
+        self._hoods, self._model, self._conv_tol = hoods, model, conv_tol
+        self.n_hoods, self.n_vertices = hoods.n_hoods, hoods.n_regions + 1
+        f32 = torch.float32
+        self._labels = torch.zeros((self.n_vertices,), dtype=torch.int32, device=self.device)
+        self._buffers = torch.zeros((3, self.n_hoods + self.n_labels * self.n_vertices), dtype=f32,
+                                    device=self.device)
+        self.ring = torch.zeros((window + 1, self.n_hoods), dtype=f32, device=self.device)
+        self.flag_word = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self.rot, self.head, self.first = 0, 0, True
+
+    def start(self, y, w, nall_e, valid, labels0) -> None:
+        self._elements = (y, w, nall_e, valid)
+        self._labels.copy_(labels0)
+
+    def begin_em(self, mu, sigma) -> None:
+        self._params = (mu, sigma)
+        self.first = True
+        self.head = 0
+
+    def step(self, gate: bool, step: bool = True) -> None:
+        h, m = self._hoods, self._model
+        nh, nv, n_labels = self.n_hoods, self.n_vertices, self.n_labels
+        prev, cur, nxt = (self._buffers[(self.rot + d) % 3] for d in (2, 0, 1))
+        flag = 0
+        if not self.first:
+            he, votes = prev[:nh], prev[nh:].view(n_labels, nv)
+            self._labels.copy_(torch.argmax(votes, dim=0))  # first maximum on ties
+            self._labels[nv - 1] = 0
+            rows = int(self.ring.shape[0])
+            order = [(self.head + r) % rows for r in range(rows)]
+            hist = torch.cat([he[None], self.ring[order[:-1]]])
+            scale = torch.clamp_min(torch.abs(he), 1.0)
+            ok = torch.all(torch.abs(hist[:-1] - hist[1:]) < self._conv_tol * scale)
+            self.ring[order[-1]] = he
+            self.head = (self.head - 1) % rows
+            flag = int(bool(ok) and gate) * FLAG_CONVERGED | int(
+                not bool(torch.all(torch.isfinite(he)))) * FLAG_DIVERGED
+        self.flag_word.fill_(flag)
+        if step:
+            x = self._labels[h.vertex.long()]
+            seg_h = torch.where(h.valid, h.hood_id.long(), nh)
+            counts = keyed_sum(h.valid.to(torch.float32), seg_h * n_labels + x.long(),
+                               (nh + 1) * n_labels).reshape(nh + 1, n_labels)
+            b = slice(self.base, self.base + self.block)
+            hood_id, vertex = h.hood_id[b], h.vertex[b]
+            y, w, nall_e, valid = self._elements
+            cnt_e = counts[hood_id.long()].T.contiguous()
+            xf = x[b].to(torch.float32) * valid
+            mu, sigma = self._params
+            _, _, hood_e, votes = fused_map_step(
+                y, w, cnt_e, nall_e, xf, valid, hood_id, vertex, mu, sigma, m.beta,
+                n_hoods=nh, n_vertices=nv)
+            cur[:nh] = hood_e
+            cur[nh:] = votes.reshape(-1)
+        nxt[nh:] = 0.0
+        self.first = False
+        self.rot = (self.rot + 1) % 3
+
+    def flag(self) -> int:
+        return int(self.flag_word[0])
+
+    @property
+    def buffer(self) -> Tensor:
+        return self._buffers[(self.rot - 1) % 3]
+
+    @property
+    def labels(self) -> Tensor:
+        return self._labels
+
+    @property
+    def hood_e(self) -> Tensor:
+        return self._buffers[(self.rot - 2) % 3, : self.n_hoods]
+
+    @property
+    def votes(self) -> Tensor:
+        return self._buffers[(self.rot - 2) % 3, self.n_hoods:].view(self.n_labels, self.n_vertices)
+
+
 def flash_attention(
     q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False, scale: float | None = None
 ) -> Tensor:

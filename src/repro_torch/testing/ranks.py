@@ -161,3 +161,61 @@ def sharded_em(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str,
 
         out["launcher"] = segment.main(payload["launcher"])
     return out
+
+
+def map_step_counts(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The sharded MAP step's label counts on this rank's block.
+
+    ``payload["problems"]`` maps a name to ``(problem, labels)``: a
+    ``convert.problem_from_numpy`` dict and (V+1,) int32 labels.  For each,
+    on the block of ``partition_hoods(hoods, world_size)``: whether every
+    valid element's label counts over its hood's whole run
+    (``map_step.hood_runs``, what the CUDA step counts) equal the counts the
+    old composition gathers for it after an all-reduce
+    (``energy.map_step_operands``), whether the runs' block parts hold
+    exactly the block's valid elements, and whether one step of the plain
+    workspace writes the old composition's kernel outputs (before the
+    all-reduce) bit for bit.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.pmrf import collectives, convert
+    from repro_torch.core.pmrf import distributed as D
+    from repro_torch.core.pmrf import energy as E
+    from repro_torch.kernels import map_step, ops, ref
+
+    ctx = collectives.ReduceCtx(group=dist.group.WORLD)
+    out: Dict[str, Any] = {}
+    for name, (problem, labels) in payload["problems"].items():
+        prob = convert.problem_from_numpy(problem, device="cpu")
+        model = prob.model
+        n_labels = model.n_labels
+        parts = D.partition_hoods(prob.hoods, world_size)
+        ranges, hood_lo, block = map_step.hood_runs(parts, rank, world_size)
+        vertex, valid = parts.vertex.numpy(), parts.valid.numpy()
+        runs = np.stack([np.bincount(labels[vertex[b:e]][valid[b:e]], minlength=n_labels)
+                         for b, e, _, _ in ranges]) if len(ranges) else np.zeros((0, n_labels))
+        local = D.shard_block(parts, rank, world_size)
+        lab = torch.from_numpy(labels)
+        sctx = E.make_static_context(local, model, ctx=ctx)
+        args, kw = E.map_step_operands(local, model, sctx, lab, prob.mu0, prob.sigma0, ctx=ctx)
+        cnt_e = _np(args[2]).T
+        lv = _np(local.valid)
+        hid = _np(local.hood_id)[lv].astype(np.int64)
+        at = np.nonzero(lv)[0] + rank * block
+        j = hid - hood_lo
+        in_range = bool(np.all((j >= 0) & (j < len(ranges))))
+        covered = in_range and bool(np.all((ranges[j, 2] <= at) & (at < ranges[j, 3])))
+        counts_equal = in_range and np.array_equal(runs[j].astype(np.float32), cnt_e[lv])
+        ws = ops.map_step_workspace(parts, model, rank=rank, n_shards=world_size)
+        ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, lab)
+        ws.begin_em(prob.mu0, torch.maximum(prob.sigma0, model.sigma_min))
+        ws.step(False)
+        _, _, hood_e, votes = ref.fused_map_step(*args, **kw)
+        step_equal = (torch.equal(ws.buffer[: ws.n_hoods].view(torch.int32), hood_e.view(torch.int32))
+                      and torch.equal(ws.buffer[ws.n_hoods:], votes.reshape(-1)))
+        out[name] = {"n_local": len(ranges), "valid_in_block": int(lv.sum()),
+                     "counts_equal": counts_equal, "covered": covered, "step_equal": step_equal,
+                     "plain_workspace": isinstance(ws, ref.PlainMapStepWorkspace)}
+    return out

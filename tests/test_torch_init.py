@@ -79,6 +79,28 @@ def test_slic_matches_jax(n_labels):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("n_labels", sorted(CASES))
+def test_slic_sums_go_through_reduce_by_key(n_labels, monkeypatch):
+    """Each Lloyd iteration's centroid sums are one ``dpp.reduce_by_key``
+    call (``segment_reduce``'s order-free ``add`` on the card) over the four
+    value rows keyed ``j * k + label``, and the label map is still JAX's."""
+    img = _image(n_labels)
+    grid = CASES[n_labels]["grid"]
+    k = grid[0] * grid[1]
+    calls = []
+    plain = dpp.reduce_by_key
+
+    def counted(ids, values, num_segments, op="add", **kw):
+        calls.append((num_segments, op, values.shape[0], values.dtype))
+        return plain(ids, values, num_segments, op, **kw)
+
+    monkeypatch.setattr(dpp, "reduce_by_key", counted)
+    got = oversegment.slic(img, grid=grid, iters=5, device="cpu")
+    assert calls == [(4 * k, "add", 4 * img.size, torch.float32)] * 5
+    want = np.asarray(jax_overseg.slic(jnp.asarray(img), grid=grid, iters=5))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_slic_chunking_is_invisible(monkeypatch):
     """Taking the pixels in chunks changes no label."""
     img = _image(2)

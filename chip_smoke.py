@@ -42,10 +42,10 @@ when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
 K = 2 solve of each segmentation path after 10 timed warm solves, and one
 LM prefill at S = 1024 and one decode step, with their device idle
-shares).  Float32 products run in
-full float32 (TF32 off, the defaults, set explicitly).  After the build
-a ``ptxas`` line gives the registers and spills of the tensor-core flash
-kernels (any spill in the flash library fails the run); the
+shares).  Float32 products run in full float32 (TF32 off, the defaults,
+set explicitly).  After the build a ``ptxas`` line gives the registers
+and spills of the tensor-core flash kernels (any spill in the flash
+library fails the run); the
 ``flash_attention`` timing lines give both model shapes with their device
 times (``torch.profiler``), ``scaled_dot_product_attention`` beside them
 and the share of the bound; the ``kernels`` line adds the count of
@@ -65,20 +65,30 @@ Tolerances (kernel against plain version, same inputs, on the card):
   With NaN and infinities (NaN in ``add`` and ``min``, +inf with -inf in
   ``add``) it equals the plain version exactly, NaN equal to NaN.
 * fused_em_tick at f32: labels, votes and the convergence flag exact;
-  hood energies and M-step sums within rtol 1e-5 (atol 1e-4): the kernel
-  sums them in another order.  At bf16: at least 95 % label agreement and
-  sums within 2 %.  K = 2, 3, 5 and the runtime-K variant at 9, 16, 33 on
-  synthetic operands; K = 2 and 9 at the slices' operands.  The runtime-K
-  variant (K >= 9) sums in element order, so at f32 it also equals the
-  plain tick on the CPU (where ``index_add_`` adds in element order) bit
-  for bit in every output.
+  hood energies and M-step sums within rtol 1e-5 (atol 1e-4) of the plain
+  tick on the card, which adds by atomics.  At bf16: at least 95 % label
+  agreement and sums within 2 %.  K = 2, 3, 5 and the runtime-K variant at
+  9, 16, 33 on synthetic operands; K = 2 and 9 at the slices' operands.
+  The kernel sums each hood in element order at every K (and from K = 9
+  the M-step sums too), so at f32 it also equals the plain tick on the CPU
+  (where ``index_add_`` adds in element order) bit for bit in every output
+  but the K = 2..8 M-step sums (``cpu_allowed``); at bf16 that equality is
+  reported.
 * The MAP step (``TickWorkspace.step``, the main path's entry of the
   tick) at the K = 2, 3 and 9 slices' real state (MAP iteration WINDOW+2,
   computed on the CPU): against the plain MAP iteration on the card in the
   tiers above, flag words equal at f32; bit for bit equal to the
-  JAX-signature entry of the same kernel; at K = 9 bit for bit equal to the
-  plain MAP iteration on the CPU.  Repeat check: 20 steps from one state
-  (labels, ring, head restored) give the same bits.  Profiler check: 20
+  JAX-signature entry of the same kernel and, by ``cpu_allowed``'s rule,
+  to the plain MAP iteration on the CPU.  Whole solves: at every launch of
+  the K = 2, 3 and 9 slices' f32 solves (``TickLockstep``) the kernel's
+  labels, hood sums, votes, flag word and ring equal bit for bit those of
+  the plain MAP iteration run on the CPU from the kernel's state (the
+  CPU step takes the card's ``log`` of each sigma, which may differ from
+  the host's in the last bit; the launches where it does are counted,
+  and so are those where the K = 2..8 M-step sums differ), and the solve
+  gives the main path's trajectory and labels.  Repeat check: 20 steps
+  from one state (labels, ring, head restored) give the same bits.
+  Profiler check: 20
   steps with their flag reads issue exactly 20 kernels, all the tick, no
   memset and at most 20 device-to-host copies (the flag goes to mapped
   pinned memory, so none).  Printed: ms per MAP step (step and flag), ms
@@ -91,15 +101,23 @@ Tolerances (kernel against plain version, same inputs, on the card):
   printed, not held.
 * The sharded MAP step (``MapStepWorkspace.step``, the route's entry of
   ``fused_map_step``), step by step over whole sharded solves of the
-  K = 2, 3 and 9 slices: from the same state as the kernel, the plain
-  workspace on the card gives the same labels, flag words and ring bit for
-  bit, the same votes and hood sums within rtol 1e-5 (atol 1e-4); the
-  JAX-signature entry on the counts of the same labels gives the step's
-  hood sums and votes bit for bit.  Profiler check: 20 MAP iterations as
-  the driver runs them (step, flag AND, flag read, all-reduce) issue 20
-  map-step kernels and no memset, no copy and no other kernel than
-  NCCL's (counted apart).  Printed: ms per MAP iteration, ms per step
-  back to back, device us per step, the plain step's ms, the bound.
+  K = 2, 3 and 9 slices (``LockstepWorkspace``): from the kernel's state
+  at every launch, the plain workspace on the CPU gives the same labels,
+  flag word, ring, hood sums and votes bit for bit, and at the launch that
+  stops a MAP loop the same M-step sums (the CPU step takes the card's
+  ``log`` of each sigma, as above);
+  the plain workspace on the card the same labels, flag words, ring and
+  votes, the hood sums within rtol 1e-5 (atol 1e-4); the JAX-signature
+  entry on the counts of the same labels the step's votes bit for bit and
+  its hood sums within rtol 1e-5 (atol 1e-4): its elements come in any
+  order, so its sums are order-free and rounded once, the step's in
+  element order.  Each solve's status, iteration counts and labels equal
+  the route's plain path's on the CPU and the single-device route's.
+  Profiler check: 20 MAP iterations as the driver runs them (step, flag
+  AND, flag read, all-reduce) issue 20 map-step kernels and no memset, no
+  copy and no other kernel than NCCL's (counted apart).  Printed: ms per
+  MAP iteration, ms per step back to back, device us per step, the plain
+  step's ms, the bound.
 * fused_map_step's JAX-signature entry (at the slices' quantile-init
   operands, and on hoods of 100 and 300 elements): min_e, arg and votes
   exact; hood energies within
@@ -108,8 +126,12 @@ Tolerances (kernel against plain version, same inputs, on the card):
   the first call's hood sums bit for bit, the numpy model's.  The votes
   of the four element blocks of ``partition_hoods(hoods, 4)`` add up to
   the whole problem's exactly.
-* mrf_min_energy (at the K = 2 slice's operands, n1 = label-1 counts):
-  min_e and arg exact.
+* mrf_min_energy (the K = 2 slice's operands, n1 = label-1 counts; n = 1,
+  3, 4,097; every input at storage offset 1; inputs at different offsets;
+  and 512 copies of the slice, the hood elements of the paper's 512^3
+  volume), ``beta`` a float and a CUDA tensor: min_e and arg bit for bit.
+  20 calls with a float ``beta`` issue 20 kernels, no copy and no memset.
+  At the volume the kernel must reach half of its bound on the device.
 * flash_attention: the reference tests' shapes (B, Hq, Hkv, S, D) =
   (1,2,2,128,32), (2,4,2,256,64), (1,8,1,128,16), (1,2,1,512,64) and a
   ragged (1,4,2,200,32), causal and not, within 2e-4 (rtol and atol) at
@@ -131,16 +153,18 @@ Tolerances (kernel against plain version, same inputs, on the card):
 * The slice: kernel path against plain path at least 99.5 % pixel
   agreement, and kernel-path accuracy no more than 0.01 below; at every K
   also the status and EM and MAP iteration counts of the plain path on
-  the CPU, which sums in element order as the runtime-K tick does (on the
-  card the plain path's ``index_add_`` adds by atomics, and its counts
-  moved by one MAP iteration between runs at K = 9).  The
-  sharded route is held to the same limits against the single-device
-  route and against its own plain path; its ``sharded_slice`` line counts
+  the CPU, which sums in element order as the tick does (on the card the
+  plain path's ``index_add_`` adds by atomics, and its counts moved by
+  one MAP iteration between runs at K = 9).  The sharded route is held to
+  the same limits against the single-device route and against its own
+  plain path; its ``sharded_slice`` line counts
   its collectives (all-reduces per solve: one per MAP iteration, the flag
   ANDs, the EM window's ANDs and three per solve), and its
-  ``fused_map_step`` launches must be its MAP plus its EM iterations and
-  its ``segment_reduce`` launches one plus three per EM iteration (the
-  label counts no longer go through it).
+  ``fused_map_step`` launches must be its MAP iterations plus one per EM
+  iteration (the launch that stops the MAP loop, which also takes the
+  M-step sums) and its
+  ``segment_reduce`` launches one (the neighbourhood sizes; neither the
+  label counts nor the M-step go through it).
 * LM serving: every request completes with 32 tokens in the vocabulary.
   Kernel path against plain path on the same weights: (a) a 2-layer f32
   variant at full width (d_model 1536, vocab 151,936) gives identical
@@ -188,6 +212,7 @@ REPEATS = 20  # calls of an order-free kernel that must agree bit for bit
 SOLVES = 10   # warm solves timed under --profile (min, median, max)
 TICK_LABELS = (2, 3, 5, 9, 16, 33)  # synthetic tick checks; K >= 9 is the runtime-K variant
 MAP_STEPS = 20  # MAP steps of the repeat and profiler checks
+MRF_VOLUME_SLICES = 512  # mrf_min_energy at the paper's 512^3 volume: 512 slices of hood elements
 PROFILE_ATTEMPTS = 3  # profiles of MAP_STEPS steps, for the records the profiler drops
 PROFILER_SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock, before each traced window
 
@@ -472,36 +497,42 @@ def check_tick_synthetic(torch, ops, dev) -> None:
             err = compare_tick(torch, k, p, precision, f"fused_em_tick K={n_labels} {precision}")
             row = {"phase": "fused_em_tick_check", "operands": "synthetic", "K": n_labels,
                    "precision": precision, "ok": True, "max_abs_err": err}
-            if n_labels >= 9:
-                row.update(check_tick_against_cpu(
-                    torch, ops, k, [*args, 0.75], dict(n_hoods=1554, n_vertices=1025), precision,
-                    f"synthetic K={n_labels}"))
+            row.update(check_tick_against_cpu(
+                torch, ops, k, [*args, 0.75], dict(n_hoods=1554, n_vertices=1025), precision,
+                f"synthetic K={n_labels}"))
             emit(row)
 
 
 TICK_OUTPUTS = ("labels", "hood_e", "votes", "conv", "sum_w", "sum_wy", "sum_wyy")
 
 
+def cpu_allowed(n_labels: int) -> set:
+    """Tick outputs that may differ from the plain tick on the CPU at f32:
+    the M-step sums at K = 2..8 (their finalize adds in another order)."""
+    return set() if n_labels >= 9 else {"sum_w", "sum_wy", "sum_wyy"}
+
+
 def check_tick_against_cpu(torch, ops, k, args, kw, precision: str, what: str) -> dict:
-    """The runtime-K tick (K >= 9) sums in the plain version's element
-    order, so at f32 it equals bit for bit the plain tick on the CPU, where
-    ``index_add_`` adds in element order (on the card it adds by atomics).
-    Every output must, except where the host's ``log`` of the tick's
-    sigmas differs from the card's in the last bit (``log_sigma_equal_cpu``
-    false): then the energies differ by an ulp and the hood sums are held
-    to the tier of ``compare_tick`` alone.  Returns the flags."""
+    """The tick sums each hood in the plain version's element order (and
+    from K = 9 the M-step sums too), so at f32 it equals bit for bit the
+    plain tick on the CPU, where ``index_add_`` adds in element order (on
+    the card it adds by atomics), in every output but ``cpu_allowed``'s.
+    At f32 the plain tick takes the card's ``log`` of sigma (the host's
+    may differ in the last bit; ``log_sigma_equal_cpu`` says whether it
+    does).  At bf16 the equality is reported.  Returns the flags."""
     from repro_torch.testing.tick_problems import FIELDS
 
     host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
-    p = ops.fused_em_tick(*host, precision=precision, backend="torch", **kw)
     sigma = args[FIELDS.index("sigma")]
-    same_log = torch.equal(torch.log(sigma[:, None]).cpu(), torch.log(sigma.cpu()[:, None]))
+    log_sigma = torch.log(sigma).cpu()
+    p = ops.ref.fused_em_tick(*host, precision=precision, **kw,
+                              log_sigma=log_sigma if precision == "f32" else None)
+    same_log = torch.equal(log_sigma, torch.log(sigma.cpu()))
     unequal = [n for n, a, b in zip(TICK_OUTPUTS, k, p) if not same_bits(torch, a.cpu(), b)]
     out = {"bitwise_equal_plain_cpu": not unequal, "log_sigma_equal_cpu": same_log}
     if unequal:
         out["unequal"] = unequal
-    allowed = set() if same_log else {"hood_e"}
-    if precision == "f32" and not set(unequal) <= allowed:
+    if precision == "f32" and not set(unequal) <= cpu_allowed(int(sigma.shape[0])):
         fail(f"fused_em_tick {what} f32: {unequal} not bitwise equal to the plain tick on the CPU")
     return out
 
@@ -575,8 +606,7 @@ def check_time_tick(torch, ops, E, em_mod, plan, profile: bool) -> dict:
             out["max_abs_err"] = err
         row = {"phase": "fused_em_tick_check", "operands": "512x512 slice", "K": n_labels,
                "precision": precision, "ok": True, "max_abs_err": err, "conv": bool(p[3])}
-        if n_labels >= 9:
-            row.update(check_tick_against_cpu(torch, ops, k, args, kw, precision, f"slice K={n_labels}"))
+        row.update(check_tick_against_cpu(torch, ops, k, args, kw, precision, f"slice K={n_labels}"))
         emit(row)
     kern = lambda: ops.fused_em_tick(*args, offsets=hoods.offsets, **kw)
     out["ms"] = time_ms(kern)
@@ -627,8 +657,8 @@ def check_map_iteration(torch, ops, E, em_mod, plan) -> dict:
     """The main path's entry (``TickWorkspace.step``) at a slice plan's real
     state, f32 and bf16: held to the plain MAP iteration on the card in
     ``compare_tick``'s tiers (flag words equal at f32), to the JAX-signature
-    entry of the same kernel bit for bit, and for K >= 9 to the plain MAP
-    iteration on the CPU bit for bit (``check_tick_against_cpu``'s rule)."""
+    entry of the same kernel bit for bit, and to the plain MAP iteration on
+    the CPU bit for bit at f32 (``cpu_allowed``'s rule; reported at bf16)."""
     st = real_map_state(torch, plan, E, em_mod)
     hoods, model = plan.problem.hoods, plan.problem.model
     n_labels = model.n_labels
@@ -654,17 +684,21 @@ def check_map_iteration(torch, ops, E, em_mod, plan) -> dict:
         row = {"phase": "map_iteration_check", "operands": "512x512 slice", "K": n_labels,
                "precision": precision, "ok": True, "max_abs_err": err, "flag": k[3],
                "plain_flag": p[3], "equal_jax_signature_entry": same_entry}
-        if n_labels >= 9:
-            cpu = st["cpu"]
-            c = map_step(map_step_workspace(ops, em_mod, cpu["hoods"], cpu["model"], cpu, precision))
-            same_log = torch.equal(torch.log(st["sig"][:, None]).cpu(), torch.log(cpu["sig"][:, None]))
-            unequal = [n for n, a, b in zip(TICK_OUTPUTS, k, c)
-                       if (a != b if n == "conv" else not same_bits(torch, a.cpu(), b))]
-            row.update(bitwise_equal_plain_cpu=not unequal, log_sigma_equal_cpu=same_log)
-            if unequal:
-                row["unequal"] = unequal
-            if precision == "f32" and not set(unequal) <= (set() if same_log else {"hood_e"}):
-                fail(f"{what}: {unequal} not bitwise equal to the plain MAP iteration on the CPU")
+        cpu = st["cpu"]
+        cws = map_step_workspace(ops, em_mod, cpu["hoods"], cpu["model"], cpu, precision)
+        log_sigma = torch.log(st["sig"]).cpu()
+        if precision == "f32":  # the card's log of sigma
+            cws.begin_em(cpu["mu"], cpu["sig"], log_sigma=log_sigma)
+            load_state(cws, cpu)
+        c = map_step(cws)
+        same_log = torch.equal(log_sigma, torch.log(cpu["sig"]))
+        unequal = [n for n, a, b in zip(TICK_OUTPUTS, k, c)
+                   if (a != b if n == "conv" else not same_bits(torch, a.cpu(), b))]
+        row.update(bitwise_equal_plain_cpu=not unequal, log_sigma_equal_cpu=same_log)
+        if unequal:
+            row["unequal"] = unequal
+        if precision == "f32" and not set(unequal) <= cpu_allowed(n_labels):
+            fail(f"{what}: {unequal} not bitwise equal to the plain MAP iteration on the CPU")
         if precision == "f32":
             out["max_abs_err"] = err
         emit(row)
@@ -746,6 +780,85 @@ def check_tick_step(torch, ops, E, em_mod, plan) -> dict:
     out["bytes"] = n_bytes
     emit({"phase": "timing", "what": f"MAP step (TickWorkspace) K={n_labels}", **out})
     return out
+
+
+class TickLockstep:
+    """A kernel ``TickWorkspace`` that, at every launch of a solve, copies
+    its state (labels, history ring and head, and the EM iteration's
+    parameters) to the CPU, runs the plain MAP iteration there
+    (``ref.PlainTickWorkspace``: element-order sums) from that state and
+    holds the kernel to it bit for bit: labels, hood sums, votes, flag word
+    and ring (``cpu_step_unequal``).  The CPU step takes the card's ``log``
+    of each sigma, which may differ from the host's in the last bit
+    (``log_unequal`` counts the launches where it does).  The M-step sums
+    are compared and counted, not held: the K = 2..8 finalize adds them in
+    another order.  Everything else is the kernel workspace's."""
+
+    def __init__(self, torch, kern, cpu):
+        self.torch, self.kern, self.cpu = torch, kern, cpu
+        self.launches = self.stats_unequal = self.log_unequal = self.equal_launches = 0
+
+    def __getattr__(self, name):
+        return getattr(self.kern, name)
+
+    def start(self, y, w, nall_e, valid, labels0):
+        self.kern.start(y, w, nall_e, valid, labels0)
+        self.cpu.start(*(t.cpu() for t in (y, w, nall_e, valid, labels0)))
+
+    def begin_em(self, mu, sigma):
+        self.kern.begin_em(mu, sigma)
+        log_sigma = self.torch.log(sigma).cpu()
+        self.cpu.begin_em(mu.cpu(), sigma.cpu(),
+                          log_sigma=log_sigma if self.kern.precision == "f32" else None)
+        self.same_log = self.torch.equal(log_sigma, self.torch.log(sigma.cpu()))
+
+    def step(self, gate):
+        torch, k, c = self.torch, self.kern, self.cpu
+        c.labels = k.labels.cpu()
+        c.ring.copy_(k.ring)
+        c.head = k.head
+        k.step(gate)
+        c.step(gate)
+        self.launches += 1
+        self.log_unequal += not self.same_log
+        what = f"MAP step K={k.n_labels} launch {self.launches}"
+        self.equal_launches += not cpu_step_unequal(
+            torch, [("flag", k.flag(), c.flag()), ("labels", k.labels, c.labels),
+                    ("hood_e", k.hood_e, c.hood_e), ("votes", k.votes, c.votes),
+                    ("ring", k.ring, c.ring)], what)
+        self.stats_unequal += not same_bits(torch, k.stats.cpu(), c.stats)
+
+
+def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
+    """A whole single-device solve of a slice's plan (f32) on a
+    ``TickLockstep``: every launch bit for bit the plain MAP iteration on
+    the CPU from the kernel's state; the solve gives the main path's
+    status, iteration counts and labels."""
+    plan, config = sl["plan"], sl["config"]
+    prob = plan.problem
+    cfg = config.em_config()
+    hoods_c, model_c, *_ = problem_on_cpu(plan, config, SLICE["seed"])
+    cpu = ops.tick_workspace(hoods_c, model_c, precision=cfg.precision, conv_tol=em_mod.CONV_TOL,
+                             window=em_mod.WINDOW)
+    ws = TickLockstep(torch, em_mod.make_workspace(prob.hoods, prob.model, cfg), cpu)
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
+    res = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, cfg, workspace=ws)
+    single = sl["result"]
+    trajectory = [em_mod.STATUS_NAMES.get(res.status, "running"), res.em_iters, res.map_iters]
+    row = {"phase": "tick_solve_cpu_check", "K": sl["K"], "ok": True, "launches": ws.launches,
+           "bitwise_equal_plain_cpu_launches": ws.equal_launches,
+           "launches_log_sigma_unequal_cpu": ws.log_unequal,
+           "launches_stats_unequal_cpu": ws.stats_unequal, "trajectory": trajectory,
+           "main_path": [single.status, single.em_iters, single.map_iters],
+           "labels_equal_main_path": bool(np.array_equal(
+               res.labels.cpu().numpy()[: prob.graph.n_regions], single.region_labels))}
+    emit(row)
+    if ws.launches != res.map_iters:
+        fail(f"K={sl['K']} solve: {ws.launches} tick launches for {res.map_iters} MAP iterations")
+    if trajectory != row["main_path"] or not row["labels_equal_main_path"]:
+        fail(f"K={sl['K']} solve on the lockstep workspace: {trajectory}, the main path "
+             f"{row['main_path']}, labels equal {row['labels_equal_main_path']}")
+    return row
 
 
 def warm_solve_ops(torch, api, plan, config) -> dict:
@@ -1040,19 +1153,85 @@ def check_map_step_long_hoods(torch, ops, dev) -> float:
     return worst
 
 
-def check_mrf_energy(torch, ops, args) -> tuple:
-    """mrf_min_energy at the K = 2 slice's operands, n1 = label-1 counts."""
-    y, w, cnt, nall, xf, _valid, _hid, _vtx, mu, sig, beta = args
-    margs = (y, w, cnt[1].contiguous(), nall, xf, mu, sig, beta)
-    k = ops.mrf_min_energy(*margs)
-    p = ops.mrf_min_energy(*margs, backend="torch")
-    torch.cuda.synchronize()
-    err = (k[0] - p[0]).abs().max().item()
-    if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
-        fail(f"mrf_min_energy: not exact (min_e err {err})")
-    emit({"phase": "mrf_min_energy_check", "operands": "512x512 slice K=2", "ok": True,
-          "max_abs_err": err, "label1_share": k[1].float().mean().item()})
-    return err, margs
+def mrf_cases(torch, margs) -> list:
+    """``(name, elements)`` cases of mrf_min_energy from the K = 2 slice's
+    operands (y, w, n1, nall, xf): the slice itself; n = 1, whose device
+    time is the floor of one launch; n = 3 and 4,097 (ragged); every input
+    a view with storage offset 1 (a scalar head aligns them); views at
+    different offsets (the scalar loop throughout); and the hood elements
+    of the paper's 512^3 volume, 512 copies of the slice's, where the
+    bytes bound the kernel."""
+    elems = margs[:5]
+    y, w, n1, nall, xf = elems
+    return [
+        ("slice", elems),
+        ("n=1", [t[:1] for t in elems]),
+        ("n=3", [t[:3] for t in elems]),
+        ("n=4097", [t[:4097] for t in elems]),
+        ("offset 1", [t[1:] for t in elems]),
+        ("mixed offsets", [y[1:], w[:-1], n1[1:], nall[:-1], xf[1:]]),
+        ("volume", [t.repeat(MRF_VOLUME_SLICES) for t in elems]),
+    ]
+
+
+def check_time_mrf_energy(torch, ops, margs) -> dict:
+    """mrf_min_energy against its plain version bit for bit at every case
+    of ``mrf_cases``, with ``beta`` a Python float (passed by value) and a
+    CUDA tensor (read by the kernel); 20 calls with a float ``beta`` issue
+    20 kernels and no copy or memset.  Timed at the slice, n = 1 and the
+    volume: ms per call (CUDA events, float ``beta``; at the slice also a
+    tensor ``beta``, as older checkouts time it), device us per call
+    (profiler, 20 calls), the plain version's ms, the bound and the share
+    of it.  Returns the slice's figures for the ``kernels`` line, the
+    others under ``by_shape``."""
+    mu, sig, beta_t = margs[5:]
+    beta = float(beta_t)
+    worst, rows, timed = 0.0, [], {}
+    for name, elems in mrf_cases(torch, margs):
+        n = int(elems[0].shape[0])
+        p = ops.mrf_min_energy(*elems, mu, sig, beta, backend="torch")
+        for form, b in (("float", beta), ("tensor", beta_t)):
+            k = ops.mrf_min_energy(*elems, mu, sig, b)
+            torch.cuda.synchronize()
+            if not (same_bits(torch, k[0], p[0]) and torch.equal(k[1], p[1])):
+                fail(f"mrf_min_energy {name} (beta a {form}): not bit for bit the plain version's")
+            worst = max(worst, (k[0] - p[0]).abs().max().item())
+        rows.append({"case": name, "n": n, "offsets": [t.storage_offset() for t in elems],
+                     "label1_share": k[1].float().mean().item()})
+        if name not in ("slice", "n=1", "volume"):
+            continue
+        kern = lambda: ops.mrf_min_energy(*elems, mu, sig, beta)
+        # The profiler may drop a record: an attempt that sees fewer than
+        # 20 kernels and nothing else is made again (PROFILE_ATTEMPTS).
+        for _ in range(PROFILE_ATTEMPTS):
+            prof = device_profile(torch, lambda: [kern() for _ in range(20)])
+            if prof["kernels"] > 20 or prof["memcpys"] or prof["memsets"]:
+                fail(f"mrf_min_energy {name}: 20 calls with a float beta issued {prof['kernels']} "
+                     f"kernels, {prof['memcpys']} copies and {prof['memsets']} memsets")
+            if prof["kernels"] == 20:
+                break
+        else:
+            fail(f"mrf_min_energy {name}: no profile of 20 calls saw 20 kernels")
+        n_bytes = n * 5 * 4 + 2 * 2 * 4 + 4 + n * 8   # y w n1 nall xf, mu sigma, beta; min_e arg
+        bound_ms, by = bound(n_bytes, n * 32)
+        t = {"n": n, "ms": time_ms(kern), "device_ms": prof["device_busy_us"] / 20 * 1e-3,
+             "plain_ms": time_ms(lambda: ops.mrf_min_energy(*elems, mu, sig, beta, backend="torch")),
+             "bound_ms": bound_ms, "bound_by": by, "bytes": n_bytes, "memcpys_per_20_calls": 0}
+        t["share_of_bound"] = bound_ms / t["ms"]
+        t["device_share_of_bound"] = bound_ms / t["device_ms"]
+        if name == "slice":
+            t["ms_tensor_beta"] = time_ms(lambda: ops.mrf_min_energy(*elems, mu, sig, beta_t))
+        timed[name] = t
+        emit({"phase": "timing", "what": f"mrf_min_energy {name}", **t})
+    emit({"phase": "mrf_min_energy_check", "ok": True, "max_abs_err": worst, "cases": rows})
+    vol = timed["volume"]
+    if vol["device_share_of_bound"] < 0.5:
+        fail(f"mrf_min_energy at volume scale: {vol['device_ms'] * 1e3:.1f} us on the device, "
+             f"under half of its bound ({vol['bound_ms'] * 1e3:.1f} us)")
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "device_share_of_bound")
+    return {**{k: timed["slice"][k] for k in keys}, "max_abs_err": worst,
+            "launch_floor_device_ms": timed["n=1"]["device_ms"],
+            "by_shape": {str(t["n"]): {k: t[k] for k in keys} for t in timed.values()}}
 
 
 class CollectiveCount:
@@ -1090,13 +1269,14 @@ def run_sharded(torch, D, pipeline, ops, em_mod, sl) -> dict:
     read just after; then its plain path.  Both are held to the
     single-device result of the same plan.  Per MAP iteration the route
     makes one ``fused_map_step`` launch, one all-reduce and, past the
-    window, the AND of the flag word, and per EM iteration one launch more
-    (the one that stops the MAP loop); its label counts no longer go
-    through ``segment_reduce``, which runs once for the neighbourhood sizes
-    and three times per EM iteration for the M-step.  Its labels, iteration
-    counts and status must equal the single-device route's (both sum in a
-    fixed order); against its plain path on the card, which adds by
-    atomics, the pixel and accuracy limits hold."""
+    window, the AND of the flag word, and per EM iteration one launch
+    more (the one that stops the MAP loop, which also takes the M-step
+    sums); its label counts and its M-step sums do not go through
+    ``segment_reduce``, which
+    runs once, for the neighbourhood sizes.  Its labels, iteration counts
+    and status must equal the single-device route's (both sum in a fixed
+    order); against its plain path on the card, which adds by atomics, the
+    pixel and accuracy limits hold."""
     plan, config, single, accuracy = sl["plan"], sl["config"], sl["result"], sl["accuracy_of"]
     prob = plan.problem
     labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
@@ -1149,10 +1329,9 @@ def run_sharded(torch, D, pipeline, ops, em_mod, sl) -> dict:
              f"and {res.em_iters} EM iterations")
     if launches["fused_em_tick"] != 0:
         fail("the sharded route ran the single-device tick")
-    if launches["segment_reduce"] != 1 + 3 * res.em_iters:
+    if launches["segment_reduce"] != 1:
         fail(f"segment_reduce launched {launches['segment_reduce']} times on the sharded route, "
-             f"not once for the neighbourhood sizes and 3 per EM iteration: the label counts "
-             f"went through it")
+             f"not once for the neighbourhood sizes: the label counts or the M-step went through it")
     # One all-reduce per MAP iteration, the flag ANDs, the EM window's ANDs,
     # the neighbourhood sizes and the two of the problem's fingerprint.
     if coll.n["psum"] != res.map_iters or coll.n["all_reduce"] != (
@@ -1172,53 +1351,88 @@ def run_sharded(torch, D, pipeline, ops, em_mod, sl) -> dict:
     return out
 
 
-class LockstepWorkspace:
-    """A kernel ``MapStepWorkspace`` that, at every launch, also steps a
-    plain one (``backend="torch"``, on the card) from the same state and
-    holds the two together: the head's labels, the flag word and the ring
-    bit for bit, the step's votes exactly and its hood sums in the tiers of
-    ``compare_map_step``; and the step's hood sums and votes bit for bit to
-    the JAX-signature entry (``ops.fused_map_step``) on the same counts.
-    Everything else is the kernel workspace's."""
+def cpu_step_unequal(torch, pairs, what: str) -> list:
+    """Fails unless the bits of every ``(name, card, cpu)`` pair are equal
+    (ints compared as ints); returns the names of those that differ."""
+    unequal = [n for n, a, b in pairs
+               if (a != b if isinstance(a, int) else not same_bits(torch, a.cpu(), b))]
+    if unequal:
+        fail(f"{what}: {unequal} not bit for bit the plain step's on the CPU")
+    return unequal
 
-    def __init__(self, torch, ops, kern, plain, hoods, model):
-        self.torch, self.ops, self.kern, self.plain = torch, ops, kern, plain
+
+class LockstepWorkspace:
+    """A kernel ``MapStepWorkspace`` that, at every launch, also steps two
+    plain ones from the same state: on the card (``backend="torch"``,
+    which sums by atomics) and on the CPU (element order, the route's plain
+    path).  Against the CPU the head's labels, the flag word, the ring and
+    the step's hood sums and votes must be equal bit for bit
+    (``cpu_step_unequal``; the CPU step takes the card's ``log`` of each
+    sigma, which may differ from the host's in the last bit); against the
+    card's plain workspace the hood sums within rtol 1e-5 (atol 1e-4) and
+    the rest exactly.  The JAX-signature entry (``ops.fused_map_step``,
+    elements in any order, order-free hood sums) on the counts of the same
+    labels gives the step's votes bit for bit and its hood sums within the
+    same tier.  The M-step sums of a launch that stops the MAP loop are
+    held the same way: bit for bit the CPU's, the card's plain version's
+    within rtol 1e-5.  Everything else is the kernel workspace's."""
+
+    def __init__(self, torch, ops, kern, plain, cpu, hoods, model):
+        self.torch, self.ops, self.kern, self.plain, self.cpu = torch, ops, kern, plain, cpu
         self.hoods, self.model = hoods, model
-        self.launches = self.steps = 0
-        self.worst = 0.0
-        self.entry_equal = True
+        self.launches = self.steps = self.log_unequal = self.m_steps = self.equal_launches = 0
+        self.worst = self.entry_worst = self.stats_worst = 0.0
 
     def __getattr__(self, name):
         return getattr(self.kern, name)
 
     def start(self, y, w, nall_e, valid, labels0):
-        self.kern.start(y, w, nall_e, valid, labels0)
-        self.plain.start(y, w, nall_e, valid, labels0)
+        for ws in (self.kern, self.plain):
+            ws.start(y, w, nall_e, valid, labels0)
+        self.cpu.start(*(t.cpu() for t in (y, w, nall_e, valid, labels0)))
         self.elements = (y, w, nall_e, valid)
 
     def begin_em(self, mu, sigma):
-        self.kern.begin_em(mu, sigma)
-        self.plain.begin_em(mu, sigma)
+        torch = self.torch
+        for ws in (self.kern, self.plain):
+            ws.begin_em(mu, sigma)
+        log_sigma = torch.log(sigma).cpu()
+        self.cpu.begin_em(mu.cpu(), sigma.cpu(), log_sigma=log_sigma)
         self.params = (mu, sigma)
+        self.same_log = torch.equal(log_sigma, torch.log(sigma.cpu()))
 
     def step(self, gate, step=True):
-        torch, k, p = self.torch, self.kern, self.plain
-        p._labels.copy_(k.labels)
-        p._buffers.copy_(k._buffers)
-        p.ring.copy_(k.ring)
-        p.rot, p.head, p.first = k.rot, k.head, k.first
+        torch, k, p, c = self.torch, self.kern, self.plain, self.cpu
+        for ws in (p, c):
+            ws._labels.copy_(k.labels)
+            ws._buffers.copy_(k._buffers)
+            ws.ring.copy_(k.ring)
+            ws.rot, ws.head, ws.first = k.rot, k.head, k.first
         k.step(gate, step)
         p.step(gate, step)
+        c.step(gate, step)
         self.launches += 1
+        self.log_unequal += not self.same_log
         what = f"sharded MAP step K={k.n_labels} launch {self.launches}"
         fk, fp = k.flag(), p.flag()
         if fk != fp or not torch.equal(k.labels, p.labels) or not same_bits(torch, k.ring, p.ring):
             fail(f"{what}: flag {fk} / plain {fp}, or the labels or the ring differ")
+        nh = k.n_hoods
+        kb, pb = k.buffer, p.buffer
+        pairs = [("flag", fk, c.flag()), ("labels", k.labels, c.labels), ("ring", k.ring, c.ring)]
+        if step:
+            pairs += [("hood_e", kb[:nh], c.buffer[:nh]), ("votes", kb[nh:], c.buffer[nh:])]
+        if fk or not step:  # the launch stops the MAP loop: its M-step sums
+            pairs.append(("stats", k.stats, c.stats))
+            self.m_steps += 1
+            self.stats_worst = max(self.stats_worst, (k.stats - p.stats).abs().max().item())
+            if not torch.allclose(k.stats, p.stats, rtol=1e-5, atol=1e-4):
+                fail(f"{what}: the M-step sums differ from the plain version's on the card "
+                     f"beyond rtol 1e-5")
+        self.equal_launches += not cpu_step_unequal(torch, pairs, what)
         if not step:
             return
         self.steps += 1
-        nh = k.n_hoods
-        kb, pb = k.buffer, p.buffer
         if not torch.equal(kb[nh:], pb[nh:]):
             fail(f"{what}: votes differ from the plain step's")
         self.worst = max(self.worst, (kb[:nh] - pb[:nh]).abs().max().item())
@@ -1234,50 +1448,59 @@ class LockstepWorkspace:
         e = self.ops.fused_map_step(y, w, cnt_e, nall_e, x.float() * valid, valid, h.hood_id,
                                     h.vertex, *self.params, self.model.beta, n_hoods=nh,
                                     n_vertices=k.n_vertices)
-        if not (same_bits(torch, e[2], kb[:nh]) and torch.equal(e[3].reshape(-1), kb[nh:])):
-            self.entry_equal = False
-            fail(f"{what}: hood_e or votes differ from the JAX-signature entry's bits")
+        self.entry_worst = max(self.entry_worst, (e[2] - kb[:nh]).abs().max().item())
+        if not (torch.equal(e[3].reshape(-1), kb[nh:])
+                and torch.allclose(e[2], kb[:nh], rtol=1e-5, atol=1e-4)):
+            fail(f"{what}: votes differ from the JAX-signature entry's, or hood_e beyond rtol 1e-5")
 
 
-def check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group, hold_cpu: bool) -> dict:
-    """The sharded route's workspace kernel held to its plain version step
-    by step over a whole sharded solve of the slice's plan (one rank,
-    ``LockstepWorkspace``).  Beside it, the route's plain path with the
+def check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group) -> dict:
+    """The sharded route's workspace kernel held step by step over a whole
+    sharded solve of the slice's plan (one rank, ``LockstepWorkspace``:
+    bit for bit to the plain step on the CPU from the kernel's state at
+    every launch).  Beside it, the route's plain path run alone with the
     problem copied to the CPU (``cpu_group``: a gloo group of the one
-    rank), which sums in element order: where ``hold_cpu``, the solve's
-    status and iteration counts must equal it, else they are reported
-    (the kernel's order-free hood sums may part from element order at a
-    threshold).  Returns the kernel workspace (its state is that of the
-    solve's end) and the figures."""
+    rank), which sums in element order: the solve's status and iteration
+    counts must equal it and the single-device route's.  Returns the
+    kernel workspace (its state is that of the solve's end) and the
+    figures."""
     plan, config = sl["plan"], sl["config"]
     prob = plan.problem
     parts = D.partition_hoods(prob.hoods, 1)
     cfg, plain_cfg = config.em_config(), config.with_(backend="torch").em_config()
+    hoods_c, model_c, *init_c = problem_on_cpu(plan, config, SLICE["seed"])
+    parts_c = D.partition_hoods(hoods_c, 1)
     kern = D.make_workspace(parts, prob.model, cfg)
     plain = D.make_workspace(parts, prob.model, plain_cfg)
-    ws = LockstepWorkspace(torch, ops, kern, plain, parts, prob.model)
+    ws = LockstepWorkspace(torch, ops, kern, plain, D.make_workspace(parts_c, model_c, plain_cfg),
+                           parts, prob.model)
     labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
     res = D.run_em_sharded(parts, prob.model, labels0, mu0, sigma0, config=cfg, workspace=ws)
-    hoods_c, model_c, *init_c = problem_on_cpu(plan, config, SLICE["seed"])
-    cpu = D.run_em_sharded(D.partition_hoods(hoods_c, 1), model_c, *init_c, config=plain_cfg,
-                           group=cpu_group)
+    cpu = D.run_em_sharded(parts_c, model_c, *init_c, config=plain_cfg, group=cpu_group)
     single = sl["result"]
     name = lambda r: em_mod.STATUS_NAMES.get(r.status, "running")
     trajectory = lambda r: [name(r), r.em_iters, r.map_iters]
     row = {"phase": "sharded_map_step_check", "K": sl["K"], "ok": True, "launches": ws.launches,
-           "steps": ws.steps, "max_abs_err": ws.worst, "entry_bitwise_equal": ws.entry_equal,
+           "steps": ws.steps, "bitwise_equal_plain_cpu_launches": ws.equal_launches,
+           "launches_log_sigma_unequal_cpu": ws.log_unequal, "max_abs_err": ws.worst,
+           "entry_hood_e_max_abs_err": ws.entry_worst, "m_steps_bitwise_equal_plain_cpu": ws.m_steps,
+           "m_step_max_abs_err": ws.stats_worst,
            "status": name(res), "em_iters": res.em_iters, "map_iters": res.map_iters,
            "single_device": [single.status, single.em_iters, single.map_iters],
            "labels_equal_single": bool(np.array_equal(
                res.labels.cpu().numpy()[: prob.graph.n_regions], single.region_labels)),
-           "plain_cpu": trajectory(cpu), "held_to_plain_cpu": hold_cpu,
+           "plain_cpu": trajectory(cpu),
            "labels_equal_plain_cpu": bool(torch.equal(res.labels.cpu(), cpu.labels))}
     emit(row)
-    if ws.launches != res.map_iters + res.em_iters:
-        fail(f"sharded K={sl['K']}: {ws.launches} launches for {res.map_iters} MAP and {res.em_iters} EM iterations")
-    if hold_cpu and trajectory(res) != trajectory(cpu):
+    if ws.launches != res.map_iters + res.em_iters or ws.m_steps != res.em_iters:
+        fail(f"sharded K={sl['K']}: {ws.launches} launches, {ws.m_steps} of them with M-step sums, "
+             f"for {res.map_iters} MAP and {res.em_iters} EM iterations")
+    if trajectory(res) != trajectory(cpu) or not row["labels_equal_plain_cpu"]:
         fail(f"sharded K={sl['K']}: status and iterations {trajectory(res)}, the route's plain path "
-             f"on the CPU {trajectory(cpu)}")
+             f"on the CPU {trajectory(cpu)}, labels equal {row['labels_equal_plain_cpu']}")
+    if [single.status, single.em_iters, single.map_iters] != trajectory(res) or not row["labels_equal_single"]:
+        fail(f"sharded K={sl['K']}: status and iterations {trajectory(res)}, the single-device "
+             f"route {row['single_device']}, labels equal {row['labels_equal_single']}")
     return {"workspace": kern, "plain": plain, "max_abs_err": ws.worst, "parts": parts}
 
 
@@ -1292,7 +1515,9 @@ def check_sharded_step(torch, ops, collectives, checked, profile: bool) -> dict:
     * times: ms per MAP iteration (host clock, what the driver pays; also
       without the flag AND, and without both collectives), ms per step
       back to back (CUDA events), device us per step (profiler), the plain
-      workspace's step, and the bound.
+      workspace's step, and the bound; and the launch that stops a MAP loop
+      without a step (the head, then the M-step sums): ms, device ms and
+      its bound (``stopping_launch``).
     """
     import torch.distributed as dist
 
@@ -1300,8 +1525,12 @@ def check_sharded_step(torch, ops, collectives, checked, profile: bool) -> dict:
     ctx = collectives.ReduceCtx(group=dist.group.WORLD)
     n_labels = ws.n_labels
 
+    # The gate stays closed: at the state the solve ended in the window
+    # test holds, so an open gate would set the flag word, and a launch
+    # whose word is set also takes the M-step sums, as only the launch
+    # that stops a MAP loop does (timed apart below).
     def iteration():
-        ws.step(True)
+        ws.step(False)
         ctx.and_flags(ws.flag_word)
         ws.flag()
         ctx.psum(ws.buffer)
@@ -1338,10 +1567,10 @@ def check_sharded_step(torch, ops, collectives, checked, profile: bool) -> dict:
     # The iteration and its parts: the step with its flag read, then with
     # the all-reduce of the step, then the whole (with the flag AND).
     out = {"K": n_labels, "ms_per_map_iteration": host_ms(iteration),
-           "ms_step_and_flag": host_ms(lambda: (ws.step(True), ws.flag())),
-           "ms_step_flag_allreduce": host_ms(lambda: (ws.step(True), ws.flag(), ctx.psum(ws.buffer))),
-           "ms": time_ms(lambda: ws.step(True)), "device_ms": row["device_us_per_step"] * 1e-3,
-           "plain_ms": time_ms(lambda: plain.step(True))}
+           "ms_step_and_flag": host_ms(lambda: (ws.step(False), ws.flag())),
+           "ms_step_flag_allreduce": host_ms(lambda: (ws.step(False), ws.flag(), ctx.psum(ws.buffer))),
+           "ms": time_ms(lambda: ws.step(False)), "device_ms": row["device_us_per_step"] * 1e-3,
+           "plain_ms": time_ms(lambda: plain.step(False))}
     from repro_torch.kernels import map_step
 
     ranges = map_step.hood_runs(parts, 0, 1)[0]
@@ -1357,6 +1586,17 @@ def check_sharded_step(torch, ops, collectives, checked, profile: bool) -> dict:
                + nh * 4 + 2 * n_labels * nv * 4 + 4)                                 # step, cleared votes, flag
     out["bound_ms"], out["bound_by"] = bound(n_bytes, n_run * n_labels * 16 + (n_count + nv) * n_labels)
     out["bytes"] = n_bytes
+    # A launch that stops a MAP loop without a step (one per EM iteration
+    # of a solve): the head, then the M-step sums in the last block.
+    stop = lambda: ws.step(True, step=False)
+    stop_prof = device_profile(torch, lambda: [stop() for _ in range(20)])
+    stop_bytes = (nh * 4 + n_labels * nv * 4 + (rows - 1) * nh * 4   # previous step, ring
+                  + nh * 4 + nv * 4 + n_labels * nv * 4 + 4          # ring row, labels, cleared votes, flag
+                  + 2 * nv * 4 + 3 * n_labels * 4)                   # region terms, M-step sums
+    stop_bound, stop_by = bound(stop_bytes, nv * n_labels * 2 + nv * 3)
+    out["stopping_launch"] = {"ms": time_ms(stop), "device_ms": stop_prof["device_busy_us"] / max(stop_prof["kernels"], 1) * 1e-3,
+                              "kernels_per_20": stop_prof["kernels"], "bound_ms": stop_bound,
+                              "bound_by": stop_by, "bytes": stop_bytes}
     if profile:
         out["profile_top"] = prof["top"]
     emit({"phase": "timing", "what": f"sharded MAP step (MapStepWorkspace) K={n_labels}", **out})
@@ -1843,6 +2083,12 @@ def main(argv=None) -> int:
     slice3 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=3)
     # K = 9 on the three-phase image: the tick's runtime-K variant on the main path.
     slice9 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=9, n_phases=3)
+    # Every launch of whole K = 2, 3 and 9 solves against the plain MAP
+    # iteration on the CPU, bit for bit (hood sums in element order).
+    from repro_torch.core.pmrf import pipeline
+
+    for sl in (slice2, slice3, slice9):
+        check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl)
     tick9 = check_time_tick(torch, ops, E, em_mod, slice9["plan"], profile)
     check_map_iteration(torch, ops, E, em_mod, slice3["plan"])
     step9 = {**check_map_iteration(torch, ops, E, em_mod, slice9["plan"]),
@@ -1851,12 +2097,10 @@ def main(argv=None) -> int:
     # Second path: the sharded route's kernels at the slices' operands.
     from repro_torch.core.pmrf import collectives
     from repro_torch.core.pmrf import distributed as D
-    from repro_torch.core.pmrf import pipeline
 
     ms_err, ms_args, ms_kw = check_map_step(torch, ops, D, E, em_mod, plan, 2)
     ms_err = max(ms_err, check_map_step(torch, ops, D, E, em_mod, slice3["plan"], 3)[0])
     ms_err = max(ms_err, check_map_step_long_hoods(torch, ops, dev))
-    mrf_err, mrf_args = check_mrf_energy(torch, ops, ms_args)
 
     # The sharded route end to end, over a one-rank NCCL group.
     import torch.distributed as dist
@@ -1865,13 +2109,12 @@ def main(argv=None) -> int:
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
         sharded = {sl["K"]: run_sharded(torch, D, pipeline, ops, em_mod, sl) for sl in (slice2, slice3)}
-        # The route's workspace kernel against its plain version and the
-        # JAX-signature entry, step by step over whole solves, and the
-        # solves against the route's plain path on the CPU (K = 9: the
-        # sharded route at a K the main path does not take, reported).
+        # The route's workspace kernel against the plain step on the CPU
+        # (bit for bit), on the card and the JAX-signature entry, step by
+        # step over whole K = 2, 3 and 9 solves, and the solves against the
+        # route's plain path on the CPU and the single-device route.
         cpu_group = dist.new_group(backend="gloo")
-        checked = {sl["K"]: check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group,
-                                                   hold_cpu=sl["K"] != 9)
+        checked = {sl["K"]: check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group)
                    for sl in (slice2, slice3, slice9)}
         sstep = check_sharded_step(torch, ops, collectives, checked[2], profile)
         if profile:
@@ -1894,29 +2137,27 @@ def main(argv=None) -> int:
     finally:
         dist.destroy_process_group()
 
-    # Timing of the JAX-signature map step and mrf_min_energy at the K = 2
-    # slice's operands.
+    # Timing of the JAX-signature map step at the K = 2 slice's operands.
     ms_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw))
     ms_plain_ms = time_ms(lambda: ops.fused_map_step(*ms_args, **ms_kw, backend="torch"))
-    mrf_ms = time_ms(lambda: ops.mrf_min_energy(*mrf_args))
-    mrf_plain_ms = time_ms(lambda: ops.mrf_min_energy(*mrf_args, backend="torch"))
     h = int(ms_args[0].shape[0])
     nh, nv, k2 = ms_kw["n_hoods"], ms_kw["n_vertices"], 2
     ms_bytes = (h * (7 * 4 + k2 * 4) + 2 * k2 * 4 + 4      # inputs: 7 element arrays, cnt_e, mu, sigma, beta
                 + h * 8 + nh * 4 + k2 * nv * 4)            # outputs: min_e, arg, hood_e, votes
     ms_bound, ms_by = bound(ms_bytes, h * (2 + 15 * k2))
-    mrf_bytes = h * 5 * 4 + 2 * 2 * 4 + 4 + h * 8
-    mrf_bound, mrf_by = bound(mrf_bytes, h * 32)
     ms_entry = {"ms": ms_ms, "plain_ms": ms_plain_ms, "bound_ms": ms_bound, "bound_by": ms_by}
     if profile:
         prof = device_profile(torch, lambda: [ops.fused_map_step(*ms_args, **ms_kw) for _ in range(20)])
         emit({"phase": "profile", "what": "20 fused_map_step calls (JAX-signature entry)", **prof})
         ms_entry["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
-        emit({"phase": "profile", "what": "20 mrf_min_energy calls",
-              **device_profile(torch, lambda: [ops.mrf_min_energy(*mrf_args) for _ in range(20)])})
     emit({"phase": "timing", "fused_map_step_ms": ms_ms, "fused_map_step_plain_ms": ms_plain_ms,
-          "mrf_min_energy_ms": mrf_ms, "mrf_min_energy_plain_ms": mrf_plain_ms,
-          "fused_map_step_bytes": ms_bytes, "mrf_min_energy_bytes": mrf_bytes, "elements": h})
+          "fused_map_step_bytes": ms_bytes, "elements": h})
+
+    # mrf_min_energy (on no path): the K = 2 slice's operands with n1 the
+    # label-1 counts, ragged cases, and the 512^3 volume's hood elements.
+    y, w, cnt, nall, xf, _valid, _hid, _vtx, mu, sig, beta = ms_args
+    mrf_args = (y, w, cnt[1].contiguous(), nall, xf, mu, sig, beta)
+    mrf = check_time_mrf_energy(torch, ops, mrf_args)
 
     # Third path: LM serving at qwen2-1.5b's full width and depth.
     lm = run_lm(torch, ops, dev, profile)
@@ -1947,7 +2188,7 @@ def main(argv=None) -> int:
          "launches": sharded_launches["fused_map_step"],
          "max_abs_err": max([ms_err] + [c["max_abs_err"] for c in checked.values()]),
          **{k: sstep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-                                  "ms_per_map_iteration")},
+                                  "ms_per_map_iteration", "stopping_launch")},
          "library_ms": None, "allreduces_per_solve": sharded[2]["allreduces"],
          "ptxas": {"spill_bytes": step_ptxas["spill_bytes"],
                    "registers": {k["kernel"]: k.get("registers") for k in step_ptxas["kernels"]}},
@@ -1955,9 +2196,7 @@ def main(argv=None) -> int:
         {"name": "mrf_min_energy", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mrf_energy.cu",
          "replaces": "src/repro/kernels/mrf_energy.py:62",
-         "launches": sharded_launches["mrf_min_energy"], "max_abs_err": mrf_err,
-         "ms": mrf_ms, "plain_ms": mrf_plain_ms, "bound_ms": mrf_bound,
-         "bound_by": mrf_by, "library_ms": None},
+         "launches": sharded_launches["mrf_min_energy"], **mrf, "library_ms": None},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",

@@ -15,8 +15,9 @@ convergence and finiteness flags and the M-step sums all in the kernel);
 iteration is one ``fused_map_step`` launch on the rank's workspace (the
 last step's labels and tests, this step's counts, energies, hood sums and
 votes), one all-reduce of the step's hood sums and votes and, past the
-window, the AND of the flag word; its M-step is
-``energy.update_parameters_stats``.  Every convergence decision goes
+window, the AND of the flag word; the launch that stops the MAP loop also
+sums the M-step's per-label terms in vertex order (the keyed sums of
+``energy.update_parameters_stats``).  Every convergence decision goes
 through the context, so all ranks take the same trajectory.
 
 The JAX driver's ``while_loop``s are Python loops here.  The loop
@@ -259,9 +260,9 @@ def _em_driver(
                 ctx.psum(ws.buffer)
                 i += 1
             hood_energy = ws.hood_e if i else torch.zeros((n_hoods,), dtype=f32, device=dev)
-            mu, sigma, sum_w = E.update_parameters_stats(
-                model, ws.labels, config.mode, backend=backend
-            )
+            # M-step: the sums the stopping launch took of the labels,
+            # which every rank holds, so they need no collective.
+            mu, sigma, sum_w = E.params_from_stats(model, *ws.stats)
         map_div = bool(flag & kops.FLAG_DIVERGED)
         div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)

@@ -24,11 +24,11 @@
 //      it), counts the labels by warp reductions (integer-valued, so
 //      exact), computes the K energies with the op order of the JAX helper
 //      label_energies_blocked, takes the min/argmin with a strict '<'
-//      (ties to the lowest label), sums the hood's energy and adds one
-//      atomic vote per valid element into the (K, V) vote field (integer
-//      valued, so exact in any order).  Lane 0 then reads the hood's own
-//      column of the (rows, n_hoods) history ring newest row first (from
-//      `head`), applies the window predicate of the old finalize, writes
+//      (ties to the lowest label), sums the hood's energy in element
+//      order (plainsum.cuh) and adds one atomic vote per valid element
+//      into the (K, V) vote field (integer valued, so exact in any order).
+//      Lane 0 then reads the hood's own column of the (rows, n_hoods)
+//      history ring newest row first (from `head`), applies the window predicate of the old finalize, writes
 //      hood_e into the oldest slot (no other warp touches the column), and
 //      the block folds "some hood not converged" and "some hood_e not
 //      finite" into one flag accumulator with one atomicOr.
@@ -56,36 +56,42 @@
 // caller gathered the labels, rolled the ring and tested finiteness with
 // separate tensor operations around it.
 //
-// Float order: the outputs equal the two-launch kernel's bit for bit.
+// Float order: hood_e, at every K, is the plain version's element-order
+// sum: each warp adds its hood's valid products one element at a time, in
+// the order they are stored (plainsum.cuh), as index_add_ does on the CPU
+// and jax.ops.segment_sum does there.  The convergence window is a
+// threshold on hood_e, so any other order can part an iteration count
+// from the plain path's; with hood_e in element order the tick and the
+// sharded route's step (map_step.cu, the same loop) give one trajectory.
 // Blocks have 256 threads; the K = 2..8 finalize replays the 1024-thread
 // finalize's order (four virtual threads per thread, each one warp tree
-// per virtual warp, then the 32 partials in order), so a threshold cannot
-// part the iteration counts.  hood_e keeps its warp tree.
+// per virtual warp, then the 32 partials in order).
 //
 // K: K = 2..8 are template instantiations with the per-label values in
 // registers.  Any K >= 9 takes the runtime-K variant with the same energy
 // op order: the hood pass keeps the per-label terms in the block's shared
 // memory and the counts in a shared row per warp (11 K floats a block).
-// Its float sums take the plain version's order, element by element: each
-// hood's energy sum one element at a time, each label's M-step sums vertex
-// by vertex (one thread per label over tiles staged in the same shared
-// memory).  So at f32 it equals the plain version bit for bit wherever
-// that version sums in element order (on the CPU): with 9 labels the
-// templated order moved a solve by one MAP iteration.  The shared memory
+// Its M-step sums take the plain version's order too, vertex by vertex
+// (plainsum.cuh: one thread per label over tiles staged in the same
+// shared memory).  So
+// at f32 it equals the plain version bit for bit wherever that version
+// sums in element order (on the CPU).  The shared memory
 // bounds K at kMaxLabels = 5,282 (227 KB a block on an H100).
 //
 // Arithmetic: every energy op is an explicitly rounded intrinsic
 // (__fmul_rn, __fdiv_rn, ...) so nvcc cannot contract it into an FMA and
 // each op rounds as PyTorch's separate ops do.  With bf16 every operand and
 // every intermediate is rounded to bfloat16 (as a bfloat16 tensor op
-// would), while counts, hood sums, votes and M-step sums stay float32.
-// For K = 2..8, hood_e and the M-step sums are summed in another order than
+// would), while counts, hood sums, votes and M-step sums stay float32
+// (hood_e is the float32 sum of the rounded products, as in the plain
+// version).  For K = 2..8 the M-step sums are summed in another order than
 // the plain version's index_add_, so they agree to rounding.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "flagword.cuh"
+#include "plainsum.cuh"
 
 namespace {
 
@@ -233,42 +239,50 @@ __global__ void __launch_bounds__(kTemplThreads) tick_kernel(const TickParams p)
     }
     const float beta = rnd<BF16>(__ldg(p.beta));
 
-    // 2. Energies, min/argmin, the hood's energy sum and the votes.
+    // 2. Energies, min/argmin, the votes, and the hood's energy sum in
+    // element order (plainsum.cuh): a warp-uniform loop over chunks of 32
+    // elements, each chunk's products added one lane at a time.
     float acc = 0.0f;
-    for (int e = begin + lane; e < end; e += kWarp) {
-      const float v32 = __ldg(p.valid + e);
-      const float yv = rnd<BF16>(__ldg(p.y + e));
-      const float wv = rnd<BF16>(__ldg(p.w + e));
-      const float na = rnd<BF16>(__ldg(p.nall + e));
-      const float xv = rnd<BF16>(element_label(p, e, v32));
-      const float vv = rnd<BF16>(v32);
-      const float denom = rnd<BF16>(fmaxf(rnd<BF16>(__fsub_rn(na, 1.0f)), 1.0f));
-      float best = 0.0f;
-      int arg = 0;
+    for (int base = begin; base < end; base += kWarp) {
+      const int e = base + lane;
+      float prod = 0.0f;
+      bool take = false;
+      if (e < end) {
+        const float v32 = __ldg(p.valid + e);
+        const float yv = rnd<BF16>(__ldg(p.y + e));
+        const float wv = rnd<BF16>(__ldg(p.w + e));
+        const float na = rnd<BF16>(__ldg(p.nall + e));
+        const float xv = rnd<BF16>(element_label(p, e, v32));
+        const float vv = rnd<BF16>(v32);
+        const float denom = rnd<BF16>(fmaxf(rnd<BF16>(__fsub_rn(na, 1.0f)), 1.0f));
+        float best = 0.0f;
+        int arg = 0;
 #pragma unroll
-      for (int l = 0; l < K; ++l) {
-        const float d = rnd<BF16>(__fsub_rn(yv, mu_l[l]));
-        const float quad = rnd<BF16>(__fdiv_rn(rnd<BF16>(__fmul_rn(d, d)), two_ss[l]));
-        const float data = rnd<BF16>(__fmul_rn(wv, rnd<BF16>(__fadd_rn(quad, log_s[l]))));
-        const float eq = (xv == static_cast<float>(l)) ? 1.0f : 0.0f;
-        const float diff = rnd<BF16>(
-            __fsub_rn(rnd<BF16>(__fsub_rn(na, cnt[l])), __fsub_rn(1.0f, eq)));
-        const float smooth = rnd<BF16>(__fmul_rn(
-            rnd<BF16>(__fdiv_rn(rnd<BF16>(__fmul_rn(beta, fmaxf(diff, 0.0f))), denom)),
-            vv));
-        const float en = rnd<BF16>(__fadd_rn(data, smooth));
-        if (l == 0 || en < best) {
-          best = en;
-          arg = l;
+        for (int l = 0; l < K; ++l) {
+          const float d = rnd<BF16>(__fsub_rn(yv, mu_l[l]));
+          const float quad = rnd<BF16>(__fdiv_rn(rnd<BF16>(__fmul_rn(d, d)), two_ss[l]));
+          const float data = rnd<BF16>(__fmul_rn(wv, rnd<BF16>(__fadd_rn(quad, log_s[l]))));
+          const float eq = (xv == static_cast<float>(l)) ? 1.0f : 0.0f;
+          const float diff = rnd<BF16>(
+              __fsub_rn(rnd<BF16>(__fsub_rn(na, cnt[l])), __fsub_rn(1.0f, eq)));
+          const float smooth = rnd<BF16>(__fmul_rn(
+              rnd<BF16>(__fdiv_rn(rnd<BF16>(__fmul_rn(beta, fmaxf(diff, 0.0f))), denom)),
+              vv));
+          const float en = rnd<BF16>(__fadd_rn(data, smooth));
+          if (l == 0 || en < best) {
+            best = en;
+            arg = l;
+          }
+        }
+        take = v32 > 0.0f;
+        prod = __fmul_rn(best, v32);
+        const int vtx = __ldg(p.vertex + e);
+        if (take && vtx >= 0 && vtx < p.n_vertices) {
+          atomicAdd(p.votes + arg * p.n_vertices + vtx, v32);
         }
       }
-      acc = __fadd_rn(acc, __fmul_rn(best, v32));
-      const int vtx = __ldg(p.vertex + e);
-      if (v32 > 0.0f && vtx >= 0 && vtx < p.n_vertices) {
-        atomicAdd(p.votes + arg * p.n_vertices + vtx, v32);
-      }
+      acc = plainsum::add_chunk(acc, prod, take);
     }
-    acc = warp_sum(acc);
     if (lane == 0) bits = close_hood(p, hood, acc);
   }
   if (!last_block_done(p, bits)) return;
@@ -411,18 +425,14 @@ __global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
           atomicAdd(p.votes + arg * p.n_vertices + vtx, v32);
         }
       }
-      const unsigned takes = __ballot_sync(0xffffffffu, take);
-      for (int j = 0; j < kWarp && base + j < end; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, prod, j);
-        if (takes & (1u << j)) acc = __fadd_rn(acc, pj);
-      }
+      acc = plainsum::add_chunk(acc, prod, take);
     }
     if (lane == 0) bits = close_hood(p, hood, acc);
   }
   if (!last_block_done(p, bits)) return;
 
   // 3. Finalize: the labels first, then the M-step sums of each label in
-  // vertex order, one thread per label over tiles of the new labels and the
+  // vertex order (plainsum.cuh), over tiles of the new labels and the
   // region terms staged in the (now free) shared memory.
   const int n_v = p.n_vertices;
   for (int v = threadIdx.x; v < n_v; v += blockDim.x) {
@@ -439,43 +449,8 @@ __global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
     p.labels_out[v] = lab;
   }
   __syncthreads();
-  int* tile_lab = reinterpret_cast<int*>(smem);
-  float* tile_w = smem + kThreads;
-  float* tile_wy = smem + 2 * kThreads;
-  float* tile_wyy = smem + 3 * kThreads;
-  for (int l0 = 0; l0 < K; l0 += blockDim.x) {
-    const int l = l0 + threadIdx.x;
-    float sw = 0.0f, swy = 0.0f, swyy = 0.0f;
-    for (int t0 = 0; t0 < n_v; t0 += blockDim.x) {
-      const int v = t0 + threadIdx.x;
-      if (v < n_v) {
-        const float wr = __ldg(p.region_weight + v);
-        const float ym = __ldg(p.region_mean + v);
-        const float wy = __fmul_rn(wr, ym);
-        tile_lab[threadIdx.x] = p.labels_out[v];
-        tile_w[threadIdx.x] = wr;
-        tile_wy[threadIdx.x] = wy;
-        tile_wyy[threadIdx.x] = __fmul_rn(wy, ym);
-      }
-      __syncthreads();
-      const int len = min(static_cast<int>(blockDim.x), n_v - t0);
-      if (l < K) {
-        for (int i = 0; i < len; ++i) {
-          if (tile_lab[i] == l) {
-            sw = __fadd_rn(sw, tile_w[i]);
-            swy = __fadd_rn(swy, tile_wy[i]);
-            swyy = __fadd_rn(swyy, tile_wyy[i]);
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (l < K) {
-      p.stats[l] = sw;
-      p.stats[K + l] = swy;
-      p.stats[2 * K + l] = swyy;
-    }
-  }
+  plainsum::label_sums<kThreads>(p.labels_out, p.region_weight, p.region_mean, n_v, K, smem,
+                                 p.stats);
   if (threadIdx.x == 0) publish_flag(p);
 }
 

@@ -62,19 +62,29 @@ __device__ __forceinline__ bool last_block_done(unsigned int* sync, unsigned bit
   return is_last != 0u;
 }
 
-// One thread of the last block, after the launch's other work: publish the
-// flag word to `flag_dev` and to `flag_host` (the device view of a word of
-// mapped pinned host memory), either may be null, and reset the ticket and
-// the accumulator for the next launch.
-__device__ __forceinline__ void publish(unsigned int* sync, int gate, int* flag_dev, int* flag_host) {
+// One thread of the last block: the flag word of the accumulated bits
+// (bit 0: every hood converged and the caller's gate open, bit 1: a hood
+// energy not finite), the accumulator reset for the next launch.
+__device__ __forceinline__ int take_word(unsigned int* sync, int gate) {
   const unsigned acc = atomicExch(sync + 1, 0u);
-  const int flag = ((gate && !(acc & kNotConverged)) ? kConverged : 0) |
-                   static_cast<int>(acc & kNonFinite);
+  return ((gate && !(acc & kNotConverged)) ? kConverged : 0) | static_cast<int>(acc & kNonFinite);
+}
+
+// One thread of the last block, after the launch's other work: publish
+// `flag` to `flag_dev` and to `flag_host` (the device view of a word of
+// mapped pinned host memory), either may be null, and reset the ticket.
+__device__ __forceinline__ void publish_word(unsigned int* sync, int flag, int* flag_dev,
+                                             int* flag_host) {
   if (flag_dev != nullptr) flag_dev[0] = flag;
   // No system-scope fence: the host reads the word only after the stream
   // has finished this launch.
   if (flag_host != nullptr) *reinterpret_cast<volatile int*>(flag_host) = flag;
   atomicExch(sync, 0u);
+}
+
+// take_word, then publish_word.
+__device__ __forceinline__ void publish(unsigned int* sync, int gate, int* flag_dev, int* flag_host) {
+  publish_word(sync, take_word(sync, gate), flag_dev, flag_host);
 }
 
 }  // namespace flagword

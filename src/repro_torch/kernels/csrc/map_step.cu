@@ -40,30 +40,50 @@
 //     no grid-wide wait for the labels is needed.  Over the hood's elements
 //     in this block it computes the K energies with the op order of
 //     ref.label_energies_blocked, min/argmin with a strict '<', one integer
-//     vote atomic per valid element, and the hood's sum of min_e * valid by
-//     segsum.cuh's order-free sum inside the warp (WarpSegment), with the
-//     grid of the parent's call (frac_bits of the block length).  Hoods
-//     without elements here get 0, so the all-reduce adds up.
+//     vote atomic per valid element, and the hood's sum of min_e * valid
+//     over its elements in this block, in element order (plainsum.cuh, the
+//     loop of the single-device tick).  The all-reduce then adds the
+//     ranks' partials, which is what the route's plain path does (a keyed
+//     sum over the rank's block, then the same all-reduce): on one rank
+//     hood_e is the plain path's bits, and a hood that straddles a rank
+//     edge needs no energy from another rank.  The window tests are a
+//     threshold on hood_e, so an order other than the plain path's can
+//     part an iteration count (an order-free fixed-point sum here gave
+//     17 EM / 98 MAP iterations at K = 9 where the plain path gives 99).
+//     Hoods without elements here get 0, so the all-reduce adds up.
 //   * Every block zeroes the votes of the buffer the next step writes: with
 //     three buffers no block zeroes one that another block of the same
 //     launch still reads.
-// No memset, no copy, no min_e/arg output.
+//   * The launch that stops a MAP loop (its flag word is not 0, or it takes
+//     no step) also runs the route's M-step in the block that draws the
+//     last ticket: the per-label sums of w, w * y and w * y * y over the
+//     labels its head wrote, vertex by vertex in vertex order (plainsum.cuh,
+//     the single-device tick's loop), the order of the plain version's keyed
+//     sums on the CPU.  Every rank holds the same labels and region terms,
+//     so the sums need no all-reduce.  The route's M-step went through
+//     segment_reduce's order-free sums before; like the hood sums, any order
+//     but the plain path's can part an iteration count (it gave 17 EM / 98
+//     MAP iterations at K = 9 with the hood sums already in element order).
+// No memset, no copy, no min_e/arg output, no launch for the M-step.
 //
 // repro_fused_map_step, the JAX kernel's signature: per-element counts
 // cnt_e given, elements in any order; one thread per element writes min_e
 // and arg, votes by atomics, and the hood sums by segsum.cuh's three passes
-// (the main kernel does the exponent pass): three launches.  On the sorted
-// slice operands its hood sums and votes equal the route's bit for bit.
+// (the main kernel does the exponent pass): three launches.  Elements in
+// any order have no element order to follow, so its hood sums are
+// order-free (the same bits in any order, rounded once): they agree with
+// the route's to rounding, its votes, min_e and arg bit for bit.
 //
 // Arithmetic: every energy op is an explicitly rounded intrinsic (__fmul_rn,
 // __fdiv_rn, ...) so nvcc cannot contract it into an FMA and each op rounds
 // as PyTorch's separate ops do: min_e, arg and votes equal the plain version
-// bit for bit.  hood_e is a fixed-point sum rounded once, so it agrees with
-// the plain version's element-order float sum to rounding.
+// bit for bit.  The route's hood_e is the plain version's element-order sum
+// bit for bit; the JAX-signature entry's agrees with it to rounding.
 
 #include <cuda_runtime.h>
 
 #include "flagword.cuh"
+#include "plainsum.cuh"
 #include "segsum.cuh"
 
 namespace {
@@ -181,12 +201,13 @@ struct IterParams {
   const float* prev;               // the previous step's all-reduced [hood_e | votes]
   float* cur;                      // this step's buffer, votes zero on entry
   float* next;                     // the next step's buffer: its votes are zeroed here
-  float* scratch;                  // (block,) min_e * valid of this rank's valid elements
   float* ring;                     // (hist_rows, n_hoods)
   unsigned int* sync;              // ticket, accumulator
   int* flag_host;                  // device view of a mapped host word
+  const float* region_mean;        // (n_vertices,)
+  const float* region_weight;
+  float* stats;                    // (3, n_labels): the M-step sums
   long long base;                  // the block's first element in the partition
-  int fbits;
   int hist_rows;
   int head;
   int gate;
@@ -224,9 +245,13 @@ __device__ __forceinline__ int current_label(const IterParams& p, int v) {
   return vote_label(p.prev + p.n_hoods, v, p.n_labels, p.n_vertices);
 }
 
-// Dynamic shared memory of the iteration kernel: 3 K terms and K counts per warp.
+// Dynamic shared memory of the iteration kernel: 3 K terms and K counts
+// per warp in the step; four tiles of kThreads in the M-step.
+constexpr size_t kTileBytes = 4 * kThreads * sizeof(float);
 constexpr size_t iteration_smem_bytes(int n_labels) {
-  return static_cast<size_t>(3 + kWarps) * n_labels * sizeof(float);
+  return static_cast<size_t>(3 + kWarps) * n_labels * sizeof(float) > kTileBytes
+             ? static_cast<size_t>(3 + kWarps) * n_labels * sizeof(float)
+             : kTileBytes;
 }
 
 __global__ void __launch_bounds__(kThreads) map_iteration_kernel(const IterParams p) {
@@ -271,49 +296,54 @@ __global__ void __launch_bounds__(kThreads) map_iteration_kernel(const IterParam
       __syncwarp();
 
       // 2. Energies, min/argmin and votes of the hood's elements in this
-      // block, and the exponent pass of its order-free sum.
+      // block, and its sum in element order: a warp-uniform loop over
+      // chunks of 32 elements, each chunk's products added one lane at a
+      // time (plainsum.cuh).
       const float beta = p.beta[0];
       float* votes = p.cur + p.n_hoods;
-      segsum::WarpSegment seg;
-      for (int g = begin + lane; g < end; g += kWarp) {
-        const long long e = g - p.base;
-        const float vv = p.valid[e];
-        if (vv > 0.0f) {
-          const int vtx = p.vertex[g];
-          const float xv = __fmul_rn(static_cast<float>(current_label(p, vtx)), vv);
-          const float yv = p.y[e];
-          const float wv = p.w[e];
-          const float na = p.nall[e];
-          const float denom = fmaxf(__fsub_rn(na, 1.0f), 1.0f);
-          float best = 0.0f;
-          int arg = 0;
-          for (int l = 0; l < K; ++l) {
-            const float en = label_energy(smem, K, l, yv, wv, na, xv, vv, denom, beta, cnt[l]);
-            if (l == 0 || en < best) {
-              best = en;
-              arg = l;
+      float he = 0.0f;
+      for (int g0 = begin; g0 < end; g0 += kWarp) {
+        const int g = g0 + lane;
+        float part = 0.0f;
+        bool take = false;
+        if (g < end) {
+          const long long e = g - p.base;
+          const float vv = p.valid[e];
+          if (vv > 0.0f) {
+            const int vtx = p.vertex[g];
+            const float xv = __fmul_rn(static_cast<float>(current_label(p, vtx)), vv);
+            const float yv = p.y[e];
+            const float wv = p.w[e];
+            const float na = p.nall[e];
+            const float denom = fmaxf(__fsub_rn(na, 1.0f), 1.0f);
+            float best = 0.0f;
+            int arg = 0;
+            for (int l = 0; l < K; ++l) {
+              const float en = label_energy(smem, K, l, yv, wv, na, xv, vv, denom, beta, cnt[l]);
+              if (l == 0 || en < best) {
+                best = en;
+                arg = l;
+              }
             }
+            take = true;
+            part = __fmul_rn(best, vv);
+            if (vtx >= 0 && vtx < nv) atomicAdd(votes + static_cast<long long>(arg) * nv + vtx, vv);
           }
-          const float part = __fmul_rn(best, vv);
-          p.scratch[e] = part;
-          seg.note(part);
-          if (vtx >= 0 && vtx < nv) atomicAdd(votes + static_cast<long long>(arg) * nv + vtx, vv);
         }
+        he = plainsum::add_chunk(he, part, take);
       }
-      seg.close_exponent();
-      __syncwarp();
-
-      // 3. The sum pass on the hood's grid and the read-out.
-      for (int g = begin + lane; g < end; g += kWarp) {
-        const long long e = g - p.base;
-        if (p.valid[e] > 0.0f) seg.add(p.scratch[e], p.fbits);
-      }
-      const float he = seg.result(p.fbits);
       if (lane == 0) p.cur[p.hood_lo + j] = he;
     }
   }
   if (!flagword::last_block_done(p.sync, bits)) return;
-  if (threadIdx.x == 0) flagword::publish(p.sync, p.gate, nullptr, p.flag_host);
+  __shared__ int flag;
+  if (threadIdx.x == 0) flag = flagword::take_word(p.sync, p.gate);
+  __syncthreads();
+  if (!p.step || flag != 0) {  // the launch stops the MAP loop: its M-step
+    plainsum::label_sums<kThreads>(p.labels, p.region_weight, p.region_mean, nv, K, smem,
+                                   p.stats);
+  }
+  if (threadIdx.x == 0) flagword::publish_word(p.sync, flag, nullptr, p.flag_host);
 }
 
 }  // namespace
@@ -355,7 +385,8 @@ int repro_fused_map_step(const float* y, const float* w, const float* cnt,
 // (partition, rank, K) and per solve (the element pointers) and read by
 // every launch.  Buffers: buffers (3, n_hoods + n_labels * n_vertices) f32,
 // rotated by `rot`; labels (n_vertices,) i32; ring (hist_rows, n_hoods) f32;
-// scratch (block,) f32; ranges (n_local, 4) i32; sync (2,) u32 zero;
+// ranges (n_local, 4) i32; region_mean, region_weight (n_vertices,) f32;
+// stats (3, n_labels) f32; sync (2,) u32 zero;
 // flag_host the device address of a word from repro_em_tick_host_word.
 struct MapStepPlan {
   const float* y;
@@ -370,13 +401,14 @@ struct MapStepPlan {
   const float* beta;
   int* labels;
   float* buffers;
-  float* scratch;
   float* ring;
   unsigned int* sync;
   int* flag_host;
+  const float* region_mean;
+  const float* region_weight;
+  float* stats;
   void* stream;
   long long base;
-  long long block;
   int hist_rows;
   int n_hoods;
   int n_vertices;
@@ -389,7 +421,9 @@ struct MapStepPlan {
 
 // One launch: the head tests the step in buffer (rot + 2) % 3 (unless
 // `first`), the step (if `step`) writes buffer rot, and the votes of buffer
-// (rot + 1) % 3 are zeroed.  The ring's newest row is `head`.
+// (rot + 1) % 3 are zeroed.  The ring's newest row is `head`.  When the
+// flag word is not 0 or `step` is 0, the M-step sums of the labels go to
+// the plan's stats.
 int repro_map_step_iteration(const MapStepPlan* t, int rot, int head, int gate, int first,
                              int step) {
   if (t->n_labels < 1 || iteration_smem_bytes(t->n_labels) > static_cast<size_t>(kSmemPerBlock)) {
@@ -405,10 +439,10 @@ int repro_map_step_iteration(const MapStepPlan* t, int rot, int head, int gate, 
   const int q = ((rot % 3) + 3) % 3;
   const IterParams p{t->y, t->w, t->nall, t->valid, t->vertex, t->valid_all, t->ranges,
                      t->mu, t->sigma, t->beta, t->labels, t->buffers + ((q + 2) % 3) * len,
-                     t->buffers + q * len, t->buffers + ((q + 1) % 3) * len, t->scratch,
-                     t->ring, t->sync, t->flag_host, t->base, segsum::frac_bits(t->block),
-                     t->hist_rows, head, gate, first, step, t->n_hoods, t->n_vertices,
-                     t->n_labels, t->n_local, t->hood_lo, t->conv_tol};
+                     t->buffers + q * len, t->buffers + ((q + 1) % 3) * len, t->ring,
+                     t->sync, t->flag_host, t->region_mean, t->region_weight, t->stats,
+                     t->base, t->hist_rows, head, gate, first, step,
+                     t->n_hoods, t->n_vertices, t->n_labels, t->n_local, t->hood_lo, t->conv_tol};
   const size_t smem = iteration_smem_bytes(t->n_labels);
   int rc = 0;
   if (smem > 48 * 1024) {

@@ -18,8 +18,9 @@ arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
   ``hist`` given), allocating its outputs per call.  ``ref.fused_em_tick``
   is its plain version.
 
-From K = 9 on the kernel adds its float sums in the plain versions'
-element order.
+The kernel adds each hood's energies in the plain versions' element
+order at every K (``csrc/plainsum.cuh``), and from K = 9 on its M-step
+sums too.
 """
 
 from __future__ import annotations

@@ -2,9 +2,8 @@
 
 Counterpart of ``repro.kernels.map_step.fused_map_step_pallas``: the K
 label energies, the per-element min/argmin, the per-hood energy sums and
-the (label, vertex) votes of the sharded static-pallas route.  The hood
-sums are order-free (``csrc/segsum.cuh``): the same bit for bit from call
-to call and whatever the order of the elements.  Two entry points:
+the (label, vertex) votes of the sharded static-pallas route.  Two entry
+points:
 
 * :class:`MapStepWorkspace`, the sharded EM driver's: built once per
   (partition, rank, K) with every operand check, it runs one MAP
@@ -12,11 +11,15 @@ to call and whatever the order of the elements.  Two entry points:
   launch: the previous step's labels, history ring and flag tests, this
   rank's label counts over whole hood runs, energies, hood sums and votes)
   into a buffer that one all-reduce covers, and reads the flag word with
-  one wait in :meth:`~MapStepWorkspace.flag`.  ``ref.PlainMapStepWorkspace``
-  is its plain version.
+  one wait in :meth:`~MapStepWorkspace.flag`; the launch that stops a MAP
+  loop also sums the M-step's per-label terms into ``stats``.  Its hood
+  sums add this rank's elements in element order (``csrc/plainsum.cuh``)
+  and its M-step sums the vertices in vertex order, as
+  ``ref.PlainMapStepWorkspace``, its plain version, does on the CPU.
 * :func:`fused_map_step_cuda`, with the JAX kernel's signature (per-element
-  counts given, elements in any order), three launches per call.
-  ``ref.fused_map_step`` is its plain version.
+  counts given, elements in any order), three launches per call.  Its hood
+  sums are order-free (``csrc/segsum.cuh``): the same bits whatever the
+  order of the elements.  ``ref.fused_map_step`` is its plain version.
 """
 
 from __future__ import annotations
@@ -125,9 +128,9 @@ class _MapStepPlan(ctypes.Structure):
     _fields_ = [
         *((name, _P) for name in (
             "y", "w", "nall", "valid", "vertex", "valid_all", "ranges", "mu", "sigma", "beta",
-            "labels", "buffers", "scratch", "ring", "sync", "flag_host", "stream")),
+            "labels", "buffers", "ring", "sync", "flag_host", "region_mean", "region_weight",
+            "stats", "stream")),
         ("base", ctypes.c_longlong),
-        ("block", ctypes.c_longlong),
         *((name, _I) for name in (
             "hist_rows", "n_hoods", "n_vertices", "n_labels", "n_local", "hood_lo", "device")),
         ("conv_tol", ctypes.c_float),
@@ -194,15 +197,18 @@ class MapStepWorkspace:
     (:func:`hood_runs`, every check on them here), three ``[hood_e | votes]``
     buffers (each step writes one, the all-reduce sums it, the next step's
     head reads it, and the step after zeroes its votes), the labels, the
-    (window + 1, n_hoods) history ring, a scratch row, the kernel's ticket
-    and a mapped pinned host word for the flag.
+    (window + 1, n_hoods) history ring, the M-step sums, the kernel's
+    ticket and a mapped pinned host word for the flag.
 
     A solve calls :meth:`start` once (this rank's element arrays and the
     initial labels), :meth:`begin_em` at each EM iteration, then per MAP
     iteration ``step(gate, step=...)`` (one ``ctypes`` call, one launch),
     the AND of the flag word across ranks where the driver wants it
     (``flag_word``, in place), :meth:`flag` (one wait) and the all-reduce
-    of ``buffer``.  ``labels`` are the labels the last head wrote (the
+    of ``buffer``.  The launch whose flag word is not 0, or that takes no
+    step, also writes the M-step sums of its head's labels to ``stats``
+    (``(3, K)``: per label the sums of w, w y and w y y, each in vertex
+    order).  ``labels`` are the labels the last head wrote (the
     caller's before any), ``hood_e`` and ``votes`` the all-reduced step it
     tested; views of the buffers, valid until the step after next.
     """
@@ -219,6 +225,8 @@ class MapStepWorkspace:
         cap = hoods.capacity
         _require_ws(hoods.vertex, "vertex", i32, (cap,), dev)
         _require_ws(hoods.valid, "valid", torch.bool, (cap,), dev)
+        _require_ws(model.region_mean, "region_mean", f32, (nv,), dev)
+        _require_ws(model.region_weight, "region_weight", f32, (nv,), dev)
         ranges, self.hood_lo, self.block = hood_runs(hoods, rank, n_shards)
         self.rank, self.n_shards, self.base = rank, n_shards, rank * self.block
         self.device, self.n_labels, self.n_hoods, self.n_vertices = dev, n_labels, nh, nv
@@ -229,21 +237,22 @@ class MapStepWorkspace:
         self._labels = torch.zeros((nv,), dtype=i32, device=dev)
         self._buffers = torch.zeros((3, nh + n_labels * nv), dtype=f32, device=dev)
         self.ring = torch.zeros((window + 1, nh), dtype=f32, device=dev)
-        self._scratch = torch.zeros((self.block,), dtype=f32, device=dev)
+        self.stats = torch.zeros((3, n_labels), dtype=f32, device=dev)
         self._sync = torch.zeros((2,), dtype=i32, device=dev)  # ticket, accumulator
         self._host = _HostWord()
         #: The flag word as a CUDA tensor over the mapped host word: the
         #: kernel writes it, a collective may reduce it in place, and
         #: :meth:`flag` reads it with no copy.
         self.flag_word = torch.as_tensor(_DeviceWord(self._host.device), device=dev)
-        self._keep = (hoods.vertex, hoods.valid)
+        self._keep = (hoods.vertex, hoods.valid, model.region_mean, model.region_weight)
         self._plan = p = _MapStepPlan()
         p.vertex, p.valid_all = hoods.vertex.data_ptr(), hoods.valid.data_ptr()
         p.ranges, p.beta = self._ranges.data_ptr(), self._beta.data_ptr()
         p.labels, p.buffers = self._labels.data_ptr(), self._buffers.data_ptr()
-        p.scratch, p.ring, p.sync = self._scratch.data_ptr(), self.ring.data_ptr(), self._sync.data_ptr()
-        p.flag_host = self._host.device
-        p.base, p.block = self.base, self.block
+        p.ring, p.sync, p.flag_host = self.ring.data_ptr(), self._sync.data_ptr(), self._host.device
+        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
+        p.stats = self.stats.data_ptr()
+        p.base = self.base
         p.hist_rows, p.n_hoods, p.n_vertices, p.n_labels = window + 1, nh, nv, n_labels
         p.n_local, p.hood_lo, p.device, p.conv_tol = self.n_local, self.hood_lo, dev.index or 0, conv_tol
         self._addr = ctypes.addressof(p)
@@ -281,7 +290,8 @@ class MapStepWorkspace:
 
     def step(self, gate: bool, step: bool = True) -> None:
         """One launch: the head tests the last step (``gate`` opens the
-        flag's converged bit), then, with ``step``, the next MAP step."""
+        flag's converged bit), then, with ``step``, the next MAP step; if
+        the flag word is not 0 or there is no step, the M-step sums."""
         global launches
         self._launch(self._addr, self.rot, self.head, int(gate), int(self.first), int(step))
         launches += 1

@@ -10,7 +10,7 @@ arithmetic does.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +64,7 @@ def label_energies_blocked(
     beta,
     *,
     precision: str = "f32",
+    log_sig: Optional[Tensor] = None,
 ) -> Tensor:
     """(K, N) label energies from label-blocked inputs.
 
@@ -71,7 +72,9 @@ def label_energies_blocked(
     ``w*(d*d/(2*sig*sig) + log sig) + beta*max((nall-cnt)-(1-eq),0)/denom*valid``
     with ``denom = max(nall-1, 1)``.  ``precision="bf16"`` casts every
     operand to bfloat16, so each op rounds to bfloat16; callers cast the
-    result back to float32 before accumulating.
+    result back to float32 before accumulating.  ``log_sig`` (K,), when
+    given, is used for ``log sig`` (cast to the working precision): a step
+    on the host can take the bits another device's ``log`` gave.
     """
     cd = torch.bfloat16 if precision == "bf16" else torch.float32
     y = y.to(cd)
@@ -81,13 +84,14 @@ def label_energies_blocked(
     valid = valid.to(cd)
     cnt = cnt.to(cd)
     mu = mu.to(cd)[:, None]
+    log_s = torch.log(sig.to(cd)[:, None]) if log_sig is None else log_sig.to(cd)[:, None]
     sig = sig.to(cd)[:, None]
     beta = torch.as_tensor(beta, device=y.device).to(cd)
     labf = torch.arange(cnt.shape[0], device=y.device, dtype=torch.float32).to(cd)[:, None]
     denom = torch.clamp_min(nall - 1.0, 1.0)
     d = y[None, :] - mu
     eq = (xf[None, :] == labf).to(cd)
-    return w[None, :] * (d * d / (2.0 * sig * sig) + torch.log(sig)) + beta * torch.clamp_min(
+    return w[None, :] * (d * d / (2.0 * sig * sig) + log_s) + beta * torch.clamp_min(
         (nall[None, :] - cnt) - (1.0 - eq), 0.0
     ) / denom[None, :] * valid[None, :]
 
@@ -135,6 +139,7 @@ def fused_map_step(
     *,
     n_hoods: int,
     n_vertices: int,
+    log_sigma: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """One MAP step given the per-element label counts ``cnt_e`` (K, H):
     the K energies (``label_energies_blocked`` at f32, the op order of
@@ -142,11 +147,13 @@ def fused_map_step(
     ``arg`` (ties to the lowest label), per-hood sums of ``min_e * valid``
     and the (K, n_vertices) votes.  Lanes with ``valid == 0`` and ids
     outside ``[0, n_hoods)`` / ``[0, n_vertices)`` add to no sum.
+    ``log_sigma`` as ``label_energies_blocked``'s ``log_sig``.
 
     Returns ``(min_e, arg, hood_e, votes)``.
     """
     n_labels = int(mu.shape[0])
-    energies = label_energies_blocked(y, w, cnt_e, nall_e, xf, valid, mu, sigma, beta)
+    energies = label_energies_blocked(y, w, cnt_e, nall_e, xf, valid, mu, sigma, beta,
+                                      log_sig=log_sigma)
     min_e, arg = torch.min(energies, dim=0)  # first minimum on ties
     seg_h = torch.where(valid > 0, hood_id.long(), n_hoods)
     hood_e = keyed_sum(min_e * valid, seg_h, n_hoods + 1)[:n_hoods]
@@ -178,6 +185,7 @@ def fused_em_tick(
     n_vertices: int,
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
+    log_sigma: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
     """One EM tick: per-(hood, label) counts, K energies, per-element
     min/argmin (ties to the lowest label), per-hood energy sums, votes,
@@ -187,6 +195,7 @@ def fused_em_tick(
     Returns ``(labels, hood_e, votes, conv, sum_w, sum_wy, sum_wyy)``.
     The CUDA kernel's ``offsets`` layout argument has no counterpart here:
     this version reads the hood of each element from ``hood_id``.
+    ``log_sigma`` as ``label_energies_blocked``'s ``log_sig``.
     """
     n_labels = int(mu.shape[0])
     seg_h = torch.where(valid > 0, hood_id.long(), n_hoods)
@@ -197,7 +206,7 @@ def fused_em_tick(
     cnt_e = counts[torch.clamp(hood_id.long(), 0, n_hoods - 1)].T  # (K, H)
 
     energies = label_energies_blocked(
-        y, w, cnt_e, nall_e, xf, valid, mu, sigma, beta, precision=precision
+        y, w, cnt_e, nall_e, xf, valid, mu, sigma, beta, precision=precision, log_sig=log_sigma
     )
     min_e, arg = torch.min(energies, dim=0)  # first minimum on ties
     min_e = min_e.to(torch.float32)
@@ -246,6 +255,7 @@ def fused_map_iteration(
     n_vertices: int,
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
+    log_sigma: Optional[Tensor] = None,
 ) -> Tuple[Tensor, ...]:
     """One MAP iteration of the single-device route: the label gather
     (``xf = labels[vertex] * valid``), :func:`fused_em_tick` with the
@@ -265,7 +275,7 @@ def fused_map_iteration(
     new_labels, hood_e, votes, conv, sum_w, sum_wy, sum_wyy = fused_em_tick(
         y, w, nall_e, xf, valid, hood_id, vertex, region_mean, region_weight,
         ring[order], mu, sigma, beta, n_hoods=n_hoods, n_vertices=n_vertices,
-        precision=precision, conv_tol=conv_tol,
+        precision=precision, conv_tol=conv_tol, log_sigma=log_sigma,
     )
     ring[order[-1]] = hood_e
     flag = (conv & bool(gate)).to(torch.int32) * FLAG_CONVERGED | (
@@ -296,8 +306,10 @@ class PlainTickWorkspace:
         self._elements = (y, w, nall_e, valid)
         self.labels = labels0.clone()
 
-    def begin_em(self, mu, sigma) -> None:
-        self._params = (mu, sigma)
+    def begin_em(self, mu, sigma, log_sigma=None) -> None:
+        """``log_sigma``, when given, stands for ``torch.log(sigma)``
+        (``label_energies_blocked``'s ``log_sig``)."""
+        self._params, self._log_sigma = (mu, sigma), log_sigma
         self.ring.zero_()
         self.head = 0
 
@@ -308,7 +320,7 @@ class PlainTickWorkspace:
             y, w, nall_e, valid, h.hood_id, h.vertex, m.region_mean, m.region_weight,
             self.ring, self.head, self.labels, *self._params, m.beta, gate=gate,
             n_hoods=h.n_hoods, n_vertices=h.n_regions + 1, precision=self.precision,
-            conv_tol=self._conv_tol,
+            conv_tol=self._conv_tol, log_sigma=self._log_sigma,
         )
         self.stats = torch.stack(sums)
         self.head = (self.head - 1) % int(self.ring.shape[0])
@@ -329,7 +341,9 @@ class PlainMapStepWorkspace:
     of every hood over the whole partition, gathers the counts per element
     of this rank's block and runs :func:`fused_map_step` on the block.  Its
     hood sums are zero for hoods with no element in the block, since the
-    keyed sum gives those nothing.
+    keyed sum gives those nothing.  A step whose flag word is not 0, or
+    that takes no step, also puts the M-step sums of the head's labels in
+    ``stats``, as :func:`fused_em_tick` sums them.
     """
 
     def __init__(self, hoods, model, *, rank: int = 0, n_shards: int = 1,
@@ -348,14 +362,17 @@ class PlainMapStepWorkspace:
                                     device=self.device)
         self.ring = torch.zeros((window + 1, self.n_hoods), dtype=f32, device=self.device)
         self.flag_word = torch.zeros((1,), dtype=torch.int32, device=self.device)
+        self.stats = torch.zeros((3, self.n_labels), dtype=f32, device=self.device)
         self.rot, self.head, self.first = 0, 0, True
 
     def start(self, y, w, nall_e, valid, labels0) -> None:
         self._elements = (y, w, nall_e, valid)
         self._labels.copy_(labels0)
 
-    def begin_em(self, mu, sigma) -> None:
-        self._params = (mu, sigma)
+    def begin_em(self, mu, sigma, log_sigma=None) -> None:
+        """``log_sigma``, when given, stands for ``torch.log(sigma)``
+        (``label_energies_blocked``'s ``log_sig``)."""
+        self._params, self._log_sigma = (mu, sigma), log_sigma
         self.first = True
         self.head = 0
 
@@ -378,6 +395,9 @@ class PlainMapStepWorkspace:
             flag = int(bool(ok) and gate) * FLAG_CONVERGED | int(
                 not bool(torch.all(torch.isfinite(he)))) * FLAG_DIVERGED
         self.flag_word.fill_(flag)
+        if flag or not step:
+            lab, w, y = self._labels.long(), m.region_weight, m.region_mean
+            self.stats = torch.stack([keyed_sum(v, lab, n_labels) for v in (w, w * y, w * y * y)])
         if step:
             x = self._labels[h.vertex.long()]
             seg_h = torch.where(h.valid, h.hood_id.long(), nh)
@@ -391,7 +411,7 @@ class PlainMapStepWorkspace:
             mu, sigma = self._params
             _, _, hood_e, votes = fused_map_step(
                 y, w, cnt_e, nall_e, xf, valid, hood_id, vertex, mu, sigma, m.beta,
-                n_hoods=nh, n_vertices=nv)
+                n_hoods=nh, n_vertices=nv, log_sigma=self._log_sigma)
             cur[:nh] = hood_e
             cur[nh:] = votes.reshape(-1)
         nxt[nh:] = 0.0

@@ -79,6 +79,29 @@ def test_fused_map_step_matches_jax(n_labels):
     assert votes_g.sum() == np.sum((valid > 0) & (vertex < N_VERTICES))
 
 
+@pytest.mark.parametrize("n_labels", [2, 9])
+def test_plain_map_step_takes_a_given_log_sigma(n_labels):
+    """``log_sigma`` stands for ``torch.log(sigma)`` in the plain MAP step
+    and tick (how a step on the host takes the card's bits): given the
+    host's own log it changes no bit; given a log one ulp off it moves the
+    energies."""
+    t = [torch.from_numpy(a) for a in _map_step_problem(n_labels, n_labels)]
+    y, w, cnt, nall, xf, valid, hood_id, vertex, mu, sigma = t
+    kw = dict(n_hoods=N_HOODS, n_vertices=N_VERTICES)
+    base = torch_ref.fused_map_step(*t, 0.75, **kw)
+    same = torch_ref.fused_map_step(*t, 0.75, log_sigma=torch.log(sigma), **kw)
+    for a, b in zip(base, same):
+        assert torch.equal(a, b)
+    off = torch.nextafter(torch.log(sigma), torch.full_like(sigma, np.inf))
+    moved = torch_ref.fused_map_step(*t, 0.75, log_sigma=off, **kw)
+    assert not torch.equal(moved[0], base[0])
+    tick = (y, w, nall, xf, valid, hood_id, vertex, torch.ones(N_VERTICES),
+            torch.ones(N_VERTICES), torch.zeros(4, N_HOODS), mu, sigma, 0.75)
+    got = torch_ref.fused_em_tick(*tick, log_sigma=torch.log(sigma), **kw)
+    for a, b in zip(torch_ref.fused_em_tick(*tick, **kw), got):
+        assert torch.equal(a, b)
+
+
 def test_fused_map_step_element_blocks_sum_to_the_whole():
     """Keyed sums over element blocks add up to the whole: votes exactly,
     hood sums to rounding (the sharded route's all-reduce relies on it)."""
@@ -175,6 +198,27 @@ def test_mrf_min_energy_is_the_binary_map_step():
     assert torch.equal(min_b, min_m) and torch.equal(arg_b, arg_m)
 
 
+@pytest.mark.parametrize("case", ["n=1", "n=3", "n=4097", "offset 1"])
+@pytest.mark.parametrize("beta_form", ["float", "0-d tensor"])
+def test_mrf_min_energy_ragged_shapes_match_jax(case, beta_form):
+    """The shapes at which the CUDA kernel takes its scalar head and tail
+    (n % 4, an input at storage offset 1), with ``beta`` a Python float and
+    a 0-d tensor: the plain version equals the JAX reference bit for bit."""
+    arrays, _ = _binary_problem(4, n=4098)
+    params = (np.array([80, 120], np.float32), np.array([10, 12], np.float32))
+    cut = {"n=1": slice(0, 1), "n=3": slice(0, 3), "n=4097": slice(0, 4097), "offset 1": slice(1, None)}[case]
+    elems = [torch.from_numpy(a)[cut] for a in arrays]
+    if case == "offset 1":
+        assert all(t.storage_offset() == 1 and t.is_contiguous() for t in elems)
+    beta = 0.75 if beta_form == "float" else torch.tensor(0.75)
+    min_g, arg_g = ops.mrf_min_energy(*elems, *map(torch.from_numpy, params), beta)
+    min_w, arg_w = jax_ref.mrf_min_energy(*[jnp.asarray(t.numpy()) for t in elems],
+                                          *map(jnp.asarray, params), 0.75)
+    assert min_g.shape == (elems[0].shape[0],) and arg_g.dtype == torch.int32
+    np.testing.assert_array_equal(min_g.numpy().view(np.uint32), np.asarray(min_w).view(np.uint32))
+    np.testing.assert_array_equal(arg_g.numpy(), np.asarray(arg_w))
+
+
 def test_new_wrappers_refuse_cpu_tensors_and_cpu_calls_launch_nothing():
     """The CUDA wrappers raise on a CPU tensor before anything is built;
     the CPU route through ``ops`` counts no launch."""
@@ -186,6 +230,8 @@ def test_new_wrappers_refuse_cpu_tensors_and_cpu_calls_launch_nothing():
     params = [torch.tensor([80.0, 120.0]), torch.tensor([10.0, 12.0])]
     with pytest.raises(ValueError, match="CUDA"):
         mrf_min_energy_cuda(*bin_args, *params, 0.75)
+    with pytest.raises(ValueError, match="CUDA"):
+        mrf_min_energy_cuda(*[t[1:] for t in bin_args], *params, torch.tensor(0.75))
     assert _build._libs == {}
     ops.reset_launch_counts()
     ops.fused_map_step(*arrays, 0.75, n_hoods=N_HOODS, n_vertices=N_VERTICES)

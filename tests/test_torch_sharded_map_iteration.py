@@ -27,7 +27,7 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from repro_torch.core import synthetic
+from repro_torch.core import dpp, synthetic
 from repro_torch.core.pmrf import collectives, convert
 from repro_torch.core.pmrf import distributed as D
 from repro_torch.core.pmrf import em as em_mod
@@ -161,6 +161,51 @@ def test_workspace_equals_old_composition_over_a_solve(n_labels, one_rank_group,
     assert res.labels.data_ptr() != ws.labels.data_ptr() and torch.equal(res.labels, ws.labels)
     # ... and equals the single-device route's.
     single = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0)
+    assert (res.status, res.em_iters, res.map_iters) == (single.status, single.em_iters, single.map_iters)
+    assert torch.equal(res.labels, single.labels)
+
+
+@pytest.mark.parametrize("n_labels", sorted(PROBLEMS))
+def test_workspace_m_step_is_the_keyed_m_step(n_labels):
+    """The route's M-step on its workspace (the sums a launch that stops
+    the MAP loop puts in ``stats``) gives the sums
+    ``energy.update_parameters_stats`` forms with its three keyed
+    reductions, bit for bit, and so the same parameters.  A launch that
+    does not stop the loop leaves them as they were."""
+    prob = _problem(n_labels)
+    parts = D.partition_hoods(prob.hoods, 1)
+    ws = ops.map_step_workspace(parts, prob.model)
+    rng = np.random.default_rng(n_labels)
+    labels = torch.from_numpy(rng.integers(0, n_labels, ws.n_vertices).astype(np.int32))
+    labels[-1] = 0
+    ws.start(*[torch.zeros(ws.block)] * 4, labels)
+    ws.begin_em(torch.zeros(n_labels), torch.ones(n_labels))
+    ws.step(False)  # a MAP loop's first launch: flag word 0, a step
+    assert ws.flag() == 0 and not torch.any(ws.stats)
+    ws.begin_em(torch.zeros(n_labels), torch.ones(n_labels))
+    ws.step(False, step=False)  # stops the loop before any step: the caller's labels
+    stats = ws.stats
+    assert stats.shape == (3, n_labels)
+    w, y = prob.model.region_weight, prob.model.region_mean
+    lab = labels.long()
+    for got, values in zip(stats, (w, w * y, w * y * y)):
+        assert _same(got, dpp.reduce_by_key(lab, values, n_labels, op="add"))
+    want = E.update_parameters_stats(prob.model, labels, "static-pallas")
+    for a, b in zip(E.params_from_stats(prob.model, *stats), want):
+        assert _same(a, b)
+
+
+def test_k9_sharded_plain_path_is_the_single_device_plain_path(one_rank_group):
+    """At K = 9 (the single-device tick's runtime-K variant) the sharded
+    route's plain path on one gloo rank gives the single-device plain
+    path's status, iteration counts and labels: both sum each hood in
+    element order, the sum the CUDA kernels of both routes now take."""
+    vol = synthetic.make_kary_volume(seed=0, n_slices=1, shape=(64, 64), n_phases=3, device="cpu")
+    prob = pipeline.initialize(vol.images[0], overseg_grid=(8, 8), n_labels=9, device="cpu")
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, 0, "quantile")
+    res = D.distributed_em(prob.hoods, prob.model, labels0, mu0, sigma0)
+    single = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0)
+    assert res.map_iters > em_mod.WINDOW and res.status == em_mod.STATUS_CONVERGED
     assert (res.status, res.em_iters, res.map_iters) == (single.status, single.em_iters, single.map_iters)
     assert torch.equal(res.labels, single.labels)
 

@@ -7,13 +7,17 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives three paths:
+PyTorch version on the card, and drives four paths:
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
   tick's runtime-K variant), planned and solved through the session API
   (one ``fused_em_tick`` launch and one flag read per MAP iteration, on
-  the plan's ``TickWorkspace``);
+  the bucket's ``TickWorkspace``);
+* slice stacks: 16 K = 2 and 4 K = 3 slices of 512x512 through
+  ``Segmenter.segment_stack(batch="always")``, one ``run_em_batched`` per
+  stack (per lockstep MAP iteration one launch of the tick's lane axis for
+  every running lane, on the bucket's ``BatchTickWorkspace``);
 * the sharded route: ``run_em_sharded`` on the same plans over a
   one-rank NCCL process group made in this process, on the rank's
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
@@ -69,11 +73,10 @@ Tolerances (kernel against plain version, same inputs, on the card):
   tick on the card, which adds by atomics.  At bf16: at least 95 % label
   agreement and sums within 2 %.  K = 2, 3, 5 and the runtime-K variant at
   9, 16, 33 on synthetic operands; K = 2 and 9 at the slices' operands.
-  The kernel sums each hood in element order at every K (and from K = 9
-  the M-step sums too), so at f32 it also equals the plain tick on the CPU
-  (where ``index_add_`` adds in element order) bit for bit in every output
-  but the K = 2..8 M-step sums (``cpu_allowed``); at bf16 that equality is
-  reported.
+  The kernel sums each hood in element order and the M-step sums in
+  vertex order at every K, so at f32 it also equals the plain tick on the
+  CPU (where ``index_add_`` adds in element order) bit for bit in every
+  output (``cpu_allowed`` is empty); at bf16 that equality is reported.
 * The MAP step (``TickWorkspace.step``, the main path's entry of the
   tick) at the K = 2, 3 and 9 slices' real state (MAP iteration WINDOW+2,
   computed on the CPU): against the plain MAP iteration on the card in the
@@ -84,17 +87,35 @@ Tolerances (kernel against plain version, same inputs, on the card):
   labels, hood sums, votes, flag word and ring equal bit for bit those of
   the plain MAP iteration run on the CPU from the kernel's state (the
   CPU step takes the card's ``log`` of each sigma, which may differ from
-  the host's in the last bit; the launches where it does are counted,
-  and so are those where the K = 2..8 M-step sums differ), and the solve
+  the host's in the last bit; the launches where it does are counted),
+  at the launches that stop a MAP loop the M-step sums too, and the solve
   gives the main path's trajectory and labels.  Repeat check: 20 steps
   from one state (labels, ring, head restored) give the same bits.
   Profiler check: 20
   steps with their flag reads issue exactly 20 kernels, all the tick, no
   memset and at most 20 device-to-host copies (the flag goes to mapped
-  pinned memory, so none).  Printed: ms per MAP step (step and flag), ms
-  per back-to-back step, device us per step, the bound, the device
-  operations of one warm K = 2 solve, and the tick's ``ptxas`` registers
-  and spills.
+  pinned memory, so none), once for steps that do not stop the MAP loop
+  and once for launches that stop it.  Printed: ms per MAP step (step and
+  flag), ms per back-to-back step, device us per step and per stopping
+  launch, the bound, the device operations of one warm K = 2 solve, and
+  the tick's ``ptxas`` registers and spills.
+* Stacks: the tick launches of ``segment_stack`` are all the batched
+  entry's and equal the stack's lockstep MAP iterations (its solve run
+  again on the bucket's executable gives the count); every lane equals
+  bit for bit (labels, mu, sigma, iteration counts, status) its slice's
+  serial ``execute`` in the stack's joint bucket and in its own, and the
+  plain batched path on the CPU; a second, warm ``segment_stack`` builds
+  no workspace.  The batched entry at B = 1, 3 and 16 lanes of the K = 2
+  stack, every fourth lane from lane 1 inactive, over WINDOW + 2 steps
+  from the quantile init (the last with the cap bit): each step's views
+  (labels, votes, hood sums, ring, M-step sums, active words) and the
+  running lanes' flag words bit for bit the plain batched step on the
+  CPU at f32, each running lane bit for bit the single-lane entry at f32
+  and bf16, and the inactive lanes' views untouched.  Printed: mean
+  ``optimize_s`` per slice batched and serial (best and median of 5
+  drains), launches, the batched launch's ms and device us at B = 16
+  against its bound; with ``--profile`` the stack solve's device
+  operations and idle share.
 * The plan: a second ``Segmenter.plan`` of the K = 2 slice's image on the
   card equals the first bit for bit (the label map and every ``Hoods``
   array); whether it equals the plan the plain path makes on the CPU is
@@ -215,6 +236,9 @@ MAP_STEPS = 20  # MAP steps of the repeat and profiler checks
 MRF_VOLUME_SLICES = 512  # mrf_min_energy at the paper's 512^3 volume: 512 slices of hood elements
 PROFILE_ATTEMPTS = 3  # profiles of MAP_STEPS steps, for the records the profiler drops
 PROFILER_SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock, before each traced window
+STACK = ((2, 16), (3, 4))  # (K, slices) of the stack phase: 512x512 slices, batch="always"
+BATCHED_CHECK_SIZES = (1, 3, 16)  # lanes at which the batched entry is held to its plain version
+STACK_REPEATS = 5  # timed drains of the K = 2 stack, batched and serial
 
 
 def emit(obj) -> None:
@@ -273,7 +297,9 @@ def device_profile(torch, fn) -> dict:
     on the H100 (it lost 1 of 20 ticks in one run and all 20 flash
     launches in another, while its record buffer was requested), so each
     trace first spins the card for about 10 ms (``torch.cuda._sleep``,
-    kernel ``spin_kernel``), which is left out."""
+    kernel ``spin_kernel``), which is left out; it spins as long after
+    ``fn`` too, since a trace has also lost one record of 20 MAP steps in
+    three attempts running (the sharded MAP-step check)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,6 +308,8 @@ def device_profile(torch, fn) -> dict:
         torch.cuda._sleep(PROFILER_SPIN_CYCLES)
         torch.cuda.synchronize()
         fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(PROFILER_SPIN_CYCLES)
         torch.cuda.synchronize()
     by_name, host = {}, []
     for e in prof.key_averages():
@@ -508,8 +536,9 @@ TICK_OUTPUTS = ("labels", "hood_e", "votes", "conv", "sum_w", "sum_wy", "sum_wyy
 
 def cpu_allowed(n_labels: int) -> set:
     """Tick outputs that may differ from the plain tick on the CPU at f32:
-    the M-step sums at K = 2..8 (their finalize adds in another order)."""
-    return set() if n_labels >= 9 else {"sum_w", "sum_wy", "sum_wyy"}
+    none, at every K (hood sums in element order, M-step sums in vertex
+    order)."""
+    return set()
 
 
 def check_tick_against_cpu(torch, ops, k, args, kw, precision: str, what: str) -> dict:
@@ -554,8 +583,9 @@ def real_map_state(torch, plan, E, em_mod):
     hoods, model, labels, mu, sigma = convert.problem_from_numpy(d, device="cpu")
     sctx = E.make_static_context(hoods, model, backend="torch")
     sig = torch.maximum(sigma, model.sigma_min)
-    ws = ref.PlainTickWorkspace(hoods, model, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
-    ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels)
+    ws = ref.PlainTickWorkspace(ref.TickShape.of(hoods, model), device="cpu",
+                                conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels)
     ws.begin_em(mu, sig)
     for _ in range(em_mod.WINDOW + 1):
         ws.step(False)
@@ -630,9 +660,10 @@ def map_step_workspace(ops, em_mod, hoods, model, st, precision="f32", backend=N
     """A MAP-iteration workspace (the kernel's on the card, the plain one
     with ``backend="torch"`` or on the CPU) holding the state ``st`` of
     ``real_map_state`` (or its ``cpu`` part)."""
-    ws = ops.tick_workspace(hoods, model, precision=precision, conv_tol=em_mod.CONV_TOL,
-                            window=em_mod.WINDOW, backend=backend)
-    ws.start(*st["elements"], st["labels"])
+    ws = ops.tick_workspace(ops.TickShape.of(hoods, model), device=hoods.vertex.device,
+                            precision=precision, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW,
+                            backend=backend)
+    ws.start(hoods, model, *st["elements"], st["labels"])
     ws.begin_em(st["mu"], st["sig"])
     load_state(ws, st)
     return ws
@@ -646,9 +677,10 @@ def load_state(ws, st) -> None:
 
 
 def map_step(ws) -> tuple:
-    """One gated MAP step and its flag: ``(labels, hood_e, votes, flag,
-    sum_w, sum_wy, sum_wyy)``, copied out of the workspace."""
-    ws.step(True)
+    """One gated MAP step that stops the loop (the cap bit: it takes the
+    M-step sums) and its flag: ``(labels, hood_e, votes, flag, sum_w,
+    sum_wy, sum_wyy)``, copied out of the workspace."""
+    ws.step(True, True)
     flag = ws.flag()
     return (ws.labels.clone(), ws.hood_e.clone(), ws.votes.clone(), flag, *ws.stats.clone())
 
@@ -705,6 +737,53 @@ def check_map_iteration(torch, ops, E, em_mod, plan) -> dict:
     return out
 
 
+def tick_step_bytes(hoods, n_labels: int, n_run: int = None) -> int:
+    """Bytes a MAP step must move (each input read once, each output written
+    once): the hood runs' elements, the labels gathered once, the offsets,
+    the region arrays, the ring's rows, the parameters; the ring row,
+    hood_e, labels, votes and the cleared votes, the sums and flag words."""
+    if n_run is None:
+        n_run = int(hoods.offsets[-1] - hoods.offsets[0])
+    nh, nv, rows = hoods.n_hoods, hoods.n_regions + 1, 4
+    return (n_run * 5 * 4 + nv * 4 + (nh + 1) * 4 + 2 * nv * 4 + (rows - 1) * nh * 4
+            + 2 * n_labels * 4 + 4
+            + nh * 4 + nh * 4 + nv * 4 + 2 * n_labels * nv * 4
+            + 3 * n_labels * 4 + 2 * 4)
+
+
+def tick_step_ops(hoods, n_labels: int, n_run: int = None) -> int:
+    """Float operations of a MAP step: 16 per element and label, 6 per vertex."""
+    if n_run is None:
+        n_run = int(hoods.offsets[-1] - hoods.offsets[0])
+    return n_run * n_labels * 16 + (hoods.n_regions + 1) * 6
+
+
+def profile_tick_steps(torch, ops, step, reset, what: str, kernel: str = "tick_kernel") -> dict:
+    """``MAP_STEPS`` calls of ``step`` (each one tick launch and its flag
+    read) under the profiler, after ``reset``: exactly one
+    ``kernel`` each, no memset, at most one copy each.  The profiler has
+    dropped a kernel's record (19 of 20 in one run): an attempt that shows
+    fewer tick kernels than steps and nothing else is made again, up to
+    PROFILE_ATTEMPTS times; any attempt that shows another kernel, a
+    memset or more copies than steps fails at once."""
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        reset()
+        before = ops.launch_counts()["fused_em_tick"]
+        prof = device_profile(torch, lambda: [step() for _ in range(MAP_STEPS)])
+        ticks = sum(t["count"] for t in prof["top"] if kernel in t["name"])
+        a = {"launches": ops.launch_counts()["fused_em_tick"] - before, "kernels": prof["kernels"],
+             "tick_kernels": ticks, "memsets": prof["memsets"], "memcpys": prof["memcpys"],
+             "device_us_per_step": prof["device_busy_us"] / max(ticks, 1)}
+        attempts.append(a)
+        if (a["launches"] != MAP_STEPS or a["kernels"] != ticks or ticks > MAP_STEPS
+                or a["memsets"] or a["memcpys"] > MAP_STEPS):
+            fail(f"{what}: {MAP_STEPS} steps issued {a}")
+        if ticks == MAP_STEPS:
+            return {**a, "attempts": len(attempts)}
+    fail(f"{what}: no profile of {MAP_STEPS} steps saw all of them: {attempts}")
+
+
 def check_tick_step(torch, ops, E, em_mod, plan) -> dict:
     """The main path's MAP step at a slice plan's real state (f32):
 
@@ -712,12 +791,14 @@ def check_tick_step(torch, ops, E, em_mod, plan) -> dict:
       head, give the same bits (labels, hood_e, votes, sums, ring, flag),
       so the kernel resets its ticket, its vote buffer and its flag
       accumulator itself;
-    * profiler: ``MAP_STEPS`` steps with their flag reads issue exactly one
-      kernel each (the tick), no memset and at most one device-to-host
-      copy each;
+    * profiler: ``MAP_STEPS`` steps (gate closed: none stops the loop) and
+      ``MAP_STEPS`` launches that stop it (the cap bit: each takes the
+      M-step sums) issue exactly one kernel each (the tick), no memset and
+      at most one device-to-host copy each;
     * times: ms per MAP step (step and flag, host clock, what the driver
       pays), ms per step back to back (CUDA events), device us per step
-      (profiler), the plain MAP iteration's ms, and the bound.
+      and per stopping launch (profiler), the plain MAP iteration's ms,
+      and the bound.
     """
     st = real_map_state(torch, plan, E, em_mod)
     hoods, model = plan.problem.hoods, plan.problem.model
@@ -733,50 +814,32 @@ def check_tick_step(torch, ops, E, em_mod, plan) -> dict:
     emit({"phase": "map_step_repeat_check", "K": n_labels, "steps": MAP_STEPS, "ok": True,
           "flag": first[3]})
 
-    # The profiler has dropped a kernel's record (19 of 20 in one run): an
-    # attempt that shows fewer tick kernels than steps and nothing else is
-    # made again, up to PROFILE_ATTEMPTS times.  Any attempt that shows
-    # another kernel, a memset or more copies than steps fails at once.
-    steps = lambda: [(ws.step(True), ws.flag()) for _ in range(MAP_STEPS)]
-    attempts = []
-    for _ in range(PROFILE_ATTEMPTS):
-        load_state(ws, st)
-        before = ops.launch_counts()["fused_em_tick"]
-        prof = device_profile(torch, steps)
-        ticks = sum(t["count"] for t in prof["top"] if "tick_kernel" in t["name"])
-        a = {"launches": ops.launch_counts()["fused_em_tick"] - before, "kernels": prof["kernels"],
-             "tick_kernels": ticks, "memsets": prof["memsets"], "memcpys": prof["memcpys"],
-             "device_us_per_step": prof["device_busy_us"] / max(ticks, 1)}
-        attempts.append(a)
-        if (a["launches"] != MAP_STEPS or a["kernels"] != ticks or ticks > MAP_STEPS
-                or a["memsets"] or a["memcpys"] > MAP_STEPS):
-            fail(f"MAP step K={n_labels}: {MAP_STEPS} steps issued {a}")
-        if ticks == MAP_STEPS:
-            break
-    row = {"phase": "map_step_profile_check", "K": n_labels, "steps": MAP_STEPS, **a,
-           "attempts": len(attempts)}
-    emit(row)
-    if ticks != MAP_STEPS:
-        fail(f"MAP step K={n_labels}: no profile of {MAP_STEPS} steps saw all of them: {attempts}")
+    # A step with the gate closed never stops the MAP loop (no M-step); with
+    # the cap bit every step stops it and takes the M-step sums.
+    row = profile_tick_steps(torch, ops, lambda: (ws.step(False), ws.flag()), lambda: load_state(ws, st),
+                             f"MAP step K={n_labels}")
+    emit({"phase": "map_step_profile_check", "K": n_labels, "steps": MAP_STEPS, **row})
+    stop = profile_tick_steps(torch, ops, lambda: (ws.step(True, True), ws.flag()),
+                              lambda: load_state(ws, st),
+                              f"stopping launch K={n_labels}")
+    emit({"phase": "map_step_profile_check", "K": n_labels, "steps": MAP_STEPS,
+          "what": "launches that stop the MAP loop (cap bit: M-step sums)", **stop})
 
     load_state(ws, st)
     n = 10 * MAP_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
-        ws.step(True)
+        ws.step(False)
         ws.flag()
     out = {"K": n_labels, "ms_per_map_step": (time.perf_counter() - t0) / n * 1e3,
-           "ms": time_ms(lambda: ws.step(True)), "device_ms": row["device_us_per_step"] * 1e-3}
+           "ms": time_ms(lambda: ws.step(False)), "device_ms": row["device_us_per_step"] * 1e-3,
+           "stopping_launch": {"ms": time_ms(lambda: ws.step(True, True)),
+                               "device_ms": stop["device_us_per_step"] * 1e-3}}
     plain = map_step_workspace(ops, em_mod, hoods, model, st, backend="torch")
-    out["plain_ms"] = time_ms(lambda: plain.step(True))
-    n_run = int(hoods.offsets[-1] - hoods.offsets[0])
-    nh, nv, rows = hoods.n_hoods, hoods.n_regions + 1, em_mod.WINDOW + 1
-    n_bytes = (n_run * 5 * 4 + nv * 4 + (nh + 1) * 4 + 2 * nv * 4 + (rows - 1) * nh * 4
-               + 2 * n_labels * 4 + 4                               # inputs (labels gathered once)
-               + nh * 4 + nh * 4 + nv * 4 + 2 * n_labels * nv * 4  # ring row, hood_e, labels, votes, cleared votes
-               + 3 * n_labels * 4 + 2 * 4)                          # sums, flag words
-    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_run * n_labels * 16 + nv * 6)
+    out["plain_ms"] = time_ms(lambda: plain.step(False))
+    n_bytes = tick_step_bytes(hoods, n_labels)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, tick_step_ops(hoods, n_labels))
     out["bytes"] = n_bytes
     emit({"phase": "timing", "what": f"MAP step (TickWorkspace) K={n_labels}", **out})
     return out
@@ -790,20 +853,22 @@ class TickLockstep:
     holds the kernel to it bit for bit: labels, hood sums, votes, flag word
     and ring (``cpu_step_unequal``).  The CPU step takes the card's ``log``
     of each sigma, which may differ from the host's in the last bit
-    (``log_unequal`` counts the launches where it does).  The M-step sums
-    are compared and counted, not held: the K = 2..8 finalize adds them in
-    another order.  Everything else is the kernel workspace's."""
+    (``log_unequal`` counts the launches where it does).  At a launch that
+    stops the MAP loop (its flag word set, or the cap) the M-step sums are
+    held too (``stopping_launches`` counts them); the other launches do not
+    take them.  Everything else is the kernel workspace's."""
 
     def __init__(self, torch, kern, cpu):
         self.torch, self.kern, self.cpu = torch, kern, cpu
-        self.launches = self.stats_unequal = self.log_unequal = self.equal_launches = 0
+        self.launches = self.stopping_launches = self.log_unequal = self.equal_launches = 0
 
     def __getattr__(self, name):
         return getattr(self.kern, name)
 
-    def start(self, y, w, nall_e, valid, labels0):
-        self.kern.start(y, w, nall_e, valid, labels0)
-        self.cpu.start(*(t.cpu() for t in (y, w, nall_e, valid, labels0)))
+    def start(self, hoods, model, y, w, nall_e, valid, labels0):
+        self.kern.start(hoods, model, y, w, nall_e, valid, labels0)
+        self.cpu.start(self.cpu.cpu_hoods, self.cpu.cpu_model,
+                       *(t.cpu() for t in (y, w, nall_e, valid, labels0)))
 
     def begin_em(self, mu, sigma):
         self.kern.begin_em(mu, sigma)
@@ -812,21 +877,23 @@ class TickLockstep:
                           log_sigma=log_sigma if self.kern.precision == "f32" else None)
         self.same_log = self.torch.equal(log_sigma, self.torch.log(sigma.cpu()))
 
-    def step(self, gate):
+    def step(self, gate, cap=False):
         torch, k, c = self.torch, self.kern, self.cpu
         c.labels = k.labels.cpu()
         c.ring.copy_(k.ring)
         c.head = k.head
-        k.step(gate)
-        c.step(gate)
+        k.step(gate, cap)
+        c.step(gate, cap)
         self.launches += 1
         self.log_unequal += not self.same_log
         what = f"MAP step K={k.n_labels} launch {self.launches}"
-        self.equal_launches += not cpu_step_unequal(
-            torch, [("flag", k.flag(), c.flag()), ("labels", k.labels, c.labels),
-                    ("hood_e", k.hood_e, c.hood_e), ("votes", k.votes, c.votes),
-                    ("ring", k.ring, c.ring)], what)
-        self.stats_unequal += not same_bits(torch, k.stats.cpu(), c.stats)
+        pairs = [("flag", k.flag(), c.flag()), ("labels", k.labels, c.labels),
+                 ("hood_e", k.hood_e, c.hood_e), ("votes", k.votes, c.votes),
+                 ("ring", k.ring, c.ring)]
+        if k.flag() or cap:
+            self.stopping_launches += 1
+            pairs.append(("stats", k.stats, c.stats))
+        self.equal_launches += not cpu_step_unequal(torch, pairs, what)
 
 
 def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
@@ -838,9 +905,12 @@ def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
     prob = plan.problem
     cfg = config.em_config()
     hoods_c, model_c, *_ = problem_on_cpu(plan, config, SLICE["seed"])
-    cpu = ops.tick_workspace(hoods_c, model_c, precision=cfg.precision, conv_tol=em_mod.CONV_TOL,
-                             window=em_mod.WINDOW)
-    ws = TickLockstep(torch, em_mod.make_workspace(prob.hoods, prob.model, cfg), cpu)
+    cpu = ops.tick_workspace(ops.TickShape.of(hoods_c, model_c), device="cpu",
+                             precision=cfg.precision, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+    cpu.cpu_hoods, cpu.cpu_model = hoods_c, model_c
+    kern = em_mod.make_workspace(ops.TickShape.of(prob.hoods, prob.model), cfg,
+                                 device=prob.hoods.vertex.device)
+    ws = TickLockstep(torch, kern, cpu)
     labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
     res = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, cfg, workspace=ws)
     single = sl["result"]
@@ -848,7 +918,7 @@ def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
     row = {"phase": "tick_solve_cpu_check", "K": sl["K"], "ok": True, "launches": ws.launches,
            "bitwise_equal_plain_cpu_launches": ws.equal_launches,
            "launches_log_sigma_unequal_cpu": ws.log_unequal,
-           "launches_stats_unequal_cpu": ws.stats_unequal, "trajectory": trajectory,
+           "stopping_launches_stats_held": ws.stopping_launches, "trajectory": trajectory,
            "main_path": [single.status, single.em_iters, single.map_iters],
            "labels_equal_main_path": bool(np.array_equal(
                res.labels.cpu().numpy()[: prob.graph.n_regions], single.region_labels))}
@@ -1045,6 +1115,290 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
         fail(f"K={n_labels} solve: status and iterations {trajectory(res)}, "
              f"plain path on the CPU {trajectory(cpu)}")
     out.update(plan=plan, config=config, result=res, accuracy_of=accuracy, image=vol.images[0])
+    return out
+
+
+def stack_volume(synthetic, dev, n_labels: int, n_slices: int):
+    """``n_slices`` 512x512 slices of the synthetic volume (K = 2) or of the
+    K-phase volume, seed 0."""
+    size, seed = SLICE["size"], SLICE["seed"]
+    if n_labels == 2:
+        return synthetic.make_synthetic_volume(seed=seed, n_slices=n_slices, shape=(size, size), device=dev)
+    return synthetic.make_kary_volume(seed=seed, n_slices=n_slices, shape=(size, size),
+                                      n_phases=n_labels, device=dev)
+
+
+def result_bits(r) -> tuple:
+    """What a slice's result must repeat bit for bit: labels, mu, sigma,
+    iteration counts and status."""
+    return (np.asarray(r.region_labels).tobytes(), np.asarray(r.mu).tobytes(),
+            np.asarray(r.sigma).tobytes(), r.em_iters, r.map_iters, r.status)
+
+
+def inputs_on_cpu(inputs):
+    """A stack's solve inputs (``Segmenter.stacked_inputs``) copied to the CPU."""
+    import dataclasses
+
+    import torch
+
+    hoods, model, *rest = inputs
+    hoods = dataclasses.replace(hoods, **{f.name: getattr(hoods, f.name).cpu()
+                                          for f in dataclasses.fields(hoods)
+                                          if isinstance(getattr(hoods, f.name), torch.Tensor)})
+    return (hoods, type(model)(*(t.cpu() for t in model)), *(t.cpu() for t in rest))
+
+
+def lane_inputs(inputs, b: int):
+    """Lane ``b`` of a stack's solve inputs, as one problem's."""
+    import dataclasses
+
+    import torch
+
+    hoods, model, *rest = inputs
+    hoods = dataclasses.replace(hoods, **{f.name: getattr(hoods, f.name)[b]
+                                          for f in dataclasses.fields(hoods)
+                                          if isinstance(getattr(hoods, f.name), torch.Tensor)})
+    return (hoods, type(model)(*(t[b] for t in model)), *(t[b] for t in rest))
+
+
+def batch_state(ws) -> dict:
+    """The views of a batched workspace a step writes, copied to the CPU."""
+    return {"labels": ws.labels.cpu(), "votes": ws.votes.cpu(), "hood_e": ws.hood_e.cpu(),
+            "ring": ws.ring.cpu(), "stats": ws.stats.cpu(), "active": ws.active.cpu().bool()}
+
+
+def check_batched_entry(torch, ops, E, em_mod, seg, plans, joint, batch: int) -> dict:
+    """The batched entry (``BatchTickWorkspace.step``) at ``batch`` lanes of
+    the stack's padded problems, from the quantile init, with every fourth
+    lane (from lane 1) marked inactive: ``WINDOW + 2`` steps, the last with
+    the cap bit.  After every step, at f32, each view (labels, votes, hood
+    sums, ring, M-step sums, active words) and each running lane's flag word
+    equals bit for bit the plain batched step on the CPU
+    (``ref.PlainBatchTickWorkspace``, given the card's ``log`` of each
+    sigma); at f32 and bf16, each running lane equals the single-lane
+    entry (``TickWorkspace``) on that lane's problem bit for bit; the
+    inactive lanes' views stay as they were (the M-step sums start at -1
+    on both sides, so a stray write shows)."""
+    seed = SLICE["seed"]
+    inputs = seg.stacked_inputs(plans[:batch], bucket=joint, seeds=[seed] * batch)
+    hoods, model, labels0, mu0, sigma0 = inputs
+    shape = ops.TickShape.of(hoods, model)
+    active = [batch == 1 or b % 4 != 1 for b in range(batch)]
+    steps = em_mod.WINDOW + 2
+    sig = torch.maximum(sigma0, model.sigma_min[:, None])
+    sctx = E.make_static_context_batched(hoods, model)
+    cpu_in = inputs_on_cpu(inputs)
+    csctx = E.make_static_context_batched(cpu_in[0], cpu_in[1])
+    row = {"phase": "batched_tick_check", "B": batch, "inactive_lanes": active.count(False),
+           "steps": steps, "ok": True}
+    worst = 0.0
+    for precision in ("f32", "bf16"):
+        kw = dict(precision=precision, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+        kern = ops.tick_workspace(shape, device=hoods.vertex.device, batch=batch, **kw)
+        kern.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+        kern.stats.fill_(-1.0)
+        kern.begin_em(mu0, sig, active)
+        singles = {}
+        for b in range(batch):
+            if active[b]:
+                h1, m1, l1, _, _ = lane_inputs(inputs, b)
+                one = ops.tick_workspace(shape, device=hoods.vertex.device, **kw)
+                s1 = E.make_static_context(h1, m1)
+                one.start(h1, m1, s1.y, s1.w, s1.nall_e, s1.validf, l1)
+                one.begin_em(mu0[b].contiguous(), sig[b].contiguous())
+                singles[b] = one
+        cpu = None
+        if precision == "f32":
+            cpu = ops.tick_workspace(shape, device="cpu", batch=batch, **kw)
+            cpu.start(cpu_in[0], cpu_in[1], csctx.y, csctx.w, csctx.nall_e, csctx.validf, cpu_in[2])
+            cpu.stats.fill_(-1.0)
+            cpu.begin_em(mu0.cpu(), sig.cpu(), active, log_sigma=torch.log(sig).cpu())
+        frozen = batch_state(kern)
+        running = list(active)
+        for i in range(1, steps + 1):
+            gate, cap = i > em_mod.WINDOW, i == steps
+            kern.step(gate, cap)
+            flags = kern.flags()
+            got = batch_state(kern)
+            what = f"batched tick B={batch} {precision} step {i}"
+            if cpu is not None:
+                cpu.step(gate, cap)
+                want = batch_state(cpu)
+                cflags = cpu.flags()
+                for name in want:
+                    if not same_bits(torch, got[name], want[name]):
+                        fail(f"{what}: {name} not bit for bit the plain batched step on the CPU")
+                if [f for f, r in zip(flags, running) if r] != [f for f, r in zip(cflags, running) if r]:
+                    fail(f"{what}: flag words {flags}, plain on the CPU {cflags}")
+                worst = max(worst, float((got["hood_e"] - want["hood_e"]).abs().max()))
+            for b, one in singles.items():
+                if not running[b]:
+                    continue
+                one.step(gate, cap)
+                if one.flag() != flags[b]:
+                    fail(f"{what}: lane {b} flag {flags[b]}, single-lane entry {one.flag()}")
+                pairs = [(got["labels"][b], one.labels), (got["votes"][b], one.votes),
+                         (got["hood_e"][b], one.hood_e), (got["ring"][b], one.ring)]
+                if flags[b] or cap:
+                    pairs.append((got["stats"][b], one.stats))
+                if not all(same_bits(torch, a, c.cpu()) for a, c in pairs):
+                    fail(f"{what}: lane {b} differs from the single-lane entry")
+            for b in range(batch):
+                if not active[b] and not all(same_bits(torch, got[n][b], frozen[n][b])
+                                             for n in ("labels", "votes", "hood_e", "ring", "stats")):
+                    fail(f"{what}: inactive lane {b} was written")
+                running[b] = running[b] and not (flags[b] or cap)
+            if got["active"].tolist() != running:
+                fail(f"{what}: active words {got['active'].tolist()}, expected {running}")
+    row["max_abs_err"] = worst
+    emit(row)
+    return row
+
+
+def run_stack(torch, api, synthetic, ops, E, em_mod, dev, n_labels: int, n_slices: int,
+              profile: bool, timed: bool) -> dict:
+    """The stack path: ``n_slices`` 512x512 slices at K = ``n_labels``
+    through ``Segmenter.segment_stack(batch="always")``, launch counts reset
+    just before and read just after.  Held: the fused_em_tick launches are
+    all the batched entry's and equal the lockstep MAP iterations of the
+    stack's solve (one launch per MAP iteration, run again on the bucket's
+    executable); every lane equals bit for bit that slice's serial
+    ``execute`` on the card, in the stack's joint bucket and in its own,
+    and the plain batched path on the CPU (labels, mu, sigma, iteration
+    counts, status); a second, warm ``segment_stack`` builds no workspace
+    and repeats the bits.  With ``timed``: mean ``optimize_s`` per slice
+    of the batched and the serial solve over ``STACK_REPEATS`` drains of
+    the planned slices (best and median), batched launches against the
+    serial ones, and the batched launch's ms and device time at B =
+    ``n_slices`` against its bound; with ``profile`` also the device
+    operations and idle share of one warm stack solve."""
+    from repro_torch.kernels import em_tick
+
+    seed = SLICE["seed"]
+    vol = stack_volume(synthetic, dev, n_labels, n_slices)
+    config = api.ExecutionConfig(n_labels=n_labels, overseg_grid=(SLICE["grid"],) * 2, init="quantile")
+    seg = api.Segmenter(config, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, mean_opt = seg.segment_stack(vol.images, seed=seed, batch="always")
+    wall = time.perf_counter() - t0
+    launches, batched_launches = ops.launch_counts(), em_tick.launches_batched
+
+    plans = [seg.plan(img) for img in vol.images]
+    joint = api.BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
+    exe = seg.compile(joint, batch=n_slices)
+    inputs = seg.stacked_inputs(plans, bucket=joint, seeds=[seed] * n_slices)
+    ops.reset_launch_counts()
+    again = exe(*inputs)
+    if ops.launch_counts()["fused_em_tick"] != again.steps or em_tick.launches_batched != again.steps:
+        fail(f"stack K={n_labels}: {ops.launch_counts()['fused_em_tick']} tick launches for "
+             f"{again.steps} lockstep MAP iterations")
+    if launches["fused_em_tick"] != batched_launches or batched_launches != again.steps:
+        fail(f"stack K={n_labels}: segment_stack made {launches['fused_em_tick']} tick launches "
+             f"({batched_launches} batched) for {again.steps} lockstep MAP iterations")
+    if launches["segment_reduce"] < 1:
+        fail(f"stack K={n_labels}: segment_reduce never launched")
+
+    ops.reset_launch_counts()
+    serial_own = [seg.execute(p, seed=seed) for p in plans]
+    serial_launches = ops.launch_counts()["fused_em_tick"]
+    serial_joint = [seg.execute(p, seed=seed, bucket=joint) for p in plans]
+    cpu = em_mod.run_em_batched(*inputs_on_cpu(inputs), config.em_config())
+    n_regions = [p.problem.graph.n_regions for p in plans]
+    for i, r in enumerate(results):
+        lane = cpu.lane(i)
+        cpu_bits = (lane.labels.numpy()[: n_regions[i]].tobytes(), lane.mu.numpy().tobytes(),
+                    lane.sigma.numpy().tobytes(), lane.em_iters, lane.map_iters,
+                    em_mod.STATUS_NAMES[lane.status])
+        for what, other in (("serial execute in the joint bucket", result_bits(serial_joint[i])),
+                            ("serial execute in its own bucket", result_bits(serial_own[i])),
+                            ("the plain batched path on the CPU", cpu_bits)):
+            if result_bits(r) != other:
+                fail(f"stack K={n_labels} lane {i}: not bit for bit {what}")
+        if r.status not in ("converged", "max_iters"):
+            fail(f"stack K={n_labels} lane {i}: status {r.status}")
+
+    builds = ops.WORKSPACE_BUILDS
+    warm, _ = seg.segment_stack(vol.images, seed=seed, batch="always")
+    warm_builds = ops.WORKSPACE_BUILDS - builds
+    if warm_builds or [result_bits(r) for r in warm] != [result_bits(r) for r in results]:
+        fail(f"stack K={n_labels}: the warm segment_stack built {warm_builds} workspaces or "
+             "changed a result")
+    gt = vol.ground_truth
+    acc = [metrics_accuracy(r, gt[i], n_labels) for i, r in enumerate(results)]
+    out = {"phase": "stack", "K": n_labels, "slices": n_slices, "batch": "always",
+           "bucket": list(joint), "own_buckets": sorted({tuple(p.bucket) for p in plans}),
+           "wall_s": wall, "mean_optimize_s": mean_opt,
+           "plan_s_mean": float(np.mean([p.init_seconds for p in plans])),
+           "launches": launches, "batched_launches": batched_launches,
+           "lockstep_map_iterations": again.steps, "serial_launches": serial_launches,
+           "em_iters": [r.em_iters for r in results], "map_iters": [r.map_iters for r in results],
+           "status": sorted({r.status for r in results}), "mean_accuracy": float(np.mean(acc)),
+           "lanes_equal_serial_and_cpu": True, "warm_workspace_builds": warm_builds,
+           "cache": seg.stats.as_dict()}
+    if timed:
+        def drain():
+            for p in plans:
+                seg.submit(p, seed=seed, bucket=joint)
+            return seg.drain()
+
+        batched = [float(np.mean([r.optimize_seconds for r in drain()])) for _ in range(STACK_REPEATS)]
+        serial = [float(np.mean([seg.execute(p, seed=seed).optimize_seconds for p in plans]))
+                  for _ in range(STACK_REPEATS)]
+        out["optimize_s_per_slice"] = {"batched": spread(batched), "serial": spread(serial)}
+        out["batched_step"] = time_batched_step(torch, ops, E, em_mod, exe, inputs, plans)
+        if profile:
+            walls = spread([float(np.sum([r.optimize_seconds for r in drain()])) for _ in range(SOLVES)])
+            prof = device_profile(torch, drain)
+            out["profile"] = {"stack_optimize_s_unprofiled": walls,
+                              "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / walls["min"],
+                              **{k: prof[k] for k in ("device_ops", "kernels", "memsets", "memcpys",
+                                                      "device_busy_us", "top")}}
+    emit(out)
+    out.update(seg=seg, plans=plans, joint=joint)
+    return out
+
+
+def metrics_accuracy(r, gt, n_labels: int) -> float:
+    from repro_torch.core import metrics
+
+    if n_labels == 2:
+        return metrics.evaluate(r.segmentation, gt).accuracy
+    return metrics.multiclass_accuracy(r.segmentation, gt, n_labels)
+
+
+def time_batched_step(torch, ops, E, em_mod, exe, inputs, plans) -> dict:
+    """The batched entry at every lane of a stack, from the quantile init
+    with the gate closed (no lane stops): ms per launch back to back (CUDA
+    events), device us per launch (profiler, ``profile_tick_steps``), the
+    plain batched step's ms on the card, and the bound: the lanes' MAP-step
+    bytes and operations (``tick_step_bytes``, ``tick_step_ops``, each lane
+    at its own hood runs) at the card's rates."""
+    hoods, model, labels0, mu0, sigma0 = inputs
+    batch = int(labels0.shape[0])
+    sig = torch.maximum(sigma0, model.sigma_min[:, None])
+    sctx = E.make_static_context_batched(hoods, model)
+    ws = exe.workspace
+    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    reset = lambda: ws.begin_em(mu0, sig, [True] * batch)
+    prof = profile_tick_steps(torch, ops, lambda: (ws.step(False), ws.flags()), reset,
+                              f"batched tick B={batch}", kernel="tick_kernel_batched")
+    reset()
+    out = {"B": batch, "ms": time_ms(lambda: ws.step(False)), "device_ms": prof["device_us_per_step"] * 1e-3,
+           "profile": prof}
+    plain = ops.tick_workspace(ws.shape, device=ws.device, batch=batch, precision=ws.precision,
+                               conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW, backend="torch")
+    plain.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    plain.begin_em(mu0, sig, [True] * batch)
+    out["plain_ms"] = time_ms(lambda: plain.step(False), iters=5, warmup=1)
+    n_bytes = n_ops = 0
+    for p in plans:
+        h = p.problem.hoods
+        n_bytes += tick_step_bytes(h, model.n_labels)
+        n_ops += tick_step_ops(h, model.n_labels)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+    out["bytes"] = n_bytes
+    emit({"phase": "timing", "what": f"batched fused_em_tick B={batch} K={model.n_labels}", **out})
     return out
 
 
@@ -2094,7 +2448,17 @@ def main(argv=None) -> int:
     step9 = {**check_map_iteration(torch, ops, E, em_mod, slice9["plan"]),
              **check_tick_step(torch, ops, E, em_mod, slice9["plan"])}
 
-    # Second path: the sharded route's kernels at the slices' operands.
+    # Second path: slice stacks through segment_stack(batch="always"), one
+    # batched tick launch per MAP iteration for every running lane; then
+    # the batched entry against its plain version at B = 1, 3 and 16.
+    stacks = {k: run_stack(torch, api, synthetic, ops, E, em_mod, dev, k, n, profile, timed=k == 2)
+              for k, n in STACK}
+    st2 = stacks[2]
+    batched_err = max(check_batched_entry(torch, ops, E, em_mod, st2["seg"], st2["plans"],
+                                          st2["joint"], b)["max_abs_err"]
+                      for b in BATCHED_CHECK_SIZES)
+
+    # Third path: the sharded route's kernels at the slices' operands.
     from repro_torch.core.pmrf import collectives
     from repro_torch.core.pmrf import distributed as D
 
@@ -2159,14 +2523,15 @@ def main(argv=None) -> int:
     mrf_args = (y, w, cnt[1].contiguous(), nall, xf, mu, sig, beta)
     mrf = check_time_mrf_energy(torch, ops, mrf_args)
 
-    # Third path: LM serving at qwen2-1.5b's full width and depth.
+    # Fourth path: LM serving at qwen2-1.5b's full width and depth.
     lm = run_lm(torch, ops, dev, profile)
     flash = time_flash(torch, ops, dev, profile)
 
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
-    step_keys = tick_keys + ("ms_per_map_step",)
+    step_keys = tick_keys + ("ms_per_map_step", "stopping_launch")
+    bstep = st2["batched_step"]
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
@@ -2177,7 +2542,12 @@ def main(argv=None) -> int:
                    "registers": {k["kernel"]: k.get("registers") for k in tick_ptxas["kernels"]}},
          "jax_signature_entry": {k: tick2[k] for k in tick_keys if k in tick2},
          "K9": {"launches": slice9["launches"]["fused_em_tick"], **{k: step9[k] for k in step_keys},
-                "jax_signature_entry": {k: tick9[k] for k in tick_keys if k in tick9}}},
+                "jax_signature_entry": {k: tick9[k] for k in tick_keys if k in tick9}},
+         "batched_entry": {"launches": st2["batched_launches"], "B": bstep["B"],
+                           "max_abs_err": batched_err,
+                           **{k: bstep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "device_ms")},
+                           "library_ms": None}},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",

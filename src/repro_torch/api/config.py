@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.api.config.ExecutionConfig`` for what this package
 runs: mode ``static-pallas``, its precision, the label count, the EM
-limits, the init, the oversegmentation and the shard count.  ``backend``
+limits, the init, the oversegmentation, the shard count and the session's
+bucketing and executable cache.  ``backend``
 is ``"auto"`` (the CUDA kernels for tensors on the card, the plain
 PyTorch versions on the CPU) or ``"torch"`` (the plain versions on any
 device).
@@ -18,8 +19,15 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Tuple
 
+import torch
+
 from repro_torch.core.pmrf import em as em_mod
 from repro_torch.kernels import ops as kops
+
+#: Default bucket grids: element capacity to a multiple of 256, hood and
+#: region counts to a multiple of 64 (the reference's defaults).
+DEFAULT_CAPACITY_BUCKET = 256
+DEFAULT_SEGMENT_BUCKET = 64
 
 
 @dataclass(frozen=True)
@@ -36,6 +44,9 @@ class ExecutionConfig:
     overseg_grid: Tuple[int, int] = (16, 16)
     overseg_iters: int = 5
     shards: int = 1                # ranks of the default process group
+    capacity_bucket: int = DEFAULT_CAPACITY_BUCKET
+    segment_bucket: int = DEFAULT_SEGMENT_BUCKET
+    max_cached_executables: int = 32
 
     def __post_init__(self):
         if self.backend not in kops.BACKENDS:
@@ -57,7 +68,18 @@ class ExecutionConfig:
             raise ValueError(f"n_labels must be >= 2, got {self.n_labels}")
         if self.shards < 1:
             raise ValueError(f"shards must be >= 1, got {self.shards}")
+        if self.capacity_bucket < 1 or self.segment_bucket < 1:
+            raise ValueError("bucket granularities must be >= 1")
+        if self.max_cached_executables < 1:
+            raise ValueError("max_cached_executables must be >= 1")
         object.__setattr__(self, "overseg_grid", tuple(self.overseg_grid))
+
+    def resolved_backend(self, device) -> str:
+        """The route on ``device``: "cuda" (the kernels) or "torch" (the
+        plain versions)."""
+        if self.backend == "torch" or torch.device(device).type != "cuda":
+            return "torch"
+        return "cuda"
 
     def em_config(self) -> em_mod.EMConfig:
         return em_mod.EMConfig(

@@ -1,19 +1,37 @@
-"""Plan -> execute session API.
+"""Plan -> compile -> execute session API.
 
-Counterpart of ``repro.api.session.Segmenter`` without its executable
-cache, micro-batching (``submit``/``drain``), ``segment_stack`` and
-fallback policy, which ROADMAP.md queues for the next slice.  PyTorch runs
-eagerly, so there is no compile phase to cache yet.
+Counterpart of ``repro.api.session.Segmenter``, without its ticked
+serving, cost model and fallback policy (ROADMAP.md Queue 1: 'Ticked
+serving', 'planning/'; the fallback comes with the chaos harness and may
+never fall back silently on the card).
 
 * :meth:`Segmenter.plan`: oversegmentation, region graph, cliques and
-  neighborhoods (the paper's untimed init phase);
-* :meth:`Segmenter.execute`: the EM solve (the paper's timed phase), on
-  the sharded route when ``config.shards > 1``: every rank of the default
-  ``torch.distributed`` group calls it with the same plan and solves its
-  block of the hood elements.  The plan keeps the MAP loop's workspace
-  (on the sharded route, this rank's), so a warm solve allocates nothing
-  in that loop;
-* :meth:`Segmenter.segment`: both.
+  neighborhoods (the paper's untimed init phase), and the problem's
+  bucket: its ``(capacity, n_hoods, n_regions)`` rounded up to the
+  session's grid (``capacity_bucket``, ``segment_bucket``).
+* :meth:`Segmenter.compile`: the executable of one bucket (and batch
+  size), built from its shapes alone and kept in an LRU cache keyed by
+  :class:`ExecutableKey`.  PyTorch runs eagerly, so what a compile builds
+  is the MAP loop's workspace (``kernels.ops.tick_workspace``, every buffer
+  of the route's kernel) and binds the driver to it; a warm hit builds no
+  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).
+* :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
+  the plan) and solved by the bucket's executable.  Padding lanes are
+  invalid elements, empty phantom hoods and weight-0 vertices, which add
+  nothing to any sum, so a padded solve equals the natural one bit for
+  bit.
+* :meth:`Segmenter.submit` / :meth:`Segmenter.drain`: pending requests of
+  one bucket run as one ``run_em_batched`` (one batched tick launch per
+  MAP iteration for all lanes); each lane equals its serial
+  :meth:`execute` bit for bit.  :meth:`Segmenter.segment_stack` submits a
+  volume's slices under their joint bucket.
+
+On the sharded route (``config.shards > 1``) every rank of the default
+``torch.distributed`` group calls :meth:`execute` with the same plan and
+solves its block of the hood elements; the plan's partition is memoised on
+the plan, its rank workspace kept in the session's cache under the
+executable's key (which carries ``shards``); ``drain`` runs such requests
+serially.
 
 Both phases are timed on the host clock around work that ends in
 ``torch.cuda.synchronize`` when they run on the card.
@@ -21,10 +39,13 @@ Both phases are timed on the host clock around work that ends in
 
 from __future__ import annotations
 
+import itertools
 import time
+from collections import OrderedDict
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -33,40 +54,147 @@ from repro_torch.api.config import ExecutionConfig
 from repro_torch.api.errors import PlanError
 from repro_torch.core.pmrf import distributed as distributed_mod
 from repro_torch.core.pmrf import em as em_mod
+from repro_torch.core.pmrf import energy as energy_mod
 from repro_torch.core.pmrf import pipeline as pipeline_mod
-from repro_torch.core.pmrf.hoods import Hoods
+from repro_torch.core.pmrf.hoods import Hoods, pad_hoods, stack_hoods
+from repro_torch.kernels.ref import TickShape
+
+
+class BucketKey(NamedTuple):
+    """Shared static shapes a plan is padded to (the compile unit)."""
+
+    capacity: int
+    n_hoods: int
+    n_regions: int
+
+
+class ExecutableKey(NamedTuple):
+    """Cache key of an executable: the reference's fields.  ``backend`` is
+    the route ("cuda": the kernels; "torch": the plain versions), ``batch``
+    ``None`` for one request or the group size, ``shards`` the rank count,
+    ``tick_iters`` always ``None`` (no ticked serving yet)."""
+
+    capacity: int
+    n_hoods: int
+    n_regions: int
+    backend: str
+    mode: str
+    max_em_iters: int
+    max_map_iters: int
+    batch: Optional[int]
+    shards: int
+    tick_iters: Optional[int] = None
+    n_labels: int = 2
+    precision: str = "f32"
+
+
+_plan_ids = itertools.count()
 
 
 @dataclass
 class Plan:
-    """A planned (initialized) segmentation problem."""
+    """A planned (initialized and bucketed) segmentation problem."""
 
     problem: pipeline_mod.Problem
+    bucket: BucketKey
     init_seconds: float
-    # partition_hoods results by shard count, made at the first sharded solve
-    partitions: Dict[int, Hoods] = field(default_factory=dict, repr=False)
-    # MAP-iteration workspaces by (precision, backend) on one device
-    # (em.make_workspace) and by (precision, backend, shards) on the sharded
-    # route (distributed.make_workspace: this rank's), made at the first
-    # solve and reused by the later ones
-    workspaces: Dict[tuple, object] = field(default_factory=dict, repr=False)
+    # Padded inputs, memoised by (bucket, shards, K) and by (bucket, seed,
+    # init, shards, K): repeat executes of the plan pay no padding.
+    _padded: dict = field(default_factory=dict, repr=False, compare=False)
+    uid: int = field(default_factory=lambda: next(_plan_ids), repr=False, compare=False)
+
+    @property
+    def n_regions(self) -> int:
+        return self.problem.graph.n_regions
+
+    @property
+    def partitions(self) -> Dict[int, Hoods]:
+        """The plan's sharded partitions made so far, by shard count."""
+        return {k[2]: v[0] for k, v in self._padded.items() if k[0] == "hoods" and k[2] > 1}
+
+
+@dataclass
+class Executable:
+    """The EM program of one bucket (and batch size): the driver bound to a
+    workspace built from the bucket's shapes.  On the sharded route the
+    workspace is the rank's and depends on the plan's partition, so the
+    executable keeps one per plan (``shard_workspaces``, LRU)."""
+
+    key: ExecutableKey
+    workspace: object
+    em_config: em_mod.EMConfig
+    compile_seconds: float
+    calls: int = 0
+    shard_workspaces: "OrderedDict[int, object]" = field(default_factory=OrderedDict, repr=False)
+
+    def __call__(self, hoods, model, labels0, mu0, sigma0):
+        self.calls += 1
+        run = em_mod.run_em if self.key.batch is None else em_mod.run_em_batched
+        return run(hoods, model, labels0, mu0, sigma0, self.em_config, workspace=self.workspace)
+
+
+@dataclass
+class CacheStats:
+    hits: int = 0
+    misses: int = 0
+    evictions: int = 0
+
+    def as_dict(self) -> Dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses, "evictions": self.evictions}
+
+
+class _Pending(NamedTuple):
+    plan: Plan
+    seed: int
+    bucket: BucketKey
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def legacy_batch_choice(capacities: Sequence[int], platform: str) -> bool:
+    """``segment_stack``'s ``batch="auto"`` rule without the cost model (the
+    reference's ``planning.costmodel.legacy_batch_choice``): batch only on
+    an accelerator and only when every lane's capacity is within 2x of the
+    smallest (one bucket, bounded padding)."""
+    caps = list(capacities)
+    return len(caps) > 1 and max(caps) <= 2 * min(caps) and platform != "cpu"
 
 
 class Segmenter:
     """A segmentation session: one execution policy on one device
-    (``device=None``: the CUDA device, or :class:`RuntimeError`)."""
+    (``device=None``: the CUDA device, or :class:`RuntimeError`) and one
+    executable cache.  Not thread-safe; share it across requests, not
+    across threads."""
 
     def __init__(self, config: ExecutionConfig = ExecutionConfig(), *, device: DeviceLike = None):
         self.config = config
         self.device = resolve_device(device)
+        self._cache: "OrderedDict[ExecutableKey, Executable]" = OrderedDict()
+        self._pending: List[_Pending] = []
+        self.stats = CacheStats()
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # ------------------------------------------------------------------
+    # phase 1: plan
+    # ------------------------------------------------------------------
+
+    def bucket_of(self, hoods: Hoods) -> BucketKey:
+        """Round a problem's static dims up to the session's bucket grid."""
+        c = self.config
+        return BucketKey(
+            capacity=_round_up(hoods.capacity, c.capacity_bucket),
+            n_hoods=_round_up(hoods.n_hoods, c.segment_bucket),
+            n_regions=_round_up(hoods.n_regions, c.segment_bucket),
+        )
+
     def plan(self, image, *, oversegmentation=None) -> Plan:
-        """Initialization phase; rejects empty or non-finite images with
-        :class:`PlanError` before any work."""
+        """Initialization phase and bucket assignment; rejects empty or
+        non-finite images with :class:`PlanError` before any work."""
         img = image if isinstance(image, torch.Tensor) else to_tensor(image)
         if img.numel() == 0:
             raise PlanError(f"cannot plan a zero-element image (shape {tuple(img.shape)})")
@@ -91,7 +219,119 @@ class Segmenter:
             device=self.device,
         )
         self._sync()
-        return Plan(problem=problem, init_seconds=time.perf_counter() - t0)
+        init_s = time.perf_counter() - t0
+        return Plan(problem=problem, bucket=self.bucket_of(problem.hoods), init_seconds=init_s)
+
+    # ------------------------------------------------------------------
+    # phase 2: compile (cached)
+    # ------------------------------------------------------------------
+
+    def _key_for(self, bucket: BucketKey, batch: Optional[int]) -> ExecutableKey:
+        c = self.config
+        return ExecutableKey(
+            capacity=bucket.capacity,
+            n_hoods=bucket.n_hoods,
+            n_regions=bucket.n_regions,
+            backend=c.resolved_backend(self.device),
+            mode=c.mode,
+            max_em_iters=c.max_em_iters,
+            max_map_iters=c.max_map_iters,
+            batch=batch,
+            shards=c.shards,
+            n_labels=c.n_labels,
+            precision=c.precision,
+        )
+
+    def compile(
+        self, target: Union[Plan, BucketKey, Tuple[int, int, int]], *, batch: Optional[int] = None
+    ) -> Executable:
+        """The executable of a bucket, built on a miss from its shapes alone
+        (no data): the bucket's MAP-iteration workspace (``batch``: for
+        that many lanes) bound to the EM driver.  LRU-cached by
+        :class:`ExecutableKey`; a hit builds nothing.  Eviction drops the
+        least recently used executable once the cache passes
+        ``config.max_cached_executables``."""
+        bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
+        shards = self.config.shards
+        if batch is not None and shards > 1:
+            raise ValueError(
+                "batched executables are not supported with shards > 1 (the ranks "
+                "already split one request); drain() runs sharded requests serially"
+            )
+        if batch is not None and batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        key = self._key_for(bucket, batch)
+        exe = self._cache.get(key)
+        if exe is not None:
+            self._cache.move_to_end(key)
+            self.stats.hits += 1
+            return exe
+        self.stats.misses += 1
+        t0 = time.perf_counter()
+        em_config = self.config.em_config()
+        workspace = None
+        if shards == 1:
+            shape = TickShape(bucket.capacity, bucket.n_hoods, bucket.n_regions + 1,
+                              self.config.n_labels)
+            workspace = em_mod.make_workspace(shape, em_config, device=self.device, batch=batch)
+        exe = self._cache[key] = Executable(
+            key=key, workspace=workspace, em_config=em_config,
+            compile_seconds=time.perf_counter() - t0,
+        )
+        while len(self._cache) > self.config.max_cached_executables:
+            self._cache.popitem(last=False)
+            self.stats.evictions += 1
+        return exe
+
+    def clear_cache(self) -> None:
+        self._cache.clear()
+
+    @property
+    def cache_keys(self) -> Tuple[ExecutableKey, ...]:
+        return tuple(self._cache)
+
+    # ------------------------------------------------------------------
+    # phase 3: execute
+    # ------------------------------------------------------------------
+
+    def _pad_plan(self, plan: Plan, bucket: BucketKey, seed: int):
+        """One plan's inputs padded into ``bucket``: ``(hoods, model,
+        labels0, mu0, sigma0)``, memoised on the plan (the padded hoods and
+        model once per bucket, the initial parameters once per seed).
+
+        The initial parameters come from the plan's own unpadded problem,
+        so a padded solve draws what the natural one draws.  A plan with
+        fewer labels than the session is label-padded with inert labels
+        (``energy.pad_model_labels``); one with more is refused.  On the
+        sharded route the padded hoods are also partitioned."""
+        n_labels, shards = self.config.n_labels, self.config.shards
+        plan_labels = plan.problem.model.n_labels
+        if plan_labels > n_labels:
+            raise ValueError(
+                f"plan has {plan_labels} labels but the session runs n_labels={n_labels}; "
+                "re-plan with a wider session"
+            )
+        memo_key = (bucket, seed, self.config.init, shards, n_labels)
+        cached = plan._padded.get(memo_key)
+        if cached is not None:
+            return cached
+        p = plan.problem
+        cap, nh, nr = bucket
+        hoods_key = ("hoods", bucket, shards, n_labels)
+        padded = plan._padded.get(hoods_key)
+        if padded is None:
+            hoods = pad_hoods(p.hoods, capacity=cap, n_hoods=nh, n_regions=nr, n_elements=-1)
+            if shards > 1:
+                hoods = distributed_mod.partition_hoods(hoods, shards)
+            model = energy_mod.pad_model_labels(energy_mod.pad_model(p.model, nr), n_labels)
+            padded = plan._padded[hoods_key] = (hoods, model)
+        hoods, model = padded
+        labels0, mu0, sigma0 = pipeline_mod.initial_params(p, seed, self.config.init)
+        mu0, sigma0 = energy_mod.pad_params_labels(mu0, sigma0, n_labels)
+        lab = torch.zeros((nr + 1,), dtype=torch.int32, device=labels0.device)
+        lab[: p.graph.n_regions] = labels0[: p.graph.n_regions]
+        plan._padded[memo_key] = (hoods, model, lab, mu0, sigma0)
+        return plan._padded[memo_key]
 
     def _check_group(self) -> None:
         """The sharded route's process group: the default group, with one
@@ -111,38 +351,37 @@ class Segmenter:
             f"repro_torch.launch.segment --shards {n}` under torchrun does both)"
         )
 
-    def execute(self, plan: Plan, *, seed: int = 0) -> pipeline_mod.SegmentationResult:
-        """The EM solve of one plan (``seed`` drives the random init)."""
-        shards = self.config.shards
-        em_config = self.config.em_config()
-        key = (em_config.precision, em_config.backend)
-        if shards > 1:
+    def _run_sharded(self, exe: Executable, plan: Plan, inputs):
+        """The sharded solve of one plan on this rank's workspace, kept in
+        the executable under the plan (LRU)."""
+        hoods, model, labels0, mu0, sigma0 = inputs
+        ws = exe.shard_workspaces.get(plan.uid)
+        if ws is None:
+            ws = exe.shard_workspaces[plan.uid] = distributed_mod.make_workspace(
+                hoods, model, exe.em_config)
+            while len(exe.shard_workspaces) > self.config.max_cached_executables:
+                exe.shard_workspaces.popitem(last=False)
+        exe.shard_workspaces.move_to_end(plan.uid)
+        exe.calls += 1
+        return distributed_mod.run_em_sharded(
+            hoods, model, labels0, mu0, sigma0, config=exe.em_config, workspace=ws)
+
+    def execute(
+        self, plan: Plan, *, seed: int = 0, bucket: Optional[BucketKey] = None
+    ) -> pipeline_mod.SegmentationResult:
+        """Solve one plan through its bucket's executable (``bucket``
+        overrides the plan's own; ``seed`` drives the random init)."""
+        if self.config.shards > 1:
             self._check_group()
-            if shards not in plan.partitions:
-                plan.partitions[shards] = distributed_mod.partition_hoods(plan.problem.hoods, shards)
-            key += (shards,)
-            if key not in plan.workspaces:
-                plan.workspaces[key] = distributed_mod.make_workspace(
-                    plan.partitions[shards], plan.problem.model, em_config
-                )
-        elif key not in plan.workspaces:
-            plan.workspaces[key] = em_mod.make_workspace(
-                plan.problem.hoods, plan.problem.model, em_config
-            )
+        bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
+        exe = self.compile(bucket)
+        inputs = self._pad_plan(plan, bucket, seed)
         self._sync()
         t0 = time.perf_counter()
-        if shards > 1:
-            p = plan.problem
-            labels0, mu0, sigma0 = pipeline_mod.initial_params(p, seed, self.config.init)
-            res = distributed_mod.run_em_sharded(
-                plan.partitions[shards], p.model, labels0, mu0, sigma0, config=em_config,
-                workspace=plan.workspaces[key],
-            )
+        if self.config.shards > 1:
+            res = self._run_sharded(exe, plan, inputs)
         else:
-            res = pipeline_mod.optimize(
-                plan.problem, seed=seed, config=em_config, init=self.config.init,
-                workspace=plan.workspaces[key],
-            )
+            res = exe(*inputs)
         self._sync()
         opt_s = time.perf_counter() - t0
         return pipeline_mod.assemble_result(plan.problem, res, plan.init_seconds, opt_s)
@@ -150,3 +389,150 @@ class Segmenter:
     def segment(self, image, *, seed: int = 0, oversegmentation=None):
         """Plan + execute in one call."""
         return self.execute(self.plan(image, oversegmentation=oversegmentation), seed=seed)
+
+    # ------------------------------------------------------------------
+    # micro-batching: submit / drain
+    # ------------------------------------------------------------------
+
+    def submit(self, image_or_plan, *, seed: int = 0, bucket: Optional[BucketKey] = None) -> int:
+        """Enqueue a request; returns its ticket (its index in ``drain()``).
+        ``bucket`` overrides the plan's own: a caller coalescing a known
+        group (a volume's slices) passes the group's joint bucket."""
+        plan = image_or_plan if isinstance(image_or_plan, Plan) else self.plan(image_or_plan)
+        bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
+        self._pending.append(_Pending(plan=plan, seed=seed, bucket=bucket))
+        return len(self._pending) - 1
+
+    def pending(self) -> int:
+        return len(self._pending)
+
+    def drain(self) -> List[pipeline_mod.SegmentationResult]:
+        """Solve every pending request, coalescing same-bucket groups.
+
+        A group of n > 1 requests runs as one ``run_em_batched`` through the
+        bucket's batch-n executable; results come back in submission order,
+        each equal to a serial :meth:`execute` bit for bit, with the group's
+        optimize time shared evenly.  Sharded sessions run every request
+        serially.  If a group fails, every request without a result is
+        queued again (ahead of anything submitted since) and the error
+        raised."""
+        pending, self._pending = self._pending, []
+        if not pending:
+            return []
+        groups: "OrderedDict[BucketKey, List[int]]" = OrderedDict()
+        for i, req in enumerate(pending):
+            groups.setdefault(req.bucket, []).append(i)
+        results: List[Optional[pipeline_mod.SegmentationResult]] = [None] * len(pending)
+        try:
+            for bucket, members in groups.items():
+                if len(members) == 1 or self.config.shards > 1:
+                    for i in members:
+                        results[i] = self.execute(pending[i].plan, seed=pending[i].seed, bucket=bucket)
+                    continue
+                exe = self.compile(bucket, batch=len(members))
+                inputs = self.stacked_inputs([pending[i].plan for i in members], bucket=bucket,
+                                             seeds=[pending[i].seed for i in members])
+                self._sync()
+                t0 = time.perf_counter()
+                res = exe(*inputs)
+                self._sync()
+                opt_s = (time.perf_counter() - t0) / len(members)
+                # One copy of each stacked result to the host, not one per lane.
+                res = res._replace(**{f: getattr(res, f).cpu()
+                                      for f in ("labels", "mu", "sigma", "hood_energy", "total_energy")})
+                for j, i in enumerate(members):
+                    results[i] = pipeline_mod.assemble_result(
+                        pending[i].plan.problem, res.lane(j), pending[i].plan.init_seconds, opt_s)
+        except Exception:
+            unprocessed = [pending[i] for i in range(len(pending)) if results[i] is None]
+            self._pending = unprocessed + self._pending
+            raise
+        return results  # type: ignore[return-value]
+
+    def stacked_inputs(self, plans: Sequence[Plan], *, bucket: BucketKey, seeds: Sequence[int]):
+        """The inputs of one batched solve: each plan padded into ``bucket``
+        (memoised, as :meth:`execute` pads it) and stacked on a leading
+        lane axis, ``(hoods, model, labels0, mu0, sigma0)``."""
+        padded = [self._pad_plan(p, BucketKey(*bucket), s) for p, s in zip(plans, seeds)]
+        hoods = stack_hoods([p[0] for p in padded])
+        model = energy_mod.EnergyModel(*(torch.stack(f) for f in zip(*(p[1] for p in padded))))
+        return (hoods, model, *(torch.stack([p[j] for p in padded]) for j in (2, 3, 4)))
+
+    # ------------------------------------------------------------------
+    # slice stacks
+    # ------------------------------------------------------------------
+
+    def segment_stack(
+        self, images: Sequence, *, seed: int = 0, batch: str = "auto"
+    ) -> Tuple[List[pipeline_mod.SegmentationResult], float]:
+        """Segment a slice stack; returns ``(results, mean optimize
+        seconds)``.
+
+        ``batch="always"`` submits every slice under the stack's joint
+        bucket (the elementwise max) so the whole volume runs as one
+        batched solve; ``"never"`` solves the slices one by one, each in its
+        own bucket; ``"auto"`` batches by :func:`legacy_batch_choice` (on
+        the card, capacities within 2x of each other).  A sharded session
+        runs serially and refuses ``"always"``."""
+        if batch not in ("auto", "always", "never"):
+            raise ValueError(f"batch must be auto/always/never, got {batch!r}")
+        if batch == "always" and self.config.shards > 1:
+            raise ValueError(
+                "batch='always' is not supported with shards > 1; use batch='auto' "
+                "(sharded requests run serially)"
+            )
+        images = list(images)
+        if not images:
+            raise ValueError("segment_stack: empty image stack")
+        plans = [self.plan(img) for img in images]
+        joint = BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
+        if batch == "always":
+            use_batch = True
+        elif batch == "never" or self.config.shards > 1:
+            use_batch = False
+        else:
+            use_batch = legacy_batch_choice(
+                [p.problem.hoods.capacity for p in plans], self.device.type)
+        if use_batch:
+            for p in plans:
+                self.submit(p, seed=seed, bucket=joint)
+            results = self.drain()
+        else:
+            results = [self.execute(p, seed=seed) for p in plans]
+        return results, float(np.mean([r.optimize_seconds for r in results]))
+
+
+# ---------------------------------------------------------------------------
+# module-level session registry (the deprecation shims' backing store)
+# ---------------------------------------------------------------------------
+
+_SESSIONS: "OrderedDict[tuple, Segmenter]" = OrderedDict()
+
+#: Sessions kept by :func:`session_for` (LRU): each holds up to its
+#: ``max_cached_executables`` executables.
+MAX_SESSIONS = 8
+
+
+def session_for(config: Optional[ExecutionConfig] = None, *, device: DeviceLike = None) -> Segmenter:
+    """The process-wide session of a (config, device) (LRU,
+    ``MAX_SESSIONS``), so that one-shot callers of one config share its
+    executable cache."""
+    config = config or ExecutionConfig()
+    key = (config, resolve_device(device))
+    sess = _SESSIONS.get(key)
+    if sess is None:
+        sess = _SESSIONS[key] = Segmenter(config, device=key[1])
+    else:
+        _SESSIONS.move_to_end(key)
+    while len(_SESSIONS) > MAX_SESSIONS:
+        _SESSIONS.popitem(last=False)
+    return sess
+
+
+def default_session(*, device: DeviceLike = None) -> Segmenter:
+    return session_for(ExecutionConfig(), device=device)
+
+
+def reset_sessions() -> None:
+    """Drop every module-level session and its executable cache."""
+    _SESSIONS.clear()

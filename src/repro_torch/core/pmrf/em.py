@@ -6,11 +6,12 @@ inference).  Convergence follows §3.2.2: per-hood energy sums over the
 last L=3 iterations, converged when every change is below 1e-4
 (relative).
 
-There is one driver (:func:`_em_driver`), parametrised by a collective
-context (``collectives.ReduceCtx``): :func:`run_em` binds the
-single-device context, where each MAP iteration is one ``fused_em_tick``
-launch on a workspace the plan owns (label gather, history ring,
-convergence and finiteness flags and the M-step sums all in the kernel);
+There is one driver for one problem (:func:`_em_driver`), parametrised by
+a collective context (``collectives.ReduceCtx``): :func:`run_em` binds
+the single-device context, where each MAP iteration is one
+``fused_em_tick`` launch on a workspace of the problem's bucket (label
+gather, history ring, convergence and finiteness flags, and in the
+launch that stops the MAP loop the M-step sums, all in the kernel);
 ``distributed.run_em_sharded`` binds a sharded context, where each MAP
 iteration is one ``fused_map_step`` launch on the rank's workspace (the
 last step's labels and tests, this step's counts, energies, hood sums and
@@ -19,6 +20,12 @@ window, the AND of the flag word; the launch that stops the MAP loop also
 sums the M-step's per-label terms in vertex order (the keyed sums of
 ``energy.update_parameters_stats``).  Every convergence decision goes
 through the context, so all ranks take the same trajectory.
+
+:func:`run_em_batched` runs a stack of problems padded to one bucket in
+lockstep, the reference's vmapped ``run_em``: per MAP iteration one
+launch of the batched tick for every lane still running and one read of
+the B flag words; per EM iteration one vectorised boundary and one host
+read.  Each lane's result equals its own :func:`run_em`'s bit for bit.
 
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
@@ -36,6 +43,7 @@ from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import TickShape
 
 Tensor = torch.Tensor
 
@@ -47,8 +55,8 @@ PRECISIONS = ("f32", "bf16")
 #: Modes of the reference that this package does not run yet, and where
 #: ROADMAP.md queues them.
 UNPORTED_MODES = {
-    "static": "ROADMAP.md Queue 1 item 4 (serial EM, modes static and faithful)",
-    "faithful": "ROADMAP.md Queue 1 item 4 (serial EM, modes static and faithful)",
+    "static": "ROADMAP.md Queue 1, 'Serial EM in modes static and faithful'",
+    "faithful": "ROADMAP.md Queue 1, 'Serial EM in modes static and faithful'",
 }
 
 # Per-lane health lattice: priority DIVERGED > DEGENERATE > CONVERGED > MAX_ITERS.
@@ -66,9 +74,9 @@ STATUS_NAMES = {
     STATUS_DEGENERATE: "degenerate",
 }
 
-#: Data-term sentinel of inert (padded) labels in the reference's mixed-K
-#: pools; a label at INERT_MU is never a "real" label for DEGENERATE.
-INERT_MU = 1.0e8
+#: Data-term sentinel of inert (padded) labels (``energy.pad_model_labels``);
+#: a label at INERT_MU is never a "real" label for DEGENERATE.
+INERT_MU = E.INERT_MU
 
 
 class EMConfig(NamedTuple):
@@ -137,8 +145,16 @@ def quantile_init(
     return labels, mu, sigma
 
 
+def _total_energy(hood_energy: Tensor) -> Tensor:
+    """The total of the hood energies (last axis), summed in float64 and
+    rounded once: the same bits whatever the padding, the order or the
+    batch shape of the device's reduction."""
+    return torch.sum(hood_energy, dim=-1, dtype=torch.float64).to(torch.float32)
+
+
 def _window_converged(hist: Tensor) -> Tensor:
-    """True where the last WINDOW deltas of the ring are all below tolerance."""
+    """True where the last WINDOW deltas of the ring (axis 0) are all below
+    tolerance."""
     deltas = torch.abs(hist[:-1] - hist[1:])
     scale = torch.clamp_min(torch.abs(hist[0]), 1.0)
     return torch.all(deltas < CONV_TOL * scale, dim=0)
@@ -146,10 +162,11 @@ def _window_converged(hist: Tensor) -> Tensor:
 
 def _degenerate_components(model: E.EnergyModel, sigma: Tensor, sum_w: Tensor) -> Tensor:
     """A real label with (near-)zero mass whose sigma sits at sigma_min can
-    never recapture mass (the collapsed-Gaussian hazard)."""
-    dead = sum_w < 1e-3 * torch.sum(sum_w)
+    never recapture mass (the collapsed-Gaussian hazard).  Per lane over a
+    leading lane axis."""
+    dead = sum_w < 1e-3 * E.label_total(sum_w)
     real = model.reseed_mu < INERT_MU
-    return torch.any(dead & real & (sigma <= model.sigma_min))
+    return torch.any(dead & real & (sigma <= model.sigma_min[..., None]), dim=-1)
 
 
 def _boundary_status(
@@ -166,14 +183,23 @@ def _boundary_status(
     return STATUS_OK
 
 
-def make_workspace(hoods: Hoods, model: E.EnergyModel, config: EMConfig):
-    """The single-device route's MAP-iteration workspace for ``config``
-    (``kernels.ops.tick_workspace``); a plan keeps one and its solves
-    reuse it (``run_em(..., workspace=)``)."""
+def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None):
+    """The MAP-iteration workspace for problems of ``shape`` under
+    ``config`` (``kernels.ops.tick_workspace``): for :func:`run_em`, or with
+    ``batch=B`` for :func:`run_em_batched`.  A session keeps one per bucket
+    and every solve of the bucket reuses it (``workspace=``)."""
     return kops.tick_workspace(
-        hoods, model, precision=config.precision, conv_tol=CONV_TOL, window=WINDOW,
-        backend=config.backend,
+        shape, device=device, batch=batch, precision=config.precision, conv_tol=CONV_TOL,
+        window=WINDOW, backend=config.backend,
     )
+
+
+def _check_workspace(ws, config: EMConfig, n_labels: int) -> None:
+    if (ws.precision, ws.n_labels) != (config.precision, n_labels):
+        raise ValueError(
+            f"workspace built for precision {ws.precision!r} and K = {ws.n_labels}, "
+            f"the solve has {config.precision!r} and K = {n_labels}"
+        )
 
 
 def _em_driver(
@@ -205,19 +231,17 @@ def _em_driver(
     fused_tick = not ctx.sharded
     sctx = E.make_static_context(hoods, model, backend=backend, ctx=ctx)
     if fused_tick:
-        ws = workspace if workspace is not None else make_workspace(hoods, model, config)
-        if (ws.precision, ws.n_labels) != (config.precision, model.n_labels):
-            raise ValueError(
-                f"workspace built for precision {ws.precision!r} and K = {ws.n_labels}, "
-                f"the solve has {config.precision!r} and K = {model.n_labels}"
-            )
+        ws = workspace if workspace is not None else make_workspace(
+            TickShape.of(hoods, model), config, device=dev)
+        _check_workspace(ws, config, model.n_labels)
+        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
     else:
         if workspace is None:
             raise ValueError("the sharded route needs its rank's workspace (distributed.make_workspace)")
         ws = workspace
         if ws.n_labels != model.n_labels:
             raise ValueError(f"workspace built for K = {ws.n_labels}, the solve has K = {model.n_labels}")
-    ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+        ws.start(sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
 
     mu, sigma = mu0, sigma0
     hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)  # if max_em_iters == 0
@@ -231,10 +255,11 @@ def _em_driver(
         flag = 0
         ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
         if fused_tick:
-            # MAP loop: one launch and one flag read per iteration.
+            # MAP loop: one launch and one flag read per iteration; the
+            # launch that stops the loop takes the M-step sums.
             while i < config.max_map_iters and not flag:
                 i += 1
-                ws.step(i > WINDOW)
+                ws.step(i > WINDOW, i == config.max_map_iters)
                 flag = ws.flag()
             if i:
                 hood_energy, msums = ws.hood_e, ws.stats
@@ -266,7 +291,7 @@ def _em_driver(
         map_div = bool(flag & kops.FLAG_DIVERGED)
         div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)
-        total_hist = torch.cat([torch.sum(hood_energy)[None], total_hist[:-1]])
+        total_hist = torch.cat([_total_energy(hood_energy)[None], total_hist[:-1]])
         em_i += 1
         if em_i > WINDOW:
             conv_t = ctx.all_converged(_window_converged(total_hist))
@@ -286,7 +311,7 @@ def _em_driver(
         mu=mu,
         sigma=sigma,
         hood_energy=hood_energy,
-        total_energy=torch.sum(hood_energy),
+        total_energy=_total_energy(hood_energy),
         em_iters=em_i,
         map_iters=map_total,
         status=status,
@@ -305,5 +330,131 @@ def run_em(
 ) -> EMResult:
     """EM on one problem, on the device its tensors live on.  ``workspace``
     (``make_workspace``) carries the MAP loop's buffers across solves of
-    one plan; without it the solve builds its own."""
+    one bucket; without it the solve builds its own."""
     return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)
+
+
+class BatchedEMResult(NamedTuple):
+    """:class:`EMResult` of a stack: tensors with a leading lane axis, the
+    counts and status one int per lane (``lane(b)``: lane b's EMResult)."""
+
+    labels: Tensor        # (B, V+1) int32
+    mu: Tensor            # (B, K)
+    sigma: Tensor         # (B, K)
+    hood_energy: Tensor   # (B, n_hoods)
+    total_energy: Tensor  # (B,) float32
+    em_iters: Tuple[int, ...]
+    map_iters: Tuple[int, ...]
+    status: Tuple[int, ...]
+    steps: int            # lockstep MAP iterations: launches of the batched tick
+
+    def lane(self, b: int) -> EMResult:
+        return EMResult(*(v[b] for v in self[:-1]))
+
+
+def run_em_batched(
+    hoods: Hoods,
+    model: E.EnergyModel,
+    labels0: Tensor,
+    mu0: Tensor,
+    sigma0: Tensor,
+    config: EMConfig = EMConfig(),
+    *,
+    workspace=None,
+) -> BatchedEMResult:
+    """EM on a stack of B problems padded to one bucket, in lockstep: the
+    counterpart of the reference's ``run_em_batched`` (``vmap`` of
+    ``run_em``).  ``hoods`` (``hoods.stack_hoods``) and ``model`` carry a
+    leading lane axis, ``labels0`` is (B, V+1), ``mu0`` and ``sigma0``
+    (B, K).
+
+    The EM loop runs while any lane runs, and each EM iteration's MAP loop
+    while any lane's MAP loop runs; a lane whose MAP loop stopped is
+    inactive until the next EM iteration, and a lane whose EM finished
+    stays inactive.  Per MAP iteration: one batched tick launch for the
+    running lanes and one read of the B flag words.  Per EM iteration: the
+    boundary over every lane at once (``params_from_stats`` on (B, 3, K),
+    the divergence and degeneracy tests, the total-energy rings) and one
+    host read.  Each lane's result is its own :func:`run_em`'s bit for bit.
+    ``workspace`` (``make_workspace(..., batch=B)``) carries the buffers
+    across solves of one bucket and batch size.
+    """
+    validate_config(config)
+    n_hoods = hoods.n_hoods
+    batch, dev, f32 = int(labels0.shape[0]), labels0.device, torch.float32
+    n_labels = model.n_labels
+    sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
+    ws = workspace if workspace is not None else make_workspace(
+        TickShape.of(hoods, model), config, device=dev, batch=batch)
+    _check_workspace(ws, config, n_labels)
+    if ws.batch != batch:
+        raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
+    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+
+    mu, sigma = mu0, sigma0
+    hood_energy = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
+    total_hist = torch.zeros((batch, WINDOW + 1), dtype=f32, device=dev)
+    zeros_stats = torch.zeros((batch, 3, n_labels), dtype=f32, device=dev)
+    em_iters, map_iters = [0] * batch, [0] * batch
+    status = [STATUS_OK] * batch
+    running = [True] * batch   # lanes whose EM has not finished
+    em_i = 0                   # every running lane is at the same EM iteration
+    steps = 0
+    while em_i < config.max_em_iters and any(running):
+        lanes = list(running)
+        ws.begin_em(mu, torch.maximum(sigma, model.sigma_min[:, None]), lanes)
+        # MAP loop: per iteration one launch for the running lanes and one
+        # read of their flag words; a lane's stopping launch takes its
+        # M-step sums and retires it until the next EM iteration.
+        in_map, flags, lane_map = list(lanes), [0] * batch, [0] * batch
+        i = 0
+        while i < config.max_map_iters and any(in_map):
+            i += 1
+            cap = i == config.max_map_iters
+            ws.step(i > WINDOW, cap)
+            steps += 1
+            words = ws.flags()
+            for b in range(batch):
+                if in_map[b]:
+                    lane_map[b], flags[b] = i, words[b]
+                    in_map[b] = not (words[b] or cap)
+        he, msums = (ws.hood_e, ws.stats) if i else (hood_energy.new_zeros(hood_energy.shape), zeros_stats)
+        new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
+        div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
+        deg_t = _degenerate_components(model, new_sigma, sum_w)
+        new_hist = torch.cat([_total_energy(he)[:, None], total_hist[:, :-1]], dim=1)
+        em_i += 1
+        if em_i > WINDOW:
+            conv_t = _window_converged(new_hist.T)
+        else:
+            conv_t = torch.zeros_like(div_t)
+        on = torch.as_tensor(lanes, device=dev)[:, None]
+        mu = torch.where(on, new_mu, mu)
+        sigma = torch.where(on, new_sigma, sigma)
+        hood_energy = torch.where(on, he, hood_energy)
+        total_hist = torch.where(on, new_hist, total_hist)
+        div_l, deg_l, conv_l = torch.stack([div_t, deg_t, conv_t]).tolist()
+        for b in range(batch):
+            if not lanes[b]:
+                continue
+            div = div_l[b] or bool(flags[b] & kops.FLAG_DIVERGED)
+            em_conv = conv_l[b]
+            em_iters[b] = em_i
+            map_iters[b] += lane_map[b]
+            finished = div or not (em_i < config.max_em_iters and not em_conv)
+            running[b] = not (em_conv or div)
+            status[b] = _boundary_status(div, deg_l[b], finished, em_conv, em_i,
+                                         config.max_em_iters)
+
+    labels, hood_energy = ws.labels.clone(), hood_energy.clone()
+    return BatchedEMResult(
+        labels=labels,
+        mu=mu,
+        sigma=sigma,
+        hood_energy=hood_energy,
+        total_energy=_total_energy(hood_energy),
+        em_iters=tuple(em_iters),
+        map_iters=tuple(map_iters),
+        status=tuple(status),
+        steps=steps,
+    )

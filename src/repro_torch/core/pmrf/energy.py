@@ -60,7 +60,7 @@ class EnergyModel(NamedTuple):
 
     @property
     def n_labels(self) -> int:
-        return int(self.reseed_mu.shape[0])
+        return int(self.reseed_mu.shape[-1])
 
 
 def make_energy_model(
@@ -200,12 +200,33 @@ def update_parameters_stats(
     return params_from_stats(model, sum_w, sum_wy, sum_wyy)
 
 
+#: Label counts up to which :func:`label_total` adds the labels one by one.
+SEQUENTIAL_LABELS = 8
+
+
+def label_total(sum_w: Tensor) -> Tensor:
+    """The total mass over the labels (last axis, kept), the same bits
+    whatever the batch shape: up to ``SEQUENTIAL_LABELS`` labels added one
+    at a time in label order (K - 1 elementwise adds), above that summed in
+    float64 and rounded once (a device reduction's order depends on the
+    tensor's shape)."""
+    n_labels = int(sum_w.shape[-1])
+    if n_labels > SEQUENTIAL_LABELS:
+        return torch.sum(sum_w, dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
+    total = sum_w[..., :1]
+    for l in range(1, n_labels):
+        total = total + sum_w[..., l:l + 1]
+    return total
+
+
 def params_from_stats(
     model: EnergyModel, sum_w: Tensor, sum_wy: Tensor, sum_wyy: Tensor
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """The M-step's closed form from its three per-label accumulators,
     with cluster-death re-seeding: a label that captured (almost) no mass
-    goes back to its data quantile.  Returns ``(mu, sigma, sum_w)``."""
+    goes back to its data quantile.  Returns ``(mu, sigma, sum_w)``.
+    Elementwise over any leading lane axis: for a stack, the accumulators
+    are (B, K) and the model's tensors carry the lane axis."""
     safe_w = torch.clamp_min(sum_w, 1e-6)
     mu = sum_wy / safe_w
     # E[y^2] - mu^2 cancels badly, so it is formed with one rounding, as
@@ -213,8 +234,78 @@ def params_from_stats(
     # fused multiply-add): float32 operands are exact in float64.
     var = (sum_wyy / safe_w).double() - mu.double() * mu.double()
     var = torch.clamp_min(var.float(), 0.0)
-    sigma = torch.maximum(torch.sqrt(var), model.sigma_min)
-    dead = sum_w < 1e-3 * torch.sum(sum_w)
+    sigma = torch.maximum(torch.sqrt(var), model.sigma_min[..., None])
+    dead = sum_w < 1e-3 * label_total(sum_w)
     mu = torch.where(dead, model.reseed_mu, mu)
-    sigma = torch.where(dead, model.reseed_sigma, sigma)
+    sigma = torch.where(dead, model.reseed_sigma[..., None], sigma)
     return mu, sigma, sum_w
+
+
+def make_static_context_batched(
+    hoods: Hoods, model: EnergyModel, *, backend: Optional[str] = None
+) -> StaticMapContext:
+    """:func:`make_static_context` of a stack (``hoods`` and ``model`` with
+    a leading lane axis): the neighbourhood sizes of every lane in one
+    ``segment_reduce`` launch over lane-offset hood ids (integer-valued, so
+    exact in any order)."""
+    n_seg = hoods.n_hoods + 1
+    batch = int(hoods.vertex.shape[0])
+    v, hid = hoods.vertex.long(), hoods.hood_id.long()
+    validf = hoods.valid.to(torch.float32)
+    lane = torch.arange(batch, device=hid.device)[:, None] * n_seg
+    keys = (hid + lane).to(torch.int32).reshape(-1)
+    nall = kops.segment_reduce(validf.reshape(-1), keys, batch * n_seg, backend=backend)
+    return StaticMapContext(
+        y=torch.gather(model.region_mean, 1, v),
+        w=torch.gather(model.region_weight, 1, v) * validf,
+        validf=validf,
+        nall_e=torch.gather(nall.reshape(batch, n_seg), 1, hid),
+    )
+
+
+#: Data-term sentinel of inert (padded) labels (mixed-K stacks): a label
+#: with mu = INERT_MU is ~1e8 intensity units from any region mean, so it
+#: never wins an argmin, collects no mass and re-seeds back to itself;
+#: the real labels keep their natural-K trajectory.
+INERT_MU = 1.0e8
+
+
+def pad_model(model: EnergyModel, n_regions: int) -> EnergyModel:
+    """Zero-extend the sentinel-extended region arrays to ``n_regions + 1``:
+    the appended vertices have weight 0, so every weighted sum is unchanged
+    (the tick adds them in vertex order as +0)."""
+    cur = int(model.region_mean.shape[0]) - 1
+    if n_regions < cur:
+        raise ValueError(f"cannot shrink model from {cur} to {n_regions} regions")
+    if n_regions == cur:
+        return model
+    z = model.region_mean.new_zeros((n_regions - cur,))
+    return model._replace(
+        region_mean=torch.cat([model.region_mean, z]),
+        region_weight=torch.cat([model.region_weight, z]),
+    )
+
+
+def pad_model_labels(model: EnergyModel, n_labels: int) -> EnergyModel:
+    """Extend the model's label axis to ``n_labels`` with inert labels: the
+    padded re-seed targets are :data:`INERT_MU`."""
+    cur = model.n_labels
+    if n_labels < cur:
+        raise ValueError(f"cannot shrink label axis from {cur} to {n_labels}")
+    if n_labels == cur:
+        return model
+    pad = model.reseed_mu.new_full((n_labels - cur,), INERT_MU)
+    return model._replace(reseed_mu=torch.cat([model.reseed_mu, pad]))
+
+
+def pad_params_labels(mu0: Tensor, sigma0: Tensor, n_labels: int) -> Tuple[Tensor, Tensor]:
+    """Extend initial ``(mu, sigma)`` to ``n_labels`` with inert labels (mu
+    :data:`INERT_MU`, sigma 1), the companion of :func:`pad_model_labels`."""
+    cur = int(mu0.shape[0])
+    if n_labels < cur:
+        raise ValueError(f"cannot shrink label axis from {cur} to {n_labels}")
+    if n_labels == cur:
+        return mu0, sigma0
+    mu = torch.cat([mu0.to(torch.float32), mu0.new_full((n_labels - cur,), INERT_MU, dtype=torch.float32)])
+    sigma = torch.cat([sigma0.to(torch.float32), sigma0.new_ones((n_labels - cur,), dtype=torch.float32)])
+    return mu, sigma

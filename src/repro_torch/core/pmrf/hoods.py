@@ -19,8 +19,8 @@ which ``distributed.partition_hoods`` relocalises per shard.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Optional, Tuple
+from dataclasses import dataclass, fields
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -56,7 +56,7 @@ class Hoods:
 
     @property
     def capacity(self) -> int:
-        return int(self.vertex.shape[0])
+        return int(self.vertex.shape[-1])
 
 
 def build_hoods(graph: RegionGraph, cliques: CliqueSet) -> Hoods:
@@ -192,6 +192,28 @@ def pad_hoods(
         rep_hood_id=torch.where(rep_valid, pad1(h.rep_hood_id, 0, 2 * capacity), n_hoods).to(i32),
         rep_valid=rep_valid,
     )
+
+
+def stack_hoods(hoods: Sequence[Hoods]) -> Hoods:
+    """Hoods of one bucket (equal capacity, hood and region counts) stacked
+    on a leading lane axis, as the batched driver takes them; their
+    element counts may differ (``n_elements`` -1, the reference's "mixed
+    stack")."""
+    first = hoods[0]
+    shape = (first.capacity, first.n_hoods, first.n_regions)
+    if any((h.capacity, h.n_hoods, h.n_regions) != shape for h in hoods):
+        raise ValueError(f"cannot stack hoods of different buckets (the first is {shape}); "
+                         "pad them with pad_hoods first")
+    out = {}
+    for f in fields(Hoods):
+        vals = [getattr(h, f.name) for h in hoods]
+        if isinstance(vals[0], torch.Tensor):
+            out[f.name] = torch.stack(vals)
+        elif f.name == "n_elements":
+            out[f.name] = vals[0] if len(set(vals)) == 1 else -1
+        else:
+            out[f.name] = vals[0]
+    return Hoods(**out)
 
 
 def _build_replication(

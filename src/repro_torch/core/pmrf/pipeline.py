@@ -1,13 +1,16 @@
 """DPP-PMRF pipeline phases: ``initialize`` (plan) and ``optimize`` (solve).
 
 Counterpart of ``repro.core.pmrf.pipeline``; the session API
-(``repro_torch.api``) builds on these.
+(``repro_torch.api``) builds on these.  ``segment_image`` and
+``segment_volume`` are the reference's deprecated one-shot entry points,
+shims over a shared session (``api.session_for``).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +140,85 @@ def assemble_result(
         optimize_seconds=optimize_seconds,
         status=em_mod.STATUS_NAMES.get(result.status, "running"),
     )
+
+
+def _can_batch(problems: List[Problem]) -> bool:
+    """Batch when padding stays bounded: every slice's capacity within 2x of
+    the smallest (one bucket)."""
+    caps = [p.hoods.capacity for p in problems]
+    return len(problems) > 1 and max(caps) <= 2 * min(caps)
+
+
+def _legacy_session(overseg_grid, beta, mode, backend, init, max_em_iters, max_map_iters,
+                    device):
+    """The legacy keyword arguments as a shared session's config."""
+    from repro_torch import api  # deferred: api builds on this module
+
+    return api.session_for(
+        api.ExecutionConfig(
+            backend=backend,
+            mode=mode,
+            max_em_iters=max_em_iters,
+            max_map_iters=max_map_iters,
+            beta=beta,
+            init=init,
+            overseg_grid=tuple(overseg_grid),
+        ),
+        device=device,
+    )
+
+
+def _warn_deprecated(name: str) -> None:
+    warnings.warn(
+        f"{name} is deprecated; use repro_torch.api.Segmenter (plan/compile/execute "
+        "+ submit/drain). This shim routes through a shared session and will be "
+        "removed in a future release.",
+        DeprecationWarning,
+        stacklevel=3,
+    )
+
+
+def segment_image(
+    image,
+    *,
+    seed: int = 0,
+    overseg_grid: Tuple[int, int] = (16, 16),
+    beta: float = 0.75,
+    mode: str = "static-pallas",
+    backend: str = "auto",
+    init: str = "random",
+    max_em_iters: int = 20,
+    max_map_iters: int = 10,
+    oversegmentation=None,
+    device: DeviceLike = None,
+) -> SegmentationResult:
+    """Deprecated one-shot entry point; see ``repro_torch.api.Segmenter``.
+    ``mode`` defaults to the one mode ported (the reference's to
+    ``"static"``)."""
+    _warn_deprecated("segment_image")
+    sess = _legacy_session(overseg_grid, beta, mode, backend, init, max_em_iters,
+                           max_map_iters, device)
+    return sess.execute(sess.plan(image, oversegmentation=oversegmentation), seed=seed)
+
+
+def segment_volume(
+    images,
+    *,
+    seed: int = 0,
+    overseg_grid: Tuple[int, int] = (16, 16),
+    beta: float = 0.75,
+    mode: str = "static-pallas",
+    backend: str = "auto",
+    init: str = "random",
+    max_em_iters: int = 20,
+    max_map_iters: int = 10,
+    batch: str = "auto",
+    device: DeviceLike = None,
+) -> Tuple[List[SegmentationResult], float]:
+    """Deprecated one-shot stack entry point; see
+    ``Segmenter.segment_stack``.  Returns ``(results, mean optimize
+    seconds)``, the per-slice average the paper reports."""
+    _warn_deprecated("segment_volume")
+    sess = _legacy_session(overseg_grid, beta, mode, backend, init, max_em_iters,
+                           max_map_iters, device)
+    return sess.segment_stack(images, seed=seed, batch=batch)

@@ -41,10 +41,13 @@
 //      read-only path.
 //   3. Finalize (last block): each vertex's vote argmax (strict '>', the
 //      sentinel vertex V-1 set to 0) into the other label buffer (the
-//      caller swaps the two), the M-step sums, then the flag word: bit 0 =
-//      every hood converged and the caller's gate (MAP iteration > WINDOW)
-//      open, bit 1 = a hood energy not finite.  It resets the ticket and
-//      the accumulator for the next launch.  The vote field is double
+//      caller swaps the two), then the flag word: bit 0 = every hood
+//      converged and the caller's gate (MAP iteration > WINDOW) open, bit
+//      1 = a hood energy not finite.  A launch that stops its MAP loop
+//      (the flag word set, or the caller's `cap` bit at the loop's last
+//      iteration) then takes the M-step sums of the new labels; the others
+//      leave `stats` as it was (the driver reads it only after the loop).
+//      It resets the ticket and the accumulator for the next launch.  The vote field is double
 //      buffered too: every block zeroes the buffer of the previous launch
 //      (nobody reads it in this one), so the next launch needs no memset
 //      and this launch's votes stay readable until then.
@@ -63,19 +66,26 @@
 // threshold on hood_e, so any other order can part an iteration count
 // from the plain path's; with hood_e in element order the tick and the
 // sharded route's step (map_step.cu, the same loop) give one trajectory.
-// Blocks have 256 threads; the K = 2..8 finalize replays the 1024-thread
-// finalize's order (four virtual threads per thread, each one warp tree
-// per virtual warp, then the 32 partials in order).
+// The M-step sums take the plain version's order at every K, vertex by
+// vertex (plainsum::label_sums: one thread per label over tiles staged in
+// shared memory), so a padded vertex (weight 0) adds +0 and changes no bit.
+//
+// Lane axis (the batched entry, the counterpart of the JAX kernel under
+// vmap): grid (blocks per lane, B), blockIdx.y the lane.  Lane b reads
+// and writes row b of stacked buffers (TickBatchPlan) with its own ticket,
+// flag word, parity word and active word.  A lane whose active word is 0
+// returns at once and writes nothing, as the reference's vmapped
+// while_loop freezes a lane that has stopped; the launch that stops a
+// lane's MAP loop sets its active word to 0, and the host sets the words
+// of the lanes that run at each EM iteration.  Each lane computes what its
+// own single-lane launch would, bit for bit.
 //
 // K: K = 2..8 are template instantiations with the per-label values in
 // registers.  Any K >= 9 takes the runtime-K variant with the same energy
 // op order: the hood pass keeps the per-label terms in the block's shared
 // memory and the counts in a shared row per warp (11 K floats a block).
-// Its M-step sums take the plain version's order too, vertex by vertex
-// (plainsum.cuh: one thread per label over tiles staged in the same
-// shared memory).  So
-// at f32 it equals the plain version bit for bit wherever that version
-// sums in element order (on the CPU).  The shared memory
+// So at every K, at f32, the tick equals the plain version bit for bit
+// wherever that version sums in element order (on the CPU).  The shared memory
 // bounds K at kMaxLabels = 5,282 (227 KB a block on an H100).
 //
 // Arithmetic: every energy op is an explicitly rounded intrinsic
@@ -84,8 +94,7 @@
 // every intermediate is rounded to bfloat16 (as a bfloat16 tensor op
 // would), while counts, hood sums, votes and M-step sums stay float32
 // (hood_e is the float32 sum of the rounded products, as in the plain
-// version).  For K = 2..8 the M-step sums are summed in another order than
-// the plain version's index_add_, so they agree to rounding.
+// version).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,13 +102,56 @@
 #include "flagword.cuh"
 #include "plainsum.cuh"
 
+// A stack of B problems padded to one bucket, filled in by the caller once
+// per solve (the pointers) and read by every batched step.  Lane b's
+// arrays are row b of: y, w, nall, valid, vertex (B, capacity); offsets
+// (B, n_hoods+1); region_mean, region_weight (B, n_vertices); mu, sigma
+// (B, n_labels); beta (B,); labels (B, 2, n_vertices) and votes (B, 2,
+// n_labels, n_vertices), swapped by the lane's parity word; ring (B,
+// hist_rows, n_hoods); hood_e (B, n_hoods); stats (B, 3, n_labels); sync
+// (B, 2) zero; flag_dev, flag_host_dev (the device view of B mapped host
+// words), parity and active (B,).
+struct TickBatchPlan {
+  const float* y;
+  const float* w;
+  const float* nall;
+  const float* valid;
+  const int* vertex;
+  const int* offsets;
+  const float* region_mean;
+  const float* region_weight;
+  const float* mu;
+  const float* sigma;
+  const float* beta;
+  int* labels;
+  float* votes;
+  float* ring;
+  float* hood_e;
+  float* stats;
+  unsigned int* sync;
+  int* flag_dev;
+  int* flag_host_dev;
+  int* flag_host;
+  int* parity;
+  int* active;
+  void* stream;
+  int batch;
+  int capacity;
+  int hist_rows;
+  int n_hoods;
+  int n_vertices;
+  int n_labels;
+  int bf16;
+  int device;
+  float conv_tol;
+};
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;        // threads of a block of the runtime-K variant
 constexpr int kWarps = kThreads / kWarp;
 constexpr int kTemplThreads = 256;   // threads of a block of the K = 2..8 instantiations
-constexpr int kFinalOrder = 1024;    // the block size whose sum order the finalize replays
 constexpr int kSmemPerBlock = 232448;  // 227 KB: the most a block may take on an H100
 
 // Dynamic shared memory of the runtime-K variant: 3 K terms and K counts
@@ -136,10 +188,13 @@ struct TickParams {
   unsigned int* sync;      // [0] ticket, [1] flag accumulator; 0 between launches
   int* flag_dev;           // (1,)
   int* flag_host;          // device view of a mapped host word, or nullptr
+  int* lane_parity;        // batched entry: the lane's parity word, flipped here; else nullptr
+  int* lane_active;        // batched entry: the lane's active word, 0 once it stops; else nullptr
   int hist_rows;
   int head;
   int ring_write;
   int gate;
+  int stop_cap;            // 1: this launch stops the MAP loop at its cap (takes the M-step)
   int n_hoods;
   int n_vertices;
   int n_labels;
@@ -192,10 +247,30 @@ __device__ __forceinline__ bool last_block_done(const TickParams& p, unsigned bi
   return flagword::last_block_done(p.sync, bits);
 }
 
-// Last block, one thread, after the labels and sums: publish the flag and
-// reset the ticket and the accumulator for the next launch.
-__device__ __forceinline__ void publish_flag(const TickParams& p) {
-  flagword::publish(p.sync, p.gate, p.flag_dev, p.flag_host);
+// Last block, one thread, after the labels: take the launch's flag word
+// (flagword.cuh; it resets the accumulator) and broadcast it to the
+// block.  Every thread of the last block calls it.
+__device__ __forceinline__ int take_flag(const TickParams& p) {
+  __shared__ int word;
+  if (threadIdx.x == 0) word = flagword::take_word(p.sync, p.gate);
+  __syncthreads();
+  return word;
+}
+
+// True when the launch stops its MAP loop: the flag word is set (the
+// window closed, or a hood energy is not finite) or the loop is at its cap.
+// Only such a launch takes the M-step sums.
+__device__ __forceinline__ bool stops(const TickParams& p, int word) {
+  return word != 0 || p.stop_cap != 0;
+}
+
+// Last block, one thread, after the sums: publish the flag word, reset the
+// ticket, and on the batched entry flip the lane's parity and retire a
+// lane that stopped.
+__device__ __forceinline__ void finish(const TickParams& p, int word) {
+  flagword::publish_word(p.sync, word, p.flag_dev, p.flag_host);
+  if (p.lane_parity != nullptr) *p.lane_parity ^= 1;
+  if (p.lane_active != nullptr && stops(p, word)) *p.lane_active = 0;
 }
 
 inline unsigned int grid_blocks(int n_hoods, int warps) {
@@ -205,7 +280,7 @@ inline unsigned int grid_blocks(int n_hoods, int warps) {
 
 // K = 2..8: the per-label terms in registers.
 template <int K, bool BF16>
-__global__ void __launch_bounds__(kTemplThreads) tick_kernel(const TickParams p) {
+__device__ __forceinline__ void tick_body(const TickParams& p) {
   constexpr int kBlockWarps = kTemplThreads / kWarp;
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -287,68 +362,37 @@ __global__ void __launch_bounds__(kTemplThreads) tick_kernel(const TickParams p)
   }
   if (!last_block_done(p, bits)) return;
 
-  // 3. Finalize: plurality labels and the M-step sums of the new labels,
-  // in the order of a 1024-thread block: virtual thread t + kTemplThreads * j
-  // takes vertices t + kTemplThreads * j + 1024 i, then one warp tree per
-  // virtual warp, then the 32 partials in order.
-  __shared__ float part[kFinalOrder / kWarp][3 * K];
+  // 3. Finalize: plurality labels, the flag word, then, in a launch that
+  // stops the MAP loop, the M-step sums of the new labels in vertex order
+  // (plainsum.cuh), over tiles staged in shared memory.
+  __shared__ float tiles[4 * kTemplThreads];
   const int n_v = p.n_vertices;
-  for (int j = 0; j < kFinalOrder / kTemplThreads; ++j) {
-    float sw[K], swy[K], swyy[K];
+  for (int v = threadIdx.x; v < n_v; v += kTemplThreads) {
+    float best = __ldcg(p.votes + v);
+    int lab = 0;
 #pragma unroll
-    for (int l = 0; l < K; ++l) sw[l] = swy[l] = swyy[l] = 0.0f;
-    for (int v = threadIdx.x + j * kTemplThreads; v < n_v; v += kFinalOrder) {
-      float best = __ldcg(p.votes + v);
-      int lab = 0;
-#pragma unroll
-      for (int l = 1; l < K; ++l) {
-        const float c = __ldcg(p.votes + l * n_v + v);
-        if (c > best) {
-          best = c;
-          lab = l;
-        }
-      }
-      if (v == n_v - 1) lab = 0;
-      p.labels_out[v] = lab;
-      const float wr = __ldg(p.region_weight + v);
-      const float ym = __ldg(p.region_mean + v);
-      const float wy = __fmul_rn(wr, ym);
-      const float wyy = __fmul_rn(wy, ym);
-#pragma unroll
-      for (int l = 0; l < K; ++l) {
-        if (l == lab) {
-          sw[l] = __fadd_rn(sw[l], wr);
-          swy[l] = __fadd_rn(swy[l], wy);
-          swyy[l] = __fadd_rn(swyy[l], wyy);
-        }
+    for (int l = 1; l < K; ++l) {
+      const float c = __ldcg(p.votes + l * n_v + v);
+      if (c > best) {
+        best = c;
+        lab = l;
       }
     }
-    const int vwarp = warp + j * kBlockWarps;
-#pragma unroll
-    for (int l = 0; l < K; ++l) {
-      const float a = warp_sum(sw[l]);
-      const float b = warp_sum(swy[l]);
-      const float c = warp_sum(swyy[l]);
-      if (lane == 0) {
-        part[vwarp][l] = a;
-        part[vwarp][K + l] = b;
-        part[vwarp][2 * K + l] = c;
-      }
-    }
+    if (v == n_v - 1) lab = 0;
+    p.labels_out[v] = lab;
   }
-  __syncthreads();
-  if (threadIdx.x < 3 * K) {
-    float s = 0.0f;
-    for (int i = 0; i < kFinalOrder / kWarp; ++i) s += part[i][threadIdx.x];
-    p.stats[threadIdx.x] = s;
+  const int word = take_flag(p);  // its barrier also orders the labels before the sums
+  if (stops(p, word)) {
+    plainsum::label_sums<kTemplThreads>(p.labels_out, p.region_weight, p.region_mean, n_v, K,
+                                        tiles, p.stats);
   }
-  if (threadIdx.x == 0) publish_flag(p);
+  if (threadIdx.x == 0) finish(p, word);
 }
 
 // Runtime K (K >= 9): the per-label terms and the warp's counts in dynamic
 // shared memory, every float sum in element order.
 template <bool BF16>
-__global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
+__device__ __forceinline__ void tick_body_rt(const TickParams& p) {
   const int K = p.n_labels;
   extern __shared__ float smem[];  // [mu | 2 sigma^2 | log sigma | counts per warp]
   float* mu_l = smem;
@@ -431,9 +475,10 @@ __global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
   }
   if (!last_block_done(p, bits)) return;
 
-  // 3. Finalize: the labels first, then the M-step sums of each label in
-  // vertex order (plainsum.cuh), over tiles of the new labels and the
-  // region terms staged in the (now free) shared memory.
+  // 3. Finalize: the labels first, the flag word, then, in a launch that
+  // stops the MAP loop, the M-step sums of each label in vertex order
+  // (plainsum.cuh), over tiles of the new labels and the region terms
+  // staged in the (now free) shared memory.
   const int n_v = p.n_vertices;
   for (int v = threadIdx.x; v < n_v; v += blockDim.x) {
     float best = __ldcg(p.votes + v);
@@ -448,37 +493,112 @@ __global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
     if (v == n_v - 1) lab = 0;
     p.labels_out[v] = lab;
   }
-  __syncthreads();
-  plainsum::label_sums<kThreads>(p.labels_out, p.region_weight, p.region_mean, n_v, K, smem,
-                                 p.stats);
-  if (threadIdx.x == 0) publish_flag(p);
+  const int word = take_flag(p);
+  if (stops(p, word)) {
+    plainsum::label_sums<kThreads>(p.labels_out, p.region_weight, p.region_mean, n_v, K, smem,
+                                   p.stats);
+  }
+  if (threadIdx.x == 0) finish(p, word);
+}
+
+// Lane b's TickParams, the pointers offset to row b.  False when the lane
+// is inactive: its blocks return at once and write nothing.
+__device__ __forceinline__ bool lane_params(const TickBatchPlan& t, int b, int head, int gate,
+                                            int cap, TickParams* p) {
+  if (t.active[b] == 0) return false;
+  const long long e = static_cast<long long>(b) * t.capacity;
+  const long long nv = t.n_vertices, nh = t.n_hoods, k = t.n_labels;
+  const int q = t.parity[b] & 1;
+  int* labels = t.labels + b * 2 * nv;
+  float* votes = t.votes + b * 2 * k * nv;
+  *p = TickParams{t.y + e, t.w + e, t.nall + e, nullptr, t.valid + e, t.vertex + e,
+                  t.offsets + b * (nh + 1), t.region_mean + b * nv, t.region_weight + b * nv,
+                  t.mu + b * k, t.sigma + b * k, t.beta + b, labels + q * nv,
+                  t.ring + b * t.hist_rows * nh, labels + (1 - q) * nv, t.hood_e + b * nh,
+                  votes + q * k * nv, votes + (1 - q) * k * nv, t.stats + b * 3 * k,
+                  t.sync + 2 * b, t.flag_dev + b, t.flag_host_dev + b, t.parity + b,
+                  t.active + b, t.hist_rows, head, /*ring_write=*/1, gate, cap, t.n_hoods,
+                  t.n_vertices, t.n_labels, t.conv_tol};
+  return true;
 }
 
 template <int K, bool BF16>
-int launch(const TickParams& p, cudaStream_t stream) {
-  tick_kernel<K, BF16><<<grid_blocks(p.n_hoods, kTemplThreads / kWarp), kTemplThreads, 0, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+__global__ void __launch_bounds__(kTemplThreads) tick_kernel(const TickParams p) {
+  tick_body<K, BF16>(p);
+}
+
+// The batched entry: grid (blocks per lane, B), lane b = blockIdx.y.
+template <int K, bool BF16>
+__global__ void __launch_bounds__(kTemplThreads)
+    tick_kernel_batched(const TickBatchPlan t, int head, int gate, int cap) {
+  TickParams p;
+  if (lane_params(t, blockIdx.y, head, gate, cap, &p)) tick_body<K, BF16>(p);
 }
 
 template <bool BF16>
-int launch_rt(const TickParams& p, cudaStream_t stream) {
-  if (p.n_labels > kMaxLabels) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = rt_smem_bytes(p.n_labels);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tick_kernel_rt<BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+__global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
+  tick_body_rt<BF16>(p);
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(kThreads)
+    tick_kernel_rt_batched(const TickBatchPlan t, int head, int gate, int cap) {
+  TickParams p;
+  if (lane_params(t, blockIdx.y, head, gate, cap, &p)) tick_body_rt<BF16>(p);
+}
+
+// One launch of the tick.  `batch` is nullptr for one problem (`p`), else
+// the stack whose lanes the launch runs (`p` then carries only n_hoods and
+// n_labels).
+struct Launch {
+  const TickParams* p;
+  const TickBatchPlan* batch;
+  int head, gate, cap;
+};
+
+template <int K, bool BF16>
+int launch(const Launch& l, cudaStream_t stream) {
+  const unsigned int blocks = grid_blocks(l.p->n_hoods, kTemplThreads / kWarp);
+  if (l.batch == nullptr) {
+    tick_kernel<K, BF16><<<blocks, kTemplThreads, 0, stream>>>(*l.p);
+  } else {
+    tick_kernel_batched<K, BF16><<<dim3(blocks, l.batch->batch), kTemplThreads, 0, stream>>>(
+        *l.batch, l.head, l.gate, l.cap);
   }
-  tick_kernel_rt<BF16><<<grid_blocks(p.n_hoods, kWarps), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(const TickParams& p, int bf16, cudaStream_t s) {
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool BF16>
+int launch_rt(const Launch& l, cudaStream_t stream) {
+  if (l.p->n_labels > kMaxLabels) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = rt_smem_bytes(l.p->n_labels);
+  const unsigned int blocks = grid_blocks(l.p->n_hoods, kWarps);
+  cudaError_t err;
+  if (l.batch == nullptr) {
+    if ((err = allow_smem(tick_kernel_rt<BF16>, smem)) != cudaSuccess) return static_cast<int>(err);
+    tick_kernel_rt<BF16><<<blocks, kThreads, smem, stream>>>(*l.p);
+  } else {
+    if ((err = allow_smem(tick_kernel_rt_batched<BF16>, smem)) != cudaSuccess) {
+      return static_cast<int>(err);
+    }
+    tick_kernel_rt_batched<BF16><<<dim3(blocks, l.batch->batch), kThreads, smem, stream>>>(
+        *l.batch, l.head, l.gate, l.cap);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const Launch& l, int bf16, cudaStream_t s) {
 #define REPRO_TICK_CASE(K) \
   case K:                  \
-    return bf16 ? launch<K, true>(p, s) : launch<K, false>(p, s);
-  switch (p.n_labels) {
+    return bf16 ? launch<K, true>(l, s) : launch<K, false>(l, s);
+  switch (l.p->n_labels) {
     REPRO_TICK_CASE(2)
     REPRO_TICK_CASE(3)
     REPRO_TICK_CASE(4)
@@ -487,11 +607,29 @@ int dispatch(const TickParams& p, int bf16, cudaStream_t s) {
     REPRO_TICK_CASE(7)
     REPRO_TICK_CASE(8)
     default:
-      if (p.n_labels < 9) return static_cast<int>(cudaErrorInvalidValue);
-      return bf16 ? launch_rt<true>(p, s) : launch_rt<false>(p, s);
+      if (l.p->n_labels < 9) return static_cast<int>(cudaErrorInvalidValue);
+      return bf16 ? launch_rt<true>(l, s) : launch_rt<false>(l, s);
   }
 #undef REPRO_TICK_CASE
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int dispatch(const TickParams& p, int bf16, cudaStream_t s) {
+  return dispatch(Launch{&p, nullptr, 0, 0, 0}, bf16, s);
+}
+
+// Run `fn` with `device` current, then restore the caller's device.
+template <typename Fn>
+int on_device(int device, Fn fn) {
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  const int rc = fn();
+  if (current != device) cudaSetDevice(current);
+  return rc;
 }
 
 }  // namespace
@@ -508,8 +646,8 @@ const char* repro_error_string(int code) {
 // row first, read only; mu, sigma (n_labels,) f32; beta (1,) f32.
 // Outputs: labels (n_vertices,) i32; hood_e (n_hoods,) f32; votes
 // (n_labels, n_vertices) f32, zeroed by the caller; stats (3, n_labels)
-// f32 = sum_w, sum_wy, sum_wyy; flag (1,) i32, bit 0 = the window
-// predicate; sync (2,) u32, zeroed by the caller.  Returns
+// f32 = sum_w, sum_wy, sum_wyy (always taken); flag (1,) i32, bit 0 = the
+// window predicate; sync (2,) u32, zeroed by the caller.  Returns
 // cudaGetLastError().
 int repro_fused_em_tick(const float* y, const float* w, const float* nall,
                         const float* xf, const float* valid, const int* vertex,
@@ -522,9 +660,9 @@ int repro_fused_em_tick(const float* y, const float* w, const float* nall,
                         unsigned int* sync, void* stream) {
   const TickParams p{y, w, nall, xf, valid, vertex, offsets, region_mean, region_weight,
                      mu, sigma, beta, nullptr, const_cast<float*>(hist), labels, hood_e,
-                     votes, nullptr, stats, sync, flag, nullptr, hist_rows,
-                     /*head=*/0, /*ring_write=*/0, /*gate=*/1, n_hoods, n_vertices,
-                     n_labels, conv_tol};
+                     votes, nullptr, stats, sync, flag, nullptr, nullptr, nullptr, hist_rows,
+                     /*head=*/0, /*ring_write=*/0, /*gate=*/1, /*stop_cap=*/1, n_hoods,
+                     n_vertices, n_labels, conv_tol};
   return dispatch(p, bf16, static_cast<cudaStream_t>(stream));
 }
 
@@ -568,24 +706,36 @@ struct TickPlan {
 // One MAP iteration: the labels in labels[parity] become labels[1-parity],
 // the votes land in votes[parity] and votes[1-parity] is zeroed; the ring's
 // newest row is `head` and hood_e goes to row (head + rows - 1) % rows.
-// The flag's bit 0 needs `gate`.  One launch on the plan's stream.
-int repro_em_tick_step(const TickPlan* t, int parity, int head, int gate) {
-  int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (current != t->device && (err = cudaSetDevice(t->device)) != cudaSuccess) {
-    return static_cast<int>(err);
-  }
-  const int q = parity & 1;
-  const TickParams p{t->y, t->w, t->nall, nullptr, t->valid, t->vertex, t->offsets,
-                     t->region_mean, t->region_weight, t->mu, t->sigma, t->beta,
-                     t->labels[q], t->ring, t->labels[1 - q], t->hood_e, t->votes[q],
-                     t->votes[1 - q], t->stats, t->sync, t->flag_dev, t->flag_host_dev,
-                     t->hist_rows, head, /*ring_write=*/1, gate, t->n_hoods,
-                     t->n_vertices, t->n_labels, t->conv_tol};
-  const int rc = dispatch(p, t->bf16, static_cast<cudaStream_t>(t->stream));
-  if (current != t->device) cudaSetDevice(current);
-  return rc;
+// The flag's bit 0 needs `gate`; `cap` says the MAP loop stops after this
+// launch whatever its flag, and only a launch that stops the loop (the
+// flag word set, or `cap`) writes the M-step sums.  One launch on the
+// plan's stream.
+int repro_em_tick_step(const TickPlan* t, int parity, int head, int gate, int cap) {
+  return on_device(t->device, [&] {
+    const int q = parity & 1;
+    const TickParams p{t->y, t->w, t->nall, nullptr, t->valid, t->vertex, t->offsets,
+                       t->region_mean, t->region_weight, t->mu, t->sigma, t->beta,
+                       t->labels[q], t->ring, t->labels[1 - q], t->hood_e, t->votes[q],
+                       t->votes[1 - q], t->stats, t->sync, t->flag_dev, t->flag_host_dev,
+                       nullptr, nullptr, t->hist_rows, head, /*ring_write=*/1, gate, cap,
+                       t->n_hoods, t->n_vertices, t->n_labels, t->conv_tol};
+    return dispatch(p, t->bf16, static_cast<cudaStream_t>(t->stream));
+  });
+}
+
+// One MAP iteration of every active lane of a stack, in one launch: lane b
+// runs repro_em_tick_step on its own buffers with its own parity word
+// (flipped by the launch), the shared `head`, `gate` and `cap`; a lane
+// that stops (its flag word set, or `cap`) takes the M-step sums and sets
+// its active word to 0.  An inactive lane writes nothing.
+int repro_em_tick_step_batched(const TickBatchPlan* t, int head, int gate, int cap) {
+  return on_device(t->device, [&] {
+    TickParams shape{};
+    shape.n_hoods = t->n_hoods;
+    shape.n_labels = t->n_labels;
+    return dispatch(Launch{&shape, t, head, gate, cap}, t->bf16,
+                    static_cast<cudaStream_t>(t->stream));
+  });
 }
 
 // Wait for the plan's stream and read the flag word the last step wrote.
@@ -596,12 +746,22 @@ int repro_em_tick_wait(const TickPlan* t, int* flag) {
   return 0;
 }
 
-// A word of pinned host memory mapped into the device's address space:
-// its host and device addresses.
-int repro_em_tick_host_word(void** host, void** device) {
-  cudaError_t err = cudaHostAlloc(host, sizeof(int), cudaHostAllocMapped);
+// Wait for the stack's stream and copy its B flag words (those of lanes
+// that ran in the last launch are that launch's).
+int repro_em_tick_wait_batched(const TickBatchPlan* t, int* flags) {
+  const cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(t->stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  *reinterpret_cast<volatile int*>(*host) = 0;
+  const volatile int* words = t->flag_host;
+  for (int b = 0; b < t->batch; ++b) flags[b] = words[b];
+  return 0;
+}
+
+// `n` words of pinned host memory mapped into the device's address space,
+// zeroed: their host and device addresses.
+int repro_em_tick_host_word(void** host, void** device, int n) {
+  cudaError_t err = cudaHostAlloc(host, sizeof(int) * n, cudaHostAllocMapped);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int i = 0; i < n; ++i) reinterpret_cast<volatile int*>(*host)[i] = 0;
   err = cudaHostGetDevicePointer(device, *host, 0);
   if (err != cudaSuccess) {
     cudaFreeHost(*host);

@@ -82,9 +82,4 @@ __device__ __forceinline__ void publish_word(unsigned int* sync, int flag, int* 
   atomicExch(sync, 0u);
 }
 
-// take_word, then publish_word.
-__device__ __forceinline__ void publish(unsigned int* sync, int gate, int* flag_dev, int* flag_host) {
-  publish_word(sync, take_word(sync, gate), flag_dev, flag_host);
-}
-
 }  // namespace flagword

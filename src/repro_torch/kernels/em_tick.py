@@ -6,21 +6,28 @@ votes, labels, M-step sums, convergence flag) in one launch on the
 current stream, for any K from 2 to ``MAX_LABELS``.  The kernel walks
 each hood as a contiguous run of the (hood, vertex)-sorted element
 arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
-(``Hoods.offsets``).  Two entry points launch the same kernel:
+(``Hoods.offsets``).  Three entry points launch the same kernel body:
 
-* :class:`TickWorkspace`, the EM driver's: built once per plan (all
-  buffers, every operand check), it runs one MAP iteration per
-  :meth:`~TickWorkspace.step` (one ``ctypes`` call, one launch: the label
-  gather, the history ring and the finiteness test are in the kernel) and
-  reads the flag word with one wait in :meth:`~TickWorkspace.flag`.
-  ``ref.fused_map_iteration`` is its plain version.
+* :class:`TickWorkspace`, the EM driver's: built from a bucket's shapes
+  alone (``ref.TickShape``: all buffers), bound to a solve's hoods, model
+  and element arrays in :meth:`~TickWorkspace.start` (every operand check),
+  it runs one MAP iteration per :meth:`~TickWorkspace.step` (one ``ctypes``
+  call, one launch: the label gather, the history ring and the finiteness
+  test are in the kernel) and reads the flag word with one wait in
+  :meth:`~TickWorkspace.flag`.  ``ref.PlainTickWorkspace`` is its plain
+  version.
+* :class:`BatchTickWorkspace`, the batched driver's: the same for a stack
+  of B problems padded to one bucket, one launch per MAP iteration for
+  every lane still running (the kernel's lane axis), one wait for the B
+  flag words.  ``ref.PlainBatchTickWorkspace`` is its plain version.
 * :func:`fused_em_tick_cuda`, with the JAX kernel's signature (``xf`` and
   ``hist`` given), allocating its outputs per call.  ``ref.fused_em_tick``
   is its plain version.
 
 The kernel adds each hood's energies in the plain versions' element
-order at every K (``csrc/plainsum.cuh``), and from K = 9 on its M-step
-sums too.
+order and its M-step sums in vertex order, at every K
+(``csrc/plainsum.cuh``); a workspace step takes the M-step sums only in
+the launch that stops the MAP loop (its flag word set, or ``cap``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import FLAG_CONVERGED, FLAG_DIVERGED  # noqa: F401 (bits of the flag word)
+from repro_torch.kernels.ref import TickShape
 
 #: Most labels the kernel takes (5,282).  K = 2..8 are template
 #: instantiations; any larger K runs a runtime-K variant whose hood pass
@@ -42,8 +50,10 @@ from repro_torch.kernels.ref import FLAG_CONVERGED, FLAG_DIVERGED  # noqa: F401 
 SMEM_PER_BLOCK = 232_448
 MAX_LABELS = SMEM_PER_BLOCK // (4 * (3 + 8))
 
-#: Launches of the kernel in this process (``ops.launch_counts``).
+#: Launches of the kernel in this process (``ops.launch_counts``), and
+#: how many of them were the batched entry's.
 launches = 0
+launches_batched = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,12 +85,29 @@ class _TickPlan(ctypes.Structure):
     ]
 
 
+class _TickBatchPlan(ctypes.Structure):
+    """``struct TickBatchPlan`` of ``csrc/em_tick.cu``, field for field."""
+
+    _fields_ = [
+        *((name, _P) for name in (
+            "y", "w", "nall", "valid", "vertex", "offsets", "region_mean", "region_weight",
+            "mu", "sigma", "beta", "labels", "votes", "ring", "hood_e", "stats", "sync",
+            "flag_dev", "flag_host_dev", "flag_host", "parity", "active", "stream")),
+        *((name, _I) for name in (
+            "batch", "capacity", "hist_rows", "n_hoods", "n_vertices", "n_labels", "bf16",
+            "device")),
+        ("conv_tol", ctypes.c_float),
+    ]
+
+
 #: ``argtypes`` of the C entry points of ``csrc/em_tick.cu``.
 _SIGNATURES = {
     "repro_fused_em_tick": _ARGTYPES,
-    "repro_em_tick_step": [_P, _I, _I, _I],   # plan, parity, head, gate
-    "repro_em_tick_wait": [_P, _P],           # plan, flag out
-    "repro_em_tick_host_word": [_P, _P],      # host, device address out
+    "repro_em_tick_step": [_P, _I, _I, _I, _I],     # plan, parity, head, gate, cap
+    "repro_em_tick_step_batched": [_P, _I, _I, _I],  # plan, head, gate, cap
+    "repro_em_tick_wait": [_P, _P],                 # plan, flag out
+    "repro_em_tick_wait_batched": [_P, _P],         # plan, B flags out
+    "repro_em_tick_host_word": [_P, _P, _I],        # host, device address out, words
 }
 
 
@@ -91,6 +118,7 @@ def _entry(symbol: str):
 
 _require = functools.partial(_build.require, "fused_em_tick_cuda")
 _require_ws = functools.partial(_build.require, "TickWorkspace")
+_require_batch = functools.partial(_build.require, "BatchTickWorkspace")
 
 
 def _check_labels(fn: str, n_labels: int) -> None:
@@ -183,14 +211,14 @@ def fused_em_tick_cuda(
 
 
 class _HostWord:
-    """A word of pinned host memory mapped into the card's address space,
-    freed with the object."""
+    """``n`` words of pinned host memory mapped into the card's address
+    space, zeroed, freed with the object."""
 
     host = None
 
-    def __init__(self):
+    def __init__(self, n: int = 1):
         host, dev = ctypes.c_void_p(), ctypes.c_void_p()
-        _entry("repro_em_tick_host_word")(ctypes.addressof(host), ctypes.addressof(dev))
+        _entry("repro_em_tick_host_word")(ctypes.addressof(host), ctypes.addressof(dev), n)
         self.host, self.device = host.value, dev.value
         self._free = _build.load("em_tick").repro_em_tick_free_host_word
         self._free.argtypes = [_P]
@@ -201,46 +229,60 @@ class _HostWord:
             self.host = None
 
 
-class TickWorkspace:
-    """The single-device EM driver's MAP-iteration state on the card, owned
-    by a plan and reused by its solves.
+def _check_shape(fn: str, shape: TickShape, precision: str, device) -> torch.device:
+    _check_precision(precision)
+    _check_labels(fn, shape.n_labels)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"{fn} needs a CUDA device, got {dev}")
+    return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
 
-    Built once per (hoods, K, precision, device): two label buffers and two
-    vote fields (each step reads one and writes the other; the vote field
-    it does not use it zeroes), the (window + 1, n_hoods) history ring,
-    ``hood_e``, the M-step sums, the kernel's ticket and flag words, and a
-    mapped pinned host word for the flag.  Every operand check runs here,
-    in :meth:`start` (the solve's element arrays) and in :meth:`begin_em`
-    (the parameters), never in the MAP loop.
+
+def _check_problem(require, shape: TickShape, hoods, model, lead: tuple, dev) -> None:
+    """The solve's hoods and model against the bucket's shapes (with the
+    leading ``lead`` axes of a stack)."""
+    f32, i32 = torch.float32, torch.int32
+    if hoods.offsets is None:
+        raise ValueError("a tick workspace needs the hoods' offsets (a whole problem, not a shard)")
+    if (hoods.n_hoods, hoods.n_regions + 1, model.n_labels) != shape[1:]:
+        raise ValueError(
+            f"hoods of {hoods.n_hoods} hoods, {hoods.n_regions + 1} vertices and K = "
+            f"{model.n_labels}; the workspace was built for {shape}"
+        )
+    require(hoods.vertex, "vertex", i32, lead + (shape.capacity,), dev)
+    require(hoods.offsets, "offsets", i32, lead + (shape.n_hoods + 1,), dev)
+    require(model.region_mean, "region_mean", f32, lead + (shape.n_vertices,), dev)
+    require(model.region_weight, "region_weight", f32, lead + (shape.n_vertices,), dev)
+
+
+class TickWorkspace:
+    """The single-device EM driver's MAP-iteration state on the card, for
+    one bucket: built from its shapes alone and reused by every solve of a
+    problem of those shapes.
+
+    Built once per (``ref.TickShape``, precision, device): two label
+    buffers and two vote fields (each step reads one and writes the other;
+    the vote field it does not use it zeroes), the (window + 1, n_hoods)
+    history ring, ``hood_e``, the M-step sums, the kernel's ticket and flag
+    words, and a mapped pinned host word for the flag.  Every operand check
+    runs in :meth:`start` (the solve's hoods, model and element arrays) and
+    in :meth:`begin_em` (the parameters), never in the MAP loop.
 
     A solve calls :meth:`start` once, :meth:`begin_em` at each EM
-    iteration, then per MAP iteration ``step(gate)`` (one ``ctypes`` call,
-    one launch) and :meth:`flag` (one wait; the bits are ``ref.FLAG_*``).
-    ``labels``, ``hood_e``, ``votes`` and ``stats`` are views of the
-    buffers after the last step, valid until the next.
+    iteration, then per MAP iteration ``step(gate, cap)`` (one ``ctypes``
+    call, one launch) and :meth:`flag` (one wait; the bits are
+    ``ref.FLAG_*``).  ``labels``, ``hood_e`` and ``votes`` are views of the
+    buffers after the last step, valid until the next; ``stats`` holds the
+    M-step sums of the last launch that stopped a MAP loop.
     """
 
-    def __init__(self, hoods, model, *, precision: str = "f32", conv_tol: float = 1.0e-4,
-                 window: int = 3):
-        _check_precision(precision)
-        n_labels = model.n_labels
-        _check_labels("TickWorkspace", n_labels)
-        dev = hoods.vertex.device
-        if dev.type != "cuda":
-            raise ValueError(f"TickWorkspace needs CUDA tensors, got {dev}")
-        if hoods.offsets is None:
-            raise ValueError("TickWorkspace needs the hoods' offsets (a whole problem, not a shard)")
-        nh, nv = hoods.n_hoods, hoods.n_regions + 1
+    def __init__(self, shape: TickShape, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3):
+        dev = _check_shape("TickWorkspace", shape, precision, device)
+        self.shape, self.device, self.precision = shape, dev, precision
+        self.capacity, nh, nv, n_labels = shape
+        self.n_hoods, self.n_vertices, self.n_labels = nh, nv, n_labels
         f32, i32 = torch.float32, torch.int32
-        self.capacity = hoods.capacity
-        _require_ws(hoods.vertex, "vertex", i32, (self.capacity,), dev)
-        _require_ws(hoods.offsets, "offsets", i32, (nh + 1,), dev)
-        _require_ws(model.region_mean, "region_mean", f32, (nv,), dev)
-        _require_ws(model.region_weight, "region_weight", f32, (nv,), dev)
-        self.device, self.precision, self.n_labels = dev, precision, n_labels
-        self.n_hoods, self.n_vertices = nh, nv
-        self._beta = model.beta.to(f32).reshape(1).contiguous()
-        _require_ws(self._beta, "beta", f32, (1,), dev)
         self._labels = torch.zeros((2, nv), dtype=i32, device=dev)
         self._votes = torch.zeros((2, n_labels, nv), dtype=f32, device=dev)
         self.ring = torch.zeros((window + 1, nh), dtype=f32, device=dev)
@@ -248,18 +290,14 @@ class TickWorkspace:
         self.stats = torch.zeros((3, n_labels), dtype=f32, device=dev)
         self._words = torch.zeros((3,), dtype=i32, device=dev)  # flag, ticket, accumulator
         self._host = _HostWord()
-        self._keep = (hoods.vertex, hoods.offsets, model.region_mean, model.region_weight)
         self._plan = p = _TickPlan()
-        p.vertex, p.offsets = hoods.vertex.data_ptr(), hoods.offsets.data_ptr()
-        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
-        p.beta = self._beta.data_ptr()
         p.labels[0], p.labels[1] = self._labels[0].data_ptr(), self._labels[1].data_ptr()
         p.votes[0], p.votes[1] = self._votes[0].data_ptr(), self._votes[1].data_ptr()
         p.ring, p.hood_e, p.stats = self.ring.data_ptr(), self.hood_e.data_ptr(), self.stats.data_ptr()
         p.flag_dev, p.sync = self._words.data_ptr(), self._words[1:].data_ptr()
         p.flag_host_dev, p.flag_host = self._host.device, self._host.host
         p.hist_rows, p.n_hoods, p.n_vertices, p.n_labels = window + 1, nh, nv, n_labels
-        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index or 0, conv_tol
+        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index, conv_tol
         self._addr = ctypes.addressof(p)
         self._step = _entry("repro_em_tick_step")
         self._wait = _entry("repro_em_tick_wait")
@@ -269,17 +307,25 @@ class TickWorkspace:
         self.parity = 0  # labels[parity] holds the current labels, votes[parity] is zero
         self.head = 0    # ring row of the newest hood energies
 
-    def start(self, y, w, nall_e, valid, labels0) -> None:
-        """Bind a solve's element arrays (``energy.StaticMapContext``) and
-        copy its initial labels in; the MAP loop runs on the current
-        stream."""
+    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        """Bind a solve: its hoods' ``vertex`` and ``offsets``, its model's
+        region arrays and ``beta``, its element arrays
+        (``energy.StaticMapContext``); copy its initial labels in.  The MAP
+        loop runs on the current stream."""
         dev, f32 = self.device, torch.float32
+        _check_problem(_require_ws, self.shape, hoods, model, (), dev)
         for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
             _require_ws(t, name, f32, (self.capacity,), dev)
         _require_ws(labels0, "labels0", torch.int32, (self.n_vertices,), dev)
-        self._elements = (y, w, nall_e, valid)
+        beta = model.beta.to(f32).reshape(1).contiguous()
+        _require_ws(beta, "beta", f32, (1,), dev)
+        self._keep = (hoods.vertex, hoods.offsets, model.region_mean, model.region_weight, beta,
+                      y, w, nall_e, valid)
         p = self._plan
-        p.y, p.w, p.nall, p.valid = (t.data_ptr() for t in self._elements)
+        p.vertex, p.offsets = hoods.vertex.data_ptr(), hoods.offsets.data_ptr()
+        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
+        p.beta = beta.data_ptr()
+        p.y, p.w, p.nall, p.valid = (t.data_ptr() for t in (y, w, nall_e, valid))
         p.stream = torch.cuda.current_stream(dev).cuda_stream
         self.labels.copy_(labels0)
 
@@ -293,11 +339,13 @@ class TickWorkspace:
         self.ring.zero_()
         self.head = 0
 
-    def step(self, gate: bool) -> None:
+    def step(self, gate: bool, cap: bool = False) -> None:
         """One MAP iteration: one launch; ``gate`` opens the flag's
-        converged bit (the driver's MAP iteration count passed WINDOW)."""
+        converged bit (the driver's MAP iteration count passed WINDOW),
+        ``cap`` says the MAP loop stops after it (its last iteration), so
+        that it takes the M-step sums whatever its flag."""
         global launches
-        self._step(self._addr, self.parity, self.head, 1 if gate else 0)
+        self._step(self._addr, self.parity, self.head, int(gate), int(cap))
         launches += 1
         self.parity ^= 1
         self.head = (self.head - 1) % self._rows
@@ -315,3 +363,129 @@ class TickWorkspace:
     def votes(self) -> torch.Tensor:
         """The last step's votes (zeroed by the next step)."""
         return self._votes[self.parity ^ 1]
+
+
+class BatchTickWorkspace:
+    """The batched EM driver's MAP-iteration state on the card: the state of
+    :class:`TickWorkspace` for each of ``batch`` lanes of one bucket, one
+    launch per MAP iteration for every lane still running.
+
+    Per lane the buffers are rows of stacked tensors; each lane has its own
+    ticket, flag word, parity word (flipped by the launch, so a lane that
+    stops keeps its labels where they are) and active word (set by
+    :meth:`begin_em` for the lanes that run that EM iteration, cleared by
+    the launch that stops a lane's MAP loop).  The ring's ``head`` is
+    shared: every running lane starts each EM iteration together, and a
+    stopped lane writes nothing.
+
+    A solve calls :meth:`start` once with the stack (``Hoods`` and
+    ``EnergyModel`` whose tensors carry a leading lane axis, the element
+    arrays ``(B, capacity)``, the labels ``(B, n_vertices)``),
+    :meth:`begin_em` at each EM iteration with ``(B, K)`` parameters and the
+    lanes that run it, then per MAP iteration ``step(gate, cap)`` and
+    :meth:`flags` (one wait, B words; a word is the last launch's only for
+    a lane that ran in it).  ``labels``, ``votes``, ``hood_e``, ``ring``
+    and ``stats`` are the lanes' views as :class:`TickWorkspace` has them.
+    """
+
+    def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3):
+        dev = _check_shape("BatchTickWorkspace", shape, precision, device)
+        if batch < 1:
+            raise ValueError(f"BatchTickWorkspace needs batch >= 1, got {batch}")
+        self.shape, self.batch, self.device, self.precision = shape, batch, dev, precision
+        self.capacity, nh, nv, n_labels = shape
+        self.n_hoods, self.n_vertices, self.n_labels = nh, nv, n_labels
+        f32, i32 = torch.float32, torch.int32
+        self._labels = torch.zeros((batch, 2, nv), dtype=i32, device=dev)
+        self._votes = torch.zeros((batch, 2, n_labels, nv), dtype=f32, device=dev)
+        self.ring = torch.zeros((batch, window + 1, nh), dtype=f32, device=dev)
+        self.hood_e = torch.zeros((batch, nh), dtype=f32, device=dev)
+        self.stats = torch.zeros((batch, 3, n_labels), dtype=f32, device=dev)
+        # Per lane: flag, parity, active.
+        self._words = torch.zeros((3, batch), dtype=i32, device=dev)
+        self._sync = torch.zeros((batch, 2), dtype=i32, device=dev)
+        self._active_host = torch.zeros((batch,), dtype=i32).pin_memory()
+        self._host = _HostWord(batch)
+        self._lane = torch.arange(batch, device=dev)
+        self._plan = p = _TickBatchPlan()
+        p.labels, p.votes, p.ring = self._labels.data_ptr(), self._votes.data_ptr(), self.ring.data_ptr()
+        p.hood_e, p.stats, p.sync = self.hood_e.data_ptr(), self.stats.data_ptr(), self._sync.data_ptr()
+        p.flag_dev, p.parity, p.active = (self._words[i].data_ptr() for i in range(3))
+        p.flag_host_dev, p.flag_host = self._host.device, self._host.host
+        p.batch, p.capacity, p.hist_rows = batch, self.capacity, window + 1
+        p.n_hoods, p.n_vertices, p.n_labels = nh, nv, n_labels
+        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index, conv_tol
+        self._addr = ctypes.addressof(p)
+        self._step = _entry("repro_em_tick_step_batched")
+        self._wait = _entry("repro_em_tick_wait_batched")
+        self._flags = (ctypes.c_int * batch)()
+        self._flags_addr = ctypes.addressof(self._flags)
+        self._rows = window + 1
+        self.head = 0
+
+    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        """Bind a stack's solve (every tensor with a leading lane axis of
+        ``batch``) and copy its initial labels in; every lane inactive until
+        :meth:`begin_em`.  The MAP loop runs on the current stream."""
+        dev, f32, lead = self.device, torch.float32, (self.batch,)
+        _check_problem(_require_batch, self.shape, hoods, model, lead, dev)
+        for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
+            _require_batch(t, name, f32, lead + (self.capacity,), dev)
+        _require_batch(labels0, "labels0", torch.int32, lead + (self.n_vertices,), dev)
+        beta = model.beta.to(f32).reshape(self.batch).contiguous()
+        _require_batch(beta, "beta", f32, lead, dev)
+        self._keep = (hoods.vertex, hoods.offsets, model.region_mean, model.region_weight, beta,
+                      y, w, nall_e, valid)
+        p = self._plan
+        p.vertex, p.offsets = hoods.vertex.data_ptr(), hoods.offsets.data_ptr()
+        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
+        p.beta = beta.data_ptr()
+        p.y, p.w, p.nall, p.valid = (t.data_ptr() for t in (y, w, nall_e, valid))
+        p.stream = torch.cuda.current_stream(dev).cuda_stream
+        # Each lane keeps its parity from the last solve: the vote buffer
+        # it points at was zeroed by that solve's last launch.
+        self._words[2].zero_()  # every lane inactive until begin_em
+        self._labels[self._lane, self._words[1].long()] = labels0
+
+    def begin_em(self, mu, sigma, active) -> None:
+        """An EM iteration's ``(B, K)`` parameters (``sigma`` already
+        clamped at ``sigma_min``) and the lanes that run it (``active``, B
+        booleans on the host); empties the history rings."""
+        for name, t in (("mu", mu), ("sigma", sigma)):
+            _require_batch(t, name, torch.float32, (self.batch, self.n_labels), self.device)
+        self._params = (mu, sigma)
+        self._plan.mu, self._plan.sigma = mu.data_ptr(), sigma.data_ptr()
+        self._active_host.copy_(torch.as_tensor([bool(a) for a in active], dtype=torch.int32))
+        self._words[2].copy_(self._active_host, non_blocking=True)
+        self.ring.zero_()
+        self.head = 0
+
+    def step(self, gate: bool, cap: bool = False) -> None:
+        """One MAP iteration of every active lane: one launch (``gate`` and
+        ``cap`` as in :meth:`TickWorkspace.step`)."""
+        global launches, launches_batched
+        self._step(self._addr, self.head, int(gate), int(cap))
+        launches += 1
+        launches_batched += 1
+        self.head = (self.head - 1) % self._rows
+
+    def flags(self) -> list:
+        """Wait for the last step and return the B flag words."""
+        self._wait(self._addr, self._flags_addr)
+        return list(self._flags)
+
+    @property
+    def active(self) -> torch.Tensor:
+        """The lanes' active words (1: the lane runs the next step)."""
+        return self._words[2]
+
+    @property
+    def labels(self) -> torch.Tensor:
+        """(B, n_vertices): each lane's current labels."""
+        return self._labels[self._lane, self._words[1].long()]
+
+    @property
+    def votes(self) -> torch.Tensor:
+        """(B, K, n_vertices): each lane's last step's votes."""
+        return self._votes[self._lane, (self._words[1] ^ 1).long()]

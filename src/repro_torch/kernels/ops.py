@@ -12,7 +12,10 @@ There is no fallback: a CUDA tensor that reaches a kernel that fails to
 build or launch raises.  Each kernel module counts its launches;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts`
 zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
-of the flash launches).
+of the flash launches, and ``em_tick.launches_batched``, the batched
+entry's share of the tick's).  :data:`WORKSPACE_BUILDS` counts the
+MAP-iteration workspaces built in this process: a session builds one per
+bucket and reuses it, so a warm solve adds none.
 """
 
 from __future__ import annotations
@@ -30,17 +33,23 @@ from repro_torch.kernels import segment_reduce as _segment_reduce
 
 BACKENDS = ("auto", "torch")
 FLAG_CONVERGED, FLAG_DIVERGED = ref.FLAG_CONVERGED, ref.FLAG_DIVERGED
+TickShape = ref.TickShape
+
+#: MAP-iteration workspaces built in this process (every kind).
+WORKSPACE_BUILDS = 0
 
 
-def _use_kernel(backend: Optional[str], tensor: torch.Tensor) -> bool:
-    """True when a call on ``tensor`` with ``backend`` goes to the kernel."""
+def _use_kernel(backend: Optional[str], where) -> bool:
+    """True when a call on ``where`` (a tensor or a device) with ``backend``
+    goes to the kernel."""
+    device = torch.device(where.device if isinstance(where, torch.Tensor) else where)
     if backend in (None, "auto"):
-        if tensor.device.type == "cuda":
+        if device.type == "cuda":
             return True
-        if tensor.device.type == "cpu":
+        if device.type == "cpu":
             return False
         raise ValueError(
-            f"no route for a tensor on {tensor.device}: the kernels are CUDA "
+            f"no route for a tensor on {device}: the kernels are CUDA "
             "and the plain path runs on the CPU or with backend='torch'"
         )
     if backend == "torch":
@@ -63,6 +72,7 @@ def reset_launch_counts() -> None:
     for module in (_em_tick, _flash_attention, _map_step, _mrf_energy, _segment_reduce):
         module.launches = 0
     _flash_attention.launches_tc = 0
+    _em_tick.launches_batched = 0
 
 
 def segment_reduce(
@@ -121,20 +131,35 @@ def fused_em_tick(
 
 
 def tick_workspace(
-    hoods,
-    model,
+    shape: TickShape,
     *,
+    device,
+    batch: Optional[int] = None,
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
     window: int = 3,
     backend: Optional[str] = None,
 ):
-    """The single-device EM driver's MAP-iteration workspace for a plan's
-    ``hoods`` and energy ``model``: :class:`em_tick.TickWorkspace` (one
-    kernel launch per MAP iteration) for CUDA tensors, else
-    :class:`ref.PlainTickWorkspace` (``ref.fused_map_iteration``)."""
-    cls = _em_tick.TickWorkspace if _use_kernel(backend, hoods.vertex) else ref.PlainTickWorkspace
-    return cls(hoods, model, precision=precision, conv_tol=conv_tol, window=window)
+    """The EM driver's MAP-iteration workspace for a bucket's ``shape``
+    (``TickShape.of(hoods, model)`` for one problem) on ``device``: built
+    from the shapes alone, bound to a solve by its ``start``.  With
+    ``batch=None`` the single-device route's (:class:`em_tick.TickWorkspace`,
+    one kernel launch per MAP iteration, on a CUDA device; else
+    :class:`ref.PlainTickWorkspace`); with ``batch=B`` the batched driver's
+    for B lanes (:class:`em_tick.BatchTickWorkspace`, one launch per MAP
+    iteration for all running lanes; else
+    :class:`ref.PlainBatchTickWorkspace`)."""
+    global WORKSPACE_BUILDS
+    kernel = _use_kernel(backend, device)
+    kw = dict(device=device, precision=precision, conv_tol=conv_tol, window=window)
+    if batch is None:
+        cls = _em_tick.TickWorkspace if kernel else ref.PlainTickWorkspace
+        ws = cls(TickShape(*shape), **kw)
+    else:
+        cls = _em_tick.BatchTickWorkspace if kernel else ref.PlainBatchTickWorkspace
+        ws = cls(TickShape(*shape), batch, **kw)
+    WORKSPACE_BUILDS += 1
+    return ws
 
 
 def map_step_workspace(
@@ -151,8 +176,11 @@ def map_step_workspace(
     a partition (``distributed.partition_hoods(hoods, n_shards)``):
     :class:`map_step.MapStepWorkspace` (one kernel launch per MAP
     iteration) for CUDA tensors, else :class:`ref.PlainMapStepWorkspace`."""
+    global WORKSPACE_BUILDS
     cls = _map_step.MapStepWorkspace if _use_kernel(backend, hoods.vertex) else ref.PlainMapStepWorkspace
-    return cls(hoods, model, rank=rank, n_shards=n_shards, conv_tol=conv_tol, window=window)
+    ws = cls(hoods, model, rank=rank, n_shards=n_shards, conv_tol=conv_tol, window=window)
+    WORKSPACE_BUILDS += 1
+    return ws
 
 
 def fused_map_step(

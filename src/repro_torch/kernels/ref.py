@@ -10,7 +10,7 @@ arithmetic does.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -20,6 +20,20 @@ Tensor = torch.Tensor
 #: the CUDA kernel's ``TickWorkspace``).
 FLAG_CONVERGED = 1  # every hood inside its convergence window, gate open
 FLAG_DIVERGED = 2   # a hood energy is not finite
+
+
+class TickShape(NamedTuple):
+    """The shapes a MAP-iteration workspace is built for (a bucket's):
+    element capacity, hoods, vertices (regions + the sentinel) and K."""
+
+    capacity: int
+    n_hoods: int
+    n_vertices: int
+    n_labels: int
+
+    @classmethod
+    def of(cls, hoods, model) -> "TickShape":
+        return cls(hoods.capacity, hoods.n_hoods, hoods.n_regions + 1, model.n_labels)
 
 
 def _spare_bucket(keys: Tensor, num_segments: int) -> Tensor:
@@ -287,22 +301,28 @@ class PlainTickWorkspace:
     """The plain version of ``em_tick.TickWorkspace`` (same methods and
     views), one :func:`fused_map_iteration` per step: the single-device
     EM driver's route on the CPU, or on the card with ``backend="torch"``.
+    Its ``stats`` are every step's M-step sums (the kernel's only those of
+    a step that stops the MAP loop, which are the ones the driver reads).
     """
 
-    def __init__(self, hoods, model, *, precision: str = "f32", conv_tol: float = 1.0e-4,
-                 window: int = 3):
-        self.device, self.precision, self.n_labels = hoods.vertex.device, precision, model.n_labels
-        self._hoods, self._model, self._conv_tol = hoods, model, conv_tol
-        n_vertices = hoods.n_regions + 1
-        self.ring = torch.zeros((window + 1, hoods.n_hoods), dtype=torch.float32, device=self.device)
-        self.labels = torch.zeros((n_vertices,), dtype=torch.int32, device=self.device)
-        self.hood_e = torch.zeros((hoods.n_hoods,), dtype=torch.float32, device=self.device)
-        self.votes = torch.zeros((model.n_labels, n_vertices), dtype=torch.float32, device=self.device)
-        self.stats = torch.zeros((3, model.n_labels), dtype=torch.float32, device=self.device)
+    def __init__(self, shape: TickShape, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3):
+        self.shape, self.device, self.precision = shape, torch.device(device), precision
+        self.n_labels, self._conv_tol = shape.n_labels, conv_tol
+        f32 = torch.float32
+        self.ring = torch.zeros((window + 1, shape.n_hoods), dtype=f32, device=self.device)
+        self.labels = torch.zeros((shape.n_vertices,), dtype=torch.int32, device=self.device)
+        self.hood_e = torch.zeros((shape.n_hoods,), dtype=f32, device=self.device)
+        self.votes = torch.zeros((shape.n_labels, shape.n_vertices), dtype=f32, device=self.device)
+        self.stats = torch.zeros((3, shape.n_labels), dtype=f32, device=self.device)
         self.head = 0
         self._flag = torch.zeros((), dtype=torch.int32)
 
-    def start(self, y, w, nall_e, valid, labels0) -> None:
+    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        if TickShape.of(hoods, model) != self.shape:
+            raise ValueError(f"a problem of {TickShape.of(hoods, model)}; the workspace was "
+                             f"built for {self.shape}")
+        self._hoods, self._model = hoods, model
         self._elements = (y, w, nall_e, valid)
         self.labels = labels0.clone()
 
@@ -313,7 +333,7 @@ class PlainTickWorkspace:
         self.ring.zero_()
         self.head = 0
 
-    def step(self, gate: bool) -> None:
+    def step(self, gate: bool, cap: bool = False) -> None:
         h, m = self._hoods, self._model
         y, w, nall_e, valid = self._elements
         self.labels, self.hood_e, self.votes, self._flag, *sums = fused_map_iteration(
@@ -327,6 +347,110 @@ class PlainTickWorkspace:
 
     def flag(self) -> int:
         return int(self._flag)
+
+
+def fused_map_iteration_batched(
+    y: Tensor,
+    w: Tensor,
+    nall_e: Tensor,
+    valid: Tensor,
+    hood_id: Tensor,
+    vertex: Tensor,
+    region_mean: Tensor,
+    region_weight: Tensor,
+    ring: Tensor,
+    head: int,
+    labels: Tensor,
+    votes: Tensor,
+    hood_e: Tensor,
+    stats: Tensor,
+    flags: Tensor,
+    active: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    beta: Tensor,
+    *,
+    gate: bool,
+    cap: bool,
+    n_hoods: int,
+    n_vertices: int,
+    precision: str = "f32",
+    conv_tol: float = 1.0e-4,
+    log_sigma: Optional[Tensor] = None,
+) -> None:
+    """One MAP iteration of every active lane of a stack, in place: the
+    plain version of the batched tick.  Every argument but ``head`` and the
+    keywords carries a leading lane axis (``beta`` (B,), ``active`` (B,)
+    bool, ``flags`` (B,) int32).  Lane b, if ``active[b]``, runs
+    :func:`fused_map_iteration` on its rows and writes its ``labels``,
+    ``votes``, ``hood_e``, ring row and flag word; if the lane stops (its
+    flag word set, or ``cap``) it also writes its M-step sums into
+    ``stats`` and clears ``active[b]``.  An inactive lane's rows stay as
+    they were."""
+    for b in torch.nonzero(active).flatten().tolist():
+        new_labels, he, v, flag, *sums = fused_map_iteration(
+            y[b], w[b], nall_e[b], valid[b], hood_id[b], vertex[b], region_mean[b],
+            region_weight[b], ring[b], head, labels[b], mu[b], sigma[b], beta[b], gate=gate,
+            n_hoods=n_hoods, n_vertices=n_vertices, precision=precision, conv_tol=conv_tol,
+            log_sigma=None if log_sigma is None else log_sigma[b],
+        )
+        labels[b], votes[b], hood_e[b], flags[b] = new_labels, v, he, flag
+        if int(flag) or cap:
+            stats[b] = torch.stack(sums)
+            active[b] = False
+
+
+class PlainBatchTickWorkspace:
+    """The plain version of ``em_tick.BatchTickWorkspace`` (same methods
+    and views), one :func:`fused_map_iteration_batched` per step: the
+    batched EM driver's route on the CPU, or on the card with
+    ``backend="torch"``."""
+
+    def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3):
+        self.shape, self.batch = shape, batch
+        self.device, self.precision = torch.device(device), precision
+        self.n_labels, self._conv_tol = shape.n_labels, conv_tol
+        dev, f32 = self.device, torch.float32
+        self.ring = torch.zeros((batch, window + 1, shape.n_hoods), dtype=f32, device=dev)
+        self.labels = torch.zeros((batch, shape.n_vertices), dtype=torch.int32, device=dev)
+        self.votes = torch.zeros((batch, shape.n_labels, shape.n_vertices), dtype=f32, device=dev)
+        self.hood_e = torch.zeros((batch, shape.n_hoods), dtype=f32, device=dev)
+        self.stats = torch.zeros((batch, 3, shape.n_labels), dtype=f32, device=dev)
+        self.active = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        self._flags = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.head = 0
+
+    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        if TickShape.of(hoods, model) != self.shape or labels0.shape[0] != self.batch:
+            raise ValueError(f"a stack of {labels0.shape[0]} problems of "
+                             f"{TickShape.of(hoods, model)}; the workspace was built for "
+                             f"{self.batch} of {self.shape}")
+        self._hoods, self._model = hoods, model
+        self._elements = (y, w, nall_e, valid)
+        self.labels.copy_(labels0)
+        self.active.zero_()
+
+    def begin_em(self, mu, sigma, active, log_sigma=None) -> None:
+        """``log_sigma`` (B, K), when given, stands for ``torch.log(sigma)``."""
+        self._params, self._log_sigma = (mu, sigma), log_sigma
+        self.active.copy_(torch.as_tensor([bool(a) for a in active]))
+        self.ring.zero_()
+        self.head = 0
+
+    def step(self, gate: bool, cap: bool = False) -> None:
+        h, m = self._hoods, self._model
+        fused_map_iteration_batched(
+            *self._elements, h.hood_id, h.vertex, m.region_mean, m.region_weight, self.ring,
+            self.head, self.labels, self.votes, self.hood_e, self.stats, self._flags,
+            self.active, *self._params, m.beta, gate=gate, cap=cap, n_hoods=h.n_hoods,
+            n_vertices=h.n_regions + 1, precision=self.precision, conv_tol=self._conv_tol,
+            log_sigma=self._log_sigma,
+        )
+        self.head = (self.head - 1) % int(self.ring.shape[1])
+
+    def flags(self) -> list:
+        return self._flags.tolist()
 
 
 class PlainMapStepWorkspace:

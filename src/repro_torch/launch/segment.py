@@ -2,9 +2,14 @@
 
 Counterpart of ``repro.launch.segment``.  Generates a corrupted synthetic
 volume (binary porous media, or K phases with ``--labels K``), segments
-each slice with ``Segmenter`` in mode ``static-pallas`` and prints one
-JSON line per slice: accuracy against the ground truth, ``em_iters``,
-``map_iters``, ``status``, ``init_s`` and ``optimize_s``.
+its slices with ``Segmenter.segment_stack`` in mode ``static-pallas``
+(``--batch always``: the whole stack as one batched solve under its joint
+bucket; ``never``: slice by slice; ``auto``: batched on the card when the
+slices' capacities are within 2x), ``--repeat`` times on one session, and
+prints one JSON line per repeat (wall time, mean ``optimize_s``, the
+executable cache's hits and misses), then one per slice of the last
+repeat (accuracy against the ground truth, ``em_iters``, ``map_iters``,
+``status``, ``init_s``, ``optimize_s``) and a summary line.
 
 ``--shards N`` runs the sharded route with one process per shard, under
 ``torchrun --nproc-per-node N``: each rank joins the default process group
@@ -16,6 +21,7 @@ already is used as it is.
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.segment --size 512 --grid 32 --labels 2 --seed 0
+    PYTHONPATH=src python -m repro_torch.launch.segment --slices 16 --batch always --repeat 3
     PYTHONPATH=src python -m repro_torch.launch.segment --size 64 --grid 8 --device cpu
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.segment --shards 2
 """
@@ -25,6 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 from typing import List, Optional
 
 import torch
@@ -39,8 +46,8 @@ def _shards(value: str) -> int:
     if value == "auto":
         raise NotImplementedError(
             "--shards auto picks the shard count from the calibrated cost "
-            "model, which is not ported to repro_torch yet (ROADMAP.md Queue 1 "
-            "item 9); pass a number"
+            "model, which is not ported to repro_torch yet (ROADMAP.md Queue 1, "
+            "'planning/'); pass a number"
         )
     n = int(value)
     if n < 1:
@@ -75,6 +82,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     ap.add_argument("--device", default=None, help="default: the CUDA device")
     ap.add_argument("--shards", default="1", metavar="N",
                     help="ranks of the sharded route, one process each under torchrun")
+    ap.add_argument("--batch", choices=("auto", "always", "never"), default="auto",
+                    help="segment_stack's batching of the slices")
+    ap.add_argument("--repeat", type=int, default=1, help="stack solves on one session")
     args = ap.parse_args(argv)
     shards = _shards(args.shards)
 
@@ -112,9 +122,15 @@ def _run(args, device: torch.device, shards: int) -> List[dict]:
         ),
         device=device,
     )
+    results = None
+    for r in range(max(1, args.repeat)):
+        t0 = time.perf_counter()
+        results, mean_opt = sess.segment_stack(vol.images, seed=args.seed, batch=args.batch)
+        if rank0:
+            print(json.dumps({"repeat": r, "wall_s": time.perf_counter() - t0,
+                              "mean_optimize_s": mean_opt, "cache": sess.stats.as_dict()}))
     rows = []
-    for i in range(args.slices):
-        res = sess.segment(vol.images[i], seed=args.seed)
+    for i, res in enumerate(results):
         gt = vol.ground_truth[i]
         if args.labels > 2:
             acc = M.multiclass_accuracy(res.segmentation, gt, args.labels)
@@ -134,6 +150,16 @@ def _run(args, device: torch.device, shards: int) -> List[dict]:
         if rank0:
             print(json.dumps(row))
         rows.append(row)
+    if rank0:
+        print(json.dumps({
+            "mean_accuracy": float(sum(r["accuracy"] for r in rows) / len(rows)),
+            "mean_optimize_s": float(sum(r["optimize_s"] for r in rows) / len(rows)),
+            "labels": args.labels,
+            "batch": args.batch,
+            "backend": sess.config.resolved_backend(device),
+            "shards": shards,
+            "executables_cached": len(sess.cache_keys),
+        }))
     return rows
 
 

@@ -3,7 +3,7 @@
 Counterpart of ``repro.models.registry``.  The port serves the ``dense``
 family; every other family raises :class:`NotImplementedError` naming the
 ROADMAP item that ports it.  The loss is not part of the port's API yet:
-it belongs to training (ROADMAP.md Queue 1 item 13).
+it belongs to training (ROADMAP.md Queue 1, 'LM stack, still to port').
 """
 
 from __future__ import annotations
@@ -50,6 +50,6 @@ def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet: "
-            f"{_NOT_PORTED[cfg.family]} (ROADMAP.md Queue 1 item 13)"
+            f"{_NOT_PORTED[cfg.family]} (ROADMAP.md Queue 1, 'LM stack, still to port')"
         )
     raise ValueError(f"unknown model family {cfg.family!r}")

@@ -74,17 +74,41 @@ def state_on_cpu(plan):
     return args, kw, labels, sctx
 
 
+def _bound_workspace(hoods, model, elements, labels, **kw):
+    """The checkout's single-device workspace, bound to a solve: built from
+    the bucket's shapes (``ops.TickShape``) where the checkout has them,
+    else from the problem."""
+    if hasattr(ops, "TickShape"):
+        ws = ops.tick_workspace(ops.TickShape.of(hoods, model), device=hoods.vertex.device, **kw)
+        ws.start(hoods, model, *elements, labels)
+    else:
+        ws = ops.tick_workspace(hoods, model, **kw)
+        ws.start(*elements, labels)
+    return ws
+
+
+def _stopping_step(ws) -> None:
+    """One gated step that takes the M-step sums (on checkouts whose
+    workspace takes them only in the launch that stops the MAP loop, the
+    cap bit)."""
+    if hasattr(ops, "TickShape"):
+        ws.step(True, True)
+    else:
+        ws.step(True)
+
+
 def workspace_bits(plan, args, labels, sctx, precision):
     """One step of the checkout's workspace from the same state (the ring
     holding ``hist`` with head 0), as the entry's outputs."""
     dev = plan.problem.hoods.vertex.device
-    ws = ops.tick_workspace(plan.problem.hoods, plan.problem.model, precision=precision,
-                            conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
-    ws.start(*(t.to(dev) for t in (sctx.y, sctx.w, sctx.nall_e, sctx.validf)), labels.to(dev))
+    ws = _bound_workspace(plan.problem.hoods, plan.problem.model,
+                          [t.to(dev) for t in (sctx.y, sctx.w, sctx.nall_e, sctx.validf)],
+                          labels.to(dev), precision=precision, conv_tol=em_mod.CONV_TOL,
+                          window=em_mod.WINDOW)
     ws.begin_em(args[10].to(dev), args[11].to(dev))
     ws.ring.copy_(args[9])
     ws.head = 0
-    ws.step(True)
+    _stopping_step(ws)
     flag = ws.flag()
     conv = torch.tensor(bool(flag & ops.FLAG_CONVERGED))
     return (ws.labels, ws.hood_e, ws.votes, conv, *ws.stats)
@@ -103,8 +127,8 @@ def map_step_ms(plan, args, labels, sctx, steps: int = 200) -> dict:
     labels = labels.to(dev)
     card = [t.to(dev) for t in (sctx.y, sctx.w, sctx.nall_e, sctx.validf)]
     if hasattr(ops, "tick_workspace"):
-        ws = ops.tick_workspace(hoods, model, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
-        ws.start(*card, labels)
+        ws = _bound_workspace(hoods, model, card, labels, conv_tol=em_mod.CONV_TOL,
+                              window=em_mod.WINDOW)
         ws.begin_em(mu, sig)
         ws.ring.copy_(hist)
 

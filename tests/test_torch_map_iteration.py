@@ -10,14 +10,17 @@ runs it on a plan-owned workspace.
 * A NaN in one hood, or a NaN sigma, sets the diverged bit and ends the
   solve as the driver always did: diverged after one EM and one MAP
   iteration.
-* Solves on one plan share its workspace and each equals a solve on a fresh
-  plan, so no state leaks from one solve to the next.
+* Solves in one bucket share its workspace (the session's executable) and
+  each equals a solve on a fresh plan, so no state leaks from one solve to
+  the next.
 
 The problems are small synthetic slices planned by the port on the CPU;
 ``tests/test_torch_em.py`` holds the same driver to the JAX ``run_em``
 and the live oracle.  A test marked ``cuda`` holds the kernel's workspace
 to the plain one on the card and skips without one.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -64,8 +67,8 @@ class _Lockstep(ref.PlainTickWorkspace):
     the driver ran before it had a workspace, which keeps its own labels
     and its own history (rolled with ``torch.cat``)."""
 
-    def start(self, y, w, nall_e, valid, labels0):
-        super().start(y, w, nall_e, valid, labels0)
+    def start(self, hoods, model, y, w, nall_e, valid, labels0):
+        super().start(hoods, model, y, w, nall_e, valid, labels0)
         self.old_labels = labels0.clone()
         self.steps = 0
 
@@ -74,7 +77,7 @@ class _Lockstep(ref.PlainTickWorkspace):
         self.old_hist = torch.zeros_like(self.ring)
         self.old_i = 0
 
-    def step(self, gate):
+    def step(self, gate, cap=False):
         h, m = self._hoods, self._model
         y, w, nall_e, valid = self._elements
         xf = self.old_labels[h.vertex.long()].to(torch.float32) * valid
@@ -87,7 +90,7 @@ class _Lockstep(ref.PlainTickWorkspace):
         self.old_i += 1
         assert gate == (self.old_i > em_mod.WINDOW)
         flag = int(bool(conv) and gate) | 2 * int(not bool(torch.all(torch.isfinite(hood_e))))
-        super().step(gate)
+        super().step(gate, cap)
         what = f"step {self.steps}"
         assert _same(self.labels, labels), what
         assert _same(self.votes, votes), what
@@ -108,8 +111,8 @@ def test_map_iteration_equals_old_composition_over_a_solve(n_labels, precision):
     prob = _problem(n_labels)
     labels0, mu0, sigma0 = pipeline.initial_params(prob, 0, "quantile")
     config = em_mod.EMConfig(precision=precision)
-    ws = _Lockstep(prob.hoods, prob.model, precision=precision, conv_tol=em_mod.CONV_TOL,
-                   window=em_mod.WINDOW)
+    ws = _Lockstep(ref.TickShape.of(prob.hoods, prob.model), device="cpu", precision=precision,
+                   conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
     res = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, config, workspace=ws)
     assert ws.steps == res.map_iters > em_mod.WINDOW
     assert res.status in (em_mod.STATUS_CONVERGED, em_mod.STATUS_MAX_ITERS)
@@ -181,7 +184,8 @@ def test_nan_ends_the_solve_as_diverged(where):
             seen.append(super().flag())
             return seen[-1]
 
-    ws = Watch(prob.hoods, model, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+    ws = Watch(ref.TickShape.of(prob.hoods, model), device="cpu", conv_tol=em_mod.CONV_TOL,
+               window=em_mod.WINDOW)
     res = em_mod.run_em(prob.hoods, model, labels0, mu0, sigma0, em_mod.EMConfig(), workspace=ws)
     assert seen == [ref.FLAG_DIVERGED]
     assert (res.status, res.em_iters, res.map_iters) == (em_mod.STATUS_DIVERGED, 1, 1)
@@ -192,10 +196,11 @@ def test_solves_on_one_plan_share_the_workspace_without_leaks():
     seg = api.Segmenter(api.ExecutionConfig(n_labels=3, overseg_grid=(6, 6), init="random"),
                         device="cpu")
     plan = seg.plan(vol.images[0])
+    builds = ops.WORKSPACE_BUILDS
     first = seg.execute(plan, seed=1)
-    (ws,) = plan.workspaces.values()
+    ws = seg.compile(plan).workspace
     second = seg.execute(plan, seed=2)
-    assert list(plan.workspaces.values()) == [ws]
+    assert seg.compile(plan).workspace is ws and ops.WORKSPACE_BUILDS == builds + 1
     for seed, got in ((1, first), (2, second)):
         fresh = seg.execute(seg.plan(vol.images[0]), seed=seed)
         np.testing.assert_array_equal(got.region_labels, fresh.region_labels)
@@ -205,9 +210,12 @@ def test_solves_on_one_plan_share_the_workspace_without_leaks():
             fresh.em_iters, fresh.map_iters, fresh.status, fresh.total_energy)
     assert first.map_iters != second.map_iters or not np.array_equal(
         first.region_labels, second.region_labels)
+    assert seg.compile(plan).workspace is ws and ops.WORKSPACE_BUILDS == builds + 1
     # Another precision on the same plan gets a workspace of its own.
-    api.Segmenter(seg.config.with_(precision="bf16"), device="cpu").execute(plan, seed=1)
-    assert sorted(plan.workspaces) == [("bf16", "auto"), ("f32", "auto")]
+    bf16 = api.Segmenter(seg.config.with_(precision="bf16"), device="cpu")
+    bf16.execute(plan, seed=1)
+    assert bf16.compile(plan).workspace.precision == "bf16" and ws.precision == "f32"
+    assert ops.WORKSPACE_BUILDS == builds + 2
 
 
 def test_workspace_routes_and_refusals():
@@ -216,16 +224,17 @@ def test_workspace_routes_and_refusals():
     for another precision or K is refused by the driver."""
     prob = _problem(2)
     ops.reset_launch_counts()
-    ws = ops.tick_workspace(prob.hoods, prob.model)
+    shape = ref.TickShape.of(prob.hoods, prob.model)
+    ws = ops.tick_workspace(shape, device="cpu")
     assert isinstance(ws, ref.PlainTickWorkspace)
     labels0, mu0, sigma0 = pipeline.initial_params(prob, 0, "quantile")
     em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, workspace=ws)
     assert ops.launch_counts()["fused_em_tick"] == 0
-    with pytest.raises(ValueError, match="CUDA"):
-        em_tick.TickWorkspace(prob.hoods, prob.model)
-    with pytest.raises(ValueError, match="227 KB"):
-        em_tick.TickWorkspace(prob.hoods, prob.model._replace(
-            reseed_mu=torch.zeros(em_tick.MAX_LABELS + 1)))
+    for cls in (em_tick.TickWorkspace, functools.partial(em_tick.BatchTickWorkspace, batch=2)):
+        with pytest.raises(ValueError, match="CUDA"):
+            cls(shape, device="cpu")
+        with pytest.raises(ValueError, match="227 KB"):
+            cls(shape._replace(n_labels=em_tick.MAX_LABELS + 1), device="cpu")
     assert _build._libs == {}
     with pytest.raises(ValueError, match="precision"):
         em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0,

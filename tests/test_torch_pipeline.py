@@ -76,7 +76,11 @@ def test_launcher_end_to_end_on_cpu(labels, capsys):
         ["--size", "64", "--grid", "8", "--labels", str(labels), "--seed", "0", "--device", "cpu"]
     )
     lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
-    assert lines == rows and len(rows) == 1
+    # One line per repeat of the stack, one per slice, then the summary.
+    repeat, *slices, summary = lines
+    assert slices == rows and len(rows) == 1
+    assert repeat["repeat"] == 0 and repeat["cache"] == {"hits": 0, "misses": 1, "evictions": 0}
+    assert summary["mean_accuracy"] == rows[0]["accuracy"] and summary["batch"] == "auto"
     row = rows[0]
     assert set(row) >= {"accuracy", "em_iters", "map_iters", "status", "optimize_s"}
     assert row["status"] in ("converged", "max_iters") and row["device"] == "cpu"

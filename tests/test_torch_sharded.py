@@ -348,7 +348,7 @@ def test_session_and_launcher_validate_shards(monkeypatch):
         assert res.ok and plan.partitions == {}
     finally:
         dist.destroy_process_group()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, 'planning/'"):
         launch_segment.main(["--shards", "auto", "--device", "cpu"])
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(RuntimeError, match="torchrun"):

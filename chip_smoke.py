@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives four paths:
+PyTorch version on the card, and drives five paths (serving last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
@@ -18,6 +18,13 @@ PyTorch version on the card, and drives four paths:
   ``Segmenter.segment_stack(batch="always")``, one ``run_em_batched`` per
   stack (per lockstep MAP iteration one launch of the tick's lane axis for
   every running lane, on the bucket's ``BatchTickWorkspace``);
+* serving: 24 K = 2 requests (512x512 slices) through
+  ``SegmentationEngine(max_batch=8)``, with ``tick_iters=4`` and
+  ``"auto"``: per micro-step one launch of the tick's pool entry
+  (``PoolTickWorkspace``), every lane at its own MAP iteration, and
+  between ticks admission into freed slots; then a mixed-K pool (4 K = 2
+  and 4 K = 3 requests, K = 3 pool of 4 slots) and a chaos stream (a
+  ``bad_init``, a ``nan_data`` and a ``never_converge`` request among 8);
 * the sharded route: ``run_em_sharded`` on the same plans over a
   one-rank NCCL process group made in this process, on the rank's
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
@@ -44,9 +51,10 @@ bound; then the card's name and power limit as ``nvidia-smi
 script exits non-zero without that last line.  It also exits non-zero
 when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
-K = 2 solve of each segmentation path after 10 timed warm solves, and one
+K = 2 solve of each segmentation path after 10 timed warm solves, one
 LM prefill at S = 1024 and one decode step, with their device idle
-shares).  Float32 products run in full float32 (TF32 off, the defaults,
+shares, and, in a process of its own (``--serve-profile``), the tick's
+pool launch and a warm served stream).  Float32 products run in full float32 (TF32 off, the defaults,
 set explicitly).  After the build a ``ptxas`` line gives the registers
 and spills of the tensor-core flash kernels (any spill in the flash
 library fails the run); the
@@ -116,6 +124,33 @@ Tolerances (kernel against plain version, same inputs, on the card):
   drains), launches, the batched launch's ms and device us at B = 16
   against its bound; with ``--profile`` the stack solve's device
   operations and idle share.
+* Serving: every completion of the 24-request stream (both tick
+  policies) equals bit for bit (labels, mu, sigma, iteration counts,
+  status) its serial ``execute``, and so do the lanes of
+  ``segment_stack(batch="always")`` over the same slices; the tick's
+  launches are all the pool entry's, one per micro-step; no workspace is
+  built after the pool's set-up.  Mixed K: each request equals its serial
+  ``execute`` in its own K's session (a K = 2 lane's real labels, and its
+  padded label at the inert mu).  Chaos: the ``bad_init`` and ``nan_data``
+  lanes retire ``diverged``, as their serial runs on the same corrupted
+  inputs do, the ``never_converge`` lane is evicted, and the healthy lanes
+  are bit for bit their serial results.  ``pool_tick_check`` (B = 1, 3, 8
+  lanes of the stream, lane b starting its MAP loop at launch b mod 3 and
+  stopping at its cap of 6 or by convergence, every fourth lane from lane
+  1 never started): every launch bit for bit the plain pool step on the
+  CPU from the kernel's state (``PoolLockstep``: labels, votes, hood sums,
+  ring, M-step sums, MAP counters, active and flag words), each running
+  lane bit for bit the single-lane entry, the idle lanes untouched, and a
+  write to one slot leaving every other slot's buffers as they were.
+  ``serve_cpu_check``: every launch of a 6-request stream through 3 slots
+  (``tick_iters=3``, so lanes are admitted mid-stream) held the same way.
+  Printed: ticks, micro-steps, pool launches, occupancy, steps saved by
+  the early exit, requests/s, p50/p99 latency, the stack's and the serial
+  solve times; the pool launch at B = 8 (ms back to back, ms per
+  micro-step as the driver runs it, the plain step, the bound: the 8
+  lanes' MAP-step bytes).  With ``--profile``: its device us, that a
+  micro-step in which no lane stops is one kernel, no memset and no copy,
+  and the idle share of a warm served stream.
 * The plan: a second ``Segmenter.plan`` of the K = 2 slice's image on the
   card equals the first bit for bit (the label map and every ``Hoods``
   array); whether it equals the plan the plain path makes on the CPU is
@@ -239,6 +274,12 @@ PROFILER_SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock, before eac
 STACK = ((2, 16), (3, 4))  # (K, slices) of the stack phase: 512x512 slices, batch="always"
 BATCHED_CHECK_SIZES = (1, 3, 16)  # lanes at which the batched entry is held to its plain version
 STACK_REPEATS = 5  # timed drains of the K = 2 stack, batched and serial
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_TICK = 24, 8, 4  # the serve phase's K = 2 stream and engine
+SERVE_MIXED = 4  # K = 2 and as many K = 3 requests in the mixed-K pool
+SERVE_CPU_REQUESTS, SERVE_CPU_SLOTS, SERVE_CPU_TICK = 6, 3, 3  # serve_cpu_check's stream
+POOL_CHECK_SIZES = (1, 3, 8)  # slots at which the pool entry is held to its plain version
+POOL_CHECK_MAP_ITERS = 6  # the pool check's MAP cap: every lane reaches it inside the check
+NEVER_STOP = 1 << 30  # MAP cap of the timing pool (with tolerance 0 its lanes never stop)
 
 
 def emit(obj) -> None:
@@ -300,9 +341,12 @@ def device_profile(torch, fn) -> dict:
     kernel ``spin_kernel``), which is left out; it spins as long after
     ``fn`` too, since a trace has also lost one record of 20 MAP steps in
     three attempts running (the sharded MAP-step check)."""
+    import gc
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    gc.collect()  # no pinned host memory freed by the collector inside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(PROFILER_SPIN_CYCLES)
@@ -1402,6 +1446,467 @@ def time_batched_step(torch, ops, E, em_mod, exe, inputs, plans) -> dict:
     return out
 
 
+POOL_VIEWS = ("labels", "votes", "hood_e", "ring", "stats", "map_i", "mu", "sigma", "y", "w", "nall",
+              "valid", "vertex", "offsets", "region_mean", "region_weight", "beta")
+
+
+def pool_state(ws) -> dict:
+    """Every buffer of a pool workspace (``PoolTickWorkspace`` or its plain
+    version) a launch or a slot write may change, copied to the CPU; the
+    active words as booleans."""
+    out = {n: getattr(ws, n).to("cpu", copy=True) for n in POOL_VIEWS if hasattr(ws, n)}
+    out["active"] = ws.active.to("cpu", copy=True).bool()
+    return out
+
+
+class PoolLockstep:
+    """A kernel ``PoolTickWorkspace`` that, at every launch, copies its state
+    (every lane's inputs, labels, ring, MAP counter, active word, and the
+    card's ``log`` of each sigma) to a plain pool on the CPU
+    (``ref.PlainPoolTickWorkspace``), steps both, and holds the launch to the
+    plain step bit for bit: labels, votes, hood sums, ring, M-step sums,
+    MAP counters, active words, and the flag words of the lanes that ran.
+    ``launches`` counts the launches held, ``stopping`` the lanes whose MAP
+    loop a launch stopped (their M-step sums held).  Everything else is the
+    kernel pool's."""
+
+    def __init__(self, torch, kern, cpu):
+        self.torch, self.kern, self.cpu = torch, kern, cpu
+        self.launches = self.stopping = 0
+        self.max_abs_err = 0.0
+        self.owner = None
+
+    def __getattr__(self, name):
+        return getattr(self.kern, name)
+
+    def admit(self, slot, hoods, model, y, w, nall_e, valid, labels0):
+        self.kern.admit(slot, hoods, model, y, w, nall_e, valid, labels0)
+        self.cpu.hood_id[slot] = hoods.hood_id.cpu()
+
+    def step(self):
+        torch, k, c = self.torch, self.kern, self.cpu
+        before = pool_state(k)
+        for name, t in before.items():
+            if name != "offsets":
+                getattr(c, name).copy_(t)
+        c.log_sigma = torch.log(k.sigma).cpu()
+        k.step()
+        c.step()
+        flags, cflags = k.flags(), c.flags()
+        after = pool_state(k)
+        ran = before["active"].tolist()
+        self.launches += 1
+        self.stopping += sum(r and not a for r, a in zip(ran, after["active"].tolist()))
+        what = f"pool launch {self.launches}"
+        cpu_step_unequal(torch, [(n, after[n], getattr(c, n)) for n in
+                                 ("labels", "votes", "hood_e", "ring", "stats", "map_i", "active")], what)
+        if [f for f, r in zip(flags, ran) if r] != [f for f, r in zip(cflags, ran) if r]:
+            fail(f"{what}: flag words {flags}, the plain pool on the CPU {cflags}")
+        self.max_abs_err = max(self.max_abs_err, float((after["hood_e"] - c.hood_e).abs().max()))
+
+
+def pool_workspaces(torch, ops, em_mod, shape, dev, batch: int, max_map_iters: int):
+    """A kernel pool on the card wrapped in a ``PoolLockstep`` with its plain
+    pool on the CPU, both of ``batch`` slots."""
+    kw = dict(batch=batch, pool=True, max_map_iters=max_map_iters, conv_tol=em_mod.CONV_TOL,
+              window=em_mod.WINDOW)
+    return PoolLockstep(torch, ops.tick_workspace(shape, device=dev, **kw),
+                        ops.tick_workspace(shape, device="cpu", **kw))
+
+
+def check_pool_entry(torch, ops, em_mod, seg, plans, bucket, batch: int) -> dict:
+    """The pool entry (``PoolTickWorkspace.step``) at ``batch`` slots of the
+    serve stream's padded problems: lane b starts its MAP loop at launch b
+    mod 3 (so the lanes of one launch sit at different MAP iterations, and
+    each reaches its cap of ``POOL_CHECK_MAP_ITERS`` at its own launch);
+    every fourth lane from lane 1 never starts.  Every launch is held to
+    the plain pool step on the CPU (``PoolLockstep``); each running lane
+    bit for bit to the single-lane entry (``TickWorkspace``) stepped with
+    the lane's own gate and cap; the idle lanes' buffers stay as admitted.
+    Then a slot write (admit, begin, retire) into one slot leaves every
+    other slot's buffers bit for bit as they were."""
+    seed = SLICE["seed"]
+    lanes = [seg.lane_state(p, bucket=bucket, seed=seed) for p in plans[:batch]]
+    hoods, model = lanes[0][0], lanes[0][1]
+    shape, dev = ops.TickShape.of(hoods, model), hoods.vertex.device
+    ws = pool_workspaces(torch, ops, em_mod, shape, dev, batch, POOL_CHECK_MAP_ITERS)
+    for b, (h, m, lab0, _, _, sctx) in enumerate(lanes):
+        ws.admit(b, h, m, sctx.y, sctx.w, sctx.nall_e, sctx.validf, lab0)
+    ws.kern.stats.fill_(-1.0)
+    idle = [batch > 1 and b % 4 == 1 for b in range(batch)]
+    frozen = pool_state(ws.kern)
+    singles = {}
+    launches = POOL_CHECK_MAP_ITERS + 2
+    for s in range(launches):
+        start = [b for b in range(batch) if not idle[b] and b % 3 == s]
+        if start:
+            mu = torch.stack([lanes[b][3] for b in start])
+            sig = torch.stack([torch.maximum(lanes[b][4], lanes[b][1].sigma_min) for b in start])
+            ws.begin_lanes(start, mu, sig)
+            for j, b in enumerate(start):
+                h, m, lab0, _, _, sctx = lanes[b]
+                one = ops.tick_workspace(shape, device=dev, conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
+                one.start(h, m, sctx.y, sctx.w, sctx.nall_e, sctx.validf, lab0)
+                one.begin_em(mu[j].contiguous(), sig[j].contiguous())
+                singles[b] = [one, 0]
+        running = ws.kern.active.cpu().bool().tolist()
+        ws.step()
+        flags = ws.flags()
+        got = pool_state(ws.kern)
+        what = f"pool entry B={batch} launch {s + 1}"
+        for b, entry in singles.items():
+            if not running[b]:
+                continue
+            one = entry[0]
+            entry[1] += 1
+            cap = entry[1] == POOL_CHECK_MAP_ITERS
+            one.step(entry[1] > em_mod.WINDOW, cap)
+            if one.flag() != flags[b]:
+                fail(f"{what}: lane {b} flag {flags[b]}, single-lane entry {one.flag()}")
+            pairs = [(got["labels"][b], one.labels), (got["votes"][b], one.votes),
+                     (got["hood_e"][b], one.hood_e), (got["ring"][b], one.ring)]
+            if flags[b] or cap:
+                pairs.append((got["stats"][b], one.stats))
+            if not all(same_bits(torch, a, c.cpu()) for a, c in pairs):
+                fail(f"{what}: lane {b} differs from the single-lane entry")
+            if int(got["map_i"][b]) != entry[1]:
+                fail(f"{what}: lane {b} MAP counter {int(got['map_i'][b])}, expected {entry[1]}")
+        for b in range(batch):
+            if idle[b] and not all(same_bits(torch, got[n][b], frozen[n][b]) for n in got):
+                fail(f"{what}: idle lane {b} was written")
+    if any(ws.kern.active.cpu().tolist()):
+        fail(f"pool entry B={batch}: lanes still active after their caps")
+    slot_ok = True
+    if batch > 1:
+        target = batch - 1
+        before = pool_state(ws.kern)
+        h, m, lab0, mu0, sig0, sctx = lanes[0]
+        ws.admit(target, h, m, sctx.y, sctx.w, sctx.nall_e, sctx.validf, lab0)
+        ws.begin_lanes([target], mu0[None], torch.maximum(sig0, m.sigma_min)[None])
+        ws.retire(target)
+        after = pool_state(ws.kern)
+        slot_ok = all(same_bits(torch, after[n][b], before[n][b])
+                      for n in after for b in range(batch) if b != target)
+        if not slot_ok:
+            fail(f"pool entry B={batch}: a write to slot {target} moved another slot's buffers")
+    row = {"phase": "pool_tick_check", "B": batch, "idle_lanes": idle.count(True),
+           "launches": ws.launches, "stopping_lanes_held": ws.stopping,
+           "launches_bitwise_plain_cpu": ws.launches, "lanes_bitwise_single_entry": len(singles),
+           "slot_writes_touch_one_slot": slot_ok, "max_abs_err": ws.max_abs_err, "ok": True}
+    emit(row)
+    return row
+
+
+def completion_bits(c) -> tuple:
+    return result_bits(c.result) + (c.status,)
+
+
+def serve_stream(torch, ops, seg, plans, bucket, tick_iters, max_batch: int, **engine_kw) -> dict:
+    """One engine run over ``plans`` (pool compiled, its workspace built,
+    before the counts are reset): completions by rid, the launch counts, the
+    workspace builds during the run, the wall time and the engine."""
+    from repro_torch.kernels import em_tick
+    from repro_torch.serving import SegmentationEngine
+    from repro_torch.serving.engine import DEFAULT_TICK_LADDER
+
+    for t in DEFAULT_TICK_LADDER if tick_iters == "auto" else (tick_iters,):
+        seg.compile_ticked(bucket, batch=max_batch, tick_iters=t)
+    engine = SegmentationEngine(seg, max_batch=max_batch, tick_iters=tick_iters, bucket=bucket,
+                                **engine_kw)
+    builds = ops.WORKSPACE_BUILDS
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for rid, p in enumerate(plans):
+        engine.submit(p, rid=rid, seed=SLICE["seed"])
+    comps = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"completions": {c.rid: c for c in comps}, "launches": ops.launch_counts(),
+            "pool_launches": em_tick.launches_pool, "builds": ops.WORKSPACE_BUILDS - builds,
+            "wall_s": wall, "engine": engine}
+
+
+def serve_row(what: str, run: dict, serial: list) -> dict:
+    """The ``serve`` line of one run; fails unless every completion equals
+    its serial ``execute`` bit for bit, the pool launches are the run's
+    micro-steps, and the run built no workspace."""
+    comps, engine = run["completions"], run["engine"]
+    st = engine.stats()
+    for rid, want in enumerate(serial):
+        if rid not in comps or completion_bits(comps[rid]) != result_bits(want) + (want.status,):
+            fail(f"serve {what}: request {rid} not bit for bit its serial execute")
+    if not (run["pool_launches"] == run["launches"]["fused_em_tick"] == st["total_steps"]):
+        fail(f"serve {what}: {run['launches']['fused_em_tick']} tick launches "
+             f"({run['pool_launches']} pool) for {st['total_steps']} micro-steps")
+    if run["builds"]:
+        fail(f"serve {what}: {run['builds']} workspaces built after the pool was set up")
+    lat = sorted(c.latency_s for c in comps.values())
+    row = {"phase": "serve", "what": what, "requests": len(comps), "ticks": st["ticks"],
+           "micro_steps": st["total_steps"], "pool_launches": run["pool_launches"],
+           "occupancy": st["occupancy"], "steps_saved_early_exit": st["steps_saved_early_exit"],
+           "tick_switches": st["tick_switches"], "workspace_builds_after_setup": run["builds"],
+           "wall_s": run["wall_s"], "requests_per_s": len(comps) / run["wall_s"],
+           "latency_p50_s": float(np.percentile(lat, 50)), "latency_p99_s": float(np.percentile(lat, 99)),
+           "residence_p50_s": float(np.percentile([c.residence_s for c in comps.values()], 50)),
+           "lane_map_iters": sum(r.map_iters for r in serial), "launches": run["launches"],
+           "statuses": sorted({c.status for c in comps.values()}), "bitwise_serial": True,
+           "tick_cost": st["tick_cost"]}
+    emit(row)
+    return row
+
+
+def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: bool) -> dict:
+    """The pool entry at ``batch`` lanes of the serve stream, on a pool that
+    no lane can leave (convergence tolerance 0 and a MAP cap of
+    ``NEVER_STOP``, the same arithmetic and bytes as the served pool's): ms
+    per launch back to back (CUDA events), ms per micro-step as
+    ``run_em_ticked`` runs it (launch, flag read and the host's
+    bookkeeping; host clock), the plain pool step's ms on the card, and the
+    bound: the lanes' MAP-step bytes and operations.  With ``profile``:
+    the device us per launch and the device operations of ``MAP_STEPS``
+    micro-steps (one kernel each, no memset, no copy).  The profiler has
+    dropped one launch's record in every attempt of a run while a fresh
+    process saw them all, so attempt k traces ``MAP_STEPS + k``
+    micro-steps; a trace that shows another kernel, a memset or a copy
+    fails at once."""
+    cfg = seg.config.em_config()._replace(max_map_iters=NEVER_STOP)
+    lanes = [seg.lane_state(p, bucket=bucket, seed=SLICE["seed"]) for p in plans[:batch]]
+    shape, dev = ops.TickShape.of(lanes[0][0], lanes[0][1]), lanes[0][0].vertex.device
+
+    def fresh(backend=None):
+        ws = ops.tick_workspace(shape, device=dev, batch=batch, pool=True, max_map_iters=NEVER_STOP,
+                                conv_tol=0.0, window=em_mod.WINDOW, backend=backend)
+        state = em_mod.blank_tick_state(ws)
+
+        def reset():
+            for b, lane in enumerate(lanes):
+                em_mod.init_tick_lane(state, b, *lane)
+        reset()
+        return state, reset
+
+    state, reset = fresh()
+    micro = lambda: em_mod._tick_micro(state, cfg)  # noqa: E731
+    n = 10 * MAP_STEPS
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        micro()
+    out = {"B": batch, "ms_per_micro_step": (time.perf_counter() - t0) / n * 1e3,
+           "ms": time_ms(state.workspace.step)}
+    if any(state.done):
+        fail(f"pool timing B={batch}: a lane stopped")
+    if profile:
+        attempts = []
+        for k in range(PROFILE_ATTEMPTS):
+            steps = MAP_STEPS + k
+            reset()
+            before = ops.launch_counts()["fused_em_tick"]
+            prof = device_profile(torch, lambda: [micro() for _ in range(steps)])
+            ticks = sum(t["count"] for t in prof["top"] if "tick_kernel_batched" in t["name"])
+            a = {"micro_steps": steps, "launches": ops.launch_counts()["fused_em_tick"] - before,
+                 "tick_kernels": ticks, **{k2: prof[k2] for k2 in ("kernels", "memsets", "memcpys")},
+                 "device_us_per_launch": prof["device_busy_us"] / max(ticks, 1)}
+            attempts.append(a)
+            if a["launches"] != steps or a["kernels"] != ticks or ticks > steps or a["memsets"] or a["memcpys"]:
+                fail(f"pool micro-steps B={batch}: {steps} micro-steps issued {a}")
+            if ticks == steps:
+                break
+        else:
+            fail(f"pool micro-steps B={batch}: no profile saw every launch: {attempts}")
+        out["device_ms"] = a["device_us_per_launch"] * 1e-3
+        out["profile"] = {"attempts": attempts, "per_micro_step": {"kernels": 1, "memsets": 0, "memcpys": 0}}
+    plain, _ = fresh("torch")
+    out["plain_ms"] = time_ms(plain.workspace.step, iters=3, warmup=1)
+    n_bytes = sum(tick_step_bytes(p.problem.hoods, shape.n_labels) for p in plans[:batch])
+    n_ops = sum(tick_step_ops(p.problem.hoods, shape.n_labels) for p in plans[:batch])
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, n_ops)
+    out["bytes"] = n_bytes
+    emit({"phase": "timing", "what": f"fused_em_tick pool entry B={batch} K={shape.n_labels}", **out})
+    return out
+
+
+def serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial) -> None:
+    """``SERVE_MIXED`` K = 2 requests of the serve stream and as many K = 3
+    slices of the three-phase volume in one K = 3 pool: each completion
+    equals its serial ``execute`` in its own K's session (a K = 2 lane's
+    real labels, with its padded label at the inert mu)."""
+    seed = SLICE["seed"]
+    vol3 = stack_volume(synthetic, dev, 3, SERVE_MIXED)
+    seg3 = api.Segmenter(config.with_(n_labels=3), device=dev)
+    plans3 = [seg3.plan(img) for img in vol3.images]
+    mixed = plans[:SERVE_MIXED] + plans3
+    bucket3 = api.BucketKey(*(max(p.bucket[d] for p in mixed) for d in range(3)))
+    run = serve_stream(torch, ops, seg3, mixed, bucket3, SERVE_TICK, len(mixed) // 2)
+    for rid, p in enumerate(mixed):
+        c = run["completions"][rid]
+        if rid < SERVE_MIXED:
+            want = serial[rid]
+            got = c.result
+            same = (got.region_labels.tobytes() == want.region_labels.tobytes()
+                    and got.mu[:2].tobytes() == want.mu.tobytes()
+                    and got.sigma[:2].tobytes() == want.sigma.tobytes()
+                    and (got.em_iters, got.map_iters, got.status) == (want.em_iters, want.map_iters,
+                                                                       want.status)
+                    and got.mu[2] == em_mod.INERT_MU)
+        else:
+            same = result_bits(c.result) == result_bits(seg3.execute(p, seed=seed))
+        if not same:
+            fail(f"serve mixed K: request {rid} (K={2 if rid < SERVE_MIXED else 3}) not bit for bit "
+                 "its serial execute in its own K's session")
+    emit({"phase": "serve", "what": "mixed K (4 K=2, 4 K=3, K=3 pool of 4)", "requests": len(mixed),
+          "micro_steps": run["engine"].total_steps, "pool_launches": run["pool_launches"],
+          "bucket": list(bucket3), "workspace_builds_after_setup": run["builds"],
+          "bitwise_serial_own_k": True})
+
+
+def serve_chaos(torch, ops, em_mod, seg, plans, bucket, serial) -> None:
+    """A ``bad_init``, a ``nan_data`` and a ``never_converge`` request among
+    8 of the serve stream: the first two retire ``diverged``, as their
+    serial runs on the same corrupted inputs do, the third is evicted, and
+    every healthy lane is bit for bit its serial ``execute``."""
+    from repro_torch.testing import chaos
+
+    seed, config = SLICE["seed"], seg.config
+    faults = {1: "bad_init", 4: "nan_data", 6: "never_converge"}
+    cfg = chaos.ChaosConfig(seed=seed, **{f"{f}_rids": (r,) for r, f in faults.items()})
+    with chaos.inject(cfg):
+        run = serve_stream(torch, ops, seg, plans[:8], bucket, SERVE_TICK, SERVE_SLOTS // 2,
+                           max_ticks_resident=15)
+    statuses = {rid: c.status for rid, c in run["completions"].items()}
+    for rid, fault in faults.items():
+        want = "evicted" if fault == "never_converge" else "diverged"
+        if fault != "never_converge":
+            h, m, lab0, mu0, sig0 = seg.lane_inputs(plans[rid], bucket=bucket, seed=seed)
+            m, lab0, mu0, sig0 = chaos.ChaosMonkey(cfg).on_admit(rid, m, lab0, mu0, sig0)
+            ser = em_mod.STATUS_NAMES[em_mod.run_em(h, m, lab0, mu0, sig0, config.em_config()).status]
+            if ser != want:
+                fail(f"serve chaos: {fault} request {rid}'s serial run is {ser}, not {want}")
+        if statuses.get(rid) != want:
+            fail(f"serve chaos: {fault} request {rid} completed {statuses.get(rid)}, want {want}")
+    for rid in range(8):
+        if rid not in faults and completion_bits(run["completions"][rid]) != result_bits(serial[rid]) + (
+                serial[rid].status,):
+            fail(f"serve chaos: healthy request {rid} not bit for bit its serial execute")
+    emit({"phase": "serve", "what": "chaos (bad_init, nan_data, never_converge among 8)",
+          "statuses": {str(r): s for r, s in sorted(statuses.items())},
+          "micro_steps": run["engine"].total_steps, "evicted": run["engine"].evicted,
+          "healthy_bitwise_serial": True})
+
+
+def serve_cpu_check(torch, ops, em_mod, seg, plans, bucket, serial) -> None:
+    """Every pool launch of a ``SERVE_CPU_REQUESTS``-request stream through
+    ``SERVE_CPU_SLOTS`` slots (so lanes are admitted mid-stream) held bit for
+    bit to the plain pool step on the CPU (``PoolLockstep``, installed as
+    the session's pool workspace for the run), M-step sums included."""
+    slots = SERVE_CPU_SLOTS
+    shape = ops.TickShape(bucket.capacity, bucket.n_hoods, bucket.n_regions + 1, 2)
+    lock = pool_workspaces(torch, ops, em_mod, shape, seg.device, slots, seg.config.max_map_iters)
+    key = seg._key_for(bucket, slots)
+    seg._pools[key] = lock
+    try:
+        run = serve_stream(torch, ops, seg, plans[:SERVE_CPU_REQUESTS], bucket, SERVE_CPU_TICK, slots)
+    finally:
+        del seg._pools[key]
+        seg._cache.pop(key._replace(tick_iters=SERVE_CPU_TICK), None)
+    for rid in range(SERVE_CPU_REQUESTS):
+        if completion_bits(run["completions"][rid]) != result_bits(serial[rid]) + (serial[rid].status,):
+            fail(f"serve_cpu_check: request {rid} not bit for bit its serial execute")
+    if lock.launches != run["engine"].total_steps:
+        fail(f"serve_cpu_check: {lock.launches} launches held for {run['engine'].total_steps} micro-steps")
+    emit({"phase": "serve_cpu_check", "requests": SERVE_CPU_REQUESTS, "slots": slots,
+          "tick_iters": SERVE_CPU_TICK, "launches_bitwise_plain_cpu": lock.launches,
+          "stopping_lanes_stats_held": lock.stopping, "admitted_mid_stream": SERVE_CPU_REQUESTS - slots,
+          "max_abs_err": lock.max_abs_err, "ok": True})
+
+
+def serve_plans(api, synthetic, dev):
+    """The serve stream: ``SERVE_REQUESTS`` 512x512 K = 2 slices of the
+    synthetic volume planned in a quantile-init session, their joint
+    bucket, and each one's serial ``execute``."""
+    vol = stack_volume(synthetic, dev, 2, SERVE_REQUESTS)
+    config = api.ExecutionConfig(n_labels=2, overseg_grid=(SLICE["grid"],) * 2, init="quantile")
+    seg = api.Segmenter(config, device=dev)
+    plans = [seg.plan(img) for img in vol.images]
+    bucket = api.BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
+    serial = [seg.execute(p, seed=SLICE["seed"]) for p in plans]
+    return vol, config, seg, plans, bucket, serial
+
+
+def serve_profile(torch, api, synthetic, ops, em_mod, dev) -> None:
+    """The serve path under the profiler (``--serve-profile``, which the
+    ``--profile`` run starts as a process of its own: late in a long run
+    the profiler has lost one kernel record in every trace, while a fresh
+    process saw them all): the pool entry's device time and a micro-step's
+    device operations (``time_pool_step``), and the device's idle share of
+    a warm served stream (``SOLVES`` unprofiled runs, then one traced)."""
+    _, _, seg, plans, bucket, _ = serve_plans(api, synthetic, dev)
+    stream = lambda: serve_stream(torch, ops, seg, plans, bucket, SERVE_TICK, SERVE_SLOTS)["wall_s"]  # noqa: E731
+    stream()  # pads and element arrays memoised on the plans
+    time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, True)
+    walls = spread([stream() for _ in range(SOLVES)])
+    prof = device_profile(torch, stream)
+    emit({"phase": "profile", "what": f"warm served stream ({SERVE_REQUESTS} K=2 requests, "
+                                      f"{SERVE_SLOTS} slots, tick_iters={SERVE_TICK})",
+          "wall_s_unprofiled": walls, "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / walls["min"],
+          **{k: prof[k] for k in ("device_ops", "kernels", "memsets", "memcpys", "device_busy_us", "top")}})
+
+
+def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
+    """The serve path: the ``serve_plans`` stream through
+    ``SegmentationEngine(max_batch=SERVE_SLOTS)``, once with
+    ``tick_iters=SERVE_TICK`` and cold admissions (launch counts reset just
+    before, read just after: every fused_em_tick launch the pool entry's,
+    one per micro-step, and the static contexts' segment_reduce at
+    admission), then warm with ``SERVE_TICK`` and with ``"auto"``; every
+    completion bit for bit its serial ``execute``, no workspace built after
+    the pool's set-up.  Beside it the same slices through
+    ``segment_stack(batch="always")`` and serially.  Then the pool entry
+    held to its plain version (``check_pool_entry`` at ``POOL_CHECK_SIZES``
+    slots), a mixed-K pool, a chaos stream, every launch of a small stream
+    held to the plain pool on the CPU (``serve_cpu_check``), and the pool
+    launch's times (``time_pool_step``); with ``profile``, ``serve_profile``
+    in a process of its own."""
+    seed = SLICE["seed"]
+    vol, config, seg, plans, bucket, serial = serve_plans(api, synthetic, dev)
+    out = {}
+    # Cold: each admission pads its plan into the pool's bucket and builds
+    # the lane's element arrays (one segment_reduce each), memoised on the
+    # plan; the warm runs that follow admit with device copies alone.
+    cold = serve_stream(torch, ops, seg, plans, bucket, SERVE_TICK, SERVE_SLOTS)
+    if cold["launches"]["segment_reduce"] < 1:
+        fail("serve: segment_reduce never launched (the lanes' static contexts)")
+    out["cold"] = serve_row(f"K=2 tick_iters={SERVE_TICK}, cold admissions", cold, serial)
+    fixed = serve_stream(torch, ops, seg, plans, bucket, SERVE_TICK, SERVE_SLOTS)
+    out["fixed"] = serve_row(f"K=2 tick_iters={SERVE_TICK}", fixed, serial)
+    auto = serve_stream(torch, ops, seg, plans, bucket, "auto", SERVE_SLOTS)
+    out["auto"] = serve_row("K=2 tick_iters=auto", auto, serial)
+    stack, stack_mean = seg.segment_stack(vol.images, seed=seed, batch="always")
+    if [result_bits(r) for r in stack] != [result_bits(r) for r in serial]:
+        fail("serve: segment_stack's lanes are not bit for bit the serial results")
+    emit({"phase": "serve_compare", "requests": SERVE_REQUESTS,
+          "engine_wall_s": {"cold": cold["wall_s"], "fixed": fixed["wall_s"], "auto": auto["wall_s"]},
+          "segment_stack_solve_s": stack_mean * SERVE_REQUESTS,
+          "serial_execute_solve_s": float(sum(r.optimize_seconds for r in serial)),
+          "map_iters": [r.map_iters for r in serial], "em_iters": [r.em_iters for r in serial]})
+    out["check"] = {b: check_pool_entry(torch, ops, em_mod, seg, plans, bucket, b)
+                    for b in POOL_CHECK_SIZES}
+
+    serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial)
+    serve_chaos(torch, ops, em_mod, seg, plans, bucket, serial)
+    serve_cpu_check(torch, ops, em_mod, seg, plans, bucket, serial)
+    out["timing"] = time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, False)
+    if profile:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--serve-profile"],
+                              capture_output=True, text=True, timeout=900)
+        print(proc.stdout, end="", flush=True)
+        if proc.returncode:
+            fail(f"the serve profile process exited {proc.returncode}: {proc.stderr[-3000:]}")
+        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+        out["timing"]["device_ms"] = next(r for r in rows if r.get("phase") == "timing")["device_ms"]
+    return out
+
+
 def map_step_operands(torch, plan, E, em_mod, hoods):
     """The ``fused_map_step`` call of the first MAP iteration of a sharded
     solve of ``plan`` on ``hoods`` (the plan's or a partition of them):
@@ -2363,7 +2868,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
                     help="also trace device time with torch.profiler (kernels alone and one solve)")
-    profile = ap.parse_args(argv).profile
+    ap.add_argument("--serve-profile", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    profile = args.profile
     try:
         import torch
     except ImportError:
@@ -2388,6 +2895,10 @@ def main(argv=None) -> int:
     # versions the kernels are held to must not drop to TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.serve_profile:
+        _build.build_all()
+        serve_profile(torch, api, synthetic, ops, em_mod, dev)
+        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -2527,11 +3038,19 @@ def main(argv=None) -> int:
     lm = run_lm(torch, ops, dev, profile)
     flash = time_flash(torch, ops, dev, profile)
 
+    # Fifth path: a request stream through the continuous-batching engine,
+    # one launch of the tick's pool entry per micro-step, each lane at its
+    # own MAP iteration; the pool entry against its plain version.  It runs
+    # last: after it the profiler has lost one kernel record in every trace
+    # of the sharded and mrf_min_energy checks (runs 22E, 22H).
+    served = run_serve(torch, api, synthetic, ops, em_mod, dev, profile)
+
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
     step_keys = tick_keys + ("ms_per_map_step", "stopping_launch")
     bstep = st2["batched_step"]
+    ptime = served["timing"]
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
@@ -2547,7 +3066,12 @@ def main(argv=None) -> int:
                            "max_abs_err": batched_err,
                            **{k: bstep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                     "device_ms")},
-                           "library_ms": None}},
+                           "library_ms": None},
+         "pool_entry": {"launches": served["cold"]["pool_launches"], "B": ptime["B"],
+                        "max_abs_err": max(c["max_abs_err"] for c in served["check"].values()),
+                        **{k: ptime[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "ms_per_micro_step") + ("device_ms",) * profile},
+                        "library_ms": None}},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",

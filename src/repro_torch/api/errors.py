@@ -1,8 +1,12 @@
-"""Typed exceptions of the session API.
+"""Typed exceptions of the session API and the serving engine.
 
-Counterpart of ``repro.api.errors``.  Only :class:`PlanError` is raised
-by this package so far; the request and fallback errors belong to the
-serving and fallback layers, which are not ported yet.
+Counterpart of ``repro.api.errors``.  :class:`PlanError`: ``Segmenter.plan``
+refuses an unusable image (non-finite pixels, zero elements) before any
+device work.  :class:`RequestError`: ``SegmentationEngine.submit`` refuses
+a request (non-finite model statistics, more labels than the pool's K, a
+bucket past the pool's, a bad rid or deadline); it never enters the queue.
+Both subclass :class:`ValueError`.  :class:`FallbackError` belongs to the
+fallback policy, which is not ported yet: nothing raises it so far.
 """
 
 from __future__ import annotations

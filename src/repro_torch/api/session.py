@@ -1,9 +1,8 @@
 """Plan -> compile -> execute session API.
 
-Counterpart of ``repro.api.session.Segmenter``, without its ticked
-serving, cost model and fallback policy (ROADMAP.md Queue 1: 'Ticked
-serving', 'planning/'; the fallback comes with the chaos harness and may
-never fall back silently on the card).
+Counterpart of ``repro.api.session.Segmenter``, without its cost model
+and fallback policy (ROADMAP.md Queue 1: 'planning/', and
+``FallbackPolicy``, which may never fall back silently on the card).
 
 * :meth:`Segmenter.plan`: oversegmentation, region graph, cliques and
   neighborhoods (the paper's untimed init phase), and the problem's
@@ -25,6 +24,11 @@ never fall back silently on the card).
   MAP iteration for all lanes); each lane equals its serial
   :meth:`execute` bit for bit.  :meth:`Segmenter.segment_stack` submits a
   volume's slices under their joint bucket.
+* :meth:`Segmenter.compile_ticked` / :meth:`Segmenter.ticked_pool` /
+  :meth:`Segmenter.lane_state`: the continuous-batching engine's pool
+  (``repro_torch.serving.engine``): one pool workspace per (bucket,
+  slots), ``em.run_em_ticked`` at any tick size on it, and each request's
+  admission-ready lane, memoised on its plan.
 
 On the sharded route (``config.shards > 1``) every rank of the default
 ``torch.distributed`` group calls :meth:`execute` with the same plan and
@@ -58,6 +62,7 @@ from repro_torch.core.pmrf import energy as energy_mod
 from repro_torch.core.pmrf import pipeline as pipeline_mod
 from repro_torch.core.pmrf.hoods import Hoods, pad_hoods, stack_hoods
 from repro_torch.kernels.ref import TickShape
+from repro_torch.testing import chaos as chaos_mod
 
 
 class BucketKey(NamedTuple):
@@ -71,8 +76,12 @@ class BucketKey(NamedTuple):
 class ExecutableKey(NamedTuple):
     """Cache key of an executable: the reference's fields.  ``backend`` is
     the route ("cuda": the kernels; "torch": the plain versions), ``batch``
-    ``None`` for one request or the group size, ``shards`` the rank count,
-    ``tick_iters`` always ``None`` (no ticked serving yet)."""
+    ``None`` for one request or the group size (the slot count of a ticked
+    pool), ``shards`` the rank count, ``tick_iters`` ``None`` but for a
+    ticked executable (``Segmenter.compile_ticked``), where it is the tick
+    size.  Unlike the reference's, the ticked executables of one pool
+    share one workspace, which holds the pool's state: a key per tick size,
+    one build per pool."""
 
     capacity: int
     n_hoods: int
@@ -127,10 +136,16 @@ class Executable:
     calls: int = 0
     shard_workspaces: "OrderedDict[int, object]" = field(default_factory=OrderedDict, repr=False)
 
-    def __call__(self, hoods, model, labels0, mu0, sigma0):
+    def __call__(self, *args):
+        """``(hoods, model, labels0, mu0, sigma0)`` for a solve, or a ticked
+        executable's pool state (``em.TickState``): one tick,
+        ``(state, steps_executed)``."""
         self.calls += 1
+        if self.key.tick_iters is not None:
+            (state,) = args
+            return em_mod.run_em_ticked(state, self.em_config, self.key.tick_iters)
         run = em_mod.run_em if self.key.batch is None else em_mod.run_em_batched
-        return run(hoods, model, labels0, mu0, sigma0, self.em_config, workspace=self.workspace)
+        return run(*args, self.em_config, workspace=self.workspace)
 
 
 @dataclass
@@ -172,6 +187,8 @@ class Segmenter:
         self.config = config
         self.device = resolve_device(device)
         self._cache: "OrderedDict[ExecutableKey, Executable]" = OrderedDict()
+        # Ticked pools' workspaces, by their executables' key with tick_iters None.
+        self._pools: Dict[ExecutableKey, object] = {}
         self._pending: List[_Pending] = []
         self.stats = CacheStats()
 
@@ -260,22 +277,31 @@ class Segmenter:
             )
         if batch is not None and batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
-        key = self._key_for(bucket, batch)
+
+        def build():
+            if shards > 1:
+                return None
+            return em_mod.make_workspace(self._shape(bucket), self.config.em_config(),
+                                         device=self.device, batch=batch)
+
+        return self._get_or_build(self._key_for(bucket, batch), build)
+
+    def _shape(self, bucket: BucketKey) -> TickShape:
+        return TickShape(bucket.capacity, bucket.n_hoods, bucket.n_regions + 1, self.config.n_labels)
+
+    def _get_or_build(self, key: ExecutableKey, build) -> Executable:
+        """The cached executable of ``key`` (LRU), or a new one around the
+        workspace ``build()`` returns."""
         exe = self._cache.get(key)
         if exe is not None:
             self._cache.move_to_end(key)
             self.stats.hits += 1
             return exe
         self.stats.misses += 1
+        chaos_mod.on_compile(key.backend)
         t0 = time.perf_counter()
-        em_config = self.config.em_config()
-        workspace = None
-        if shards == 1:
-            shape = TickShape(bucket.capacity, bucket.n_hoods, bucket.n_regions + 1,
-                              self.config.n_labels)
-            workspace = em_mod.make_workspace(shape, em_config, device=self.device, batch=batch)
         exe = self._cache[key] = Executable(
-            key=key, workspace=workspace, em_config=em_config,
+            key=key, workspace=build(), em_config=self.config.em_config(),
             compile_seconds=time.perf_counter() - t0,
         )
         while len(self._cache) > self.config.max_cached_executables:
@@ -283,8 +309,78 @@ class Segmenter:
             self.stats.evictions += 1
         return exe
 
+    def _pool_workspace(self, bucket: BucketKey, batch: int):
+        """The pool workspace of ``batch`` slots of ``bucket``, built on
+        first use from the shapes alone and kept for the session."""
+        key = self._key_for(bucket, batch)
+        ws = self._pools.get(key)
+        if ws is None:
+            ws = self._pools[key] = em_mod.make_workspace(
+                self._shape(bucket), self.config.em_config(), device=self.device, batch=batch,
+                pool=True)
+        return ws
+
+    def _check_ticked(self, batch: int, tick_iters: int = 1) -> None:
+        if self.config.shards > 1:
+            raise ValueError(
+                "ticked serving executables are single-device (the pool's slot axis "
+                "is the parallel axis); use shards=1"
+            )
+        if batch < 1 or tick_iters < 1:
+            raise ValueError("compile_ticked needs batch >= 1 and tick_iters >= 1")
+
+    def compile_ticked(
+        self, target: Union[Plan, BucketKey, Tuple[int, int, int]], *, batch: int,
+        tick_iters: int = 8,
+    ) -> Executable:
+        """The ticked serving executable of a ``batch``-slot pool of a
+        bucket: ``em.run_em_ticked`` at ``tick_iters``, called on the pool's
+        state (:meth:`ticked_pool`) and returning ``(state,
+        steps_executed)``.  LRU-cached beside the other executables under
+        its own key (``ExecutableKey.tick_iters``); every tick size of one
+        pool runs on the one pool workspace, built at the first compile,
+        so switching tick sizes builds nothing."""
+        bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
+        self._check_ticked(batch, tick_iters)
+        key = self._key_for(bucket, batch)._replace(tick_iters=tick_iters)
+        return self._get_or_build(key, lambda: self._pool_workspace(bucket, batch))
+
+    def ticked_pool(self, target, *, batch: int) -> em_mod.TickState:
+        """An all-empty slot pool for the ticked executables of a bucket
+        (``em.blank_tick_state`` on the pool's workspace: every lane done,
+        ready for admission).  The pool's state lives in that workspace, so
+        a new pool of the same bucket and slots takes it over from any
+        earlier one."""
+        bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
+        self._check_ticked(batch)
+        return em_mod.blank_tick_state(self._pool_workspace(bucket, batch))
+
+    def lane_inputs(self, plan: Plan, *, bucket: Optional[BucketKey] = None, seed: int = 0):
+        """One request's padded inputs for a ticked pool: ``(hoods, model,
+        labels0, mu0, sigma0)``, the arrays :meth:`execute` gives ``run_em``
+        (memoised on the plan), so a lane's ticked trajectory is the serial
+        result's."""
+        bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
+        return self._pad_plan(plan, bucket, seed)
+
+    def lane_state(self, plan: Plan, *, bucket: Optional[BucketKey] = None, seed: int = 0):
+        """One request's admission-ready lane: :meth:`lane_inputs` and its
+        element arrays (``energy.make_static_context``, one
+        ``segment_reduce`` launch), ``(hoods, model, labels0, mu0, sigma0,
+        sctx)``.  The element arrays are memoised on the plan beside its
+        padding, so repeat traffic admits with device copies alone."""
+        bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
+        hoods, model, labels0, mu0, sigma0 = self._pad_plan(plan, bucket, seed)
+        memo_key = ("lane", bucket, self.config.shards, self.config.n_labels)
+        sctx = plan._padded.get(memo_key)
+        if sctx is None:
+            sctx = plan._padded[memo_key] = energy_mod.make_static_context(
+                hoods, model, backend=self.config.backend)
+        return hoods, model, labels0, mu0, sigma0, sctx
+
     def clear_cache(self) -> None:
         self._cache.clear()
+        self._pools.clear()
 
     @property
     def cache_keys(self) -> Tuple[ExecutableKey, ...]:

@@ -27,6 +27,13 @@ launch of the batched tick for every lane still running and one read of
 the B flag words; per EM iteration one vectorised boundary and one host
 read.  Each lane's result equals its own :func:`run_em`'s bit for bit.
 
+:func:`run_em_ticked` advances a pool of slots (:class:`TickState`, on a
+pool workspace) by micro-steps, each lane at its own MAP iteration, the
+reference's continuous-batching driver: per micro-step one pool launch
+and one read of the B flag words, and, only where some lane's MAP loop
+stopped, the EM boundary of those lanes and one host read.  Each lane's
+result equals its own :func:`run_em`'s bit for bit.
+
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
 reads one flag word from the device, and each EM boundary reads three.
@@ -34,7 +41,9 @@ reads one flag word from the device, and each EM boundary reads three.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import weakref
+from dataclasses import dataclass, field
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -183,14 +192,16 @@ def _boundary_status(
     return STATUS_OK
 
 
-def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None):
+def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None, pool=False):
     """The MAP-iteration workspace for problems of ``shape`` under
-    ``config`` (``kernels.ops.tick_workspace``): for :func:`run_em`, or with
-    ``batch=B`` for :func:`run_em_batched`.  A session keeps one per bucket
-    and every solve of the bucket reuses it (``workspace=``)."""
+    ``config`` (``kernels.ops.tick_workspace``): for :func:`run_em`, with
+    ``batch=B`` for :func:`run_em_batched`, or with ``batch=B, pool=True``
+    the slot pool of :func:`run_em_ticked`.  A session keeps one per bucket
+    (and per pool) and every solve of the bucket reuses it
+    (``workspace=``)."""
     return kops.tick_workspace(
-        shape, device=device, batch=batch, precision=config.precision, conv_tol=CONV_TOL,
-        window=WINDOW, backend=config.backend,
+        shape, device=device, batch=batch, pool=pool, max_map_iters=config.max_map_iters,
+        precision=config.precision, conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
     )
 
 
@@ -458,3 +469,252 @@ def run_em_batched(
         status=tuple(status),
         steps=steps,
     )
+
+
+# ---------------------------------------------------------------------------
+# Ticked EM: the continuous-batching serving driver
+# ---------------------------------------------------------------------------
+#
+# ``run_em_batched`` runs every lane until the slowest converges.  The
+# ticked driver keeps a fixed pool of slots whose lanes sit at different
+# EM and MAP iterations, and advances it by micro-steps: one pool launch,
+# in which each active lane runs its own next MAP iteration, and one read
+# of the B flag words.  Where a lane's MAP loop stopped, the host runs that
+# lane's EM boundary (as ``_em_driver`` does) and starts its next EM
+# iteration, or marks it done.  Between calls the caller retires done
+# lanes and admits new requests into the freed slots (``init_tick_lane``);
+# the pool's buffers never change shape, so no workspace is built.
+
+
+@dataclass(eq=False)
+class TickState:
+    """A slot pool's state (the reference's per-lane ``TickState`` for
+    every slot).  The device half lives in ``workspace`` (a pool workspace,
+    ``make_workspace(..., pool=True)``): each lane's labels, history ring,
+    last hood energies, M-step sums, active word and MAP counter.  The
+    rest is here: the EM-level parameters and total-energy rings (on the
+    device, (B, K) and (B, WINDOW + 1)), the model terms the EM boundary
+    reads (``sigma_min``, ``reseed_mu``, ``reseed_sigma``, with a lane
+    axis), and on the host each lane's counters and health.
+
+    Between micro-steps every lane that is not ``done`` is inside its MAP
+    loop, about to run its next iteration, and active in the workspace; a
+    ``done`` lane (finished, evicted, or an empty slot) is inactive and its
+    buffers stay as they were."""
+
+    workspace: object
+    mu: Tensor               # (B, K) EM-level mu
+    sigma: Tensor            # (B, K) EM-level sigma (unclamped)
+    total_hist: Tensor       # (B, WINDOW + 1) outer convergence ring
+    sigma_min: Tensor        # (B,)
+    reseed_mu: Tensor        # (B, K)
+    reseed_sigma: Tensor     # (B,)
+    em_i: List[int] = field(default_factory=list)
+    map_i: List[int] = field(default_factory=list)      # iterations of the current MAP loop
+    map_total: List[int] = field(default_factory=list)  # MAP iterations of finished loops
+    done: List[bool] = field(default_factory=list)
+    status: List[int] = field(default_factory=list)
+
+    @property
+    def batch(self) -> int:
+        return len(self.done)
+
+    def model(self) -> E.EnergyModel:
+        """The boundary's view of the lanes' models (the region arrays and
+        ``beta`` are the workspace's)."""
+        ws = self.workspace
+        return E.EnergyModel(ws.region_mean, ws.region_weight, ws.beta, self.sigma_min,
+                             self.reseed_mu, self.reseed_sigma)
+
+    def begin(self, slots: Sequence[int]) -> None:
+        """Start an EM iteration of ``slots`` on the workspace: their
+        parameters, sigma clamped at their ``sigma_min``."""
+        idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.mu.device)
+        sig = torch.maximum(self.sigma[idx], self.sigma_min[idx][:, None])
+        self.workspace.begin_lanes(slots, self.mu[idx], sig)
+        for b in slots:
+            self.map_i[b] = 0
+
+    def retire(self, slot: int) -> None:
+        """Mark ``slot`` done and stop its lane (eviction, or an emptied
+        slot); its state stays readable (``tick_result``)."""
+        self.done[slot] = True
+        self.workspace.retire(slot)
+
+    def hold(self, slot: int, dmu) -> None:
+        """Reset one lane's progress and add ``dmu`` ((K,), any array) to its
+        EM-level mu (the chaos harness's never-converge hold): its EM counter
+        and ring, and a new EM iteration from its current labels; no other
+        lane moves."""
+        self.mu[slot] += torch.as_tensor(dmu, dtype=torch.float32).to(self.mu.device)
+        self.total_hist[slot] = 0.0
+        self.em_i[slot], self.done[slot], self.status[slot] = 0, False, STATUS_OK
+        self.begin([slot])
+
+
+def blank_tick_state(workspace) -> TickState:
+    """An all-empty slot pool on ``workspace``: every lane ``done`` and
+    inactive, with benign parameters (sigma 1).  The workspace is taken
+    over by the new state (``workspace.owner``, a weak reference, so that
+    a pool dropped by its engine frees its pinned host words at once); a
+    state that lost it may not step."""
+    batch, k = workspace.batch, workspace.n_labels
+    dev, f32 = workspace.mu.device, torch.float32
+    for b in range(batch):
+        workspace.retire(b)
+    state = TickState(
+        workspace=workspace,
+        mu=torch.zeros((batch, k), dtype=f32, device=dev),
+        sigma=torch.ones((batch, k), dtype=f32, device=dev),
+        total_hist=torch.zeros((batch, WINDOW + 1), dtype=f32, device=dev),
+        sigma_min=torch.ones((batch,), dtype=f32, device=dev),
+        reseed_mu=torch.zeros((batch, k), dtype=f32, device=dev),
+        reseed_sigma=torch.ones((batch,), dtype=f32, device=dev),
+        em_i=[0] * batch, map_i=[0] * batch, map_total=[0] * batch,
+        done=[True] * batch, status=[STATUS_OK] * batch,
+    )
+    workspace.owner = weakref.ref(state)
+    return state
+
+
+def init_tick_lane(
+    state: TickState,
+    slot: int,
+    hoods: Hoods,
+    model: E.EnergyModel,
+    labels0: Tensor,
+    mu0: Tensor,
+    sigma0: Tensor,
+    sctx: Optional[E.StaticMapContext] = None,
+) -> None:
+    """Admit one request into ``slot``: its padded problem (``hoods``,
+    ``model`` of the pool's bucket and K), its initial parameters, and its
+    element arrays (``sctx``, ``energy.make_static_context``, built here
+    when not given).  The lane starts its first EM iteration, as
+    ``run_em`` does; no other lane's buffers move."""
+    if sctx is None:
+        sctx = E.make_static_context(hoods, model)
+    ws = state.workspace
+    ws.admit(slot, hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    state.mu[slot] = mu0
+    state.sigma[slot] = sigma0
+    state.total_hist[slot] = 0.0
+    state.sigma_min[slot] = model.sigma_min
+    state.reseed_mu[slot] = model.reseed_mu
+    state.reseed_sigma[slot] = model.reseed_sigma
+    state.em_i[slot] = state.map_total[slot] = 0
+    state.done[slot], state.status[slot] = False, STATUS_OK
+    state.begin([slot])
+
+
+def tick_result(state: TickState, slot: int) -> EMResult:
+    """Lane ``slot`` read out as the :class:`EMResult` ``run_em`` would
+    have returned (copies: the slot may be refilled)."""
+    ws = state.workspace
+    hood_energy = ws.hood_e[slot].clone()
+    return EMResult(
+        labels=ws.labels[slot].clone(),
+        mu=state.mu[slot].clone(),
+        sigma=state.sigma[slot].clone(),
+        hood_energy=hood_energy,
+        total_energy=_total_energy(hood_energy),
+        em_iters=state.em_i[slot],
+        map_iters=state.map_total[slot],
+        status=state.status[slot],
+    )
+
+
+def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config: EMConfig) -> None:
+    """The EM boundary of the lanes whose MAP loop just stopped, vectorised
+    over the pool as ``run_em_batched``'s (``params_from_stats``, the
+    divergence and degeneracy tests, the total-energy rings) and selected
+    into those lanes, then one host read; the lanes that go on start their
+    next EM iteration."""
+    ws, dev = state.workspace, state.mu.device
+    msums = ws.stats
+    model = state.model()
+    new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
+    div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
+    deg_t = _degenerate_components(model, new_sigma, sum_w)
+    new_hist = torch.cat([_total_energy(ws.hood_e)[:, None], state.total_hist[:, :-1]], dim=1)
+    conv_t = _window_converged(new_hist.T)
+    on = torch.zeros((state.batch, 1), dtype=torch.bool)
+    on[lanes] = True
+    on = on.to(dev)
+    state.mu = torch.where(on, new_mu, state.mu)
+    state.sigma = torch.where(on, new_sigma, state.sigma)
+    state.total_hist = torch.where(on, new_hist, state.total_hist)
+    div_l, deg_l, conv_l = torch.stack([div_t, deg_t, conv_t]).tolist()
+    go_on = []
+    for b in lanes:
+        em_i = state.em_i[b] + 1
+        div = div_l[b] or bool(flags[b] & kops.FLAG_DIVERGED)
+        em_conv = em_i > WINDOW and conv_l[b]
+        state.em_i[b] = em_i
+        state.map_total[b] += state.map_i[b]
+        state.map_i[b] = 0
+        finished = div or not (em_i < config.max_em_iters and not em_conv)
+        state.status[b] = _boundary_status(div, deg_l[b], finished, em_conv, em_i,
+                                           config.max_em_iters)
+        if finished:
+            state.done[b] = True
+        else:
+            go_on.append(b)
+    if go_on:
+        state.begin(go_on)
+
+
+def _tick_micro(state: TickState, config: EMConfig) -> None:
+    """One micro-step: one pool launch (every lane not done runs its next
+    MAP iteration) and one read of the flag words; the host mirrors each
+    lane's stopping rule (flag word set, or the cap), as the kernel applies
+    it, and runs the EM boundary of the lanes that stopped."""
+    ws = state.workspace
+    ws.step()
+    words = ws.flags()
+    stopped = []
+    for b in range(state.batch):
+        if state.done[b]:
+            continue
+        state.map_i[b] += 1
+        if words[b] or state.map_i[b] == config.max_map_iters:
+            stopped.append(b)
+    if stopped:
+        _tick_boundary(state, stopped, words, config)
+
+
+def run_em_ticked(
+    state: TickState, config: EMConfig = EMConfig(), tick_iters: int = 8
+) -> Tuple[TickState, int]:
+    """Advance a slot pool by up to ``tick_iters`` micro-steps (one tick);
+    returns ``(state, steps_executed)``.
+
+    The tick exits early once every lane is done: the remaining
+    micro-steps would change nothing, and the caller gets control back at
+    the convergence boundary, so ``steps_executed`` (at most
+    ``tick_iters``) counts the launches actually issued.  Between calls
+    the caller retires done lanes (``TickState.retire``, or just reading
+    them with :func:`tick_result`) and admits requests into free slots
+    (:func:`init_tick_lane`) without disturbing the lanes in flight.  Each
+    lane's trajectory is its own :func:`run_em`'s, bit for bit (labels,
+    parameters, hood energies, counts, status), whatever the tick size and
+    whatever shares its pool.  Mode ``static-pallas`` only; the reference's
+    static-mode pool form waits for mode ``static`` (``UNPORTED_MODES``).
+    """
+    validate_config(config)
+    if config.max_em_iters < 1 or config.max_map_iters < 1:
+        raise ValueError("run_em_ticked requires max_em_iters/max_map_iters >= 1")
+    if tick_iters < 1:
+        raise ValueError(f"tick_iters must be >= 1, got {tick_iters}")
+    ws = state.workspace
+    if ws.owner is None or ws.owner() is not state:
+        raise ValueError("the pool workspace belongs to another TickState (blank_tick_state)")
+    if (ws.precision, ws.max_map_iters) != (config.precision, config.max_map_iters):
+        raise ValueError(
+            f"pool built for precision {ws.precision!r} and max_map_iters {ws.max_map_iters}, "
+            f"the config has {config.precision!r} and {config.max_map_iters}")
+    steps = 0
+    while steps < tick_iters and not all(state.done):
+        _tick_micro(state, config)
+        steps += 1
+    return state, steps

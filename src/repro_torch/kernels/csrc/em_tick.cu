@@ -80,6 +80,17 @@
 // of the lanes that run at each EM iteration.  Each lane computes what its
 // own single-lane launch would, bit for bit.
 //
+// Pool entry (continuous batching, the counterpart of the reference's
+// ticked pool): the lanes of one launch sit at different MAP iterations,
+// so each lane also has its own MAP counter map_i[b], the iterations its
+// current MAP loop has taken.  Lane b runs iteration i = map_i[b] + 1 and
+// derives its controls from it, as the host would for one problem: the
+// ring head (0 at i = 1, then one row back per iteration), the gate
+// (i > WINDOW = hist_rows - 1) and the cap (i == max_map_iters).  The
+// lane's last block writes map_i[b] = i beside its parity flip; the host
+// zeroes the word when the lane starts an EM iteration.  The lockstep
+// entry passes no counters (map_i null) and shares one head, gate and cap.
+//
 // K: K = 2..8 are template instantiations with the per-label values in
 // registers.  Any K >= 9 takes the runtime-K variant with the same energy
 // op order: the hood pass keeps the per-label terms in the block's shared
@@ -110,7 +121,8 @@
 // n_labels, n_vertices), swapped by the lane's parity word; ring (B,
 // hist_rows, n_hoods); hood_e (B, n_hoods); stats (B, 3, n_labels); sync
 // (B, 2) zero; flag_dev, flag_host_dev (the device view of B mapped host
-// words), parity and active (B,).
+// words), parity and active (B,); map_i (B,), the pool entry's per-lane MAP
+// counters, or null for the lockstep entry; max_map_iters, the pool's cap.
 struct TickBatchPlan {
   const float* y;
   const float* w;
@@ -134,6 +146,7 @@ struct TickBatchPlan {
   int* flag_host;
   int* parity;
   int* active;
+  int* map_i;
   void* stream;
   int batch;
   int capacity;
@@ -143,6 +156,7 @@ struct TickBatchPlan {
   int n_labels;
   int bf16;
   int device;
+  int max_map_iters;
   float conv_tol;
 };
 
@@ -199,6 +213,8 @@ struct TickParams {
   int n_vertices;
   int n_labels;
   float conv_tol;
+  int* lane_map_i;         // pool entry: the lane's MAP counter, set to map_i here; else nullptr
+  int map_i;               // pool entry: the MAP iteration this launch runs for the lane
 };
 
 template <bool BF16>
@@ -266,11 +282,12 @@ __device__ __forceinline__ bool stops(const TickParams& p, int word) {
 
 // Last block, one thread, after the sums: publish the flag word, reset the
 // ticket, and on the batched entry flip the lane's parity and retire a
-// lane that stopped.
+// lane that stopped; on the pool entry also count the lane's iteration.
 __device__ __forceinline__ void finish(const TickParams& p, int word) {
   flagword::publish_word(p.sync, word, p.flag_dev, p.flag_host);
   if (p.lane_parity != nullptr) *p.lane_parity ^= 1;
   if (p.lane_active != nullptr && stops(p, word)) *p.lane_active = 0;
+  if (p.lane_map_i != nullptr) *p.lane_map_i = p.map_i;
 }
 
 inline unsigned int grid_blocks(int n_hoods, int warps) {
@@ -502,10 +519,21 @@ __device__ __forceinline__ void tick_body_rt(const TickParams& p) {
 }
 
 // Lane b's TickParams, the pointers offset to row b.  False when the lane
-// is inactive: its blocks return at once and write nothing.
+// is inactive: its blocks return at once and write nothing.  On the pool
+// entry (t.map_i set) the lane's head, gate and cap come from its own MAP
+// iteration i = map_i[b] + 1, in place of the launch's shared ones.  Every
+// block reads map_i[b] before it draws its ticket, and the last block
+// writes it after every ticket is drawn, as with the parity word.
 __device__ __forceinline__ bool lane_params(const TickBatchPlan& t, int b, int head, int gate,
                                             int cap, TickParams* p) {
   if (t.active[b] == 0) return false;
+  int i = 0;
+  if (t.map_i != nullptr) {
+    i = t.map_i[b] + 1;
+    head = (t.hist_rows - (i - 1) % t.hist_rows) % t.hist_rows;
+    gate = i > t.hist_rows - 1;
+    cap = i == t.max_map_iters;
+  }
   const long long e = static_cast<long long>(b) * t.capacity;
   const long long nv = t.n_vertices, nh = t.n_hoods, k = t.n_labels;
   const int q = t.parity[b] & 1;
@@ -518,7 +546,8 @@ __device__ __forceinline__ bool lane_params(const TickBatchPlan& t, int b, int h
                   votes + q * k * nv, votes + (1 - q) * k * nv, t.stats + b * 3 * k,
                   t.sync + 2 * b, t.flag_dev + b, t.flag_host_dev + b, t.parity + b,
                   t.active + b, t.hist_rows, head, /*ring_write=*/1, gate, cap, t.n_hoods,
-                  t.n_vertices, t.n_labels, t.conv_tol};
+                  t.n_vertices, t.n_labels, t.conv_tol,
+                  t.map_i != nullptr ? t.map_i + b : nullptr, i};
   return true;
 }
 
@@ -725,9 +754,10 @@ int repro_em_tick_step(const TickPlan* t, int parity, int head, int gate, int ca
 
 // One MAP iteration of every active lane of a stack, in one launch: lane b
 // runs repro_em_tick_step on its own buffers with its own parity word
-// (flipped by the launch), the shared `head`, `gate` and `cap`; a lane
-// that stops (its flag word set, or `cap`) takes the M-step sums and sets
-// its active word to 0.  An inactive lane writes nothing.
+// (flipped by the launch), the shared `head`, `gate` and `cap` (or, when
+// the plan carries map_i, its own: repro_em_tick_step_pool); a lane that
+// stops (its flag word set, or `cap`) takes the M-step sums and sets its
+// active word to 0.  An inactive lane writes nothing.
 int repro_em_tick_step_batched(const TickBatchPlan* t, int head, int gate, int cap) {
   return on_device(t->device, [&] {
     TickParams shape{};
@@ -736,6 +766,17 @@ int repro_em_tick_step_batched(const TickBatchPlan* t, int head, int gate, int c
     return dispatch(Launch{&shape, t, head, gate, cap}, t->bf16,
                     static_cast<cudaStream_t>(t->stream));
   });
+}
+
+// One MAP iteration of every active lane of a pool, in one launch: lane b
+// runs its own iteration map_i[b] + 1 (its ring head, gate and cap derived
+// from it, lane_params) on its own buffers, sets map_i[b] to it, and, if it
+// stops (its flag word set, or its cap), takes the M-step sums and sets its
+// active word to 0.  An inactive lane writes nothing.  `t->map_i` must be
+// set.
+int repro_em_tick_step_pool(const TickBatchPlan* t) {
+  if (t->map_i == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return repro_em_tick_step_batched(t, 0, 0, 0);
 }
 
 // Wait for the plan's stream and read the flag word the last step wrote.

@@ -20,6 +20,13 @@ arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
   of B problems padded to one bucket, one launch per MAP iteration for
   every lane still running (the kernel's lane axis), one wait for the B
   flag words.  ``ref.PlainBatchTickWorkspace`` is its plain version.
+* :class:`PoolTickWorkspace`, the continuous-batching driver's
+  (``em.run_em_ticked``): a pool of B slots that owns its lanes' inputs,
+  whose lanes sit at different MAP iterations; one launch per micro-step
+  runs every active lane's own next iteration (the kernel's per-lane MAP
+  counters), one wait reads the B flag words.  Slot writes (``admit``,
+  ``begin_lanes``, ``retire``) touch only that slot's rows.
+  ``ref.PlainPoolTickWorkspace`` is its plain version.
 * :func:`fused_em_tick_cuda`, with the JAX kernel's signature (``xf`` and
   ``hist`` given), allocating its outputs per call.  ``ref.fused_em_tick``
   is its plain version.
@@ -51,9 +58,10 @@ SMEM_PER_BLOCK = 232_448
 MAX_LABELS = SMEM_PER_BLOCK // (4 * (3 + 8))
 
 #: Launches of the kernel in this process (``ops.launch_counts``), and
-#: how many of them were the batched entry's.
+#: how many of them were the batched entry's and the pool entry's.
 launches = 0
 launches_batched = 0
+launches_pool = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -92,10 +100,10 @@ class _TickBatchPlan(ctypes.Structure):
         *((name, _P) for name in (
             "y", "w", "nall", "valid", "vertex", "offsets", "region_mean", "region_weight",
             "mu", "sigma", "beta", "labels", "votes", "ring", "hood_e", "stats", "sync",
-            "flag_dev", "flag_host_dev", "flag_host", "parity", "active", "stream")),
+            "flag_dev", "flag_host_dev", "flag_host", "parity", "active", "map_i", "stream")),
         *((name, _I) for name in (
             "batch", "capacity", "hist_rows", "n_hoods", "n_vertices", "n_labels", "bf16",
-            "device")),
+            "device", "max_map_iters")),
         ("conv_tol", ctypes.c_float),
     ]
 
@@ -105,6 +113,7 @@ _SIGNATURES = {
     "repro_fused_em_tick": _ARGTYPES,
     "repro_em_tick_step": [_P, _I, _I, _I, _I],     # plan, parity, head, gate, cap
     "repro_em_tick_step_batched": [_P, _I, _I, _I],  # plan, head, gate, cap
+    "repro_em_tick_step_pool": [_P],                # plan (per-lane controls)
     "repro_em_tick_wait": [_P, _P],                 # plan, flag out
     "repro_em_tick_wait_batched": [_P, _P],         # plan, B flags out
     "repro_em_tick_host_word": [_P, _P, _I],        # host, device address out, words
@@ -119,6 +128,7 @@ def _entry(symbol: str):
 _require = functools.partial(_build.require, "fused_em_tick_cuda")
 _require_ws = functools.partial(_build.require, "TickWorkspace")
 _require_batch = functools.partial(_build.require, "BatchTickWorkspace")
+_require_pool = functools.partial(_build.require, "PoolTickWorkspace")
 
 
 def _check_labels(fn: str, n_labels: int) -> None:
@@ -479,6 +489,172 @@ class BatchTickWorkspace:
     def active(self) -> torch.Tensor:
         """The lanes' active words (1: the lane runs the next step)."""
         return self._words[2]
+
+    @property
+    def labels(self) -> torch.Tensor:
+        """(B, n_vertices): each lane's current labels."""
+        return self._labels[self._lane, self._words[1].long()]
+
+    @property
+    def votes(self) -> torch.Tensor:
+        """(B, K, n_vertices): each lane's last step's votes."""
+        return self._votes[self._lane, (self._words[1] ^ 1).long()]
+
+
+class PoolTickWorkspace:
+    """The continuous-batching driver's slot pool on the card: B slots of
+    one bucket, each holding one lane's inputs and MAP-iteration state, one
+    launch per micro-step for every active lane, each at its own MAP
+    iteration.
+
+    Unlike :class:`BatchTickWorkspace` it owns the lanes' inputs (stacked
+    ``y``, ``w``, ``nall``, ``valid``, ``vertex``, ``offsets``,
+    ``region_mean``, ``region_weight``, ``beta``, ``mu``, ``sigma``) beside
+    the state of each lane (two label and two vote buffers swapped by the
+    lane's parity word, the ring, ``hood_e``, the M-step sums, the ticket,
+    flag, parity, active and MAP-counter words), so a request is admitted
+    into a slot with device copies and no other lane moves.  Built from
+    the shapes alone; ``max_map_iters`` is the cap every lane's MAP loop
+    stops at (the kernel's per-lane cap bit).
+
+    :meth:`admit` writes one lane's rows (the lane stays inactive);
+    :meth:`begin_lanes` starts an EM iteration of some lanes (their
+    parameters, ring rows and MAP counters, their active words set);
+    :meth:`retire` clears a slot's active word; :meth:`step` is one launch
+    (lane b runs MAP iteration ``map_i[b] + 1`` with its ring head, gate
+    and cap derived from it; a lane that stops takes its M-step sums and
+    clears its active word); :meth:`flags` is one wait for the B flag words
+    (a word is the last launch's only for a lane that ran in it).  Every
+    slot write touches that slot's rows alone, issued on the pool's stream
+    (the current stream when the pool was built), so no host buffer is
+    shared between writes that a wait does not separate.  A slot keeps its
+    parity word across admissions; :meth:`admit` zeroes both of its vote
+    buffers, so the buffer its parity names is zero whatever the lane
+    before it left.
+    """
+
+    def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):
+        dev = _check_shape("PoolTickWorkspace", shape, precision, device)
+        if batch < 1 or max_map_iters < 1:
+            raise ValueError(f"PoolTickWorkspace needs batch >= 1 and max_map_iters >= 1, got "
+                             f"{batch} and {max_map_iters}")
+        self.shape, self.batch, self.device, self.precision = shape, batch, dev, precision
+        self.max_map_iters = max_map_iters
+        self.capacity, nh, nv, n_labels = shape
+        self.n_hoods, self.n_vertices, self.n_labels = nh, nv, n_labels
+        f32, i32 = torch.float32, torch.int32
+        z = lambda *s, dtype=f32: torch.zeros((batch, *s), dtype=dtype, device=dev)  # noqa: E731
+        self.y, self.w, self.nall, self.valid = (z(self.capacity) for _ in range(4))
+        self.vertex = z(self.capacity, dtype=i32)
+        self.offsets = z(nh + 1, dtype=i32)
+        self.region_mean, self.region_weight = z(nv), z(nv)
+        self.beta = z()
+        self.mu, self.sigma = z(n_labels), torch.ones((batch, n_labels), dtype=f32, device=dev)
+        self._labels = z(2, nv, dtype=i32)
+        self._votes = z(2, n_labels, nv)
+        self.ring = z(window + 1, nh)
+        self.hood_e = z(nh)
+        self.stats = z(3, n_labels)
+        # Per lane: flag, parity, active, MAP counter.
+        self._words = torch.zeros((4, batch), dtype=i32, device=dev)
+        self._sync = z(2, dtype=i32)
+        self._host = _HostWord(batch)
+        self._lane = torch.arange(batch, device=dev)
+        self._stream = torch.cuda.current_stream(dev)
+        self._plan = p = _TickBatchPlan()
+        for name in ("y", "w", "nall", "valid", "vertex", "offsets", "region_mean",
+                     "region_weight", "beta", "mu", "sigma", "ring", "hood_e", "stats"):
+            setattr(p, name, getattr(self, name).data_ptr())
+        p.labels, p.votes, p.sync = self._labels.data_ptr(), self._votes.data_ptr(), self._sync.data_ptr()
+        p.flag_dev, p.parity, p.active, p.map_i = (self._words[i].data_ptr() for i in range(4))
+        p.flag_host_dev, p.flag_host = self._host.device, self._host.host
+        p.stream = self._stream.cuda_stream
+        p.batch, p.capacity, p.hist_rows = batch, self.capacity, window + 1
+        p.n_hoods, p.n_vertices, p.n_labels = nh, nv, n_labels
+        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index, conv_tol
+        p.max_map_iters = max_map_iters
+        self._addr = ctypes.addressof(p)
+        self._step = _entry("repro_em_tick_step_pool")
+        self._wait = _entry("repro_em_tick_wait_batched")
+        self._flags = (ctypes.c_int * batch)()
+        self._flags_addr = ctypes.addressof(self._flags)
+        self.owner = None  # a weak reference to the pool state (em.TickState) driving the slots
+
+    def _check_slot(self, slot: int) -> int:
+        if not 0 <= slot < self.batch:
+            raise ValueError(f"slot {slot} is not one of the pool's {self.batch}")
+        return slot
+
+    def admit(self, slot: int, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        """Write one lane's inputs into ``slot`` (one problem of the bucket's
+        shapes: its hoods' ``vertex`` and ``offsets``, its model's region
+        arrays and ``beta``, its element arrays, its initial labels) and
+        zero its vote buffers; the lane stays inactive until
+        :meth:`begin_lanes`."""
+        b = self._check_slot(slot)
+        dev, f32 = self.device, torch.float32
+        _check_problem(_require_pool, self.shape, hoods, model, (), dev)
+        for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
+            _require_pool(t, name, f32, (self.capacity,), dev)
+        _require_pool(labels0, "labels0", torch.int32, (self.n_vertices,), dev)
+        _require_pool(model.beta.reshape(()), "beta", f32, (), dev)
+        with torch.cuda.stream(self._stream):
+            self._words[2, b] = 0
+            for dst, src in ((self.y, y), (self.w, w), (self.nall, nall_e), (self.valid, valid),
+                             (self.vertex, hoods.vertex), (self.offsets, hoods.offsets),
+                             (self.region_mean, model.region_mean),
+                             (self.region_weight, model.region_weight),
+                             (self.beta, model.beta.reshape(()))):
+                dst[b].copy_(src)
+            self._labels[b].copy_(labels0.expand(2, self.n_vertices))
+            self._votes[b].zero_()
+            self._words[3, b] = 0
+
+    def begin_lanes(self, slots, mu, sigma) -> None:
+        """Start an EM iteration of the lanes in ``slots``: their ``(n, K)``
+        parameters (``sigma`` already clamped at ``sigma_min``), their ring
+        rows and MAP counters zeroed, their active words set."""
+        n = len(slots)
+        for t, name in ((mu, "mu"), (sigma, "sigma")):
+            _require_pool(t, name, torch.float32, (n, self.n_labels), self.device)
+        for b in slots:
+            self._check_slot(b)
+        with torch.cuda.stream(self._stream):
+            idx = torch.as_tensor(list(slots), dtype=torch.long).to(self.device)
+            self.mu.index_copy_(0, idx, mu)
+            self.sigma.index_copy_(0, idx, sigma)
+            self.ring.index_fill_(0, idx, 0.0)
+            self._words[3].index_fill_(0, idx, 0)
+            self._words[2].index_fill_(0, idx, 1)
+
+    def retire(self, slot: int) -> None:
+        """Clear ``slot``'s active word: the lane runs no further launch."""
+        b = self._check_slot(slot)
+        with torch.cuda.stream(self._stream):
+            self._words[2, b] = 0
+
+    def step(self) -> None:
+        """One MAP iteration of every active lane, each its own: one launch."""
+        global launches, launches_pool
+        self._step(self._addr)
+        launches += 1
+        launches_pool += 1
+
+    def flags(self) -> list:
+        """Wait for the last step and return the B flag words."""
+        self._wait(self._addr, self._flags_addr)
+        return list(self._flags)
+
+    @property
+    def active(self) -> torch.Tensor:
+        """The lanes' active words (1: the lane runs the next step)."""
+        return self._words[2]
+
+    @property
+    def map_i(self) -> torch.Tensor:
+        """The lanes' MAP counters: iterations of the current MAP loop."""
+        return self._words[3]
 
     @property
     def labels(self) -> torch.Tensor:

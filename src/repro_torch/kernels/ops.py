@@ -12,10 +12,11 @@ There is no fallback: a CUDA tensor that reaches a kernel that fails to
 build or launch raises.  Each kernel module counts its launches;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts`
 zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
-of the flash launches, and ``em_tick.launches_batched``, the batched
-entry's share of the tick's).  :data:`WORKSPACE_BUILDS` counts the
-MAP-iteration workspaces built in this process: a session builds one per
-bucket and reuses it, so a warm solve adds none.
+of the flash launches, and ``em_tick.launches_batched`` and
+``em_tick.launches_pool``, the batched and the pool entry's shares of the
+tick's).  :data:`WORKSPACE_BUILDS` counts the MAP-iteration workspaces
+built in this process: a session builds one per bucket (and one per
+ticked pool) and reuses it, so a warm solve adds none.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ def reset_launch_counts() -> None:
         module.launches = 0
     _flash_attention.launches_tc = 0
     _em_tick.launches_batched = 0
+    _em_tick.launches_pool = 0
 
 
 def segment_reduce(
@@ -135,6 +137,8 @@ def tick_workspace(
     *,
     device,
     batch: Optional[int] = None,
+    pool: bool = False,
+    max_map_iters: int = 10,
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
     window: int = 3,
@@ -148,13 +152,22 @@ def tick_workspace(
     :class:`ref.PlainTickWorkspace`); with ``batch=B`` the batched driver's
     for B lanes (:class:`em_tick.BatchTickWorkspace`, one launch per MAP
     iteration for all running lanes; else
-    :class:`ref.PlainBatchTickWorkspace`)."""
+    :class:`ref.PlainBatchTickWorkspace`); with ``batch=B, pool=True`` the
+    continuous-batching driver's pool of B slots, each lane at its own MAP
+    iteration and stopping at ``max_map_iters``
+    (:class:`em_tick.PoolTickWorkspace`, one launch per micro-step; else
+    :class:`ref.PlainPoolTickWorkspace`)."""
     global WORKSPACE_BUILDS
     kernel = _use_kernel(backend, device)
     kw = dict(device=device, precision=precision, conv_tol=conv_tol, window=window)
+    if pool and batch is None:
+        raise ValueError("a pool workspace needs batch=B")
     if batch is None:
         cls = _em_tick.TickWorkspace if kernel else ref.PlainTickWorkspace
         ws = cls(TickShape(*shape), **kw)
+    elif pool:
+        cls = _em_tick.PoolTickWorkspace if kernel else ref.PlainPoolTickWorkspace
+        ws = cls(TickShape(*shape), batch, max_map_iters=max_map_iters, **kw)
     else:
         cls = _em_tick.BatchTickWorkspace if kernel else ref.PlainBatchTickWorkspace
         ws = cls(TickShape(*shape), batch, **kw)

@@ -349,6 +349,16 @@ class PlainTickWorkspace:
         return int(self._flag)
 
 
+def lane_controls(map_i: int, rows: int, max_map_iters: int) -> Tuple[int, bool, bool]:
+    """The ring head, gate and cap bit of the MAP iteration ``i = map_i +
+    1`` of a lane whose loop has taken ``map_i``, as the pool entry of the
+    kernel derives them and as the single-problem driver passes them: head
+    0 at ``i = 1`` and one row back per iteration, the gate open past the
+    window (``rows - 1``), the cap at ``max_map_iters``."""
+    i = map_i + 1
+    return (-(i - 1)) % rows, i > rows - 1, i == max_map_iters
+
+
 def fused_map_iteration_batched(
     y: Tensor,
     w: Tensor,
@@ -377,6 +387,8 @@ def fused_map_iteration_batched(
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
     log_sigma: Optional[Tensor] = None,
+    map_i: Optional[Tensor] = None,
+    max_map_iters: int = 0,
 ) -> None:
     """One MAP iteration of every active lane of a stack, in place: the
     plain version of the batched tick.  Every argument but ``head`` and the
@@ -386,8 +398,18 @@ def fused_map_iteration_batched(
     ``votes``, ``hood_e``, ring row and flag word; if the lane stops (its
     flag word set, or ``cap``) it also writes its M-step sums into
     ``stats`` and clears ``active[b]``.  An inactive lane's rows stay as
-    they were."""
+    they were.
+
+    With ``map_i`` ((B,) int32, the pool entry's MAP counters) each lane
+    takes its own ``head``, ``gate`` and ``cap`` from :func:`lane_controls`
+    (``head``, ``gate`` and ``cap`` are then ignored) and its counter goes
+    up by one."""
+    rows = int(ring.shape[1])
     for b in torch.nonzero(active).flatten().tolist():
+        if map_i is not None:
+            i = int(map_i[b])
+            head, gate, cap = lane_controls(i, rows, max_map_iters)
+            map_i[b] = i + 1
         new_labels, he, v, flag, *sums = fused_map_iteration(
             y[b], w[b], nall_e[b], valid[b], hood_id[b], vertex[b], region_mean[b],
             region_weight[b], ring[b], head, labels[b], mu[b], sigma[b], beta[b], gate=gate,
@@ -448,6 +470,81 @@ class PlainBatchTickWorkspace:
             log_sigma=self._log_sigma,
         )
         self.head = (self.head - 1) % int(self.ring.shape[1])
+
+    def flags(self) -> list:
+        return self._flags.tolist()
+
+
+class PlainPoolTickWorkspace:
+    """The plain version of ``em_tick.PoolTickWorkspace`` (same methods and
+    views): the continuous-batching driver's route on the CPU, or on the
+    card with ``backend="torch"``.  One :func:`fused_map_iteration_batched`
+    with the pool's MAP counters per step.  It owns its lanes' inputs, the
+    element arrays' ``hood_id`` too (the kernel reads the hood runs from
+    ``offsets`` instead).  ``log_sigma`` ((B, K), or None), when set,
+    stands for ``torch.log(sigma)`` of every lane
+    (``label_energies_blocked``'s ``log_sig``)."""
+
+    def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
+                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):
+        if batch < 1 or max_map_iters < 1:
+            raise ValueError(f"PlainPoolTickWorkspace needs batch >= 1 and max_map_iters >= 1, "
+                             f"got {batch} and {max_map_iters}")
+        self.shape, self.batch, self.max_map_iters = shape, batch, max_map_iters
+        self.device, self.precision = torch.device(device), precision
+        self.n_labels, self._conv_tol = shape.n_labels, conv_tol
+        dev, f32, i32 = self.device, torch.float32, torch.int32
+        cap, nh, nv, k = shape
+        z = lambda *s, dtype=f32: torch.zeros((batch, *s), dtype=dtype, device=dev)  # noqa: E731
+        self.y, self.w, self.nall, self.valid = (z(cap) for _ in range(4))
+        self.hood_id, self.vertex = z(cap, dtype=i32), z(cap, dtype=i32)
+        self.region_mean, self.region_weight = z(nv), z(nv)
+        self.beta = z()
+        self.mu, self.sigma = z(k), torch.ones((batch, k), dtype=f32, device=dev)
+        self.log_sigma = None
+        self.labels = z(nv, dtype=i32)
+        self.votes = z(k, nv)
+        self.ring = z(window + 1, nh)
+        self.hood_e = z(nh)
+        self.stats = z(3, k)
+        self.active = z(dtype=torch.bool)
+        self.map_i = z(dtype=i32)
+        self._flags = z(dtype=i32)
+        self.owner = None
+
+    def admit(self, slot: int, hoods, model, y, w, nall_e, valid, labels0) -> None:
+        if (hoods.capacity, hoods.n_hoods, hoods.n_regions + 1, model.n_labels) != self.shape:
+            raise ValueError(f"a problem of {TickShape.of(hoods, model)}; the pool was built "
+                             f"for {self.shape}")
+        self.active[slot] = False
+        for dst, src in ((self.y, y), (self.w, w), (self.nall, nall_e), (self.valid, valid),
+                         (self.hood_id, hoods.hood_id), (self.vertex, hoods.vertex),
+                         (self.region_mean, model.region_mean),
+                         (self.region_weight, model.region_weight), (self.beta, model.beta),
+                         (self.labels, labels0)):
+            dst[slot].copy_(src)
+        self.votes[slot].zero_()
+        self.map_i[slot] = 0
+
+    def begin_lanes(self, slots, mu, sigma) -> None:
+        for j, b in enumerate(slots):
+            self.mu[b], self.sigma[b] = mu[j], sigma[j]
+            self.ring[b].zero_()
+            self.map_i[b] = 0
+            self.active[b] = True
+
+    def retire(self, slot: int) -> None:
+        self.active[slot] = False
+
+    def step(self) -> None:
+        nh, nv = self.shape.n_hoods, self.shape.n_vertices
+        fused_map_iteration_batched(
+            self.y, self.w, self.nall, self.valid, self.hood_id, self.vertex, self.region_mean,
+            self.region_weight, self.ring, 0, self.labels, self.votes, self.hood_e, self.stats,
+            self._flags, self.active, self.mu, self.sigma, self.beta, gate=False, cap=False,
+            n_hoods=nh, n_vertices=nv, precision=self.precision, conv_tol=self._conv_tol,
+            log_sigma=self.log_sigma, map_i=self.map_i, max_map_iters=self.max_map_iters,
+        )
 
     def flags(self) -> list:
         return self._flags.tolist()

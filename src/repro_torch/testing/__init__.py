@@ -1,2 +1,4 @@
-"""Inputs for holding the port against its references (numpy only, so the
-on-card smoke script can use them without the JAX package)."""
+"""Tools for holding the port against its references and for fault
+injection: the numpy models and inputs the on-card smoke script uses
+without the JAX package, and the seeded chaos harness
+(:mod:`repro_torch.testing.chaos`) that the serving engine consults."""

@@ -53,9 +53,10 @@ when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
 K = 2 solve of each segmentation path after 10 timed warm solves, one
 LM prefill at S = 1024 and one decode step, with their device idle
-shares, and, in a process of its own (``--serve-profile``), the tick's
-pool launch and a warm served stream).  Float32 products run in full float32 (TF32 off, the defaults,
-set explicitly).  After the build a ``ptxas`` line gives the registers
+shares, the tick's pool launch and a warm served stream).  A
+``profiler_lead`` line counts the traces by the lead records the
+profiler lost (``device_profile``).  Float32 products run in full
+float32 (TF32 off, the defaults, set explicitly).  After the build a ``ptxas`` line gives the registers
 and spills of the tensor-core flash kernels (any spill in the flash
 library fails the run); the
 ``flash_attention`` timing lines give both model shapes with their device
@@ -271,6 +272,9 @@ MAP_STEPS = 20  # MAP steps of the repeat and profiler checks
 MRF_VOLUME_SLICES = 512  # mrf_min_energy at the paper's 512^3 volume: 512 slices of hood elements
 PROFILE_ATTEMPTS = 3  # profiles of MAP_STEPS steps, for the records the profiler drops
 PROFILER_SPIN_CYCLES = 20_000_000  # about 10 ms at the H100's clock, before each traced window
+PROFILER_LEAD_RECORDS = 32  # short spins after it: the profiler may lose a trace's first records
+PROFILER_LEAD_CYCLES = 10_000  # about 5 us each
+PROFILE_LEAD_LOST: dict = {}  # traces by the number of their spin records the profiler lost
 STACK = ((2, 16), (3, 4))  # (K, slices) of the stack phase: 512x512 slices, batch="always"
 BATCHED_CHECK_SIZES = (1, 3, 16)  # lanes at which the batched entry is held to its plain version
 STACK_REPEATS = 5  # timed drains of the K = 2 stack, batched and serial
@@ -334,13 +338,16 @@ def device_profile(torch, fn) -> dict:
     included).  ``device_ops`` counts the device operations, split into
     ``kernels``, ``memsets`` and ``memcpys``.
 
-    The tracing drops the device records of a trace's first milliseconds
-    on the H100 (it lost 1 of 20 ticks in one run and all 20 flash
-    launches in another, while its record buffer was requested), so each
-    trace first spins the card for about 10 ms (``torch.cuda._sleep``,
-    kernel ``spin_kernel``), which is left out; it spins as long after
-    ``fn`` too, since a trace has also lost one record of 20 MAP steps in
-    three attempts running (the sharded MAP-step check)."""
+    On the H100 the tracing may lose the first device records of a trace,
+    and it is their number, not their length, that counts: behind one
+    long spin it can lose the spin and ``fn``'s first kernel, behind
+    several short spins only spins.  So each trace first spins the card
+    for about 10 ms and then ``PROFILER_LEAD_RECORDS`` times for about 5 us
+    (``torch.cuda._sleep``, kernel ``spin_kernel``), all left out; it spins
+    10 ms after ``fn`` too.  ``spins_seen`` counts the spin records the
+    trace kept, of ``PROFILER_LEAD_RECORDS + 2``; ``PROFILE_LEAD_LOST``
+    tallies the traces by how many they lost (the ``profiler_lead``
+    line)."""
     import gc
 
     from torch.autograd import DeviceType
@@ -350,21 +357,26 @@ def device_profile(torch, fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda._sleep(PROFILER_SPIN_CYCLES)
+        for _ in range(PROFILER_LEAD_RECORDS):
+            torch.cuda._sleep(PROFILER_LEAD_CYCLES)
         torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(PROFILER_SPIN_CYCLES)
         torch.cuda.synchronize()
-    by_name, host = {}, []
+    by_name, host, spins = {}, [], 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
             host.append((float(e.self_cpu_time_total), e.key, e.count))
             continue
         if "spin_kernel" in e.key:
+            spins += e.count
             continue
         us = float(e.self_device_time_total)
         if us > 0.0:
             by_name[e.key] = (by_name.get(e.key, (0.0, 0))[0] + us, e.count)
+    lost = PROFILER_LEAD_RECORDS + 2 - spins
+    PROFILE_LEAD_LOST[lost] = PROFILE_LEAD_LOST.get(lost, 0) + 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     kinds = {"kernels": 0, "memsets": 0, "memcpys": 0}
     for k, (_, n) in by_name.items():
@@ -378,6 +390,7 @@ def device_profile(torch, fn) -> dict:
         "host_top": [{"name": k[:60], "self_us": us, "count": n}
                      for us, k, n in sorted(host, reverse=True)[:10]],
         "allreduces": sum(n for _, k, n in host if k == "c10d::allreduce_"),
+        "spins_seen": spins,
     }
 
 
@@ -1665,11 +1678,10 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
     bookkeeping; host clock), the plain pool step's ms on the card, and the
     bound: the lanes' MAP-step bytes and operations.  With ``profile``:
     the device us per launch and the device operations of ``MAP_STEPS``
-    micro-steps (one kernel each, no memset, no copy).  The profiler has
-    dropped one launch's record in every attempt of a run while a fresh
-    process saw them all, so attempt k traces ``MAP_STEPS + k``
-    micro-steps; a trace that shows another kernel, a memset or a copy
-    fails at once."""
+    micro-steps (one kernel each, no memset, no copy); a trace that shows
+    fewer tick kernels and nothing else is made again, up to
+    ``PROFILE_ATTEMPTS`` times, and one that shows another kernel, a
+    memset or a copy fails at once."""
     cfg = seg.config.em_config()._replace(max_map_iters=NEVER_STOP)
     lanes = [seg.lane_state(p, bucket=bucket, seed=SLICE["seed"]) for p in plans[:batch]]
     shape, dev = ops.TickShape.of(lanes[0][0], lanes[0][1]), lanes[0][0].vertex.device
@@ -1698,8 +1710,8 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
         fail(f"pool timing B={batch}: a lane stopped")
     if profile:
         attempts = []
-        for k in range(PROFILE_ATTEMPTS):
-            steps = MAP_STEPS + k
+        steps = MAP_STEPS
+        for _ in range(PROFILE_ATTEMPTS):
             reset()
             before = ops.launch_counts()["fused_em_tick"]
             prof = device_profile(torch, lambda: [micro() for _ in range(steps)])
@@ -1833,17 +1845,10 @@ def serve_plans(api, synthetic, dev):
     return vol, config, seg, plans, bucket, serial
 
 
-def serve_profile(torch, api, synthetic, ops, em_mod, dev) -> None:
-    """The serve path under the profiler (``--serve-profile``, which the
-    ``--profile`` run starts as a process of its own: late in a long run
-    the profiler has lost one kernel record in every trace, while a fresh
-    process saw them all): the pool entry's device time and a micro-step's
-    device operations (``time_pool_step``), and the device's idle share of
-    a warm served stream (``SOLVES`` unprofiled runs, then one traced)."""
-    _, _, seg, plans, bucket, _ = serve_plans(api, synthetic, dev)
+def serve_profile(torch, ops, seg, plans, bucket) -> None:
+    """The device's idle share of a warm served stream (``SOLVES``
+    unprofiled runs, then one traced)."""
     stream = lambda: serve_stream(torch, ops, seg, plans, bucket, SERVE_TICK, SERVE_SLOTS)["wall_s"]  # noqa: E731
-    stream()  # pads and element arrays memoised on the plans
-    time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, True)
     walls = spread([stream() for _ in range(SOLVES)])
     prof = device_profile(torch, stream)
     emit({"phase": "profile", "what": f"warm served stream ({SERVE_REQUESTS} K=2 requests, "
@@ -1865,8 +1870,8 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     held to its plain version (``check_pool_entry`` at ``POOL_CHECK_SIZES``
     slots), a mixed-K pool, a chaos stream, every launch of a small stream
     held to the plain pool on the CPU (``serve_cpu_check``), and the pool
-    launch's times (``time_pool_step``); with ``profile``, ``serve_profile``
-    in a process of its own."""
+    launch's times (``time_pool_step``); with ``profile``, the pool launch's
+    device time and ``serve_profile``."""
     seed = SLICE["seed"]
     vol, config, seg, plans, bucket, serial = serve_plans(api, synthetic, dev)
     out = {}
@@ -1895,15 +1900,9 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial)
     serve_chaos(torch, ops, em_mod, seg, plans, bucket, serial)
     serve_cpu_check(torch, ops, em_mod, seg, plans, bucket, serial)
-    out["timing"] = time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, False)
+    out["timing"] = time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, profile)
     if profile:
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--serve-profile"],
-                              capture_output=True, text=True, timeout=900)
-        print(proc.stdout, end="", flush=True)
-        if proc.returncode:
-            fail(f"the serve profile process exited {proc.returncode}: {proc.stderr[-3000:]}")
-        rows = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
-        out["timing"]["device_ms"] = next(r for r in rows if r.get("phase") == "timing")["device_ms"]
+        serve_profile(torch, ops, seg, plans, bucket)
     return out
 
 
@@ -2868,9 +2867,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true",
                     help="also trace device time with torch.profiler (kernels alone and one solve)")
-    ap.add_argument("--serve-profile", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    profile = args.profile
+    profile = ap.parse_args(argv).profile
     try:
         import torch
     except ImportError:
@@ -2895,10 +2892,6 @@ def main(argv=None) -> int:
     # versions the kernels are held to must not drop to TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.serve_profile:
-        _build.build_all()
-        serve_profile(torch, api, synthetic, ops, em_mod, dev)
-        return 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
@@ -3040,9 +3033,7 @@ def main(argv=None) -> int:
 
     # Fifth path: a request stream through the continuous-batching engine,
     # one launch of the tick's pool entry per micro-step, each lane at its
-    # own MAP iteration; the pool entry against its plain version.  It runs
-    # last: after it the profiler has lost one kernel record in every trace
-    # of the sharded and mrf_min_energy checks (runs 22E, 22H).
+    # own MAP iteration; the pool entry against its plain version.
     served = run_serve(torch, api, synthetic, ops, em_mod, dev, profile)
 
     launches = slice2["launches"]
@@ -3051,6 +3042,8 @@ def main(argv=None) -> int:
     step_keys = tick_keys + ("ms_per_map_step", "stopping_launch")
     bstep = st2["batched_step"]
     ptime = served["timing"]
+    emit({"phase": "profiler_lead", "lead_records": PROFILER_LEAD_RECORDS + 2,
+          "traces_by_records_lost": {str(k): n for k, n in sorted(PROFILE_LEAD_LOST.items())}})
     emit({"kernels": [
         {"name": "fused_em_tick", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",

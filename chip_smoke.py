@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives five paths (serving last):
+PyTorch version on the card, and drives six paths (serving last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
@@ -25,6 +25,15 @@ PyTorch version on the card, and drives five paths (serving last):
   between ticks admission into freed slots; then a mixed-K pool (4 K = 2
   and 4 K = 3 requests, K = 3 pool of 4 slots) and a chaos stream (a
   ``bad_init``, a ``nan_data`` and a ``never_converge`` request among 8);
+* the modes ``static`` and ``faithful``, the paper's primitive sequence:
+  the K = 2, 3 and 9 slices' plans through
+  ``Segmenter(ExecutionConfig(mode=m))`` (per MAP iteration counts,
+  energies, the per-element minimum by an axis-min or by SortByKey and
+  ``segment_reduce`` ``min``, hood sums by its ordered ``add``, votes;
+  per EM iteration three ordered M-step sums), and at K = 2, 3 the same
+  on the sharded route over the one-rank NCCL group; then the fallback
+  phase: ``FallbackPolicy`` under the chaos harness's compile and
+  execute faults;
 * the sharded route: ``run_em_sharded`` on the same plans over a
   one-rank NCCL process group made in this process, on the rank's
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
@@ -222,6 +231,32 @@ Tolerances (kernel against plain version, same inputs, on the card):
   M-step sums) and its
   ``segment_reduce`` launches one (the neighbourhood sizes; neither the
   label counts nor the M-step go through it).
+* The modes (``modes``, ``modes_sharded``, ``ordered_add_check``,
+  ``dpp_profile`` and ``fallback`` lines): per solve no ``fused_em_tick``
+  or ``fused_map_step`` launch and ``segment_reduce`` launched as the
+  route implies (per MAP iteration two order-free ``add``, one ordered
+  ``add`` and in ``faithful`` one ``min``; per EM iteration three ordered
+  ``add``); each solve's status, iteration counts, labels, mu and sigma
+  bit for bit the plain path's on the CPU, the two modes equal; at K = 2
+  and 3 every MAP iteration's labels, hood sums and flag and every
+  M-step's sums bit for bit the CPU step's from the card's state
+  (``DppLockstep``; the CPU takes the card's ``log`` of each sigma).  At
+  K = 9 only the whole solve is compared: its CPU lockstep would sort
+  9 x 50,485 lanes per iteration, and the script keeps within its time
+  limit.  Sharded over one rank: the single-device solve bit for bit and
+  the same lockstep.  The ordered ``add``: bit for bit ``ref.keyed_sum``
+  on the CPU at every ordered and ``min`` call of a faithful K = 2 solve
+  and at random shapes (NaN equal to NaN: the card gives its canonical
+  NaN); its ms, device us and bound at the solve's hood-sum and M-step
+  calls.  Printed: warm ``optimize_s`` (best and median of 10 solves),
+  launches per solve, the profiled faithful solve's DPP totals, and with
+  ``--profile`` each warm solve's device operations and idle share.
+  Fallback: under a compile fault of the kernel route the default policy
+  raises ``FallbackError`` and builds and launches nothing, and
+  ``FallbackPolicy(backend="torch")`` gives the plain route's counts with
+  one event and one warning and no kernel; one transient execute fault
+  (``static-pallas`` and ``faithful``) and one on an engine tick give the
+  clean solve bit for bit.
 * LM serving: every request completes with 32 tokens in the vocabulary.
   Kernel path against plain path on the same weights: (a) a 2-layer f32
   variant at full width (d_model 1536, vocab 151,936) gives identical
@@ -284,6 +319,8 @@ SERVE_CPU_REQUESTS, SERVE_CPU_SLOTS, SERVE_CPU_TICK = 6, 3, 3  # serve_cpu_check
 POOL_CHECK_SIZES = (1, 3, 8)  # slots at which the pool entry is held to its plain version
 POOL_CHECK_MAP_ITERS = 6  # the pool check's MAP cap: every lane reaches it inside the check
 NEVER_STOP = 1 << 30  # MAP cap of the timing pool (with tolerance 0 its lanes never stop)
+MODES = ("static", "faithful")  # the modes phase: the paper's primitive sequence
+MODES_LOCKSTEP_K = (2, 3)  # slices whose modes solves are held to the CPU at every MAP iteration
 
 
 def emit(obj) -> None:
@@ -565,6 +602,14 @@ def same_bits(torch, a, b) -> bool:
     """Two tensors equal bit for bit (floats by their bits)."""
     as_bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 else t
     return torch.equal(as_bits(a), as_bits(b))
+
+
+def same_bits_or_nan(torch, a, b) -> bool:
+    """Two float tensors equal bit for bit where neither is NaN, and NaN at
+    the same places: the card's arithmetic gives its canonical NaN, the
+    CPU's keeps an operand's payload or its sign."""
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and same_bits(torch, a[~nan], b[~nan])
 
 
 def check_tick_synthetic(torch, ops, dev) -> None:
@@ -2120,6 +2165,426 @@ class CollectiveCount:
         return False
 
 
+# ---------------------------------------------------------------------------
+# The modes static and faithful: the paper's primitive sequence
+# ---------------------------------------------------------------------------
+
+
+def modes_expected_launches(mode: str, res) -> dict:
+    """``segment_reduce``'s launches in one solve of mode ``static`` or
+    ``faithful``, by variant: per MAP iteration the label counts and the
+    hood sizes (order-free ``add``), the hood sums (ordered ``add``) and,
+    in ``faithful``, the per-element minimum (``min``); per EM iteration
+    the M-step's three sums (ordered ``add``)."""
+    return {"add": 2 * res.map_iters, "ordered_add": res.map_iters + 3 * res.em_iters,
+            "min": res.map_iters if mode == "faithful" else 0}
+
+
+class DppLockstep:
+    """While active, every MAP iteration of a solve in mode ``static`` or
+    ``faithful`` (``em.map_step``) and every M-step's sums
+    (``energy.m_step_sums``) run again on the CPU from the card's state, and
+    the card is held to them bit for bit: each MAP iteration's labels, hood
+    sums and flag word (the window test on a ring of its hood sums, gated
+    past the window, and finiteness), each M-step's three per-label sums.
+    The CPU step takes the card's ``log`` of each sigma (``log_unequal``
+    counts the launches where the host's differs) and runs under the local
+    context: over one rank an all-reduce is the identity."""
+
+    def __init__(self, torch, em_mod, E, max_map_iters: int):
+        self.torch, self.em, self.E = torch, em_mod, E
+        self.max_map_iters = max_map_iters
+        self.launches = self.equal_launches = self.m_steps = self.log_unequal = 0
+        self._copies = {}
+        self._i = 0
+
+    def __enter__(self):
+        self._map_step, self._sums = self.em.map_step, self.E.m_step_sums
+        self.em.map_step, self.E.m_step_sums = self.map_step, self.m_step_sums
+        return self
+
+    def __exit__(self, *exc):
+        self.em.map_step, self.E.m_step_sums = self._map_step, self._sums
+        return False
+
+    def _cpu(self, obj):
+        """``obj`` (a ``Hoods`` or an ``EnergyModel``) copied to the CPU once."""
+        import dataclasses
+
+        torch = self.torch
+        if id(obj) not in self._copies:
+            if dataclasses.is_dataclass(obj):
+                copy = dataclasses.replace(obj, **{
+                    f.name: getattr(obj, f.name).cpu() for f in dataclasses.fields(obj)
+                    if isinstance(getattr(obj, f.name), torch.Tensor)})
+            else:
+                copy = type(obj)(*(t.cpu() for t in obj))
+            self._copies[id(obj)] = (obj, copy)  # the original kept alive: its id stays its own
+        return self._copies[id(obj)][1]
+
+    def _flag(self, ring, hood_e) -> int:
+        torch, em = self.torch, self.em
+        conv = self._i > em.WINDOW and bool(torch.all(em._window_converged(ring)))
+        div = not bool(torch.all(torch.isfinite(hood_e)))
+        return int(conv) * em.kops.FLAG_CONVERGED | int(div) * em.kops.FLAG_DIVERGED
+
+    def map_step(self, hoods, model, mode, labels, mu, sigma, *, backend=None, ctx=None,
+                 log_sigma=None):
+        torch = self.torch
+        kw = {} if ctx is None else {"ctx": ctx}
+        new, hood_e = self._map_step(hoods, model, mode, labels, mu, sigma, backend=backend, **kw)
+        n_labels = int(mu.shape[0])
+        sig = torch.maximum(sigma, model.sigma_min)
+        log_card = torch.stack([torch.log(sig[l]) for l in range(n_labels)]).cpu()
+        sig_host = sig.cpu()
+        self.log_unequal += not torch.equal(
+            log_card, torch.stack([torch.log(sig_host[l]) for l in range(n_labels)]))
+        new_c, hood_c = self._map_step(self._cpu(hoods), self._cpu(model), mode, labels.cpu(),
+                                       mu.cpu(), sigma.cpu(), log_sigma=log_card)
+        if self._i == 0:
+            rows = (self.em.WINDOW + 1, int(hood_e.shape[0]))
+            self._ring = torch.zeros(rows, dtype=torch.float32, device=hood_e.device)
+            self._ring_c = torch.zeros(rows, dtype=torch.float32)
+        self._i += 1
+        self._ring = torch.cat([hood_e[None], self._ring[:-1]])
+        self._ring_c = torch.cat([hood_c[None], self._ring_c[:-1]])
+        flag, flag_c = self._flag(self._ring, hood_e), self._flag(self._ring_c, hood_c)
+        self.launches += 1
+        what = f"{mode} MAP iteration K={n_labels} number {self.launches}"
+        self.equal_launches += not cpu_step_unequal(
+            torch, [("flag", flag, flag_c), ("labels", new, new_c), ("hood_e", hood_e, hood_c)], what)
+        if flag or self._i == self.max_map_iters:
+            self._i = 0
+        return new, hood_e
+
+    def m_step_sums(self, model, labels, mode, *, backend=None):
+        sums = self._sums(model, labels, mode, backend=backend)
+        sums_c = self._sums(self._cpu(model), labels.cpu(), mode)
+        self.m_steps += 1
+        self._i = 0
+        cpu_step_unequal(self.torch, list(zip(("sum_w", "sum_wy", "sum_wyy"), sums, sums_c)),
+                         f"{mode} M-step {self.m_steps}")
+        return sums
+
+
+def run_modes(torch, api, ops, em_mod, E, slices, profile: bool) -> dict:
+    """The modes phase: each slice's plan (K = 2, 3, 9; the slice phase's)
+    through ``Segmenter(ExecutionConfig(mode=m))`` for m in ``MODES``, with
+    the launch counts reset just before and read just after each execute:
+    no ``fused_em_tick`` and no ``fused_map_step`` launch, ``segment_reduce``
+    launches as ``modes_expected_launches`` says.  Every solve gives the
+    status, iteration counts, labels, mu and sigma of the plain path on the
+    CPU bit for bit; at ``MODES_LOCKSTEP_K`` every MAP iteration and
+    M-step of a whole solve is held to the CPU on a ``DppLockstep`` (at
+    K = 9 the whole-solve comparison alone keeps the script inside its time
+    limit: its CPU lockstep would sort 9 x 50,485 lanes per iteration); the
+    two modes give equal labels and iteration counts.  Printed per solve:
+    launches by variant, warm ``optimize_s`` (best and median of
+    ``SOLVES``), and with ``profile`` the device operations and idle share
+    of one warm solve; once, one profiled faithful K = 2 solve's
+    ``DppProfile`` totals per primitive (the paper's section 4.3.2)."""
+    from repro_torch.core import dpp
+
+    seed = SLICE["seed"]
+    out = {}
+    for sl in slices:
+        k, plan, config = sl["K"], sl["plan"], sl["config"]
+        dev = plan.problem.hoods.vertex.device
+        results = {}
+        for mode in MODES:
+            cfg = config.with_(mode=mode)
+            seg = api.Segmenter(cfg, device=dev)
+            ops.reset_launch_counts()
+            res = seg.execute(plan, seed=seed)
+            launches = ops.launch_counts()
+            by_variant = ops.segment_reduce_launches()
+            want = modes_expected_launches(mode, res)
+            cpu = plain_solve_on_cpu(plan, cfg, seed)
+            row = {"phase": "modes", "K": k, "mode": mode, "status": res.status,
+                   "em_iters": res.em_iters, "map_iters": res.map_iters,
+                   "accuracy": sl["accuracy_of"](res), "launches": launches,
+                   "segment_reduce": by_variant, "segment_reduce_expected": want,
+                   "cpu_plain": [cpu.status, cpu.em_iters, cpu.map_iters],
+                   "bits_equal_cpu_plain": result_bits(res) == result_bits(cpu),
+                   "equal_fused_route": result_bits(res) == result_bits(sl["result"])}
+            if any(launches[n] for n in ("fused_em_tick", "fused_map_step", "mrf_min_energy",
+                                         "flash_attention")):
+                fail(f"K={k} {mode}: a fused kernel launched in the modes phase: {launches}")
+            if by_variant != want or launches["segment_reduce"] != sum(want.values()):
+                fail(f"K={k} {mode}: segment_reduce launches {by_variant}, the route implies {want}")
+            if not row["bits_equal_cpu_plain"]:
+                fail(f"K={k} {mode}: status, iterations, labels, mu or sigma "
+                     f"{[res.status, res.em_iters, res.map_iters]} differ from the CPU plain path's "
+                     f"{row['cpu_plain']}")
+            if k in MODES_LOCKSTEP_K:
+                with DppLockstep(torch, em_mod, E, cfg.max_map_iters) as ls:
+                    got = em_mod.run_em(*seg.lane_inputs(plan, seed=seed), cfg.em_config())
+                row.update(lockstep_launches=ls.launches, lockstep_equal_launches=ls.equal_launches,
+                           lockstep_m_steps=ls.m_steps, launches_log_sigma_unequal_cpu=ls.log_unequal)
+                trajectory = [em_mod.STATUS_NAMES[got.status], got.em_iters, got.map_iters]
+                if (ls.launches, ls.m_steps) != (res.map_iters, res.em_iters) or trajectory != [
+                        res.status, res.em_iters, res.map_iters] or not np.array_equal(
+                        got.labels.cpu().numpy()[: plan.n_regions], res.region_labels):
+                    fail(f"K={k} {mode}: the lockstep solve {trajectory} ({ls.launches} MAP "
+                         f"iterations, {ls.m_steps} M-steps) is not the main path's")
+            walls = spread([seg.execute(plan, seed=seed).optimize_seconds for _ in range(SOLVES)])
+            row.update(optimize_s_best=walls["min"], optimize_s_median=walls["median"],
+                       optimize_s_spread=walls)
+            emit(row)
+            row["result"] = res
+            if profile:
+                profile_solve(torch, f"K={k} {mode} solve (execute)",
+                              lambda: seg.execute(plan, seed=seed))
+            if k == 2 and mode == "faithful":
+                with dpp.profiled() as prof:
+                    seg.execute(plan, seed=seed)
+                emit({"phase": "dpp_profile", "K": k, "mode": mode,
+                      "seconds": prof.totals(), "calls": prof.counts()})
+            results[mode] = res
+            out[(k, mode)] = row
+        s, f = results["static"], results["faithful"]
+        if not (np.array_equal(s.region_labels, f.region_labels)
+                and (s.em_iters, s.map_iters, s.status) == (f.em_iters, f.map_iters, f.status)):
+            fail(f"K={k}: modes static and faithful give different labels or iteration counts")
+    return out
+
+
+def ordered_add_cases() -> list:
+    """Ordered ``add`` cases at random shapes: ids in runs (the hood sums'
+    layout) with zeros, ids in any order over few segments (the M-step's
+    labels), and NaN, infinities and signed zeros."""
+    rng = np.random.default_rng(2)
+    cases = []
+    for n, segs, runs in ((50_485, 1_579, True), (1_000_000, 100_000, True), (1_025, 9, False),
+                          (1_025, 2, False)):
+        ids = rng.integers(-1, segs + 1, n)
+        ids = np.sort(ids) if runs else ids
+        vals = rng.normal(0.0, 10.0, n).astype(np.float32)
+        vals[rng.random(n) < 0.2] = 0.0
+        vals[rng.random(n) < 0.05] = -0.0
+        cases.append((f"random n={n} segs={segs} runs={runs}", vals, ids.astype(np.int32), segs))
+    special = np.array([np.nan, 1.0, np.inf, -np.inf, -0.0, 0.0, 2.0, -0.0, 1e30, -1e30, 3.0],
+                       np.float32)
+    cases.append(("special values", special,
+                  np.array([0, 0, 1, 1, 2, 2, 3, 4, 5, 5, 5], np.int32), 7))
+    return cases
+
+
+def check_ordered_add(torch, ops, api, plan, config, profile: bool) -> dict:
+    """``segment_reduce``'s ordered ``add`` against its plain version on the
+    CPU (``ref.keyed_sum``: element order), bit for bit (NaN equal to NaN,
+    ``same_bits_or_nan``): at every ordered
+    call of one faithful K = 2 solve (its hood sums and M-step sums, as the
+    solve made them) and at ``ordered_add_cases``; the solve's ``min`` calls
+    (the per-element minimum) the same way.  Timed at the solve's hood-sum
+    call and its M-step call: ms per call (CUDA events), the plain version
+    on the card (``index_add_``, by atomics), ``index_add_`` as the library
+    call, the bound, and device us under ``profile``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr_mod
+
+    dev = plan.problem.hoods.vertex.device
+    calls = []
+    launch = sr_mod.segment_reduce_cuda
+
+    def record(values, ids, n, op="add", *, ordered=False):
+        out = launch(values, ids, n, op, ordered=ordered)
+        if ordered or op == "min":
+            calls.append((op, values.clone(), ids.clone(), n, out.clone()))
+        return out
+
+    seg = api.Segmenter(config.with_(mode="faithful"), device=dev)
+    sr_mod.segment_reduce_cuda = record
+    try:
+        seg.execute(plan, seed=SLICE["seed"])
+    finally:
+        sr_mod.segment_reduce_cuda = launch
+    checked = {"ordered_add": 0, "min": 0}
+    worst = 0.0
+
+    def err(got, want) -> float:
+        both = ~(got.isnan() | want.isnan())
+        return float((got[both] - want[both]).abs().max()) if bool(both.any()) else 0.0
+
+    for op, v, ids, n, out in calls:
+        want = ref.segment_reduce(v.cpu(), ids.cpu(), n, op)
+        worst = max(worst, err(out.cpu(), want))
+        if not same_bits_or_nan(torch, out.cpu(), want):
+            fail(f"segment_reduce {op} at a faithful solve's call (n={v.numel()}, segments={n}): "
+                 "not bit for bit the plain version on the CPU")
+        checked["ordered_add" if op == "add" else "min"] += 1
+    for what, vals, ids, n in ordered_add_cases():
+        got = ops.segment_reduce(torch.from_numpy(vals).to(dev), torch.from_numpy(ids).to(dev), n,
+                                 ordered=True).cpu()
+        want = ref.keyed_sum(torch.from_numpy(vals), torch.from_numpy(ids), n)
+        worst = max(worst, err(got, want))
+        if not same_bits_or_nan(torch, got, want):
+            fail(f"segment_reduce ordered add, {what}: not bit for bit the plain version on the CPU")
+    adds = [c for c in calls if c[0] == "add"]
+    hood_call = max(adds, key=lambda c: c[1].numel())
+    m_call = next(c for c in adds if c[3] == plan.problem.model.n_labels)
+    rows = {}
+    for what, (_, v, ids, n, _) in (("hood_sums", hood_call), ("m_step", m_call)):
+        ids_long = ids.long().clamp(0, n)
+        lib_out = torch.zeros(n + 1, device=dev)
+        fn = lambda: ops.segment_reduce(v, ids, n, ordered=True)
+        row = {"shape": [int(v.numel()), n], "ms": time_ms(fn),
+               "plain_ms": time_ms(lambda: ops.segment_reduce(v, ids, n, backend="torch")),
+               "library_ms": time_ms(lambda: lib_out.zero_().index_add_(0, ids_long, v))}
+        row["bound_ms"], row["bound_by"] = bound(v.numel() * 8 + n * 4, v.numel())
+        if profile:
+            prof = device_profile(torch, lambda: [fn() for _ in range(20)])
+            emit({"phase": "profile", "what": f"20 ordered segment_reduce calls ({what})", **prof})
+            row["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
+        rows[what] = row
+    out = {"phase": "ordered_add_check", "ok": True, "solve_calls_checked": checked,
+           "random_cases": len(ordered_add_cases()), "max_abs_err": worst, **rows}
+    emit(out)
+    return out
+
+
+def run_modes_sharded(torch, D, ops, em_mod, E, pipeline, sl, single: dict) -> dict:
+    """The modes on the sharded route over the one-rank group: for each
+    mode, ``run_em_sharded`` on the plan's partition (launch counts and
+    collectives reset just before, read just after; no fused kernel,
+    ``segment_reduce`` as on one device), equal bit for bit to the
+    single-device modes phase's solve of the same plan; then the same solve
+    on a ``DppLockstep``, every MAP iteration and M-step held to the CPU."""
+    plan, config = sl["plan"], sl["config"]
+    prob = plan.problem
+    seed = SLICE["seed"]
+    labels0, mu0, sigma0 = pipeline.initial_params(prob, seed, config.init)
+    parts = D.partition_hoods(prob.hoods, 1)
+    out = {}
+    for mode in MODES:
+        cfg = config.with_(mode=mode)
+
+        def solve():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = D.run_em_sharded(parts, prob.model, labels0, mu0, sigma0, config=cfg.em_config())
+            torch.cuda.synchronize()
+            return pipeline.assemble_result(prob, res, plan.init_seconds, time.perf_counter() - t0)
+
+        ops.reset_launch_counts()
+        with CollectiveCount() as coll:
+            res = solve()
+        launches, by_variant = ops.launch_counts(), ops.segment_reduce_launches()
+        want = modes_expected_launches(mode, res)
+        with DppLockstep(torch, em_mod, E, cfg.max_map_iters) as ls:
+            again = solve()
+        row = {"phase": "modes_sharded", "K": sl["K"], "mode": mode, "ranks": 1,
+               "status": res.status, "em_iters": res.em_iters, "map_iters": res.map_iters,
+               "optimize_s": res.optimize_seconds, "launches": launches,
+               "segment_reduce": by_variant, "allreduces": coll.n["all_reduce"],
+               "bits_equal_single_device":
+                   result_bits(res) == result_bits(single[(sl["K"], mode)]["result"]),
+               "lockstep_launches": ls.launches, "lockstep_equal_launches": ls.equal_launches,
+               "lockstep_m_steps": ls.m_steps, "launches_log_sigma_unequal_cpu": ls.log_unequal}
+        emit(row)
+        if launches["fused_em_tick"] or launches["fused_map_step"]:
+            fail(f"sharded K={sl['K']} {mode}: a fused kernel launched: {launches}")
+        if by_variant != want:
+            fail(f"sharded K={sl['K']} {mode}: segment_reduce launches {by_variant}, the route "
+                 f"implies {want}")
+        if not row["bits_equal_single_device"] or result_bits(again) != result_bits(res):
+            fail(f"sharded K={sl['K']} {mode}: not bit for bit the single-device solve")
+        if (ls.launches, ls.m_steps) != (res.map_iters, res.em_iters):
+            fail(f"sharded K={sl['K']} {mode}: the lockstep saw {ls.launches} MAP iterations and "
+                 f"{ls.m_steps} M-steps")
+        out[mode] = row
+    return out
+
+
+def run_fallback(torch, api, ops, sl) -> dict:
+    """The fallback phase on the K = 2 slice's plan.  Under a compile
+    failure of the kernel route (``chaos.ChaosConfig(compile_fail_backends=
+    ("cuda",))``) the default ``FallbackPolicy`` raises ``FallbackError``
+    after its retry and builds and launches nothing, and
+    ``FallbackPolicy(backend="torch")`` gives the plain route's solve with
+    one event, a ``RuntimeWarning`` and a redirect (no kernel launched).
+    One transient execute failure under the default policy gives the clean
+    kernel-route solve bit for bit (static-pallas and faithful), and so
+    does an engine tick replayed after one."""
+    import warnings
+
+    from repro_torch.serving import SegmentationEngine
+    from repro_torch.testing import chaos
+
+    plan, config = sl["plan"], sl["config"]
+    seed, dev = SLICE["seed"], plan.problem.hoods.vertex.device
+    clean = {m: api.Segmenter(config.with_(mode=m), device=dev).execute(plan, seed=seed)
+             for m in ("static-pallas", "faithful")}
+    plain = api.Segmenter(config.with_(backend="torch"), device=dev).execute(plan, seed=seed)
+    out = {"phase": "fallback"}
+
+    seg = api.Segmenter(config, device=dev)
+    ops.reset_launch_counts()
+    with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("cuda",))) as monkey:
+        try:
+            seg.execute(plan, seed=seed)
+            fail("fallback: the default policy did not raise on a failing compile")
+        except api.FallbackError as e:
+            if not isinstance(e.__cause__, chaos.ChaosError):
+                fail(f"fallback: FallbackError without the injected cause: {e!r}")
+    if any(ops.launch_counts().values()) or seg.cache_keys or seg.fallback_events:
+        fail("fallback: the default policy built or launched something after a failing compile")
+    out["default_policy"] = {"raised": "FallbackError", "compile_attempts": len(monkey.events)}
+
+    seg_t = api.Segmenter(config.with_(fallback=api.FallbackPolicy(backend="torch")), device=dev)
+    ops.reset_launch_counts()
+    with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("cuda",))), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        res = seg_t.execute(plan, seed=seed)
+        again = seg_t.execute(plan, seed=seed)
+    launches = ops.launch_counts()
+    agree = float((res.segmentation == plain.segmentation).mean())
+    out["torch_policy"] = {
+        "events": seg_t.fallback_events, "warnings": sum(w.category is RuntimeWarning for w in caught),
+        "keys": [k.backend for k in seg_t.cache_keys], "launches": launches,
+        "iters": [res.em_iters, res.map_iters], "plain_iters": [plain.em_iters, plain.map_iters],
+        "pixel_agreement_plain": agree, "bits_equal_plain": result_bits(res) == result_bits(plain)}
+    if any(launches.values()):
+        fail(f"fallback: the plain route launched kernels: {launches}")
+    if len(seg_t.fallback_events) != 1 or out["torch_policy"]["warnings"] != 1 or \
+            out["torch_policy"]["keys"] != ["torch"]:
+        fail(f"fallback: backend='torch' gave {out['torch_policy']}")
+    if (res.status, res.em_iters, res.map_iters) != (plain.status, plain.em_iters, plain.map_iters) \
+            or agree < 0.995 or again.map_iters != res.map_iters:
+        fail("fallback: the plain route's solve differs from the plain session's")
+
+    transient = {}
+    for mode in ("static-pallas", "faithful"):
+        seg_d = api.Segmenter(config.with_(mode=mode), device=dev)
+        seg_d.execute(plan, seed=seed)
+        ops.reset_launch_counts()
+        with chaos.inject(chaos.ChaosConfig(transient_exec_failures=1)) as monkey:
+            res = seg_d.execute(plan, seed=seed)
+        launches = ops.launch_counts()
+        transient[mode] = {"events": [e["kind"] for e in monkey.events], "launches": launches,
+                           "bits_equal_clean": result_bits(res) == result_bits(clean[mode])}
+        if not transient[mode]["bits_equal_clean"] or seg_d.fallback_events:
+            fail(f"fallback: a transient execute failure ({mode}) did not give the clean solve")
+        if mode == "static-pallas" and launches["fused_em_tick"] != res.map_iters:
+            fail(f"fallback: the retried solve launched {launches['fused_em_tick']} ticks for "
+                 f"{res.map_iters} MAP iterations")
+    out["transient_execute"] = transient
+
+    engine = SegmentationEngine(api.Segmenter(config, device=dev), max_batch=2, tick_iters=4)
+    with chaos.inject(chaos.ChaosConfig(transient_exec_failures=1)) as monkey:
+        for rid in range(2):
+            engine.submit(plan, rid=rid, seed=seed)
+        comps = engine.run()
+    equal = [result_bits(c.result) == result_bits(clean["static-pallas"]) for c in comps]
+    out["engine_tick"] = {"events": [e["kind"] for e in monkey.events], "completions": len(comps),
+                          "bits_equal_serial": equal, "tick_retries": engine.stats()["tick_retries"]}
+    if len(comps) != 2 or not all(equal) or engine.stats()["tick_retries"] != 1:
+        fail(f"fallback: the replayed engine tick gave {out['engine_tick']}")
+    emit(out)
+    return out
+
+
 def run_sharded(torch, D, pipeline, ops, em_mod, sl) -> dict:
     """The sharded route on a slice's plan over the one-rank group, on the
     rank's workspace built beforehand (as the session builds it, outside
@@ -2970,6 +3435,13 @@ def main(argv=None) -> int:
     ms_err = max(ms_err, check_map_step(torch, ops, D, E, em_mod, slice3["plan"], 3)[0])
     ms_err = max(ms_err, check_map_step_long_hoods(torch, ops, dev))
 
+    # Sixth path: the modes static and faithful (the paper's primitive
+    # sequence) on the K = 2, 3, 9 plans; the ordered add against the CPU;
+    # the fallback policy under the chaos harness's faults.
+    modes = run_modes(torch, api, ops, em_mod, E, (slice2, slice3, slice9), profile)
+    ordered = check_ordered_add(torch, ops, api, plan, slice2["config"], profile)
+    run_fallback(torch, api, ops, slice2)
+
     # The sharded route end to end, over a one-rank NCCL group.
     import torch.distributed as dist
 
@@ -2985,6 +3457,9 @@ def main(argv=None) -> int:
         checked = {sl["K"]: check_sharded_map_step(torch, ops, D, pipeline, em_mod, sl, cpu_group)
                    for sl in (slice2, slice3, slice9)}
         sstep = check_sharded_step(torch, ops, collectives, checked[2], profile)
+        # The modes on the sharded route, held to the single device and the CPU.
+        for sl in (slice2, slice3):
+            run_modes_sharded(torch, D, ops, em_mod, E, pipeline, sl, modes)
         if profile:
             for n_labels in (2, 3):
                 profile_solve(torch, f"K={n_labels} sharded solve (run_em_sharded on its workspace, 1 rank)",
@@ -3068,7 +3543,12 @@ def main(argv=None) -> int:
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",
-         "launches": launches["segment_reduce"], "max_abs_err": sr_err, **sr},
+         "launches": launches["segment_reduce"], "max_abs_err": sr_err, **sr,
+         "modes_launches_per_solve": {f"K={k} {m}": row["segment_reduce"]
+                                      for (k, m), row in modes.items()},
+         "ordered_add": {"max_abs_err": ordered["max_abs_err"],
+                         "solve_calls_checked": ordered["solve_calls_checked"],
+                         **{w: ordered[w] for w in ("hood_sums", "m_step")}, "library": "index_add_"}},
         {"name": "fused_map_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/map_step.cu",
          "replaces": "src/repro/kernels/map_step.py:148",

@@ -10,7 +10,7 @@ Quickstart::
     results, mean_s = seg.segment_stack(slices, batch="always")  # one batched solve
 """
 
-from repro_torch.api.config import ExecutionConfig
+from repro_torch.api.config import ExecutionConfig, FallbackPolicy
 from repro_torch.api.errors import FallbackError, PlanError, RequestError, ServingError
 from repro_torch.api.session import (
     BucketKey,
@@ -31,6 +31,7 @@ __all__ = [
     "ExecutableKey",
     "ExecutionConfig",
     "FallbackError",
+    "FallbackPolicy",
     "Plan",
     "PlanError",
     "RequestError",

@@ -5,8 +5,12 @@ refuses an unusable image (non-finite pixels, zero elements) before any
 device work.  :class:`RequestError`: ``SegmentationEngine.submit`` refuses
 a request (non-finite model statistics, more labels than the pool's K, a
 bucket past the pool's, a bad rid or deadline); it never enters the queue.
-Both subclass :class:`ValueError`.  :class:`FallbackError` belongs to the
-fallback policy, which is not ported yet: nothing raises it so far.
+Both subclass :class:`ValueError`.  :class:`FallbackError`: a compile, an
+execute or an engine tick failed and the session's ``FallbackPolicy``
+could not recover: after the same-route retries under the default policy
+(which takes no other route), when the plain fallback route failed too
+(``FallbackPolicy(backend="torch")``), or on a tick that may not be
+replayed; the original error is its ``__cause__``.
 """
 
 from __future__ import annotations

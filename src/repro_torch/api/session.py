@@ -1,8 +1,7 @@
 """Plan -> compile -> execute session API.
 
 Counterpart of ``repro.api.session.Segmenter``, without its cost model
-and fallback policy (ROADMAP.md Queue 1: 'planning/', and
-``FallbackPolicy``, which may never fall back silently on the card).
+(ROADMAP.md Queue 1: 'planning/').
 
 * :meth:`Segmenter.plan`: oversegmentation, region graph, cliques and
   neighborhoods (the paper's untimed init phase), and the problem's
@@ -13,7 +12,9 @@ and fallback policy (ROADMAP.md Queue 1: 'planning/', and
   :class:`ExecutableKey`.  PyTorch runs eagerly, so what a compile builds
   is the MAP loop's workspace (``kernels.ops.tick_workspace``, every buffer
   of the route's kernel) and binds the driver to it; a warm hit builds no
-  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).
+  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).  The modes
+  ``static`` and ``faithful`` have no workspace: their executable binds
+  the driver alone.
 * :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
   the plan) and solved by the bucket's executable.  Padding lanes are
   invalid elements, empty phantom hoods and weight-0 vertices, which add
@@ -23,7 +24,10 @@ and fallback policy (ROADMAP.md Queue 1: 'planning/', and
   one bucket run as one ``run_em_batched`` (one batched tick launch per
   MAP iteration for all lanes); each lane equals its serial
   :meth:`execute` bit for bit.  :meth:`Segmenter.segment_stack` submits a
-  volume's slices under their joint bucket.
+  volume's slices under their joint bucket.  The modes ``static`` and
+  ``faithful`` have no batched form yet (``em.FUSED_ONLY``): ``drain``
+  solves their requests one by one, and ``segment_stack(batch="always")``,
+  ``compile(batch=n)`` and the ticked pool raise ``NotImplementedError``.
 * :meth:`Segmenter.compile_ticked` / :meth:`Segmenter.ticked_pool` /
   :meth:`Segmenter.lane_state`: the continuous-batching engine's pool
   (``repro_torch.serving.engine``): one pool workspace per (bucket,
@@ -37,6 +41,14 @@ the plan, its rank workspace kept in the session's cache under the
 executable's key (which carries ``shards``); ``drain`` runs such requests
 serially.
 
+Failures of a compile or an execute follow ``config.fallback``
+(:class:`~repro_torch.api.config.FallbackPolicy`): retries on the same
+route, then, only where the policy names the plain route, a recompile
+there (``fallback_events``, a ``RuntimeWarning``, and a redirect of the
+failed key); otherwise :class:`~repro_torch.api.errors.FallbackError`.
+The chaos harness's ``on_compile`` and ``on_execute`` hooks sit inside the
+attempts.
+
 Both phases are timed on the host clock around work that ends in
 ``torch.cuda.synchronize`` when they run on the card.
 """
@@ -45,6 +57,7 @@ from __future__ import annotations
 
 import itertools
 import time
+import warnings
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -55,7 +68,7 @@ import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device, to_tensor
 from repro_torch.api.config import ExecutionConfig
-from repro_torch.api.errors import PlanError
+from repro_torch.api.errors import FallbackError, PlanError
 from repro_torch.core.pmrf import distributed as distributed_mod
 from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import energy as energy_mod
@@ -125,9 +138,10 @@ class Plan:
 @dataclass
 class Executable:
     """The EM program of one bucket (and batch size): the driver bound to a
-    workspace built from the bucket's shapes.  On the sharded route the
-    workspace is the rank's and depends on the plan's partition, so the
-    executable keeps one per plan (``shard_workspaces``, LRU)."""
+    workspace built from the bucket's shapes (none in the modes ``static``
+    and ``faithful``).  On the sharded route the static-pallas workspace is
+    the rank's and depends on the plan's partition, so the executable keeps
+    one per plan (``shard_workspaces``, LRU)."""
 
     key: ExecutableKey
     workspace: object
@@ -191,6 +205,11 @@ class Segmenter:
         self._pools: Dict[ExecutableKey, object] = {}
         self._pending: List[_Pending] = []
         self.stats = CacheStats()
+        # The fallback policy's bookkeeping: once a key's compile or execute
+        # falls back to the plain route, its warm traffic goes straight to
+        # the fallback executable (the redirect).
+        self._fallback_redirects: Dict[ExecutableKey, ExecutableKey] = {}
+        self.fallback_events: List[Dict[str, str]] = []
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -243,13 +262,14 @@ class Segmenter:
     # phase 2: compile (cached)
     # ------------------------------------------------------------------
 
-    def _key_for(self, bucket: BucketKey, batch: Optional[int]) -> ExecutableKey:
+    def _key_for(self, bucket: BucketKey, batch: Optional[int],
+                 backend: Optional[str] = None) -> ExecutableKey:
         c = self.config
         return ExecutableKey(
             capacity=bucket.capacity,
             n_hoods=bucket.n_hoods,
             n_regions=bucket.n_regions,
-            backend=c.resolved_backend(self.device),
+            backend=c.resolved_backend(self.device) if backend is None else backend,
             mode=c.mode,
             max_em_iters=c.max_em_iters,
             max_map_iters=c.max_map_iters,
@@ -260,14 +280,17 @@ class Segmenter:
         )
 
     def compile(
-        self, target: Union[Plan, BucketKey, Tuple[int, int, int]], *, batch: Optional[int] = None
+        self, target: Union[Plan, BucketKey, Tuple[int, int, int]], *, batch: Optional[int] = None,
+        backend: Optional[str] = None,
     ) -> Executable:
         """The executable of a bucket, built on a miss from its shapes alone
         (no data): the bucket's MAP-iteration workspace (``batch``: for
         that many lanes) bound to the EM driver.  LRU-cached by
         :class:`ExecutableKey`; a hit builds nothing.  Eviction drops the
         least recently used executable once the cache passes
-        ``config.max_cached_executables``."""
+        ``config.max_cached_executables``.  ``backend`` overrides the
+        session's route ("cuda" or "torch"; the execute-time fallback uses
+        it).  A failing build follows ``config.fallback``."""
         bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
         shards = self.config.shards
         if batch is not None and shards > 1:
@@ -277,31 +300,42 @@ class Segmenter:
             )
         if batch is not None and batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
+        if batch is not None:
+            em_mod.require_fused(self.config.em_config(), "a batched executable")
 
-        def build():
-            if shards > 1:
-                return None
-            return em_mod.make_workspace(self._shape(bucket), self.config.em_config(),
-                                         device=self.device, batch=batch)
+        def build(route: str):
+            em_config = self._em_config_for(route)
+            if shards > 1 or self.config.mode != "static-pallas":
+                return None, em_config
+            return em_mod.make_workspace(self._shape(bucket), em_config, device=self.device,
+                                         batch=batch), em_config
 
-        return self._get_or_build(self._key_for(bucket, batch), build)
+        return self._get_or_build(self._key_for(bucket, batch, backend), build)
+
+    def _em_config_for(self, route: str) -> em_mod.EMConfig:
+        """The EM config of an executable on ``route``: the plain route
+        forces ``backend="torch"``; the kernel route keeps the session's."""
+        return self.config.em_config(backend="torch" if route == "torch" else None)
 
     def _shape(self, bucket: BucketKey) -> TickShape:
         return TickShape(bucket.capacity, bucket.n_hoods, bucket.n_regions + 1, self.config.n_labels)
 
     def _get_or_build(self, key: ExecutableKey, build) -> Executable:
-        """The cached executable of ``key`` (LRU), or a new one around the
-        workspace ``build()`` returns."""
+        """The cached executable of ``key`` (LRU; a key whose build fell back
+        is redirected to its fallback's), or a new one around the workspace
+        and EM config ``build(route)`` returns, built under the fallback
+        policy (:meth:`_build_with_policy`)."""
+        key = self._fallback_redirects.get(key, key)
         exe = self._cache.get(key)
         if exe is not None:
             self._cache.move_to_end(key)
             self.stats.hits += 1
             return exe
         self.stats.misses += 1
-        chaos_mod.on_compile(key.backend)
         t0 = time.perf_counter()
+        workspace, em_config, key = self._build_with_policy(key, build)
         exe = self._cache[key] = Executable(
-            key=key, workspace=build(), em_config=self.config.em_config(),
+            key=key, workspace=workspace, em_config=em_config,
             compile_seconds=time.perf_counter() - t0,
         )
         while len(self._cache) > self.config.max_cached_executables:
@@ -309,18 +343,64 @@ class Segmenter:
             self.stats.evictions += 1
         return exe
 
-    def _pool_workspace(self, bucket: BucketKey, batch: int):
-        """The pool workspace of ``batch`` slots of ``bucket``, built on
-        first use from the shapes alone and kept for the session."""
-        key = self._key_for(bucket, batch)
+    def _build_with_policy(self, key: ExecutableKey, build):
+        """``build(key.backend)`` (behind the chaos harness's compile hook)
+        under ``config.fallback``: retries on the same route, then the plain
+        route if the policy names it (an event, a warning, a redirect), else
+        :class:`FallbackError`, or the original error when the policy is
+        disabled.  Returns ``(workspace, em_config, key_built)``."""
+        policy = self.config.fallback
+
+        def attempt(route: str):
+            def run():
+                chaos_mod.on_compile(route)
+                return build(route)
+            return run
+
+        try:
+            return (*policy.retrying(attempt(key.backend)), key)
+        except Exception as e:
+            if not policy.enabled:
+                raise
+            if policy.backend is None or key.backend == policy.backend:
+                raise FallbackError(
+                    f"compile failed on route {key.backend!r} (retried up to "
+                    f"{policy.max_retries} times); the policy takes no other route "
+                    "(FallbackPolicy(backend='torch') asks for the plain one)"
+                ) from e
+            fb_key = key._replace(backend=policy.backend)
+            self._record_fallback("compile", key.backend, policy.backend, e)
+            try:
+                built = policy.retrying(attempt(policy.backend))
+            except Exception as fb_e:
+                raise FallbackError(
+                    f"compile failed on route {key.backend!r} and on the fallback route "
+                    f"{policy.backend!r}"
+                ) from fb_e
+            self._fallback_redirects[key] = fb_key
+            return (*built, fb_key)
+
+    def _record_fallback(self, stage: str, route: str, to: str, error: Exception) -> None:
+        self.fallback_events.append({"stage": stage, "from": route, "to": to, "error": repr(error)})
+        warnings.warn(
+            f"{stage} on route {route!r} failed ({error!r}); falling back to {to!r}",
+            RuntimeWarning, stacklevel=4,
+        )
+
+    def _pool_workspace(self, bucket: BucketKey, batch: int, route: Optional[str] = None):
+        """The pool workspace of ``batch`` slots of ``bucket`` on ``route``
+        (default: the session's), built on first use from the shapes alone
+        and kept for the session."""
+        key = self._key_for(bucket, batch, route)
         ws = self._pools.get(key)
         if ws is None:
             ws = self._pools[key] = em_mod.make_workspace(
-                self._shape(bucket), self.config.em_config(), device=self.device, batch=batch,
-                pool=True)
+                self._shape(bucket), self._em_config_for(key.backend), device=self.device,
+                batch=batch, pool=True)
         return ws
 
     def _check_ticked(self, batch: int, tick_iters: int = 1) -> None:
+        em_mod.require_fused(self.config.em_config(), "a ticked pool")
         if self.config.shards > 1:
             raise ValueError(
                 "ticked serving executables are single-device (the pool's slot axis "
@@ -339,21 +419,25 @@ class Segmenter:
         steps_executed)``.  LRU-cached beside the other executables under
         its own key (``ExecutableKey.tick_iters``); every tick size of one
         pool runs on the one pool workspace, built at the first compile,
-        so switching tick sizes builds nothing."""
+        so switching tick sizes builds nothing.  A failing build follows
+        ``config.fallback``; a fallback executable runs on the plain
+        route's pool workspace."""
         bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
         self._check_ticked(batch, tick_iters)
         key = self._key_for(bucket, batch)._replace(tick_iters=tick_iters)
-        return self._get_or_build(key, lambda: self._pool_workspace(bucket, batch))
+        return self._get_or_build(key, lambda route: (
+            self._pool_workspace(bucket, batch, route), self._em_config_for(route)))
 
-    def ticked_pool(self, target, *, batch: int) -> em_mod.TickState:
+    def ticked_pool(self, target, *, batch: int, backend: Optional[str] = None) -> em_mod.TickState:
         """An all-empty slot pool for the ticked executables of a bucket
         (``em.blank_tick_state`` on the pool's workspace: every lane done,
-        ready for admission).  The pool's state lives in that workspace, so
-        a new pool of the same bucket and slots takes it over from any
-        earlier one."""
+        ready for admission), on the route ``backend`` (default: the
+        session's; pass the executables' ``key.backend``).  The pool's state
+        lives in that workspace, so a new pool of the same bucket and slots
+        takes it over from any earlier one."""
         bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
         self._check_ticked(batch)
-        return em_mod.blank_tick_state(self._pool_workspace(bucket, batch))
+        return em_mod.blank_tick_state(self._pool_workspace(bucket, batch, backend))
 
     def lane_inputs(self, plan: Plan, *, bucket: Optional[BucketKey] = None, seed: int = 0):
         """One request's padded inputs for a ticked pool: ``(hoods, model,
@@ -448,9 +532,13 @@ class Segmenter:
         )
 
     def _run_sharded(self, exe: Executable, plan: Plan, inputs):
-        """The sharded solve of one plan on this rank's workspace, kept in
-        the executable under the plan (LRU)."""
+        """The sharded solve of one plan; in mode static-pallas on this
+        rank's workspace, kept in the executable under the plan (LRU)."""
         hoods, model, labels0, mu0, sigma0 = inputs
+        exe.calls += 1
+        if exe.em_config.mode != "static-pallas":
+            return distributed_mod.run_em_sharded(
+                hoods, model, labels0, mu0, sigma0, config=exe.em_config)
         ws = exe.shard_workspaces.get(plan.uid)
         if ws is None:
             ws = exe.shard_workspaces[plan.uid] = distributed_mod.make_workspace(
@@ -458,7 +546,6 @@ class Segmenter:
             while len(exe.shard_workspaces) > self.config.max_cached_executables:
                 exe.shard_workspaces.popitem(last=False)
         exe.shard_workspaces.move_to_end(plan.uid)
-        exe.calls += 1
         return distributed_mod.run_em_sharded(
             hoods, model, labels0, mu0, sigma0, config=exe.em_config, workspace=ws)
 
@@ -466,7 +553,11 @@ class Segmenter:
         self, plan: Plan, *, seed: int = 0, bucket: Optional[BucketKey] = None
     ) -> pipeline_mod.SegmentationResult:
         """Solve one plan through its bucket's executable (``bucket``
-        overrides the plan's own; ``seed`` drives the random init)."""
+        overrides the plan's own; ``seed`` drives the random init).
+
+        A failing solve follows ``config.fallback``
+        (:meth:`_execute_with_policy`); the optimize time includes its
+        retries."""
         if self.config.shards > 1:
             self._check_group()
         bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
@@ -474,13 +565,51 @@ class Segmenter:
         inputs = self._pad_plan(plan, bucket, seed)
         self._sync()
         t0 = time.perf_counter()
-        if self.config.shards > 1:
-            res = self._run_sharded(exe, plan, inputs)
-        else:
-            res = exe(*inputs)
-        self._sync()
+        res = self._execute_with_policy(exe, plan, bucket, inputs)
         opt_s = time.perf_counter() - t0
         return pipeline_mod.assemble_result(plan.problem, res, plan.init_seconds, opt_s)
+
+    def _execute_with_policy(self, exe: Executable, plan: Plan, bucket: BucketKey, inputs):
+        """Run ``exe`` on ``inputs`` (behind the chaos harness's execute
+        hook, synchronised) under ``config.fallback``: retries on the same
+        route (a solve restarts from its inputs, so a retry is exact), then
+        the plain route if the policy names it (an event, a warning, a
+        redirect of the key), else :class:`FallbackError`, or the original
+        error when the policy is disabled.  On the sharded route a failed
+        solve is neither retried nor rerouted: the ranks' collectives would
+        part."""
+        policy = self.config.fallback
+        sharded = self.config.shards > 1
+        retries = 0 if sharded else policy.max_retries
+
+        def attempt(exe: Executable):
+            def run():
+                chaos_mod.on_execute(exe.key.backend)
+                res = self._run_sharded(exe, plan, inputs) if sharded else exe(*inputs)
+                self._sync()
+                return res
+            return run
+
+        try:
+            return policy.retrying(attempt(exe), max_retries=retries)
+        except Exception as e:
+            if not policy.enabled:
+                raise
+            if policy.backend is None or exe.key.backend == policy.backend or sharded:
+                raise FallbackError(
+                    f"execute failed on route {exe.key.backend!r} (retried up to {retries} "
+                    "times); no other route was taken"
+                ) from e
+            self._record_fallback("execute", exe.key.backend, policy.backend, e)
+            self._fallback_redirects[exe.key] = exe.key._replace(backend=policy.backend)
+            fb = self.compile(bucket, backend=policy.backend)
+            try:
+                return policy.retrying(attempt(fb), max_retries=retries)
+            except Exception as fb_e:
+                raise FallbackError(
+                    f"execute failed on route {exe.key.backend!r} and on the fallback route "
+                    f"{policy.backend!r}"
+                ) from fb_e
 
     def segment(self, image, *, seed: int = 0, oversegmentation=None):
         """Plan + execute in one call."""
@@ -508,7 +637,8 @@ class Segmenter:
         A group of n > 1 requests runs as one ``run_em_batched`` through the
         bucket's batch-n executable; results come back in submission order,
         each equal to a serial :meth:`execute` bit for bit, with the group's
-        optimize time shared evenly.  Sharded sessions run every request
+        optimize time shared evenly.  Sharded sessions, and the modes
+        ``static`` and ``faithful`` (no batched form yet), run every request
         serially.  If a group fails, every request without a result is
         queued again (ahead of anything submitted since) and the error
         raised."""
@@ -520,8 +650,9 @@ class Segmenter:
             groups.setdefault(req.bucket, []).append(i)
         results: List[Optional[pipeline_mod.SegmentationResult]] = [None] * len(pending)
         try:
+            serial = self.config.shards > 1 or self.config.mode != "static-pallas"
             for bucket, members in groups.items():
-                if len(members) == 1 or self.config.shards > 1:
+                if len(members) == 1 or serial:
                     for i in members:
                         results[i] = self.execute(pending[i].plan, seed=pending[i].seed, bucket=bucket)
                     continue
@@ -569,7 +700,9 @@ class Segmenter:
         batched solve; ``"never"`` solves the slices one by one, each in its
         own bucket; ``"auto"`` batches by :func:`legacy_batch_choice` (on
         the card, capacities within 2x of each other).  A sharded session
-        runs serially and refuses ``"always"``."""
+        runs serially and refuses ``"always"``; so do the modes ``static`` and
+        ``faithful``, whose batched form is not ported yet
+        (``NotImplementedError``)."""
         if batch not in ("auto", "always", "never"):
             raise ValueError(f"batch must be auto/always/never, got {batch!r}")
         if batch == "always" and self.config.shards > 1:
@@ -577,6 +710,8 @@ class Segmenter:
                 "batch='always' is not supported with shards > 1; use batch='auto' "
                 "(sharded requests run serially)"
             )
+        if batch == "always":
+            em_mod.require_fused(self.config.em_config(), "segment_stack(batch='always')")
         images = list(images)
         if not images:
             raise ValueError("segment_stack: empty image stack")
@@ -584,7 +719,7 @@ class Segmenter:
         joint = BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
         if batch == "always":
             use_batch = True
-        elif batch == "never" or self.config.shards > 1:
+        elif batch == "never" or self.config.shards > 1 or self.config.mode != "static-pallas":
             use_batch = False
         else:
             use_batch = legacy_batch_choice(

@@ -83,15 +83,18 @@ def global_reduce_by_key(
     op: str = "add",
     *,
     backend: Optional[str] = None,
+    ordered: bool = False,
 ) -> Tensor:
     """Segmented reduction over a global segment id space: every rank
     returns the whole ``(num_segments,)`` result.
 
     The local reduction goes through ``dpp.reduce_by_key`` (the kernel
-    dispatch applies per rank); only the all-reduce crosses ranks.
+    dispatch applies per rank; ``ordered`` as there); only the all-reduce
+    crosses ranks.
     """
     rop = _reduce_op(op)
-    local = dpp.reduce_by_key(segment_ids, values, num_segments, op=op, backend=backend)
+    local = dpp.reduce_by_key(segment_ids, values, num_segments, op=op, backend=backend,
+                              ordered=ordered)
     dist.all_reduce(local, op=rop, group=group)
     return local
 

@@ -20,10 +20,16 @@ are integer-valued floats, so their cross-rank sums are exact and sharded
 labels equal single-device labels; the label count K rides in the key
 spaces (``dpp.compound_key``) and needs no hook of its own.
 
-The sharded route's MAP iteration (``kernels.ops.map_step_workspace``)
-needs no collective for touch point 1: each rank counts its hoods over
-their whole runs of the partition, which it holds, and that is the
-all-reduced count exactly.  Touch points 2 and 3 are one :meth:`psum` of
+The modes ``static`` and ``faithful`` go through all four hooks as the
+reference's driver does: :meth:`segment_sum` for the counts and (in
+element order, ``ordered=True``) the hood sums, :meth:`vote_scatter` for
+the votes, :meth:`all_converged` for the window; each is the rank's local
+reduction and then one all-reduce.
+
+The static-pallas sharded route's MAP iteration
+(``kernels.ops.map_step_workspace``) needs no collective for touch point
+1: each rank counts its hoods over their whole runs of the partition,
+which it holds, and that is the all-reduced count exactly.  Touch points 2 and 3 are one :meth:`psum` of
 the step's buffer, and 4 is :meth:`and_flags` on its flag word.
 """
 
@@ -36,7 +42,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import dpp, dpp_sharded
-from repro_torch.kernels import ref as kref
 
 Tensor = torch.Tensor
 
@@ -72,16 +77,21 @@ class ReduceCtx:
         *,
         backend: Optional[str] = None,
         where: Optional[Tensor] = None,
+        ordered: bool = False,
     ) -> Tensor:
         """Touch points 1 and 2: ReduceByKey(Add) over a global segment id
         space, all-reduced when sharded.  ``where`` masks contributions
-        first (masked lanes add exact zeros)."""
+        first (masked lanes add exact zeros); ``ordered=True`` sums each
+        rank's elements in element order (``dpp.reduce_by_key``) before
+        the all-reduce."""
         if where is not None:
             values = torch.where(where, values, torch.zeros((), dtype=values.dtype, device=values.device))
         if self.group is None:
-            return dpp.reduce_by_key(segment_ids, values, num_segments, op="add", backend=backend)
+            return dpp.reduce_by_key(segment_ids, values, num_segments, op="add", backend=backend,
+                                     ordered=ordered)
         return dpp_sharded.global_reduce_by_key(
-            segment_ids, values, num_segments, self.group, op="add", backend=backend
+            segment_ids, values, num_segments, self.group, op="add", backend=backend,
+            ordered=ordered,
         )
 
     def vote_scatter(
@@ -96,7 +106,7 @@ class ReduceCtx:
         outside ``[0, out_size)`` dropped), all-reduced when sharded."""
         if where is not None:
             values = torch.where(where, values, torch.zeros((), dtype=values.dtype, device=values.device))
-        return self.psum(kref.keyed_sum(values, indices, out_size))
+        return self.psum(dpp.scatter_(values, indices, out_size, mode="add"))
 
     def and_flags(self, word: Tensor) -> Tensor:
         """Touch point 4 on a MAP loop's flag word (``kernels.ref.FLAG_*``,

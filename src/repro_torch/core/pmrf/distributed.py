@@ -8,10 +8,13 @@ every rank under a sharded ``collectives.ReduceCtx``; this module only
   1. block-partitions the hood elements over the ranks
      (:func:`partition_hoods`, on the host; its shapes depend only on the
      capacity and the shard count),
-  2. builds the rank's MAP-iteration workspace (:func:`make_workspace`),
-     which counts each local hood's labels over its whole run of the
-     partition, so that the counts need no collective, and
-  3. runs the driver on this rank's block (:func:`run_em_sharded`).
+  2. builds the rank's MAP-iteration workspace of mode ``static-pallas``
+     (:func:`make_workspace`), which counts each local hood's labels over
+     its whole run of the partition, so that the counts need no
+     collective, and
+  3. runs the driver on this rank's block (:func:`run_em_sharded`), in any
+     mode: ``static`` and ``faithful`` need no workspace, and go through
+     the context's collectives at their three touch points.
 
 Ranks are processes, one per device (``torchrun --nproc-per-node N``);
 the process group is the JAX mesh axis's counterpart.  Labels and
@@ -23,7 +26,7 @@ Partitioning is by element block, not by whole neighbourhood: hood sums
 use the global hood id space and an all-reduce, so a neighbourhood may
 straddle ranks and the blocks are balanced by construction.  The faithful
 mode's label-replication arrays are relocalised per shard, so that its
-per-element SortByKey + ReduceByKey(Min) would stay rank-local.
+per-element SortByKey + ReduceByKey(Min) stays rank-local.
 """
 
 from __future__ import annotations
@@ -220,9 +223,11 @@ def run_em_sharded(
     replication lanes relocalised to it; the block keeps global
     ``vertex``/``hood_id`` and carries no ``sizes``/``offsets``.  Ranks
     whose problems differ raise ``ValueError`` before the first collective
-    of the solve.  ``workspace`` (:func:`make_workspace`) carries the MAP
-    loop's buffers across solves of one partition; without it the solve
-    builds its own.  Returns the same result on every rank.
+    of the solve.  In mode ``static-pallas`` ``workspace``
+    (:func:`make_workspace`) carries the MAP loop's buffers across solves
+    of one partition; without it the solve builds its own.  The modes
+    ``static`` and ``faithful`` take none.  Returns the same result on
+    every rank.
     """
     em_mod.validate_config(config)
     group = _group(group)
@@ -237,13 +242,15 @@ def run_em_sharded(
     block = cap // n_shards
     rank = dist.get_rank(group)
     local = shard_block(hoods, rank, n_shards)
+    ctx = collectives.ReduceCtx(group=group)
+    if config.mode != "static-pallas":
+        return em_mod._em_driver(local, model, labels0, mu0, sigma0, config, ctx, workspace)
     ws = workspace if workspace is not None else make_workspace(hoods, model, config, group)
     if (ws.base, ws.block) != (rank * block, block):
         raise ValueError(
             f"workspace built for the block at {ws.base} of {ws.block} elements, this rank "
             f"solves the block at {rank * block} of {block}"
         )
-    ctx = collectives.ReduceCtx(group=group)
     return em_mod._em_driver(local, model, labels0, mu0, sigma0, config, ctx, ws)
 
 

@@ -1,19 +1,29 @@
 """EM / MAP optimization driver (paper Alg. 2, lines 6-12).
 
-Counterpart of ``repro.core.pmrf.em`` for the ``static-pallas`` route.  An
-outer EM loop (parameter estimation) wraps an inner MAP loop (label
-inference).  Convergence follows §3.2.2: per-hood energy sums over the
-last L=3 iterations, converged when every change is below 1e-4
-(relative).
+Counterpart of ``repro.core.pmrf.em``.  An outer EM loop (parameter
+estimation) wraps an inner MAP loop (label inference).  Convergence
+follows §3.2.2: per-hood energy sums over the last L=3 iterations,
+converged when every change is below 1e-4 (relative).
+
+The execution ``mode`` selects the MAP iteration.  ``static`` and
+``faithful`` are the paper's primitive sequence (:func:`map_step`: counts,
+energies, the per-element minimum by an axis-min or by the paper's
+Gather / SortByKey / ReduceByKey(Min), hood sums, votes), each primitive
+its own operation, with one host read of the iteration's convergence and
+divergence; the EM boundary takes ``energy.update_parameters_stats``.  The
+float sums of these modes go through ``segment_reduce``'s element-order
+``add``, so on the card they are the CPU plain path's bits.
+``static-pallas`` fuses the iteration into one kernel launch.
 
 There is one driver for one problem (:func:`_em_driver`), parametrised by
 a collective context (``collectives.ReduceCtx``): :func:`run_em` binds
-the single-device context, where each MAP iteration is one
-``fused_em_tick`` launch on a workspace of the problem's bucket (label
-gather, history ring, convergence and finiteness flags, and in the
-launch that stops the MAP loop the M-step sums, all in the kernel);
-``distributed.run_em_sharded`` binds a sharded context, where each MAP
-iteration is one ``fused_map_step`` launch on the rank's workspace (the
+the single-device context, where in mode ``static-pallas`` each MAP
+iteration is one ``fused_em_tick`` launch on a workspace of the
+problem's bucket (label gather, history ring, convergence and finiteness
+flags, and in the launch that stops the MAP loop the M-step sums, all in
+the kernel); ``distributed.run_em_sharded`` binds a sharded context,
+where in mode ``static-pallas`` each MAP iteration is one
+``fused_map_step`` launch on the rank's workspace (the
 last step's labels and tests, this step's counts, energies, hood sums and
 votes), one all-reduce of the step's hood sums and votes and, past the
 window, the AND of the flag word; the launch that stops the MAP loop also
@@ -61,12 +71,10 @@ WINDOW = 3  # the paper's L
 
 MODES = ("faithful", "static", "static-pallas")
 PRECISIONS = ("f32", "bf16")
-#: Modes of the reference that this package does not run yet, and where
-#: ROADMAP.md queues them.
-UNPORTED_MODES = {
-    "static": "ROADMAP.md Queue 1, 'Serial EM in modes static and faithful'",
-    "faithful": "ROADMAP.md Queue 1, 'Serial EM in modes static and faithful'",
-}
+#: Where ROADMAP.md queues the batched and ticked forms of the modes
+#: ``static`` and ``faithful``: ``run_em_batched``, ``run_em_ticked`` and
+#: the session's batched and pooled executables run ``static-pallas`` only.
+FUSED_ONLY = "ROADMAP.md Queue 1, 'Batched and ticked static and faithful'"
 
 # Per-lane health lattice: priority DIVERGED > DEGENERATE > CONVERGED > MAX_ITERS.
 STATUS_OK = 0          # still iterating (only seen mid-flight)
@@ -91,7 +99,7 @@ INERT_MU = E.INERT_MU
 class EMConfig(NamedTuple):
     max_em_iters: int = 20
     max_map_iters: int = 10
-    mode: str = "static-pallas"   # the one mode ported so far (MODES)
+    mode: str = "static-pallas"   # MODES: the fused route, or the paper's sequence
     beta: float = 0.75
     sigma_min: float = 2.0
     backend: str = "auto"         # kernel dispatch (kernels/ops.py BACKENDS)
@@ -103,15 +111,25 @@ class EMConfig(NamedTuple):
 def validate_config(config: EMConfig) -> None:
     if config.mode not in MODES:
         raise ValueError(f"unknown mode {config.mode!r}; have {MODES}")
-    if config.mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"mode {config.mode!r} is not ported to repro_torch yet; it is "
-            f"queued in {UNPORTED_MODES[config.mode]}"
-        )
     if config.precision not in PRECISIONS:
         raise ValueError(f"unknown precision {config.precision!r}; have {PRECISIONS}")
+    if config.precision == "bf16" and config.mode != "static-pallas":
+        raise ValueError(
+            "precision='bf16' is a fused-tick feature: it requires "
+            f"mode='static-pallas', got mode={config.mode!r}"
+        )
     if config.backend not in kops.BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}; have {kops.BACKENDS}")
+
+
+def require_fused(config: EMConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` unless ``config`` runs the fused route,
+    the only one ``what`` (a batched or ticked form) has so far."""
+    if config.mode != "static-pallas":
+        raise NotImplementedError(
+            f"{what} runs mode 'static-pallas' only; its form for mode "
+            f"{config.mode!r} is queued in {FUSED_ONLY}"
+        )
 
 
 class EMResult(NamedTuple):
@@ -213,6 +231,59 @@ def _check_workspace(ws, config: EMConfig, n_labels: int) -> None:
         )
 
 
+def map_step(
+    hoods: Hoods,
+    model: E.EnergyModel,
+    mode: str,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    *,
+    backend: Optional[str] = None,
+    ctx: collectives.ReduceCtx = collectives.LOCAL,
+    log_sigma: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """One MAP iteration of mode ``static`` or ``faithful`` (the non-fused
+    branch of the reference's ``_map_step``): ``(new labels, hood sums)``.
+    The counts, hood sums and votes go through ``ctx`` (all-reduced when
+    sharded); the per-element minimum stays on this rank's elements.
+    ``log_sigma`` as ``energy.label_energies``'s."""
+    n_labels = int(mu.shape[0])
+    counts = E.hood_label_counts(hoods, labels, n_labels, backend=backend, ctx=ctx)
+    energies = E.label_energies(hoods, model, labels, mu, sigma, hood_counts=counts,
+                                backend=backend, log_sigma=log_sigma)
+    if mode == "faithful":
+        min_e, arg = E.min_energies_faithful(hoods, energies, backend=backend)
+    else:
+        min_e, arg = E.min_energies_static(energies)
+    hood_e = E.hood_energy_sums(hoods, min_e, backend=backend, ctx=ctx)
+    new = E.vote_labels(hoods, arg, hoods.n_regions, n_labels, ctx=ctx)
+    return new, hood_e
+
+
+def _map_loop(hoods, model, labels, mu, sigma, config: EMConfig, ctx):
+    """The MAP loop of modes ``static`` and ``faithful``: per iteration
+    :func:`map_step`, the history ring, and one host read of the window
+    test (past the window, through ``ctx``) and the finiteness of the hood
+    sums.  Returns ``(labels, hood_energy, iterations, diverged)``."""
+    n_hoods, dev = hoods.n_hoods, labels.device
+    hist = torch.zeros((WINDOW + 1, n_hoods), dtype=torch.float32, device=dev)
+    hood_energy = torch.zeros((n_hoods,), dtype=torch.float32, device=dev)
+    no = torch.zeros((), dtype=torch.bool, device=dev)
+    i, done, diverged = 0, False, False
+    while i < config.max_map_iters and not done:
+        labels, hood_energy = map_step(hoods, model, config.mode, labels, mu, sigma,
+                                       backend=config.backend, ctx=ctx)
+        hist = torch.cat([hood_energy[None], hist[:-1]])
+        i += 1
+        # Every rank has the same i, so all skip or all join the collective.
+        conv = ctx.all_converged(_window_converged(hist)) if i > WINDOW else no
+        div = ~torch.all(torch.isfinite(hood_energy))
+        conv, diverged = torch.stack([conv, div]).tolist()
+        done = conv or diverged
+    return labels, hood_energy, i, diverged
+
+
 def _em_driver(
     hoods: Hoods,
     model: E.EnergyModel,
@@ -223,30 +294,38 @@ def _em_driver(
     ctx: collectives.ReduceCtx,
     workspace=None,
 ) -> EMResult:
-    """The EM driver of both routes; only the collective context differs.
+    """The EM driver of every mode and both routes; only the MAP loop and
+    the collective context differ.
 
     When ``ctx`` is sharded, ``hoods`` is this rank's element block (with
     globally indexed ``vertex``/``hood_id``) while ``model``, ``labels0``,
     ``mu0`` and ``sigma0`` are the same on every rank, and so is all label
-    and parameter state after each step; ``workspace`` is then the rank's
-    ``kernels.ops.map_step_workspace`` (``distributed.make_workspace``).
-    On one device each MAP iteration is ``workspace.step`` and one flag
-    read, nothing else; sharded, one step, one flag read and one
-    all-reduce, with the AND of the flag word past the window.
+    and parameter state after each step.  In mode ``static-pallas`` on one
+    device each MAP iteration is ``workspace.step`` (a
+    ``kernels.ops.tick_workspace``) and one flag read, nothing else;
+    sharded, ``workspace`` is the rank's ``kernels.ops.map_step_workspace``
+    (``distributed.make_workspace``): one step, one flag read and one
+    all-reduce, with the AND of the flag word past the window.  The modes
+    ``static`` and ``faithful`` take no workspace (:func:`_map_loop`).
     """
     validate_config(config)
-    backend = config.backend
     n_hoods = hoods.n_hoods
     dev = labels0.device
     f32 = torch.float32
-    fused_tick = not ctx.sharded
-    sctx = E.make_static_context(hoods, model, backend=backend, ctx=ctx)
+    fused = config.mode == "static-pallas"
+    fused_tick = fused and not ctx.sharded
+    if not fused:
+        if workspace is not None:
+            raise ValueError(f"mode {config.mode!r} takes no workspace")
+        labels = labels0
+    else:
+        sctx = E.make_static_context(hoods, model, backend=config.backend, ctx=ctx)
     if fused_tick:
         ws = workspace if workspace is not None else make_workspace(
             TickShape.of(hoods, model), config, device=dev)
         _check_workspace(ws, config, model.n_labels)
         ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
-    else:
+    elif fused:
         if workspace is None:
             raise ValueError("the sharded route needs its rank's workspace (distributed.make_workspace)")
         ws = workspace
@@ -263,11 +342,15 @@ def _em_driver(
     done = False
     while em_i < config.max_em_iters and not done:
         i = 0
-        flag = 0
-        ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
-        if fused_tick:
+        if not fused:
+            labels, hood_energy, i, map_div = _map_loop(hoods, model, labels, mu, sigma, config, ctx)
+            mu, sigma, sum_w = E.update_parameters_stats(model, labels, config.mode,
+                                                         backend=config.backend)
+        elif fused_tick:
             # MAP loop: one launch and one flag read per iteration; the
             # launch that stops the loop takes the M-step sums.
+            flag = 0
+            ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
             while i < config.max_map_iters and not flag:
                 i += 1
                 ws.step(i > WINDOW, i == config.max_map_iters)
@@ -278,17 +361,19 @@ def _em_driver(
                 hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
                 msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
             mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
+            map_div = bool(flag & kops.FLAG_DIVERGED)
         else:
             # MAP loop: per iteration one launch (the head tests iteration
             # i, the step computes i + 1), the AND of the flag word past
             # the window, one flag read and one all-reduce of the step.  The
             # launch that stops the loop only tests: its step is dropped.
+            ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
             while True:
                 more = i < config.max_map_iters
                 ws.step(i > WINDOW, step=more)
                 if i > WINDOW:
-                    # Every rank has the same i, so all skip or all join
-                    # the collective.
+                    # Every rank has the same i, so all skip or all join the
+                    # collective.
                     ctx.and_flags(ws.flag_word)
                 flag = ws.flag()
                 if flag or not more:
@@ -299,7 +384,7 @@ def _em_driver(
             # M-step: the sums the stopping launch took of the labels,
             # which every rank holds, so they need no collective.
             mu, sigma, sum_w = E.params_from_stats(model, *ws.stats)
-        map_div = bool(flag & kops.FLAG_DIVERGED)
+            map_div = bool(flag & kops.FLAG_DIVERGED)
         div_t = ~torch.all(torch.isfinite(mu)) | ~torch.all(torch.isfinite(sigma))
         deg_t = _degenerate_components(model, sigma, sum_w)
         total_hist = torch.cat([_total_energy(hood_energy)[None], total_hist[:-1]])
@@ -316,7 +401,8 @@ def _em_driver(
         status = _boundary_status(div, deg, finished, em_conv, em_i, config.max_em_iters)
 
     # The workspace's buffers belong to the plan.
-    labels, hood_energy = ws.labels.clone(), hood_energy.clone()
+    labels = ws.labels.clone() if fused else labels.clone()
+    hood_energy = hood_energy.clone()
     return EMResult(
         labels=labels,
         mu=mu,
@@ -339,9 +425,10 @@ def run_em(
     *,
     workspace=None,
 ) -> EMResult:
-    """EM on one problem, on the device its tensors live on.  ``workspace``
-    (``make_workspace``) carries the MAP loop's buffers across solves of
-    one bucket; without it the solve builds its own."""
+    """EM on one problem, on the device its tensors live on.  In mode
+    ``static-pallas`` ``workspace`` (``make_workspace``) carries the MAP
+    loop's buffers across solves of one bucket; without it the solve builds
+    its own.  The modes ``static`` and ``faithful`` take none."""
     return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)
 
 
@@ -391,6 +478,7 @@ def run_em_batched(
     across solves of one bucket and batch size.
     """
     validate_config(config)
+    require_fused(config, "run_em_batched")
     n_hoods = hoods.n_hoods
     batch, dev, f32 = int(labels0.shape[0]), labels0.device, torch.float32
     n_labels = model.n_labels
@@ -514,6 +602,8 @@ class TickState:
     map_total: List[int] = field(default_factory=list)  # MAP iterations of finished loops
     done: List[bool] = field(default_factory=list)
     status: List[int] = field(default_factory=list)
+    micro_steps: int = 0     # pool launches issued on this state (a failed tick
+                             # that issued none may be replayed)
 
     @property
     def batch(self) -> int:
@@ -670,6 +760,7 @@ def _tick_micro(state: TickState, config: EMConfig) -> None:
     lane's stopping rule (flag word set, or the cap), as the kernel applies
     it, and runs the EM boundary of the lanes that stopped."""
     ws = state.workspace
+    state.micro_steps += 1
     ws.step()
     words = ws.flags()
     stopped = []
@@ -699,9 +790,10 @@ def run_em_ticked(
     lane's trajectory is its own :func:`run_em`'s, bit for bit (labels,
     parameters, hood energies, counts, status), whatever the tick size and
     whatever shares its pool.  Mode ``static-pallas`` only; the reference's
-    static-mode pool form waits for mode ``static`` (``UNPORTED_MODES``).
+    static-mode pool form is queued (:data:`FUSED_ONLY`).
     """
     validate_config(config)
+    require_fused(config, "run_em_ticked")
     if config.max_em_iters < 1 or config.max_map_iters < 1:
         raise ValueError("run_em_ticked requires max_em_iters/max_map_iters >= 1")
     if tick_iters < 1:

@@ -1,8 +1,7 @@
-"""MRF energy model and the static-pallas EM tick (paper §3.2.2, Alg. 2).
+"""MRF energy model and the MAP/EM inner computations (paper §3.2.2, Alg. 2).
 
-Counterpart of the parts of ``repro.core.pmrf.energy`` that the
-static-pallas route runs.  The energy of giving label ``l`` to hood
-element ``e`` (vertex v) is
+Counterpart of ``repro.core.pmrf.energy``.  The energy of giving label
+``l`` to hood element ``e`` (vertex v) is
 
     E(e, l) = w_v * [ (y_v - mu_l)^2 / (2 sigma_l^2) + log(sigma_l) ]
             + beta * #{ u in hood(e), u != e : x_u != l } / max(|hood|-1, 1)
@@ -10,7 +9,15 @@ element ``e`` (vertex v) is
 with y_v the region mean intensity, w_v the region pixel count normalized
 to unit mean and x the current label field.  Everything that does not
 change across iterations lives in a :class:`StaticMapContext` built once
-per solve.  One MAP iteration of the static-pallas route is
+per solve.
+
+The modes ``static`` and ``faithful`` run one MAP iteration as the
+paper's primitive sequence (``em.map_step``): :func:`hood_label_counts`
+(ReduceByKey), :func:`label_energies` (Map), the per-element minimum
+(:func:`min_energies_static`, an axis-min; or :func:`min_energies_faithful`,
+Gather, SortByKey and ReduceByKey(Min)), :func:`hood_energy_sums`
+(ReduceByKey in element order) and :func:`vote_labels` (Scatter).  One MAP
+iteration of the static-pallas route is
 
 * on one device, one ``fused_em_tick`` launch on the plan's workspace
   (``kernels.ops.tick_workspace``): the label gather, the history ring
@@ -88,6 +95,162 @@ def make_energy_model(
         reseed_mu=torch.stack([torch.quantile(y, float(q)) for q in qs]),
         reseed_sigma=torch.clamp_min(y.std(correction=0) / 2.0, sigma_min),
     )
+
+
+def hood_label_counts(
+    hoods: Hoods,
+    labels: Tensor,
+    n_labels: int,
+    *,
+    backend: Optional[str] = None,
+    ctx: ReduceCtx = LOCAL,
+) -> Tuple[Tensor, Tensor]:
+    """Per-(hood, label) counts and per-hood sizes, collective touch point
+    1: one keyed sum with K folded into the key (``dpp.compound_key``,
+    key = hood_id * K + x) and one keyed sum by hood.  Integer-valued, so
+    the order-free ``add`` and the all-reduce of rank partials are exact.
+    Returns ``(counts, nall)``, (n_hoods + 1, K) and (n_hoods + 1,)."""
+    x = labels[hoods.vertex.long()]
+    ones = hoods.valid.to(torch.float32)
+    key = dpp.compound_key(hoods.hood_id, x, n_labels, major_span=hoods.n_hoods + 1)
+    counts = ctx.segment_sum(
+        key, ones, (hoods.n_hoods + 1) * n_labels, backend=backend
+    ).reshape(hoods.n_hoods + 1, n_labels)
+    nall = ctx.segment_sum(hoods.hood_id, ones, hoods.n_hoods + 1, backend=backend)
+    return counts, nall
+
+
+def label_energies(
+    hoods: Hoods,
+    model: EnergyModel,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    hood_counts: Optional[Tuple[Tensor, Tensor]] = None,
+    *,
+    backend: Optional[str] = None,
+    log_sigma: Optional[Tensor] = None,
+) -> Tensor:
+    """The (K, H) energies of every candidate label, the Map of the paper's
+    "Compute Energy Function" step, one PyTorch op per op of the
+    reference in its order.  ``hood_counts`` is :func:`hood_label_counts`'s
+    result (through the driver's collective context when sharded); without
+    it the counts are taken here.  ``log_sigma`` (K,), when given, stands
+    for the log of each clamped sigma: a step on the host can take the bits
+    another device's ``log`` gave."""
+    n_labels = int(mu.shape[0])
+    v = hoods.vertex.long()
+    validf = hoods.valid.to(torch.float32)
+    y = model.region_mean[v]
+    w = model.region_weight[v] * validf
+    x = labels[v]
+    sig = torch.maximum(sigma, model.sigma_min)
+    if hood_counts is None:
+        hood_counts = hood_label_counts(hoods, labels, n_labels, backend=backend)
+    counts, nall = hood_counts
+    hid = hoods.hood_id.long()
+    cnt_e = counts[hid]
+    nall_e = nall[hid]
+    # Disagreements are normalised by the number of other elements of the
+    # hood; every operand of the smoothness term is an integer-valued float.
+    denom = torch.clamp_min(nall_e - 1.0, 1.0)
+
+    def label_energy(l: int) -> Tensor:
+        d = y - mu[l]
+        log_s = torch.log(sig[l]) if log_sigma is None else log_sigma[l]
+        data = w * (d * d / (2.0 * sig[l] * sig[l]) + log_s)
+        eq = (x == l).to(torch.float32)
+        others_diff = (nall_e - cnt_e[:, l]) - (1.0 - eq)
+        return data + model.beta * torch.clamp_min(others_diff, 0.0) / denom * validf
+
+    return torch.stack([label_energy(l) for l in range(n_labels)])
+
+
+def min_energies_static(energies: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per element, the minimum over the labels and its label (the first on
+    ties): an axis-min, no sort."""
+    min_e, arg = torch.min(energies, dim=0)
+    return min_e, arg.to(torch.int32)
+
+
+#: The energy of an invalid replication lane (the reference's).
+_BIG = 3.4e38
+
+
+def min_energies_faithful(
+    hoods: Hoods, energies: Tensor, *, backend: Optional[str] = None
+) -> Tuple[Tensor, Tensor]:
+    """The paper's per-element minimum: replicate each element's K label
+    energies (Gather), SortByKey by element so that they are adjacent, and
+    ReduceByKey(Min) over ``capacity + 1`` segments (the
+    ``segment_reduce`` kernel's ``min`` on the card); then the label of the
+    first energy equal to the minimum.
+
+    K = 2 gathers through the plan's replication arrays
+    (``Hoods.rep_old_index`` / ``rep_test_label`` / ``rep_valid``, the
+    paper's layout, relocalised per rank by ``distributed.partition_hoods``);
+    K > 2 tiles the (K, H) energies.  The minimum is one of its inputs'
+    bits, so the match finds it and the result equals the static mode's."""
+    n_labels = int(energies.shape[0])
+    h_pad = hoods.capacity
+    big = torch.tensor(_BIG, dtype=energies.dtype, device=energies.device)
+    if n_labels == 2:
+        rep_e = energies[hoods.rep_test_label.long(), hoods.rep_old_index.long()]
+        rep_e = torch.where(hoods.rep_valid, rep_e, big)
+        rep_key = torch.where(hoods.rep_valid, hoods.rep_old_index, h_pad).to(torch.int32)
+    else:
+        lane = torch.arange(h_pad, dtype=torch.int32, device=energies.device)
+        rep_key = torch.where(hoods.valid, lane, h_pad).to(torch.int32).repeat(n_labels)
+        rep_e = torch.where(hoods.valid[None, :], energies, big).reshape(-1)
+    sk, se = dpp.sort_by_key(rep_key, rep_e)
+    min_e = dpp.reduce_by_key(sk, se, h_pad + 1, op="min", backend=backend)[:h_pad]
+    min_e = torch.where(hoods.valid, min_e, torch.zeros((), dtype=min_e.dtype, device=min_e.device))
+    # The first label whose energy equals the minimum (ties to the lowest).
+    arg = torch.argmax((energies == min_e[None, :]).to(torch.int32), dim=0)
+    arg = torch.where(hoods.valid, arg, 0).to(torch.int32)
+    return min_e, arg
+
+
+def hood_energy_sums(
+    hoods: Hoods,
+    min_e: Tensor,
+    *,
+    backend: Optional[str] = None,
+    ctx: ReduceCtx = LOCAL,
+) -> Tensor:
+    """Per-hood sums of the elements' minimum energies, collective touch
+    point 2: ReduceByKey(Add) in element order (the ``segment_reduce``
+    kernel's ordered ``add`` on the card, ``index_add_`` on the CPU: the
+    reference's order), all-reduced when sharded.  (n_hoods,)."""
+    vals = torch.where(hoods.valid, min_e, torch.zeros((), dtype=min_e.dtype, device=min_e.device))
+    return ctx.segment_sum(
+        hoods.hood_id, vals, hoods.n_hoods + 1, backend=backend, ordered=True
+    )[: hoods.n_hoods]
+
+
+def vote_labels(
+    hoods: Hoods,
+    arg: Tensor,
+    n_regions: int,
+    n_labels: int,
+    *,
+    ctx: ReduceCtx = LOCAL,
+) -> Tensor:
+    """Update Output Labels, the Scatter of the paper's step 3: each hood
+    element votes for its argmin label at its vertex (key = vertex * K +
+    arg, ``dpp.compound_key``), collective touch point 3 (integer votes,
+    so the all-reduce is exact), and each vertex takes its plurality label
+    (ties to the lowest).  The paper's racing scatters are resolved by the
+    vote.  Returns (V+1,) int32 labels, the sentinel lane 0."""
+    key = dpp.compound_key(
+        hoods.vertex, torch.where(hoods.valid, arg, 0), n_labels, major_span=n_regions + 1
+    )
+    votes = ctx.vote_scatter(
+        hoods.valid.to(torch.float32), key, (n_regions + 1) * n_labels
+    ).reshape(n_regions + 1, n_labels)
+    new = torch.argmax(votes, dim=1).to(torch.int32)  # first maximum on ties
+    new[n_regions] = 0
+    return new
 
 
 class StaticMapContext(NamedTuple):
@@ -180,24 +343,38 @@ def map_step_fused(
     return new, hood_e
 
 
-def update_parameters_stats(
+def m_step_sums(
     model: EnergyModel, labels: Tensor, mode: str, *, backend: Optional[str] = None
 ) -> Tuple[Tensor, Tensor, Tensor]:
-    """M-step from the labels: per-label weighted region sums (three
-    ReduceByKey launches), then :func:`params_from_stats`.  ``faithful``
-    groups the regions by SortByKey(label) first, as the paper does; the
-    other modes key by label directly.  Returns ``(mu, sigma, sum_w)``.
-    """
+    """The M-step's per-label weighted region sums ``(sum_w, sum_wy,
+    sum_wyy)``: three ReduceByKey launches in element order (the kernel's
+    ordered ``add`` on the card, so they are the CPU's bits).  ``faithful``
+    groups the regions by SortByKey(label) first, as the paper does, and
+    sums in that (stable) order; the other modes key by label directly."""
     n_labels = model.n_labels
     y, w = model.region_mean, model.region_weight  # sentinel lane has weight 0
     if mode == "faithful":
         seg, y, w = dpp.sort_by_key(labels, y, w)
     else:
         seg = labels
-    sum_w = dpp.reduce_by_key(seg, w, n_labels, op="add", backend=backend)
-    sum_wy = dpp.reduce_by_key(seg, w * y, n_labels, op="add", backend=backend)
-    sum_wyy = dpp.reduce_by_key(seg, w * y * y, n_labels, op="add", backend=backend)
-    return params_from_stats(model, sum_w, sum_wy, sum_wyy)
+    return tuple(dpp.reduce_by_key(seg, v, n_labels, op="add", backend=backend, ordered=True)
+                 for v in (w, w * y, w * y * y))
+
+
+def update_parameters_stats(
+    model: EnergyModel, labels: Tensor, mode: str, *, backend: Optional[str] = None
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """M-step from the labels: :func:`m_step_sums`, then
+    :func:`params_from_stats`.  Returns ``(mu, sigma, sum_w)``."""
+    return params_from_stats(model, *m_step_sums(model, labels, mode, backend=backend))
+
+
+def update_parameters(model: EnergyModel, labels: Tensor, mode: str, *,
+                      backend: Optional[str] = None) -> Tuple[Tensor, Tensor]:
+    """M-step (the paper's step 4): per-label ``(mu, sigma)`` from the
+    weighted region statistics (:func:`update_parameters_stats`)."""
+    mu, sigma, _ = update_parameters_stats(model, labels, mode, backend=backend)
+    return mu, sigma
 
 
 #: Label counts up to which :func:`label_total` adds the labels one by one.

@@ -12,11 +12,14 @@ There is no fallback: a CUDA tensor that reaches a kernel that fails to
 build or launch raises.  Each kernel module counts its launches;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts`
 zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
-of the flash launches, and ``em_tick.launches_batched`` and
+of the flash launches, ``em_tick.launches_batched`` and
 ``em_tick.launches_pool``, the batched and the pool entry's shares of the
-tick's).  :data:`WORKSPACE_BUILDS` counts the MAP-iteration workspaces
-built in this process: a session builds one per bucket (and one per
-ticked pool) and reuses it, so a warm solve adds none.
+tick's, and ``segment_reduce.launches_ordered`` and ``launches_min``, the
+element-order ``add``'s and ``min``'s shares of ``segment_reduce``'s;
+:func:`segment_reduce_launches` splits them).  :data:`WORKSPACE_BUILDS`
+counts the MAP-iteration workspaces built in this process: a session
+builds one per bucket (and one per ticked pool) and reuses it, so a warm
+solve adds none.
 """
 
 from __future__ import annotations
@@ -75,6 +78,16 @@ def reset_launch_counts() -> None:
     _flash_attention.launches_tc = 0
     _em_tick.launches_batched = 0
     _em_tick.launches_pool = 0
+    _segment_reduce.launches_ordered = 0
+    _segment_reduce.launches_min = 0
+
+
+def segment_reduce_launches() -> Dict[str, int]:
+    """``segment_reduce``'s launches so far by variant: the order-free
+    ``add``, the element-order ``add`` (``ordered``) and ``min``."""
+    s = _segment_reduce
+    return {"add": s.launches - s.launches_ordered - s.launches_min,
+            "ordered_add": s.launches_ordered, "min": s.launches_min}
 
 
 def segment_reduce(
@@ -84,12 +97,16 @@ def segment_reduce(
     op: str = "add",
     *,
     backend: Optional[str] = None,
+    ordered: bool = False,
 ) -> torch.Tensor:
     """1-D ReduceByKey (``add`` or ``min``) into ``num_segments`` buckets;
-    ids outside ``[0, num_segments)`` are ignored."""
+    ids outside ``[0, num_segments)`` are ignored.  ``ordered=True`` asks
+    for each segment's sum in element order (the plain version's order on
+    the CPU; the kernel's default ``add`` is order-free)."""
     if _use_kernel(backend, values):
-        return _segment_reduce.segment_reduce_cuda(values, segment_ids, num_segments, op)
-    return ref.segment_reduce(values, segment_ids, num_segments, op)
+        return _segment_reduce.segment_reduce_cuda(values, segment_ids, num_segments, op,
+                                                   ordered=ordered)
+    return ref.segment_reduce(values, segment_ids, num_segments, op, ordered=ordered)
 
 
 def fused_em_tick(

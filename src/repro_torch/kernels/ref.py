@@ -51,10 +51,15 @@ def keyed_sum(values: Tensor, keys: Tensor, num_segments: int) -> Tensor:
 
 
 def segment_reduce(
-    values: Tensor, segment_ids: Tensor, num_segments: int, op: str = "add"
+    values: Tensor, segment_ids: Tensor, num_segments: int, op: str = "add",
+    *, ordered: bool = False,
 ) -> Tensor:
     """1-D ReduceByKey.  Ids outside ``[0, num_segments)`` are ignored;
-    empty segments give 0 (``add``) or +inf (``min``)."""
+    empty segments give 0 (``add``) or +inf (``min``).  ``add`` is
+    :func:`keyed_sum`, which adds in element order on the CPU: it is the
+    plain version of the kernel's ``ordered=True`` sum too."""
+    if ordered and op != "add":
+        raise ValueError("ordered=True applies to add; min is order-free")
     if op == "add":
         return keyed_sum(values, segment_ids, num_segments)
     if op == "min":

@@ -4,8 +4,11 @@ Counterpart of ``repro.kernels.segment_reduce.segment_reduce_pallas``.
 Float ``add`` is order-free: the kernel sums on a fixed-point grid per
 segment with integer atomics (``csrc/segsum.cuh``), so its result is the
 same bit for bit whatever order the ids come in;
-``repro_torch.testing.segsum`` models it.  ``min`` lets a NaN win.
-``ref.segment_reduce`` is its plain version.
+``repro_torch.testing.segsum`` models it.  ``ordered=True`` sums each
+segment in element order instead (a warp per segment, one lane at a time:
+``csrc/plainsum.cuh``), the order of the plain version on the CPU, bit for
+bit.  ``min`` lets a NaN win.  ``ref.segment_reduce`` is the plain
+version.
 """
 
 from __future__ import annotations
@@ -18,14 +21,20 @@ from repro_torch.kernels import _build
 
 _OPS = {"add": 0, "min": 1}
 
-#: Launches of the kernel in this process (``ops.launch_counts``).
+#: Launches of the kernel in this process (``ops.launch_counts``), and the
+#: shares of the element-order ``add`` and of ``min`` in them.
 launches = 0
+launches_ordered = 0
+launches_min = 0
 
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P]
+_ORDERED_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]
 _WORKSPACE_BYTES = 16  # per segment, for ``add``: int64 sum, exponent key, flags
+_ORDERED_WORKSPACE_BYTES = 8  # per segment, for the ordered ``add``: first and last index
 _kernel = None
+_ordered_kernel = None
 
 
 def _bind():
@@ -35,17 +44,29 @@ def _bind():
     return _kernel
 
 
+def _bind_ordered():
+    global _ordered_kernel
+    if _ordered_kernel is None:
+        _ordered_kernel = _build.function(
+            "segment_reduce", "repro_segment_reduce_ordered_f32", _ORDERED_ARGTYPES)
+    return _ordered_kernel
+
+
 def segment_reduce_cuda(
-    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, op: str = "add"
+    values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, op: str = "add",
+    *, ordered: bool = False,
 ) -> torch.Tensor:
     """Launch the kernel on ``values``' device and current stream.
 
     ``values`` is a contiguous (n,) float32 CUDA tensor and ``segment_ids``
     a contiguous (n,) int32 tensor on the same device; anything else raises.
+    ``ordered=True`` (``add`` only) sums each segment in element order.
     """
-    global launches
+    global launches, launches_ordered, launches_min
     if op not in _OPS:
         raise ValueError(f"unknown segment_reduce op {op!r}; have {tuple(_OPS)}")
+    if ordered and op != "add":
+        raise ValueError("ordered=True applies to add; min is order-free")
     if not values.is_cuda or segment_ids.device != values.device:
         raise ValueError(
             "segment_reduce_cuda needs values and segment_ids on one CUDA device, "
@@ -66,6 +87,19 @@ def segment_reduce_cuda(
     if num_segments < 0 or num_segments > 2**31 - 1:
         raise ValueError(f"num_segments out of range: {num_segments}")
     dev = values.device
+    if ordered:
+        if values.numel() > 2**31 - 1:
+            raise ValueError(f"the ordered add takes fewer than 2**31 elements, got {values.numel()}")
+        out = torch.empty((num_segments,), dtype=torch.float32, device=dev)
+        workspace = torch.empty((num_segments * _ORDERED_WORKSPACE_BYTES,), dtype=torch.uint8,
+                                device=dev)
+        kernel = _bind_ordered()
+        with torch.cuda.device(dev):
+            kernel(values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), values.numel(),
+                   num_segments, workspace.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        launches += 1
+        launches_ordered += 1
+        return out
     if op == "add":
         out = torch.empty((num_segments,), dtype=torch.float32, device=dev)
         workspace = torch.empty((num_segments * _WORKSPACE_BYTES,), dtype=torch.uint8, device=dev)
@@ -81,4 +115,5 @@ def segment_reduce_cuda(
             torch.cuda.current_stream().cuda_stream,
         )
     launches += 1
+    launches_min += op == "min"
     return out

@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.launch.segment``.  Generates a corrupted synthetic
 volume (binary porous media, or K phases with ``--labels K``), segments
-its slices with ``Segmenter.segment_stack`` in mode ``static-pallas``
-(``--batch always``: the whole stack as one batched solve under its joint
-bucket; ``never``: slice by slice; ``auto``: batched on the card when the
+its slices with ``Segmenter.segment_stack`` in ``--mode`` (``static-pallas``,
+the fused route, the default; ``static`` or ``faithful``, the paper's
+primitive sequence, which solve slice by slice) (``--batch always``: the
+whole stack as one batched solve under its joint bucket, static-pallas
+only; ``never``: slice by slice; ``auto``: batched on the card when the
 slices' capacities are within 2x), ``--repeat`` times on one session, and
 prints one JSON line per repeat (wall time, mean ``optimize_s``, the
 executable cache's hits and misses), then one per slice of the last
@@ -23,6 +25,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.segment --size 512 --grid 32 --labels 2 --seed 0
     PYTHONPATH=src python -m repro_torch.launch.segment --slices 16 --batch always --repeat 3
     PYTHONPATH=src python -m repro_torch.launch.segment --size 64 --grid 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.segment --mode faithful --labels 3
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.segment --shards 2
 """
 
@@ -77,6 +80,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--grid", type=int, default=32, help="oversegmentation grid")
     ap.add_argument("--labels", type=int, default=2, metavar="K")
+    ap.add_argument("--mode", choices=("static", "faithful", "static-pallas"),
+                    default="static-pallas", help="the MAP iteration (em.MODES)")
     ap.add_argument("--init", choices=("random", "quantile"), default="quantile")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="default: the CUDA device")
@@ -115,6 +120,7 @@ def _run(args, device: torch.device, shards: int) -> List[dict]:
         )
     sess = api.Segmenter(
         api.ExecutionConfig(
+            mode=args.mode,
             n_labels=args.labels,
             init=args.init,
             overseg_grid=(args.grid, args.grid),
@@ -155,6 +161,7 @@ def _run(args, device: torch.device, shards: int) -> List[dict]:
             "mean_accuracy": float(sum(r["accuracy"] for r in rows) / len(rows)),
             "mean_optimize_s": float(sum(r["optimize_s"] for r in rows) / len(rows)),
             "labels": args.labels,
+            "mode": args.mode,
             "batch": args.batch,
             "backend": sess.config.resolved_backend(device),
             "shards": shards,

@@ -37,8 +37,15 @@ ordinary path as a :class:`SegCompletion` with that error status; a lane
 that never converges is evicted once its micro-step residency budget runs
 out.  Healthy co-resident lanes are untouched bit for bit.  Tick times
 feed a :class:`~repro_torch.training.fault.StragglerWatchdog`.  A failed
-tick raises: there is no retry and no fallback (the port's
-``FallbackPolicy`` is later work).
+tick follows the session's ``FallbackPolicy`` on its own route: it is
+replayed (up to ``max_retries`` times, with the policy's backoff) only
+when it failed before its first launch, as the chaos harness's execute
+faults do, since a tick that launched has written the pool's state in
+place; then :class:`~repro_torch.api.errors.FallbackError` (the original
+error with the policy disabled).  A live pool does not switch to the plain
+route, whatever the policy: that waits for a later slice (ROADMAP.md
+Queue 1, 'Ticked serving').  A pool whose executables' build fell back
+(``FallbackPolicy(backend="torch")``) starts on the plain route.
 
 Mixed K: the pool runs at the session's ``n_labels``; a request with
 fewer labels is label-padded with inert labels (its real labels take the
@@ -56,7 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.api.config import ExecutionConfig
-from repro_torch.api.errors import RequestError
+from repro_torch.api.errors import FallbackError, RequestError
 from repro_torch.api.session import BucketKey, Plan, Segmenter
 from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import energy as energy_mod
@@ -215,6 +222,7 @@ class SegmentationEngine:
         self.total_steps = 0           # micro-steps issued (pool launches)
         self.lane_steps = 0            # occupied-lane micro-steps
         self.steps_saved = 0           # tick_iters - steps (early tick exits)
+        self.tick_retries = 0          # ticks replayed after a failure before their first launch
         self.tick_switches: List[Tuple[int, int, int]] = []  # (tick, from, to)
         # Per-tick cost: host-phase timers and the decayed affine fit of
         # cost(t) = a + b*t over (steps executed, tick seconds).
@@ -324,7 +332,8 @@ class SegmentationEngine:
             exe = self.session.compile_ticked(self.bucket, batch=self.max_batch, tick_iters=size)
             if size == self.tick_iters:
                 self._exe = exe
-        self._state = self.session.ticked_pool(self.bucket, batch=self.max_batch)
+        self._state = self.session.ticked_pool(self.bucket, batch=self.max_batch,
+                                               backend=self._exe.key.backend)
 
     def _admit(self) -> int:
         """Fill free slots from the queue in priority/deadline order: writes
@@ -495,6 +504,37 @@ class SegmentationEngine:
     # the tick
     # ------------------------------------------------------------------
 
+    def _advance_pool(self):
+        """One ticked-executable call under the session's fallback policy:
+        a failed tick is replayed on the same route while it had launched
+        nothing (the pool's micro-step count did not move), then raises
+        :class:`FallbackError` (or, with the policy disabled, the original
+        error).  Returns ``(state, steps_executed)``."""
+        policy = self.session.config.fallback
+        issued = self._state.micro_steps
+        attempts = 0
+
+        def tick():
+            nonlocal attempts
+            attempts += 1
+            chaos_mod.on_execute(self._exe.key.backend)
+            return self._exe(self._state)
+
+        try:
+            out = policy.retrying(tick, replayable=lambda: self._state.micro_steps == issued)
+        except Exception as e:
+            if not policy.enabled:
+                raise
+            launched = self._state.micro_steps != issued
+            raise FallbackError(
+                f"tick {self.ticks} failed on route {self._exe.key.backend!r} "
+                + ("after its first launch, so it was not replayed" if launched
+                   else f"after {attempts - 1} replay(s)")
+                + "; a live pool does not switch routes"
+            ) from e
+        self.tick_retries += attempts - 1
+        return out
+
     def step(self) -> int:
         """One engine tick: admit, advance every live lane by up to
         ``tick_iters`` micro-steps, retire finished lanes, evict
@@ -510,10 +550,9 @@ class SegmentationEngine:
         self._phase_s["admit"] += time.perf_counter() - t_admit
         t0 = time.perf_counter()
         chaos_mod.on_tick(self.ticks)
-        chaos_mod.on_execute(self._exe.key.backend)
         # The tick reads the flag words after each launch, so the lanes'
         # done flags come back on the host with it: "advance" holds the sync.
-        self._state, steps = self._exe(self._state)
+        self._state, steps = self._advance_pool()
         done = list(self._state.done)
         t2 = time.perf_counter()
         self._phase_s["advance"] += t2 - t0
@@ -577,6 +616,7 @@ class SegmentationEngine:
             "occupancy": round(self.lane_steps / cap, 4),
             "evicted": self.evicted,
             "error_completions": self.error_completions,
+            "tick_retries": self.tick_retries,
             "straggler_events": len(self.watchdog.events),
             "tick_cost": {
                 "phase_s": {k: round(v, 6) for k, v in self._phase_s.items()},

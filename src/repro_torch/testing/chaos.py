@@ -22,9 +22,12 @@ requests, regions and ticks:
 * ``slow_tick``: :func:`on_tick` sleeps every Nth engine tick, for the
   straggler watchdog;
 * ``compile_fail``, ``exec_fail``, ``transient_exec_failures``:
-  :func:`on_compile` (a session's compile) and :func:`on_execute` (an
-  engine's tick) raise :class:`ChaosError`.  Nothing catches it yet: the
-  retries and the backend fallback wait for the port's ``FallbackPolicy``.
+  :func:`on_compile` (each attempt of a session's compile, on the route it
+  builds for: ``"cuda"`` or ``"torch"``) and :func:`on_execute` (each
+  attempt of a session's execute and of an engine's tick) raise
+  :class:`ChaosError`, before any launch.  The session's
+  ``FallbackPolicy`` answers them: retries on the same route, then
+  ``FallbackError``, or the plain route where the policy names it.
 """
 
 from __future__ import annotations

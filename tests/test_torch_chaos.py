@@ -111,18 +111,21 @@ def test_inject_stacks_and_restores():
 
 
 def test_compile_and_execute_faults_raise_through():
-    """No ``FallbackPolicy`` yet: an injected compile or tick failure
-    reaches the caller."""
+    """Under the default ``FallbackPolicy`` (no other route) an injected
+    compile or tick failure that outlasts the retries reaches the caller as
+    ``FallbackError``, the injected error its cause."""
     sess = _session()
     [plan] = _plans(sess, n=1)
     with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("torch",))):
-        with pytest.raises(chaos.ChaosError, match="compile"):
+        with pytest.raises(api.FallbackError, match="compile") as err:
             sess.compile_ticked(plan, batch=2, tick_iters=3)
+    assert isinstance(err.value.__cause__, chaos.ChaosError)
     engine = SegmentationEngine(sess, max_batch=2, tick_iters=3)
-    with chaos.inject(chaos.ChaosConfig(transient_exec_failures=1)):
+    with chaos.inject(chaos.ChaosConfig(exec_fail_backends=("torch",))):
         engine.submit(plan, rid=0)
-        with pytest.raises(chaos.ChaosError, match="transient"):
+        with pytest.raises(api.FallbackError, match="tick") as err:
             engine.run()
+    assert isinstance(err.value.__cause__, chaos.ChaosError)
 
 
 def test_nan_image_is_refused_with_plan_error():

@@ -125,11 +125,12 @@ def test_run_em_bf16_drift_tier(n_labels):
     assert got.status in (torch_em.STATUS_CONVERGED, torch_em.STATUS_MAX_ITERS)
 
 
-def test_unported_modes_and_bad_settings_raise():
+def test_bad_modes_and_settings_raise():
     problem = _carried_across(2)
-    for mode in ("static", "faithful"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            torch_em.run_em(*problem, torch_em.EMConfig(mode=mode))
+    with pytest.raises(ValueError, match="bf16"):
+        torch_em.run_em(*problem, torch_em.EMConfig(mode="static", precision="bf16"))
+    with pytest.raises(ValueError, match="unknown mode"):
+        torch_em.run_em(*problem, torch_em.EMConfig(mode="paper"))
     with pytest.raises(ValueError, match="precision"):
         torch_em.run_em(*problem, torch_em.EMConfig(precision="fp8"))
     with pytest.raises(ValueError, match="backend"):

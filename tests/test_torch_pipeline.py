@@ -96,8 +96,10 @@ def test_plan_rejects_unusable_images():
 
 
 def test_execution_config_validates():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.ExecutionConfig(mode="faithful")
+    with pytest.raises(ValueError, match="bf16"):
+        api.ExecutionConfig(mode="static", precision="bf16")
+    with pytest.raises(ValueError, match="unknown mode"):
+        api.ExecutionConfig(mode="paper")
     for bad in (dict(mode="nope"), dict(precision="fp16"), dict(backend="xla"),
                 dict(init="zeros"), dict(n_labels=1)):
         with pytest.raises(ValueError):

@@ -25,15 +25,24 @@ PyTorch version on the card, and drives six paths (serving last):
   between ticks admission into freed slots; then a mixed-K pool (4 K = 2
   and 4 K = 3 requests, K = 3 pool of 4 slots) and a chaos stream (a
   ``bad_init``, a ``nan_data`` and a ``never_converge`` request among 8);
+  then the same stream and mixed-K pool in modes ``static`` and
+  ``faithful`` on the mode's pool (``DppPoolWorkspace``: per micro-step
+  one flat DPP step over every live lane);
 * the modes ``static`` and ``faithful``, the paper's primitive sequence:
   the K = 2, 3 and 9 slices' plans through
   ``Segmenter(ExecutionConfig(mode=m))`` (per MAP iteration counts,
   energies, the per-element minimum by an axis-min or by SortByKey and
   ``segment_reduce`` ``min``, hood sums by its ordered ``add``, votes;
   per EM iteration three ordered M-step sums), and at K = 2, 3 the same
-  on the sharded route over the one-rank NCCL group; then the fallback
-  phase: ``FallbackPolicy`` under the chaos harness's compile and
-  execute faults;
+  on the sharded route over the one-rank NCCL group; then the modes'
+  stacks: the stack phase's 16 K = 2 and 4 K = 3 slices in each mode
+  through ``segment_stack(batch="always")`` and ``submit``/``drain``, one
+  ``run_em_batched`` per stack on the bucket's ``DppBatchWorkspace`` (per
+  lockstep MAP iteration one flat DPP step over every lane, whose
+  launches are ``segment_reduce``'s); the K = 2 slice in all three modes
+  against the port's NumPy oracle (``reference.golden_em``); then the
+  fallback phase: ``FallbackPolicy`` under the chaos harness's compile
+  and execute faults, on one solve and on a mode's stack;
 * the sharded route: ``run_em_sharded`` on the same plans over a
   one-rank NCCL process group made in this process, on the rank's
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
@@ -257,6 +266,29 @@ Tolerances (kernel against plain version, same inputs, on the card):
   one event and one warning and no kernel; one transient execute fault
   (``static-pallas`` and ``faithful``) and one on an engine tick give the
   clean solve bit for bit.
+* The modes' stacks and served requests (``modes_stack``, ``modes_serve``
+  lines; ``oracle`` line): no ``fused_em_tick`` or ``fused_map_step``
+  launch; one flat step per lockstep MAP iteration (per micro-step in a
+  pool) and ``segment_reduce`` launches exactly ``modes_flat_expected``'s:
+  per step a serial MAP iteration's (two order-free ``add``, one ordered
+  ``add``, in ``faithful`` one ``min``) whatever the lanes, B = 4 and 16
+  alike, plus three ordered ``add`` per read of the M-step sums (one per
+  EM iteration of a stack, one per micro-step in which a pool lane
+  stopped); every lane and every completion bit for bit its serial
+  ``execute`` in the same mode (mixed K: in its own K's session); no
+  workspace built by a warm drain or after a pool's set-up.  At K = 2 a
+  ``FLAT_LOCKSTEP_LANES`` = 3 lane stack on a ``FlatLockstep``: every
+  step's labels, ring, hood sums, flag and active words and every
+  M-step's sums bit for bit the CPU flat step's from the card's state
+  (the CPU takes the card's ``log``).  ``segment_reduce`` at the flat
+  step's B = 16 calls: each bit for bit the CPU, timed beside its plain
+  version, ``index_add_`` / ``scatter_reduce_`` and its bound.  Oracle:
+  each mode's K = 2 solve at least ``ORACLE_AGREEMENT`` = 99.5 % of
+  ``golden_em``'s pixels and its accuracy within 0.01 (exact equality of
+  labels, counts, mu and sigma reported).  Printed: lockstep iterations,
+  launches per solve and per lockstep iteration, ``optimize_s`` per slice
+  batched and serial (best and median of 5), requests/s, p50/p99,
+  micro-steps; with ``--profile`` the idle shares.
 * LM serving: every request completes with 32 tokens in the vocabulary.
   Kernel path against plain path on the same weights: (a) a 2-layer f32
   variant at full width (d_model 1536, vocab 151,936) gives identical
@@ -321,6 +353,9 @@ POOL_CHECK_MAP_ITERS = 6  # the pool check's MAP cap: every lane reaches it insi
 NEVER_STOP = 1 << 30  # MAP cap of the timing pool (with tolerance 0 its lanes never stop)
 MODES = ("static", "faithful")  # the modes phase: the paper's primitive sequence
 MODES_LOCKSTEP_K = (2, 3)  # slices whose modes solves are held to the CPU at every MAP iteration
+FLAT_LOCKSTEP_LANES = 3  # lanes of the modes' stack held to the CPU at every flat step
+ORACLE_AGREEMENT = 0.995  # pixel agreement of each mode's K = 2 solve with golden_em
+FALLBACK_STACK_LANES = 4  # lanes of the K = 2 stack in the fallback phase's mode stacks
 
 
 def emit(obj) -> None:
@@ -1457,7 +1492,7 @@ def run_stack(torch, api, synthetic, ops, E, em_mod, dev, n_labels: int, n_slice
                               **{k: prof[k] for k in ("device_ops", "kernels", "memsets", "memcpys",
                                                       "device_busy_us", "top")}}
     emit(out)
-    out.update(seg=seg, plans=plans, joint=joint)
+    out.update(seg=seg, plans=plans, joint=joint, images=vol.images)
     return out
 
 
@@ -1661,8 +1696,10 @@ def completion_bits(c) -> tuple:
 
 def serve_stream(torch, ops, seg, plans, bucket, tick_iters, max_batch: int, **engine_kw) -> dict:
     """One engine run over ``plans`` (pool compiled, its workspace built,
-    before the counts are reset): completions by rid, the launch counts, the
-    workspace builds during the run, the wall time and the engine."""
+    before the counts are reset): completions by rid, the launch counts
+    (``segment_reduce``'s by variant, and the flat steps of a mode's pool),
+    the reads of a mode pool's M-step sums, the workspace builds during the
+    run, the wall time and the engine."""
     from repro_torch.kernels import em_tick
     from repro_torch.serving import SegmentationEngine
     from repro_torch.serving.engine import DEFAULT_TICK_LADDER
@@ -1672,6 +1709,8 @@ def serve_stream(torch, ops, seg, plans, bucket, tick_iters, max_batch: int, **e
     engine = SegmentationEngine(seg, max_batch=max_batch, tick_iters=tick_iters, bucket=bucket,
                                 **engine_kw)
     builds = ops.WORKSPACE_BUILDS
+    pool_ws = seg.ticked_pool(bucket, batch=max_batch).workspace
+    m0 = getattr(pool_ws, "m_steps", 0)
     torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1682,7 +1721,9 @@ def serve_stream(torch, ops, seg, plans, bucket, tick_iters, max_batch: int, **e
     wall = time.perf_counter() - t0
     return {"completions": {c.rid: c for c in comps}, "launches": ops.launch_counts(),
             "pool_launches": em_tick.launches_pool, "builds": ops.WORKSPACE_BUILDS - builds,
-            "wall_s": wall, "engine": engine}
+            "wall_s": wall, "engine": engine, "lane_steps": ops.LANE_STEPS,
+            "segment_reduce": ops.segment_reduce_launches(),
+            "m_steps": getattr(pool_ws, "m_steps", 0) - m0}
 
 
 def serve_row(what: str, run: dict, serial: list) -> dict:
@@ -1783,11 +1824,13 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
     return out
 
 
-def serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial) -> None:
+def serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial) -> dict:
     """``SERVE_MIXED`` K = 2 requests of the serve stream and as many K = 3
-    slices of the three-phase volume in one K = 3 pool: each completion
-    equals its serial ``execute`` in its own K's session (a K = 2 lane's
-    real labels, with its padded label at the inert mu)."""
+    slices of the three-phase volume in one K = 3 pool, in ``config``'s
+    mode: each completion equals its serial ``execute`` in its own K's
+    session (a K = 2 lane's real labels, with its padded label at the inert
+    mu).  A mode's pool launches no fused kernel and ``segment_reduce`` as
+    its flat steps imply."""
     seed = SLICE["seed"]
     vol3 = stack_volume(synthetic, dev, 3, SERVE_MIXED)
     seg3 = api.Segmenter(config.with_(n_labels=3), device=dev)
@@ -1811,10 +1854,80 @@ def serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial
         if not same:
             fail(f"serve mixed K: request {rid} (K={2 if rid < SERVE_MIXED else 3}) not bit for bit "
                  "its serial execute in its own K's session")
-    emit({"phase": "serve", "what": "mixed K (4 K=2, 4 K=3, K=3 pool of 4)", "requests": len(mixed),
-          "micro_steps": run["engine"].total_steps, "pool_launches": run["pool_launches"],
-          "bucket": list(bucket3), "workspace_builds_after_setup": run["builds"],
-          "bitwise_serial_own_k": True})
+    mode = config.mode
+    row = {"phase": "serve" if mode == "static-pallas" else "modes_serve", "mode": mode,
+           "what": "mixed K (4 K=2, 4 K=3, K=3 pool of 4)", "requests": len(mixed),
+           "micro_steps": run["engine"].total_steps, "pool_launches": run["pool_launches"],
+           "bucket": list(bucket3), "workspace_builds_after_setup": run["builds"],
+           "bitwise_serial_own_k": True}
+    if mode != "static-pallas":
+        check_modes_serve_launches(f"serve mixed K {mode}", mode, run)
+        row.update(flat_steps=run["lane_steps"], m_steps=run["m_steps"],
+                   segment_reduce=run["segment_reduce"])
+    emit(row)
+    return row
+
+
+def check_modes_serve_launches(what: str, mode: str, run: dict) -> None:
+    """A mode's served run: no fused kernel launched, one flat step per
+    micro-step, ``segment_reduce`` as ``modes_flat_expected`` says, and no
+    workspace built."""
+    steps = run["engine"].total_steps
+    if any(run["launches"][f] for f in ("fused_em_tick", "fused_map_step")):
+        fail(f"{what}: a fused kernel launched: {run['launches']}")
+    want = modes_flat_expected(mode, steps, run["m_steps"])
+    if run["lane_steps"] != steps or run["segment_reduce"] != want:
+        fail(f"{what}: {run['lane_steps']} flat steps for {steps} micro-steps, segment_reduce "
+             f"{run['segment_reduce']} where the steps imply {want}")
+    if run["builds"]:
+        fail(f"{what}: {run['builds']} workspaces built after the pool was set up")
+
+
+def run_modes_serve(torch, api, synthetic, ops, em_mod, dev, config, plans, bucket,
+                    profile: bool) -> dict:
+    """The modes' serve path: the serve stream in modes ``static`` and
+    ``faithful`` through ``SegmentationEngine(max_batch=SERVE_SLOTS)`` on
+    the mode's pool (``DppPoolWorkspace``), with ``tick_iters=SERVE_TICK``
+    and ``"auto"``, launch counts reset just before and read just after:
+    every completion bit for bit its serial ``execute`` in the same mode,
+    no fused kernel, one flat step per micro-step, ``segment_reduce`` as
+    the steps imply, no workspace built after the pool's set-up.  Then the
+    mixed-K pool in the mode; with ``profile``, the idle share of a warm
+    served stream."""
+    out = {}
+    for mode in MODES:
+        cfg = config.with_(mode=mode)
+        seg = api.Segmenter(cfg, device=dev)
+        serial = [seg.execute(p, seed=SLICE["seed"]) for p in plans]
+        for tick in (SERVE_TICK, "auto"):
+            what = f"{mode} K=2 tick_iters={tick}"
+            run = serve_stream(torch, ops, seg, plans, bucket, tick, SERVE_SLOTS)
+            comps, st = run["completions"], run["engine"].stats()
+            for rid, want in enumerate(serial):
+                if rid not in comps or completion_bits(comps[rid]) != result_bits(want) + (want.status,):
+                    fail(f"modes serve {what}: request {rid} not bit for bit its serial execute")
+            check_modes_serve_launches(f"modes serve {what}", mode, run)
+            lat = sorted(c.latency_s for c in comps.values())
+            row = {"phase": "modes_serve", "mode": mode, "what": what, "requests": len(comps),
+                   "ticks": st["ticks"], "micro_steps": st["total_steps"],
+                   "flat_steps": run["lane_steps"], "m_steps": run["m_steps"],
+                   "occupancy": st["occupancy"], "steps_saved_early_exit": st["steps_saved_early_exit"],
+                   "workspace_builds_after_setup": run["builds"], "wall_s": run["wall_s"],
+                   "requests_per_s": len(comps) / run["wall_s"],
+                   "latency_p50_s": float(np.percentile(lat, 50)),
+                   "latency_p99_s": float(np.percentile(lat, 99)),
+                   "serial_execute_solve_s": float(sum(r.optimize_seconds for r in serial)),
+                   "lane_map_iters": sum(r.map_iters for r in serial), "launches": run["launches"],
+                   "segment_reduce": run["segment_reduce"],
+                   "segment_reduce_per_micro_step": {v: n / st["total_steps"]
+                                                     for v, n in run["segment_reduce"].items()},
+                   "statuses": sorted({c.status for c in comps.values()}), "bitwise_serial": True}
+            emit(row)
+            out[(mode, tick)] = row
+        out[(mode, "mixed")] = serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, cfg, plans, serial)
+        if profile:
+            serve_profile(torch, ops, seg, plans, bucket, f"{mode} ")
+    return out
 
 
 def serve_chaos(torch, ops, em_mod, seg, plans, bucket, serial) -> None:
@@ -1890,13 +2003,13 @@ def serve_plans(api, synthetic, dev):
     return vol, config, seg, plans, bucket, serial
 
 
-def serve_profile(torch, ops, seg, plans, bucket) -> None:
+def serve_profile(torch, ops, seg, plans, bucket, mode: str = "") -> None:
     """The device's idle share of a warm served stream (``SOLVES``
-    unprofiled runs, then one traced)."""
+    unprofiled runs, then one traced); ``mode`` prefixes its name."""
     stream = lambda: serve_stream(torch, ops, seg, plans, bucket, SERVE_TICK, SERVE_SLOTS)["wall_s"]  # noqa: E731
     walls = spread([stream() for _ in range(SOLVES)])
     prof = device_profile(torch, stream)
-    emit({"phase": "profile", "what": f"warm served stream ({SERVE_REQUESTS} K=2 requests, "
+    emit({"phase": "profile", "what": f"warm {mode}served stream ({SERVE_REQUESTS} K=2 requests, "
                                       f"{SERVE_SLOTS} slots, tick_iters={SERVE_TICK})",
           "wall_s_unprofiled": walls, "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / walls["min"],
           **{k: prof[k] for k in ("device_ops", "kernels", "memsets", "memcpys", "device_busy_us", "top")}})
@@ -1916,7 +2029,8 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     slots), a mixed-K pool, a chaos stream, every launch of a small stream
     held to the plain pool on the CPU (``serve_cpu_check``), and the pool
     launch's times (``time_pool_step``); with ``profile``, the pool launch's
-    device time and ``serve_profile``."""
+    device time and ``serve_profile``.  Last, the modes' serve path
+    (``run_modes_serve``)."""
     seed = SLICE["seed"]
     vol, config, seg, plans, bucket, serial = serve_plans(api, synthetic, dev)
     out = {}
@@ -1948,6 +2062,8 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     out["timing"] = time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, profile)
     if profile:
         serve_profile(torch, ops, seg, plans, bucket)
+    out["modes"] = run_modes_serve(torch, api, synthetic, ops, em_mod, dev, config, plans, bucket,
+                                   profile)
     return out
 
 
@@ -2349,6 +2465,310 @@ def run_modes(torch, api, ops, em_mod, E, slices, profile: bool) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The modes' stacks and served requests: one flat DPP step over every lane
+# ---------------------------------------------------------------------------
+
+
+def modes_flat_expected(mode: str, steps: int, m_steps: int) -> dict:
+    """``segment_reduce``'s launches over ``steps`` flat steps of a mode's
+    DPP workspace (lockstep MAP iterations of a stack, micro-steps of a
+    pool) and ``m_steps`` reads of its M-step sums: per step a serial MAP
+    iteration's (two order-free ``add``, one ordered ``add``, in
+    ``faithful`` one ``min``), whatever the lanes; per read three ordered
+    ``add`` for every lane that stopped since the last one (one read per
+    EM iteration of a stack, one per micro-step in which a pool lane
+    stopped)."""
+    return {"add": 2 * steps, "ordered_add": steps + 3 * m_steps,
+            "min": steps if mode == "faithful" else 0}
+
+
+class FlatLockstep:
+    """A mode's ``DppBatchWorkspace`` on the card (``card``) run beside one
+    on the CPU (``cpu``): before every step and every read of the M-step
+    sums the CPU workspace takes the card's state (labels, ring, hood
+    sums, active words, the lanes whose sums are pending and the sums
+    taken so far), both run, and the card is held to the CPU bit for bit:
+    each step's labels, ring, hood sums, flag and active words, each
+    read's M-step sums.  The CPU step takes the card's ``log`` of each
+    clamped sigma (``log_unequal`` counts the EM iterations where the
+    host's differs in some bit)."""
+
+    def __init__(self, torch, card, cpu):
+        self.torch, self.card, self.cpu = torch, card, cpu
+        self.steps = self.equal_steps = self.m_steps = self.log_unequal = 0
+
+    def __getattr__(self, name):
+        return getattr(self.card, name)
+
+    def start(self, hoods, model, labels0):
+        hoods_c, model_c, labels_c = inputs_on_cpu((hoods, model, labels0))
+        self.card.start(hoods, model, labels0)
+        self.cpu.start(hoods_c, model_c, labels_c)
+
+    def begin_em(self, mu, sigma, active):
+        torch = self.torch
+        self.card.begin_em(mu, sigma, active)
+        sig = torch.maximum(sigma, self.card._model.sigma_min[:, None])
+        log_card = torch.log(sig).cpu()
+        self.log_unequal += not torch.equal(log_card, torch.log(sig.cpu()))
+        self.cpu.begin_em(mu.cpu(), sigma.cpu(), active, log_sigma=log_card)
+
+    def _load(self):
+        for name in ("labels", "ring", "hood_e", "active", "_stopped", "_stats"):
+            setattr(self.cpu, name, getattr(self.card, name).cpu())
+        self.cpu._stale = self.card._stale
+
+    def step(self, gate, cap=False):
+        self._load()
+        self.card.step(gate, cap)
+        self.cpu.step(gate, cap)
+        self.steps += 1
+        pairs = [(n, getattr(self.card, n), getattr(self.cpu, n))
+                 for n in ("labels", "ring", "hood_e", "active", "_flags")]
+        self.equal_steps += not cpu_step_unequal(self.torch, pairs, f"flat step {self.steps}")
+
+    def flags(self):
+        return self.card.flags()
+
+    @property
+    def stats(self):
+        stale = self.card._stale
+        self._load()
+        card, cpu = self.card.stats, self.cpu.stats
+        if stale:
+            self.m_steps += 1
+            cpu_step_unequal(self.torch, [("stats", card, cpu)], f"flat M-step {self.m_steps}")
+        return card
+
+
+def flat_lockstep_check(torch, api, em_mod, seg, plans, joint, mode: str, want: list) -> dict:
+    """A ``FLAT_LOCKSTEP_LANES``-lane stack of the K = 2 plans on a
+    ``FlatLockstep``: every step and every M-step of the whole solve bit
+    for bit the CPU's from the card's state, and each lane its serial
+    ``execute`` (``want``)."""
+    from repro_torch.kernels.ref import TickShape
+
+    n = FLAT_LOCKSTEP_LANES
+    cfg = seg.config.em_config()
+    inputs = seg.stacked_inputs(plans[:n], bucket=joint, seeds=[SLICE["seed"]] * n)
+    shape = TickShape.of(inputs[0], inputs[1])
+    ls = FlatLockstep(torch, em_mod.make_workspace(shape, cfg, device=inputs[0].vertex.device, batch=n),
+                      em_mod.make_workspace(shape, cfg, device="cpu", batch=n))
+    got = em_mod.run_em_batched(*inputs, cfg, workspace=ls)
+    from repro_torch.core.pmrf import pipeline
+
+    for b in range(n):
+        r = pipeline.assemble_result(plans[b].problem, got.lane(b), 0.0, 0.0)
+        if result_bits(r) != result_bits(want[b]):
+            fail(f"{mode} flat lockstep lane {b}: not bit for bit its serial execute")
+    if (ls.steps, ls.m_steps) != (got.steps, max(got.em_iters)):
+        fail(f"{mode} flat lockstep: {ls.steps} steps and {ls.m_steps} M-steps for {got.steps} "
+             f"lockstep MAP iterations and {max(got.em_iters)} EM iterations")
+    return {"B": n, "steps": ls.steps, "equal_steps": ls.equal_steps, "m_steps": ls.m_steps,
+            "em_iterations_log_sigma_unequal_cpu": ls.log_unequal}
+
+
+def run_modes_stack(torch, api, ops, em_mod, stacks, profile: bool) -> dict:
+    """The modes' stack path: each ``STACK`` stack's plans (the stack
+    phase's 512x512 slices) in modes ``static`` and ``faithful``, first
+    through ``Segmenter.segment_stack(batch="always")`` on the images, then
+    warm through ``submit``/``drain``, launch counts reset just before and
+    read just after.  Held: no ``fused_em_tick`` and no ``fused_map_step``
+    launch; the workspace's flat steps are the stack's lockstep MAP
+    iterations (its solve run again on the bucket's executable gives the
+    count) and ``segment_reduce``'s launches by variant are
+    ``modes_flat_expected``'s (per lockstep iteration a serial MAP
+    iteration's, at B = 4 and 16 alike); one read of the M-step sums per EM
+    iteration; every lane bit for bit its slice's serial ``execute`` in the
+    same mode; the warm drain builds no workspace.  Printed besides: mean
+    ``optimize_s`` per slice batched and serial (best and median of
+    ``STACK_REPEATS``), and at K = 2 the ``flat_lockstep_check``; with
+    ``profile`` the device operations and idle share of one warm stack
+    solve."""
+    seed = SLICE["seed"]
+    out = {}
+    for k, st in stacks.items():
+        plans, joint, n = st["plans"], st["joint"], len(st["plans"])
+        dev = plans[0].problem.hoods.vertex.device
+        for mode in MODES:
+            cfg = api.ExecutionConfig(mode=mode, n_labels=k, overseg_grid=(SLICE["grid"],) * 2,
+                                      init="quantile")
+            seg = api.Segmenter(cfg, device=dev)
+            ops.reset_launch_counts()
+            cold, _ = seg.segment_stack(st["images"], seed=seed, batch="always")
+            cold_launches = ops.launch_counts()
+            exe = seg.compile(joint, batch=n)
+
+            def drain():
+                for p in plans:
+                    seg.submit(p, seed=seed, bucket=joint)
+                return seg.drain()
+
+            builds, m0 = ops.WORKSPACE_BUILDS, exe.workspace.m_steps
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            results = drain()
+            launches, by_variant = ops.launch_counts(), ops.segment_reduce_launches()
+            steps, m_steps = ops.LANE_STEPS, exe.workspace.m_steps - m0
+            warm_builds = ops.WORKSPACE_BUILDS - builds
+            again = exe(*seg.stacked_inputs(plans, bucket=joint, seeds=[seed] * n))
+            want = modes_flat_expected(mode, steps, m_steps)
+            what = f"modes stack K={k} {mode}"
+            if any(cold_launches[f] or launches[f] for f in ("fused_em_tick", "fused_map_step")):
+                fail(f"{what}: a fused kernel launched: {cold_launches}, {launches}")
+            if steps != again.steps or m_steps != max(again.em_iters):
+                fail(f"{what}: {steps} flat steps and {m_steps} M-steps for {again.steps} lockstep "
+                     f"MAP iterations and {max(again.em_iters)} EM iterations")
+            if by_variant != want or launches["segment_reduce"] != sum(want.values()):
+                fail(f"{what}: segment_reduce launches {by_variant}, the flat steps imply {want}")
+            if warm_builds:
+                fail(f"{what}: the warm drain built {warm_builds} workspaces")
+            serial_s, serial = [], None
+            for _ in range(STACK_REPEATS):
+                rs = [seg.execute(p, seed=seed) for p in plans]
+                serial = serial or rs
+                serial_s.append(float(np.mean([r.optimize_seconds for r in rs])))
+            for i, r in enumerate(results):
+                if result_bits(r) != result_bits(serial[i]) or result_bits(cold[i]) != result_bits(r):
+                    fail(f"{what} lane {i}: not bit for bit its serial execute")
+            batched_s = [float(np.mean([r.optimize_seconds for r in drain()]))
+                         for _ in range(STACK_REPEATS)]
+            row = {"phase": "modes_stack", "K": k, "mode": mode, "slices": n, "bucket": list(joint),
+                   "lockstep_map_iterations": steps, "em_iterations": m_steps,
+                   "em_iters": [r.em_iters for r in results],
+                   "map_iters": [r.map_iters for r in results],
+                   "statuses": sorted({r.status for r in results}), "launches": launches,
+                   "segment_reduce": by_variant, "segment_reduce_expected": want,
+                   "segment_reduce_per_lockstep_iteration": {
+                       "add": by_variant["add"] / steps,
+                       "ordered_add_hood_sums": (by_variant["ordered_add"] - 3 * m_steps) / steps,
+                       "min": by_variant["min"] / steps, "ordered_add_per_em_iteration": 3},
+                   "segment_reduce_per_solve": by_variant,
+                   "serial_segment_reduce_per_lane_mean": {
+                       v: float(np.mean([modes_expected_launches(mode, r)[v] for r in serial]))
+                       for v in ("add", "ordered_add", "min")},
+                   "lanes_bitwise_serial_execute": True, "warm_workspace_builds": warm_builds,
+                   "optimize_s_per_slice": {"batched": spread(batched_s), "serial": spread(serial_s)}}
+            if k == 2:
+                row["flat_lockstep_check"] = flat_lockstep_check(torch, api, em_mod, seg, plans,
+                                                                 joint, mode, serial)
+            if profile:
+                walls = spread([float(np.sum([r.optimize_seconds for r in drain()]))
+                                for _ in range(SOLVES)])
+                prof = device_profile(torch, drain)
+                row["profile"] = {"stack_optimize_s_unprofiled": walls,
+                                  "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / walls["min"],
+                                  **{f: prof[f] for f in ("device_ops", "kernels", "memsets", "memcpys",
+                                                          "device_busy_us")}}
+            emit(row)
+            out[(k, mode)] = row
+    return out
+
+
+def flat_segment_reduce_timing(torch, ops, api, em_mod, st, profile: bool) -> dict:
+    """``segment_reduce`` at the flat step's calls of the B = 16 K = 2 stack
+    in mode ``faithful`` (one step from the quantile init, recorded): the
+    counts' order-free ``add`` (B x capacity values), the hood sums'
+    ordered ``add`` and the per-element ``min`` (B x 2 x capacity values).
+    Each call bit for bit its plain version on the CPU; timed beside its
+    plain version on the card, one library call (``index_add_``,
+    ``scatter_reduce_(..., "amin")``) and its bound; device time under
+    ``profile``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_reduce as sr_mod
+    from repro_torch.kernels.ref import TickShape
+
+    plans, joint, n = st["plans"], st["joint"], len(st["plans"])
+    cfg = api.ExecutionConfig(mode="faithful", n_labels=2, overseg_grid=(SLICE["grid"],) * 2,
+                              init="quantile")
+    seg = api.Segmenter(cfg, device=plans[0].problem.hoods.vertex.device)
+    hoods, model, lab0, mu0, sig0 = seg.stacked_inputs(plans, bucket=joint, seeds=[SLICE["seed"]] * n)
+    ws = em_mod.make_workspace(TickShape.of(hoods, model), cfg.em_config(), device=lab0.device, batch=n)
+    ws.start(hoods, model, lab0)
+    ws.begin_em(mu0, torch.maximum(sig0, model.sigma_min[:, None]), [True] * n)
+    calls, launch = [], sr_mod.segment_reduce_cuda
+
+    def record(values, ids, num, op="add", *, ordered=False):
+        calls.append((op, ordered, values.clone(), ids.clone(), num))
+        return launch(values, ids, num, op, ordered=ordered)
+
+    sr_mod.segment_reduce_cuda = record
+    try:
+        ws.step(False)
+    finally:
+        sr_mod.segment_reduce_cuda = launch
+    rows = {}
+    for op, ordered, v, ids, num in calls:
+        what = "min" if op == "min" else ("ordered_add" if ordered else "add")
+        if what in rows and rows[what]["shape"][1] >= num:
+            continue  # the counts' larger call stands for the order-free add
+        got = ops.segment_reduce(v, ids, num, op, ordered=ordered).cpu()
+        if not same_bits_or_nan(torch, got, ref.segment_reduce(v.cpu(), ids.cpu(), num, op)):
+            fail(f"segment_reduce {what} at the flat step's call: not bit for bit the CPU's")
+        ids_long = ids.long().clamp(0, num)
+        if op == "min":
+            lib_out = torch.full((num + 1,), float("inf"), device=v.device)
+            lib = lambda: lib_out.fill_(float("inf")).scatter_reduce_(0, ids_long, v, "amin")  # noqa: E731
+        else:
+            lib_out = torch.zeros(num + 1, device=v.device)
+            lib = lambda: lib_out.zero_().index_add_(0, ids_long, v)  # noqa: E731
+        fn = lambda: ops.segment_reduce(v, ids, num, op, ordered=ordered)  # noqa: E731
+        row = {"shape": [int(v.numel()), num], "ms": time_ms(fn),
+               "plain_ms": time_ms(lambda: ops.segment_reduce(v, ids, num, op, backend="torch")),
+               "library_ms": time_ms(lib),
+               "library": "scatter_reduce_ amin" if op == "min" else "index_add_"}
+        row["bound_ms"], row["bound_by"] = bound(v.numel() * 8 + num * 4, v.numel())
+        if profile:
+            prof = device_profile(torch, lambda: [fn() for _ in range(20)])
+            row["device_ms"] = prof["device_busy_us"] / 20 * 1e-3
+        rows[what] = row
+    out = {"phase": "timing", "what": f"segment_reduce at the flat step's calls (B = {n}, K = 2, "
+                                      "faithful)", "calls_per_step": len(calls), **rows}
+    emit(out)
+    return out
+
+
+def run_oracle(torch, sl, modes: dict) -> dict:
+    """The K = 2 slice's plan against the port's NumPy oracle
+    (``reference.golden_em``, its float32 transcription of the static mode)
+    from the same initial labels and parameters: the solve in each of the
+    three modes must agree with it on ``ORACLE_AGREEMENT`` of the pixels
+    and come within 0.01 of its accuracy; where labels, mu, sigma and the
+    iteration counts are exactly equal is reported (the oracle takes its
+    ``log`` in float64)."""
+    import types
+
+    from repro_torch.core.pmrf import pipeline, reference
+
+    plan, config = sl["plan"], sl["config"]
+    p = plan.problem
+    init = pipeline.initial_params(p, SLICE["seed"], config.init)
+    t0 = time.perf_counter()
+    gold = reference.golden_em(p.hoods, p.model, *init, max_em_iters=config.max_em_iters,
+                               max_map_iters=config.max_map_iters)
+    gold_s = time.perf_counter() - t0
+    labels = gold.labels[: p.graph.n_regions]
+    gold_seg = labels[np.asarray(p.labels_px)]
+    acc_gold = sl["accuracy_of"](types.SimpleNamespace(segmentation=gold_seg))
+    row = {"phase": "oracle", "K": sl["K"], "oracle": "reference.golden_em", "oracle_s": gold_s,
+           "oracle_iters": [gold.em_iters, gold.map_iters], "oracle_accuracy": acc_gold, "modes": {}}
+    for mode, res in (("static-pallas", sl["result"]),
+                      *((m, modes[(sl["K"], m)]["result"]) for m in MODES)):
+        agree = float((res.segmentation == gold_seg).mean())
+        acc = sl["accuracy_of"](res)
+        row["modes"][mode] = {
+            "pixel_agreement": agree, "accuracy": acc, "iters": [res.em_iters, res.map_iters],
+            "labels_equal": bool(np.array_equal(res.region_labels, labels)),
+            "counts_equal": (res.em_iters, res.map_iters) == (gold.em_iters, gold.map_iters),
+            "mu_sigma_equal": bool(np.array_equal(res.mu, gold.mu) and np.array_equal(res.sigma, gold.sigma))}
+        if agree < ORACLE_AGREEMENT or abs(acc - acc_gold) > 0.01:
+            fail(f"oracle: mode {mode} agrees with golden_em on {agree:.4f} of the pixels, accuracy "
+                 f"{acc} against {acc_gold}")
+    emit(row)
+    return row
+
+
 def ordered_add_cases() -> list:
     """Ordered ``add`` cases at random shapes: ids in runs (the hood sums'
     layout) with zeros, ids in any order over few segments (the M-step's
@@ -2496,7 +2916,7 @@ def run_modes_sharded(torch, D, ops, em_mod, E, pipeline, sl, single: dict) -> d
     return out
 
 
-def run_fallback(torch, api, ops, sl) -> dict:
+def run_fallback(torch, api, ops, sl, stack) -> dict:
     """The fallback phase on the K = 2 slice's plan.  Under a compile
     failure of the kernel route (``chaos.ChaosConfig(compile_fail_backends=
     ("cuda",))``) the default ``FallbackPolicy`` raises ``FallbackError``
@@ -2505,7 +2925,14 @@ def run_fallback(torch, api, ops, sl) -> dict:
     one event, a ``RuntimeWarning`` and a redirect (no kernel launched).
     One transient execute failure under the default policy gives the clean
     kernel-route solve bit for bit (static-pallas and faithful), and so
-    does an engine tick replayed after one."""
+    does an engine tick replayed after one.  The modes' stacks
+    (``FALLBACK_STACK_LANES`` lanes of the K = 2 stack, ``drain``): under a
+    compile fault the default policy raises ``FallbackError`` with nothing
+    launched and the requests queued again, ``FallbackPolicy(backend=
+    "torch")`` gives the plain route's stack (one event, one warning, no
+    kernel; each lane's status that of the plain session's stack and at
+    least 99.5 % of its pixels), and a transient execute fault gives the
+    clean kernel-route stack bit for bit."""
     import warnings
 
     from repro_torch.serving import SegmentationEngine
@@ -2581,7 +3008,72 @@ def run_fallback(torch, api, ops, sl) -> dict:
                           "bits_equal_serial": equal, "tick_retries": engine.stats()["tick_retries"]}
     if len(comps) != 2 or not all(equal) or engine.stats()["tick_retries"] != 1:
         fail(f"fallback: the replayed engine tick gave {out['engine_tick']}")
+    out["modes_stack"] = {m: fallback_mode_stack(torch, api, ops, stack, m) for m in MODES}
     emit(out)
+    return out
+
+
+def fallback_mode_stack(torch, api, ops, stack, mode: str) -> dict:
+    """``run_fallback``'s cases for a mode's stack (its docstring)."""
+    import warnings
+
+    from repro_torch.testing import chaos
+
+    plans, joint = stack["plans"][:FALLBACK_STACK_LANES], stack["joint"]
+    dev = plans[0].problem.hoods.vertex.device
+    config = api.ExecutionConfig(mode=mode, n_labels=2, overseg_grid=(SLICE["grid"],) * 2,
+                                 init="quantile")
+
+    def drain(seg):
+        for p in plans:
+            seg.submit(p, seed=SLICE["seed"], bucket=joint)
+        return seg.drain()
+
+    clean, plain = drain(api.Segmenter(config, device=dev)), drain(
+        api.Segmenter(config.with_(backend="torch"), device=dev))
+    out = {}
+    seg = api.Segmenter(config, device=dev)
+    ops.reset_launch_counts()
+    with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("cuda",))):
+        try:
+            drain(seg)
+            fail(f"fallback {mode} stack: the default policy did not raise on a failing compile")
+        except api.FallbackError as e:
+            if not isinstance(e.__cause__, chaos.ChaosError):
+                fail(f"fallback {mode} stack: FallbackError without the injected cause: {e!r}")
+    if any(ops.launch_counts().values()) or ops.LANE_STEPS or seg.pending() != len(plans):
+        fail(f"fallback {mode} stack: the default policy launched something or dropped a request")
+    out["default_policy"] = {"raised": "FallbackError", "requeued": seg.pending()}
+
+    seg_t = api.Segmenter(config.with_(fallback=api.FallbackPolicy(backend="torch")), device=dev)
+    ops.reset_launch_counts()
+    with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("cuda",))), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got = drain(seg_t)
+    launches = ops.launch_counts()
+    agree = [float((g.segmentation == w.segmentation).mean()) for g, w in zip(got, plain)]
+    out["torch_policy"] = {
+        "events": len(seg_t.fallback_events), "warnings": sum(w.category is RuntimeWarning for w in caught),
+        "keys": [(k.backend, k.batch) for k in seg_t.cache_keys], "launches": launches,
+        "pixel_agreement_plain": agree,
+        "iters_equal_plain": [(g.em_iters, g.map_iters) == (w.em_iters, w.map_iters)
+                              for g, w in zip(got, plain)]}
+    if any(launches.values()) or len(seg_t.fallback_events) != 1 or \
+            out["torch_policy"]["warnings"] != 1 or out["torch_policy"]["keys"] != [("torch", len(plans))]:
+        fail(f"fallback {mode} stack: backend='torch' gave {out['torch_policy']}")
+    if min(agree) < 0.995 or [g.status for g in got] != [w.status for w in plain]:
+        fail(f"fallback {mode} stack: the plain route's stack differs from the plain session's")
+
+    seg_d = api.Segmenter(config, device=dev)
+    drain(seg_d)
+    with chaos.inject(chaos.ChaosConfig(transient_exec_failures=1)) as monkey:
+        got = drain(seg_d)
+    out["transient_execute"] = {"events": [e["kind"] for e in monkey.events],
+                                "bits_equal_clean": [result_bits(g) for g in got] ==
+                                [result_bits(c) for c in clean]}
+    if not out["transient_execute"]["bits_equal_clean"] or seg_d.fallback_events:
+        fail(f"fallback {mode} stack: a transient execute failure did not give the clean stack")
     return out
 
 
@@ -3439,8 +3931,13 @@ def main(argv=None) -> int:
     # sequence) on the K = 2, 3, 9 plans; the ordered add against the CPU;
     # the fallback policy under the chaos harness's faults.
     modes = run_modes(torch, api, ops, em_mod, E, (slice2, slice3, slice9), profile)
+    # The modes' stacks: one flat DPP step over every lane per lockstep MAP
+    # iteration; segment_reduce at the flat step's sizes; the NumPy oracle.
+    modes_stack = run_modes_stack(torch, api, ops, em_mod, stacks, profile)
+    flat_sr = flat_segment_reduce_timing(torch, ops, api, em_mod, stacks[2], profile)
+    run_oracle(torch, slice2, modes)
     ordered = check_ordered_add(torch, ops, api, plan, slice2["config"], profile)
-    run_fallback(torch, api, ops, slice2)
+    run_fallback(torch, api, ops, slice2, stacks[2])
 
     # The sharded route end to end, over a one-rank NCCL group.
     import torch.distributed as dist
@@ -3546,6 +4043,15 @@ def main(argv=None) -> int:
          "launches": launches["segment_reduce"], "max_abs_err": sr_err, **sr,
          "modes_launches_per_solve": {f"K={k} {m}": row["segment_reduce"]
                                       for (k, m), row in modes.items()},
+         "modes_stack_launches_per_solve": {
+             f"K={k} {m} B={row['slices']}": {"lockstep_iterations": row["lockstep_map_iterations"],
+                                             "em_iterations": row["em_iterations"],
+                                             **row["segment_reduce"]}
+             for (k, m), row in modes_stack.items()},
+         "modes_serve_launches": {
+             f"{m} tick_iters={t}": {"micro_steps": row["micro_steps"], **row["segment_reduce"]}
+             for (m, t), row in served["modes"].items() if t != "mixed"},
+         "flat_step_calls": {w: flat_sr[w] for w in ("add", "ordered_add", "min")},
          "ordered_add": {"max_abs_err": ordered["max_abs_err"],
                          "solve_calls_checked": ordered["solve_calls_checked"],
                          **{w: ordered[w] for w in ("hood_sums", "m_step")}, "library": "index_add_"}},

@@ -12,27 +12,26 @@ Counterpart of ``repro.api.session.Segmenter``, without its cost model
   :class:`ExecutableKey`.  PyTorch runs eagerly, so what a compile builds
   is the MAP loop's workspace (``kernels.ops.tick_workspace``, every buffer
   of the route's kernel) and binds the driver to it; a warm hit builds no
-  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).  The modes
-  ``static`` and ``faithful`` have no workspace: their executable binds
-  the driver alone.
+  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).  In the modes
+  ``static`` and ``faithful`` a one-request executable binds the driver
+  alone; a batched one binds it to the stack's ``em.DppBatchWorkspace``.
 * :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
   the plan) and solved by the bucket's executable.  Padding lanes are
   invalid elements, empty phantom hoods and weight-0 vertices, which add
   nothing to any sum, so a padded solve equals the natural one bit for
   bit.
 * :meth:`Segmenter.submit` / :meth:`Segmenter.drain`: pending requests of
-  one bucket run as one ``run_em_batched`` (one batched tick launch per
-  MAP iteration for all lanes); each lane equals its serial
-  :meth:`execute` bit for bit.  :meth:`Segmenter.segment_stack` submits a
-  volume's slices under their joint bucket.  The modes ``static`` and
-  ``faithful`` have no batched form yet (``em.FUSED_ONLY``): ``drain``
-  solves their requests one by one, and ``segment_stack(batch="always")``,
-  ``compile(batch=n)`` and the ticked pool raise ``NotImplementedError``.
+  one bucket run as one ``run_em_batched`` (per lockstep MAP iteration one
+  batched tick launch in mode ``static-pallas``, one flat MAP iteration of
+  every lane in the modes ``static`` and ``faithful``); each lane equals
+  its serial :meth:`execute` bit for bit.
+  :meth:`Segmenter.segment_stack` submits a volume's slices under their
+  joint bucket.
 * :meth:`Segmenter.compile_ticked` / :meth:`Segmenter.ticked_pool` /
   :meth:`Segmenter.lane_state`: the continuous-batching engine's pool
   (``repro_torch.serving.engine``): one pool workspace per (bucket,
   slots), ``em.run_em_ticked`` at any tick size on it, and each request's
-  admission-ready lane, memoised on its plan.
+  admission-ready lane, memoised on its plan; in every mode.
 
 On the sharded route (``config.shards > 1``) every rank of the default
 ``torch.distributed`` group calls :meth:`execute` with the same plan and
@@ -138,10 +137,11 @@ class Plan:
 @dataclass
 class Executable:
     """The EM program of one bucket (and batch size): the driver bound to a
-    workspace built from the bucket's shapes (none in the modes ``static``
-    and ``faithful``).  On the sharded route the static-pallas workspace is
-    the rank's and depends on the plan's partition, so the executable keeps
-    one per plan (``shard_workspaces``, LRU)."""
+    workspace built from the bucket's shapes (none for one request in the
+    modes ``static`` and ``faithful``).  On the sharded route the
+    static-pallas workspace is the rank's and depends on the plan's
+    partition, so the executable keeps one per plan (``shard_workspaces``,
+    LRU)."""
 
     key: ExecutableKey
     workspace: object
@@ -300,12 +300,10 @@ class Segmenter:
             )
         if batch is not None and batch < 1:
             raise ValueError(f"batch must be >= 1, got {batch}")
-        if batch is not None:
-            em_mod.require_fused(self.config.em_config(), "a batched executable")
 
         def build(route: str):
             em_config = self._em_config_for(route)
-            if shards > 1 or self.config.mode != "static-pallas":
+            if shards > 1 or (batch is None and self.config.mode != "static-pallas"):
                 return None, em_config
             return em_mod.make_workspace(self._shape(bucket), em_config, device=self.device,
                                          batch=batch), em_config
@@ -400,7 +398,6 @@ class Segmenter:
         return ws
 
     def _check_ticked(self, batch: int, tick_iters: int = 1) -> None:
-        em_mod.require_fused(self.config.em_config(), "a ticked pool")
         if self.config.shards > 1:
             raise ValueError(
                 "ticked serving executables are single-device (the pool's slot axis "
@@ -450,11 +447,14 @@ class Segmenter:
     def lane_state(self, plan: Plan, *, bucket: Optional[BucketKey] = None, seed: int = 0):
         """One request's admission-ready lane: :meth:`lane_inputs` and its
         element arrays (``energy.make_static_context``, one
-        ``segment_reduce`` launch), ``(hoods, model, labels0, mu0, sigma0,
-        sctx)``.  The element arrays are memoised on the plan beside its
-        padding, so repeat traffic admits with device copies alone."""
+        ``segment_reduce`` launch; ``None`` in the modes ``static`` and
+        ``faithful``, whose pools read none), ``(hoods, model, labels0, mu0,
+        sigma0, sctx)``.  The element arrays are memoised on the plan beside
+        its padding, so repeat traffic admits with device copies alone."""
         bucket = BucketKey(*bucket) if bucket is not None else plan.bucket
         hoods, model, labels0, mu0, sigma0 = self._pad_plan(plan, bucket, seed)
+        if self.config.mode != "static-pallas":
+            return hoods, model, labels0, mu0, sigma0, None
         memo_key = ("lane", bucket, self.config.shards, self.config.n_labels)
         sctx = plan._padded.get(memo_key)
         if sctx is None:
@@ -565,19 +565,20 @@ class Segmenter:
         inputs = self._pad_plan(plan, bucket, seed)
         self._sync()
         t0 = time.perf_counter()
-        res = self._execute_with_policy(exe, plan, bucket, inputs)
+        res = self._execute_with_policy(exe, bucket, inputs, plan=plan)
         opt_s = time.perf_counter() - t0
         return pipeline_mod.assemble_result(plan.problem, res, plan.init_seconds, opt_s)
 
-    def _execute_with_policy(self, exe: Executable, plan: Plan, bucket: BucketKey, inputs):
-        """Run ``exe`` on ``inputs`` (behind the chaos harness's execute
-        hook, synchronised) under ``config.fallback``: retries on the same
-        route (a solve restarts from its inputs, so a retry is exact), then
-        the plain route if the policy names it (an event, a warning, a
-        redirect of the key), else :class:`FallbackError`, or the original
-        error when the policy is disabled.  On the sharded route a failed
-        solve is neither retried nor rerouted: the ranks' collectives would
-        part."""
+    def _execute_with_policy(self, exe: Executable, bucket: BucketKey, inputs, *,
+                             plan: Optional[Plan] = None, batch: Optional[int] = None):
+        """Run ``exe`` on ``inputs`` (one plan's, or with ``batch`` a
+        stack's; behind the chaos harness's execute hook, synchronised)
+        under ``config.fallback``: retries on the same route (a solve
+        restarts from its inputs, so a retry is exact), then the plain
+        route if the policy names it (an event, a warning, a redirect of
+        the key), else :class:`FallbackError`, or the original error when
+        the policy is disabled.  On the sharded route a failed solve is
+        neither retried nor rerouted: the ranks' collectives would part."""
         policy = self.config.fallback
         sharded = self.config.shards > 1
         retries = 0 if sharded else policy.max_retries
@@ -602,7 +603,7 @@ class Segmenter:
                 ) from e
             self._record_fallback("execute", exe.key.backend, policy.backend, e)
             self._fallback_redirects[exe.key] = exe.key._replace(backend=policy.backend)
-            fb = self.compile(bucket, backend=policy.backend)
+            fb = self.compile(bucket, batch=batch, backend=policy.backend)
             try:
                 return policy.retrying(attempt(fb), max_retries=retries)
             except Exception as fb_e:
@@ -635,13 +636,13 @@ class Segmenter:
         """Solve every pending request, coalescing same-bucket groups.
 
         A group of n > 1 requests runs as one ``run_em_batched`` through the
-        bucket's batch-n executable; results come back in submission order,
-        each equal to a serial :meth:`execute` bit for bit, with the group's
-        optimize time shared evenly.  Sharded sessions, and the modes
-        ``static`` and ``faithful`` (no batched form yet), run every request
-        serially.  If a group fails, every request without a result is
-        queued again (ahead of anything submitted since) and the error
-        raised."""
+        bucket's batch-n executable, in every mode and under
+        ``config.fallback`` as :meth:`execute` is; results come back in
+        submission order, each equal to a serial :meth:`execute` bit for
+        bit, with the group's optimize time shared evenly.  Sharded
+        sessions run every request serially.  If a group fails, every
+        request without a result is queued again (ahead of anything
+        submitted since) and the error raised."""
         pending, self._pending = self._pending, []
         if not pending:
             return []
@@ -650,7 +651,7 @@ class Segmenter:
             groups.setdefault(req.bucket, []).append(i)
         results: List[Optional[pipeline_mod.SegmentationResult]] = [None] * len(pending)
         try:
-            serial = self.config.shards > 1 or self.config.mode != "static-pallas"
+            serial = self.config.shards > 1
             for bucket, members in groups.items():
                 if len(members) == 1 or serial:
                     for i in members:
@@ -661,8 +662,7 @@ class Segmenter:
                                              seeds=[pending[i].seed for i in members])
                 self._sync()
                 t0 = time.perf_counter()
-                res = exe(*inputs)
-                self._sync()
+                res = self._execute_with_policy(exe, bucket, inputs, batch=len(members))
                 opt_s = (time.perf_counter() - t0) / len(members)
                 # One copy of each stacked result to the host, not one per lane.
                 res = res._replace(**{f: getattr(res, f).cpu()
@@ -699,10 +699,8 @@ class Segmenter:
         bucket (the elementwise max) so the whole volume runs as one
         batched solve; ``"never"`` solves the slices one by one, each in its
         own bucket; ``"auto"`` batches by :func:`legacy_batch_choice` (on
-        the card, capacities within 2x of each other).  A sharded session
-        runs serially and refuses ``"always"``; so do the modes ``static`` and
-        ``faithful``, whose batched form is not ported yet
-        (``NotImplementedError``)."""
+        the card, capacities within 2x of each other), in every mode.  A
+        sharded session runs serially and refuses ``"always"``."""
         if batch not in ("auto", "always", "never"):
             raise ValueError(f"batch must be auto/always/never, got {batch!r}")
         if batch == "always" and self.config.shards > 1:
@@ -710,8 +708,6 @@ class Segmenter:
                 "batch='always' is not supported with shards > 1; use batch='auto' "
                 "(sharded requests run serially)"
             )
-        if batch == "always":
-            em_mod.require_fused(self.config.em_config(), "segment_stack(batch='always')")
         images = list(images)
         if not images:
             raise ValueError("segment_stack: empty image stack")
@@ -719,7 +715,7 @@ class Segmenter:
         joint = BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
         if batch == "always":
             use_batch = True
-        elif batch == "never" or self.config.shards > 1 or self.config.mode != "static-pallas":
+        elif batch == "never" or self.config.shards > 1:
             use_batch = False
         else:
             use_batch = legacy_batch_choice(

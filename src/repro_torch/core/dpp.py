@@ -34,6 +34,8 @@ from repro_torch.kernels import ref as kref
 Tensor = torch.Tensor
 
 _INT64_MAX = 2**63 - 1
+#: The largest key or index the ``segment_reduce`` kernel takes (int32).
+INT32_MAX = 2**31 - 1
 
 # ---------------------------------------------------------------------------
 # Profiling (per-DPP breakdown, paper section 4.3.2)
@@ -210,6 +212,20 @@ def compound_key(
                 f"compound_key space {major_span} x {minor_span} does not fit int64"
             )
     return major.to(torch.int64) * minor_span + minor.to(torch.int64)
+
+
+def lane_keys(keys: Tensor, span: int) -> Tensor:
+    """Offset each lane's keys into a key range of its own: ``keys`` is
+    (B, n) with every key in ``[0, span)``, the result the (B * n,) int64
+    keys ``b * span + key``, lane after lane.  A flat keyed reduction over
+    them into ``B * span`` segments is one reduction per lane, with each
+    segment's elements in the lane's own order.  Raises ``OverflowError``
+    when ``B * span`` keys do not fit int32, the kernel's id type."""
+    n_lanes = int(keys.shape[0])
+    if n_lanes * int(span) - 1 > INT32_MAX:
+        raise OverflowError(f"{n_lanes} lanes of {span} keys do not fit int32")
+    lane = torch.arange(n_lanes, dtype=torch.int64, device=keys.device)[:, None] * int(span)
+    return (keys.to(torch.int64) + lane).reshape(-1)
 
 
 def reduce_by_key(

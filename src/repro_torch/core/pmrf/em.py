@@ -32,17 +32,24 @@ sums the M-step's per-label terms in vertex order (the keyed sums of
 through the context, so all ranks take the same trajectory.
 
 :func:`run_em_batched` runs a stack of problems padded to one bucket in
-lockstep, the reference's vmapped ``run_em``: per MAP iteration one
-launch of the batched tick for every lane still running and one read of
+lockstep, the reference's vmapped ``run_em``: per MAP iteration one step
+of the stack's workspace for every lane still running and one read of
 the B flag words; per EM iteration one vectorised boundary and one host
-read.  Each lane's result equals its own :func:`run_em`'s bit for bit.
+read.  :func:`run_em_ticked` advances a pool of slots (:class:`TickState`,
+on a pool workspace) by micro-steps, each lane at its own MAP iteration,
+the reference's continuous-batching driver: per micro-step one step of
+the pool and one read of the B flag words, and, only where some lane's
+MAP loop stopped, the EM boundary of those lanes and one host read.  In
+both, each lane's result equals its own :func:`run_em`'s bit for bit.
 
-:func:`run_em_ticked` advances a pool of slots (:class:`TickState`, on a
-pool workspace) by micro-steps, each lane at its own MAP iteration, the
-reference's continuous-batching driver: per micro-step one pool launch
-and one read of the B flag words, and, only where some lane's MAP loop
-stopped, the EM boundary of those lanes and one host read.  Each lane's
-result equals its own :func:`run_em`'s bit for bit.
+In mode ``static-pallas`` a step is one launch of the tick's batched or
+pool entry.  In the modes ``static`` and ``faithful`` it is one flat MAP
+iteration of every lane (:func:`map_step_lanes`, on a
+:class:`DppBatchWorkspace` or :class:`DppPoolWorkspace`): the paper's
+primitive sequence once over all lanes' elements, each keyed reduction on
+lane-offset keys, so its operation count does not grow with the lanes.
+That is the flat counterpart of the reference's ``vmap`` of ``run_em``
+and of its static pool micro-step (``_pool_tick_micro``).
 
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
@@ -71,10 +78,6 @@ WINDOW = 3  # the paper's L
 
 MODES = ("faithful", "static", "static-pallas")
 PRECISIONS = ("f32", "bf16")
-#: Where ROADMAP.md queues the batched and ticked forms of the modes
-#: ``static`` and ``faithful``: ``run_em_batched``, ``run_em_ticked`` and
-#: the session's batched and pooled executables run ``static-pallas`` only.
-FUSED_ONLY = "ROADMAP.md Queue 1, 'Batched and ticked static and faithful'"
 
 # Per-lane health lattice: priority DIVERGED > DEGENERATE > CONVERGED > MAX_ITERS.
 STATUS_OK = 0          # still iterating (only seen mid-flight)
@@ -120,16 +123,6 @@ def validate_config(config: EMConfig) -> None:
         )
     if config.backend not in kops.BACKENDS:
         raise ValueError(f"unknown backend {config.backend!r}; have {kops.BACKENDS}")
-
-
-def require_fused(config: EMConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` unless ``config`` runs the fused route,
-    the only one ``what`` (a batched or ticked form) has so far."""
-    if config.mode != "static-pallas":
-        raise NotImplementedError(
-            f"{what} runs mode 'static-pallas' only; its form for mode "
-            f"{config.mode!r} is queued in {FUSED_ONLY}"
-        )
 
 
 class EMResult(NamedTuple):
@@ -212,22 +205,36 @@ def _boundary_status(
 
 def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None, pool=False):
     """The MAP-iteration workspace for problems of ``shape`` under
-    ``config`` (``kernels.ops.tick_workspace``): for :func:`run_em`, with
-    ``batch=B`` for :func:`run_em_batched`, or with ``batch=B, pool=True``
-    the slot pool of :func:`run_em_ticked`.  A session keeps one per bucket
-    (and per pool) and every solve of the bucket reuses it
-    (``workspace=``)."""
-    return kops.tick_workspace(
-        shape, device=device, batch=batch, pool=pool, max_map_iters=config.max_map_iters,
-        precision=config.precision, conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
-    )
+    ``config``, built from the shapes alone: in mode ``static-pallas``
+    (``kernels.ops.tick_workspace``) for :func:`run_em`, with ``batch=B``
+    for :func:`run_em_batched`, or with ``batch=B, pool=True`` the slot
+    pool of :func:`run_em_ticked`; in the modes ``static`` and
+    ``faithful``, whose one-problem solve takes none, a
+    :class:`DppBatchWorkspace` (``batch=B``) or a :class:`DppPoolWorkspace`
+    (``batch=B, pool=True``).  A session keeps one per bucket (and per
+    pool) and every solve of the bucket reuses it (``workspace=``);
+    ``kernels.ops.WORKSPACE_BUILDS`` counts every build."""
+    if config.mode == "static-pallas":
+        return kops.tick_workspace(
+            shape, device=device, batch=batch, pool=pool, max_map_iters=config.max_map_iters,
+            precision=config.precision, conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
+        )
+    if batch is None:
+        raise ValueError(f"mode {config.mode!r} takes no workspace for one problem; "
+                         "pass batch=B for a stack or a pool")
+    cls = DppPoolWorkspace if pool else DppBatchWorkspace
+    ws = cls(TickShape(*shape), batch, mode=config.mode, device=device, backend=config.backend,
+             max_map_iters=config.max_map_iters)
+    kops.count_workspace_build()
+    return ws
 
 
 def _check_workspace(ws, config: EMConfig, n_labels: int) -> None:
-    if (ws.precision, ws.n_labels) != (config.precision, n_labels):
+    if (ws.mode, ws.precision, ws.n_labels) != (config.mode, config.precision, n_labels):
         raise ValueError(
-            f"workspace built for precision {ws.precision!r} and K = {ws.n_labels}, "
-            f"the solve has {config.precision!r} and K = {n_labels}"
+            f"workspace built for mode {ws.mode!r}, precision {ws.precision!r} and "
+            f"K = {ws.n_labels}, the solve has {config.mode!r}, {config.precision!r} and "
+            f"K = {n_labels}"
         )
 
 
@@ -282,6 +289,244 @@ def _map_loop(hoods, model, labels, mu, sigma, config: EMConfig, ctx):
         conv, diverged = torch.stack([conv, div]).tolist()
         done = conv or diverged
     return labels, hood_energy, i, diverged
+
+
+def map_step_lanes(
+    hoods: Hoods,
+    model: E.EnergyModel,
+    mode: str,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    *,
+    backend: Optional[str] = None,
+    log_sigma: Optional[Tensor] = None,
+) -> Tuple[Tensor, Tensor]:
+    """:func:`map_step` of every lane of a stack or pool at once (the
+    ``energy`` module's lane-axis forms): ``hoods`` stacked, the model's
+    tensors, ``labels`` (B, V+1), ``mu`` and ``sigma`` (B, K) with a
+    leading lane axis.  One flat DPP problem over all lanes' elements, each
+    keyed reduction on lane-offset keys: ``(new labels (B, V+1), hood sums
+    (B, n_hoods))``, lane b's rows bit for bit :func:`map_step` on lane b.
+    ``log_sigma`` (B, K) as :func:`map_step`'s."""
+    n_labels = int(mu.shape[-1])
+    counts = E.hood_label_counts_lanes(hoods, labels, n_labels, backend=backend)
+    energies = E.label_energies_lanes(hoods, model, labels, mu, sigma, counts,
+                                      log_sigma=log_sigma)
+    if mode == "faithful":
+        min_e, arg = E.min_energies_faithful_lanes(hoods, energies, backend=backend)
+    else:
+        min_e, arg = E.min_energies_static_lanes(energies)
+    hood_e = E.hood_energy_sums_lanes(hoods, min_e, backend=backend)
+    new = E.vote_labels_lanes(hoods, arg, hoods.n_regions, n_labels)
+    return new, hood_e
+
+
+class _DppLanes:
+    """The state both workspaces of the modes ``static`` and ``faithful``
+    keep per lane (labels, history ring, last hood sums, M-step sums,
+    parameters, active word, flag word) and their step: one flat MAP
+    iteration (:func:`map_step_lanes`) of every lane, then, per lane, the
+    history ring, the window test past the gate and the finiteness test; a
+    lane whose MAP loop stops (flag word set, or the cap) leaves the active
+    lanes.  A lane that is not active is frozen bit for bit: its compute is
+    thrown away.  The step's operation count does not depend on the lanes;
+    its one host read is :meth:`flags`.
+
+    :attr:`stats` holds the M-step sums of the lanes whose MAP loop
+    stopped.  A stopped lane's labels stay as its last step left them, so
+    its sums are taken when the driver reads them, at its EM boundary: one
+    ``energy.m_step_sums_lanes`` (three ordered ``add`` launches) for every
+    lane that stopped since the last read, however many there are
+    (``m_steps`` counts them)."""
+
+    precision = "f32"
+
+    def __init__(self, shape: TickShape, batch: int, *, mode: str, device,
+                 backend: Optional[str] = None, max_map_iters: int = 10):
+        if mode not in ("static", "faithful"):
+            raise ValueError(f"a DPP workspace runs mode 'static' or 'faithful', got {mode!r}")
+        if batch < 1:
+            raise ValueError(f"a DPP workspace needs batch >= 1, got {batch}")
+        cap, n_hoods, n_vert, k = shape
+        E.check_lane_key_spaces(batch, cap, n_hoods, n_vert, k)
+        self.shape, self.batch, self.mode, self.backend = shape, batch, mode, backend
+        self.n_labels, self.max_map_iters = k, max_map_iters
+        self.device = dev = torch.device(device)
+        f32 = torch.float32
+        self.labels = torch.zeros((batch, n_vert), dtype=torch.int32, device=dev)
+        self.ring = torch.zeros((batch, WINDOW + 1, n_hoods), dtype=f32, device=dev)
+        self.hood_e = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
+        self.mu = torch.zeros((batch, k), dtype=f32, device=dev)
+        self.sigma = torch.ones((batch, k), dtype=f32, device=dev)
+        self.active = torch.zeros((batch,), dtype=torch.bool, device=dev)
+        self._flags = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self._stats = torch.zeros((batch, 3, k), dtype=f32, device=dev)
+        self._stopped = torch.zeros((batch,), dtype=torch.bool, device=dev)  # sums not yet taken
+        self._stale = False  # a step ran since the last read of ``stats``
+        self.m_steps = 0     # M-step sums taken (``stats`` reads after a step)
+        #: (B, K), or None: stands for ``torch.log`` of the clamped sigma
+        #: (``energy.label_energies``'s ``log_sigma``).
+        self.log_sigma = None
+
+    def _step(self, hoods: Hoods, model: E.EnergyModel, gate, cap) -> None:
+        """``gate`` and ``cap``: bools, or (B,) bool tensors."""
+        act = self.active
+        new, hood_e = map_step_lanes(hoods, model, self.mode, self.labels, self.mu, self.sigma,
+                                     backend=self.backend, log_sigma=self.log_sigma)
+        ring = torch.cat([hood_e[:, None], self.ring[:, :-1]], dim=1)
+        conv = torch.all(_window_converged(ring.transpose(0, 1)), dim=1) & gate
+        div = ~torch.all(torch.isfinite(hood_e), dim=1)
+        flag = conv.to(torch.int32) * kops.FLAG_CONVERGED | div.to(torch.int32) * kops.FLAG_DIVERGED
+        stop = act & ((flag != 0) | cap)
+        self.labels = torch.where(act[:, None], new, self.labels)
+        self.hood_e = torch.where(act[:, None], hood_e, self.hood_e)
+        self.ring = torch.where(act[:, None, None], ring, self.ring)
+        self._flags = torch.where(act, flag, 0)
+        self.active = act & ~stop
+        self._stopped = self._stopped | stop
+        self._stale = True
+        kops.count_lane_step()
+
+    @property
+    def stats(self) -> Tensor:
+        """(B, 3, K): each stopped lane's M-step sums ``(sum_w, sum_wy,
+        sum_wyy)`` of the labels its MAP loop stopped at; the first read
+        after a step takes them for the lanes that stopped since the last
+        one (their rows change, no other lane's)."""
+        if self._stale:
+            sums = E.m_step_sums_lanes(self._model, self.labels, self.mode, lanes=self._stopped,
+                                       backend=self.backend)
+            self._stats = torch.where(self._stopped[:, None, None], torch.stack(sums, dim=1),
+                                      self._stats)
+            self._stopped = torch.zeros_like(self._stopped)
+            self._stale = False
+            self.m_steps += 1
+        return self._stats
+
+    def flags(self) -> list:
+        """The B flag words (``kernels.ops.FLAG_*``; 0 for a lane that was
+        not active): the step's one host read."""
+        return self._flags.tolist()
+
+
+class DppBatchWorkspace(_DppLanes):
+    """:func:`run_em_batched`'s workspace in the modes ``static`` and
+    ``faithful`` (``make_workspace(..., batch=B)``), with the interface of
+    the tick's ``BatchTickWorkspace``: :meth:`start` binds a stack,
+    :meth:`begin_em` starts an EM iteration of the given lanes, each
+    :meth:`step` is one flat MAP iteration of the active lanes, the
+    iteration ``i`` of each (``gate``: ``i > WINDOW``; ``cap``: ``i ==
+    max_map_iters``)."""
+
+    def start(self, hoods: Hoods, model: E.EnergyModel, labels0: Tensor) -> None:
+        if TickShape.of(hoods, model) != self.shape or labels0.shape[0] != self.batch:
+            raise ValueError(f"a stack of {labels0.shape[0]} problems of "
+                             f"{TickShape.of(hoods, model)}; the workspace was built for "
+                             f"{self.batch} of {self.shape}")
+        self._hoods, self._model = hoods, model
+        self.labels = labels0.clone()
+        self.active = torch.zeros_like(self.active)
+        self._stopped = torch.zeros_like(self._stopped)
+        self._stale = False
+
+    def begin_em(self, mu: Tensor, sigma: Tensor, active, log_sigma=None) -> None:
+        """The EM iteration's parameters ((B, K), ``sigma`` clamped) and the
+        lanes that run it; their rings restart.  ``log_sigma`` as the
+        attribute's."""
+        self.mu, self.sigma, self.log_sigma = mu, sigma, log_sigma
+        self.active = torch.as_tensor([bool(a) for a in active], device=self.device)
+        self.ring = self.ring.masked_fill(self.active[:, None, None], 0.0)
+
+    def step(self, gate: bool, cap: bool = False) -> None:
+        self._step(self._hoods, self._model, gate, cap)
+
+
+class DppPoolWorkspace(_DppLanes):
+    """:func:`run_em_ticked`'s slot pool in the modes ``static`` and
+    ``faithful`` (``make_workspace(..., batch=B, pool=True)``), with the
+    interface of the tick's ``PoolTickWorkspace``: it owns each slot's
+    problem (hood arrays, the K = 2 replication arrays, region arrays and
+    model scalars) and MAP counter (``map_i``); :meth:`admit` writes one
+    slot's rows, :meth:`begin_lanes` starts an EM iteration of some slots,
+    :meth:`retire` stops one, and each :meth:`step` is one flat MAP
+    iteration of the active lanes, each at its own iteration (gate and cap
+    from its counter).  Empty slots gather the sentinel vertex and hood and
+    keep mu 0 and sigma 1, so their thrown-away compute stays finite."""
+
+    def __init__(self, shape: TickShape, batch: int, **kw):
+        super().__init__(shape, batch, **kw)
+        cap, n_hoods, n_vert, k = shape
+        dev, i32, f32 = self.device, torch.int32, torch.float32
+        rep = 2 * cap if k == 2 else 0  # the replication arrays serve faithful K = 2
+        self.vertex = torch.full((batch, cap), n_vert - 1, dtype=i32, device=dev)
+        self.hood_id = torch.full((batch, cap), n_hoods, dtype=i32, device=dev)
+        self.valid = torch.zeros((batch, cap), dtype=torch.bool, device=dev)
+        self.rep_old_index = torch.full((batch, rep), cap - 1, dtype=i32, device=dev)
+        self.rep_test_label = torch.zeros((batch, rep), dtype=i32, device=dev)
+        self.rep_hood_id = torch.full((batch, rep), n_hoods, dtype=i32, device=dev)
+        self.rep_valid = torch.zeros((batch, rep), dtype=torch.bool, device=dev)
+        self.region_mean = torch.zeros((batch, n_vert), dtype=f32, device=dev)
+        self.region_weight = torch.zeros((batch, n_vert), dtype=f32, device=dev)
+        self.beta = torch.zeros((batch,), dtype=f32, device=dev)
+        self.sigma_min = torch.zeros((batch,), dtype=f32, device=dev)
+        self.reseed_mu = torch.zeros((batch, k), dtype=f32, device=dev)
+        self.reseed_sigma = torch.ones((batch,), dtype=f32, device=dev)
+        self.map_i = torch.zeros((batch,), dtype=i32, device=dev)
+        self.owner = None
+        self._hoods = Hoods(
+            vertex=self.vertex, hood_id=self.hood_id, valid=self.valid, sizes=None,
+            offsets=None, n_hoods=n_hoods, n_regions=n_vert - 1, n_elements=-1,
+            rep_old_index=self.rep_old_index, rep_test_label=self.rep_test_label,
+            rep_hood_id=self.rep_hood_id, rep_valid=self.rep_valid)
+        self._model = E.EnergyModel(self.region_mean, self.region_weight, self.beta,
+                                    self.sigma_min, self.reseed_mu, self.reseed_sigma)
+
+    def _check_slot(self, slot: int) -> int:
+        if not 0 <= slot < self.batch:
+            raise ValueError(f"slot {slot} outside the pool's {self.batch} slots")
+        return slot
+
+    def admit(self, slot: int, hoods: Hoods, model: E.EnergyModel, labels0: Tensor) -> None:
+        """Write one request's padded problem into ``slot`` (inactive until
+        :meth:`begin_lanes`); no other slot's rows move."""
+        self._check_slot(slot)
+        if TickShape.of(hoods, model) != self.shape:
+            raise ValueError(f"a problem of {TickShape.of(hoods, model)}; the pool was built "
+                             f"for {self.shape}")
+        self.active[slot] = False
+        pairs = [(self.vertex, hoods.vertex), (self.hood_id, hoods.hood_id),
+                 (self.valid, hoods.valid), (self.region_mean, model.region_mean),
+                 (self.region_weight, model.region_weight), (self.beta, model.beta),
+                 (self.sigma_min, model.sigma_min), (self.reseed_mu, model.reseed_mu),
+                 (self.reseed_sigma, model.reseed_sigma), (self.labels, labels0)]
+        if self.n_labels == 2:
+            pairs += [(self.rep_old_index, hoods.rep_old_index),
+                      (self.rep_test_label, hoods.rep_test_label),
+                      (self.rep_hood_id, hoods.rep_hood_id), (self.rep_valid, hoods.rep_valid)]
+        for dst, src in pairs:
+            dst[slot].copy_(src)
+        self.map_i[slot] = 0
+        self._stopped[slot] = False
+
+    def begin_lanes(self, slots, mu: Tensor, sigma: Tensor) -> None:
+        """Start an EM iteration of ``slots``: their parameters (rows of
+        ``mu`` and ``sigma``, clamped), rings and MAP counters."""
+        idx = torch.as_tensor(list(slots), dtype=torch.long, device=self.device)
+        self.mu[idx] = mu
+        self.sigma[idx] = sigma
+        self.ring[idx] = 0.0
+        self.map_i[idx] = 0
+        self.active[idx] = True
+
+    def retire(self, slot: int) -> None:
+        self.active[self._check_slot(slot)] = False
+
+    def step(self) -> None:
+        i = self.map_i + 1
+        act = self.active
+        self._step(self._hoods, self._model, i > WINDOW, i == self.max_map_iters)
+        self.map_i = torch.where(act, i, self.map_i)
 
 
 def _em_driver(
@@ -444,7 +689,7 @@ class BatchedEMResult(NamedTuple):
     em_iters: Tuple[int, ...]
     map_iters: Tuple[int, ...]
     status: Tuple[int, ...]
-    steps: int            # lockstep MAP iterations: launches of the batched tick
+    steps: int            # lockstep MAP iterations: steps of the workspace
 
     def lane(self, b: int) -> EMResult:
         return EMResult(*(v[b] for v in self[:-1]))
@@ -469,8 +714,10 @@ def run_em_batched(
     The EM loop runs while any lane runs, and each EM iteration's MAP loop
     while any lane's MAP loop runs; a lane whose MAP loop stopped is
     inactive until the next EM iteration, and a lane whose EM finished
-    stays inactive.  Per MAP iteration: one batched tick launch for the
-    running lanes and one read of the B flag words.  Per EM iteration: the
+    stays inactive.  Per MAP iteration: one step of the workspace for the
+    running lanes (a batched tick launch in mode ``static-pallas``, one
+    flat MAP iteration of every lane in the modes ``static`` and
+    ``faithful``) and one read of the B flag words.  Per EM iteration: the
     boundary over every lane at once (``params_from_stats`` on (B, 3, K),
     the divergence and degeneracy tests, the total-energy rings) and one
     host read.  Each lane's result is its own :func:`run_em`'s bit for bit.
@@ -478,17 +725,20 @@ def run_em_batched(
     across solves of one bucket and batch size.
     """
     validate_config(config)
-    require_fused(config, "run_em_batched")
     n_hoods = hoods.n_hoods
     batch, dev, f32 = int(labels0.shape[0]), labels0.device, torch.float32
     n_labels = model.n_labels
-    sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
+    fused = config.mode == "static-pallas"
     ws = workspace if workspace is not None else make_workspace(
         TickShape.of(hoods, model), config, device=dev, batch=batch)
     _check_workspace(ws, config, n_labels)
     if ws.batch != batch:
         raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
-    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    if fused:
+        sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
+        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    else:
+        ws.start(hoods, model, labels0)
 
     mu, sigma = mu0, sigma0
     hood_energy = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
@@ -517,7 +767,13 @@ def run_em_batched(
                 if in_map[b]:
                     lane_map[b], flags[b] = i, words[b]
                     in_map[b] = not (words[b] or cap)
-        he, msums = (ws.hood_e, ws.stats) if i else (hood_energy.new_zeros(hood_energy.shape), zeros_stats)
+        if i:
+            he, msums = ws.hood_e, ws.stats
+        else:
+            # No MAP iteration: the modes' M-step still reads the labels.
+            he = hood_energy.new_zeros(hood_energy.shape)
+            msums = zeros_stats if fused else torch.stack(
+                E.m_step_sums_lanes(model, ws.labels, config.mode, backend=config.backend), dim=1)
         new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
         div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
         deg_t = _degenerate_components(model, new_sigma, sum_w)
@@ -565,9 +821,11 @@ def run_em_batched(
 #
 # ``run_em_batched`` runs every lane until the slowest converges.  The
 # ticked driver keeps a fixed pool of slots whose lanes sit at different
-# EM and MAP iterations, and advances it by micro-steps: one pool launch,
-# in which each active lane runs its own next MAP iteration, and one read
-# of the B flag words.  Where a lane's MAP loop stopped, the host runs that
+# EM and MAP iterations, and advances it by micro-steps: one step of the
+# pool (a launch of the tick's pool entry in mode static-pallas, one flat
+# MAP iteration of every lane in the modes static and faithful), in which
+# each active lane runs its own next MAP iteration, and one read of the B
+# flag words.  Where a lane's MAP loop stopped, the host runs that
 # lane's EM boundary (as ``_em_driver`` does) and starts its next EM
 # iteration, or marks it done.  Between calls the caller retires done
 # lanes and admits new requests into the freed slots (``init_tick_lane``);
@@ -602,7 +860,7 @@ class TickState:
     map_total: List[int] = field(default_factory=list)  # MAP iterations of finished loops
     done: List[bool] = field(default_factory=list)
     status: List[int] = field(default_factory=list)
-    micro_steps: int = 0     # pool launches issued on this state (a failed tick
+    micro_steps: int = 0     # pool steps issued on this state (a failed tick
                              # that issued none may be replayed)
 
     @property
@@ -680,12 +938,16 @@ def init_tick_lane(
     """Admit one request into ``slot``: its padded problem (``hoods``,
     ``model`` of the pool's bucket and K), its initial parameters, and its
     element arrays (``sctx``, ``energy.make_static_context``, built here
-    when not given).  The lane starts its first EM iteration, as
-    ``run_em`` does; no other lane's buffers move."""
-    if sctx is None:
-        sctx = E.make_static_context(hoods, model)
+    when not given; the modes ``static`` and ``faithful`` read none).  The
+    lane starts its first EM iteration, as ``run_em`` does; no other lane's
+    buffers move."""
     ws = state.workspace
-    ws.admit(slot, hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    if ws.mode == "static-pallas":
+        if sctx is None:
+            sctx = E.make_static_context(hoods, model)
+        ws.admit(slot, hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
+    else:
+        ws.admit(slot, hoods, model, labels0)
     state.mu[slot] = mu0
     state.sigma[slot] = sigma0
     state.total_hist[slot] = 0.0
@@ -755,10 +1017,10 @@ def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config:
 
 
 def _tick_micro(state: TickState, config: EMConfig) -> None:
-    """One micro-step: one pool launch (every lane not done runs its next
-    MAP iteration) and one read of the flag words; the host mirrors each
-    lane's stopping rule (flag word set, or the cap), as the kernel applies
-    it, and runs the EM boundary of the lanes that stopped."""
+    """One micro-step: one step of the pool (every lane not done runs its
+    next MAP iteration) and one read of the flag words; the host mirrors
+    each lane's stopping rule (flag word set, or the cap), as the step
+    applies it, and runs the EM boundary of the lanes that stopped."""
     ws = state.workspace
     state.micro_steps += 1
     ws.step()
@@ -789,11 +1051,10 @@ def run_em_ticked(
     (:func:`init_tick_lane`) without disturbing the lanes in flight.  Each
     lane's trajectory is its own :func:`run_em`'s, bit for bit (labels,
     parameters, hood energies, counts, status), whatever the tick size and
-    whatever shares its pool.  Mode ``static-pallas`` only; the reference's
-    static-mode pool form is queued (:data:`FUSED_ONLY`).
+    whatever shares its pool, in every mode: the pool (``make_workspace(...,
+    pool=True)``) must have been built for ``config``'s mode.
     """
     validate_config(config)
-    require_fused(config, "run_em_ticked")
     if config.max_em_iters < 1 or config.max_map_iters < 1:
         raise ValueError("run_em_ticked requires max_em_iters/max_map_iters >= 1")
     if tick_iters < 1:
@@ -801,10 +1062,12 @@ def run_em_ticked(
     ws = state.workspace
     if ws.owner is None or ws.owner() is not state:
         raise ValueError("the pool workspace belongs to another TickState (blank_tick_state)")
-    if (ws.precision, ws.max_map_iters) != (config.precision, config.max_map_iters):
+    if (ws.mode, ws.precision, ws.max_map_iters) != (
+            config.mode, config.precision, config.max_map_iters):
         raise ValueError(
-            f"pool built for precision {ws.precision!r} and max_map_iters {ws.max_map_iters}, "
-            f"the config has {config.precision!r} and {config.max_map_iters}")
+            f"pool built for mode {ws.mode!r}, precision {ws.precision!r} and max_map_iters "
+            f"{ws.max_map_iters}, the config has {config.mode!r}, {config.precision!r} and "
+            f"{config.max_map_iters}")
     steps = 0
     while steps < tick_iters and not all(state.done):
         _tick_micro(state, config)

@@ -440,6 +440,180 @@ def make_static_context_batched(
     )
 
 
+# ---------------------------------------------------------------------------
+# Lane-axis forms of the modes' MAP iteration and M-step
+# ---------------------------------------------------------------------------
+#
+# One MAP iteration of every lane of a stack or pool as one flat DPP
+# problem: ``hoods`` stacked (``hoods.stack_hoods``), the model's tensors,
+# the labels (B, V+1) and mu and sigma (B, K) with a leading lane axis.
+# Each keyed reduction runs once over all B lanes' elements, each lane's
+# keys offset into a key range of its own (``dpp.lane_keys``).  Within a
+# segment the elements keep the serial step's order, so the ordered ``add``
+# gives each lane the serial bits, the integer counts are exact, and
+# ``min`` is exact: lane b's rows are the serial functions' results on
+# lane b's problem, bit for bit.
+
+
+def check_lane_key_spaces(batch: int, capacity: int, n_hoods: int, n_vertices: int,
+                          n_labels: int) -> None:
+    """Raise ``ValueError`` when a stack or pool of ``batch`` lanes of one
+    bucket would put a lane-offset key, or an element index of the flat
+    step, past int32 (the ``segment_reduce`` kernel's id and index type)."""
+    spaces = {
+        "the (hood, label) counts": (n_hoods + 1) * n_labels,
+        "the votes": n_vertices * n_labels,
+        "the faithful minimum's elements": (capacity + 1) * max(n_labels, 2),
+    }
+    for what, per_lane in spaces.items():
+        if batch * per_lane > dpp.INT32_MAX:
+            raise ValueError(
+                f"{batch} lanes of capacity {capacity}, {n_hoods} hoods, {n_vertices} "
+                f"vertices and K = {n_labels} need {batch * per_lane} keys for {what}, past "
+                f"int32; at most {dpp.INT32_MAX // per_lane} lanes fit")
+
+
+def hood_label_counts_lanes(
+    hoods: Hoods, labels: Tensor, n_labels: int, *, backend: Optional[str] = None
+) -> Tuple[Tensor, Tensor]:
+    """:func:`hood_label_counts` of every lane: keys ``(b * (n_hoods + 1)
+    + hood_id) * K + x`` and ``b * (n_hoods + 1) + hood_id``, one
+    order-free keyed sum each.  Returns (B, n_hoods + 1, K) and
+    (B, n_hoods + 1)."""
+    batch, n_seg = int(labels.shape[0]), hoods.n_hoods + 1
+    x = torch.gather(labels, 1, hoods.vertex.long()).reshape(-1)
+    ones = hoods.valid.to(torch.float32).reshape(-1)
+    hid = dpp.lane_keys(hoods.hood_id, n_seg)
+    key = dpp.compound_key(hid, x, n_labels, major_span=batch * n_seg)
+    counts = dpp.reduce_by_key(key, ones, batch * n_seg * n_labels, op="add", backend=backend)
+    nall = dpp.reduce_by_key(hid, ones, batch * n_seg, op="add", backend=backend)
+    return counts.reshape(batch, n_seg, n_labels), nall.reshape(batch, n_seg)
+
+
+def label_energies_lanes(
+    hoods: Hoods,
+    model: EnergyModel,
+    labels: Tensor,
+    mu: Tensor,
+    sigma: Tensor,
+    hood_counts: Tuple[Tensor, Tensor],
+    *,
+    log_sigma: Optional[Tensor] = None,
+) -> Tensor:
+    """:func:`label_energies` of every lane, (B, K, capacity): the serial
+    form's operations in its order, each over every lane and label at
+    once.  ``log_sigma`` (B, K) as the serial form's."""
+    n_labels = int(mu.shape[-1])
+    v = hoods.vertex.long()
+    validf = hoods.valid.to(torch.float32)
+    y = torch.gather(model.region_mean, 1, v)
+    w = torch.gather(model.region_weight, 1, v) * validf
+    x = torch.gather(labels, 1, v)
+    sig = torch.maximum(sigma, model.sigma_min[:, None])
+    counts, nall = hood_counts
+    hid = hoods.hood_id.long()
+    nall_e = torch.gather(nall, 1, hid)
+    cnt_e = torch.gather(counts, 1, hid[..., None].expand(-1, -1, n_labels)).transpose(1, 2)
+    denom = torch.clamp_min(nall_e - 1.0, 1.0)
+    log_s = torch.log(sig) if log_sigma is None else log_sigma
+    d = y[:, None, :] - mu[:, :, None]
+    data = w[:, None, :] * (d * d / (2.0 * sig * sig)[:, :, None] + log_s[:, :, None])
+    label = torch.arange(n_labels, device=x.device)[None, :, None]
+    eq = (x[:, None, :] == label).to(torch.float32)
+    others_diff = (nall_e[:, None, :] - cnt_e) - (1.0 - eq)
+    return data + model.beta[:, None, None] * torch.clamp_min(others_diff, 0.0) / \
+        denom[:, None, :] * validf[:, None, :]
+
+
+def min_energies_static_lanes(energies: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`min_energies_static` of every lane: (B, capacity) minima and
+    labels (the first on ties)."""
+    min_e, arg = torch.min(energies, dim=1)
+    return min_e, arg.to(torch.int32)
+
+
+def min_energies_faithful_lanes(
+    hoods: Hoods, energies: Tensor, *, backend: Optional[str] = None
+) -> Tuple[Tensor, Tensor]:
+    """:func:`min_energies_faithful` of every lane: each lane's replicated
+    energies keyed ``b * (capacity + 1) + rep_key``, one stable SortByKey
+    over all lanes and one ReduceByKey(Min) over ``B * (capacity + 1)``
+    segments.  K = 2 gathers through each lane's replication arrays, K > 2
+    tiles its energies (a K = 2 request in a K = 3 pool takes the tiled
+    form: the minimum is one of its inputs' bits either way)."""
+    batch, n_labels, h_pad = (int(s) for s in energies.shape)
+    big = torch.tensor(_BIG, dtype=energies.dtype, device=energies.device)
+    if n_labels == 2:
+        index = hoods.rep_test_label.long() * h_pad + hoods.rep_old_index.long()
+        rep_e = torch.gather(energies.reshape(batch, 2 * h_pad), 1, index)
+        rep_e = torch.where(hoods.rep_valid, rep_e, big)
+        rep_key = torch.where(hoods.rep_valid, hoods.rep_old_index, h_pad)
+    else:
+        lane = torch.arange(h_pad, dtype=torch.int32, device=energies.device)
+        rep_key = torch.where(hoods.valid, lane, h_pad).repeat(1, n_labels)
+        rep_e = torch.where(hoods.valid[:, None, :], energies, big).reshape(batch, -1)
+    sk, se = dpp.sort_by_key(dpp.lane_keys(rep_key, h_pad + 1), rep_e.reshape(-1))
+    min_e = dpp.reduce_by_key(sk, se, batch * (h_pad + 1), op="min", backend=backend)
+    min_e = min_e.reshape(batch, h_pad + 1)[:, :h_pad]
+    min_e = torch.where(hoods.valid, min_e, torch.zeros((), dtype=min_e.dtype, device=min_e.device))
+    arg = torch.argmax((energies == min_e[:, None, :]).to(torch.int32), dim=1)
+    arg = torch.where(hoods.valid, arg, 0).to(torch.int32)
+    return min_e, arg
+
+
+def hood_energy_sums_lanes(
+    hoods: Hoods, min_e: Tensor, *, backend: Optional[str] = None
+) -> Tensor:
+    """:func:`hood_energy_sums` of every lane: one ordered keyed sum on
+    keys ``b * (n_hoods + 1) + hood_id``.  (B, n_hoods)."""
+    batch, n_seg = int(min_e.shape[0]), hoods.n_hoods + 1
+    vals = torch.where(hoods.valid, min_e, torch.zeros((), dtype=min_e.dtype, device=min_e.device))
+    sums = dpp.reduce_by_key(dpp.lane_keys(hoods.hood_id, n_seg), vals.reshape(-1),
+                             batch * n_seg, op="add", backend=backend, ordered=True)
+    return sums.reshape(batch, n_seg)[:, : hoods.n_hoods]
+
+
+def vote_labels_lanes(hoods: Hoods, arg: Tensor, n_regions: int, n_labels: int) -> Tensor:
+    """:func:`vote_labels` of every lane: one Scatter(Add) of the votes on
+    keys ``(b * (V + 1) + vertex) * K + arg`` and each vertex's plurality
+    label.  (B, V+1) int32, each lane's sentinel lane 0."""
+    batch, n_vert = int(arg.shape[0]), n_regions + 1
+    key = dpp.compound_key(dpp.lane_keys(hoods.vertex, n_vert),
+                           torch.where(hoods.valid, arg, 0).reshape(-1), n_labels,
+                           major_span=batch * n_vert)
+    votes = dpp.scatter_(hoods.valid.to(torch.float32).reshape(-1), key,
+                         batch * n_vert * n_labels, mode="add")
+    new = torch.argmax(votes.reshape(batch, n_vert, n_labels), dim=2).to(torch.int32)
+    new[:, n_regions] = 0
+    return new
+
+
+def m_step_sums_lanes(
+    model: EnergyModel,
+    labels: Tensor,
+    mode: str,
+    *,
+    lanes: Optional[Tensor] = None,
+    backend: Optional[str] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """:func:`m_step_sums` of every lane, or of the lanes where ``lanes``
+    ((B,) bool) is set (the others' keys fall outside the key range and
+    their rows are 0): three ordered keyed sums on keys ``b * K + label``,
+    in ``faithful`` after one stable SortByKey of them, which keeps vertex
+    order within each label as the serial form does.  Returns three
+    (B, K)."""
+    batch, n_labels = int(labels.shape[0]), model.n_labels
+    seg = dpp.lane_keys(labels, n_labels).reshape(batch, -1)
+    if lanes is not None:
+        seg = torch.where(lanes[:, None], seg, batch * n_labels)
+    seg, y, w = seg.reshape(-1), model.region_mean.reshape(-1), model.region_weight.reshape(-1)
+    if mode == "faithful":
+        seg, y, w = dpp.sort_by_key(seg, y, w)
+    return tuple(dpp.reduce_by_key(seg, v, batch * n_labels, op="add", backend=backend,
+                                   ordered=True).reshape(batch, n_labels)
+                 for v in (w, w * y, w * y * y))
+
+
 #: Data-term sentinel of inert (padded) labels (mixed-K stacks): a label
 #: with mu = INERT_MU is ~1e8 intensity units from any region mean, so it
 #: never wins an argmin, collects no mass and re-seeds back to itself;

@@ -286,6 +286,9 @@ class TickWorkspace:
     M-step sums of the last launch that stopped a MAP loop.
     """
 
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
+
     def __init__(self, shape: TickShape, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3):
         dev = _check_shape("TickWorkspace", shape, precision, device)
@@ -397,6 +400,9 @@ class BatchTickWorkspace:
     a lane that ran in it).  ``labels``, ``votes``, ``hood_e``, ``ring``
     and ``stats`` are the lanes' views as :class:`TickWorkspace` has them.
     """
+
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3):
@@ -532,6 +538,9 @@ class PoolTickWorkspace:
     buffers, so the buffer its parity names is zero whatever the lane
     before it left.
     """
+
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):

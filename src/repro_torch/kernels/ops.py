@@ -16,7 +16,9 @@ of the flash launches, ``em_tick.launches_batched`` and
 ``em_tick.launches_pool``, the batched and the pool entry's shares of the
 tick's, and ``segment_reduce.launches_ordered`` and ``launches_min``, the
 element-order ``add``'s and ``min``'s shares of ``segment_reduce``'s;
-:func:`segment_reduce_launches` splits them).  :data:`WORKSPACE_BUILDS`
+:func:`segment_reduce_launches` splits them; :data:`LANE_STEPS` counts
+the steps of the modes' DPP workspaces, whose launches are
+``segment_reduce``'s).  :data:`WORKSPACE_BUILDS`
 counts the MAP-iteration workspaces built in this process: a session
 builds one per bucket (and one per ticked pool) and reuses it, so a warm
 solve adds none.
@@ -39,8 +41,26 @@ BACKENDS = ("auto", "torch")
 FLAG_CONVERGED, FLAG_DIVERGED = ref.FLAG_CONVERGED, ref.FLAG_DIVERGED
 TickShape = ref.TickShape
 
-#: MAP-iteration workspaces built in this process (every kind).
+#: MAP-iteration workspaces built in this process (every kind, the modes'
+#: DPP workspaces too: ``count_workspace_build``).
 WORKSPACE_BUILDS = 0
+#: Steps of the modes' DPP workspaces (``em.DppBatchWorkspace``,
+#: ``em.DppPoolWorkspace``) since the last ``reset_launch_counts``: one flat
+#: MAP iteration of every lane each, whose kernel launches are
+#: ``segment_reduce``'s.
+LANE_STEPS = 0
+
+
+def count_workspace_build() -> None:
+    """Count a MAP-iteration workspace built outside this module."""
+    global WORKSPACE_BUILDS
+    WORKSPACE_BUILDS += 1
+
+
+def count_lane_step() -> None:
+    """Count one step of a DPP workspace (``LANE_STEPS``)."""
+    global LANE_STEPS
+    LANE_STEPS += 1
 
 
 def _use_kernel(backend: Optional[str], where) -> bool:
@@ -73,6 +93,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    global LANE_STEPS
+    LANE_STEPS = 0
     for module in (_em_tick, _flash_attention, _map_step, _mrf_energy, _segment_reduce):
         module.launches = 0
     _flash_attention.launches_tc = 0

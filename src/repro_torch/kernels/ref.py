@@ -310,6 +310,9 @@ class PlainTickWorkspace:
     a step that stops the MAP loop, which are the ones the driver reads).
     """
 
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
+
     def __init__(self, shape: TickShape, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3):
         self.shape, self.device, self.precision = shape, torch.device(device), precision
@@ -433,6 +436,9 @@ class PlainBatchTickWorkspace:
     batched EM driver's route on the CPU, or on the card with
     ``backend="torch"``."""
 
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
+
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3):
         self.shape, self.batch = shape, batch
@@ -489,6 +495,9 @@ class PlainPoolTickWorkspace:
     ``offsets`` instead).  ``log_sigma`` ((B, K), or None), when set,
     stands for ``torch.log(sigma)`` of every lane
     (``label_energies_blocked``'s ``log_sig``)."""
+
+    #: The EM mode whose MAP iteration the workspace steps.
+    mode = "static-pallas"
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
                  conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):

@@ -4,10 +4,10 @@ Counterpart of ``repro.launch.segment``.  Generates a corrupted synthetic
 volume (binary porous media, or K phases with ``--labels K``), segments
 its slices with ``Segmenter.segment_stack`` in ``--mode`` (``static-pallas``,
 the fused route, the default; ``static`` or ``faithful``, the paper's
-primitive sequence, which solve slice by slice) (``--batch always``: the
-whole stack as one batched solve under its joint bucket, static-pallas
-only; ``never``: slice by slice; ``auto``: batched on the card when the
-slices' capacities are within 2x), ``--repeat`` times on one session, and
+primitive sequence) (``--batch always``: the whole stack as one batched
+solve under its joint bucket, in any mode; ``never``: slice by slice;
+``auto``: batched on the card when the slices' capacities are within
+2x), ``--repeat`` times on one session, and
 prints one JSON line per repeat (wall time, mean ``optimize_s``, the
 executable cache's hits and misses), then one per slice of the last
 repeat (accuracy against the ground truth, ``em_iters``, ``map_iters``,
@@ -26,6 +26,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.segment --slices 16 --batch always --repeat 3
     PYTHONPATH=src python -m repro_torch.launch.segment --size 64 --grid 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.segment --mode faithful --labels 3
+    PYTHONPATH=src python -m repro_torch.launch.segment --mode static --batch always --slices 3
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.segment --shards 2
 """
 

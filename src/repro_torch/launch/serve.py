@@ -22,6 +22,7 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --shape 512 --grid 32 \\
         --max-batch 8 --tick-iters 4 --init quantile --check
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --check
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --check --mode faithful
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=8, help="engine slot count")
     ap.add_argument("--tick-iters", default="8",
                     help="micro-steps per engine tick: an int, or 'auto' (the adaptive ladder)")
-    ap.add_argument("--mode", default="static-pallas", choices=("static-pallas",),
-                    help="EM mode (the one ported so far)")
+    ap.add_argument("--mode", default="static-pallas", choices=("static-pallas", "static", "faithful"),
+                    help="EM mode (em.MODES): the fused route, or the paper's primitive sequence")
     ap.add_argument("--labels", type=int, default=2, metavar="K",
                     help="label count K; K > 2 serves a K-phase synthetic stream")
     ap.add_argument("--seed", type=int, default=0)

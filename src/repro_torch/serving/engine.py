@@ -4,8 +4,10 @@
 The engine owns a fixed pool of ``max_batch`` slots of one bucket
 (``Segmenter.ticked_pool``, on the pool's workspace) and advances every
 resident request in **ticks**: one ``em.run_em_ticked`` call, up to
-``tick_iters`` micro-steps, each micro-step one launch of the tick's pool
-entry in which every live lane runs its own next MAP iteration.  Between
+``tick_iters`` micro-steps, each micro-step one step of the pool in which
+every live lane runs its own next MAP iteration: one launch of the tick's
+pool entry in mode ``static-pallas``, one flat MAP iteration of every lane
+(``em.DppPoolWorkspace``) in the modes ``static`` and ``faithful``.  Between
 ticks the host retires finished lanes and admits pending requests into
 the freed slots in priority/deadline order.  Admission and retirement are
 writes to one slot's rows; no other lane moves and no workspace is built.
@@ -350,11 +352,13 @@ class SegmentationEngine:
             if chaos_mod.is_active():
                 # The harness returns new tensors where it corrupts and never
                 # writes the plan's memoised inputs; a corrupted model needs
-                # its own element arrays.
+                # its own element arrays (where the pool reads any).
                 m1c, lab0, mu0, sig0 = chaos_mod.on_admit(req.rid, m1, lab0, mu0, sig0)
                 if m1c is not m1:
                     m1 = m1c
-                    sctx = energy_mod.make_static_context(h1, m1, backend=self.session.config.backend)
+                    if sctx is not None:
+                        sctx = energy_mod.make_static_context(
+                            h1, m1, backend=self.session.config.backend)
                 hold = chaos_mod.hold_lane(req.rid)
             em_mod.init_tick_lane(self._state, slot, h1, m1, lab0, mu0, sig0, sctx)
             self.slot_req[slot] = req

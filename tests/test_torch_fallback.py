@@ -15,6 +15,12 @@ port's semantics.
   before its first launch, and its completions equal serial ``execute``
   bit for bit.
 * A CUDA error is never retried.
+* The modes' stacks (``segment_stack(batch="always")``, ``drain``): a
+  compile fault of the batch executable under
+  ``FallbackPolicy(backend="torch")`` and a transient execute fault under
+  the default policy give the clean stack bit for bit; under the default
+  policy a lasting fault raises ``FallbackError`` with no step issued and
+  the requests queued again.
 
 On the CPU a session's route is ``"torch"``.  Where a test needs a kernel
 route that fails, it relabels the session's route ``"cuda"`` (a
@@ -29,6 +35,7 @@ import pytest
 from repro_torch import api
 from repro_torch.core import synthetic
 from repro_torch.core.pmrf import em as em_mod
+from repro_torch.kernels import ops
 from repro_torch.serving import SegmentationEngine
 from repro_torch.testing import chaos
 
@@ -51,6 +58,10 @@ def kernel_route(monkeypatch):
     the plain one."""
     monkeypatch.setattr(api.ExecutionConfig, "resolved_backend",
                         lambda self, device: "torch" if self.backend == "torch" else "cuda")
+
+
+def _images(n=2, shape=(40, 40), seed=5):
+    return synthetic.make_synthetic_volume(seed=seed, n_slices=n, shape=shape, device="cpu").images
 
 
 def _same(a, b):
@@ -220,3 +231,47 @@ def test_policy_validates():
     assert hash(cfg) == hash(api.ExecutionConfig(fallback=api.FallbackPolicy(backend="torch")))
     assert api.ExecutionConfig().fallback == api.FallbackPolicy(enabled=True, backend=None,
                                                                 max_retries=1)
+
+
+@pytest.mark.parametrize("mode", ["static", "faithful"])
+def test_mode_stack_compile_fault_falls_back(mode, kernel_route):
+    sess = _session(mode, fallback=api.FallbackPolicy(backend="torch", **NO_WAIT))
+    plans = _plans(sess, n=2)
+    want = [_session(mode, backend="torch").execute(p) for p in plans]
+    with chaos.inject(chaos.ChaosConfig(compile_fail_backends=("cuda",))), \
+            pytest.warns(RuntimeWarning, match="falling back to 'torch'") as caught:
+        for p in plans:
+            sess.submit(p)
+        got = sess.drain()
+    assert sum(w.category is RuntimeWarning for w in caught) == 1
+    [event] = sess.fallback_events
+    assert (event["stage"], event["from"], event["to"]) == ("compile", "cuda", "torch")
+    assert [(k.backend, k.batch) for k in sess.cache_keys] == [("torch", 2)]
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.parametrize("mode", ["static", "faithful"])
+def test_mode_stack_faults_under_default_policy(mode, kernel_route):
+    """A transient execute fault is retried on the same route and gives the
+    clean stack; a lasting compile or execute fault raises
+    ``FallbackError`` with no step issued and the stack's requests queued
+    again."""
+    sess = _session(mode, fallback=api.FallbackPolicy(**NO_WAIT))
+    images = _images()
+    want, _ = sess.segment_stack(images, batch="always")
+    with chaos.inject(chaos.ChaosConfig(transient_exec_failures=1)) as monkey:
+        got, _ = sess.segment_stack(images, batch="always")
+    assert [e["kind"] for e in monkey.events] == ["transient_exec_fail"]
+    assert not sess.fallback_events
+    for g, w in zip(got, want):
+        _same(g, w)
+    for fault in (dict(compile_fail_backends=("cuda",)), dict(exec_fail_backends=("cuda",))):
+        seg = _session(mode, fallback=api.FallbackPolicy(**NO_WAIT))
+        ops.reset_launch_counts()
+        with chaos.inject(chaos.ChaosConfig(**fault)):
+            with pytest.raises(api.FallbackError, match="no other route") as err:
+                seg.segment_stack(images, batch="always")
+        assert isinstance(err.value.__cause__, chaos.ChaosError)
+        assert ops.LANE_STEPS == 0 and not any(ops.launch_counts().values())
+        assert seg.pending() == 2 and not seg.fallback_events

@@ -206,14 +206,40 @@ def test_iteration_caps_and_max_map_zero():
 
 
 def test_batched_and_ticked_forms_raise():
-    problem = _carried_across(2)
-    hoods = problem.hoods
+    """The batched and ticked forms of the modes run (they raised
+    ``NotImplementedError`` before they were ported): a two-lane stack
+    through ``run_em_batched`` and a two-slot pool through
+    ``run_em_ticked``, every lane its serial ``run_em`` bit for bit; a
+    pool stepped under another mode raises ``ValueError``."""
     from repro_torch.core.pmrf.hoods import stack_hoods
-    stacked = stack_hoods([hoods, hoods])
+    from repro_torch.kernels.ref import TickShape
+
+    problem = _carried_across(2)
+    stacked = stack_hoods([problem.hoods, problem.hoods])
     model = torch_energy.EnergyModel(*(torch.stack([f, f]) for f in problem.model))
-    with pytest.raises(NotImplementedError, match="Batched and ticked static and faithful"):
-        torch_em.run_em_batched(stacked, model, *(torch.stack([t, t]) for t in problem[2:]),
-                                torch_em.EMConfig(mode="faithful"))
+    for mode in MODES:
+        cfg = torch_em.EMConfig(mode=mode)
+        want = torch_em.run_em(*problem, cfg)
+        res = torch_em.run_em_batched(stacked, model, *(torch.stack([t, t]) for t in problem[2:]),
+                                      cfg)
+        ws = torch_em.make_workspace(TickShape.of(problem.hoods, problem.model), cfg,
+                                     device="cpu", batch=2, pool=True)
+        state = torch_em.blank_tick_state(ws)
+        for slot in range(2):
+            torch_em.init_tick_lane(state, slot, *problem)
+        steps = 0
+        while not all(state.done):
+            steps += torch_em.run_em_ticked(state, cfg, 4)[1]
+        assert steps == want.map_iters
+        for got in [res.lane(b) for b in range(2)] + [torch_em.tick_result(state, b)
+                                                      for b in range(2)]:
+            assert (got.em_iters, got.map_iters, got.status) == (
+                want.em_iters, want.map_iters, want.status)
+            for f in ("labels", "mu", "sigma", "hood_energy", "total_energy"):
+                assert torch.equal(getattr(got, f), getattr(want, f)), f
+        other = MODES[1 - MODES.index(mode)]
+        with pytest.raises(ValueError, match="mode"):
+            torch_em.run_em_ticked(state, cfg._replace(mode=other), 1)
 
 
 def _session(mode, **kw):
@@ -222,10 +248,10 @@ def _session(mode, **kw):
 
 
 def test_session_runs_the_modes():
-    """``execute``, ``drain`` (one by one) and ``segment_stack(batch=
-    "never")`` in each mode equal the fused route's results; the batched
-    and pooled forms raise ``NotImplementedError`` naming the ROADMAP
-    item; a warm execute builds nothing."""
+    """``execute``, ``drain`` (one batched solve) and ``segment_stack`` in
+    each mode equal the fused route's results; the batched and pooled
+    executables build the mode's DPP workspaces; a warm execute builds
+    nothing."""
     img = _image(2)
     ref = _session("static-pallas")
     plan = ref.plan(img)
@@ -248,14 +274,16 @@ def test_session_runs_the_modes():
         auto, _ = seg.segment_stack([img, img], batch="auto")
         for r in stack + auto:
             np.testing.assert_array_equal(r.region_labels, want.region_labels)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            seg.segment_stack([img, img], batch="always")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            seg.compile(p, batch=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            seg.compile_ticked(p, batch=2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            seg.ticked_pool(p, batch=2)
+        always, _ = seg.segment_stack([img, img], batch="always")
+        for r in always:
+            np.testing.assert_array_equal(r.region_labels, want.region_labels)
+            assert (r.em_iters, r.map_iters, r.status) == (want.em_iters, want.map_iters,
+                                                           want.status)
+        assert isinstance(seg.compile(p, batch=2).workspace, torch_em.DppBatchWorkspace)
+        ticked = seg.compile_ticked(p, batch=2)
+        assert isinstance(ticked.workspace, torch_em.DppPoolWorkspace)
+        pool = seg.ticked_pool(p, batch=2)
+        assert pool.workspace is ticked.workspace and all(pool.done)
 
 
 def test_launch_segment_mode_flag(capsys):

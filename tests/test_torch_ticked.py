@@ -272,7 +272,7 @@ def test_run_em_ticked_refusals():
         torch_em.run_em_ticked(state, cfg, 0)
     with pytest.raises(ValueError, match="max_map_iters"):
         torch_em.run_em_ticked(state, cfg._replace(max_map_iters=5), 2)
-    with pytest.raises(NotImplementedError, match="static"):
+    with pytest.raises(ValueError, match="mode 'static-pallas'"):
         torch_em.run_em_ticked(state, cfg._replace(mode="static"), 2)
     # A new pool state on the same workspace takes it over.
     other = torch_em.blank_tick_state(state.workspace)

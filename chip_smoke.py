@@ -48,6 +48,23 @@ PyTorch version on the card, and drives six paths (serving last):
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
   one all-reduce of its hood sums and votes, one flag read and, past the
   window, the AND of the flag word);
+* planning (before serving): the calibrated cost model
+  (``repro_torch.planning``) and its consumers: (a) the checked-in table
+  is the card's (``meta.platform`` ``"gpu"``, ``model_for`` calibrated,
+  ``--refit`` reproduces its bytes; its card beside the running one); (b)
+  the K = 2 slice in all three modes, ``Plan.predicted_optimize_s``
+  beside the measured warm ``optimize_s`` (best and median of 5), the
+  model's ranking of the modes the measurements'; (c) the 16-slice K = 2
+  stack through ``segment_stack(batch="auto")``: ``choose_batch``'s
+  decision, the route taken (by launch count), every slice bit for bit
+  ``"always"`` and ``"never"``, and the chosen route's measured
+  ``optimize_s`` per slice at most 10 % above the other's; (e)
+  ``launch.segment --shards auto --slices 1`` in a subprocess; (f) the
+  budget ledger's snapshot, ``expect("cold_compile")``,
+  ``expect("warm_execute")`` and ``expect("warm_tick")`` around the
+  session's and the engine's calls.  (d), in the serve phase: each
+  stream's tick-cost prior from the model beside the engine's fitted
+  ``(a, b)``;
 * LM serving: ``qwen2-1.5b`` at full width and depth (28 layers, bf16,
   random weights from a ``torch.Generator`` seeded 0) behind
   ``ServingEngine(max_batch=4, max_seq=2048)``, greedy, 8 requests (4
@@ -304,6 +321,7 @@ Tolerances (kernel against plain version, same inputs, on the card):
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -356,6 +374,8 @@ MODES_LOCKSTEP_K = (2, 3)  # slices whose modes solves are held to the CPU at ev
 FLAT_LOCKSTEP_LANES = 3  # lanes of the modes' stack held to the CPU at every flat step
 ORACLE_AGREEMENT = 0.995  # pixel agreement of each mode's K = 2 solve with golden_em
 FALLBACK_STACK_LANES = 4  # lanes of the K = 2 stack in the fallback phase's mode stacks
+PLAN_REPEATS = 5  # warm solves (or stack solves) per mode or route in the planning phase
+PLAN_ROUTE_TOLERANCE = 0.10  # the autotuned stack route may be at most this much slower
 
 
 def emit(obj) -> None:
@@ -2045,6 +2065,8 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     out["fixed"] = serve_row(f"K=2 tick_iters={SERVE_TICK}", fixed, serial)
     auto = serve_stream(torch, ops, seg, plans, bucket, "auto", SERVE_SLOTS)
     out["auto"] = serve_row("K=2 tick_iters=auto", auto, serial)
+    planning_tick_prior(f"K=2 tick_iters={SERVE_TICK}", fixed)
+    planning_tick_prior("K=2 tick_iters=auto", auto)
     stack, stack_mean = seg.segment_stack(vol.images, seed=seed, batch="always")
     if [result_bits(r) for r in stack] != [result_bits(r) for r in serial]:
         fail("serve: segment_stack's lanes are not bit for bit the serial results")
@@ -2065,6 +2087,198 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     out["modes"] = run_modes_serve(torch, api, synthetic, ops, em_mod, dev, config, plans, bucket,
                                    profile)
     return out
+
+
+def check_table(planning) -> dict:
+    """Planning (a): the checked-in table is the card's: ``meta.platform``
+    ``"gpu"``, ``model_for(device="cuda")`` calibrated, and the refit from
+    its stored observations gives its bytes."""
+    from repro_torch.planning import calibrate
+
+    path = planning.default_table_path()
+    table = planning.load_table()
+    meta = table["meta"]
+    if meta.get("platform") != "gpu":
+        fail(f"planning: the checked-in table's platform is {meta.get('platform')!r}, not 'gpu'")
+    planning.reset_models()
+    model = planning.model_for(device="cuda")
+    if not model.calibrated:
+        fail("planning: model_for(device='cuda') is not calibrated")
+    if calibrate.refit(path) != path.read_text():
+        fail("planning: the table's refit from its stored observations differs from its bytes")
+    card = calibrate.card_meta("cuda")
+    emit({"phase": "planning", "part": "table", "table_card": meta.get("nvidia_smi"),
+          "table_torch": meta.get("torch"), "running_card": card["nvidia_smi"],
+          "observations": len(table["observations"]), "shard_counts": meta["grid"]["shard_counts"],
+          "priors": table["priors"], "width": table["width"], "sharding": table["sharding"],
+          "refit_identical": True, "calibrated": True})
+    return table
+
+
+def planning_modes(torch, api, sl) -> dict:
+    """Planning (b): the K = 2 slice planned and solved in each mode;
+    ``Plan.predicted_optimize_s`` beside the measured warm ``optimize_s``
+    (best and median of ``PLAN_REPEATS``).  The model must rank the modes
+    as the measurements do: every pair the measurements separate (each
+    solve of one faster than every solve of the other) in that order.  A
+    pair whose measured ranges overlap is not ranked by the measurements
+    (``static`` and ``faithful`` lie within 15-30 % of each other at this
+    size), so it constrains nothing."""
+    rows = {}
+    for mode in ("static-pallas", "static", "faithful"):
+        seg = api.Segmenter(sl["config"].with_(mode=mode), device=torch.device(DEVICE))
+        plan = seg.plan(sl["image"])
+        seg.execute(plan, seed=SLICE["seed"])
+        times = spread([seg.execute(plan, seed=SLICE["seed"]).optimize_seconds
+                        for _ in range(PLAN_REPEATS)])
+        rows[mode] = {"predicted_optimize_s": plan.predicted_optimize_s, "optimize_s": times}
+    predicted = sorted(rows, key=lambda m: rows[m]["predicted_optimize_s"])
+    measured = sorted(rows, key=lambda m: rows[m]["optimize_s"]["min"])
+    separated = [(a, b) for a in rows for b in rows
+                 if rows[a]["optimize_s"]["max"] < rows[b]["optimize_s"]["min"]]
+    wrong = [(a, b) for a, b in separated
+             if not rows[a]["predicted_optimize_s"] < rows[b]["predicted_optimize_s"]]
+    emit({"phase": "planning", "part": "modes", "K": 2, "bucket": list(plan.bucket), **rows,
+          "predicted_order": predicted, "measured_order": measured,
+          "measured_separated": [list(pair) for pair in separated],
+          "ranked_as_measured": not wrong})
+    if wrong:
+        fail(f"planning: the measurements put {wrong} in that order (faster first), the model "
+             f"does not: predicted order {predicted}")
+    return rows
+
+
+def planning_stack(torch, api, ops, st) -> dict:
+    """Planning (c): the stack phase's 16 K = 2 slices through
+    ``segment_stack(batch="auto")`` on a fresh session: the route the
+    launch counts show is ``choose_batch``'s, every slice bit for bit
+    ``"always"`` and ``"never"``, and the chosen route's measured mean
+    ``optimize_s`` per slice (best of ``PLAN_REPEATS`` stack solves) at
+    most ``PLAN_ROUTE_TOLERANCE`` above the other route's."""
+    from repro_torch.kernels import em_tick
+
+    seed = SLICE["seed"]
+    seg = api.Segmenter(st["seg"].config, device=torch.device(DEVICE))
+    plans = [seg.plan(img) for img in st["images"]]
+    decision = seg.choose_batch(plans)
+    ops.reset_launch_counts()
+    auto, _ = seg.segment_stack(st["images"], seed=seed, batch="auto")
+    ticks, batched = ops.launch_counts()["fused_em_tick"], em_tick.launches_batched
+    took_batch = batched > 0
+    if ticks < 1 or (took_batch and batched != ticks):
+        fail(f"planning: segment_stack(batch='auto') made {ticks} tick launches, {batched} batched")
+    if took_batch != decision.use_batch:
+        fail(f"planning: choose_batch says use_batch={decision.use_batch}, the launches show "
+             f"{'batched' if took_batch else 'serial'}")
+    for other in ("always", "never"):
+        res, _ = seg.segment_stack(st["images"], seed=seed, batch=other)
+        if [result_bits(r) for r in res] != [result_bits(r) for r in auto]:
+            fail(f"planning: segment_stack(batch='auto') is not bit for bit batch='{other}'")
+
+    def drain():
+        for p in plans:
+            seg.submit(p, seed=seed, bucket=st["joint"])
+        return float(np.mean([r.optimize_seconds for r in seg.drain()]))
+
+    measured = {"batched": spread([drain() for _ in range(PLAN_REPEATS)]),
+                "serial": spread([float(np.mean([seg.execute(p, seed=seed).optimize_seconds
+                                                 for p in plans])) for _ in range(PLAN_REPEATS)])}
+    chosen, other = ("batched", "serial") if decision.use_batch else ("serial", "batched")
+    ratio = measured[chosen]["min"] / measured[other]["min"]
+    emit({"phase": "planning", "part": "stack", "K": 2, "slices": len(plans),
+          "decision": decision.as_dict(), "took": chosen, "tick_launches": ticks,
+          "batched_launches": batched, "bitwise_always_never": True,
+          "optimize_s_per_slice": measured, "chosen_over_other": ratio})
+    if ratio > 1.0 + PLAN_ROUTE_TOLERANCE:
+        fail(f"planning: the chosen route ({chosen}) is {ratio:.3f}x the other's per slice")
+    return {"decision": decision, "measured": measured}
+
+
+def planning_shards_auto() -> dict:
+    """Planning (e): ``launch.segment --shards auto --slices 1`` in a
+    subprocess on the card: a ``shards_auto`` line, then a solve on the
+    count it chose (1 on a one-card host)."""
+    import torch
+
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.segment", "--shards", "auto",
+                           "--slices", "1"], capture_output=True, text=True, cwd=ROOT, env=env,
+                          timeout=600)
+    if proc.returncode != 0:
+        fail(f"planning: launch.segment --shards auto exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    lines = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    auto = [ln["shards_auto"] for ln in lines if "shards_auto" in ln]
+    rows = [ln for ln in lines if "slice" in ln]
+    if len(auto) != 1 or len(rows) != 1:
+        fail(f"planning: launch.segment --shards auto printed {len(auto)} decisions, {len(rows)} slices")
+    want = 1 if torch.cuda.device_count() == 1 else auto[0]["shards"]
+    if auto[0]["shards"] != want or rows[0]["shards"] != want or rows[0]["status"] not in (
+            "converged", "max_iters"):
+        fail(f"planning: --shards auto chose {auto[0]['shards']}, solved on {rows[0]['shards']} "
+             f"({rows[0]['status']})")
+    emit({"phase": "planning", "part": "shards_auto", "decision": auto[0],
+          **{k: rows[0][k] for k in ("shards", "status", "em_iters", "map_iters", "accuracy",
+                                     "optimize_s")}})
+    return auto[0]
+
+
+def planning_ledger(torch, api, sl) -> dict:
+    """Planning (f): the budget ledger around the session's and the engine's
+    calls: a cold compile builds at most one workspace, a warm execute and a
+    warm engine tick none; the snapshot printed."""
+    from repro_torch.analysis import budget
+    from repro_torch.serving import SegmentationEngine
+
+    seed, plan = SLICE["seed"], sl["plan"]
+    seg = api.Segmenter(sl["config"], device=torch.device(DEVICE))
+    with budget.expect("cold_compile"):
+        seg.compile(plan)
+    seg.execute(plan, seed=seed)
+    with budget.expect("warm_execute"):
+        seg.execute(plan, seed=seed)
+    engine = SegmentationEngine(seg, max_batch=2, tick_iters=4)
+    for rid in range(3):
+        engine.submit(plan, rid=rid, seed=seed)
+    engine.step()   # the pool's bring-up
+    with budget.expect("warm_tick"):
+        engine.step()
+    engine.run()
+    snap = budget.LEDGER.snapshot()
+    emit({"phase": "planning", "part": "ledger", "snapshot": snap,
+          "budgets": {b.phase: b.max_delta for b in budget.BUDGETS}, "within_budgets": True})
+    return snap
+
+
+def run_planning(torch, api, ops, sl, st) -> dict:
+    """The planning phase, (a)-(c), (e), (f) (``check_table``,
+    ``planning_modes``, ``planning_stack``, ``planning_shards_auto``,
+    ``planning_ledger``); (d) is in the serve phase."""
+    from repro_torch import planning
+
+    out = {"table": check_table(planning)}
+    out["modes"] = planning_modes(torch, api, sl)
+    out["stack"] = planning_stack(torch, api, ops, st)
+    out["shards_auto"] = planning_shards_auto()
+    out["ledger"] = planning_ledger(torch, api, sl)
+    return out
+
+
+def planning_tick_prior(what: str, run: dict) -> None:
+    """Planning (d): the engine's tick-cost prior (the model's
+    ``tick_cost_prior`` for its pool, calibrated) beside its fitted
+    ``(a, b)`` after the stream."""
+    engine = run["engine"]
+    cfg = engine.session.config
+    model = engine.session.cost_model()
+    want = model.tick_cost_prior(mode=cfg.mode, bucket=engine.bucket, width=engine.max_batch,
+                                 n_labels=cfg.n_labels, precision=cfg.precision)
+    prior = engine._tick_cost_default()
+    if prior != want or not model.calibrated:
+        fail(f"planning: the engine's tick-cost prior {prior} is not the calibrated model's {want}")
+    st = engine.stats()
+    emit({"phase": "planning", "part": "tick_cost", "what": what, "prior": list(prior),
+          "fitted": list(engine.cost_model()), "ticks": st["ticks"],
+          "micro_steps": st["total_steps"], "wall_s": run["wall_s"]})
 
 
 def map_step_operands(torch, plan, E, em_mod, hoods):
@@ -4002,6 +4216,11 @@ def main(argv=None) -> int:
     # Fourth path: LM serving at qwen2-1.5b's full width and depth.
     lm = run_lm(torch, ops, dev, profile)
     flash = time_flash(torch, ops, dev, profile)
+
+    # The planning layer: the card's calibrated table, the modes ranked,
+    # segment_stack(batch="auto") routed by the model, --shards auto, the
+    # budget ledger.
+    run_planning(torch, api, ops, slice2, st2)
 
     # Fifth path: a request stream through the continuous-batching engine,
     # one launch of the tick's pool entry per micro-step, each lane at its

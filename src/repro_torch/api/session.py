@@ -1,18 +1,20 @@
 """Plan -> compile -> execute session API.
 
-Counterpart of ``repro.api.session.Segmenter``, without its cost model
-(ROADMAP.md Queue 1: 'planning/').
+Counterpart of ``repro.api.session.Segmenter``.
 
 * :meth:`Segmenter.plan`: oversegmentation, region graph, cliques and
-  neighborhoods (the paper's untimed init phase), and the problem's
-  bucket: its ``(capacity, n_hoods, n_regions)`` rounded up to the
-  session's grid (``capacity_bucket``, ``segment_bucket``).
+  neighborhoods (the paper's untimed init phase), the problem's bucket:
+  its ``(capacity, n_hoods, n_regions)`` rounded up to the session's grid
+  (``capacity_bucket``, ``segment_bucket``), and the calibrated cost
+  model's prediction of one warm execute (``Plan.predicted_optimize_s``;
+  :meth:`Segmenter.cost_model`, ``repro_torch.planning``).
 * :meth:`Segmenter.compile`: the executable of one bucket (and batch
   size), built from its shapes alone and kept in an LRU cache keyed by
   :class:`ExecutableKey`.  PyTorch runs eagerly, so what a compile builds
   is the MAP loop's workspace (``kernels.ops.tick_workspace``, every buffer
   of the route's kernel) and binds the driver to it; a warm hit builds no
-  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them).  In the modes
+  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them; the budget
+  ledger's ``"compile"`` section counts misses and hits).  In the modes
   ``static`` and ``faithful`` a one-request executable binds the driver
   alone; a batched one binds it to the stack's ``em.DppBatchWorkspace``.
 * :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
@@ -26,7 +28,8 @@ Counterpart of ``repro.api.session.Segmenter``, without its cost model
   every lane in the modes ``static`` and ``faithful``); each lane equals
   its serial :meth:`execute` bit for bit.
   :meth:`Segmenter.segment_stack` submits a volume's slices under their
-  joint bucket.
+  joint bucket, or solves them one by one, as :meth:`choose_batch`
+  predicts faster.
 * :meth:`Segmenter.compile_ticked` / :meth:`Segmenter.ticked_pool` /
   :meth:`Segmenter.lane_state`: the continuous-batching engine's pool
   (``repro_torch.serving.engine``): one pool workspace per (bucket,
@@ -66,6 +69,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import DeviceLike, resolve_device, to_tensor
+from repro_torch import planning as planning_mod
+from repro_torch.analysis import budget as budget_mod
 from repro_torch.api.config import ExecutionConfig
 from repro_torch.api.errors import FallbackError, PlanError
 from repro_torch.core.pmrf import distributed as distributed_mod
@@ -74,6 +79,7 @@ from repro_torch.core.pmrf import energy as energy_mod
 from repro_torch.core.pmrf import pipeline as pipeline_mod
 from repro_torch.core.pmrf.hoods import Hoods, pad_hoods, stack_hoods
 from repro_torch.kernels.ref import TickShape
+from repro_torch.planning import legacy_batch_choice
 from repro_torch.testing import chaos as chaos_mod
 
 
@@ -119,6 +125,9 @@ class Plan:
     problem: pipeline_mod.Problem
     bucket: BucketKey
     init_seconds: float
+    # The cost model's estimate of one warm execute of this plan under the
+    # session's config: what the autotuner compares when routing.
+    predicted_optimize_s: Optional[float] = None
     # Padded inputs, memoised by (bucket, shards, K) and by (bucket, seed,
     # init, shards, K): repeat executes of the plan pay no padding.
     _padded: dict = field(default_factory=dict, repr=False, compare=False)
@@ -180,15 +189,6 @@ class _Pending(NamedTuple):
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def legacy_batch_choice(capacities: Sequence[int], platform: str) -> bool:
-    """``segment_stack``'s ``batch="auto"`` rule without the cost model (the
-    reference's ``planning.costmodel.legacy_batch_choice``): batch only on
-    an accelerator and only when every lane's capacity is within 2x of the
-    smallest (one bucket, bounded padding)."""
-    caps = list(capacities)
-    return len(caps) > 1 and max(caps) <= 2 * min(caps) and platform != "cpu"
 
 
 class Segmenter:
@@ -256,7 +256,37 @@ class Segmenter:
         )
         self._sync()
         init_s = time.perf_counter() - t0
-        return Plan(problem=problem, bucket=self.bucket_of(problem.hoods), init_seconds=init_s)
+        bucket = self.bucket_of(problem.hoods)
+        return Plan(
+            problem=problem, bucket=bucket, init_seconds=init_s,
+            predicted_optimize_s=self.cost_model().predict_solve(
+                mode=c.mode, bucket=bucket, n_labels=c.n_labels, shards=c.shards,
+                precision=c.precision, max_em_iters=c.max_em_iters,
+                max_map_iters=c.max_map_iters,
+            ),
+        )
+
+    def cost_model(self) -> planning_mod.CostModel:
+        """The calibrated plan cost model of this session's platform (the
+        device's: ``"gpu"`` on the card, ``"cpu"`` on the host); every
+        autotuned routing decision queries this one object."""
+        return planning_mod.model_for(self.config, device=self.device)
+
+    def choose_batch(
+        self, plans: Sequence[Plan], *, joint_bucket: Optional[BucketKey] = None
+    ) -> planning_mod.BatchDecision:
+        """The cost model's verdict on one lockstep solve of ``plans`` under
+        ``joint_bucket`` (default: their elementwise max) against solving
+        them one by one, each in its own bucket: what ``segment_stack``'s
+        ``batch="auto"`` routes on."""
+        if joint_bucket is None:
+            joint_bucket = BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
+        c = self.config
+        return self.cost_model().choose_batch(
+            mode=c.mode, buckets=[p.bucket for p in plans], joint_bucket=joint_bucket,
+            n_labels=c.n_labels, precision=c.precision, max_em_iters=c.max_em_iters,
+            max_map_iters=c.max_map_iters,
+        )
 
     # ------------------------------------------------------------------
     # phase 2: compile (cached)
@@ -328,8 +358,10 @@ class Segmenter:
         if exe is not None:
             self._cache.move_to_end(key)
             self.stats.hits += 1
+            budget_mod.LEDGER.bump("compile", "warm_hit")
             return exe
         self.stats.misses += 1
+        budget_mod.LEDGER.bump("compile", "lower_compile")
         t0 = time.perf_counter()
         workspace, em_config, key = self._build_with_policy(key, build)
         exe = self._cache[key] = Executable(
@@ -698,9 +730,16 @@ class Segmenter:
         ``batch="always"`` submits every slice under the stack's joint
         bucket (the elementwise max) so the whole volume runs as one
         batched solve; ``"never"`` solves the slices one by one, each in its
-        own bucket; ``"auto"`` batches by :func:`legacy_batch_choice` (on
-        the card, capacities within 2x of each other), in every mode.  A
-        sharded session runs serially and refuses ``"always"``."""
+        own bucket.  ``"auto"`` takes the side the calibrated cost model
+        predicts faster (:meth:`choose_batch`): the batched side priced at
+        the joint bucket with the lockstep-iteration inflation and the
+        platform's lane-serialization factor, the serial side at each
+        slice's own bucket, so a wide capacity spread shows up as padding
+        cost.  One slice, or a sharded session, runs serially.  With
+        ``REPRO_DISABLE_AUTOTUNE=1`` ``"auto"`` takes
+        :func:`~repro_torch.planning.legacy_batch_choice` instead (batch on
+        the card when the capacities are within 2x of each other).  Every
+        mode; a sharded session refuses ``"always"``."""
         if batch not in ("auto", "always", "never"):
             raise ValueError(f"batch must be auto/always/never, got {batch!r}")
         if batch == "always" and self.config.shards > 1:
@@ -715,11 +754,13 @@ class Segmenter:
         joint = BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
         if batch == "always":
             use_batch = True
-        elif batch == "never" or self.config.shards > 1:
+        elif batch == "never" or self.config.shards > 1 or len(plans) < 2:
             use_batch = False
-        else:
+        elif planning_mod.autotune_disabled():
             use_batch = legacy_batch_choice(
-                [p.problem.hoods.capacity for p in plans], self.device.type)
+                [p.problem.hoods.capacity for p in plans], planning_mod.platform_of(self.device))
+        else:
+            use_batch = self.choose_batch(plans, joint_bucket=joint).use_batch
         if use_batch:
             for p in plans:
                 self.submit(p, seed=seed, bucket=joint)

@@ -1,6 +1,7 @@
 """Oversegmentation (superpixels): the PMRF preprocessing step.
 
-Counterpart of ``repro.core.oversegment.slic``: grid-seeded k-means over
+Counterpart of ``repro.core.oversegment``.  :func:`grid_oversegment` is
+the trivial fixed-grid fallback; :func:`slic` is grid-seeded k-means over
 (y, x, intensity) features, with the reference's per-entry arithmetic and
 its first-index tie rule.  The reference builds the whole (pixels x seeds)
 distance matrix; at a 512x512 slice with 1024 seeds that is 268 M floats
@@ -108,3 +109,15 @@ def slic(
         c_x = torch.where(cnt > 0, sx / safe, c_x)
         c_i = torch.where(cnt > 0, si / safe, c_i)
     return assign(c_y, c_x, c_i).to(torch.int32).reshape(h, w)
+
+
+def grid_oversegment(image, block: int = 4, *, device: DeviceLike = None) -> torch.Tensor:
+    """Trivial fixed-grid oversegmentation (fallback / ablation mode): each
+    ``block`` x ``block`` tile one region, numbered row by row; an (H, W)
+    int32 label map on ``device`` (``None``: the CUDA device)."""
+    h, w = image.shape
+    gx = -(-w // block)
+    dev = resolve_device(device)
+    py = torch.arange(h, device=dev)[:, None] // block
+    px = torch.arange(w, device=dev)[None, :] // block
+    return (py * gx + px).to(torch.int32)

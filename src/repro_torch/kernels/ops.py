@@ -18,10 +18,12 @@ tick's, and ``segment_reduce.launches_ordered`` and ``launches_min``, the
 element-order ``add``'s and ``min``'s shares of ``segment_reduce``'s;
 :func:`segment_reduce_launches` splits them; :data:`LANE_STEPS` counts
 the steps of the modes' DPP workspaces, whose launches are
-``segment_reduce``'s).  :data:`WORKSPACE_BUILDS`
+``segment_reduce``'s).  ``WORKSPACE_BUILDS``
 counts the MAP-iteration workspaces built in this process: a session
 builds one per bucket (and one per ticked pool) and reuses it, so a warm
-solve adds none.
+solve adds none.  The count is the total of the budget ledger's
+``"trace"`` section (:data:`BUILDS`, one key per workspace kind), its one
+store.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import budget as _budget
 from repro_torch.kernels import em_tick as _em_tick
 from repro_torch.kernels import flash_attention as _flash_attention
 from repro_torch.kernels import map_step as _map_step
@@ -41,9 +44,11 @@ BACKENDS = ("auto", "torch")
 FLAG_CONVERGED, FLAG_DIVERGED = ref.FLAG_CONVERGED, ref.FLAG_DIVERGED
 TickShape = ref.TickShape
 
-#: MAP-iteration workspaces built in this process (every kind, the modes'
-#: DPP workspaces too: ``count_workspace_build``).
-WORKSPACE_BUILDS = 0
+#: MAP-iteration workspaces built in this process, by kind: the budget
+#: ledger's ``"trace"`` section itself (the modes' DPP workspaces are
+#: counted by ``count_workspace_build``).  ``WORKSPACE_BUILDS`` (a module
+#: attribute, read through ``__getattr__``) is its total.
+BUILDS = _budget.LEDGER.section("trace", keys=("tick", "batch_tick", "pool_tick", "map_step", "dpp"))
 #: Steps of the modes' DPP workspaces (``em.DppBatchWorkspace``,
 #: ``em.DppPoolWorkspace``) since the last ``reset_launch_counts``: one flat
 #: MAP iteration of every lane each, whose kernel launches are
@@ -51,10 +56,15 @@ WORKSPACE_BUILDS = 0
 LANE_STEPS = 0
 
 
-def count_workspace_build() -> None:
+def __getattr__(name: str):
+    if name == "WORKSPACE_BUILDS":
+        return _budget.LEDGER.total("trace")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def count_workspace_build(kind: str = "dpp") -> None:
     """Count a MAP-iteration workspace built outside this module."""
-    global WORKSPACE_BUILDS
-    WORKSPACE_BUILDS += 1
+    _budget.LEDGER.bump("trace", kind)
 
 
 def count_lane_step() -> None:
@@ -196,21 +206,20 @@ def tick_workspace(
     iteration and stopping at ``max_map_iters``
     (:class:`em_tick.PoolTickWorkspace`, one launch per micro-step; else
     :class:`ref.PlainPoolTickWorkspace`)."""
-    global WORKSPACE_BUILDS
     kernel = _use_kernel(backend, device)
     kw = dict(device=device, precision=precision, conv_tol=conv_tol, window=window)
     if pool and batch is None:
         raise ValueError("a pool workspace needs batch=B")
     if batch is None:
         cls = _em_tick.TickWorkspace if kernel else ref.PlainTickWorkspace
-        ws = cls(TickShape(*shape), **kw)
+        ws, kind = cls(TickShape(*shape), **kw), "tick"
     elif pool:
         cls = _em_tick.PoolTickWorkspace if kernel else ref.PlainPoolTickWorkspace
-        ws = cls(TickShape(*shape), batch, max_map_iters=max_map_iters, **kw)
+        ws, kind = cls(TickShape(*shape), batch, max_map_iters=max_map_iters, **kw), "pool_tick"
     else:
         cls = _em_tick.BatchTickWorkspace if kernel else ref.PlainBatchTickWorkspace
-        ws = cls(TickShape(*shape), batch, **kw)
-    WORKSPACE_BUILDS += 1
+        ws, kind = cls(TickShape(*shape), batch, **kw), "batch_tick"
+    count_workspace_build(kind)
     return ws
 
 
@@ -228,10 +237,9 @@ def map_step_workspace(
     a partition (``distributed.partition_hoods(hoods, n_shards)``):
     :class:`map_step.MapStepWorkspace` (one kernel launch per MAP
     iteration) for CUDA tensors, else :class:`ref.PlainMapStepWorkspace`."""
-    global WORKSPACE_BUILDS
     cls = _map_step.MapStepWorkspace if _use_kernel(backend, hoods.vertex) else ref.PlainMapStepWorkspace
     ws = cls(hoods, model, rank=rank, n_shards=n_shards, conv_tol=conv_tol, window=window)
-    WORKSPACE_BUILDS += 1
+    count_workspace_build("map_step")
     return ws
 
 

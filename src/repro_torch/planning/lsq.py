@@ -1,18 +1,24 @@
-"""The exponentially-decayed least-squares fit of ``cost(x) ~= a + b*x``
-(counterpart of ``repro.planning.lsq.DecayedAffineFit``), numpy and the
-standard library only.
+"""Least-squares machinery shared by the plan cost model and the serving
+engine (counterpart of ``repro.planning.lsq``), numpy and the standard
+library only.
 
-The serving engine runs it online over its (micro-steps, tick seconds)
-observations for ``tick_iters="auto"``.  The reference's calibrated cost
-model (and its ``nnls`` fitter) is not ported yet, so the fit's cold-start
-prior is the reference's own fallback, ``(5e-3, 5e-3)``.
+* :class:`DecayedAffineFit`: the exponentially-decayed least-squares fit
+  of ``cost(x) ~= a + b*x`` the serving engine runs online over its
+  (micro-steps, tick seconds) observations for ``tick_iters="auto"``,
+  seeded with the cost model's ``tick_cost_prior``.
+* :func:`nnls`: the deterministic non-negative ridge least squares the
+  calibration fit (``costmodel.fit_table``) solves, the reference's
+  float64 computation operation for operation, so that a table refits to
+  the reference's bytes.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
-__all__ = ["DecayedAffineFit"]
+import numpy as np
+
+__all__ = ["DecayedAffineFit", "nnls"]
 
 
 class DecayedAffineFit:
@@ -65,3 +71,47 @@ class DecayedAffineFit:
             if mean_x > 0:
                 return max(0.3 * mean_y, a_floor), max(0.7 * mean_y / mean_x, b_min)
         return max(default[0], a_floor), max(default[1], b_min)
+
+
+def nnls(
+    A: np.ndarray,
+    y: np.ndarray,
+    *,
+    l2: float = 1e-9,
+    iters: int = 4000,
+    scale: Optional[Sequence[float]] = None,
+) -> np.ndarray:
+    """Non-negative least squares: ``argmin_{x>=0} ||Ax - y||^2 + l2||x'||^2``.
+
+    Cyclic coordinate descent on the normal equations with projection to
+    the non-negative orthant: deterministic (fixed iteration order and
+    count, float64 throughout).  Columns are normalized to unit RMS so the
+    ridge term and the convergence rate are scale-free across features
+    spanning many orders of magnitude; ``scale`` overrides the factors.
+    Non-negative coefficients keep every fitted prediction monotone in the
+    execution axes.
+    """
+    A = np.asarray(A, np.float64)
+    y = np.asarray(y, np.float64)
+    if A.ndim != 2 or y.shape != (A.shape[0],):
+        raise ValueError(f"shape mismatch: A {A.shape}, y {y.shape}")
+    m, k = A.shape
+    if scale is None:
+        col_rms = np.sqrt(np.mean(A * A, axis=0))
+        col_rms = np.where(col_rms > 0, col_rms, 1.0)
+    else:
+        col_rms = np.asarray(scale, np.float64)
+        if col_rms.shape != (k,):
+            raise ValueError(f"scale must have shape ({k},), got {col_rms.shape}")
+    An = A / col_rms
+    G = An.T @ An + l2 * np.eye(k)
+    c = An.T @ y
+    x = np.zeros(k, np.float64)
+    for _ in range(iters):
+        for j in range(k):
+            gj = G[j, j]
+            if gj <= 0.0:
+                continue
+            r = c[j] - G[j] @ x + gj * x[j]
+            x[j] = max(r / gj, 0.0)
+    return x / col_rms

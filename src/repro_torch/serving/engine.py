@@ -24,9 +24,11 @@ so that done lanes retire and queued requests admit.  With
 tick times (``planning.lsq.DecayedAffineFit``) and picks the ladder size
 that minimises the expected cost per useful micro-step, with hysteresis.
 Every ladder size is compiled at pool bring-up and all of them run on the
-one pool workspace, so a switch is a cache hit that builds nothing.
-Until the cost model is ported (ROADMAP.md Queue 1, 'planning/') the
-fit's cold-start prior is the reference's fallback, ``(5e-3, 5e-3)``.
+one pool workspace, so a switch is a cache hit that builds nothing.  The
+fit starts from the calibrated cost model's prediction for the pool
+(``CostModel.tick_cost_prior``: the per-launch dispatch as ``a``, one pool
+micro-step as ``b``).  Each tick also counts into the budget ledger's
+``"serve"`` section (``ticks``, ``lane_steps``).
 
 Every request's result equals its serial ``Segmenter.execute`` bit for
 bit (labels, segmentation, mu, sigma, energies, iteration counts,
@@ -64,6 +66,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch import planning as planning_mod
+from repro_torch.analysis import budget as budget_mod
 from repro_torch.api.config import ExecutionConfig
 from repro_torch.api.errors import FallbackError, RequestError
 from repro_torch.api.session import BucketKey, Plan, Segmenter
@@ -82,8 +86,9 @@ OK_COMPLETION_STATUSES = ("converged", "max_iters")
 #: Default adaptive tick-size ladder (the reference's).
 DEFAULT_TICK_LADDER = (1, 2, 4, 8, 16)
 
-#: Cold-start ``(a, b)`` of the tick-cost fit: the reference's fallback,
-#: until the calibrated cost model is ported.
+#: Cold-start ``(a, b)`` of the tick-cost fit while the pool's bucket is
+#: unknown or the cost model is switched off (``REPRO_DISABLE_AUTOTUNE``):
+#: the reference's fallback.
 TICK_COST_PRIOR = (5e-3, 5e-3)
 
 
@@ -232,6 +237,7 @@ class SegmentationEngine:
         self._size_ticks: Dict[int, int] = {}
         self._size_s: Dict[int, float] = {}
         self._cm = DecayedAffineFit(decay=0.95)
+        self._tick_prior: Optional[Tuple[float, float]] = None
         self._steps_ewma: Optional[float] = None   # micro-steps per request
         self._desired_streak: Tuple[int, int] = (tick_iters, 0)
 
@@ -437,14 +443,32 @@ class SegmentationEngine:
         self._size_s[size] = self._size_s.get(size, 0.0) + duration
         self._cm.observe(steps, duration)
 
+    def _tick_cost_default(self) -> Tuple[float, float]:
+        """Cold-start ``(a, b)`` of the tick-cost fit: the calibrated cost
+        model's prediction for this pool (the session's platform, mode, K
+        and precision, the pool's bucket, ``max_batch`` lanes), taken once
+        the bucket is known; :data:`TICK_COST_PRIOR` while it is not, or
+        with the autotuner switched off."""
+        if self._tick_prior is not None:
+            return self._tick_prior
+        if self.bucket is None or planning_mod.autotune_disabled():
+            return TICK_COST_PRIOR
+        cfg = self.session.config
+        self._tick_prior = self.session.cost_model().tick_cost_prior(
+            mode=cfg.mode, bucket=self.bucket, width=self.max_batch,
+            n_labels=cfg.n_labels, precision=cfg.precision,
+        )
+        return self._tick_prior
+
     def cost_model(self) -> Tuple[float, float]:
-        """Fitted per-tick cost ``(a, b)``: ``cost ~= a + b*steps`` seconds.
-        The intercept is floored at the measured host overhead per tick
-        (the admit, advance and retire timers), so that a run of small
-        ticks cannot fit ``a`` to zero and lock the policy there."""
+        """Fitted per-tick cost ``(a, b)``: ``cost ~= a + b*steps`` seconds,
+        starting from :meth:`_tick_cost_default`.  The intercept is floored
+        at the measured host overhead per tick (the admit, advance and
+        retire timers), so that a run of small ticks cannot fit ``a`` to
+        zero and lock the policy there."""
         ph = self._phase_s
         a_floor = (ph["admit"] + ph["advance"] + ph["retire"]) / self.ticks if self.ticks else 0.0
-        return self._cm.fit(a_floor=a_floor, default=TICK_COST_PRIOR)
+        return self._cm.fit(a_floor=a_floor, default=self._tick_cost_default())
 
     def _request_steps_estimate(self) -> float:
         if self._steps_ewma is not None:
@@ -566,6 +590,8 @@ class SegmentationEngine:
         self.total_steps += steps
         self.lane_steps += n_active * steps
         self.steps_saved += self.tick_iters - steps
+        budget_mod.LEDGER.bump("serve", "ticks")
+        budget_mod.LEDGER.bump("serve", "lane_steps", n_active * steps)
         t3 = time.perf_counter()
         # Chaos never-converge holds: reset the held lanes' progress before
         # retirement, so that they can leave only by eviction.  Writes to
@@ -627,6 +653,7 @@ class SegmentationEngine:
                 "per_size": per_size,
                 "model_fixed_s": round(a, 6),
                 "model_per_step_s": round(b, 6),
+                "prior": list(self._tick_cost_default()),
                 "request_steps_est": round(self._request_steps_estimate(), 2),
             },
         }

@@ -1,8 +1,10 @@
-"""Run a function on several CPU ranks of a gloo process group.
+"""Run a function on several ranks of a process group.
 
-The sharded route's tests hold several ranks against one reference run.
+The sharded route's tests hold several CPU ranks against one reference
+run, and the calibration's sharded pass times N ranks on N cards.
 :func:`run_ranks` starts one ``spawn``ed process per rank; each joins a
-gloo group through a ``FileStore`` in the caller's directory, calls one of
+gloo group (``backend="nccl"``: an NCCL group, rank r on ``cuda:r``)
+through a ``FileStore`` in the caller's directory, calls one of
 the module-level functions below with its rank and the caller's payload
 (numpy arrays and plain values), and writes what it returns to a pickle.
 The caller gets the list of results in rank order, or an error: a rank
@@ -24,7 +26,8 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 
 
-def run_ranks(fn: Callable, world_size: int, workdir, payload: Any, timeout: float = 120.0) -> List[Any]:
+def run_ranks(fn: Callable, world_size: int, workdir, payload: Any, timeout: float = 120.0,
+              backend: str = "gloo") -> List[Any]:
     """``fn(rank, world_size, payload)`` on ``world_size`` spawned ranks."""
     workdir = Path(workdir)
     store = workdir / "filestore"
@@ -32,7 +35,8 @@ def run_ranks(fn: Callable, world_size: int, workdir, payload: Any, timeout: flo
     procs = [
         ctx.Process(
             target=_entry,
-            args=(fn, rank, world_size, str(store), payload, str(workdir / f"rank{rank}.pkl")),
+            args=(fn, rank, world_size, str(store), payload, str(workdir / f"rank{rank}.pkl"),
+                  backend),
             daemon=True,
         )
         for rank in range(world_size)
@@ -61,14 +65,16 @@ def run_ranks(fn: Callable, world_size: int, workdir, payload: Any, timeout: flo
     return results
 
 
-def _entry(fn, rank, world_size, store_path, payload, out_path) -> None:
+def _entry(fn, rank, world_size, store_path, payload, out_path, backend) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
+        if backend == "nccl":
+            torch.cuda.set_device(rank)
         store = dist.FileStore(store_path, world_size)
-        dist.init_process_group("gloo", store=store, rank=rank, world_size=world_size)
+        dist.init_process_group(backend, store=store, rank=rank, world_size=world_size)
         try:
             result = (True, fn(rank, world_size, payload))
         finally:

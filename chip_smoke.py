@@ -65,6 +65,21 @@ PyTorch version on the card, and drives six paths (serving last):
   session's and the engine's calls.  (d), in the serve phase: each
   stream's tick-cost prior from the model beside the engine's fitted
   ``(a, b)``;
+* analysis (after planning, before serving; ``repro_torch.analysis``):
+  (a) the op and host-read census of the warm K = 2 slice in each of
+  the three modes (``execute``, ``run_em``) and of the 16-slice K = 2
+  stack in each mode (``submit``/``drain``, ``run_em_batched``), each
+  equal scope by scope (MAP iteration, EM boundary) to the CPU's counts
+  in ``src/repro_torch/analysis/ANALYSIS.json``, with the profiler's
+  kernels per MAP iteration beside the census's launches; (b) the kernel
+  pass: the cases of every exported entry that launches a kernel under
+  ``compute-sanitizer`` (memcheck, racecheck, synccheck, initcheck) or,
+  where the sanitizer cannot run on the card, its guard fallback (a
+  guarding allocator under two poison bytes) and the barrier and
+  broadcast lints, with no finding, and each known-bad fixture caught
+  exactly once; the phase's seconds beside the card's name and power
+  limit; each kernel of the ``kernels`` line gains ``sanitizer`` (errors
+  by tool), ``sanitizer_via`` and ``sanitizer_cases``;
 * LM serving: ``qwen2-1.5b`` at full width and depth (28 layers, bf16,
   random weights from a ``torch.Generator`` seeded 0) behind
   ``ServingEngine(max_batch=4, max_seq=2048)``, greedy, 8 requests (4
@@ -4032,6 +4047,105 @@ def ptxas_report(name: str) -> dict:
             "spill_bytes": sum(k.get("spill_stores", 0) + k.get("spill_loads", 0) for k in out)}
 
 
+#: chip_smoke's kernel names to their sources under kernels/csrc.
+KERNEL_SOURCES = {"fused_em_tick": "em_tick", "segment_reduce": "segment_reduce",
+                  "fused_map_step": "map_step", "mrf_min_energy": "mrf_energy",
+                  "flash_attention": "flash_attention"}
+ANALYSIS_BASELINE = SRC / "repro_torch" / "analysis" / "ANALYSIS.json"
+ANALYSIS_MODES = ("static-pallas", "static", "faithful")
+
+
+def census_row(torch, census, baseline, driver: str, mode: str, what: str, solve) -> dict:
+    """The census of one warm ``solve`` on the card against the CPU's counts
+    of the same driver and mode at K = 2 in the committed baseline
+    (``analysis/ANALYSIS.json``), scope by scope (each count's maximum and
+    minimum over the scope's instances); beside it the profiler's device
+    operations of the same solve over its MAP iterations (the census's
+    MAP-iteration instances: a stack's lockstep iterations).  Fails on any
+    difference."""
+    solve()
+    with census.take() as cen:
+        solve()
+    card = cen.summary()
+    (entry,) = [e for e in baseline["census"] if (e["driver"], e["mode"], e["k"]) == (driver, mode, 2)]
+    cpu = entry["census"]
+    diff = [scope for scope in census.SCOPES
+            if (card[scope]["max"], card[scope]["min"]) != (cpu[scope]["max"], cpu[scope]["min"])]
+    prof = device_profile(torch, solve)
+    em_iters, map_iters = (card[s]["instances"] for s in (census.EM_BOUNDARY, census.MAP_ITERATION))
+    row = {"phase": "analysis", "part": "census", "what": what, "driver": driver, "mode": mode,
+           "K": 2, "equal_cpu": not diff,
+           "card": {s: {"instances": card[s]["instances"], "max": card[s]["max"]}
+                    for s in census.SCOPES},
+           "em_iterations": em_iters, "map_iterations": map_iters,
+           "census_launches_per_map_iteration": card["map_iteration"]["max"]["launches"],
+           "census_device_ops_per_map_iteration": card["map_iteration"]["max"]["device_ops"],
+           "profiler_per_solve": {k: prof[k] for k in ("kernels", "memsets", "memcpys")},
+           "profiler_kernels_per_map_iteration": prof["kernels"] / max(map_iters, 1)}
+    emit(row)
+    if diff:
+        for scope in diff:
+            emit({"phase": "analysis", "part": "census_diff", "what": what, "scope": scope,
+                  "card": card[scope], "cpu": cpu[scope], "by_op": dict(cen.by_op[scope])})
+        fail(f"{what}: the card's census differs from the CPU's in {diff}")
+    return row
+
+
+def run_analysis(torch, api, sl, st, smi_line: str) -> dict:
+    """The analysis phase (``repro_torch.analysis``), before serving: (a)
+    the census of the warm K = 2 slice in each mode (``Segmenter.execute``,
+    ``run_em``) and of the 16-slice K = 2 stack in each mode
+    (``submit``/``drain``, one ``run_em_batched``), each equal to the CPU's
+    counts scope by scope; (b) the kernel pass on the card
+    (``kernel_check.audit_card``: the cases of every launching entry under
+    ``compute-sanitizer``'s four tools, or, where the sanitizer cannot run
+    here, its guard fallback and the lints), which must report no finding
+    and catch each known-bad fixture exactly once.  Returns the kernel
+    pass's report for the ``kernels`` line; prints the phase's seconds."""
+    from repro_torch.analysis import census, kernel_check
+
+    t0 = time.perf_counter()
+    seed, dev = SLICE["seed"], torch.device(DEVICE)
+    baseline = json.loads(ANALYSIS_BASELINE.read_text())
+    rows = []
+    for mode in ANALYSIS_MODES:
+        seg = api.Segmenter(sl["config"].with_(mode=mode), device=dev)
+        rows.append(census_row(torch, census, baseline, "run_em", mode, f"K=2 slice {mode}",
+                               lambda seg=seg: seg.execute(sl["plan"], seed=seed)))
+    plans, joint = st["plans"], st["joint"]
+    for mode in ANALYSIS_MODES:
+        seg = api.Segmenter(st["seg"].config.with_(mode=mode), device=dev)
+
+        def drain(seg=seg):
+            for p in plans:
+                seg.submit(p, seed=seed, bucket=joint)
+            return seg.drain()
+
+        rows.append(census_row(torch, census, baseline, "run_em_batched", mode,
+                               f"{len(plans)}-slice K=2 stack {mode}", drain))
+    t_census = time.perf_counter() - t0
+    found, report = kernel_check.audit_card(
+        log=lambda m: emit({"phase": "analysis", "part": "kernel_pass_log", "msg": m}))
+    emit({"phase": "analysis", "part": "kernel_pass", "route": report["route"],
+          "sanitizer": report["sanitizer"], "sanitizer_version": report["sanitizer_version"],
+          "via": report["via"],
+          "per_kernel": report["per_kernel"], "fixtures": report["fixtures"],
+          "findings": [f.as_dict() for f in found]})
+    if found:
+        fail(f"kernel pass: {[(f.code, f.site, f.message) for f in found]}")
+    emit({"phase": "analysis", "part": "seconds", "census_s": t_census,
+          "kernel_pass_s": time.perf_counter() - t0 - t_census,
+          "total_s": time.perf_counter() - t0, "card": smi_line})
+    return report
+
+
+def analysis_entry(report: dict, name: str) -> dict:
+    """The ``kernels`` line's sanitizer keys of one kernel."""
+    src = KERNEL_SOURCES[name]
+    return {"sanitizer": report["per_kernel"][src], "sanitizer_via": report["via"],
+            "sanitizer_cases": report["cases"][src]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4071,7 +4185,13 @@ def main(argv=None) -> int:
     emit({"device": {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi_line,
                      "torch": torch.__version__, "cuda": torch.version.cuda}})
 
-    emit({"phase": "build", "build_s": _build.build_all(), "dir": str(_build.BUILD_DIR)})
+    from repro_torch.analysis import kernel_check
+
+    # The kernels, and the kernel pass's fixtures and guard allocator, one
+    # nvcc each, all started together.
+    emit({"phase": "build", "build_s": _build.build_all(_build.CSRC, kernel_check.FIXTURES,
+                                                        kernel_check.GUARD_SRC),
+          "dir": str(_build.BUILD_DIR)})
     tick_ptxas = ptxas_report("em_tick")
     emit({"phase": "ptxas", **tick_ptxas})
     step_ptxas = ptxas_report("map_step")
@@ -4222,6 +4342,10 @@ def main(argv=None) -> int:
     # budget ledger.
     run_planning(torch, api, ops, slice2, st2)
 
+    # The auditor: the census of the slice and the stack in every mode held
+    # to the CPU's, and the kernel pass on the card.
+    kpass = run_analysis(torch, api, slice2, st2, smi_line)
+
     # Fifth path: a request stream through the continuous-batching engine,
     # one launch of the tick's pool entry per micro-step, each lane at its
     # own MAP iteration; the pool entry against its plain version.
@@ -4240,6 +4364,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/em_tick.cu",
          "replaces": "src/repro/kernels/em_tick.py:253",
          "launches": launches["fused_em_tick"], **{k: step2[k] for k in step_keys},
+         **analysis_entry(kpass, "fused_em_tick"),
          "library_ms": None, "device_ops_per_warm_solve": solve_ops["device_ops"],
          "ptxas": {"spill_bytes": tick_ptxas["spill_bytes"],
                    "registers": {k["kernel"]: k.get("registers") for k in tick_ptxas["kernels"]}},
@@ -4260,6 +4385,7 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",
          "launches": launches["segment_reduce"], "max_abs_err": sr_err, **sr,
+         **analysis_entry(kpass, "segment_reduce"),
          "modes_launches_per_solve": {f"K={k} {m}": row["segment_reduce"]
                                       for (k, m), row in modes.items()},
          "modes_stack_launches_per_solve": {
@@ -4277,7 +4403,7 @@ def main(argv=None) -> int:
         {"name": "fused_map_step", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/map_step.cu",
          "replaces": "src/repro/kernels/map_step.py:148",
-         "launches": sharded_launches["fused_map_step"],
+         "launches": sharded_launches["fused_map_step"], **analysis_entry(kpass, "fused_map_step"),
          "max_abs_err": max([ms_err] + [c["max_abs_err"] for c in checked.values()]),
          **{k: sstep[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
                                   "ms_per_map_iteration", "stopping_launch")},
@@ -4288,12 +4414,14 @@ def main(argv=None) -> int:
         {"name": "mrf_min_energy", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/mrf_energy.cu",
          "replaces": "src/repro/kernels/mrf_energy.py:62",
-         "launches": sharded_launches["mrf_min_energy"], **mrf, "library_ms": None},
+         "launches": sharded_launches["mrf_min_energy"], **mrf, "library_ms": None,
+         **analysis_entry(kpass, "mrf_min_energy")},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": lm["launches"], "launches_tensor_cores": lm["launches_tc"],
-         "max_abs_err": flash_err, **flash, **flash_sass_hgmma()},
+         "max_abs_err": flash_err, **flash, **flash_sass_hgmma(),
+         **analysis_entry(kpass, "flash_attention")},
     ]})
     print(smi_line, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

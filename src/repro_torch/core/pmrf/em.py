@@ -54,6 +54,11 @@ and of its static pool micro-step (``_pool_tick_micro``).
 The JAX driver's ``while_loop``s are Python loops here.  The loop
 conditions need the MAP ``done`` flag on the host, so each MAP iteration
 reads one flag word from the device, and each EM boundary reads three.
+
+Every driver marks its hot scopes for the auditor's census
+(``repro_torch.analysis.census``): each MAP iteration and each EM
+boundary.  A driver call reads ``census.ACTIVE`` once; with no census
+taken the markers are tests of a local ``None``.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis import census as _census
 from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
@@ -72,6 +78,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import TickShape
 
 Tensor = torch.Tensor
+_MAP, _EM = _census.MAP_ITERATION, _census.EM_BOUNDARY
 
 CONV_TOL = 1.0e-4
 WINDOW = 3  # the paper's L
@@ -278,7 +285,10 @@ def _map_loop(hoods, model, labels, mu, sigma, config: EMConfig, ctx):
     hood_energy = torch.zeros((n_hoods,), dtype=torch.float32, device=dev)
     no = torch.zeros((), dtype=torch.bool, device=dev)
     i, done, diverged = 0, False, False
+    cen = _census.ACTIVE
     while i < config.max_map_iters and not done:
+        if cen is not None:
+            cen.enter(_MAP)
         labels, hood_energy = map_step(hoods, model, config.mode, labels, mu, sigma,
                                        backend=config.backend, ctx=ctx)
         hist = torch.cat([hood_energy[None], hist[:-1]])
@@ -288,6 +298,8 @@ def _map_loop(hoods, model, labels, mu, sigma, config: EMConfig, ctx):
         div = ~torch.all(torch.isfinite(hood_energy))
         conv, diverged = torch.stack([conv, div]).tolist()
         done = conv or diverged
+    if cen is not None:
+        cen.leave(_MAP)
     return labels, hood_energy, i, diverged
 
 
@@ -585,7 +597,10 @@ def _em_driver(
     map_total = 0
     status = STATUS_OK
     done = False
+    cen = _census.ACTIVE
     while em_i < config.max_em_iters and not done:
+        if cen is not None:
+            cen.enter(_EM)
         i = 0
         if not fused:
             labels, hood_energy, i, map_div = _map_loop(hoods, model, labels, mu, sigma, config, ctx)
@@ -597,9 +612,13 @@ def _em_driver(
             flag = 0
             ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
             while i < config.max_map_iters and not flag:
+                if cen is not None:
+                    cen.enter(_MAP)
                 i += 1
                 ws.step(i > WINDOW, i == config.max_map_iters)
                 flag = ws.flag()
+            if cen is not None:
+                cen.leave(_MAP)
             if i:
                 hood_energy, msums = ws.hood_e, ws.stats
             else:
@@ -614,6 +633,8 @@ def _em_driver(
             # launch that stops the loop only tests: its step is dropped.
             ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
             while True:
+                if cen is not None:
+                    cen.enter(_MAP)
                 more = i < config.max_map_iters
                 ws.step(i > WINDOW, step=more)
                 if i > WINDOW:
@@ -625,6 +646,8 @@ def _em_driver(
                     break
                 ctx.psum(ws.buffer)
                 i += 1
+            if cen is not None:
+                cen.leave(_MAP)
             hood_energy = ws.hood_e if i else torch.zeros((n_hoods,), dtype=f32, device=dev)
             # M-step: the sums the stopping launch took of the labels,
             # which every rank holds, so they need no collective.
@@ -644,6 +667,8 @@ def _em_driver(
         finished = div or not (em_i < config.max_em_iters and not em_conv)
         done = em_conv or div
         status = _boundary_status(div, deg, finished, em_conv, em_i, config.max_em_iters)
+    if cen is not None:
+        cen.leave(_EM)
 
     # The workspace's buffers belong to the plan.
     labels = ws.labels.clone() if fused else labels.clone()
@@ -749,7 +774,10 @@ def run_em_batched(
     running = [True] * batch   # lanes whose EM has not finished
     em_i = 0                   # every running lane is at the same EM iteration
     steps = 0
+    cen = _census.ACTIVE
     while em_i < config.max_em_iters and any(running):
+        if cen is not None:
+            cen.enter(_EM)
         lanes = list(running)
         ws.begin_em(mu, torch.maximum(sigma, model.sigma_min[:, None]), lanes)
         # MAP loop: per iteration one launch for the running lanes and one
@@ -758,6 +786,8 @@ def run_em_batched(
         in_map, flags, lane_map = list(lanes), [0] * batch, [0] * batch
         i = 0
         while i < config.max_map_iters and any(in_map):
+            if cen is not None:
+                cen.enter(_MAP)
             i += 1
             cap = i == config.max_map_iters
             ws.step(i > WINDOW, cap)
@@ -767,6 +797,8 @@ def run_em_batched(
                 if in_map[b]:
                     lane_map[b], flags[b] = i, words[b]
                     in_map[b] = not (words[b] or cap)
+        if cen is not None:
+            cen.leave(_MAP)
         if i:
             he, msums = ws.hood_e, ws.stats
         else:
@@ -800,6 +832,8 @@ def run_em_batched(
             running[b] = not (em_conv or div)
             status[b] = _boundary_status(div, deg_l[b], finished, em_conv, em_i,
                                          config.max_em_iters)
+    if cen is not None:
+        cen.leave(_EM)
 
     labels, hood_energy = ws.labels.clone(), hood_energy.clone()
     return BatchedEMResult(
@@ -982,6 +1016,9 @@ def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config:
     divergence and degeneracy tests, the total-energy rings) and selected
     into those lanes, then one host read; the lanes that go on start their
     next EM iteration."""
+    cen = _census.ACTIVE
+    if cen is not None:
+        cen.enter(_EM)
     ws, dev = state.workspace, state.mu.device
     msums = ws.stats
     model = state.model()
@@ -1014,6 +1051,8 @@ def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config:
             go_on.append(b)
     if go_on:
         state.begin(go_on)
+    if cen is not None:
+        cen.leave(_EM)
 
 
 def _tick_micro(state: TickState, config: EMConfig) -> None:
@@ -1021,6 +1060,9 @@ def _tick_micro(state: TickState, config: EMConfig) -> None:
     next MAP iteration) and one read of the flag words; the host mirrors
     each lane's stopping rule (flag word set, or the cap), as the step
     applies it, and runs the EM boundary of the lanes that stopped."""
+    cen = _census.ACTIVE
+    if cen is not None:
+        cen.enter(_MAP)
     ws = state.workspace
     state.micro_steps += 1
     ws.step()
@@ -1032,6 +1074,8 @@ def _tick_micro(state: TickState, config: EMConfig) -> None:
         state.map_i[b] += 1
         if words[b] or state.map_i[b] == config.max_map_iters:
             stopped.append(b)
+    if cen is not None:
+        cen.leave(_MAP)
     if stopped:
         _tick_boundary(state, stopped, words, config)
 

@@ -193,7 +193,7 @@ def min_energies_faithful(
     bits, so the match finds it and the result equals the static mode's."""
     n_labels = int(energies.shape[0])
     h_pad = hoods.capacity
-    big = torch.tensor(_BIG, dtype=energies.dtype, device=energies.device)
+    big = energies.new_full((), _BIG)  # a fill on the device, no host copy
     if n_labels == 2:
         rep_e = energies[hoods.rep_test_label.long(), hoods.rep_old_index.long()]
         rep_e = torch.where(hoods.rep_valid, rep_e, big)
@@ -542,7 +542,7 @@ def min_energies_faithful_lanes(
     tiles its energies (a K = 2 request in a K = 3 pool takes the tiled
     form: the minimum is one of its inputs' bits either way)."""
     batch, n_labels, h_pad = (int(s) for s in energies.shape)
-    big = torch.tensor(_BIG, dtype=energies.dtype, device=energies.device)
+    big = energies.new_full((), _BIG)  # a fill on the device, no host copy
     if n_labels == 2:
         index = hoods.rep_test_label.long() * h_pad + hoods.rep_old_index.long()
         rep_e = torch.gather(energies.reshape(batch, 2 * h_pad), 1, index)

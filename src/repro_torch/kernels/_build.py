@@ -5,7 +5,10 @@ interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-under ``build/repro_torch_kernels/`` at the repository root.  The file
+under ``build/repro_torch_kernels/`` at the repository root.  ``load``
+and ``function`` also take another source directory (``src_dir``: the
+auditor's allocator and fixtures, ``repro_torch/analysis``), whose
+libraries go to a subdirectory named after it.  The file
 name carries a hash of the source, the headers under ``csrc/`` and the
 flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  Nothing here runs at import:
@@ -26,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -38,12 +41,12 @@ NVCC_FLAGS = (
 )
 
 _lock = threading.Lock()
-_libs: Dict[str, ctypes.CDLL] = {}
+_libs: Dict[Tuple[Path, str], ctypes.CDLL] = {}
 
 
-def sources() -> List[str]:
-    """Kernel names: one per ``csrc/<name>.cu``."""
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
+def sources(src_dir: Optional[Path] = None) -> List[str]:
+    """Kernel names: one per ``<src_dir>/<name>.cu`` (default ``csrc``)."""
+    return sorted(p.stem for p in (src_dir or CSRC).glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -60,22 +63,27 @@ def _nvcc() -> str:
     )
 
 
-def _target(name: str) -> Path:
-    """The library of ``csrc/<name>.cu``: its name hashes the source, every
-    header under ``csrc/`` (any source may include them) and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
+def _target(name: str, src_dir: Optional[Path] = None) -> Path:
+    """The library of ``<src_dir>/<name>.cu`` (default ``csrc``): its name
+    hashes the source, every header beside it (any source may include
+    them) and the flags."""
+    src_dir = src_dir or CSRC
+    h = hashlib.sha256((src_dir / f"{name}.cu").read_bytes())
+    for header in sorted(src_dir.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+    out_dir = BUILD_DIR if src_dir == CSRC else BUILD_DIR / src_dir.name
+    return out_dir / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def _start(name: str) -> Tuple[subprocess.Popen, Path, Path]:
+def _start(name: str, src_dir: Optional[Path] = None) -> Tuple[subprocess.Popen, Path, Path]:
     """Start ``nvcc`` on one source; it writes a temporary file that
     ``_finish`` renames into place."""
-    out = _target(name)
+    src_dir = src_dir or CSRC
+    out = _target(name, src_dir)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src_dir / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
@@ -92,16 +100,18 @@ def _finish(name: str, job: Tuple[subprocess.Popen, Path, Path]) -> None:
     os.replace(tmp, out)
 
 
-def build_all() -> float:
-    """Compile every source that has no current library, all ``nvcc``
-    processes at once; returns the seconds it took."""
+def build_all(*src_dirs: Path) -> float:
+    """Compile every source of ``src_dirs`` (default ``csrc``) that has no
+    current library, all ``nvcc`` processes at once; returns the seconds
+    it took."""
     t0 = time.perf_counter()
     with _lock:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        todo = [n for n in sources() if not _target(n).exists()]
-        jobs = {n: _start(n) for n in todo}
+        todo = [(n, d) for d in (src_dirs or (CSRC,)) for n in sources(d)
+                if not _target(n, d).exists()]
+        jobs = {(n, d): _start(n, d) for n, d in todo}
         errors = []
-        for n, job in jobs.items():
+        for (n, _), job in jobs.items():
             try:
                 _finish(n, job)
             except RuntimeError as e:
@@ -111,33 +121,37 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _libs.get(name)
+def load(name: str, src_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library of ``<src_dir>/<name>.cu`` (default ``csrc``),
+    built first if needed."""
+    src_dir = src_dir or CSRC
+    key = (src_dir, name)
+    lib = _libs.get(key)
     if lib is not None:
         return lib
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            target = _target(name)
+            target = _target(name, src_dir)
             if not target.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                _finish(name, _start(name))
+                _finish(name, _start(name, src_dir))
             lib = ctypes.CDLL(str(target))
-            lib.repro_error_string.argtypes = [ctypes.c_int]
-            lib.repro_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            if hasattr(lib, "repro_error_string"):
+                lib.repro_error_string.argtypes = [ctypes.c_int]
+                lib.repro_error_string.restype = ctypes.c_char_p
+            _libs[key] = lib
     return lib
 
 
-def function(name: str, symbol: str, argtypes: List[type]) -> Callable[..., None]:
-    """A C entry point of ``csrc/<name>.cu`` that returns a CUDA error code,
-    wrapped to raise :class:`RuntimeError` when the code is not 0.
+def function(name: str, symbol: str, argtypes: List[type],
+             src_dir: Optional[Path] = None) -> Callable[..., None]:
+    """A C entry point of ``<src_dir>/<name>.cu`` that returns a CUDA error
+    code, wrapped to raise :class:`RuntimeError` when the code is not 0.
 
     Every pointer and the stream must be declared ``ctypes.c_void_p`` in
     ``argtypes``, or ctypes passes them as 32-bit ints.
     """
-    lib = load(name)
+    lib = load(name, src_dir)
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int

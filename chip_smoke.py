@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives six paths (serving last):
+PyTorch version on the card, and drives these paths (serving last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
@@ -86,7 +86,26 @@ PyTorch version on the card, and drives six paths (serving last):
   prompts of 512 tokens, 4 of 1024, from ``numpy.random.default_rng(0)``)
   of 32 new tokens each: one ``flash_attention`` launch per layer and
   prefilled request, 224 in all, every one on the bf16 tensor-core
-  kernel (``flash_attention.launches_tc``).
+  kernel (``flash_attention.launches_tc``);
+* LM-MoE serving, the same traffic twice per model (``LM_MOE``):
+  ``deepseek-v2-lite-16b`` whole (27 layers, MLA, 64 experts top-6 and 2
+  shared; bf16, 0 kernel launches: its attention is the plain MLA latent
+  scan, as the reference's) and ``qwen3-moe-235b-a22b`` at full width with
+  its depth cut to 4 layers (128 experts top-8; 32 ``flash_attention``
+  launches, all on the tensor-core kernel, at (1, 64, 4, S, 128), group
+  16).  ``lm_moe_serve`` lines: parameters, init seconds, peak memory,
+  tok/s, TTFT, prefill ms by length, the share of (token, choice) lanes
+  the capacity dropped per dispatch size from ``moe.logged``, launches,
+  and the second run's tokens bit for bit the first's.
+  ``lm_moe_kernel_vs_plain`` (qwen3-moe): the dense family's limits (a)
+  and (b) below, with the tokens whose expert set differs between the
+  paths and the plain path's k-th minus (k+1)-th router logit.
+  ``lm_moe_card_vs_cpu``: one float32 ``moe_ffn`` per model at full width
+  over 1024 tokens on the card and on the CPU (expert sets equal apart
+  from router near-ties within 1e-5, keep masks and dropped counts equal,
+  outputs within 1e-4), and for deepseek one ``mla_attn`` (1e-4).
+  ``lm_moe_seconds`` lines: each model's and the phase's seconds beside
+  the card's name and power limit.
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -109,7 +128,8 @@ profiler lost (``device_profile``).  Float32 products run in full
 float32 (TF32 off, the defaults, set explicitly).  After the build a ``ptxas`` line gives the registers
 and spills of the tensor-core flash kernels (any spill in the flash
 library fails the run); the
-``flash_attention`` timing lines give both model shapes with their device
+``flash_attention`` timing lines give the model shapes (qwen2-1.5b's and
+qwen3-moe's) with their device
 times (``torch.profiler``), ``scaled_dot_product_attention`` beside them
 and the share of the bound; the ``kernels`` line adds the count of
 ``HGMMA`` instructions in the flash library's SASS where ``cuobjdump``
@@ -336,6 +356,7 @@ Tolerances (kernel against plain version, same inputs, on the card):
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -355,11 +376,18 @@ SLICE = dict(size=512, grid=32, seed=0)
 # The LM serving path: qwen2-1.5b at full width and depth, random weights.
 LM = dict(arch="qwen2-1.5b", max_batch=4, max_seq=2048, lengths=(512, 1024), per_length=4,
           max_new=32, seed=0)
+# The MoE families on LM's traffic: deepseek-v2-lite whole; qwen3-moe at
+# full width, its 94 layers (470 GB of bf16) cut to 4 to fit one card.
+LM_MOE = (("deepseek-v2-lite-16b", None), ("qwen3-moe-235b-a22b", 4))
+MOE_CHECK_TOKENS = 1024  # tokens of the card-against-CPU dispatch check
+MOE_TIE = 1e-5  # router logits closer than this may order differently on the card and the CPU
 # flash_attention checks: (B, Hq, Hkv, S, D).  The reference tests' shapes
 # and a ragged S, f32 and bf16, causal and not; the model's shape, bf16 causal.
 FLASH_REF_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 16),
                     (1, 2, 1, 512, 64), (1, 4, 2, 200, 32)]
 FLASH_MODEL_SHAPES = [(1, 12, 2, 512, 128), (1, 12, 2, 1024, 128)]
+# qwen3-moe's prefill calls: 64 q heads on 4 kv heads (group 16).
+FLASH_MOE_SHAPES = [(1, 64, 4, 512, 128), (1, 64, 4, 1024, 128)]
 # Shapes that reach the bf16 tensor-core kernel off the model's path: a
 # ragged S with B = 2 at D = 128, and S shorter than one 64-row tile at D = 64.
 FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
@@ -3702,11 +3730,11 @@ def flash_launch(ops, q, k, v, causal: bool) -> tuple:
 def check_flash(torch, ops, dev) -> float:
     """flash_attention kernel against its plain version on the card: the
     reference tests' shapes and a ragged S in f32 and bf16, causal and not,
-    the model's shapes in bf16 causal, and two more shapes of the bf16
+    the models' shapes (qwen2-1.5b's, qwen3-moe's) in bf16 causal, and two more shapes of the bf16
     tensor-core kernel.  Each case names the kernel it went to.  Returns
     the largest error."""
     cases = [(sh, dt, c) for sh in FLASH_REF_SHAPES for dt in FLASH_TOL for c in (False, True)]
-    cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES]
+    cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES + FLASH_MOE_SHAPES]
     cases += [(sh, "bfloat16", c) for sh in FLASH_TC_SHAPES for c in (False, True)]
     worst, rows = 0.0, []
     for i, (shape, dtype, causal) in enumerate(cases):
@@ -3814,6 +3842,40 @@ def prefill_last_logits(torch, api, cfg, params, prompts, dev, backend: str) -> 
     return out
 
 
+def profile_lm(torch, api, cfg, params, prompts, dev) -> None:
+    """``profile`` lines of one prefill of the longest prompt and one
+    decode step at B = ``max_batch``, t = the longest prompt: wall time
+    (best of 3) and the device's idle share against it."""
+    long_prompt = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
+
+    def prefill():
+        with torch.inference_mode():
+            api.prefill(params, {"tokens": long_prompt}, cfg)
+
+    cache = api.init_cache(cfg, LM["max_batch"], LM["max_seq"], device=dev)
+    cache["t"] = torch.tensor(max(LM["lengths"]), dtype=torch.int32)
+    last = torch.zeros((LM["max_batch"], 1), dtype=torch.int64, device=dev)
+
+    def decode():
+        with torch.inference_mode():
+            api.decode_step(params, dict(cache), {"tokens": last}, cfg)
+
+    for what, fn in ((f"prefill S={max(LM['lengths'])}", prefill),
+                     (f"decode step B={LM['max_batch']} t={max(LM['lengths'])}", decode)):
+        fn()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        prof = device_profile(torch, fn)
+        emit({"phase": "profile", "what": f"LM {what}, {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}",
+              "wall_s_unprofiled": min(walls),
+              "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / min(walls), **prof})
+
+
 def run_lm(torch, ops, dev, profile: bool) -> dict:
     """The LM serving path at qwen2-1.5b's full width and depth, then the
     kernel path held against the plain path: (a) a 2-layer f32 variant at
@@ -3896,8 +3958,11 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
                        for r in range(n_req))
     err_a = max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p))
     close_a = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(logits_k, logits_p))
+    scale_a = max(b.abs().max().item() for b in logits_p)
     res_a = {"layers": 2, "dtype": "float32", "greedy_tokens_equal": tokens_equal,
              "logits_max_abs_err": err_a, "logits_within_rtol_1e-4": close_a,
+             "logits_max_abs": scale_a, "logits_err_within_1e-4_of_max_abs": err_a <= 1e-4 * scale_a,
+             "logits_err_by_request": [(a - b).abs().max().item() for a, b in zip(logits_k, logits_p)],
              "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
 
     # (b) the 28-layer bf16 model: first generated token and logits cosine.
@@ -3907,6 +3972,9 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     if ops.launch_counts() != before:
         fail("bf16 check: the plain path launched a kernel")
     equal = [int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p)]
+    # a miss where the plain logits of the two tokens lie within one bf16 spacing
+    at_tie = [r for r, (a, b) in enumerate(zip(logits_k, logits_p))
+              if not equal[r] and (b.max() - b[a.argmax()]).item() <= bf16_ulp(b.max().item())]
     first_equal = sum(equal)
     cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
     engine_first = sum(int(comps[r].tokens[0] == int(logits_k[r].argmax())) for r in range(n_req))
@@ -3931,40 +3999,13 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     del params_a
 
     if profile:
-        long_prompt = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
-
-        def prefill():
-            with torch.inference_mode():
-                api.prefill(params, {"tokens": long_prompt}, cfg)
-
-        cache = api.init_cache(cfg, LM["max_batch"], LM["max_seq"], device=dev)
-        cache["t"] = torch.tensor(max(LM["lengths"]), dtype=torch.int32)
-        last = torch.zeros((LM["max_batch"], 1), dtype=torch.int64, device=dev)
-
-        def decode():
-            with torch.inference_mode():
-                api.decode_step(params, dict(cache), {"tokens": last}, cfg)
-
-        for what, fn in ((f"prefill S={max(LM['lengths'])}", prefill),
-                         (f"decode step B={LM['max_batch']} t={max(LM['lengths'])}", decode)):
-            fn()
-            torch.cuda.synchronize()
-            walls = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            prof = device_profile(torch, fn)
-            emit({"phase": "profile", "what": f"LM {what}, {cfg.n_layers} layers {cfg.param_dtype}",
-                  "wall_s_unprofiled": min(walls),
-                  "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / min(walls), **prof})
+        profile_lm(torch, api, cfg, params, prompts, dev)
     return {"launches": launches["flash_attention"], "launches_tc": launches_tc, "serve": out}
 
 
-def time_flash(torch, ops, dev, profile: bool) -> dict:
-    """The flash kernel at the LM path's two calls (S = 512 and 1024, bf16,
-    causal): its time per call (CUDA events over back-to-back calls, the
+def time_flash(torch, ops, dev, profile: bool, shapes=None) -> dict:
+    """The flash kernel at the LM path's two calls (``shapes``, by default
+    qwen2-1.5b's at S = 512 and 1024, bf16, causal): its time per call (CUDA events over back-to-back calls, the
     host's share included) and on the device (``torch.profiler``), the
     plain version's time, one library call's (``scaled_dot_product_attention``,
     per call and on the device), and the bound from the call's bytes and
@@ -3973,7 +4014,7 @@ def time_flash(torch, ops, dev, profile: bool) -> dict:
     import torch.nn.functional as F
 
     rows = []
-    for shape in FLASH_MODEL_SHAPES:
+    for shape in shapes or FLASH_MODEL_SHAPES:
         b, hq, hkv, s, d = shape
         q, k, v = flash_inputs(torch, shape, "bfloat16", dev, seed=99)
         kern = lambda: ops.flash_attention(q, k, v, causal=True)
@@ -4006,6 +4047,277 @@ def time_flash(torch, ops, dev, profile: bool) -> dict:
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by")
     return {**{k: rows[-1][k] for k in keys},
             "by_shape": {str(r["shape"][3]): {k: r[k] for k in keys} for r in rows}}
+
+
+def expert_set_diffs(torch, kern: list, plain: list, k: int, per_call: int) -> dict:
+    """Tokens whose expert set differs between two runs' dispatches (same
+    calls in the same order), with the plain run's k-th minus (k+1)-th
+    router logit for each; ``by_request`` counts them per ``per_call``
+    dispatches (one prefill)."""
+    margins, by_request = [], []
+    for i, (dk, dp) in enumerate(zip(kern, plain)):
+        if i % per_call == 0:
+            by_request.append(0)
+        diff = (dk.experts.sort(dim=1).values != dp.experts.sort(dim=1).values).any(dim=1)
+        n = int(diff.sum())
+        if n:
+            top = dp.logits.topk(k + 1, dim=-1).values
+            margins += (top[:, k - 1] - top[:, k])[diff].tolist()
+            by_request[-1] += n
+    return {"tokens": len(margins), "by_request": by_request,
+            "plain_kth_minus_next": sorted(margins)[:16]}
+
+
+def moe_card_vs_cpu(torch, cfg, dev) -> dict:
+    """The dispatch, which no kernel holds: one ``moe_ffn`` of a random
+    float32 layer at full width over 1 x ``MOE_CHECK_TOKENS`` tokens (numpy
+    seed 0) on the card and on the CPU.  Expert sets must agree on every
+    token whose top-(k+1) router logits are more than ``MOE_TIE`` apart,
+    keep masks and dropped counts everywhere, outputs within rtol/atol
+    1e-4 on the tokens whose sets agree.  For MLA, one ``mla_attn`` over
+    the same tokens within 1e-4."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    k = cfg.moe_top_k
+    x_np = np.random.default_rng(0).standard_normal((1, MOE_CHECK_TOKENS, cfg.d_model)).astype(np.float32)
+    p = M.moe_init(torch.Generator(device=dev).manual_seed(1), cfg, torch.float32)
+    p_cpu = copy.deepcopy(p).cpu()
+    x, x_cpu = torch.from_numpy(x_np).to(dev), torch.from_numpy(x_np)
+    with torch.inference_mode():
+        out, out_cpu = M.moe_ffn(p, x, cfg).cpu(), M.moe_ffn(p_cpu, x_cpu, cfg)
+        d, d_cpu = M.dispatch(p, x[0], cfg), M.dispatch(p_cpu, x_cpu[0], cfg)
+    top = d_cpu.logits.topk(k + 1, dim=-1).values
+    tied = ((top[:, :-1] - top[:, 1:]) <= MOE_TIE).any(dim=1)
+    agree = (d.experts.cpu().sort(dim=1).values == d_cpu.experts.sort(dim=1).values).all(dim=1)
+    keep_equal = bool((d.keep_by_lane().cpu() == d_cpu.keep_by_lane()).all())
+    dropped = [int(dd.local.sum() - dd.keep.sum()) for dd in (d, d_cpu)]
+    err = (out[0][agree] - out_cpu[0][agree]).abs().max().item()
+    row = {"phase": "lm_moe_card_vs_cpu", "arch": cfg.name, "tokens": MOE_CHECK_TOKENS, "dtype": "float32",
+           "capacity": d.cap, "near_ties": int(tied.sum()), "sets_differ": int((~agree).sum()),
+           "sets_differ_apart_from_near_ties": int((~agree & ~tied).sum()), "keep_equal": keep_equal,
+           "dropped_card": dropped[0], "dropped_cpu": dropped[1], "moe_ffn_max_abs_err": err,
+           "moe_ffn_within_1e-4": bool(torch.allclose(out[0][agree], out_cpu[0][agree], rtol=1e-4, atol=1e-4))}
+    del p, p_cpu
+    if cfg.family == "mla_moe":
+        a = A.mla_init(torch.Generator(device=dev).manual_seed(2), cfg, torch.float32)
+        with torch.inference_mode():
+            att, att_cpu = A.mla_attn(a, x, cfg).cpu(), A.mla_attn(copy.deepcopy(a).cpu(), x_cpu, cfg)
+        row["mla_attn_max_abs_err"] = (att - att_cpu).abs().max().item()
+        row["mla_attn_within_1e-4"] = bool(torch.allclose(att, att_cpu, rtol=1e-4, atol=1e-4))
+    emit(row)
+    if row["sets_differ_apart_from_near_ties"] or not keep_equal or dropped[0] != dropped[1]:
+        fail(f"{cfg.name}: the card's dispatch differs from the CPU's: {row}")
+    if not row["moe_ffn_within_1e-4"] or not row.get("mla_attn_within_1e-4", True):
+        fail(f"{cfg.name}: the card's moe_ffn or mla_attn differs from the CPU's beyond 1e-4: {row}")
+    return row
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bfloat16 numbers (8 significant bits) at ``x``."""
+    return 2.0 ** (math.frexp(abs(x))[1] - 8) if x else 2.0 ** -133
+
+
+def moe_kernel_vs_plain(torch, ops, serving, api, cfg, params, prompts, dev) -> dict:
+    """qwen3-moe's kernel path (flash prefill) against its plain path, with
+    the dense family's limits, each reported as such: (a) a 2-layer
+    float32 variant at full width, greedy tokens equal and prefill logits
+    within rtol 1e-4 / atol 1e-5; (b) the bf16 model, first token equal on
+    all but one request and logits cosine >= 0.99.  Each part reports the
+    tokens whose expert set differs between the paths at any layer.
+
+    Two limits are held in the form the measurement supports (PERF.md
+    §6, PR 27): (a)'s logits within 1e-4 of their largest magnitude (the
+    f32 kernel's own rounding, about 1e-6 on the attention output, grows
+    to about 1e-5 on the logits over two layers in either family, at the
+    element-wise limit's atol); (b)'s first-token misses count against
+    the limit only where the plain path's logits of the two tokens are
+    more than one bfloat16 spacing apart (a tie at the logits' resolution
+    is the near-tie the routing lines show)."""
+    import dataclasses
+
+    from repro_torch.models import moe as M
+
+    n_req, k = len(prompts), cfg.moe_top_k
+
+    def logits_and_dispatches(c, p, backend):
+        with M.logged() as log:
+            out = prefill_last_logits(torch, api, c, p, prompts, dev, backend)
+        return out, log.dispatches
+
+    cfg_a = dataclasses.replace(cfg, n_layers=2, param_dtype="float32", compute_dtype="float32")
+    params_a = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg_a)
+    ops.reset_launch_counts()
+    kern_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "auto")
+    launches_a = ops.launch_counts()["flash_attention"]
+    plain_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "torch")
+    logits_k, disp_k = logits_and_dispatches(cfg_a, params_a, "auto")
+    before = ops.launch_counts()
+    logits_p, disp_p = logits_and_dispatches(cfg_a, params_a, "torch")
+    if ops.launch_counts() != before or launches_a != cfg_a.n_layers * n_req:
+        fail(f"{cfg.name} f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
+    tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
+                       for r in range(n_req))
+    err_a = max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p))
+    close_a = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(logits_k, logits_p))
+    scale_a = max(b.abs().max().item() for b in logits_p)
+    res_a = {"layers": 2, "dtype": "float32", "greedy_tokens_equal": tokens_equal,
+             "logits_max_abs_err": err_a, "logits_within_rtol_1e-4": close_a,
+             "logits_max_abs": scale_a, "logits_err_within_1e-4_of_max_abs": err_a <= 1e-4 * scale_a,
+             "logits_err_by_request": [(a - b).abs().max().item() for a, b in zip(logits_k, logits_p)],
+             "expert_sets_differ": expert_set_diffs(torch, disp_k, disp_p, k, cfg_a.n_layers),
+             "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
+    del params_a, kern_a, plain_a, disp_k, disp_p
+    gc_cuda(torch)
+
+    logits_k, disp_k = logits_and_dispatches(cfg, params, "auto")
+    before = ops.launch_counts()
+    logits_p, disp_p = logits_and_dispatches(cfg, params, "torch")
+    if ops.launch_counts() != before:
+        fail(f"{cfg.name} bf16 check: the plain path launched a kernel")
+    equal = [int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p)]
+    # a miss where the plain logits of the two tokens lie within one bf16 spacing
+    at_tie = [r for r, (a, b) in enumerate(zip(logits_k, logits_p))
+              if not equal[r] and (b.max() - b[a.argmax()]).item() <= bf16_ulp(b.max().item())]
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
+    top2 = [b.float().topk(2).values for b in logits_p]
+    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, "first_token_equal": sum(equal), "of": n_req,
+             "first_token_equal_by_request": equal, "misses_at_a_bf16_tie": at_tie,
+             "plain_top1_minus_top2": [(t[0] - t[1]).item() for t in top2],
+             "min_cosine": min(cos), "cosine": cos,
+             "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p)),
+             "expert_sets_differ": expert_set_diffs(torch, disp_k, disp_p, k, cfg.n_layers)}
+    emit({"phase": "lm_moe_kernel_vs_plain", "arch": cfg.name, "f32_2_layers": res_a,
+          f"bf16_{cfg.n_layers}_layers": res_b})
+    if not tokens_equal:
+        fail(f"{cfg.name} f32 2-layer model: greedy tokens differ between the kernel and plain paths")
+    if not res_a["logits_err_within_1e-4_of_max_abs"]:
+        fail(f"{cfg.name} f32 2-layer model: prefill logits differ by {err_a}, beyond 1e-4 of {scale_a}")
+    if sum(equal) + len(at_tie) < n_req - 1:
+        fail(f"{cfg.name} bf16 model: first token equal on {sum(equal)} of {n_req} requests, "
+             f"{len(at_tie)} more at a bf16 tie")
+    if min(cos) < 0.99:
+        fail(f"{cfg.name} bf16 model: prefill logits cosine {min(cos)} below 0.99")
+    return {"f32_2_layers": res_a, "bf16": res_b}
+
+
+def gc_cuda(torch) -> None:
+    """Free what Python no longer references, and the allocator's cache."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_lm_moe(torch, ops, dev, profile: bool, smi_line: str) -> dict:
+    """The MoE families on the LM path's traffic (``LM_MOE``): each model
+    serves the 8 requests twice (the second run must repeat the tokens bit
+    for bit: no atomic in the dispatch or the combine), with the share of
+    lanes its capacity dropped per prefill length from the port's own
+    dispatch (``moe.logged``); qwen3-moe's kernel path against its plain
+    path; the dispatch (and MLA) card against CPU.  Returns the flash
+    launches of qwen3-moe's run for the ``kernels`` line."""
+    import dataclasses
+
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import moe as M
+    from repro_torch.models.registry import get_api
+
+    t_phase = time.perf_counter()
+    flash_launches = {}
+    for arch, n_layers in LM_MOE:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        api = get_api(cfg)
+        prompts = lm_prompts(cfg)
+        n_req = len(prompts)
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9  # float32 draws of the largest tensor included
+        n_params = sum(p.numel() for p in params.parameters())
+        serve(torch, serving, cfg, params, [prompts[0], prompts[-1]], dev, "auto", max_new=2)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+
+        runs = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            tc0 = flash_attention.launches_tc
+            with M.logged() as log:
+                run = serve(torch, serving, cfg, params, prompts, dev, "auto")
+            run["launches"] = ops.launch_counts()
+            run["launches_tc"] = flash_attention.launches_tc - tc0
+            run["dispatch"] = log.summary()
+            runs.append(run)
+        main = runs[0]
+        comps = main["completions"]
+        generated = sum(len(c.tokens) for c in comps.values())
+        by_len = {n: [r for r, p in enumerate(prompts) if len(p) == n] for n in LM["lengths"]}
+        repeat_equal = all(np.array_equal(comps[r].tokens, runs[1]["completions"][r].tokens) for r in comps)
+        launches = main["launches"]
+        want = cfg.n_layers * n_req if cfg.family == "moe" else 0
+        out = {
+            "phase": "lm_moe_serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+            "full_depth": get_config(arch).n_layers, "d_model": cfg.d_model, "experts": cfg.moe_num_experts,
+            "top_k": cfg.moe_top_k, "dtype": cfg.param_dtype, "params": n_params, "init_s": init_s,
+            "init_peak_mem_gb": init_peak,
+            "requests": n_req, "max_new_tokens": LM["max_new"], "max_batch": LM["max_batch"],
+            "max_seq": LM["max_seq"], "launches": launches, "flash_attention_tensor_core_launches":
+            main["launches_tc"], "attention": "flash_attention (GQA prefill)" if cfg.family == "moe"
+            else "plain MLA latent scan (chunked_attention, float32), as the reference: no kernel",
+            "completed": len(comps), "generated_tokens": generated, "ticks": main["ticks"],
+            "wall_s": main["wall_s"], "tok_per_s": generated / main["wall_s"],
+            "ttft_s": [main["ttft_s"][r] for r in range(n_req)],
+            "mean_prefill_ms": {str(n): float(np.mean([main["prefill_s"][r] for r in rids])) * 1e3
+                                for n, rids in by_len.items()},
+            "prefill_ms": {str(n): [main["prefill_s"][r] * 1e3 for r in rids] for n, rids in by_len.items()},
+            "dropped_share_by_tokens": {str(t): row["dropped_share"] for t, row in main["dispatch"].items()},
+            "dispatch_by_tokens": {str(t): row for t, row in main["dispatch"].items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "repeat_tokens_equal": repeat_equal, "repeat_wall_s": runs[1]["wall_s"],
+            "repeat_dispatch_equal": runs[1]["dispatch"] == main["dispatch"],
+        }
+        emit(out)
+        if launches["flash_attention"] != want or main["launches_tc"] != want:
+            fail(f"{cfg.name}: flash_attention launched {launches['flash_attention']} times "
+                 f"({main['launches_tc']} on the tensor cores), not {want}")
+        if any(n for name, n in launches.items() if name != "flash_attention"):
+            fail(f"{cfg.name}: the LM path launched a segmentation kernel: {launches}")
+        if sorted(comps) != list(range(n_req)):
+            fail(f"{cfg.name}: completed {sorted(comps)} of {n_req} requests")
+        for rid, c in comps.items():
+            if len(c.tokens) != LM["max_new"] or c.finish_reason != "length":
+                fail(f"{cfg.name} request {rid}: {len(c.tokens)} tokens, finish {c.finish_reason}")
+            if not bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()):
+                fail(f"{cfg.name} request {rid}: token ids outside the vocabulary")
+        if not repeat_equal or not out["repeat_dispatch_equal"]:
+            fail(f"{cfg.name}: the second run's tokens or dispatch counts differ from the first's")
+        del runs, main, comps
+        if cfg.family == "moe":
+            flash_launches = {"arch": cfg.name, "n_layers": cfg.n_layers, "launches": launches["flash_attention"],
+                              "launches_tensor_cores": out["flash_attention_tensor_core_launches"]}
+            moe_kernel_vs_plain(torch, ops, serving, api, cfg, params, prompts, dev)
+        if profile:
+            profile_lm(torch, api, cfg, params, prompts, dev)
+        del params
+        gc_cuda(torch)
+        moe_card_vs_cpu(torch, cfg, dev)
+        gc_cuda(torch)
+        emit({"phase": "lm_moe_seconds", "arch": cfg.name, "seconds": time.perf_counter() - t_arch,
+              "nvidia_smi": smi_line})
+    emit({"phase": "lm_moe_seconds", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line})
+    return flash_launches
 
 
 def flash_sass_hgmma() -> dict:
@@ -4336,6 +4648,11 @@ def main(argv=None) -> int:
     # Fourth path: LM serving at qwen2-1.5b's full width and depth.
     lm = run_lm(torch, ops, dev, profile)
     flash = time_flash(torch, ops, dev, profile)
+    # The MoE families on the same traffic: deepseek-v2-lite whole (MLA, no
+    # kernel), qwen3-moe at full width, 4 layers (flash prefill, group 16).
+    gc_cuda(torch)
+    lm_moe = run_lm_moe(torch, ops, dev, profile, smi_line)
+    flash_moe = time_flash(torch, ops, dev, profile, FLASH_MOE_SHAPES)
 
     # The planning layer: the card's calibrated table, the modes ranked,
     # segment_stack(batch="auto") routed by the model, --shards auto, the
@@ -4421,6 +4738,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": lm["launches"], "launches_tensor_cores": lm["launches_tc"],
          "max_abs_err": flash_err, **flash, **flash_sass_hgmma(),
+         "lm_moe": {**lm_moe, "at_model_shape": {"shape": list(FLASH_MOE_SHAPES[-1]), **flash_moe}},
          **analysis_entry(kpass, "flash_attention")},
     ]})
     print(smi_line, flush=True)

@@ -7,6 +7,9 @@ line plus ``--device`` (default: the card; ``--device cpu`` runs the plain
 PyTorch path on the host).  Like the reference it serves
 ``get_config(arch).reduced()``; weights are random, from ``--seed``.
 
+Every architecture of the dense, moe and mla_moe families is served
+(``--arch qwen3-moe-235b-a22b``, ``--arch deepseek-v2-lite-16b``).
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve_lm --arch qwen2-1.5b \\

@@ -1,9 +1,10 @@
 """Family registry: a uniform init/prefill/decode API per architecture.
 
-Counterpart of ``repro.models.registry``.  The port serves the ``dense``
-family; every other family raises :class:`NotImplementedError` naming the
-ROADMAP item that ports it.  The loss is not part of the port's API yet:
-it belongs to training (ROADMAP.md Queue 1, 'LM stack, still to port').
+Counterpart of ``repro.models.registry``.  The port serves the decoder
+families ``dense``, ``moe`` and ``mla_moe``; every other family raises
+:class:`NotImplementedError` naming the ROADMAP item that ports it.  The
+loss is not part of the port's API yet: it belongs to training
+(ROADMAP.md Queue 1, 'LM stack, still to port').
 """
 
 from __future__ import annotations
@@ -22,8 +23,6 @@ class ModelApi(NamedTuple):
 
 
 _NOT_PORTED = {
-    "moe": "models/moe.py",
-    "mla_moe": "models/moe.py and MLA attention",
     "vlm": "the VLM prefix embeddings",
     "ssm": "models/mamba_lm.py and models/ssm.py",
     "hybrid": "models/zamba.py",
@@ -31,7 +30,7 @@ _NOT_PORTED = {
 }
 
 
-def _dense_api() -> ModelApi:
+def _decoder_api() -> ModelApi:
     return ModelApi(
         init=T.decoder_init,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: T.prefill(
@@ -45,8 +44,8 @@ def _dense_api() -> ModelApi:
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
-    if cfg.family == "dense":
-        return _dense_api()
+    if cfg.family in T.FAMILIES:
+        return _decoder_api()
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet: "

@@ -32,7 +32,7 @@ from repro_torch.core import dpp
 from repro_torch.kernels import ops
 from repro_torch.models import convert, layers
 from repro_torch.models import transformer as T
-from repro_torch.models.registry import get_api
+from repro_torch.models.registry import ModelApi, get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine, sample_logits
 from repro_torch.serving import sampler
 
@@ -244,9 +244,11 @@ def test_sampling_stays_in_top_k_and_scan_matches_jax():
 
 def test_other_families_and_default_device_raise(model):
     _, cfg, _, tparams = model
-    for name in ("mamba2-130m", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b", "whisper-large-v3"):
+    for name in ("llava-next-34b", "mamba2-130m", "zamba2-2.7b", "whisper-large-v3"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_api(get_config(name))
+    for name in ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b"):
+        assert isinstance(get_api(get_config(name)), ModelApi)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ServingEngine(cfg, tparams, max_batch=1, max_seq=32)

@@ -106,6 +106,31 @@ PyTorch version on the card, and drives these paths (serving last):
   outputs within 1e-4), and for deepseek one ``mla_attn`` (1e-4).
   ``lm_moe_seconds`` lines: each model's and the phase's seconds beside
   the card's name and power limit.
+* LM families ``ssm``, ``hybrid`` and ``vlm``, the same traffic twice per
+  model (``LM_FAMILIES``): ``mamba2-130m`` whole (24 layers of Mamba2's
+  chunked SSD, plain PyTorch as the reference's: 0 kernel launches),
+  ``zamba2-2.7b`` whole (54 Mamba2 layers and 9 applications of its one
+  shared attention block: 72 ``flash_attention`` launches at (1, 32, 32,
+  S, 80), all on the CUDA-core kernel, D = 80) and ``llava-next-34b`` at
+  full width with its depth cut to 8 layers (2880 patch embeddings, rows
+  of its own embedding table at ids from ``default_rng(1)``, in front of
+  each prompt: S = 3392 and 3904, ``max_seq`` 4096; 64 launches at (1,
+  56, 8, S, 128), group 7, all on the tensor-core kernel).
+  ``lm_families_serve`` lines as ``lm_moe_serve``'s.
+  ``lm_families_kernel_vs_plain`` (zamba2, llava): (a) float32 at full
+  width, zamba2 12 layers (2 applications), llava 2 layers: greedy tokens
+  equal, logits within 1e-4 of their largest magnitude (the element-wise
+  rtol 1e-4 / atol 1e-5 printed too); (b) the bf16 models: first token
+  equal on at least 7 of 8 (a miss at a bf16 tie not counted), cosine at
+  least 0.99.  ``lm_families_card_vs_cpu``: one float32 ``ssd_forward``
+  with its states at mamba2's and zamba2's full width over 1024 tokens (8
+  chunks) and 8 ``ssd_decode`` steps from them, card against CPU within
+  1e-4 of their largest magnitude; mamba2-130m whole in float32: prefill
+  logits within 1e-4 of theirs and the greedy tokens of 8 decode steps
+  equal.  ``lm_families_vlm_splice``: llava's prefill with patches equal
+  to its own embedding rows of the prompt's first 2880 ids equals the
+  prefill without them, bit for bit.  ``lm_families_seconds`` lines
+  beside the card's name and power limit.
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -381,6 +406,14 @@ LM = dict(arch="qwen2-1.5b", max_batch=4, max_seq=2048, lengths=(512, 1024), per
 LM_MOE = (("deepseek-v2-lite-16b", None), ("qwen3-moe-235b-a22b", 4))
 MOE_CHECK_TOKENS = 1024  # tokens of the card-against-CPU dispatch check
 MOE_TIE = 1e-5  # router logits closer than this may order differently on the card and the CPU
+# The ssm, hybrid and vlm families on LM's traffic: mamba2-130m and
+# zamba2-2.7b whole; llava-next-34b at full width, its 60 layers (about 67
+# GB of bf16 with caches) cut to 8.
+LM_FAMILIES = (("mamba2-130m", None), ("zamba2-2.7b", None), ("llava-next-34b", 8))
+FAMILY_F32_LAYERS = {"zamba2-2.7b": 12, "llava-next-34b": 2}  # check (a): 2 shared applications; 2 layers
+VLM_MAX_SEQ = 4096  # llava: 2880 patches, 512 or 1024 prompt tokens, 32 new
+SSD_CHECK_TOKENS = 1024  # the card-against-CPU SSD check: 8 chunks of 128
+SSD_DECODE_STEPS = 8
 # flash_attention checks: (B, Hq, Hkv, S, D).  The reference tests' shapes
 # and a ragged S, f32 and bf16, causal and not; the model's shape, bf16 causal.
 FLASH_REF_SHAPES = [(1, 2, 2, 128, 32), (2, 4, 2, 256, 64), (1, 8, 1, 128, 16),
@@ -391,6 +424,11 @@ FLASH_MOE_SHAPES = [(1, 64, 4, 512, 128), (1, 64, 4, 1024, 128)]
 # Shapes that reach the bf16 tensor-core kernel off the model's path: a
 # ragged S with B = 2 at D = 128, and S shorter than one 64-row tile at D = 64.
 FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
+# zamba2's shared-block prefill (32 heads of 80: the CUDA-core kernel) and
+# llava's (56 q heads on 8 kv heads, group 7; S = 3900 ends in a ragged tile).
+FLASH_ZAMBA_SHAPES = [(1, 32, 32, 512, 80), (1, 32, 32, 1024, 80)]
+FLASH_LLAVA_SHAPES = [(1, 56, 8, 3392, 128), (1, 56, 8, 3900, 128)]
+FLASH_LLAVA_TIMED = (1, 56, 8, 3904, 128)
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 DEVICE = "cuda"
 REPEATS = 20  # calls of an order-free kernel that must agree bit for bit
@@ -3730,11 +3768,14 @@ def flash_launch(ops, q, k, v, causal: bool) -> tuple:
 def check_flash(torch, ops, dev) -> float:
     """flash_attention kernel against its plain version on the card: the
     reference tests' shapes and a ragged S in f32 and bf16, causal and not,
-    the models' shapes (qwen2-1.5b's, qwen3-moe's) in bf16 causal, and two more shapes of the bf16
+    the models' shapes (qwen2-1.5b's, qwen3-moe's, zamba2's at D = 80,
+    which must go to the CUDA-core kernel, llava's, which must go to the
+    tensor cores) in bf16 causal, and two more shapes of the bf16
     tensor-core kernel.  Each case names the kernel it went to.  Returns
     the largest error."""
     cases = [(sh, dt, c) for sh in FLASH_REF_SHAPES for dt in FLASH_TOL for c in (False, True)]
     cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES + FLASH_MOE_SHAPES]
+    cases += [(sh, "bfloat16", True) for sh in FLASH_ZAMBA_SHAPES + FLASH_LLAVA_SHAPES]
     cases += [(sh, "bfloat16", c) for sh in FLASH_TC_SHAPES for c in (False, True)]
     worst, rows = 0.0, []
     for i, (shape, dtype, causal) in enumerate(cases):
@@ -3751,6 +3792,11 @@ def check_flash(torch, ops, dev) -> float:
         tol = FLASH_TOL[dtype]
         if not torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol):
             fail(f"{what}: differs from the plain version beyond {tol} (err {err})")
+        want = {**{sh: "cuda_cores" for sh in FLASH_ZAMBA_SHAPES},
+                **{sh: "tensor_cores" for sh in FLASH_LLAVA_SHAPES}}.get(shape, variant)
+        if variant != want:
+            fail(f"{what}: went to the {variant} kernel, not the {want} one")
+        del kern, plain, q, k, v
         worst = max(worst, err)
         rows.append({"shape": list(shape), "dtype": dtype, "causal": causal, "max_abs_err": err,
                      "variant": variant})
@@ -3801,12 +3847,14 @@ def lm_prompts(cfg) -> list:
             for n in LM["lengths"] for _ in range(LM["per_length"])]
 
 
-def serve(torch, serving, cfg, params, prompts, dev, backend: str, max_new: int = 0) -> dict:
+def serve(torch, serving, cfg, params, prompts, dev, backend: str, max_new: int = 0, max_seq: int = 0,
+          extras: list = None) -> dict:
     """Drive ``ServingEngine`` (greedy) over ``prompts``, all submitted at
-    the start.  Each request's prefill time (its ``_insert``: one prefill
-    and the first token's read, which waits for the card) and the moment
-    its first token is known are recorded beside the completions.
-    ``max_new`` defaults to the LM path's."""
+    the start, request ``r`` with ``extras[r]`` where given.  Each
+    request's prefill time (its ``_insert``: one prefill and the first
+    token's read, which waits for the card) and the moment its first token
+    is known are recorded beside the completions.  ``max_new`` and
+    ``max_seq`` default to the LM path's."""
 
     class TimedEngine(serving.ServingEngine):
         def _insert(self, slot, req):
@@ -3816,11 +3864,12 @@ def serve(torch, serving, cfg, params, prompts, dev, backend: str, max_new: int 
             prefill_s[req.rid], first_at[req.rid] = t1 - t0, t1
 
     prefill_s, first_at = {}, {}
-    engine = TimedEngine(cfg, params, max_batch=LM["max_batch"], max_seq=LM["max_seq"],
+    engine = TimedEngine(cfg, params, max_batch=LM["max_batch"], max_seq=max_seq or LM["max_seq"],
                          sampler=serving.SamplerConfig(temperature=0.0), seed=LM["seed"],
                          device=dev, backend=backend)
     for rid, p in enumerate(prompts):
-        engine.submit(serving.Request(rid=rid, prompt=p, max_new_tokens=max_new or LM["max_new"]))
+        engine.submit(serving.Request(rid=rid, prompt=p, max_new_tokens=max_new or LM["max_new"],
+                                      extras=extras[rid] if extras else {}))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     comps = engine.run()
@@ -3830,38 +3879,89 @@ def serve(torch, serving, cfg, params, prompts, dev, backend: str, max_new: int 
             "prefill_s": prefill_s, "ttft_s": {r: t - t0 for r, t in first_at.items()}}
 
 
-def prefill_last_logits(torch, api, cfg, params, prompts, dev, backend: str) -> list:
-    """Last-position prefill logits (V,) float32 of each prompt."""
+def prefill_last_logits(torch, api, cfg, params, prompts, dev, backend: str, extras: list = None) -> list:
+    """Last-position prefill logits (V,) float32 of each prompt (with its
+    ``extras``, given a batch axis, where given)."""
     out = []
     with torch.inference_mode():
-        for p in prompts:
+        for r, p in enumerate(prompts):
             tokens = torch.from_numpy(p.astype(np.int64))[None].to(dev)
-            logits, _ = api.prefill(params, {"tokens": tokens}, cfg, backend=backend)
+            batch = {"tokens": tokens, **{k: v[None] for k, v in (extras[r] if extras else {}).items()}}
+            logits, _ = api.prefill(params, batch, cfg, backend=backend)
             out.append(logits[0, -1])
     torch.cuda.synchronize()
     return out
 
 
-def profile_lm(torch, api, cfg, params, prompts, dev) -> None:
-    """``profile`` lines of one prefill of the longest prompt and one
-    decode step at B = ``max_batch``, t = the longest prompt: wall time
-    (best of 3) and the device's idle share against it."""
+def logits_compare_a(torch, kern: list, plain: list) -> dict:
+    """Check (a)'s figures, kernel path against plain path: the largest
+    logits error beside the largest plain logit (within 1e-4 of it: the
+    form held on the MoE and later families) and the element-wise rtol
+    1e-4 / atol 1e-5."""
+    err = max((a - b).abs().max().item() for a, b in zip(kern, plain))
+    scale = max(b.abs().max().item() for b in plain)
+    return {"logits_max_abs_err": err, "logits_max_abs": scale,
+            "logits_err_within_1e-4_of_max_abs": err <= 1e-4 * scale,
+            "logits_within_rtol_1e-4": all(torch.allclose(a, b, rtol=1e-4, atol=1e-5)
+                                                    for a, b in zip(kern, plain)),
+            "logits_err_by_request": [(a - b).abs().max().item() for a, b in zip(kern, plain)]}
+
+
+def logits_compare_b(torch, kern: list, plain: list) -> dict:
+    """Check (b)'s figures: first token equal by request, the misses where
+    the plain logits of the two tokens lie within one bf16 spacing (a
+    tie), cosine, and each request's plain top-1 minus top-2 logit (a
+    first token that differs at a small margin is a near-tie, at a large
+    one an error)."""
+    equal = [int(a.argmax() == b.argmax()) for a, b in zip(kern, plain)]
+    at_tie = [r for r, (a, b) in enumerate(zip(kern, plain))
+              if not equal[r] and (b.max() - b[a.argmax()]).item() <= bf16_ulp(b.max().item())]
+    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(kern, plain)]
+    top2 = [b.float().topk(2).values for b in plain]
+    return {"first_token_equal": sum(equal), "of": len(equal), "first_token_equal_by_request": equal,
+            "misses_at_a_bf16_tie": at_tie, "plain_top1_minus_top2": [(t[0] - t[1]).item() for t in top2],
+            "min_cosine": min(cos), "cosine": cos,
+            "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(kern, plain))}
+
+
+def check_kernel_vs_plain(who: str, res_a: dict, res_b: dict) -> None:
+    """The limits held on the MoE and later families (``PERF.md`` §6): (a)
+    greedy tokens equal and logits within 1e-4 of their largest
+    magnitude; (b) first token equal on all but one request, a miss at a
+    bf16 tie not counted, and cosine at least 0.99."""
+    if not res_a["greedy_tokens_equal"]:
+        fail(f"{who}f32 model: greedy tokens differ between the kernel and plain paths")
+    if not res_a["logits_err_within_1e-4_of_max_abs"]:
+        fail(f"{who}f32 model: prefill logits differ by {res_a['logits_max_abs_err']}, "
+             f"beyond 1e-4 of {res_a['logits_max_abs']}")
+    if res_b["first_token_equal"] + len(res_b["misses_at_a_bf16_tie"]) < res_b["of"] - 1:
+        fail(f"{who}bf16 model: first token equal on {res_b['first_token_equal']} of {res_b['of']} requests, "
+             f"{len(res_b['misses_at_a_bf16_tie'])} more at a bf16 tie")
+    if res_b["min_cosine"] < 0.99:
+        fail(f"{who}bf16 model: prefill logits cosine {res_b['min_cosine']} below 0.99")
+
+
+def profile_lm(torch, api, cfg, params, prompts, dev, max_seq: int = 0) -> None:
+    """``profile`` lines of one prefill of the last (longest) prompt and
+    one decode step at B = ``max_batch``, t = its length: wall time (best
+    of 3) and the device's idle share against it.  ``max_seq`` defaults to
+    the LM path's."""
     long_prompt = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
+    t = len(prompts[-1])
 
     def prefill():
         with torch.inference_mode():
             api.prefill(params, {"tokens": long_prompt}, cfg)
 
-    cache = api.init_cache(cfg, LM["max_batch"], LM["max_seq"], device=dev)
-    cache["t"] = torch.tensor(max(LM["lengths"]), dtype=torch.int32)
+    cache = api.init_cache(cfg, LM["max_batch"], max_seq or LM["max_seq"], device=dev)
+    cache["t"] = torch.tensor(t, dtype=torch.int32)
     last = torch.zeros((LM["max_batch"], 1), dtype=torch.int64, device=dev)
 
     def decode():
         with torch.inference_mode():
             api.decode_step(params, dict(cache), {"tokens": last}, cfg)
 
-    for what, fn in ((f"prefill S={max(LM['lengths'])}", prefill),
-                     (f"decode step B={LM['max_batch']} t={max(LM['lengths'])}", decode)):
+    for what, fn in ((f"prefill S={t}", prefill), (f"decode step B={LM['max_batch']} t={t}", decode)):
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -3956,13 +4056,8 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
         fail(f"f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
     tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
                        for r in range(n_req))
-    err_a = max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p))
-    close_a = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(logits_k, logits_p))
-    scale_a = max(b.abs().max().item() for b in logits_p)
     res_a = {"layers": 2, "dtype": "float32", "greedy_tokens_equal": tokens_equal,
-             "logits_max_abs_err": err_a, "logits_within_rtol_1e-4": close_a,
-             "logits_max_abs": scale_a, "logits_err_within_1e-4_of_max_abs": err_a <= 1e-4 * scale_a,
-             "logits_err_by_request": [(a - b).abs().max().item() for a, b in zip(logits_k, logits_p)],
+             **logits_compare_a(torch, logits_k, logits_p),
              "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
 
     # (b) the 28-layer bf16 model: first generated token and logits cosine.
@@ -3971,31 +4066,18 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     logits_p = prefill_last_logits(torch, api, cfg, params, prompts, dev, "torch")
     if ops.launch_counts() != before:
         fail("bf16 check: the plain path launched a kernel")
-    equal = [int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p)]
-    # a miss where the plain logits of the two tokens lie within one bf16 spacing
-    at_tie = [r for r, (a, b) in enumerate(zip(logits_k, logits_p))
-              if not equal[r] and (b.max() - b[a.argmax()]).item() <= bf16_ulp(b.max().item())]
-    first_equal = sum(equal)
-    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
     engine_first = sum(int(comps[r].tokens[0] == int(logits_k[r].argmax())) for r in range(n_req))
-    # Each request's top-1 minus top-2 logit on the plain path: a first
-    # token that differs at a small margin is a near-tie, at a large one an error.
-    top2 = [b.float().topk(2).values for b in logits_p]
-    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, "first_token_equal": first_equal,
-             "of": n_req, "first_token_equal_by_request": equal,
-             "plain_top1_minus_top2": [(t[0] - t[1]).item() for t in top2],
-             "min_cosine": min(cos), "cosine": cos,
-             "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p)),
+    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, **logits_compare_b(torch, logits_k, logits_p),
              "engine_first_token_equal_kernel_prefill": engine_first}
     emit({"phase": "lm_kernel_vs_plain", "f32_2_layers": res_a, "bf16_28_layers": res_b})
     if not tokens_equal:
         fail("f32 2-layer model: greedy tokens differ between the kernel and plain paths")
-    if not close_a:
-        fail(f"f32 2-layer model: prefill logits differ beyond rtol 1e-4 (err {err_a})")
-    if first_equal < n_req - 1:
-        fail(f"bf16 model: first token equal on {first_equal} of {n_req} requests")
-    if min(cos) < 0.99:
-        fail(f"bf16 model: prefill logits cosine {min(cos)} below 0.99")
+    if not res_a["logits_within_rtol_1e-4"]:
+        fail(f"f32 2-layer model: prefill logits differ beyond rtol 1e-4 (err {res_a['logits_max_abs_err']})")
+    if res_b["first_token_equal"] < n_req - 1:
+        fail(f"bf16 model: first token equal on {res_b['first_token_equal']} of {n_req} requests")
+    if res_b["min_cosine"] < 0.99:
+        fail(f"bf16 model: prefill logits cosine {res_b['min_cosine']} below 0.99")
     del params_a
 
     if profile:
@@ -4162,13 +4244,8 @@ def moe_kernel_vs_plain(torch, ops, serving, api, cfg, params, prompts, dev) -> 
         fail(f"{cfg.name} f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
     tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
                        for r in range(n_req))
-    err_a = max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p))
-    close_a = all(torch.allclose(a, b, rtol=1e-4, atol=1e-5) for a, b in zip(logits_k, logits_p))
-    scale_a = max(b.abs().max().item() for b in logits_p)
     res_a = {"layers": 2, "dtype": "float32", "greedy_tokens_equal": tokens_equal,
-             "logits_max_abs_err": err_a, "logits_within_rtol_1e-4": close_a,
-             "logits_max_abs": scale_a, "logits_err_within_1e-4_of_max_abs": err_a <= 1e-4 * scale_a,
-             "logits_err_by_request": [(a - b).abs().max().item() for a, b in zip(logits_k, logits_p)],
+             **logits_compare_a(torch, logits_k, logits_p),
              "expert_sets_differ": expert_set_diffs(torch, disp_k, disp_p, k, cfg_a.n_layers),
              "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
     del params_a, kern_a, plain_a, disp_k, disp_p
@@ -4179,29 +4256,11 @@ def moe_kernel_vs_plain(torch, ops, serving, api, cfg, params, prompts, dev) -> 
     logits_p, disp_p = logits_and_dispatches(cfg, params, "torch")
     if ops.launch_counts() != before:
         fail(f"{cfg.name} bf16 check: the plain path launched a kernel")
-    equal = [int(a.argmax() == b.argmax()) for a, b in zip(logits_k, logits_p)]
-    # a miss where the plain logits of the two tokens lie within one bf16 spacing
-    at_tie = [r for r, (a, b) in enumerate(zip(logits_k, logits_p))
-              if not equal[r] and (b.max() - b[a.argmax()]).item() <= bf16_ulp(b.max().item())]
-    cos = [torch.nn.functional.cosine_similarity(a, b, dim=0).item() for a, b in zip(logits_k, logits_p)]
-    top2 = [b.float().topk(2).values for b in logits_p]
-    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, "first_token_equal": sum(equal), "of": n_req,
-             "first_token_equal_by_request": equal, "misses_at_a_bf16_tie": at_tie,
-             "plain_top1_minus_top2": [(t[0] - t[1]).item() for t in top2],
-             "min_cosine": min(cos), "cosine": cos,
-             "logits_max_abs_err": max((a - b).abs().max().item() for a, b in zip(logits_k, logits_p)),
+    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, **logits_compare_b(torch, logits_k, logits_p),
              "expert_sets_differ": expert_set_diffs(torch, disp_k, disp_p, k, cfg.n_layers)}
     emit({"phase": "lm_moe_kernel_vs_plain", "arch": cfg.name, "f32_2_layers": res_a,
           f"bf16_{cfg.n_layers}_layers": res_b})
-    if not tokens_equal:
-        fail(f"{cfg.name} f32 2-layer model: greedy tokens differ between the kernel and plain paths")
-    if not res_a["logits_err_within_1e-4_of_max_abs"]:
-        fail(f"{cfg.name} f32 2-layer model: prefill logits differ by {err_a}, beyond 1e-4 of {scale_a}")
-    if sum(equal) + len(at_tie) < n_req - 1:
-        fail(f"{cfg.name} bf16 model: first token equal on {sum(equal)} of {n_req} requests, "
-             f"{len(at_tie)} more at a bf16 tie")
-    if min(cos) < 0.99:
-        fail(f"{cfg.name} bf16 model: prefill logits cosine {min(cos)} below 0.99")
+    check_kernel_vs_plain(f"{cfg.name} ", res_a, res_b)
     return {"f32_2_layers": res_a, "bf16": res_b}
 
 
@@ -4317,6 +4376,303 @@ def run_lm_moe(torch, ops, dev, profile: bool, smi_line: str) -> dict:
         emit({"phase": "lm_moe_seconds", "arch": cfg.name, "seconds": time.perf_counter() - t_arch,
               "nvidia_smi": smi_line})
     emit({"phase": "lm_moe_seconds", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line})
+    return flash_launches
+
+
+def flash_per_prefill(cfg) -> int:
+    """``flash_attention`` launches per prefilled request: one per layer of
+    a GQA decoder, one per shared-block application of a hybrid, none for
+    Mamba2 (or MLA)."""
+    if cfg.family == "ssm" or cfg.family == "mla_moe":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid_attn_every
+    return cfg.n_layers
+
+
+def family_prompts(torch, cfg, params, dev) -> tuple:
+    """LM's prompts for ``cfg`` and each request's extras (``None`` but for
+    ``vlm``).  A vlm prompt carries ``vision_patches`` ids from
+    ``numpy.random.default_rng(1)`` in front, and its ``vision_embeds``
+    (P, D) are those ids' rows of the model's own embedding table, on the
+    card: the model's scale, and a prefill equal to the one without them
+    (``vlm_splice_check``)."""
+    prompts = lm_prompts(cfg)
+    if cfg.family != "vlm":
+        return prompts, None
+    rng = np.random.default_rng(1)
+    ids = [rng.integers(0, cfg.vocab_size, cfg.vision_patches).astype(np.int32) for _ in prompts]
+    with torch.inference_mode():
+        extras = [{"vision_embeds": params.embed[torch.from_numpy(i.astype(np.int64)).to(dev)]} for i in ids]
+    return [np.concatenate([i, p]) for i, p in zip(ids, prompts)], extras
+
+
+def family_kernel_vs_plain(torch, ops, serving, api, cfg, params, dev, max_seq: int) -> dict:
+    """The kernel path (flash prefill) against the plain path
+    (``backend="torch"``): (b) the served bf16 model, first token equal on
+    all but one request (a miss where the plain logits of the two tokens
+    lie within one bf16 spacing is a tie and does not count) and cosine at
+    least 0.99; (a) a float32 variant at full width,
+    ``FAMILY_F32_LAYERS`` deep, through the engine: greedy tokens equal
+    and prefill logits within 1e-4 of their largest magnitude (the MoE
+    families' form; the element-wise rtol 1e-4 / atol 1e-5 reported too)."""
+    import dataclasses
+
+    n_req = LM["per_length"] * len(LM["lengths"])
+    prompts, extras = family_prompts(torch, cfg, params, dev)
+    logits_k = prefill_last_logits(torch, api, cfg, params, prompts, dev, "auto", extras)
+    before = ops.launch_counts()
+    logits_p = prefill_last_logits(torch, api, cfg, params, prompts, dev, "torch", extras)
+    if ops.launch_counts() != before:
+        fail(f"{cfg.name} bf16 check: the plain path launched a kernel")
+    res_b = {"layers": cfg.n_layers, "dtype": cfg.param_dtype, **logits_compare_b(torch, logits_k, logits_p)}
+    del logits_k, logits_p, extras
+    gc_cuda(torch)
+
+    cfg_a = dataclasses.replace(cfg, n_layers=FAMILY_F32_LAYERS[cfg.name], param_dtype="float32",
+                                compute_dtype="float32")
+    params_a = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg_a)
+    prompts, extras = family_prompts(torch, cfg_a, params_a, dev)
+    ops.reset_launch_counts()
+    kern_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "auto", max_seq=max_seq, extras=extras)
+    launches_a = ops.launch_counts()["flash_attention"]
+    plain_a = serve(torch, serving, cfg_a, params_a, prompts, dev, "torch", max_seq=max_seq, extras=extras)
+    logits_k = prefill_last_logits(torch, api, cfg_a, params_a, prompts, dev, "auto", extras)
+    before = ops.launch_counts()
+    logits_p = prefill_last_logits(torch, api, cfg_a, params_a, prompts, dev, "torch", extras)
+    if ops.launch_counts() != before or launches_a != flash_per_prefill(cfg_a) * n_req:
+        fail(f"{cfg.name} f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
+    tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
+                       for r in range(n_req))
+    res_a = {"layers": cfg_a.n_layers, "dtype": "float32", "flash_launches": launches_a,
+             "greedy_tokens_equal": tokens_equal, **logits_compare_a(torch, logits_k, logits_p),
+             "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
+    del params_a, extras, kern_a, plain_a, logits_k, logits_p
+    gc_cuda(torch)
+    emit({"phase": "lm_families_kernel_vs_plain", "arch": cfg.name, f"f32_{res_a['layers']}_layers": res_a,
+          f"bf16_{cfg.n_layers}_layers": res_b})
+    check_kernel_vs_plain(f"{cfg.name} ", res_a, res_b)
+    return {"f32": res_a, "bf16": res_b}
+
+
+def vlm_splice_check(torch, api, cfg, params, prompts, extras, dev) -> dict:
+    """(d) llava's prefill of the first and the last request with
+    ``vision_embeds`` (its own embedding rows of the prompt's first
+    ``vision_patches`` ids) equals the prefill without them, logits and
+    caches bit for bit, on the card."""
+    rows = []
+    with torch.inference_mode():
+        for r in (0, len(prompts) - 1):
+            tokens = torch.from_numpy(prompts[r].astype(np.int64))[None].to(dev)
+            l0, c0 = api.prefill(params, {"tokens": tokens}, cfg)
+            l1, c1 = api.prefill(params, {"tokens": tokens, "vision_embeds": extras[r]["vision_embeds"][None]}, cfg)
+            rows.append({"request": r, "tokens": len(prompts[r]), "logits_equal": bool(torch.equal(l0, l1)),
+                         "caches_equal": all(bool(torch.equal(c0[n], c1[n])) for n in c0)})
+            del c0, c1
+    out = {"phase": "lm_families_vlm_splice", "arch": cfg.name, "patches": cfg.vision_patches,
+           "ok": all(r["logits_equal"] and r["caches_equal"] for r in rows), "requests": rows}
+    emit(out)
+    if not out["ok"]:
+        fail(f"{cfg.name}: the prefill with its own embedding rows as patches differs from the one without")
+    return out
+
+
+def close_to_max(torch, got, want) -> dict:
+    """Largest error of ``got`` (any device) against ``want`` (CPU), beside
+    want's largest magnitude."""
+    err = (got.cpu().float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    return {"max_abs_err": err, "max_abs": scale, "within_1e-4_of_max_abs": err <= 1e-4 * scale}
+
+
+def ssd_card_vs_cpu(torch, cfg, dev) -> dict:
+    """(c) One float32 ``ssd_forward(return_state=True)`` of a random block
+    at ``cfg``'s full width over ``SSD_CHECK_TOKENS`` tokens (numpy seed
+    0), on the card and on the CPU, then ``SSD_DECODE_STEPS``
+    ``ssd_decode`` steps, each side from its own states: the output, conv
+    ring and SSM state of every call within 1e-4 of their largest
+    magnitude."""
+    import copy
+    import dataclasses
+
+    from repro_torch.models import ssm as S
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    p = S.mamba2_init(torch.Generator(device=dev).manual_seed(1), cfg, torch.float32)
+    p_cpu = copy.deepcopy(p).cpu()
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, SSD_CHECK_TOKENS, cfg.d_model)).astype(np.float32)
+    names = ("out", "conv_state", "ssm_state")
+    with torch.inference_mode():
+        card = S.ssd_forward(p, torch.from_numpy(x).to(dev), cfg, return_state=True)
+        cpu = S.ssd_forward(p_cpu, torch.from_numpy(x), cfg, return_state=True)
+        forward = {n: close_to_max(torch, a, b) for n, a, b in zip(names, card, cpu)}
+        (_, conv, ssm), (_, conv_c, ssm_c) = card, cpu
+        steps = []
+        for _ in range(SSD_DECODE_STEPS):
+            xt = rng.standard_normal((1, 1, cfg.d_model)).astype(np.float32)
+            o, conv, ssm = S.ssd_decode(p, torch.from_numpy(xt).to(dev), cfg, conv, ssm)
+            oc, conv_c, ssm_c = S.ssd_decode(p_cpu, torch.from_numpy(xt), cfg, conv_c, ssm_c)
+            steps.append({n: close_to_max(torch, a, b) for n, a, b in zip(names, (o, conv, ssm), (oc, conv_c, ssm_c))})
+    ok = all(r["within_1e-4_of_max_abs"] for row in [forward] + steps for r in row.values())
+    out = {"phase": "lm_families_card_vs_cpu", "what": "ssd_forward + ssd_decode", "arch": cfg.name,
+           "d_model": cfg.d_model, "heads": cfg.ssm_heads, "state": cfg.ssm_state, "tokens": SSD_CHECK_TOKENS,
+           "chunks": SSD_CHECK_TOKENS // cfg.ssm_chunk, "dtype": "float32", "ok": ok, "forward": forward,
+           "decode_max_err_of_max_abs": max(r["max_abs_err"] / r["max_abs"] for row in steps for r in row.values()),
+           "decode_steps": steps}
+    emit(out)
+    if not ok:
+        fail(f"{cfg.name}: the card's SSD differs from the CPU's beyond 1e-4 of the largest magnitude")
+    return out
+
+
+def mamba_card_vs_cpu(torch, api, cfg, dev, prompt) -> dict:
+    """(c) mamba2 whole in float32 on the card and on the CPU (one set of
+    random weights): prefill logits of ``prompt`` within 1e-4 of their
+    largest magnitude, and the greedy tokens of the prefill and 8 decode
+    steps equal (the CPU's top-1 minus top-2 beside each)."""
+    import copy
+    import dataclasses
+
+    cfg = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    params = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg)
+    params_cpu = copy.deepcopy(params).cpu()
+    tokens = torch.from_numpy(prompt.astype(np.int64))[None]
+    toks, toks_cpu, margins, errs = [], [], [], []
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, {"tokens": tokens.to(dev)}, cfg)
+        logits_c, cache_c = api.prefill(params_cpu, {"tokens": tokens}, cfg)
+        prefill = close_to_max(torch, logits, logits_c)
+        for step in range(SSD_DECODE_STEPS + 1):
+            if step:
+                errs.append(close_to_max(torch, logits, logits_c)["max_abs_err"])
+            toks.append(int(logits[0, -1].argmax()))
+            toks_cpu.append(int(logits_c[0, -1].argmax()))
+            top2 = logits_c[0, -1].topk(2).values
+            margins.append((top2[0] - top2[1]).item())
+            if step == SSD_DECODE_STEPS:
+                break
+            logits, cache = api.decode_step(params, cache, {"tokens": torch.tensor([[toks[-1]]], device=dev)}, cfg)
+            logits_c, cache_c = api.decode_step(params_cpu, cache_c, {"tokens": torch.tensor([[toks_cpu[-1]]])}, cfg)
+    out = {"phase": "lm_families_card_vs_cpu", "what": "mamba2 whole, prefill and decode", "arch": cfg.name,
+           "n_layers": cfg.n_layers, "dtype": "float32", "prompt_tokens": len(prompt), "prefill_logits": prefill,
+           "greedy_tokens_equal": toks == toks_cpu, "tokens": toks, "tokens_cpu": toks_cpu,
+           "cpu_top1_minus_top2": margins, "decode_logits_max_abs_err": errs}
+    emit(out)
+    if not prefill["within_1e-4_of_max_abs"]:
+        fail(f"{cfg.name}: the card's prefill logits differ from the CPU's by {prefill['max_abs_err']}")
+    if toks != toks_cpu:
+        fail(f"{cfg.name}: greedy tokens on the card {toks} differ from the CPU's {toks_cpu}")
+    return out
+
+
+def run_lm_families(torch, ops, dev, profile: bool, smi_line: str) -> dict:
+    """The ssm, hybrid and vlm families on the LM path's traffic
+    (``LM_FAMILIES``): each model serves the 8 requests twice (the second
+    run's tokens bit for bit the first's); zamba2's and llava's kernel path
+    against their plain path; llava's splice; the SSD, and mamba2 whole,
+    card against CPU.  Each model is freed before the next is built.
+    Returns each model's flash launches for the ``kernels`` line."""
+    import dataclasses
+
+    from repro_torch import serving
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models.registry import get_api
+
+    t_phase = time.perf_counter()
+    flash_launches = {}
+    for arch, n_layers in LM_FAMILIES:
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        api = get_api(cfg)
+        max_seq = VLM_MAX_SEQ if cfg.family == "vlm" else LM["max_seq"]
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        init_peak = torch.cuda.max_memory_allocated() / 1e9
+        n_params = sum(p.numel() for p in params.parameters())
+        prompts, extras = family_prompts(torch, cfg, params, dev)
+        n_req = len(prompts)
+        serve(torch, serving, cfg, params, [prompts[0], prompts[-1]], dev, "auto", max_new=2, max_seq=max_seq,
+              extras=[extras[0], extras[-1]] if extras else None)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+
+        runs = []
+        for _ in range(2):
+            ops.reset_launch_counts()
+            tc0 = flash_attention.launches_tc
+            run = serve(torch, serving, cfg, params, prompts, dev, "auto", max_seq=max_seq, extras=extras)
+            run["launches"] = ops.launch_counts()
+            run["launches_tc"] = flash_attention.launches_tc - tc0
+            runs.append(run)
+        main = runs[0]
+        comps = main["completions"]
+        generated = sum(len(c.tokens) for c in comps.values())
+        by_len = {n: [r for r, p in enumerate(prompts) if len(p) == n] for n in sorted({len(p) for p in prompts})}
+        repeat_equal = all(np.array_equal(comps[r].tokens, runs[1]["completions"][r].tokens) for r in comps)
+        launches = main["launches"]
+        want = flash_per_prefill(cfg) * n_req
+        want_tc = want if cfg.family == "vlm" else 0
+        out = {
+            "phase": "lm_families_serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
+            "full_depth": get_config(arch).n_layers, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+            "params": n_params, "init_s": init_s, "init_peak_mem_gb": init_peak, "requests": n_req,
+            "prompt_lengths": list(by_len), "patches": cfg.vision_patches if extras else 0,
+            "max_new_tokens": LM["max_new"], "max_batch": LM["max_batch"], "max_seq": max_seq,
+            "launches": launches, "flash_attention_tensor_core_launches": main["launches_tc"],
+            "attention": {"ssm": "none: chunked SSD, plain PyTorch as the reference's",
+                          "hybrid": "flash_attention (shared block, D = 80: CUDA-core kernel)",
+                          "vlm": "flash_attention (GQA prefill, group 7: tensor-core kernel)"}[cfg.family],
+            "completed": len(comps), "generated_tokens": generated, "ticks": main["ticks"],
+            "wall_s": main["wall_s"], "tok_per_s": generated / main["wall_s"],
+            "ttft_s": [main["ttft_s"][r] for r in range(n_req)],
+            "mean_prefill_ms": {str(n): float(np.mean([main["prefill_s"][r] for r in rids])) * 1e3
+                                for n, rids in by_len.items()},
+            "prefill_ms": {str(n): [main["prefill_s"][r] * 1e3 for r in rids] for n, rids in by_len.items()},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "repeat_tokens_equal": repeat_equal, "repeat_wall_s": runs[1]["wall_s"],
+            "repeat_tok_per_s": generated / runs[1]["wall_s"],
+        }
+        emit(out)
+        if launches["flash_attention"] != want or main["launches_tc"] != want_tc:
+            fail(f"{cfg.name}: flash_attention launched {launches['flash_attention']} times "
+                 f"({main['launches_tc']} on the tensor cores), not {want} ({want_tc})")
+        if any(n for name, n in launches.items() if name != "flash_attention"):
+            fail(f"{cfg.name}: the LM path launched a segmentation kernel: {launches}")
+        if sorted(comps) != list(range(n_req)):
+            fail(f"{cfg.name}: completed {sorted(comps)} of {n_req} requests")
+        for rid, c in comps.items():
+            if len(c.tokens) != LM["max_new"] or c.finish_reason != "length":
+                fail(f"{cfg.name} request {rid}: {len(c.tokens)} tokens, finish {c.finish_reason}")
+            if not bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()):
+                fail(f"{cfg.name} request {rid}: token ids outside the vocabulary")
+        if not repeat_equal:
+            fail(f"{cfg.name}: the second run's tokens differ from the first's")
+        flash_launches[cfg.name] = {"n_layers": cfg.n_layers, "launches": launches["flash_attention"],
+                                    "launches_tensor_cores": main["launches_tc"]}
+        del runs, main, comps
+        if cfg.family == "vlm":
+            vlm_splice_check(torch, api, cfg, params, prompts, extras, dev)
+        if cfg.family != "ssm":
+            family_kernel_vs_plain(torch, ops, serving, api, cfg, params, dev, max_seq)
+        if profile:
+            profile_lm(torch, api, cfg, params, prompts, dev, max_seq)
+        del params, extras
+        gc_cuda(torch)
+        if cfg.family in ("ssm", "hybrid"):
+            ssd_card_vs_cpu(torch, cfg, dev)
+        if cfg.family == "ssm":
+            mamba_card_vs_cpu(torch, api, cfg, dev, prompts[-1])
+        gc_cuda(torch)
+        emit({"phase": "lm_families_seconds", "arch": cfg.name, "seconds": time.perf_counter() - t_arch,
+              "nvidia_smi": smi_line})
+    emit({"phase": "lm_families_seconds", "seconds": time.perf_counter() - t_phase, "nvidia_smi": smi_line})
     return flash_launches
 
 
@@ -4653,6 +5009,13 @@ def main(argv=None) -> int:
     gc_cuda(torch)
     lm_moe = run_lm_moe(torch, ops, dev, profile, smi_line)
     flash_moe = time_flash(torch, ops, dev, profile, FLASH_MOE_SHAPES)
+    # The ssm, hybrid and vlm families on the same traffic: mamba2-130m and
+    # zamba2-2.7b whole (flash at D = 80 on the CUDA cores), llava-next-34b
+    # at full width, 8 layers (flash at group 7, S up to 3904).
+    gc_cuda(torch)
+    lm_families = run_lm_families(torch, ops, dev, profile, smi_line)
+    flash_zamba = time_flash(torch, ops, dev, profile, FLASH_ZAMBA_SHAPES[-1:])
+    flash_llava = time_flash(torch, ops, dev, profile, [FLASH_LLAVA_TIMED])
 
     # The planning layer: the card's calibrated table, the modes ranked,
     # segment_stack(batch="auto") routed by the model, --shards auto, the
@@ -4739,6 +5102,9 @@ def main(argv=None) -> int:
          "launches": lm["launches"], "launches_tensor_cores": lm["launches_tc"],
          "max_abs_err": flash_err, **flash, **flash_sass_hgmma(),
          "lm_moe": {**lm_moe, "at_model_shape": {"shape": list(FLASH_MOE_SHAPES[-1]), **flash_moe}},
+         "lm_families": {**lm_families,
+                         "at_zamba_shape": {"shape": list(FLASH_ZAMBA_SHAPES[-1]), **flash_zamba},
+                         "at_llava_shape": {"shape": list(FLASH_LLAVA_TIMED), **flash_llava}},
          **analysis_entry(kpass, "flash_attention")},
     ]})
     print(smi_line, flush=True)

@@ -2,7 +2,7 @@
 
 A second implementation of the ``repro`` package, module for module at
 the same relative paths: the PMRF engine and the LM serving stack of the
-dense, moe and mla_moe families.  Plain tensor code is PyTorch; the kernels
+dense, vlm, moe, mla_moe, ssm and hybrid families.  Plain tensor code is PyTorch; the kernels
 (``fused_em_tick`` and ``segment_reduce`` on the single-device path,
 ``fused_map_step`` on the sharded route, the binary ``mrf_min_energy``,
 and ``flash_attention`` for LM prefill) are CUDA C++ built for ``sm_90a``

@@ -1,2 +1,4 @@
-"""LM model stack of the port: the dense decoder family (``transformer``),
-its attention and layers, the family registry and the weight converter."""
+"""LM model stack of the port: the decoder families (``transformer``, with
+``moe`` and MLA in ``attention``), Mamba2 (``ssm``, ``mamba_lm``), the
+hybrid (``zamba``), their layers, the family registry and the weight
+converter."""

@@ -1,12 +1,20 @@
 """Carry LM weights across from numpy arrays: the JAX package's parameter
-pytree into the port's ``Decoder``, and back.
+pytree into the port's model, and back.
 
-``params_from_jax`` takes the pytree of ``repro.models.transformer
-.decoder_init`` as numpy arrays, with the layer parameters stacked on a
-leading ``(L, ...)`` axis (MoE experts and shared experts nested inside,
-deepseek's ``first_layer`` unstacked), and builds a ``Decoder`` holding
-the same numbers in ``cfg.param_dtype`` (MoE routers in float32), so that
-both packages compute the same function.  ``params_to_numpy`` gives the same nested dict back.  Tests
+``params_from_jax`` takes the pytree of the reference's ``init`` for the
+config's family as numpy arrays, with the layer parameters stacked on a
+leading ``(L, ...)`` axis, and builds the port's model holding the same
+numbers in ``cfg.param_dtype``, so that both packages compute the same
+function:
+
+* ``Decoder`` (dense, vlm, moe, mla_moe): ``layers`` stacked (MoE experts
+  and shared experts nested inside), deepseek's ``first_layer`` unstacked;
+* ``MambaLM`` (ssm): ``layers.{ln, mamba.*}`` stacked;
+* ``Zamba`` (hybrid): ``mamba_layers`` stacked like Mamba's and the one
+  ``shared`` block unstacked.
+
+MoE routers and Mamba's ``a_log``, ``dt_bias`` and ``d_skip`` stay
+float32.  ``params_to_numpy`` gives the same nested dict back.  Tests
 fill the dict with ``np.asarray`` on the JAX arrays; nothing here imports
 the JAX package.
 """
@@ -22,9 +30,13 @@ from torch import nn
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba_lm as MB
+from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models import zamba as Z
 
 NestedArrays = Dict[str, Any]
+FLOAT32_LEAVES = ("router",) + S.FLOAT32_PARAMS
 
 
 def _tensor(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
@@ -34,57 +46,79 @@ def _tensor(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
     return torch.tensor(a).to(device=device, dtype=dtype)
 
 
-def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLike = None) -> T.Decoder:
-    """A ``Decoder`` for ``cfg`` holding the arrays of ``params_np``, on
-    ``device`` (``None``: the card, through ``resolve_device``).  MoE
-    routers stay float32; everything else goes to ``cfg.param_dtype``."""
+def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLike = None) -> nn.Module:
+    """The port's model for ``cfg`` (``Decoder``, ``MambaLM`` or ``Zamba``)
+    holding the arrays of ``params_np``, on ``device`` (``None``: the card,
+    through ``resolve_device``).  The leaves named in ``FLOAT32_LEAVES``
+    stay float32; everything else goes to ``cfg.param_dtype``.  A layer
+    count other than ``cfg.n_layers`` raises :class:`ValueError`."""
     device = resolve_device(device)
     dtype = L.dtype_of(cfg.param_dtype)
-    conv = lambda a, dt=dtype: _tensor(a, dt, device)
-    attn_kind, ffn_kind = T._layer_kinds(cfg)
-    stacked = params_np["layers"]
-    n_layers = int(np.asarray(stacked["ln1"]).shape[0]) + (1 if "first_layer" in params_np else 0)
-    if n_layers != cfg.n_layers:
-        raise ValueError(f"params hold {n_layers} layers, {cfg.name} has {cfg.n_layers}")
+    conv = lambda a: _tensor(a, dtype, device)
 
-    def block(tree, pick) -> nn.ParameterDict:
+    def block(tree, pick=np.asarray) -> nn.ParameterDict:
         return nn.ParameterDict({
             k: block(a, pick) if isinstance(a, dict)
-            else L.frozen(conv(pick(a), torch.float32 if k == "router" else dtype))
+            else L.frozen(_tensor(pick(a), torch.float32 if k in FLOAT32_LEAVES else dtype, device))
             for k, a in tree.items()
         })
+
+    def per_layer(stacked, n_extra: int = 0):
+        n = int(np.asarray(stacked["ln" if "ln" in stacked else "ln1"]).shape[0])
+        if n + n_extra != cfg.n_layers:
+            raise ValueError(f"params hold {n + n_extra} layers, {cfg.name} has {cfg.n_layers}")
+        return [lambda a, i=i: np.asarray(a)[i] for i in range(n)]
+
+    def mamba_layers(stacked):
+        return [MB.MambaLayer(conv(pick(stacked["ln"])), block(stacked["mamba"], pick)) for pick in per_layer(stacked)]
+
+    embed, final_norm = conv(params_np["embed"]), conv(params_np["final_norm"])
+    unembed = None if cfg.tie_embeddings else conv(params_np["unembed"])
+    if cfg.family == "ssm":
+        return MB.MambaLM(cfg, embed, mamba_layers(params_np["layers"]), final_norm, unembed)
+    if cfg.family == "hybrid":
+        sh = params_np["shared"]
+        shared = Z.SharedBlock(conv(sh["ln1"]), block(sh["attn"]), conv(sh["ln2"]), block(sh["mlp"]))
+        return Z.Zamba(cfg, embed, mamba_layers(params_np["mamba_layers"]), shared, final_norm, unembed)
+
+    attn_kind, ffn_kind = T._layer_kinds(cfg)
 
     def layer(tree, pick, ffn: str) -> T.DecoderLayer:
         return T.DecoderLayer(conv(pick(tree["ln1"])), conv(pick(tree["ln2"])), block(tree["attn"], pick),
                               block(tree[ffn], pick), attn_kind=attn_kind, ffn_kind=ffn)
 
-    layers = [layer(stacked, lambda a, i=i: np.asarray(a)[i], ffn_kind)
-              for i in range(int(np.asarray(stacked["ln1"]).shape[0]))]
+    stacked = params_np["layers"]
+    layers = [layer(stacked, pick, ffn_kind) for pick in per_layer(stacked, int("first_layer" in params_np))]
     first = layer(params_np["first_layer"], np.asarray, "mlp") if "first_layer" in params_np else None
-    unembed = None if cfg.tie_embeddings else conv(params_np["unembed"])
-    return T.Decoder(cfg, conv(params_np["embed"]), layers, conv(params_np["final_norm"]), unembed,
-                     first_layer=first)
+    return T.Decoder(cfg, embed, layers, final_norm, unembed, first_layer=first)
 
 
-def params_to_numpy(model: T.Decoder) -> NestedArrays:
+def params_to_numpy(model: nn.Module) -> NestedArrays:
     """The inverse of ``params_from_jax``: float32 numpy arrays, layers
-    stacked on a leading axis, ``first_layer`` unstacked."""
+    stacked on a leading axis, ``first_layer`` and Zamba's ``shared``
+    unstacked."""
     arr = lambda t: t.detach().float().cpu().numpy()
+    out: NestedArrays = {"embed": arr(model.embed), "final_norm": arr(model.final_norm)}
+    if model.unembed is not None:
+        out["unembed"] = arr(model.unembed)
+    mamba = lambda layers: _stack([{"ln": arr(lp.ln), "mamba": _tree_arrays(lp.mamba, arr)} for lp in layers])
+    if isinstance(model, MB.MambaLM):
+        out["layers"] = mamba(model.layers)
+        return out
+    if isinstance(model, Z.Zamba):
+        sp = model.shared
+        out["mamba_layers"] = mamba(model.mamba_layers)
+        out["shared"] = {"ln1": arr(sp.ln1), "attn": _tree_arrays(sp.attn, arr), "ln2": arr(sp.ln2),
+                         "mlp": _tree_arrays(sp.mlp, arr)}
+        return out
 
     def unstacked(lp) -> NestedArrays:
         return {"ln1": arr(lp.ln1), "ln2": arr(lp.ln2), "attn": _tree_arrays(lp.attn, arr),
                 lp.ffn_kind: _tree_arrays(lp.ffn, arr)}
 
-    per_layer = [unstacked(lp) for lp in model.layers]
-    out: NestedArrays = {
-        "embed": arr(model.embed),
-        "final_norm": arr(model.final_norm),
-        "layers": _stack(per_layer),
-    }
+    out["layers"] = _stack([unstacked(lp) for lp in model.layers])
     if model.first_layer is not None:
         out["first_layer"] = unstacked(model.first_layer)
-    if model.unembed is not None:
-        out["unembed"] = arr(model.unembed)
     return out
 
 

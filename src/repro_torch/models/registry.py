@@ -1,10 +1,13 @@
 """Family registry: a uniform init/prefill/decode API per architecture.
 
 Counterpart of ``repro.models.registry``.  The port serves the decoder
-families ``dense``, ``moe`` and ``mla_moe``; every other family raises
+families ``dense``, ``vlm``, ``moe`` and ``mla_moe``, the Mamba2 family
+``ssm`` and the hybrid ``hybrid``; ``encdec`` raises
 :class:`NotImplementedError` naming the ROADMAP item that ports it.  The
 loss is not part of the port's API yet: it belongs to training
-(ROADMAP.md Queue 1, 'LM stack, still to port').
+(ROADMAP.md Queue 1, 'LM stack, still to port').  ``prefill`` takes
+``backend`` (where prefill attention runs); the families whose prefill
+reaches no kernel ignore it.
 """
 
 from __future__ import annotations
@@ -12,7 +15,9 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import mamba_lm as MB
 from repro_torch.models import transformer as T
+from repro_torch.models import zamba as Z
 
 
 class ModelApi(NamedTuple):
@@ -23,9 +28,6 @@ class ModelApi(NamedTuple):
 
 
 _NOT_PORTED = {
-    "vlm": "the VLM prefix embeddings",
-    "ssm": "models/mamba_lm.py and models/ssm.py",
-    "hybrid": "models/zamba.py",
     "encdec": "models/whisper.py",
 }
 
@@ -34,7 +36,8 @@ def _decoder_api() -> ModelApi:
     return ModelApi(
         init=T.decoder_init,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: T.prefill(
-            params, batch["tokens"], cfg, max_seq=max_seq, backend=backend
+            params, batch["tokens"], cfg, max_seq=max_seq, backend=backend,
+            vision_embeds=batch.get("vision_embeds"),
         ),
         decode_step=lambda params, cache, batch, cfg: T.decode_step(
             params, cache, batch["tokens"], cfg
@@ -43,9 +46,38 @@ def _decoder_api() -> ModelApi:
     )
 
 
+def _mamba_api() -> ModelApi:
+    return ModelApi(
+        init=MB.mamba_init,
+        prefill=lambda params, batch, cfg, max_seq=None, backend=None: MB.mamba_prefill(
+            params, batch["tokens"], cfg, max_seq=max_seq
+        ),
+        decode_step=lambda params, cache, batch, cfg: MB.mamba_decode_step(
+            params, cache, batch["tokens"], cfg
+        ),
+        init_cache=MB.mamba_init_cache,
+    )
+
+
+def _zamba_api() -> ModelApi:
+    return ModelApi(
+        init=Z.zamba_init,
+        prefill=lambda params, batch, cfg, max_seq=None, backend=None: Z.zamba_prefill(
+            params, batch["tokens"], cfg, max_seq=max_seq, backend=backend
+        ),
+        decode_step=lambda params, cache, batch, cfg: Z.zamba_decode_step(
+            params, cache, batch["tokens"], cfg
+        ),
+        init_cache=Z.zamba_init_cache,
+    )
+
+
+_FAMILY_APIS = {"ssm": _mamba_api, "hybrid": _zamba_api, **{f: _decoder_api for f in T.FAMILIES}}
+
+
 def get_api(cfg: ModelConfig) -> ModelApi:
-    if cfg.family in T.FAMILIES:
-        return _decoder_api()
+    if cfg.family in _FAMILY_APIS:
+        return _FAMILY_APIS[cfg.family]()
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet: "

@@ -1,5 +1,5 @@
-"""Decoder-only transformer (families dense, moe and mla_moe): the model,
-prefill and decode.
+"""Decoder-only transformer (families dense, vlm, moe and mla_moe): the
+model, prefill and decode.
 
 Counterpart of ``repro.models.transformer``.  The reference stacks layer
 parameters on a leading L axis and scans over them; here the decoder is
@@ -20,6 +20,11 @@ ported, ROADMAP.md Queue 1).  GQA prefill attention runs on the flash
 kernel through ``attention.attention_dispatch``; ``backend="torch"``
 runs its plain version instead, on any device.  MLA and the MoE FFN
 reach no kernel, as in the reference.
+
+``vlm`` (llava) is the dense decoder with patch embeddings ``(B, P, D)``
+spliced into the prompt: they replace the first P token embeddings, cast
+to the compute dtype, and positions run over the whole prompt.  The
+vision tower is a stub in the reference too; decode takes tokens only.
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from repro_torch.models import moe as M
 
 Tensor = torch.Tensor
 Cache = Dict[str, Tensor]
-FAMILIES = ("dense", "moe", "mla_moe")
+FAMILIES = ("dense", "vlm", "moe", "mla_moe")
 
 
 class DecoderLayer(nn.Module):
@@ -128,8 +133,17 @@ def _all_layers(params: Decoder):
     return ([params.first_layer] if params.first_layer is not None else []) + list(params.layers)
 
 
-def _embed(params: Decoder, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def _embed(params: nn.Module, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     return params.embed[tokens].to(L.dtype_of(cfg.compute_dtype))
+
+
+def _splice_patches(x: Tensor, vision_embeds: Tensor) -> Tensor:
+    """The token embeddings ``x`` (B, S, D) with the first P replaced by
+    the patch embeddings (B, P, D), cast to ``x``'s dtype."""
+    npatch = vision_embeds.shape[1]
+    if x.shape[1] < npatch:
+        raise ValueError(f"a prompt of {x.shape[1]} tokens cannot hold {npatch} patch embeddings")
+    return torch.cat([vision_embeds.to(x.dtype), x[:, npatch:]], dim=1)
 
 
 def _ffn_apply(lp: DecoderLayer, x: Tensor, cfg: ModelConfig) -> Tensor:
@@ -149,10 +163,16 @@ def _layer_body(lp: DecoderLayer, x: Tensor, cfg: ModelConfig, *, backend: Optio
 
 
 def decoder_hidden(
-    params: Decoder, tokens: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None
+    params: Decoder, tokens: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None,
+    vision_embeds: Optional[Tensor] = None,
 ) -> Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, D)."""
+    """Token ids (B, S) -> final hidden states (B, S, D).  ``vlm`` needs
+    ``vision_embeds`` (B, P, D)."""
     x = _embed(params, tokens, cfg)
+    if cfg.family == "vlm":
+        if vision_embeds is None:
+            raise ValueError(f"{cfg.name}: the vlm family needs vision_embeds")
+        x = _splice_patches(x, vision_embeds)
     for lp in _all_layers(params):
         x = _layer_body(lp, x, cfg, backend=backend)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -216,15 +236,21 @@ def decode_step(
 def prefill(
     params: Decoder, tokens: Tensor, cfg: ModelConfig, *,
     max_seq: Optional[int] = None, backend: Optional[str] = None,
+    vision_embeds: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Cache]:
     """Process a full prompt: last-position logits (B, 1, V) float32 and a
     cache of ``max_seq`` positions (default: the prompt length) holding
     the prompt's K/V (or latents).  GQA attention is one
-    ``kops.flash_attention`` per layer; MLA is the plain latent scan."""
+    ``kops.flash_attention`` per layer; MLA is the plain latent scan.
+    For ``vlm``, ``vision_embeds`` (B, P, D), where given, replace the
+    first P token embeddings (as the reference's prefill, which takes
+    them as optional)."""
     b, s = tokens.shape
     max_seq = max_seq or s
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
     x = _embed(params, tokens, cfg)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        x = _splice_patches(x, vision_embeds)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     for lp, (c0, c1) in zip(_all_layers(params), _layer_caches(cache, params, cfg)):
         h = L.rms_norm(x, lp.ln1, cfg.norm_eps)

@@ -15,20 +15,24 @@ one position.  The scheduler enforces this exactly:
 * mid-flight, a pending request is admitted the moment its prompt length
   equals the pool's current position (length-aligned continuous batching).
 
-PyTorch runs eagerly, so there is no compiled-function cache.  Requests
-carry no ``extras``: those feed the VLM and encoder-decoder families,
-which are not ported.  The engine runs on ``device`` (``None``: the card,
-through ``resolve_device``) and takes ``backend``: ``"auto"`` puts
-prefill attention on the flash kernel for a CUDA device; ``"torch"`` runs
-its plain version, the one way to do so on the card.
+PyTorch runs eagerly, so there is no compiled-function cache.  A
+request's ``extras`` (the VLM family's ``vision_embeds`` (P, D)) each
+get a leading batch axis and go into its prefill's batch, as in the
+reference.  The cache may hold any family's layout (K/V, MLA latents,
+Mamba's conv and SSM states, Zamba's per-application K/V):
+``_write_slot`` finds each entry's batch axis.  The engine runs on
+``device`` (``None``: the card, through ``resolve_device``) and takes
+``backend``: ``"auto"`` puts prefill attention on the flash kernel for a
+CUDA device; ``"torch"`` runs its plain version, the one way to do so on
+the card.
 """
 
 from __future__ import annotations
 
 import time
 from collections import defaultdict
-from dataclasses import dataclass
-from typing import Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,6 +50,7 @@ class Request:
     prompt: np.ndarray             # (S,) int32
     max_new_tokens: int = 32
     eos_id: Optional[int] = None
+    extras: Dict[str, Any] = field(default_factory=dict)   # name -> array or tensor, no batch axis
 
 
 @dataclass
@@ -134,10 +139,12 @@ class ServingEngine:
             self._insert(slot, req)
 
     def _insert(self, slot: int, req: Request) -> None:
-        tokens = torch.as_tensor(np.asarray(req.prompt, np.int64)[None], device=self.device)
+        batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64)[None], device=self.device)}
+        for name, value in req.extras.items():
+            batch[name] = torch.as_tensor(value, device=self.device)[None]
         with torch.inference_mode():
             logits, cache1 = self.api.prefill(
-                self.params, {"tokens": tokens}, self.cfg, max_seq=self.max_seq, backend=self.backend
+                self.params, batch, self.cfg, max_seq=self.max_seq, backend=self.backend
             )
             _write_slot(self.cache, cache1, slot)
         self.slot_req[slot] = req

@@ -131,6 +131,22 @@ PyTorch version on the card, and drives these paths (serving last):
   to its own embedding rows of the prompt's first 2880 ids equals the
   prefill without them, bit for bit.  ``lm_families_seconds`` lines
   beside the card's name and power limit.
+* LM family ``encdec`` in the same phase and on the same traffic:
+  ``whisper-large-v3`` whole (32 encoder and 32 decoder layers, d_model
+  1280, 20 heads of 64), each request with its own frame embeddings
+  (1500, 1280) from ``default_rng(2)``: per prefilled request 32
+  bidirectional ``flash_attention`` launches at (1, 20, 20, 1500, 64),
+  whose last tile holds 28 of 64 rows, and 32 causal ones at (1, 20, 20,
+  S, 64), all on the tensor-core kernel (512 a run); cross-attention and
+  decode are the plain ``chunked_attention``, as the reference's.
+  ``lm_families_kernel_vs_plain``: (a) float32 at 4 + 4 layers, (b) the
+  bf16 model, the limits above.  Before the phase, ``flash_ragged_check``
+  holds the tensor-core kernel at the encoder's shape and at (2, 4, 2,
+  200, 64), causal and not, on peaked scores: each row within
+  ``ROW_TOL`` of its largest value (the last q tile's rows reported
+  apart), with NaN in the memory after q, k and v (keys past S in the
+  last K/V stage must be masked) and a sentinel after the output that
+  must stay (rows past S must not be stored).
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -289,9 +305,11 @@ Tolerances (kernel against plain version, same inputs, on the card):
   ragged (1,4,2,200,32), causal and not, within 2e-4 (rtol and atol) at
   f32 and 2e-2 at bf16, the tiers of ``tests/test_kernels.py``; the
   model's (1,12,2,S,128) at S = 512 and 1024, bf16, causal, within 2e-2;
-  and, for the tensor-core kernel off the model's shapes, (2,4,2,200,128)
-  and (1,2,1,33,64) in bf16, causal and not, within 2e-2.  The CUDA-core
-  kernel (float32, and bf16 at D other than 64 and 128) computes in
+  and, for the tensor-core kernel off the model's shapes, (2,4,2,200,128),
+  (1,2,1,33,64) and (2,4,2,200,64) in bf16, causal and not, within 2e-2;
+  whisper's encoder shape (1,20,20,1500,64) non-causal and decoder shapes
+  (1,20,20,S,64) causal, bf16, within 2e-2, on the tensor cores.  The
+  CUDA-core kernel (float32, and bf16 at D other than 64 and 128) computes in
   float32 and differs in the order of the sums; the tensor-core kernel
   (bf16 at D = 64, 128) also rounds the probabilities to bf16 before the
   value product, as the JAX reference does.  Each case names the kernel
@@ -409,8 +427,10 @@ MOE_TIE = 1e-5  # router logits closer than this may order differently on the ca
 # The ssm, hybrid and vlm families on LM's traffic: mamba2-130m and
 # zamba2-2.7b whole; llava-next-34b at full width, its 60 layers (about 67
 # GB of bf16 with caches) cut to 8.
-LM_FAMILIES = (("mamba2-130m", None), ("zamba2-2.7b", None), ("llava-next-34b", 8))
-FAMILY_F32_LAYERS = {"zamba2-2.7b": 12, "llava-next-34b": 2}  # check (a): 2 shared applications; 2 layers
+# whisper-large-v3 (encdec) whole: 32 encoder and 32 decoder layers.
+LM_FAMILIES = (("mamba2-130m", None), ("zamba2-2.7b", None), ("llava-next-34b", 8), ("whisper-large-v3", None))
+# check (a): 2 shared applications; 2 layers; 4 encoder and 4 decoder layers
+FAMILY_F32_LAYERS = {"zamba2-2.7b": 12, "llava-next-34b": 2, "whisper-large-v3": 4}
 VLM_MAX_SEQ = 4096  # llava: 2880 patches, 512 or 1024 prompt tokens, 32 new
 SSD_CHECK_TOKENS = 1024  # the card-against-CPU SSD check: 8 chunks of 128
 SSD_DECODE_STEPS = 8
@@ -422,8 +442,19 @@ FLASH_MODEL_SHAPES = [(1, 12, 2, 512, 128), (1, 12, 2, 1024, 128)]
 # qwen3-moe's prefill calls: 64 q heads on 4 kv heads (group 16).
 FLASH_MOE_SHAPES = [(1, 64, 4, 512, 128), (1, 64, 4, 1024, 128)]
 # Shapes that reach the bf16 tensor-core kernel off the model's path: a
-# ragged S with B = 2 at D = 128, and S shorter than one 64-row tile at D = 64.
-FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64)]
+# ragged S with B = 2 at D = 128 and at D = 64 (4 tiles, the last of 8
+# rows), and S shorter than one 64-row tile at D = 64.
+FLASH_TC_SHAPES = [(2, 4, 2, 200, 128), (1, 2, 1, 33, 64), (2, 4, 2, 200, 64)]
+# whisper-large-v3's prefill calls: the encoder's (bidirectional, S = 1500
+# = 23 * 64 + 28) and the decoder's (causal) at 20 heads of 64.
+FLASH_WHISPER_ENCODER = (1, 20, 20, 1500, 64)
+FLASH_WHISPER_DECODER = [(1, 20, 20, 512, 64), (1, 20, 20, 1024, 64)]
+# The ragged tensor-core cases held on peaked scores with poisoned tails:
+# (shape, causal).  q is scaled by FLASH_RAGGED_Q_SCALE (scores spread by
+# several units), and GUARD_ROWS rows of NaN follow q, k and v.
+FLASH_RAGGED_CASES = [(FLASH_WHISPER_ENCODER, False), ((2, 4, 2, 200, 64), False), ((2, 4, 2, 200, 64), True)]
+FLASH_RAGGED_Q_SCALE = 10.0
+GUARD_ROWS = 64
 # zamba2's shared-block prefill (32 heads of 80: the CUDA-core kernel) and
 # llava's (56 q heads on 8 kv heads, group 7; S = 3900 ends in a ragged tile).
 FLASH_ZAMBA_SHAPES = [(1, 32, 32, 512, 80), (1, 32, 32, 1024, 80)]
@@ -3769,13 +3800,15 @@ def check_flash(torch, ops, dev) -> float:
     """flash_attention kernel against its plain version on the card: the
     reference tests' shapes and a ragged S in f32 and bf16, causal and not,
     the models' shapes (qwen2-1.5b's, qwen3-moe's, zamba2's at D = 80,
-    which must go to the CUDA-core kernel, llava's, which must go to the
-    tensor cores) in bf16 causal, and two more shapes of the bf16
+    which must go to the CUDA-core kernel, llava's and whisper's decoder's,
+    which must go to the tensor cores) in bf16 causal, whisper's encoder's
+    in bf16 non-causal (tensor cores), and three more shapes of the bf16
     tensor-core kernel.  Each case names the kernel it went to.  Returns
     the largest error."""
     cases = [(sh, dt, c) for sh in FLASH_REF_SHAPES for dt in FLASH_TOL for c in (False, True)]
     cases += [(sh, "bfloat16", True) for sh in FLASH_MODEL_SHAPES + FLASH_MOE_SHAPES]
-    cases += [(sh, "bfloat16", True) for sh in FLASH_ZAMBA_SHAPES + FLASH_LLAVA_SHAPES]
+    cases += [(sh, "bfloat16", True) for sh in FLASH_ZAMBA_SHAPES + FLASH_LLAVA_SHAPES + FLASH_WHISPER_DECODER]
+    cases += [(FLASH_WHISPER_ENCODER, "bfloat16", False)]
     cases += [(sh, "bfloat16", c) for sh in FLASH_TC_SHAPES for c in (False, True)]
     worst, rows = 0.0, []
     for i, (shape, dtype, causal) in enumerate(cases):
@@ -3793,7 +3826,8 @@ def check_flash(torch, ops, dev) -> float:
         if not torch.allclose(kern.float(), plain.float(), rtol=tol, atol=tol):
             fail(f"{what}: differs from the plain version beyond {tol} (err {err})")
         want = {**{sh: "cuda_cores" for sh in FLASH_ZAMBA_SHAPES},
-                **{sh: "tensor_cores" for sh in FLASH_LLAVA_SHAPES}}.get(shape, variant)
+                **{sh: "tensor_cores" for sh in FLASH_LLAVA_SHAPES + FLASH_WHISPER_DECODER},
+                FLASH_WHISPER_ENCODER: "tensor_cores"}.get(shape, variant)
         if variant != want:
             fail(f"{what}: went to the {variant} kernel, not the {want} one")
         del kern, plain, q, k, v
@@ -3835,6 +3869,75 @@ def check_flash_peaked(torch, ops, dev) -> float:
                      "row_relative_err": err,
                      "max_abs_err": (kern.float() - plain.float()).abs().max().item()})
     emit({"phase": "flash_attention_peaked_check", "ok": True, "row_tol": fc.ROW_TOL,
+          "row_relative_err": worst, "cases": rows})
+    return worst
+
+
+def guarded(torch, n: int, guard: int, fill: float, dev):
+    """A bf16 buffer of ``n + guard`` elements filled with ``fill``; returns
+    it and the view of its first ``n``, whose last element the guard
+    follows in memory."""
+    buf = torch.full((n + guard,), fill, dtype=torch.bfloat16, device=dev)
+    return buf, buf[:n]
+
+
+def check_flash_ragged(torch, dev) -> float:
+    """The bf16 tensor-core kernel where S ends in a partial 64-row tile
+    (``FLASH_RAGGED_CASES``: whisper's encoder call, S = 1500 = 23 * 64 +
+    28, and (2, 4, 2, 200, 64), 4 tiles of which the last holds 8 rows),
+    on peaked scores (q scaled by ``FLASH_RAGGED_Q_SCALE``), launched
+    through the C entry point on buffers of its own: ``GUARD_ROWS`` rows of
+    NaN follow q, k and v in memory (the last head's rows past S, which
+    the TMA box of the last tile spans: a key past S that reached the
+    softmax or the value product would make its rows NaN), and a sentinel
+    follows the output (a row past S that was stored would overwrite it).
+    Each output row within ``flash_cases.ROW_TOL`` of its largest value
+    against ``ref.flash_attention`` on the card, the last q tile's rows
+    reported apart; the guard unchanged.  Returns the largest row error."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.testing import flash_cases as fc
+
+    kernel = flash_attention._bind()
+    worst, rows = 0.0, []
+    for i, (shape, causal) in enumerate(FLASH_RAGGED_CASES):
+        b, hq, hkv, s, d = shape
+        what = f"flash_attention ragged {shape} causal={causal}"
+        arrays = fc.peaked_inputs(shape, FLASH_RAGGED_Q_SCALE, seed=200 + i)
+        tensors = []
+        for a in arrays:
+            _, view = guarded(torch, a.size, GUARD_ROWS * d, float("nan"), dev)
+            view.copy_(torch.from_numpy(a.reshape(-1)).to(dev, torch.bfloat16))
+            tensors.append(view.view(a.shape))
+        q, k, v = tensors
+        sentinel = 3.0
+        out_buf, out_flat = guarded(torch, q.numel(), GUARD_ROWS * d, sentinel, dev)
+        tc = ctypes.c_int(0)
+        kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out_flat.data_ptr(), b, hq, hkv, s, d,
+               float(d ** -0.5), int(causal), flash_attention._DTYPES[torch.bfloat16],
+               torch.cuda.current_stream().cuda_stream, ctypes.byref(tc))  # raises on a CUDA error
+        torch.cuda.synchronize()
+        if tc.value != 1:
+            fail(f"{what}: the C entry did not run the tensor-core kernel")
+        kern = out_flat.view(q.shape).float().cpu().numpy()
+        plain = ref.flash_attention(q, k, v, causal=causal).float().cpu().numpy()
+        guard_kept = bool((out_buf[q.numel():] == sentinel).all())
+        last0 = (s - 1) // 64 * 64
+        err = fc.row_relative_error(kern, plain)
+        err_last = fc.row_relative_error(kern[..., last0:, :], plain[..., last0:, :])
+        row = {"shape": list(shape), "causal": causal, "q_scale": FLASH_RAGGED_Q_SCALE,
+               "score_spread": fc.score_spread(arrays[0][:1, :1], arrays[1][:1, :1], causal),
+               "last_tile_rows": s - last0, "row_relative_err": err, "last_tile_row_relative_err": err_last,
+               "max_abs_err": float(np.abs(kern - plain).max()), "output_guard_kept": guard_kept}
+        rows.append(row)
+        if not guard_kept:
+            fail(f"{what}: the kernel wrote past the output's last row")
+        if not err <= fc.ROW_TOL:
+            fail(f"{what}: a row differs from the plain version by {err} of its largest value, beyond {fc.ROW_TOL}")
+        worst = max(worst, err)
+        del q, k, v, tensors, out_buf, out_flat
+    emit({"phase": "flash_ragged_check", "ok": True, "row_tol": fc.ROW_TOL, "guard_rows": GUARD_ROWS,
           "row_relative_err": worst, "cases": rows})
     return worst
 
@@ -3941,17 +4044,20 @@ def check_kernel_vs_plain(who: str, res_a: dict, res_b: dict) -> None:
         fail(f"{who}bf16 model: prefill logits cosine {res_b['min_cosine']} below 0.99")
 
 
-def profile_lm(torch, api, cfg, params, prompts, dev, max_seq: int = 0) -> None:
-    """``profile`` lines of one prefill of the last (longest) prompt and
-    one decode step at B = ``max_batch``, t = its length: wall time (best
-    of 3) and the device's idle share against it.  ``max_seq`` defaults to
-    the LM path's."""
+def profile_lm(torch, api, cfg, params, prompts, dev, max_seq: int = 0, extras: dict = None) -> None:
+    """``profile`` lines of one prefill of the last (longest) prompt (with
+    its ``extras``, where given) and one decode step at B = ``max_batch``,
+    t = its length: wall time (best of 3) and the device's idle share
+    against it.  ``max_seq`` defaults to the LM path's.  For ``encdec``
+    also the cross caches' padding copy of one decode step
+    (``cross_cache_pad``)."""
     long_prompt = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
     t = len(prompts[-1])
+    batch = {"tokens": long_prompt, **{k: v[None] for k, v in (extras or {}).items()}}
 
     def prefill():
         with torch.inference_mode():
-            api.prefill(params, {"tokens": long_prompt}, cfg)
+            api.prefill(params, batch, cfg)
 
     cache = api.init_cache(cfg, LM["max_batch"], max_seq or LM["max_seq"], device=dev)
     cache["t"] = torch.tensor(t, dtype=torch.int32)
@@ -3974,6 +4080,35 @@ def profile_lm(torch, api, cfg, params, prompts, dev, max_seq: int = 0) -> None:
         emit({"phase": "profile", "what": f"LM {what}, {cfg.name} {cfg.n_layers} layers {cfg.param_dtype}",
               "wall_s_unprofiled": min(walls),
               "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / min(walls), **prof})
+    if cfg.family == "encdec":
+        cross_cache_pad(torch, cfg, cache, prof["device_busy_us"])
+
+
+def cross_cache_pad(torch, cfg, cache, step_busy_us: float) -> None:
+    """The copy ``chunked_attention`` makes of every layer's cross K/V in
+    one decode step: ``encoder_seq`` keys padded to a multiple of
+    ``min(attn_chunk, encoder_seq)`` (1500 -> 2048), both caches, every
+    layer, at the step's batch.  Its time per step (CUDA events), bytes
+    (the caches read once, the padded copies written once) and share of
+    the profiled decode step's device time."""
+    import torch.nn.functional as F
+
+    sk = cfg.encoder_seq
+    pad = (-sk) % min(cfg.attn_chunk, sk)
+
+    def copies():
+        for name in ("xk", "xv"):
+            for i in range(cfg.n_layers):
+                F.pad(cache[name][i], (0, 0, 0, pad))
+
+    with torch.inference_mode():
+        ms = time_ms(copies, iters=10, warmup=2)
+    per = cache["xk"][0].numel() * cache["xk"].element_size()
+    n_bytes = 2 * cfg.n_layers * per * (2 * sk + pad) // sk
+    emit({"phase": "profile", "what": f"cross_cache_pad: one decode step's padding copy, {cfg.name}",
+          "keys": sk, "padded_to": sk + pad, "batch": int(cache["xk"].shape[1]), "layers": cfg.n_layers,
+          "ms_per_step": ms, "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+          "share_of_decode_step_device_time": ms * 1e3 / step_busy_us if step_busy_us else None})
 
 
 def run_lm(torch, ops, dev, profile: bool) -> dict:
@@ -4085,9 +4220,10 @@ def run_lm(torch, ops, dev, profile: bool) -> dict:
     return {"launches": launches["flash_attention"], "launches_tc": launches_tc, "serve": out}
 
 
-def time_flash(torch, ops, dev, profile: bool, shapes=None) -> dict:
+def time_flash(torch, ops, dev, profile: bool, shapes=None, causal: bool = True) -> dict:
     """The flash kernel at the LM path's two calls (``shapes``, by default
-    qwen2-1.5b's at S = 512 and 1024, bf16, causal): its time per call (CUDA events over back-to-back calls, the
+    qwen2-1.5b's at S = 512 and 1024, bf16, ``causal``; S(S+1)/2 causal
+    (q, k) pairs, else S^2): its time per call (CUDA events over back-to-back calls, the
     host's share included) and on the device (``torch.profiler``), the
     plain version's time, one library call's (``scaled_dot_product_attention``,
     per call and on the device), and the bound from the call's bytes and
@@ -4099,9 +4235,9 @@ def time_flash(torch, ops, dev, profile: bool, shapes=None) -> dict:
     for shape in shapes or FLASH_MODEL_SHAPES:
         b, hq, hkv, s, d = shape
         q, k, v = flash_inputs(torch, shape, "bfloat16", dev, seed=99)
-        kern = lambda: ops.flash_attention(q, k, v, causal=True)
-        plain = lambda: ops.flash_attention(q, k, v, causal=True, backend="torch")
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True)
+        kern = lambda: ops.flash_attention(q, k, v, causal=causal)
+        plain = lambda: ops.flash_attention(q, k, v, causal=causal, backend="torch")
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
         lib_err = (lib().float() - plain().float()).abs().max().item()
         if lib_err > FLASH_TOL["bfloat16"]:
             fail(f"scaled_dot_product_attention differs from the plain version by {lib_err}")
@@ -4109,11 +4245,11 @@ def time_flash(torch, ops, dev, profile: bool, shapes=None) -> dict:
         prof = device_profile(torch, lambda: [kern() for _ in range(20)])
         lib_prof = device_profile(torch, lambda: [lib() for _ in range(20)])
         n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()   # q, k, v in; out
-        pairs = s * (s + 1) // 2                                          # causal (q, k) pairs
+        pairs = s * (s + 1) // 2 if causal else s * s                     # (q, k) pairs
         n_ops = 4 * b * hq * d * pairs                                    # QK^T and PV, 2 ops per MAC
         bound_ms, by = bound(n_bytes, n_ops, BF16_OPS_PER_S)
         device_ms = prof["device_busy_us"] / 20 * 1e-3
-        row = {"shape": list(shape), "variant": flash_launch(ops, q, k, v, True)[1],
+        row = {"shape": list(shape), "causal": causal, "variant": flash_launch(ops, q, k, v, causal)[1],
                "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                "library_device_ms": lib_prof["device_busy_us"] / 20 * 1e-3,
                "bound_ms": bound_ms, "bound_by": by, "share_of_bound": bound_ms / ms,
@@ -4121,9 +4257,10 @@ def time_flash(torch, ops, dev, profile: bool, shapes=None) -> dict:
                "bytes": n_bytes, "ops": n_ops, "achieved_tflops": n_ops / (ms * 1e-3) / 1e12,
                "device_tflops": n_ops / (device_ms * 1e-3) / 1e12 if device_ms else None,
                "sdpa_max_abs_err_vs_plain": lib_err}
-        emit({"phase": "timing", "what": "flash_attention bf16 causal", **row})
+        mask = "causal" if causal else "non-causal"
+        emit({"phase": "timing", "what": f"flash_attention bf16 {mask}", **row})
         if profile:
-            emit({"phase": "profile", "what": f"20 flash_attention calls (S={s} bf16 causal)", **prof})
+            emit({"phase": "profile", "what": f"20 flash_attention calls (S={s} bf16 {mask})", **prof})
             emit({"phase": "profile", "what": f"20 scaled_dot_product_attention calls (S={s})", **lib_prof})
         rows.append(row)
     keys = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms", "bound_by")
@@ -4381,23 +4518,32 @@ def run_lm_moe(torch, ops, dev, profile: bool, smi_line: str) -> dict:
 
 def flash_per_prefill(cfg) -> int:
     """``flash_attention`` launches per prefilled request: one per layer of
-    a GQA decoder, one per shared-block application of a hybrid, none for
-    Mamba2 (or MLA)."""
+    a GQA decoder, one per shared-block application of a hybrid, one per
+    encoder and decoder layer of an encoder-decoder, none for Mamba2 (or
+    MLA)."""
     if cfg.family == "ssm" or cfg.family == "mla_moe":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.hybrid_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + cfg.n_layers
     return cfg.n_layers
 
 
 def family_prompts(torch, cfg, params, dev) -> tuple:
     """LM's prompts for ``cfg`` and each request's extras (``None`` but for
-    ``vlm``).  A vlm prompt carries ``vision_patches`` ids from
-    ``numpy.random.default_rng(1)`` in front, and its ``vision_embeds``
-    (P, D) are those ids' rows of the model's own embedding table, on the
-    card: the model's scale, and a prefill equal to the one without them
-    (``vlm_splice_check``)."""
+    ``vlm`` and ``encdec``).  A vlm prompt carries ``vision_patches`` ids
+    from ``numpy.random.default_rng(1)`` in front, and its
+    ``vision_embeds`` (P, D) are those ids' rows of the model's own
+    embedding table, on the card: the model's scale, and a prefill equal
+    to the one without them (``vlm_splice_check``).  An encdec request
+    carries its own frames (encoder_seq, D), standard normal float32 from
+    ``numpy.random.default_rng(2)``, on the card."""
     prompts = lm_prompts(cfg)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(2)
+        frames = [rng.standard_normal((cfg.encoder_seq, cfg.d_model), dtype=np.float32) for _ in prompts]
+        return prompts, [{"frames": torch.from_numpy(f).to(dev)} for f in frames]
     if cfg.family != "vlm":
         return prompts, None
     rng = np.random.default_rng(1)
@@ -4429,8 +4575,10 @@ def family_kernel_vs_plain(torch, ops, serving, api, cfg, params, dev, max_seq: 
     del logits_k, logits_p, extras
     gc_cuda(torch)
 
-    cfg_a = dataclasses.replace(cfg, n_layers=FAMILY_F32_LAYERS[cfg.name], param_dtype="float32",
-                                compute_dtype="float32")
+    depth = {"n_layers": FAMILY_F32_LAYERS[cfg.name]}
+    if cfg.family == "encdec":
+        depth["encoder_layers"] = depth["n_layers"]
+    cfg_a = dataclasses.replace(cfg, **depth, param_dtype="float32", compute_dtype="float32")
     params_a = api.init(torch.Generator(device=dev).manual_seed(LM["seed"]), cfg_a)
     prompts, extras = family_prompts(torch, cfg_a, params_a, dev)
     ops.reset_launch_counts()
@@ -4444,7 +4592,8 @@ def family_kernel_vs_plain(torch, ops, serving, api, cfg, params, dev, max_seq: 
         fail(f"{cfg.name} f32 check: plain path launched a kernel, or the kernel path launched {launches_a}")
     tokens_equal = all(np.array_equal(kern_a["completions"][r].tokens, plain_a["completions"][r].tokens)
                        for r in range(n_req))
-    res_a = {"layers": cfg_a.n_layers, "dtype": "float32", "flash_launches": launches_a,
+    res_a = {"layers": cfg_a.n_layers, "encoder_layers": cfg_a.encoder_layers, "dtype": "float32",
+             "flash_launches": launches_a,
              "greedy_tokens_equal": tokens_equal, **logits_compare_a(torch, logits_k, logits_p),
              "wall_s": kern_a["wall_s"], "plain_wall_s": plain_a["wall_s"]}
     del params_a, extras, kern_a, plain_a, logits_k, logits_p
@@ -4567,11 +4716,11 @@ def mamba_card_vs_cpu(torch, api, cfg, dev, prompt) -> dict:
 
 
 def run_lm_families(torch, ops, dev, profile: bool, smi_line: str) -> dict:
-    """The ssm, hybrid and vlm families on the LM path's traffic
+    """The ssm, hybrid, vlm and encdec families on the LM path's traffic
     (``LM_FAMILIES``): each model serves the 8 requests twice (the second
-    run's tokens bit for bit the first's); zamba2's and llava's kernel path
-    against their plain path; llava's splice; the SSD, and mamba2 whole,
-    card against CPU.  Each model is freed before the next is built.
+    run's tokens bit for bit the first's); zamba2's, llava's and whisper's
+    kernel path against their plain path; llava's splice; the SSD, and
+    mamba2 whole, card against CPU.  Each model is freed before the next is built.
     Returns each model's flash launches for the ``kernels`` line."""
     import dataclasses
 
@@ -4618,17 +4767,21 @@ def run_lm_families(torch, ops, dev, profile: bool, smi_line: str) -> dict:
         repeat_equal = all(np.array_equal(comps[r].tokens, runs[1]["completions"][r].tokens) for r in comps)
         launches = main["launches"]
         want = flash_per_prefill(cfg) * n_req
-        want_tc = want if cfg.family == "vlm" else 0
+        want_tc = want if cfg.family in ("vlm", "encdec") else 0
         out = {
             "phase": "lm_families_serve", "arch": cfg.name, "family": cfg.family, "n_layers": cfg.n_layers,
             "full_depth": get_config(arch).n_layers, "d_model": cfg.d_model, "dtype": cfg.param_dtype,
+            "encoder_layers": cfg.encoder_layers, "encoder_seq": cfg.encoder_seq,
             "params": n_params, "init_s": init_s, "init_peak_mem_gb": init_peak, "requests": n_req,
             "prompt_lengths": list(by_len), "patches": cfg.vision_patches if extras else 0,
             "max_new_tokens": LM["max_new"], "max_batch": LM["max_batch"], "max_seq": max_seq,
             "launches": launches, "flash_attention_tensor_core_launches": main["launches_tc"],
             "attention": {"ssm": "none: chunked SSD, plain PyTorch as the reference's",
                           "hybrid": "flash_attention (shared block, D = 80: CUDA-core kernel)",
-                          "vlm": "flash_attention (GQA prefill, group 7: tensor-core kernel)"}[cfg.family],
+                          "vlm": "flash_attention (GQA prefill, group 7: tensor-core kernel)",
+                          "encdec": "flash_attention (encoder bidirectional at S = 1500 and decoder prefill "
+                                    "causal, D = 64: tensor-core kernel); cross-attention and decode: plain "
+                                    "chunked_attention, as the reference"}[cfg.family],
             "completed": len(comps), "generated_tokens": generated, "ticks": main["ticks"],
             "wall_s": main["wall_s"], "tok_per_s": generated / main["wall_s"],
             "ttft_s": [main["ttft_s"][r] for r in range(n_req)],
@@ -4656,13 +4809,15 @@ def run_lm_families(torch, ops, dev, profile: bool, smi_line: str) -> dict:
             fail(f"{cfg.name}: the second run's tokens differ from the first's")
         flash_launches[cfg.name] = {"n_layers": cfg.n_layers, "launches": launches["flash_attention"],
                                     "launches_tensor_cores": main["launches_tc"]}
+        if cfg.family == "encdec":
+            flash_launches[cfg.name]["encoder_layers"] = cfg.encoder_layers
         del runs, main, comps
         if cfg.family == "vlm":
             vlm_splice_check(torch, api, cfg, params, prompts, extras, dev)
         if cfg.family != "ssm":
             family_kernel_vs_plain(torch, ops, serving, api, cfg, params, dev, max_seq)
         if profile:
-            profile_lm(torch, api, cfg, params, prompts, dev, max_seq)
+            profile_lm(torch, api, cfg, params, prompts, dev, max_seq, extras[-1] if extras else None)
         del params, extras
         gc_cuda(torch)
         if cfg.family in ("ssm", "hybrid"):
@@ -4876,6 +5031,7 @@ def main(argv=None) -> int:
     check_tick_synthetic(torch, ops, dev)
     flash_err = check_flash(torch, ops, dev)
     check_flash_peaked(torch, ops, dev)
+    ragged_err = check_flash_ragged(torch, dev)
 
     slice2 = run_slice(torch, api, metrics, synthetic, ops, dev, n_labels=2)
     plan = slice2["plan"]
@@ -5009,13 +5165,16 @@ def main(argv=None) -> int:
     gc_cuda(torch)
     lm_moe = run_lm_moe(torch, ops, dev, profile, smi_line)
     flash_moe = time_flash(torch, ops, dev, profile, FLASH_MOE_SHAPES)
-    # The ssm, hybrid and vlm families on the same traffic: mamba2-130m and
-    # zamba2-2.7b whole (flash at D = 80 on the CUDA cores), llava-next-34b
-    # at full width, 8 layers (flash at group 7, S up to 3904).
+    # The ssm, hybrid, vlm and encdec families on the same traffic:
+    # mamba2-130m and zamba2-2.7b whole (flash at D = 80 on the CUDA cores),
+    # llava-next-34b at full width, 8 layers (flash at group 7, S up to
+    # 3904), whisper-large-v3 whole (flash at D = 64, the encoder's
+    # bidirectional at S = 1500).
     gc_cuda(torch)
     lm_families = run_lm_families(torch, ops, dev, profile, smi_line)
     flash_zamba = time_flash(torch, ops, dev, profile, FLASH_ZAMBA_SHAPES[-1:])
     flash_llava = time_flash(torch, ops, dev, profile, [FLASH_LLAVA_TIMED])
+    flash_whisper = time_flash(torch, ops, dev, profile, [FLASH_WHISPER_ENCODER], causal=False)
 
     # The planning layer: the card's calibrated table, the modes ranked,
     # segment_stack(batch="auto") routed by the model, --shards auto, the
@@ -5104,7 +5263,10 @@ def main(argv=None) -> int:
          "lm_moe": {**lm_moe, "at_model_shape": {"shape": list(FLASH_MOE_SHAPES[-1]), **flash_moe}},
          "lm_families": {**lm_families,
                          "at_zamba_shape": {"shape": list(FLASH_ZAMBA_SHAPES[-1]), **flash_zamba},
-                         "at_llava_shape": {"shape": list(FLASH_LLAVA_TIMED), **flash_llava}},
+                         "at_llava_shape": {"shape": list(FLASH_LLAVA_TIMED), **flash_llava},
+                         "at_whisper_encoder_shape": {"shape": list(FLASH_WHISPER_ENCODER), "causal": False,
+                                                      **flash_whisper}},
+         "ragged_row_relative_err": ragged_err,
          **analysis_entry(kpass, "flash_attention")},
     ]})
     print(smi_line, flush=True)

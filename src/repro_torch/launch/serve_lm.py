@@ -7,15 +7,15 @@ line plus ``--device`` (default: the card; ``--device cpu`` runs the plain
 PyTorch path on the host).  Like the reference it serves
 ``get_config(arch).reduced()``; weights are random, from ``--seed``.
 
-Every architecture of the dense, vlm, moe, mla_moe, ssm and hybrid
-families is served (``--arch llava-next-34b``, ``--arch
-qwen3-moe-235b-a22b``, ``--arch deepseek-v2-lite-16b``, ``--arch
-mamba2-130m``, ``--arch zamba2-2.7b``); ``encdec`` (whisper) raises
-``NotImplementedError``.  As the reference's launcher, a ``vlm`` request
-carries zero patch embeddings ``(vision_patches, d_model)`` in front of
-its prompt.  The SSM families take prompt lengths that are a multiple of
-the SSD chunk ``min(ssm_chunk, S)``; any other length raises
-``ValueError`` (no padding).
+Every architecture of every family is served (``--arch llava-next-34b``,
+``--arch qwen3-moe-235b-a22b``, ``--arch deepseek-v2-lite-16b``, ``--arch
+mamba2-130m``, ``--arch zamba2-2.7b``, ``--arch whisper-large-v3``).  As
+the reference's launcher, a ``vlm`` request carries zero patch
+embeddings ``(vision_patches, d_model)`` in front of its prompt and an
+``encdec`` request zero frames ``(encoder_seq, d_model)``.  The SSM
+families take prompt lengths that are a multiple of the SSD chunk
+``min(ssm_chunk, S)``; any other length raises ``ValueError`` (no
+padding).
 
 Usage::
 
@@ -70,6 +70,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     rng = np.random.default_rng(args.seed)
     extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = np.zeros((cfg.encoder_seq, cfg.d_model), np.float32)
     if cfg.family == "vlm":
         extras["vision_embeds"] = np.zeros((cfg.vision_patches, cfg.d_model), np.float32)
     for rid in range(args.requests):

@@ -11,7 +11,10 @@ function:
   and shared experts nested inside), deepseek's ``first_layer`` unstacked;
 * ``MambaLM`` (ssm): ``layers.{ln, mamba.*}`` stacked;
 * ``Zamba`` (hybrid): ``mamba_layers`` stacked like Mamba's and the one
-  ``shared`` block unstacked.
+  ``shared`` block unstacked;
+* ``Whisper`` (encdec): ``enc_layers`` and ``dec_layers`` stacked, the
+  rest (``frontend_proj``, ``enc_norm``, ``embed``, ``pos_embed``,
+  ``dec_norm``) unstacked.
 
 MoE routers and Mamba's ``a_log``, ``dt_bias`` and ``d_skip`` stay
 float32.  ``params_to_numpy`` gives the same nested dict back.  Tests
@@ -33,6 +36,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba_lm as MB
 from repro_torch.models import ssm as S
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models import zamba as Z
 
 NestedArrays = Dict[str, Any]
@@ -47,11 +51,12 @@ def _tensor(a, dtype: torch.dtype, device: DeviceLike) -> torch.Tensor:
 
 
 def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLike = None) -> nn.Module:
-    """The port's model for ``cfg`` (``Decoder``, ``MambaLM`` or ``Zamba``)
-    holding the arrays of ``params_np``, on ``device`` (``None``: the card,
-    through ``resolve_device``).  The leaves named in ``FLOAT32_LEAVES``
-    stay float32; everything else goes to ``cfg.param_dtype``.  A layer
-    count other than ``cfg.n_layers`` raises :class:`ValueError`."""
+    """The port's model for ``cfg`` (``Decoder``, ``MambaLM``, ``Zamba`` or
+    ``Whisper``) holding the arrays of ``params_np``, on ``device``
+    (``None``: the card, through ``resolve_device``).  The leaves named in
+    ``FLOAT32_LEAVES`` stay float32; everything else goes to
+    ``cfg.param_dtype``.  A layer count other than ``cfg.n_layers`` (or,
+    for the encoder, ``cfg.encoder_layers``) raises :class:`ValueError`."""
     device = resolve_device(device)
     dtype = L.dtype_of(cfg.param_dtype)
     conv = lambda a: _tensor(a, dtype, device)
@@ -63,15 +68,24 @@ def params_from_jax(params_np: NestedArrays, cfg: ModelConfig, device: DeviceLik
             for k, a in tree.items()
         })
 
-    def per_layer(stacked, n_extra: int = 0):
-        n = int(np.asarray(stacked["ln" if "ln" in stacked else "ln1"]).shape[0])
-        if n + n_extra != cfg.n_layers:
-            raise ValueError(f"params hold {n + n_extra} layers, {cfg.name} has {cfg.n_layers}")
+    def per_layer(stacked, n_extra: int = 0, want: int = cfg.n_layers):
+        ln = stacked["ln" if "ln" in stacked else "ln1"]
+        n = int(np.asarray(ln["g"] if isinstance(ln, dict) else ln).shape[0])
+        if n + n_extra != want:
+            raise ValueError(f"params hold {n + n_extra} layers, {cfg.name} has {want}")
         return [lambda a, i=i: np.asarray(a)[i] for i in range(n)]
 
     def mamba_layers(stacked):
         return [MB.MambaLayer(conv(pick(stacked["ln"])), block(stacked["mamba"], pick)) for pick in per_layer(stacked)]
 
+    if cfg.family == "encdec":
+        ln = lambda tree: W.ln_params(conv(tree["g"]), conv(tree["b"]))
+        stacked = lambda name, parts, n: [nn.ParameterDict({k: block(params_np[name][k], pick) for k in parts})
+                                          for pick in per_layer(params_np[name], want=n)]
+        return W.Whisper(cfg, conv(params_np["frontend_proj"]),
+                         stacked("enc_layers", W.ENC_PARTS, cfg.encoder_layers), ln(params_np["enc_norm"]),
+                         conv(params_np["embed"]), conv(params_np["pos_embed"]),
+                         stacked("dec_layers", W.DEC_PARTS, cfg.n_layers), ln(params_np["dec_norm"]))
     embed, final_norm = conv(params_np["embed"]), conv(params_np["final_norm"])
     unembed = None if cfg.tie_embeddings else conv(params_np["unembed"])
     if cfg.family == "ssm":
@@ -98,6 +112,12 @@ def params_to_numpy(model: nn.Module) -> NestedArrays:
     stacked on a leading axis, ``first_layer`` and Zamba's ``shared``
     unstacked."""
     arr = lambda t: t.detach().float().cpu().numpy()
+    if isinstance(model, W.Whisper):
+        out = {name: _tree_arrays(getattr(model, name), arr) for name in ("enc_norm", "dec_norm")}
+        out.update({name: arr(getattr(model, name)) for name in ("frontend_proj", "embed", "pos_embed")})
+        out.update({name: _stack([_tree_arrays(lp, arr) for lp in getattr(model, name)])
+                    for name in ("enc_layers", "dec_layers")})
+        return out
     out: NestedArrays = {"embed": arr(model.embed), "final_norm": arr(model.final_norm)}
     if model.unembed is not None:
         out["unembed"] = arr(model.unembed)

@@ -1,6 +1,8 @@
-"""Shared model building blocks: dtypes, initialisers, RMS norm and RoPE.
+"""Shared model building blocks: dtypes, initialisers, RMS and layer norm,
+RoPE and sinusoidal positions.
 
-Counterpart of ``repro.models.layers`` (the part the dense decoder uses).
+Counterpart of ``repro.models.layers`` (all but the loss, which belongs to
+training).
 Initialisers draw from an explicit ``torch.Generator``; they give other
 numbers than ``jax.random`` from the same seed, so the parity tests carry
 the JAX package's weights across with ``models.convert`` instead.  The
@@ -53,6 +55,14 @@ def rms_norm(x: Tensor, gamma: Tensor, eps: float) -> Tensor:
     return (out * gamma.float()).to(dt)
 
 
+def layer_norm(x: Tensor, gamma: Tensor, beta: Tensor, eps: float) -> Tensor:
+    """LayerNorm over the last axis with gain and bias, in float32, cast
+    back to ``x``'s dtype."""
+    dt = x.dtype
+    out = torch.nn.functional.layer_norm(x.float(), (x.shape[-1],), gamma.float(), beta.float(), eps)
+    return out.to(dt)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None) -> Tensor:
     """(head_dim/2,) inverse frequencies (float32).  ``theta`` stays a
     Python scalar: a tensor made from it on the card would be a blocking
@@ -70,3 +80,12 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, d) float32: the
+    sines of every frequency, then the cosines (not interleaved)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

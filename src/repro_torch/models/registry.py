@@ -1,13 +1,13 @@
 """Family registry: a uniform init/prefill/decode API per architecture.
 
-Counterpart of ``repro.models.registry``.  The port serves the decoder
-families ``dense``, ``vlm``, ``moe`` and ``mla_moe``, the Mamba2 family
-``ssm`` and the hybrid ``hybrid``; ``encdec`` raises
-:class:`NotImplementedError` naming the ROADMAP item that ports it.  The
-loss is not part of the port's API yet: it belongs to training
-(ROADMAP.md Queue 1, 'LM stack, still to port').  ``prefill`` takes
-``backend`` (where prefill attention runs); the families whose prefill
-reaches no kernel ignore it.
+Counterpart of ``repro.models.registry``.  The port serves every family
+of the reference: the decoder families ``dense``, ``vlm``, ``moe`` and
+``mla_moe``, the Mamba2 family ``ssm``, the hybrid ``hybrid`` and the
+encoder-decoder ``encdec`` (whose prefill takes ``batch["frames"]``); an
+unknown family raises :class:`ValueError`.  The loss is not part of the
+port's API yet: it belongs to training (ROADMAP.md Queue 1).
+``prefill`` takes ``backend`` (where prefill attention runs); the
+families whose prefill reaches no kernel ignore it.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from typing import Any, Callable, NamedTuple
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import mamba_lm as MB
 from repro_torch.models import transformer as T
+from repro_torch.models import whisper as W
 from repro_torch.models import zamba as Z
 
 
@@ -25,11 +26,6 @@ class ModelApi(NamedTuple):
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
-
-
-_NOT_PORTED = {
-    "encdec": "models/whisper.py",
-}
 
 
 def _decoder_api() -> ModelApi:
@@ -72,15 +68,24 @@ def _zamba_api() -> ModelApi:
     )
 
 
-_FAMILY_APIS = {"ssm": _mamba_api, "hybrid": _zamba_api, **{f: _decoder_api for f in T.FAMILIES}}
+def _whisper_api() -> ModelApi:
+    return ModelApi(
+        init=W.whisper_init,
+        prefill=lambda params, batch, cfg, max_seq=None, backend=None: W.whisper_prefill(
+            params, batch["tokens"], batch.get("frames"), cfg, max_seq=max_seq, backend=backend
+        ),
+        decode_step=lambda params, cache, batch, cfg: W.whisper_decode_step(
+            params, cache, batch["tokens"], cfg
+        ),
+        init_cache=W.whisper_init_cache,
+    )
+
+
+_FAMILY_APIS = {"ssm": _mamba_api, "hybrid": _zamba_api, "encdec": _whisper_api,
+                **{f: _decoder_api for f in T.FAMILIES}}
 
 
 def get_api(cfg: ModelConfig) -> ModelApi:
     if cfg.family in _FAMILY_APIS:
         return _FAMILY_APIS[cfg.family]()
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch yet: "
-            f"{_NOT_PORTED[cfg.family]} (ROADMAP.md Queue 1, 'LM stack, still to port')"
-        )
     raise ValueError(f"unknown model family {cfg.family!r}")

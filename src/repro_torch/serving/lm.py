@@ -16,10 +16,11 @@ one position.  The scheduler enforces this exactly:
   equals the pool's current position (length-aligned continuous batching).
 
 PyTorch runs eagerly, so there is no compiled-function cache.  A
-request's ``extras`` (the VLM family's ``vision_embeds`` (P, D)) each
-get a leading batch axis and go into its prefill's batch, as in the
-reference.  The cache may hold any family's layout (K/V, MLA latents,
-Mamba's conv and SSM states, Zamba's per-application K/V):
+request's ``extras`` (the VLM family's ``vision_embeds`` (P, D), the
+encdec family's ``frames`` (encoder_seq, D)) each get a leading batch
+axis and go into its prefill's batch, as in the reference.  The cache
+may hold any family's layout (K/V, MLA latents, Mamba's conv and SSM
+states, Zamba's per-application K/V, Whisper's cross K/V):
 ``_write_slot`` finds each entry's batch axis.  The engine runs on
 ``device`` (``None``: the card, through ``resolve_device``) and takes
 ``backend``: ``"auto"`` puts prefill attention on the flash kernel for a
@@ -210,8 +211,11 @@ class ServingEngine:
 def _write_slot(batch_cache: Dict[str, torch.Tensor], one_cache: Dict[str, torch.Tensor], slot: int) -> None:
     """Write a single-request cache (batch dim = 1) into slot ``slot`` of
     the batched cache, in place.  The batch axis is the first axis whose
-    extent differs between the pool and the single-request cache; scalar
-    entries (the clock ``t``) are engine-managed and skipped."""
+    extent differs between the pool and the single-request cache: axis 1
+    of the per-layer entries (``(L, B, ...)``: K/V, Whisper's cross K/V
+    ``(L, B, Hkv, encoder_seq, hd)``, Mamba's states), axis 0 of the
+    unstacked ones; scalar entries (the clock ``t``) are engine-managed
+    and skipped."""
     for name, pool in batch_cache.items():
         one = one_cache[name]
         if pool.dim() == 0:  # scalar t: the engine manages it separately

@@ -244,9 +244,8 @@ def test_sampling_stays_in_top_k_and_scan_matches_jax():
 
 def test_other_families_and_default_device_raise(model):
     _, cfg, _, tparams = model
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_api(get_config("whisper-large-v3"))
-    for name in ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b", "llava-next-34b", "mamba2-130m", "zamba2-2.7b"):
+    for name in ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b", "llava-next-34b", "mamba2-130m", "zamba2-2.7b",
+                 "whisper-large-v3"):
         assert isinstance(get_api(get_config(name)), ModelApi)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

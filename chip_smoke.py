@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives these paths (serving last):
+PyTorch version on the card, and drives these paths (training last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
@@ -147,6 +147,31 @@ PyTorch version on the card, and drives these paths (serving last):
   apart), with NaN in the memory after q, k and v (keys past S in the
   last K/V stage must be masked) and a sentinel after the output that
   must stay (rows past S must not be stored).
+* training (``run_train``, the last phase, after serving): (a)
+  ``qwen2-1.5b`` whole (28 layers, bf16 parameters, float32 master and
+  moments, remat ``dots``) through ``launch.train.build`` and
+  ``run_training`` for 8 steps of 8 sequences of 512 tokens from
+  ``training.data``, with a checkpoint directory under ``build/``: per
+  step 56 ``flash_attention`` launches (28 forward, 28 in the remat
+  recompute), all on the tensor-core kernel; every loss finite, step 0's
+  within (0.5, 2.5)·ln V, the last three steps' mean below the first
+  three's; then every layer's wq, wk and wv get a non-zero gradient
+  (``train_model``, ``train_run`` lines: the memory reckoned beforehand,
+  ms per step, tokens/s, peak GB, the checkpoint's bytes).  (b)
+  ``flash_attention`` under autograd at (8, 12, 2, 512, 128) causal and
+  (1, 20, 20, 1500, 64) non-causal: the kernel route's dq, dk, dv equal
+  autograd through the plain version bit for bit
+  (``train_flash_autograd``).  (c) qwen2-1.5b at full width, 4 layers,
+  float32, 2 steps on the kernel route and on ``backend="torch"``: losses
+  and grad norms within 1e-4 relative (``train_kernel_vs_plain``).  (d)
+  every family's reduced config, float32, 2 steps from one CPU-built
+  state on the card and on the CPU, losses within 1e-4 relative
+  (``train_card_vs_cpu``).  (e) 4 layers at full width: 4 uninterrupted
+  steps against a run that crashes after step 3 (checkpoints every 2)
+  and its restart, which resumes from step 2 and repeats the losses and
+  the final state bit for bit (``train_resume``).  (d) and (e) run under
+  ``torch.use_deterministic_algorithms(True)``.  Then a flash ``timing``
+  line at the training call, and ``train_seconds``.
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -163,7 +188,9 @@ when CUDA is absent or the package is not beside it.  ``--profile`` adds
 device-time breakdowns from ``torch.profiler`` (each kernel alone, one
 K = 2 solve of each segmentation path after 10 timed warm solves, one
 LM prefill at S = 1024 and one decode step, with their device idle
-shares, the tick's pool launch and a warm served stream).  A
+shares, the tick's pool launch, a warm served stream, and one training
+step with the flash forward's device time against its plain-recompute
+backward's).  A
 ``profiler_lead`` line counts the traces by the lead records the
 profiler lost (``device_profile``).  Float32 products run in full
 float32 (TF32 off, the defaults, set explicitly).  After the build a ``ptxas`` line gives the registers
@@ -488,6 +515,20 @@ ORACLE_AGREEMENT = 0.995  # pixel agreement of each mode's K = 2 solve with gold
 FALLBACK_STACK_LANES = 4  # lanes of the K = 2 stack in the fallback phase's mode stacks
 PLAN_REPEATS = 5  # warm solves (or stack solves) per mode or route in the planning phase
 PLAN_ROUTE_TOLERANCE = 0.10  # the autotuned stack route may be at most this much slower
+# The training path: qwen2-1.5b whole through launch.train.build and
+# run_training (bf16 parameters, float32 master and moments, the config's
+# remat "dots"), 8 sequences of 512 tokens a step from training.data.
+TRAIN = dict(arch="qwen2-1.5b", batch=8, seq=512, steps=8, seed=0, lr=3e-4)
+TRAIN_TIMED_STEPS = slice(2, None)  # steps 3-8: the median step time
+TRAIN_CHECK_LAYERS = 4  # (c) kernel against plain and (e) resume: full width, depth cut to 4
+TRAIN_CHECK_STEPS = 2  # steps of (c) and (d)
+TRAIN_RESUME = dict(steps=4, ckpt_every=2, crash_at_step=3)  # (e)
+TRAIN_FAMILY_ARCHS = ("qwen2-1.5b", "llava-next-34b", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",
+                      "mamba2-130m", "zamba2-2.7b", "whisper-large-v3")  # (d): one per family, reduced
+TRAIN_FAMILY_SHAPE = dict(batch=2, seq=32)
+TRAIN_FLASH_SHAPE = (8, 12, 2, 512, 128)  # qwen2-1.5b's training call (causal)
+TRAIN_TOL = 1e-4  # (c) and (d): relative
+TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
 
 
 def emit(obj) -> None:
@@ -530,7 +571,7 @@ def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S) -> 
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_profile(torch, fn) -> dict:
+def device_profile(torch, fn, match: tuple = ()) -> dict:
     """Run ``fn`` under ``torch.profiler`` and sum the device time of every
     kernel, memset and copy it launched: total busy microseconds and the
     largest contributors by name, and every kernel of the order-free keyed
@@ -551,7 +592,8 @@ def device_profile(torch, fn) -> dict:
     10 ms after ``fn`` too.  ``spins_seen`` counts the spin records the
     trace kept, of ``PROFILER_LEAD_RECORDS + 2``; ``PROFILE_LEAD_LOST``
     tallies the traces by how many they lost (the ``profiler_lead``
-    line)."""
+    line).  ``matched`` sums, for each substring in ``match``, the device
+    time and count of the kernels whose names hold it."""
     import gc
 
     from torch.autograd import DeviceType
@@ -595,6 +637,8 @@ def device_profile(torch, fn) -> dict:
                      for us, k, n in sorted(host, reverse=True)[:10]],
         "allreduces": sum(n for _, k, n in host if k == "c10d::allreduce_"),
         "spins_seen": spins,
+        "matched": {m: {"us": sum(us for k, (us, _) in by_name.items() if m in k),
+                        "count": sum(n for k, (_, n) in by_name.items() if m in k)} for m in match},
     }
 
 
@@ -4831,6 +4875,380 @@ def run_lm_families(torch, ops, dev, profile: bool, smi_line: str) -> dict:
     return flash_launches
 
 
+def train_memory(cfg, n_params: int, batch: int, seq: int) -> dict:
+    """The train state's memory reckoned before the run (GB): bf16
+    parameters, float32 master, m and v, gradients in the parameters'
+    dtype (and the float32 copy of the largest one the update makes), the
+    float32 logits of one loss chunk, and the activations the ``dots``
+    remat keeps: per layer its input and the matrix products' outputs
+    (q, k, v, the attention projection, gate, up, down), in the compute
+    dtype."""
+    elt = 2 if cfg.param_dtype == "bfloat16" else 4
+    tokens = batch * seq
+    chunk = min(cfg.logit_chunk, seq)
+    d, kv = cfg.d_model, cfg.n_kv_heads * cfg.head_dim
+    per_layer = tokens * (d + cfg.n_heads * cfg.head_dim + 2 * kv + d + 2 * cfg.d_ff + d) * elt
+    gb = lambda b: b / 1e9
+    out = {"params_gb": gb(n_params * elt), "master_m_v_gb": gb(n_params * 12),
+           "grads_gb": gb(n_params * elt), "logits_chunk_gb": gb(batch * chunk * cfg.vocab_size * 4),
+           "activations_gb": gb(per_layer * cfg.n_layers)}
+    out["total_gb"] = sum(out.values())
+    return out
+
+
+def train_state_to(torch, state, dev):
+    """A train state built on the CPU, moved to ``dev`` (the model in place)."""
+    from repro_torch.training.optimizer import AdamWState
+
+    o = state["opt"]
+    move = lambda d: None if d is None else {n: t.to(dev) for n, t in d.items()}
+    return {"params": state["params"].to(dev), "opt": AdamWState(o.step, move(o.m), move(o.v), move(o.master))}
+
+
+def recording(step_fn, last: dict):
+    """``step_fn`` that keeps the newest state in ``last["state"]``
+    (``run_training`` does not return it)."""
+    def step(state, batch):
+        last["state"], metrics = step_fn(state, batch)
+        return last["state"], metrics
+
+    return step
+
+
+def projection_grads(torch, api, cfg, params, batch) -> dict:
+    """One loss and backward pass: the layers whose wq, wk and wv all have
+    a non-zero gradient."""
+    loss = api.loss(params, batch, cfg)
+    loss.backward()
+    ok = sum(all(lp.attn[w].grad is not None and bool(lp.attn[w].grad.abs().sum() > 0) for w in ("wq", "wk", "wv"))
+             for lp in params.layers)
+    for p in params.parameters():
+        p.grad = None
+    return {"layers": len(params.layers), "layers_with_wq_wk_wv_grads": ok}
+
+
+def train_whole(torch, ops, dev, profile: bool, smi_line: str) -> dict:
+    """(a) qwen2-1.5b whole: ``launch.train.build`` and ``run_training``
+    for ``TRAIN["steps"]`` steps with a checkpoint directory under
+    ``build/``.  Returns the flash launches for the ``kernels`` line."""
+    import shutil
+
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_api
+    from repro_torch.training.fault import run_training
+
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    b, s, steps = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    t0 = time.perf_counter()
+    cfg, state, step_fn, make_batch = launch_train.build(TRAIN["arch"], reduced=False, batch=b, seq=s, steps=steps,
+                                                         lr=TRAIN["lr"], seed=TRAIN["seed"], device=dev)
+    torch.cuda.synchronize()
+    api = get_api(cfg)
+    params = state["params"]
+    n_params = sum(p.numel() for p in params.parameters())
+    emit({"phase": "train_model", "arch": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": n_params, "param_dtype": cfg.param_dtype,
+          "remat_policy": cfg.remat_policy, "batch": b, "seq": s, "tokens_per_step": b * s,
+          "init_s": time.perf_counter() - t0, "reckoned": train_memory(cfg, n_params, b, s),
+          "allocated_after_init_gb": torch.cuda.memory_allocated() / 1e9})
+
+    # the flash launches of one forward pass, then the run
+    ops.reset_launch_counts()
+    loss = api.loss(params, make_batch(0), cfg)
+    forward = ops.launch_counts()["flash_attention"]
+    del loss
+    ckpt = TRAIN_CKPT_DIR / "a"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    last = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = run_training(step_fn=recording(step_fn, last), state=state, make_batch=make_batch, num_steps=steps,
+                          ckpt_dir=str(ckpt), ckpt_every=steps, log_every=0, log_fn=lambda line: None)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    tc = flash_attention.launches_tc
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.rglob("*") if f.is_file())
+    timed = report.step_seconds[TRAIN_TIMED_STEPS]
+    med = spread(timed)
+    losses = report.losses
+    ln_v = math.log(cfg.vocab_size)
+    per_step = launches["flash_attention"] / steps
+    want_per_step = forward * (1 if cfg.remat_policy == "none" else 2)
+    out = {"phase": "train_run", "arch": cfg.name, "steps": steps, "losses": losses,
+           "step_ms": [t * 1e3 for t in report.step_seconds],
+           "step_ms_median_3_to_8": med["median"] * 1e3, "step_ms_spread_3_to_8": {k: v * 1e3 if k != "n" else v
+                                                                                  for k, v in med.items()},
+           "tokens_per_s": b * s / med["median"], "peak_gb": peak,
+           "flash_launches": launches["flash_attention"], "flash_launches_per_step": per_step,
+           "flash_forward_per_step": forward, "flash_remat_recompute_per_step": per_step - forward,
+           "flash_tensor_core_launches": tc, "other_kernel_launches": {k: n for k, n in launches.items()
+                                                                        if k != "flash_attention"},
+           "checkpoint": {"dir": str(ckpt.relative_to(ROOT)), "committed_step": report.last_step,
+                          "bytes": ckpt_bytes, "outside_steps_s": wall - sum(report.step_seconds),
+                          "saves": report.checkpoints},
+           "wall_s": wall, "nvidia_smi": smi_line}
+    emit(out)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"train: a loss is not finite: {losses}")
+    if not 0.5 * ln_v < losses[0] < 2.5 * ln_v:
+        fail(f"train: step 0's loss {losses[0]} outside (0.5, 2.5) * ln V = ({0.5 * ln_v}, {2.5 * ln_v})")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"train: the loss did not fall over {steps} steps: {losses}")
+    if per_step != want_per_step or forward != cfg.n_layers:
+        fail(f"train: {per_step} flash launches a step ({forward} forward), not {want_per_step}")
+    if tc != launches["flash_attention"]:
+        fail(f"train: {tc} of {launches['flash_attention']} flash launches on the tensor cores")
+    if any(out["other_kernel_launches"].values()):
+        fail(f"train: the training path launched a segmentation kernel: {launches}")
+    if report.last_step != steps or not ckpt_bytes:
+        fail(f"train: run_training stopped at {report.last_step}, checkpoint of {ckpt_bytes} bytes")
+
+    grads = projection_grads(torch, api, cfg, params, make_batch(0))
+    if grads["layers_with_wq_wk_wv_grads"] != grads["layers"]:
+        fail(f"train: wq, wk, wv have gradients in {grads['layers_with_wq_wk_wv_grads']} of {grads['layers']} layers")
+    result = {"launches": launches["flash_attention"], "launches_tc": tc, "per_step": per_step,
+              "forward_per_step": forward, "projection_grads": grads, "run": out}
+    if profile:
+        batch = make_batch(steps)
+        state = last["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+        prof = device_profile(torch, lambda: float(step_fn(state, batch)[1]["loss"]), match=("flash_attention",))
+        emit({"phase": "profile", "what": "one qwen2-1.5b training step (B=8, S=512)", "step_s_unprofiled": step_s,
+              "device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / step_s, **prof})
+        result["profile"] = {"device_idle_share": 1.0 - prof["device_busy_us"] * 1e-6 / step_s,
+                             "flash_forward_device_us": prof["matched"]["flash_attention"]}
+        # the optimizer alone: one adamw_update of the whole state (zero gradients)
+        from repro_torch.training.optimizer import AdamWConfig, adamw_update
+
+        zeros = {n: torch.zeros_like(p) for n, p in params.named_parameters()}
+        update = lambda: adamw_update(zeros, state["opt"], params, AdamWConfig())
+        update()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update()
+        torch.cuda.synchronize()
+        opt_s = time.perf_counter() - t0
+        oprof = device_profile(torch, update)
+        emit({"phase": "profile", "what": "one adamw_update of qwen2-1.5b's state", "update_s_unprofiled": opt_s,
+              "device_idle_share": 1.0 - oprof["device_busy_us"] * 1e-6 / opt_s, **oprof})
+        result["profile"]["optimizer_s"] = opt_s
+        result["profile"]["optimizer_device_us"] = oprof["device_busy_us"]
+        del zeros
+    del state, params, last
+    shutil.rmtree(ckpt, ignore_errors=True)
+    gc_cuda(torch)
+    return result
+
+
+def train_flash_autograd(torch, ops, dev, profile: bool) -> dict:
+    """(b) ``flash_attention`` under autograd at training's two shapes: the
+    kernel route's dq, dk, dv against autograd through the plain version
+    on the same inputs and output gradient (bit for bit: the backward is
+    the same plain recompute), and the forward against the plain forward.
+    With ``profile``: the device time of the kernel forward against the
+    plain-recompute backward, per call."""
+    from repro_torch.kernels import ref
+
+    rows = []
+    for shape, causal in ((TRAIN_FLASH_SHAPE, True), (FLASH_WHISPER_ENCODER, False)):
+        q, k, v = (t.requires_grad_(True) for t in flash_inputs(torch, shape, "bfloat16", dev, seed=7))
+        rng = np.random.default_rng(8)
+        d_out = torch.from_numpy(rng.standard_normal(tuple(q.shape), dtype=np.float32)).to(dev, torch.bfloat16)
+        ops.reset_launch_counts()
+        out = ops.flash_attention(q, k, v, causal=causal)
+        got = torch.autograd.grad(out, (q, k, v), d_out)
+        launched = ops.launch_counts()["flash_attention"]
+        plain_out = ref.flash_attention(q, k, v, causal=causal)
+        want = torch.autograd.grad(plain_out, (q, k, v), d_out)
+        diffs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+        row = {"phase": "train_flash_autograd", "shape": list(shape), "causal": causal,
+               "grads_bit_equal": all(torch.equal(a, w) for a, w in zip(got, want)),
+               "max_abs_diff_dq_dk_dv": diffs, "forward_launches": launched,
+               "forward_max_abs_err": (out.float() - plain_out.float()).abs().max().item()}
+        if profile:
+            fwd = device_profile(torch, lambda: [ops.flash_attention(q.detach(), k.detach(), v.detach(),
+                                                                     causal=causal) for _ in range(10)])
+            again = ops.flash_attention(q, k, v, causal=causal)
+            bwd = device_profile(torch, lambda: [torch.autograd.grad(again, (q, k, v), d_out, retain_graph=True)
+                                                 for _ in range(10)])
+            del again
+            row["forward_device_ms"] = fwd["device_busy_us"] / 10 * 1e-3
+            row["backward_device_ms"] = bwd["device_busy_us"] / 10 * 1e-3
+        emit(row)
+        rows.append(row)
+        if launched != 1:
+            fail(f"flash under autograd at {shape}: {launched} kernel launches in the forward, not 1")
+        if not row["grads_bit_equal"]:
+            fail(f"flash under autograd at {shape}: dq, dk, dv differ from the plain version's by {diffs}")
+        if row["forward_max_abs_err"] > FLASH_TOL["bfloat16"]:
+            fail(f"flash under autograd at {shape}: forward err {row['forward_max_abs_err']}")
+        del q, k, v, out, got, want, plain_out
+    return {"shapes": rows}
+
+
+def train_steps(torch, step_fn, state, make_batch, n: int) -> tuple:
+    """``n`` steps: (losses, grad norms, state)."""
+    losses, norms = [], []
+    for i in range(n):
+        state, metrics = step_fn(state, make_batch(i))
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    return losses, norms, state
+
+
+def rel_diff(a: list, b: list) -> float:
+    return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+
+def train_kernel_vs_plain(torch, ops, dev) -> dict:
+    """(c) qwen2-1.5b at full width, 4 layers, float32: ``TRAIN_CHECK_STEPS``
+    steps on the kernel route and on the plain route (``backend="torch"``)
+    from the same state: losses and grad norms within ``TRAIN_TOL``."""
+    from repro_torch.launch import train as launch_train
+
+    runs = {}
+    for route, backend in (("kernel", None), ("plain", "torch")):
+        cfg, state, step_fn, make_batch = launch_train.build(
+            TRAIN["arch"], reduced=False, n_layers=TRAIN_CHECK_LAYERS, batch=TRAIN["batch"], seq=TRAIN["seq"],
+            steps=TRAIN_CHECK_STEPS, seed=TRAIN["seed"], device=dev, backend=backend,
+            param_dtype="float32", compute_dtype="float32")
+        ops.reset_launch_counts()
+        losses, norms, state = train_steps(torch, step_fn, state, make_batch, TRAIN_CHECK_STEPS)
+        runs[route] = {"losses": losses, "grad_norms": norms,
+                       "flash_launches": ops.launch_counts()["flash_attention"]}
+        del state
+        gc_cuda(torch)
+    out = {"phase": "train_kernel_vs_plain", "layers": TRAIN_CHECK_LAYERS, "dtype": "float32", **runs,
+           "loss_rel_diff": rel_diff(runs["kernel"]["losses"], runs["plain"]["losses"]),
+           "grad_norm_rel_diff": rel_diff(runs["kernel"]["grad_norms"], runs["plain"]["grad_norms"])}
+    emit(out)
+    want = TRAIN_CHECK_STEPS * 2 * TRAIN_CHECK_LAYERS
+    if runs["kernel"]["flash_launches"] != want or runs["plain"]["flash_launches"]:
+        fail(f"train (c): flash launches {runs['kernel']['flash_launches']} (kernel route, want {want}), "
+             f"{runs['plain']['flash_launches']} (plain route, want 0)")
+    if out["loss_rel_diff"] > TRAIN_TOL or out["grad_norm_rel_diff"] > TRAIN_TOL:
+        fail(f"train (c): kernel and plain routes differ: losses {out['loss_rel_diff']}, "
+             f"grad norms {out['grad_norm_rel_diff']}")
+    return out
+
+
+def train_card_vs_cpu(torch, dev) -> dict:
+    """(d) every family's reduced config, float32: ``TRAIN_CHECK_STEPS``
+    steps from one state built on the CPU, on the card and on the CPU:
+    losses within ``TRAIN_TOL`` (relative), all finite."""
+    from repro_torch.launch import train as launch_train
+
+    rows = {}
+    for arch in TRAIN_FAMILY_ARCHS:
+        mk = lambda: launch_train.build(arch, reduced=True, steps=TRAIN_CHECK_STEPS, seed=TRAIN["seed"],
+                                        device="cpu", **TRAIN_FAMILY_SHAPE)
+        cfg, cpu_state, step_fn, cpu_batch = mk()
+        card_state = train_state_to(torch, mk()[1], dev)
+        card_batch = lambda i: {k: t.to(dev) for k, t in cpu_batch(i).items()}
+        cpu = train_steps(torch, step_fn, cpu_state, cpu_batch, TRAIN_CHECK_STEPS)[0]
+        card = train_steps(torch, step_fn, card_state, card_batch, TRAIN_CHECK_STEPS)[0]
+        rows[arch] = {"family": cfg.family, "card": card, "cpu": cpu, "rel_diff": rel_diff(card, cpu)}
+    emit({"phase": "train_card_vs_cpu", "dtype": "float32", "families": rows})
+    for arch, row in rows.items():
+        if not all(math.isfinite(x) for x in row["card"] + row["cpu"]) or row["rel_diff"] > TRAIN_TOL:
+            fail(f"train (d) {arch}: card {row['card']} against CPU {row['cpu']}")
+    return rows
+
+
+def train_resume(torch, dev) -> dict:
+    """(e) qwen2-1.5b at full width, 4 layers (bf16): ``TRAIN_RESUME["steps"]``
+    uninterrupted steps, then a run in a fresh checkpoint directory that
+    crashes after step ``crash_at_step`` (checkpoints every ``ckpt_every``)
+    and its restart: the restart resumes from the last commit, and its
+    losses and final state equal the uninterrupted run's bit for bit."""
+    import shutil
+
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.fault import run_training
+
+    r = TRAIN_RESUME
+    mk = lambda: launch_train.build(TRAIN["arch"], reduced=False, n_layers=TRAIN_CHECK_LAYERS, batch=TRAIN["batch"],
+                                    seq=TRAIN["seq"], steps=r["steps"], seed=TRAIN["seed"], device=dev)
+    quiet = {"log_every": 0, "log_fn": lambda line: None}
+    _, state, step_fn, make_batch = mk()
+    ref_last = {}
+    ref = run_training(step_fn=recording(step_fn, ref_last), state=state, make_batch=make_batch,
+                       num_steps=r["steps"], **quiet)
+    ckpt = TRAIN_CKPT_DIR / "e"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, state, step_fn, make_batch = mk()
+    try:
+        run_training(step_fn=step_fn, state=state, make_batch=make_batch, num_steps=r["steps"], ckpt_dir=str(ckpt),
+                     ckpt_every=r["ckpt_every"], crash_at_step=r["crash_at_step"], **quiet)
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    else:
+        fail("train (e): the injected crash did not happen")
+    del state
+    gc_cuda(torch)
+    committed = CK.latest_step(ckpt)
+    _, state, step_fn, make_batch = mk()
+    last = {}
+    t0 = time.perf_counter()
+    rep = run_training(step_fn=recording(step_fn, last), state=state, make_batch=make_batch, num_steps=r["steps"],
+                       ckpt_dir=str(ckpt), ckpt_every=r["ckpt_every"], **quiet)
+    restart_s = time.perf_counter() - t0
+    a, b = CK.state_leaves(last["state"]), CK.state_leaves(ref_last["state"])
+    state_equal = [n for n, _ in a] == [n for n, _ in b] and all(torch.equal(x, y) for (_, x), (_, y) in zip(a, b))
+    out = {"phase": "train_resume", "layers": TRAIN_CHECK_LAYERS, **r, "committed_before_restart": committed,
+           "resumed_from": rep.resumed_from, "losses_uninterrupted": ref.losses, "losses_restart": rep.losses,
+           "losses_bit_equal": rep.losses == ref.losses[committed:] if committed is not None else False,
+           "final_state_bit_equal": state_equal, "restart_s": restart_s,
+           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+    emit(out)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    if committed != r["crash_at_step"] - 1 or rep.resumed_from != committed:
+        fail(f"train (e): committed {committed}, resumed from {rep.resumed_from}")
+    if not out["losses_bit_equal"] or not state_equal:
+        fail(f"train (e): the restart's losses {rep.losses} or state differ from {ref.losses}")
+    return out
+
+
+def run_train(torch, ops, dev, profile: bool, smi_line: str) -> dict:
+    """The training path: (a) qwen2-1.5b whole, (b) flash under autograd,
+    (c) kernel against plain at full width, (d) card against CPU for every
+    family, (e) crash and resume.  (d) and (e) run under
+    ``torch.use_deterministic_algorithms(True)``: the backward passes of
+    the embedding gather and of the MoE dispatch's gathers accumulate by
+    atomics otherwise."""
+    t0 = time.perf_counter()
+    whole = train_whole(torch, ops, dev, profile, smi_line)
+    autograd = train_flash_autograd(torch, ops, dev, profile)
+    gc_cuda(torch)
+    kvp = train_kernel_vs_plain(torch, ops, dev)
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        card_cpu = train_card_vs_cpu(torch, dev)
+        resume = train_resume(torch, dev)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    gc_cuda(torch)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "train_seconds", "seconds": seconds, "nvidia_smi": smi_line})
+    return {"whole": whole, "autograd": autograd, "kernel_vs_plain": kvp, "card_vs_cpu": card_cpu,
+            "resume": resume, "seconds": seconds}
+
+
 def flash_sass_hgmma() -> dict:
     """Count ``HGMMA`` (wgmma) instructions in the built flash_attention
     library's SASS with ``cuobjdump``; empty where the tool is absent."""
@@ -5190,6 +5608,17 @@ def main(argv=None) -> int:
     # own MAP iteration; the pool entry against its plain version.
     served = run_serve(torch, api, synthetic, ops, em_mod, dev, profile)
 
+    # Seventh path, the last: training.  qwen2-1.5b whole through
+    # launch.train and run_training (every GQA forward on the flash kernel,
+    # again in the remat recompute), flash under autograd, the kernel route
+    # against the plain one, every family card against CPU, crash and
+    # resume; then the kernel at its training call.  Last, because under
+    # --profile its traces would leave the serve phase's profiler checks
+    # fewer lead records than they need (device_profile).
+    gc_cuda(torch)
+    train = run_train(torch, ops, dev, profile, smi_line)
+    flash_train = time_flash(torch, ops, dev, profile, [TRAIN_FLASH_SHAPE])
+
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
@@ -5266,6 +5695,10 @@ def main(argv=None) -> int:
                          "at_llava_shape": {"shape": list(FLASH_LLAVA_TIMED), **flash_llava},
                          "at_whisper_encoder_shape": {"shape": list(FLASH_WHISPER_ENCODER), "causal": False,
                                                       **flash_whisper}},
+         "train": {"launches": train["whole"]["launches"], "launches_tensor_cores": train["whole"]["launches_tc"],
+                   "per_step": train["whole"]["per_step"], "forward_per_step": train["whole"]["forward_per_step"],
+                   "backward": "plain recompute (kernels.ops.FlashAttention)",
+                   "at_train_shape": {"shape": list(TRAIN_FLASH_SHAPE), "causal": True, **flash_train}},
          "ragged_row_relative_err": ragged_err,
          **analysis_entry(kpass, "flash_attention")},
     ]})

@@ -1,12 +1,13 @@
 """DPP-PMRF on PyTorch and CUDA (NVIDIA Hopper).
 
 A second implementation of the ``repro`` package, module for module at
-the same relative paths: the PMRF engine and the LM serving stack of the
-dense, vlm, moe, mla_moe, ssm and hybrid families.  Plain tensor code is PyTorch; the kernels
+the same relative paths: the PMRF engine, the LM serving stack of every
+family (dense, vlm, moe, mla_moe, ssm, hybrid, encdec) and its trainer
+(``training``, ``launch.train``).  Plain tensor code is PyTorch; the kernels
 (``fused_em_tick`` and ``segment_reduce`` on the single-device path,
 ``fused_map_step`` on the sharded route, the binary ``mrf_min_energy``,
-and ``flash_attention`` for LM prefill) are CUDA C++ built for ``sm_90a``
-at first use (``repro_torch.kernels``).  The package imports ``torch``
+and ``flash_attention`` for LM prefill and the training forward) are
+CUDA C++ built for ``sm_90a`` at first use (``repro_torch.kernels``).  The package imports ``torch``
 and ``numpy`` only.
 
 Every entry point takes ``device=``.  ``None`` means the card: without

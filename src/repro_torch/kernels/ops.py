@@ -9,7 +9,9 @@ one explicit override:
   to run the plain version on the card (used to hold the kernels to it).
 
 There is no fallback: a CUDA tensor that reaches a kernel that fails to
-build or launch raises.  Each kernel module counts its launches;
+build or launch raises.  ``flash_attention`` under autograd is the
+:class:`FlashAttention` function: the route's forward, the plain
+version's recompute as its backward.  Each kernel module counts its launches;
 :func:`launch_counts` reads the counts and :func:`reset_launch_counts`
 zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
 of the flash launches, ``em_tick.launches_batched`` and
@@ -301,7 +303,41 @@ def flash_attention(
     backend: Optional[str] = None,
 ) -> torch.Tensor:
     """Attention ``softmax(scale * Q K^T) V`` with the GQA head map: q
-    ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``; output in q's dtype."""
-    if _use_kernel(backend, q):
+    ``(B, Hq, S, D)``, k/v ``(B, Hkv, S, D)``; output in q's dtype.
+
+    Where autograd records (grad mode on and an input that requires a
+    gradient) the call is a :class:`FlashAttention` function on either
+    route, so the kernel's output, written through ``ctypes``, is part of
+    the graph; otherwise the route is called directly."""
+    kernel = _use_kernel(backend, q)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, scale, kernel)
+    if kernel:
         return _flash_attention.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
     return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` under autograd.  The forward is the route's (the
+    CUDA kernel, or ``ref.flash_attention``); the backward recomputes
+    ``ref.flash_attention`` from the saved q, k, v and differentiates it,
+    so both routes give the plain version's gradients bit for bit.  The
+    reference has no backward kernel either (its Pallas kernel has no
+    ``custom_vjp``; JAX differentiates its chunked scan)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: Optional[float], kernel: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        if kernel:
+            return _flash_attention.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
+        return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        wanted = ctx.needs_input_grad[:3]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            out = ref.flash_attention(*inputs, causal=ctx.causal, scale=ctx.scale)
+            grads = iter(torch.autograd.grad(out, [t for t, w in zip(inputs, wanted) if w], d_out))
+        return tuple(next(grads) if w else None for w in wanted) + (None, None, None)

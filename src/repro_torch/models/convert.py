@@ -20,11 +20,18 @@ MoE routers and Mamba's ``a_log``, ``dt_bias`` and ``d_skip`` stay
 float32.  ``params_to_numpy`` gives the same nested dict back.  Tests
 fill the dict with ``np.asarray`` on the JAX arrays; nothing here imports
 the JAX package.
+
+``reference_layout`` places each of a model's parameters in that tree (a
+leaf's path and, for a stacked leaf, the layer index); ``reference_tree``
+and ``load_reference_tree`` carry any tensors laid out like the
+parameters (their gradients, the optimizer's moments) to and from the
+tree's leaves.  The checkpoints and the optimizer's weight decay (which
+reads a leaf's rank in the reference's tree) are built on them.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +47,7 @@ from repro_torch.models import whisper as W
 from repro_torch.models import zamba as Z
 
 NestedArrays = Dict[str, Any]
+LeafPath = Tuple[str, ...]
 FLOAT32_LEAVES = ("router",) + S.FLOAT32_PARAMS
 
 
@@ -111,42 +119,100 @@ def params_to_numpy(model: nn.Module) -> NestedArrays:
     """The inverse of ``params_from_jax``: float32 numpy arrays, layers
     stacked on a leading axis, ``first_layer`` and Zamba's ``shared``
     unstacked."""
-    arr = lambda t: t.detach().float().cpu().numpy()
-    if isinstance(model, W.Whisper):
-        out = {name: _tree_arrays(getattr(model, name), arr) for name in ("enc_norm", "dec_norm")}
-        out.update({name: arr(getattr(model, name)) for name in ("frontend_proj", "embed", "pos_embed")})
-        out.update({name: _stack([_tree_arrays(lp, arr) for lp in getattr(model, name)])
-                    for name in ("enc_layers", "dec_layers")})
-        return out
-    out: NestedArrays = {"embed": arr(model.embed), "final_norm": arr(model.final_norm)}
-    if model.unembed is not None:
-        out["unembed"] = arr(model.unembed)
-    mamba = lambda layers: _stack([{"ln": arr(lp.ln), "mamba": _tree_arrays(lp.mamba, arr)} for lp in layers])
-    if isinstance(model, MB.MambaLM):
-        out["layers"] = mamba(model.layers)
-        return out
-    if isinstance(model, Z.Zamba):
-        sp = model.shared
-        out["mamba_layers"] = mamba(model.mamba_layers)
-        out["shared"] = {"ln1": arr(sp.ln1), "attn": _tree_arrays(sp.attn, arr), "ln2": arr(sp.ln2),
-                         "mlp": _tree_arrays(sp.mlp, arr)}
-        return out
+    return nest({path: t.float().numpy() for path, t in reference_tree(model).items()})
 
-    def unstacked(lp) -> NestedArrays:
-        return {"ln1": arr(lp.ln1), "ln2": arr(lp.ln2), "attn": _tree_arrays(lp.attn, arr),
-                lp.ffn_kind: _tree_arrays(lp.ffn, arr)}
 
-    out["layers"] = _stack([unstacked(lp) for lp in model.layers])
-    if model.first_layer is not None:
-        out["first_layer"] = unstacked(model.first_layer)
+def reference_layout(model: nn.Module) -> Dict[str, Tuple[LeafPath, Optional[int]]]:
+    """For each parameter of ``model`` (by its ``named_parameters`` name):
+    the path of the reference's leaf that holds it and its index on that
+    leaf's leading layer axis, or None for a leaf that is not stacked
+    (embeddings, final norms, deepseek's ``first_layer``, Zamba's
+    ``shared`` block, Whisper's ``frontend_proj``).  A decoder layer's
+    ``ffn`` is the reference's ``mlp`` or ``moe``."""
+    out = {}
+    for name, _ in model.named_parameters():
+        parts = name.split(".")
+        path, index = [], None
+        for i, part in enumerate(parts):
+            if part.isdigit():
+                index = int(part)
+                continue
+            if part == "ffn":
+                layer = model.get_submodule(".".join(parts[:i]))
+                part = layer.ffn_kind if isinstance(layer, T.DecoderLayer) else part
+            path.append(part)
+        out[name] = (tuple(path), index)
     return out
 
 
-def _tree_arrays(pd: nn.ParameterDict, arr) -> NestedArrays:
-    return {k: _tree_arrays(v, arr) if isinstance(v, nn.ParameterDict) else arr(v) for k, v in pd.items()}
+def reference_tree(
+    model: nn.Module, values: Optional[Mapping[str, torch.Tensor]] = None
+) -> Dict[LeafPath, torch.Tensor]:
+    """The reference's leaves holding ``values`` (a tensor per parameter
+    name of ``model``, shaped as the parameter; default: the parameters
+    themselves) as CPU tensors in their own dtype, a stacked leaf's
+    layers on a new leading axis in layer order.  Each tensor is copied
+    once, straight into its place."""
+    values = dict(model.named_parameters()) if values is None else values
+    groups: Dict[LeafPath, Dict[Optional[int], torch.Tensor]] = {}
+    for name, (path, index) in reference_layout(model).items():
+        groups.setdefault(path, {})[index] = values[name].detach()
+    out = {}
+    for path, by_index in groups.items():
+        if None in by_index:
+            out[path] = by_index[None].to("cpu", copy=True)
+            continue
+        first = by_index[0]
+        leaf = torch.empty((len(by_index),) + tuple(first.shape), dtype=first.dtype)
+        for i, t in by_index.items():
+            leaf[i].copy_(t)
+        out[path] = leaf
+    return out
 
 
-def _stack(trees: list) -> NestedArrays:
-    """Stack a list of equal nested dicts of arrays on a new leading axis."""
-    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict) else np.stack([t[k] for t in trees])
-            for k, v in trees[0].items()}
+def load_reference_tree(
+    model: nn.Module, leaves: Mapping[LeafPath, Any], targets: Optional[Mapping[str, torch.Tensor]] = None
+) -> None:
+    """Copy the reference's ``leaves`` (tensors or numpy arrays, by path,
+    stacked as ``reference_tree`` gives them) into ``targets`` (a tensor
+    per parameter name of ``model``; default: the parameters), in place,
+    each cast to its target's dtype.  A missing leaf raises
+    :class:`KeyError`, a leaf of another shape :class:`ValueError`."""
+    targets = dict(model.named_parameters()) if targets is None else targets
+    layout = reference_layout(model)
+    shapes = reference_shapes(model)
+    with torch.no_grad():
+        for name, (path, index) in layout.items():
+            if path not in leaves:
+                raise KeyError(f"no leaf {'/'.join(path)} for {name}")
+            leaf = leaves[path]
+            leaf = leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.asarray(leaf))
+            if tuple(leaf.shape) != shapes[path]:
+                raise ValueError(f"leaf {'/'.join(path)} has the shape {tuple(leaf.shape)}, "
+                                 f"{type(model).__name__} wants {shapes[path]}")
+            targets[name].copy_(leaf if index is None else leaf[index])
+
+
+def reference_shapes(model: nn.Module) -> Dict[LeafPath, Tuple[int, ...]]:
+    """The shape of each of the reference's leaves for ``model``: a stacked
+    leaf's leading axis counts its layers."""
+    dims = {name: tuple(p.shape) for name, p in model.named_parameters()}
+    out: Dict[LeafPath, Tuple[int, ...]] = {}
+    for name, (path, index) in reference_layout(model).items():
+        if index is None:
+            out[path] = dims[name]
+        else:
+            out[path] = (max(out.get(path, (0,))[0], index + 1),) + dims[name]
+    return out
+
+
+def nest(leaves: Mapping[LeafPath, Any]) -> NestedArrays:
+    """A nested dict from leaves keyed by path."""
+    out: NestedArrays = {}
+    for path, leaf in leaves.items():
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+

@@ -1,8 +1,7 @@
 """Shared model building blocks: dtypes, initialisers, RMS and layer norm,
-RoPE and sinusoidal positions.
+RoPE and sinusoidal positions, the chunked cross-entropy loss.
 
-Counterpart of ``repro.models.layers`` (all but the loss, which belongs to
-training).
+Counterpart of ``repro.models.layers``.
 Initialisers draw from an explicit ``torch.Generator``; they give other
 numbers than ``jax.random`` from the same seed, so the parity tests carry
 the JAX package's weights across with ``models.convert`` instead.  The
@@ -27,7 +26,9 @@ def dtype_of(name: str) -> torch.dtype:
 
 
 def frozen(t: Tensor) -> nn.Parameter:
-    """``t`` as a parameter that takes no gradient (the port serves only)."""
+    """``t`` as a parameter that takes no gradient.  Models are built
+    frozen, for serving; the trainer (``training.train_step``) turns their
+    gradients on with ``requires_grad_(True)``."""
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -89,3 +90,26 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
     dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / torch.pow(10_000.0, 2 * dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def chunked_softmax_xent(logits_fn, hidden: Tensor, labels: Tensor, mask: Tensor, chunk: int) -> Tensor:
+    """Mean next-token cross entropy with the vocab projection applied per
+    sequence chunk.
+
+    ``hidden``: (B, S, D); ``logits_fn(h_chunk) -> (B, c, V)``; ``labels``
+    (B, S) and ``mask`` (B, S, float32).  Each chunk's logits go to float32;
+    the masked sum of the chunks' negative log likelihoods, in chunk order,
+    is divided by ``max(sum(mask), 1)``.  Chunking bounds the (tokens x
+    vocab) logit buffer.  S must be a multiple of ``chunk``, else
+    :class:`ValueError`.
+    """
+    b, s, _ = hidden.shape
+    if s % chunk:
+        raise ValueError(f"chunked_softmax_xent: sequence {s} is not a multiple of the chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, chunk):
+        logits = logits_fn(hidden[:, i:i + chunk]).float()            # (B, c, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, i:i + chunk, None].long())[..., 0]
+        total = total + torch.sum((lse - gold) * mask[:, i:i + chunk])
+    return total / torch.clamp(torch.sum(mask), min=1.0)

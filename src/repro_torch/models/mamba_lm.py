@@ -1,12 +1,13 @@
-"""Mamba2 language model (family ``ssm``): the model, prefill and decode.
+"""Mamba2 language model (family ``ssm``): the model, the training loss,
+prefill and decode.
 
 Counterpart of ``repro.models.mamba_lm``.  The reference stacks the layer
 parameters on a leading L axis and scans over them; here ``MambaLM``
 holds an ``nn.ModuleList`` of ``MambaLayer`` walked by a Python loop.
 Caches: ``{"conv": (L, B, K-1, conv_dim)`` in the compute dtype, ``"ssm":
 (L, B, H, N, P)`` float32, ``"t"}``.  Embeddings are tied in mamba2.  The
-path reaches no kernel (``models.ssm``); the loss belongs to training,
-which is not ported.
+path reaches no kernel (``models.ssm``).  ``mamba_loss`` is the
+reference's next-token loss, each layer under ``transformer._remat``.
 """
 
 from __future__ import annotations
@@ -67,11 +68,23 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> MambaLM:
 
 
 def mamba_hidden(params: MambaLM, tokens: Tensor, cfg: ModelConfig) -> Tensor:
-    """Token ids (B, S) -> final hidden states (B, S, D)."""
+    """Token ids (B, S) -> final hidden states (B, S, D), each layer under
+    ``transformer._remat``."""
     x = T._embed(params, tokens, cfg)
     for lp in params.layers:
-        x = x + S.ssd_forward(lp.mamba, L.rms_norm(x, lp.ln, cfg.norm_eps), cfg)
+        x = T._remat(lambda xx, lp=lp: xx + S.ssd_forward(lp.mamba, L.rms_norm(xx, lp.ln, cfg.norm_eps), cfg),
+                     cfg)(x)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def mamba_loss(params: MambaLM, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+               backend: Optional[str] = None) -> Tensor:
+    """Next-token cross entropy of ``batch`` (``tokens``, ``labels``,
+    ``mask``), as ``transformer.lm_loss``.  ``backend`` is unused: the
+    family reaches no kernel."""
+    hidden = mamba_hidden(params, batch["tokens"], cfg)
+    return L.chunked_softmax_xent(lambda h: T.logits_fn(params, cfg, h), hidden, batch["labels"],
+                                  batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
 
 def mamba_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Cache:

@@ -21,7 +21,8 @@ device repeats its bits from run to run.  The expert products are three
 Expert parallelism (``moe_ffn(axis=...)``) waits for ``parallel/``
 (ROADMAP.md Queue 1); ``moe_ffn_local`` already takes the local expert
 slice (``expert_offset``, ``n_local_experts``) the sharded path calls.
-``router_aux_loss`` belongs to training, not ported.
+``router_aux_loss`` is the reference's load-balancing loss; as there, no
+training loss adds it.
 """
 
 from __future__ import annotations
@@ -230,3 +231,16 @@ def moe_ffn(p, x: Tensor, cfg: ModelConfig, *, axis: Optional[str] = None) -> Te
         h = torch.nn.functional.silu((x @ sp["w_gate"]).float()).to(x.dtype)
         out = out + (h * (x @ sp["w_up"])) @ sp["w_down"]
     return out
+
+
+def router_aux_loss(p, x2d: Tensor, cfg: ModelConfig) -> Tensor:
+    """Load-balancing auxiliary loss (Switch-style) of tokens x2d (T, D):
+    ``E * sum_e f_e * P_e``, with ``f_e`` the mean count of top-k choices
+    of expert e per token and ``P_e`` its mean router probability
+    (float32, a 0-d tensor)."""
+    e = cfg.moe_num_experts
+    logits = x2d.float() @ p["router"].float()
+    probs = torch.softmax(logits, dim=-1)
+    _, experts = torch.topk(logits, cfg.moe_top_k, dim=-1)
+    frac = torch.nn.functional.one_hot(experts, e).float().sum(dim=1).mean(dim=0)
+    return e * torch.sum(frac * probs.mean(dim=0))

@@ -1,13 +1,14 @@
-"""Family registry: a uniform init/prefill/decode API per architecture.
+"""Family registry: a uniform init/loss/prefill/decode API per architecture.
 
 Counterpart of ``repro.models.registry``.  The port serves every family
 of the reference: the decoder families ``dense``, ``vlm``, ``moe`` and
 ``mla_moe``, the Mamba2 family ``ssm``, the hybrid ``hybrid`` and the
-encoder-decoder ``encdec`` (whose prefill takes ``batch["frames"]``); an
-unknown family raises :class:`ValueError`.  The loss is not part of the
-port's API yet: it belongs to training (ROADMAP.md Queue 1).
-``prefill`` takes ``backend`` (where prefill attention runs); the
-families whose prefill reaches no kernel ignore it.
+encoder-decoder ``encdec`` (whose prefill and loss take
+``batch["frames"]``); an unknown family raises :class:`ValueError`.
+``loss(params, batch, cfg, backend=None)`` is the family's training loss
+(``batch``: ``tokens``, ``labels``, ``mask`` and the family's extras).
+``loss`` and ``prefill`` take ``backend`` (where GQA attention runs); the
+families that reach no kernel ignore it.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from repro_torch.models import zamba as Z
 
 class ModelApi(NamedTuple):
     init: Callable[..., Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
     init_cache: Callable[..., Any]
@@ -31,6 +33,7 @@ class ModelApi(NamedTuple):
 def _decoder_api() -> ModelApi:
     return ModelApi(
         init=T.decoder_init,
+        loss=T.lm_loss,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: T.prefill(
             params, batch["tokens"], cfg, max_seq=max_seq, backend=backend,
             vision_embeds=batch.get("vision_embeds"),
@@ -45,6 +48,7 @@ def _decoder_api() -> ModelApi:
 def _mamba_api() -> ModelApi:
     return ModelApi(
         init=MB.mamba_init,
+        loss=MB.mamba_loss,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: MB.mamba_prefill(
             params, batch["tokens"], cfg, max_seq=max_seq
         ),
@@ -58,6 +62,7 @@ def _mamba_api() -> ModelApi:
 def _zamba_api() -> ModelApi:
     return ModelApi(
         init=Z.zamba_init,
+        loss=Z.zamba_loss,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: Z.zamba_prefill(
             params, batch["tokens"], cfg, max_seq=max_seq, backend=backend
         ),
@@ -71,6 +76,7 @@ def _zamba_api() -> ModelApi:
 def _whisper_api() -> ModelApi:
     return ModelApi(
         init=W.whisper_init,
+        loss=W.whisper_loss,
         prefill=lambda params, batch, cfg, max_seq=None, backend=None: W.whisper_prefill(
             params, batch["tokens"], batch.get("frames"), cfg, max_seq=max_seq, backend=backend
         ),

@@ -1,5 +1,5 @@
 """Decoder-only transformer (families dense, vlm, moe and mla_moe): the
-model, prefill and decode.
+model, the training loss, prefill and decode.
 
 Counterpart of ``repro.models.transformer``.  The reference stacks layer
 parameters on a leading L axis and scans over them; here the decoder is
@@ -15,11 +15,16 @@ float32, and the caches
   S_max, dr), "first_ckv": (B, S_max, r), "first_krope": (B, 1, S_max,
   dr), "t"}``.
 
-Parameters are frozen (serving only; the loss and training are not
-ported, ROADMAP.md Queue 1).  GQA prefill attention runs on the flash
-kernel through ``attention.attention_dispatch``; ``backend="torch"``
-runs its plain version instead, on any device.  MLA and the MoE FFN
-reach no kernel, as in the reference.
+Parameters are built frozen (serving); the trainer turns their gradients
+on.  ``lm_loss`` is the reference's next-token loss over
+``decoder_hidden``, each scanned layer under ``_remat`` (``cfg.remat_policy``:
+``none``; ``full`` recomputes the whole layer in the backward pass;
+``dots`` keeps the matrix products' outputs and recomputes the rest;
+``dots_nb`` keeps only the weight products).  GQA
+attention, in training and prefill, runs on the flash kernel through
+``attention.attention_dispatch`` (``kernels.ops.FlashAttention`` under
+autograd); ``backend="torch"`` runs its plain version instead, on any
+device.  MLA and the MoE FFN reach no kernel, as in the reference.
 
 ``vlm`` (llava) is the dense decoder with patch embeddings ``(B, P, D)``
 spliced into the prompt: they replace the first P token embeddings, cast
@@ -29,10 +34,11 @@ vision tower is a stub in the reference too; decode takes tokens only.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
@@ -162,25 +168,70 @@ def _layer_body(lp: DecoderLayer, x: Tensor, cfg: ModelConfig, *, backend: Optio
     return x + _ffn_apply(lp, h, cfg)
 
 
+_aten = torch.ops.aten
+#: Per ``remat_policy``, the ops whose outputs a checkpointed layer keeps
+#: (None: nothing is checkpointed).  ``dots`` is the reference's
+#: ``dots_saveable`` (every matrix product, attention's plain products
+#: included), ``dots_nb`` its ``checkpoint_dots_with_no_batch_dims`` (the
+#: weight products only), ``full`` its ``nothing_saveable``.  The flash
+#: kernel's output is no aten op: it is recomputed under every policy.
+REMAT_SAVED = {
+    "none": None,
+    "dots": (_aten.mm.default, _aten.addmm.default, _aten.bmm.default, _aten.baddbmm.default),
+    "dots_nb": (_aten.mm.default, _aten.addmm.default),
+    "full": (),
+}
+
+
+def _remat(fn: Callable[[Tensor], Tensor], cfg: ModelConfig) -> Callable[[Tensor], Tensor]:
+    """``fn`` (one layer, activations -> activations) under
+    ``cfg.remat_policy``: checkpointed (``torch.utils.checkpoint``,
+    non-reentrant), keeping the outputs of the policy's ``REMAT_SAVED`` ops
+    and recomputing the rest in the backward pass.  ``none``, or where
+    autograd does not record: ``fn`` as it is."""
+    if cfg.remat_policy not in REMAT_SAVED:
+        raise ValueError(f"{cfg.name}: unknown remat_policy {cfg.remat_policy!r}; have {tuple(REMAT_SAVED)}")
+    saved = REMAT_SAVED[cfg.remat_policy]
+    if saved is None or not torch.is_grad_enabled():
+        return fn
+    kw = {"context_fn": lambda: _ckpt.create_selective_checkpoint_contexts(list(saved))} if saved else {}
+    return lambda x: _ckpt.checkpoint(fn, x, use_reentrant=False, **kw)
+
+
 def decoder_hidden(
     params: Decoder, tokens: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None,
     vision_embeds: Optional[Tensor] = None,
 ) -> Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D).  ``vlm`` needs
-    ``vision_embeds`` (B, P, D)."""
+    ``vision_embeds`` (B, P, D).  Each layer of ``layers`` runs under
+    ``_remat`` (deepseek's ``first_layer`` does not, as in the reference)."""
     x = _embed(params, tokens, cfg)
     if cfg.family == "vlm":
         if vision_embeds is None:
             raise ValueError(f"{cfg.name}: the vlm family needs vision_embeds")
         x = _splice_patches(x, vision_embeds)
-    for lp in _all_layers(params):
-        x = _layer_body(lp, x, cfg, backend=backend)
+    if params.first_layer is not None:
+        x = _layer_body(params.first_layer, x, cfg, backend=backend)
+    for lp in params.layers:
+        x = _remat(lambda xx, lp=lp: _layer_body(lp, xx, cfg, backend=backend), cfg)(x)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
 def logits_fn(params: Decoder, cfg: ModelConfig, hidden: Tensor) -> Tensor:
     w = params.embed.T if cfg.tie_embeddings else params.unembed
     return hidden @ w.to(hidden.dtype)
+
+
+def lm_loss(params: Decoder, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+            backend: Optional[str] = None) -> Tensor:
+    """Next-token cross entropy (a 0-d float32 tensor) of ``batch``
+    (``tokens``, ``labels``, ``mask``, and for ``vlm`` ``vision_embeds``),
+    the vocab projection per ``min(cfg.logit_chunk, S)`` positions.  As in
+    the reference, no MoE auxiliary loss is added."""
+    hidden = decoder_hidden(params, batch["tokens"], cfg, backend=backend,
+                            vision_embeds=batch.get("vision_embeds"))
+    return L.chunked_softmax_xent(lambda h: logits_fn(params, cfg, h), hidden, batch["labels"],
+                                  batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Cache:

@@ -1,6 +1,7 @@
 """Whisper-style encoder-decoder (family ``encdec``): the encoder over
 precomputed frame embeddings, the decoder with causal self-attention and
-cross-attention over the encoder's output, prefill and decode.
+cross-attention over the encoder's output, the training loss, prefill and
+decode.
 
 Counterpart of ``repro.models.whisper``.  As in the reference the audio
 frontend is a stub: a request brings frame embeddings ``(B, S_enc, D)``,
@@ -27,7 +28,9 @@ for its own cross-attention (the reference computes them twice).
 Caches: ``{"k", "v": (L, B, Hkv, S_max, hd)`` (decoder self-attention),
 ``"xk", "xv": (L, B, Hkv, encoder_seq, hd)`` (cross K/V from the encoder
 output), ``"t"}``.  Frames of another length than ``cfg.encoder_seq``
-raise :class:`ValueError`.  The loss is not ported (training).
+raise :class:`ValueError`.  ``whisper_loss`` is the reference's
+next-token loss over ``encode`` and ``decode_hidden``, whose layers run
+under ``transformer._remat``.
 """
 
 from __future__ import annotations
@@ -118,11 +121,15 @@ def encode(params: Whisper, frames: Tensor, cfg: ModelConfig, *, backend: Option
     x = frames.to(cdt) @ params.frontend_proj
     x = x + L.sinusoidal_positions(s, cfg.d_model, device=x.device).to(cdt)[None]
     for lp in params.enc_layers:
-        h = _ln(x, lp["ln1"], cfg.norm_eps)
-        x = x + A.gqa_attn(lp["attn"], h, cfg, causal=False, rope=False, backend=backend)
-        h = _ln(x, lp["ln2"], cfg.norm_eps)
-        x = x + T.mlp_apply(lp["mlp"], h)
+        x = T._remat(lambda xx, lp=lp: _enc_layer(lp, xx, cfg, backend), cfg)(x)
     return _ln(x, params.enc_norm, cfg.norm_eps)
+
+
+def _enc_layer(lp, x: Tensor, cfg: ModelConfig, backend: Optional[str]) -> Tensor:
+    h = _ln(x, lp["ln1"], cfg.norm_eps)
+    x = x + A.gqa_attn(lp["attn"], h, cfg, causal=False, rope=False, backend=backend)
+    h = _ln(x, lp["ln2"], cfg.norm_eps)
+    return x + T.mlp_apply(lp["mlp"], h)
 
 
 def _cross_kv(p, memory: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Tensor]:
@@ -162,13 +169,28 @@ def decode_hidden(
     decoder's final hidden states (B, S, D)."""
     x = _embed_tokens(params, tokens, cfg, 0)
     for lp in params.dec_layers:
-        h = _ln(x, lp["ln1"], cfg.norm_eps)
-        x = x + A.gqa_attn(lp["self_attn"], h, cfg, causal=True, rope=False, backend=backend)
-        h = _ln(x, lp["ln2"], cfg.norm_eps)
-        x = x + _cross_attend(lp["cross_attn"], h, *_cross_kv(lp["cross_attn"], memory, cfg), cfg)
-        h = _ln(x, lp["ln3"], cfg.norm_eps)
-        x = x + T.mlp_apply(lp["mlp"], h)
+        x = T._remat(lambda xx, lp=lp: _dec_layer(lp, xx, memory, cfg, backend), cfg)(x)
     return _ln(x, params.dec_norm, cfg.norm_eps)
+
+
+def _dec_layer(lp, x: Tensor, memory: Tensor, cfg: ModelConfig, backend: Optional[str]) -> Tensor:
+    h = _ln(x, lp["ln1"], cfg.norm_eps)
+    x = x + A.gqa_attn(lp["self_attn"], h, cfg, causal=True, rope=False, backend=backend)
+    h = _ln(x, lp["ln2"], cfg.norm_eps)
+    x = x + _cross_attend(lp["cross_attn"], h, *_cross_kv(lp["cross_attn"], memory, cfg), cfg)
+    h = _ln(x, lp["ln3"], cfg.norm_eps)
+    return x + T.mlp_apply(lp["mlp"], h)
+
+
+def whisper_loss(params: Whisper, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+                 backend: Optional[str] = None) -> Tensor:
+    """Next-token cross entropy of ``batch`` (``frames`` (B, encoder_seq,
+    D), ``tokens``, ``labels``, ``mask``) through the encoder and the
+    decoder, the output projection tied to ``embed``."""
+    memory = encode(params, batch["frames"], cfg, backend=backend)
+    hidden = decode_hidden(params, batch["tokens"], memory, cfg, backend=backend)
+    return L.chunked_softmax_xent(lambda h: h @ params.embed.T.to(h.dtype), hidden, batch["labels"],
+                                  batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
 
 def whisper_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Cache:

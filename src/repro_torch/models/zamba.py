@@ -13,7 +13,9 @@ Caches: ``{"conv": (L, B, K-1, conv_dim)``, ``"ssm": (L, B, H, N, P)``
 float32, ``"k", "v": (n_apps, B, Hkv, S_max, hd)`` (each application its
 own), ``"t"}``.  Prefill attention is ``attention.attention_dispatch``
 (the flash kernel for a CUDA tensor; ``backend="torch"`` its plain
-version), decode ``attention.gqa_decode``.  The loss is not ported.
+version), decode ``attention.gqa_decode``.  ``zamba_loss`` is the
+reference's next-token loss: each Mamba layer under
+``transformer._remat``, the shared block not (as in the reference).
 """
 
 from __future__ import annotations
@@ -103,9 +105,19 @@ def zamba_hidden(params: Zamba, tokens: Tensor, cfg: ModelConfig, *, backend: Op
     x = T._embed(params, tokens, cfg)
     for a in range(_n_apps(cfg)):
         for _, lp in _app_layers(params, cfg, a):
-            x = _mamba_block(lp, x, cfg)
+            x = T._remat(lambda xx, lp=lp: _mamba_block(lp, xx, cfg), cfg)(x)
         x = _shared_block(params.shared, x, cfg, backend=backend)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
+
+
+def zamba_loss(params: Zamba, batch: Dict[str, Tensor], cfg: ModelConfig, *,
+               backend: Optional[str] = None) -> Tensor:
+    """Next-token cross entropy of ``batch`` (``tokens``, ``labels``,
+    ``mask``), as ``transformer.lm_loss``; the shared block's attention
+    on the flash kernel (``backend`` as in ``zamba_hidden``)."""
+    hidden = zamba_hidden(params, batch["tokens"], cfg, backend=backend)
+    return L.chunked_softmax_xent(lambda h: T.logits_fn(params, cfg, h), hidden, batch["labels"],
+                                  batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
 
 def zamba_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) -> Cache:

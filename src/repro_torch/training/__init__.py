@@ -1,4 +1,15 @@
-"""Training substrate of the port.  So far only the straggler watchdog
-(:mod:`repro_torch.training.fault`), which the serving engine feeds its
-tick times; the trainer, optimizer and checkpointing are queued in
-ROADMAP.md Queue 1 ('LM stack, still to port')."""
+"""Training substrate of the port: optimizer, train step, data pipeline,
+checkpointing and fault tolerance, in PyTorch (no external optimizer or
+checkpoint library).  Counterpart of ``repro.training``; its gradient
+compression waits for ``parallel/`` (ROADMAP.md Queue 1)."""
+
+from repro_torch.training.optimizer import (  # noqa: F401
+    AdamWConfig,
+    adamw_init,
+    adamw_update,
+)
+from repro_torch.training.train_step import (  # noqa: F401
+    TrainStepConfig,
+    make_train_step,
+    make_sharded_train_state,
+)

@@ -529,6 +529,22 @@ TRAIN_FAMILY_SHAPE = dict(batch=2, seq=32)
 TRAIN_FLASH_SHAPE = (8, 12, 2, 512, 128)  # qwen2-1.5b's training call (causal)
 TRAIN_TOL = 1e-4  # (c) and (d): relative
 TRAIN_CKPT_DIR = ROOT / "build" / "train_ckpt"
+# The parallel path (parallel/, the sharded train step, EP, SP decode) on a
+# one-rank NCCL DeviceMesh: (a) qwen2-1.5b whole through the mesh branch,
+# held to the single-device step from the same seed bit for bit; (b) the
+# codecs at (pod=1, data=1, model=1) within the reference's bounds
+# (tests/_distributed_runner.py: loss 1e-3, grad norm 2 % bf16, 5 % int8);
+# (c) qwen3-moe at full width, 2 layers, through the EP branch bit for bit;
+# (d) SP decode within the reference's 2e-4 at qwen2's attention width and
+# deepseek-v2-lite's latent width (float32); (e) (a)'s state saved with
+# its specs and restored under the mesh bit for bit.
+PARALLEL = dict(arch="qwen2-1.5b", batch=8, seq=512, steps=3, seed=0,
+                optimizer=dict(lr=3e-4, warmup_steps=1, total_steps=3))
+PARALLEL_CODEC_BOUNDS = {"bf16": 0.02, "int8": 0.05}  # grad norm, relative; the loss within 1e-3
+PARALLEL_EP = dict(arch="qwen3-moe-235b-a22b", n_layers=2, batch=4, seq=256)
+PARALLEL_SP = dict(batch=4, max_seq=1024, t=1023, tol=2e-4)
+PARALLEL_MULTI = dict(n_layers=2, steps=2, tol=1e-3)  # (f) on 2 NCCL ranks: (a) at 2 layers, (c), (d)
+PARALLEL_CKPT_DIR = ROOT / "build" / "parallel_ckpt"
 
 
 def emit(obj) -> None:
@@ -5249,6 +5265,260 @@ def run_train(torch, ops, dev, profile: bool, smi_line: str) -> dict:
             "resume": resume, "seconds": seconds}
 
 
+def synced_ms(torch, fn) -> float:
+    """Host ms of ``fn()`` between two device synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def parallel_train(torch, ops, dev, mesh_mod, PC, profile: bool) -> dict:
+    """(a) qwen2-1.5b whole: ``PARALLEL["steps"]`` steps on one device, then
+    the same through the mesh branch at (data=1, model=1) from the same
+    seed, launch counts and peak memory of the mesh run alone; losses,
+    grad norms and every parameter bit for bit.  Then the mesh layer's
+    own parts alone (with ``profile``, also traced).  Returns the mesh
+    state for (e)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig
+
+    cfg = get_config(PARALLEL["arch"])
+    ts = TrainStepConfig(optimizer=AdamWConfig(**PARALLEL["optimizer"]), seed=PARALLEL["seed"])
+    batches = PC.batches(cfg, PARALLEL["batch"], PARALLEL["seq"], PARALLEL["steps"], dev)
+    gc_cuda(torch)
+    single = PC.train_run(cfg, None, ts, batches, dev)
+    whole = {n: p.detach().to("cpu", copy=True) for n, p in PC.param_blocks(single["state"]).items()}
+    del single["state"]
+    gc_cuda(torch)
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    meshed = PC.train_run(cfg, mesh, ts, batches, dev)
+    launches = ops.launch_counts()
+    tc = flash_attention.launches_tc
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    blocks = PC.param_blocks(meshed["state"])
+    unequal = [n for n, b in blocks.items() if not torch.equal(b.to("cpu"), whole[n])]
+    # the mesh layer's own parts, alone: the gather of every block into the
+    # work model, and the reduction of a whole set of work gradients
+    sp = meshed["state"]["params"]
+    grads = {n: p.detach().clone() for n, p in sp.model.named_parameters()}
+    overhead = {"gather_ms": [synced_ms(torch, sp.gather) for _ in range(3)],
+                "reduce_grads_ms": [synced_ms(torch, lambda: sp.reduce_grads(grads)) for _ in range(3)]}
+    if profile:
+        for what, fn in (("gather", sp.gather), ("reduce_grads", lambda: sp.reduce_grads(grads))):
+            prof = device_profile(torch, fn)
+            emit({"phase": "profile", "what": f"the mesh layer's {what} of qwen2-1.5b (one rank)", **prof})
+            overhead[f"{what}_device_us"] = prof["device_busy_us"]
+    del grads, sp
+    per_step = launches["flash_attention"] / PARALLEL["steps"]
+    out = {"phase": "parallel_train", "arch": cfg.name, "mesh": {"data": 1, "model": 1}, "n_layers": cfg.n_layers,
+           "batch": PARALLEL["batch"], "seq": PARALLEL["seq"], "steps": PARALLEL["steps"],
+           "single": {k: single[k] for k in ("losses", "grad_norms", "step_ms")},
+           "mesh_run": {k: meshed[k] for k in ("losses", "grad_norms", "step_ms")},
+           "losses_bit_equal": meshed["losses"] == single["losses"],
+           "grad_norms_bit_equal": meshed["grad_norms"] == single["grad_norms"],
+           "params": len(blocks), "params_not_bit_equal": unequal, "peak_gb_mesh_run": peak, **overhead,
+           "flash_launches": launches["flash_attention"], "flash_launches_per_step": per_step,
+           "flash_tensor_core_launches": tc,
+           "other_kernel_launches": {k: n for k, n in launches.items() if k != "flash_attention"},
+           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+    emit(out)
+    if not (out["losses_bit_equal"] and out["grad_norms_bit_equal"]) or unequal:
+        fail(f"parallel (a): the mesh step differs from the single-device step: {out['mesh_run']} against "
+             f"{out['single']}, parameters {unequal[:5]}")
+    if per_step != 2 * cfg.n_layers or tc != launches["flash_attention"] or any(out["other_kernel_launches"].values()):
+        fail(f"parallel (a): {launches} launches ({tc} on the tensor cores), want {2 * cfg.n_layers} flash a step")
+    return {"row": out, "state": meshed["state"], "specs": meshed["specs"], "mesh": mesh, "cfg": cfg, "ts": ts,
+            "launches": launches["flash_attention"], "launches_tc": tc, "per_step": per_step}
+
+
+def parallel_checkpoint(torch, dev, a: dict) -> dict:
+    """(e) (a)'s state saved with its specs under the mesh, restored into
+    a state built from another seed: every block, moment and master bit
+    for bit, the manifest's spec strings ``state_specs``'."""
+    import dataclasses
+    import json
+    import shutil
+
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.train_step import make_sharded_train_state, state_specs
+
+    shutil.rmtree(PARALLEL_CKPT_DIR, ignore_errors=True)
+    state, mesh = a["state"], a["mesh"]
+    t0 = time.perf_counter()
+    final = CK.save_checkpoint(PARALLEL_CKPT_DIR, PARALLEL["steps"], state, specs=a["specs"], mesh=mesh)
+    save_s = time.perf_counter() - t0
+    like, _ = make_sharded_train_state(a["cfg"], mesh, dataclasses.replace(a["ts"], seed=PARALLEL["seed"] + 1),
+                                       device=dev)
+    t0 = time.perf_counter()
+    step, restored, _ = CK.restore_checkpoint(PARALLEL_CKPT_DIR, like)
+    restore_s = time.perf_counter() - t0
+    pairs = [("params", state["params"].blocks, restored["params"].blocks)]
+    pairs += [(f, getattr(state["opt"], f), getattr(restored["opt"], f)) for f in ("m", "v", "master")]
+    unequal = [f"{f}:{n}" for f, want, got in pairs for n in want if not torch.equal(want[n], got[n])]
+    manifest = json.loads((final / "manifest.json").read_text())
+    specs = {e["name"]: e["spec"] for e in manifest["leaves"]}
+    want_specs = CK.spec_strings(state_specs(a["cfg"], a["ts"].optimizer, mesh))
+    out = {"phase": "parallel_checkpoint", "step": step, "save_s": save_s, "restore_s": restore_s,
+           "bytes": sum(f.stat().st_size for f in final.iterdir()), "leaves": len(specs),
+           "mesh_shape": manifest["mesh_shape"], "not_bit_equal": unequal[:10],
+           "spec_strings_equal": specs == want_specs, "spec_example": specs.get("params_layers_attn_wq")}
+    emit(out)
+    del like, restored
+    shutil.rmtree(PARALLEL_CKPT_DIR, ignore_errors=True)
+    if unequal or step != PARALLEL["steps"] or not out["spec_strings_equal"]:
+        fail(f"parallel (e): restored step {step}, {len(unequal)} leaves differ, spec strings equal: "
+             f"{out['spec_strings_equal']}")
+    return out
+
+
+def parallel_codecs(torch, dev, mesh_mod, PC, a: dict) -> dict:
+    """(b) one step through each codec at (pod=1, data=1, model=1) from
+    (a)'s seed, against (a)'s first step (no codec): the loss within 1e-3,
+    the grad norm within ``PARALLEL_CODEC_BOUNDS``."""
+    import dataclasses
+
+    mesh = mesh_mod.make_mesh((1, 1, 1), ("pod", "data", "model"))
+    batch = PC.batches(a["cfg"], PARALLEL["batch"], PARALLEL["seq"], 1, dev)
+    none = {"loss": a["row"]["mesh_run"]["losses"][0], "grad_norm": a["row"]["mesh_run"]["grad_norms"][0]}
+    rows = {}
+    for codec, bound in PARALLEL_CODEC_BOUNDS.items():
+        gc_cuda(torch)
+        run = PC.train_run(a["cfg"], mesh, dataclasses.replace(a["ts"], grad_codec=codec), batch, dev)
+        del run["state"]
+        rows[codec] = {"loss": run["losses"][0], "grad_norm": run["grad_norms"][0], "step_ms": run["step_ms"][0],
+                       "loss_abs_diff": abs(run["losses"][0] - none["loss"]),
+                       "grad_norm_rel_diff": abs(run["grad_norms"][0] - none["grad_norm"]) / none["grad_norm"],
+                       "bound": bound}
+    gc_cuda(torch)
+    out = {"phase": "parallel_codecs", "mesh": {"pod": 1, "data": 1, "model": 1}, "none": none, **rows}
+    emit(out)
+    for codec, row in rows.items():
+        if row["loss_abs_diff"] >= 1e-3 or row["grad_norm_rel_diff"] >= row["bound"]:
+            fail(f"parallel (b) {codec}: {row} against {none}")
+    return out
+
+
+def parallel_ep(torch, dev, mesh_mod, PC) -> dict:
+    """(c) qwen3-moe at full width, ``PARALLEL_EP["n_layers"]`` layers: the
+    loss and every gradient through the EP branch at (data=1, model=1)
+    against the model without a mesh, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    gc_cuda(torch)
+    cfg = dataclasses.replace(get_config(PARALLEL_EP["arch"]), n_layers=PARALLEL_EP["n_layers"])
+    mesh = mesh_mod.make_mesh((1, 1), ("data", "model"))
+    batch = PC.batches(cfg, PARALLEL_EP["batch"], PARALLEL_EP["seq"], 1, dev)[0]
+    res = PC.ep_check(cfg, mesh, dev, batch, seed=PARALLEL["seed"])
+    out = {"phase": "parallel_ep", "arch": cfg.name, "n_layers": cfg.n_layers, "experts": cfg.moe_num_experts,
+           "batch": PARALLEL_EP["batch"], "seq": PARALLEL_EP["seq"], **res}
+    emit(out)
+    gc_cuda(torch)
+    if not res["loss_bit_equal"] or res["grads_bit_equal"] != res["grads"] or not res["expert_leaves_cut"]:
+        fail(f"parallel (c): the EP branch differs from the path without a mesh: {res}")
+    return out
+
+
+def parallel_sp(torch, dev, mesh_mod, PC) -> dict:
+    """(d) SP decode on a (model=1) mesh against the decode without one, at
+    qwen2-1.5b's attention width and deepseek-v2-lite's latent width in
+    float32: outputs within ``PARALLEL_SP["tol"]``, caches bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    f32 = lambda name: dataclasses.replace(get_config(name), param_dtype="float32", compute_dtype="float32")
+    mesh = mesh_mod.make_mesh((1,), ("model",))
+    res = PC.sp_check(f32("qwen2-1.5b"), f32("deepseek-v2-lite-16b"), mesh, dev, batch=PARALLEL_SP["batch"],
+                      max_seq=PARALLEL_SP["max_seq"], t=PARALLEL_SP["t"])
+    out = {"phase": "parallel_sp", **{k: PARALLEL_SP[k] for k in ("batch", "max_seq", "t", "tol")}, **res}
+    emit(out)
+    for kind in ("gqa", "mla"):
+        if res[kind]["max_abs_err"] > PARALLEL_SP["tol"] or res[kind]["cache_max_abs_err"] != 0.0:
+            fail(f"parallel (d) {kind}: {res[kind]}")
+    return out
+
+
+def parallel_multi_card(torch) -> dict:
+    """(f) with two or more cards, (a) at ``PARALLEL_MULTI["n_layers"]``
+    layers on (data=2), (c) and (d) on (model=2), over 2 NCCL ranks: each
+    rank's mesh run within ``PARALLEL_MULTI["tol"]`` of its single-device
+    run, SP within ``PARALLEL_SP["tol"]``.  Otherwise one line saying so."""
+    import shutil
+
+    from repro_torch.testing import ranks
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        out = {"parallel_multi_card": "not run", "count": count}
+        emit(out)
+        return out
+    payload = {"train": {"arch": PARALLEL["arch"], "n_layers": PARALLEL_MULTI["n_layers"], "batch": PARALLEL["batch"],
+                         "seq": PARALLEL["seq"], "steps": PARALLEL_MULTI["steps"], "optimizer": PARALLEL["optimizer"]},
+               "ep": PARALLEL_EP, "sp": {k: PARALLEL_SP[k] for k in ("batch", "max_seq", "t")}}
+    workdir = ROOT / "build" / "parallel_ranks"
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    res = ranks.run_ranks(ranks.parallel_card, 2, workdir, payload, timeout=600, backend="nccl")
+    out = {"phase": "parallel_multi_card", "count": count, "ranks": res}
+    emit(out)
+    for rank, r in enumerate(res):
+        tr, ep = r["train"], r["ep"]
+        if max(tr["loss_rel_diff"], tr["grad_norm_rel_diff"]) > PARALLEL_MULTI["tol"]:
+            fail(f"parallel (f) rank {rank}: the (data=2) step against one device: {tr}")
+        if abs(ep["loss_ep"] - ep["loss"]) > PARALLEL_MULTI["tol"] * abs(ep["loss"]):
+            fail(f"parallel (f) rank {rank}: EP over 2 ranks: {ep}")
+        if max(r["sp"][k]["max_abs_err"] for k in ("gqa", "mla")) > PARALLEL_SP["tol"]:
+            fail(f"parallel (f) rank {rank}: SP over 2 ranks: {r['sp']}")
+    return out
+
+
+def run_parallel(torch, ops, dev, profile: bool, smi_line: str) -> dict:
+    """The parallel path over a one-rank NCCL group: (a), (e), (b), (c),
+    (d) under ``torch.use_deterministic_algorithms(True)``, as the train
+    phase's (d) and (e) are; then (f)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.testing import parallel_checks as PC
+
+    t0 = time.perf_counter()
+    cublas = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        a = parallel_train(torch, ops, dev, mesh_mod, PC, profile)
+        e = parallel_checkpoint(torch, dev, a)
+        b = parallel_codecs(torch, dev, mesh_mod, PC, a)
+        a_row = a["row"]
+        counts = {k: a[k] for k in ("launches", "launches_tc", "per_step")}
+        del a
+        c = parallel_ep(torch, dev, mesh_mod, PC)
+        d = parallel_sp(torch, dev, mesh_mod, PC)
+    finally:
+        dist.destroy_process_group()
+        torch.use_deterministic_algorithms(False)
+        if cublas is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = cublas
+    gc_cuda(torch)
+    f = parallel_multi_card(torch)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "parallel_seconds", "seconds": seconds, "nvidia_smi": smi_line})
+    return {"train": a_row, "checkpoint": e, "codecs": b, "ep": c, "sp": d, "multi_card": f, "seconds": seconds,
+            **counts}
+
+
 def flash_sass_hgmma() -> dict:
     """Count ``HGMMA`` (wgmma) instructions in the built flash_attention
     library's SASS with ``cuobjdump``; empty where the tool is absent."""
@@ -5619,6 +5889,13 @@ def main(argv=None) -> int:
     train = run_train(torch, ops, dev, profile, smi_line)
     flash_train = time_flash(torch, ops, dev, profile, [TRAIN_FLASH_SHAPE])
 
+    # Eighth path: parallel/ on a one-rank NCCL DeviceMesh — qwen2-1.5b
+    # whole through the sharded train step (its flash launches counted
+    # from zero just before the mesh run), the checkpoint with its specs,
+    # the codecs, EP, SP decode; with two cards, the same over 2 ranks.
+    gc_cuda(torch)
+    parallel = run_parallel(torch, ops, dev, profile, smi_line)
+
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
@@ -5699,6 +5976,9 @@ def main(argv=None) -> int:
                    "per_step": train["whole"]["per_step"], "forward_per_step": train["whole"]["forward_per_step"],
                    "backward": "plain recompute (kernels.ops.FlashAttention)",
                    "at_train_shape": {"shape": list(TRAIN_FLASH_SHAPE), "causal": True, **flash_train}},
+         "parallel": {"launches": parallel["launches"], "launches_tensor_cores": parallel["launches_tc"],
+                      "per_step": parallel["per_step"], "mesh": {"data": 1, "model": 1},
+                      "steps": PARALLEL["steps"], "shape": list(TRAIN_FLASH_SHAPE), "causal": True},
          "ragged_row_relative_err": ragged_err,
          **analysis_entry(kpass, "flash_attention")},
     ]})

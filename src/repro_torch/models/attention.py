@@ -8,8 +8,14 @@ the CUDA kernel for a CUDA tensor, the plain version on the CPU or with
 ``chunked_attention``, plain PyTorch, as the reference's decode is a
 ``lax.scan`` with no kernel.  MLA attends over its latent with
 ``chunked_attention`` in float32, prefill and decode alike, as the
-reference's MLA does (it never calls ``attention_dispatch``).  Sequence
-parallelism and the mesh runtime are not ported (ROADMAP.md Queue 1).
+reference's MLA does (it never calls ``attention_dispatch``).
+
+The mesh runtime ``rt`` (``transformer.ParallelRuntime``) is threaded as
+in the reference.  With ``rt.seq_axis`` set, decode runs on a cache whose
+sequence is split over that axis, through the flash combine of
+``parallel.sp_attention`` (``gqa_decode``, ``mla_decode``).  Training
+and prefill attention ignore ``rt``: a rank's activations are local
+tensors (``_constrain`` is a no-op).
 
 A block's parameters are an ``nn.ParameterDict`` with the reference's
 names and layouts: weights ``(d_in, d_out)``, biases ``(d_out,)``.
@@ -25,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.parallel import sp_attention as SP
 
 Tensor = torch.Tensor
 NEG_INF = -1.0e30
@@ -138,9 +145,19 @@ def gqa_project_qkv(
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def _constrain(x: Tensor, rt, *axes) -> Tensor:
+    """The reference's sharding constraint on activations: a no-op here,
+    where a rank's activations are its local tensors already."""
+    return x
+
+
+def _sp_active(rt) -> bool:
+    return rt is not None and rt.active and bool(rt.seq_axis)
+
+
 def gqa_attn(
     p, x: Tensor, cfg: ModelConfig, *, causal: bool = True,
-    positions: Optional[Tensor] = None, rope: bool = True, backend: Optional[str] = None,
+    positions: Optional[Tensor] = None, rope: bool = True, backend: Optional[str] = None, rt=None,
 ) -> Tensor:
     """Full-sequence GQA attention (B, S, D) -> (B, S, D)."""
     b, s, _ = x.shape
@@ -154,17 +171,26 @@ def gqa_attn(
 
 def gqa_decode(
     p, x: Tensor, cfg: ModelConfig, k_cache: Tensor, v_cache: Tensor, t: int,
-    *, rope: bool = True,
+    *, rope: bool = True, rt=None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Single-token decode: write position ``t`` of the cache, attend over it.
 
     x: (B, 1, D); caches: (B, Hkv, S_max, hd), updated in place (the
     reference returns new arrays; writing in place saves a cache copy per
-    layer and step) and returned.
+    layer and step) and returned.  With a sequence-split cache
+    (``rt.seq_axis``; the caches are this rank's slice) the attention is
+    the flash-combine collective (``parallel.sp_attention``).
     """
     b = x.shape[0]
     positions = torch.full((b, 1), t, dtype=torch.int64, device=x.device)
     q, k_new, v_new = gqa_project_qkv(p, x, cfg, positions, rope=rope)
+    if _sp_active(rt):
+        out, k_cache, v_cache = SP.sp_decode_attention(
+            q, k_cache, v_cache, k_new, v_new, t, rt.mesh,
+            seq_axis=rt.seq_axis, batch_spec=rt.decode_batch_spec,
+        )
+        out = out.transpose(1, 2).reshape(b, 1, cfg.n_heads * cfg.head_dim)
+        return out @ p["wo"], k_cache, v_cache
     k_cache[:, :, t:t + 1] = k_new
     v_cache[:, :, t:t + 1] = v_new
     out = chunked_attention(
@@ -260,7 +286,7 @@ def _mla_attend(
     return _mla_out(p, out_lat[..., :r], cfg)
 
 
-def mla_attn(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True) -> Tensor:
+def mla_attn(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True, rt=None) -> Tensor:
     """Full-sequence MLA attention (B, S, D) -> (B, S, D)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -269,14 +295,21 @@ def mla_attn(p, x: Tensor, cfg: ModelConfig, *, causal: bool = True) -> Tensor:
 
 
 def mla_decode(
-    p, x: Tensor, cfg: ModelConfig, ckv_cache: Tensor, krope_cache: Tensor, t: int
+    p, x: Tensor, cfg: ModelConfig, ckv_cache: Tensor, krope_cache: Tensor, t: int, rt=None,
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """Decode with the compressed latent cache: write position ``t`` in
     place and attend over it.  ckv_cache: (B, S_max, r); krope_cache:
-    (B, 1, S_max, dr)."""
+    (B, 1, S_max, dr).  With a sequence-split cache (``rt.seq_axis``) the
+    attention is the MLA flash combine."""
     b = x.shape[0]
     positions = torch.full((b, 1), t, dtype=torch.int64, device=x.device)
     q_nope, q_rope, c_new, kr_new = _mla_qkv(p, x, cfg, positions)
+    if _sp_active(rt):
+        out_lat, ckv_cache, krope_cache = SP.sp_decode_attention_mla(
+            _mla_qcomb(p, q_nope, q_rope, cfg), ckv_cache, krope_cache, c_new, kr_new, t, rt.mesh,
+            seq_axis=rt.seq_axis, batch_spec=rt.decode_batch_spec,
+        )
+        return _mla_out(p, out_lat, cfg), ckv_cache, krope_cache
     ckv_cache[:, t:t + 1] = c_new
     krope_cache[:, :, t:t + 1] = kr_new
     out = _mla_attend(

@@ -67,7 +67,7 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig) -> MambaLM:
     return MambaLM(cfg, embed, layers, final_norm, unembed)
 
 
-def mamba_hidden(params: MambaLM, tokens: Tensor, cfg: ModelConfig) -> Tensor:
+def mamba_hidden(params: MambaLM, tokens: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None) -> Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D), each layer under
     ``transformer._remat``."""
     x = T._embed(params, tokens, cfg)
@@ -77,12 +77,12 @@ def mamba_hidden(params: MambaLM, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
-def mamba_loss(params: MambaLM, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-               backend: Optional[str] = None) -> Tensor:
+def mamba_loss(params: MambaLM, batch: Dict[str, Tensor], cfg: ModelConfig,
+               rt: Optional[T.ParallelRuntime] = None, *, backend: Optional[str] = None) -> Tensor:
     """Next-token cross entropy of ``batch`` (``tokens``, ``labels``,
     ``mask``), as ``transformer.lm_loss``.  ``backend`` is unused: the
     family reaches no kernel."""
-    hidden = mamba_hidden(params, batch["tokens"], cfg)
+    hidden = mamba_hidden(params, batch["tokens"], cfg, rt)
     return L.chunked_softmax_xent(lambda h: T.logits_fn(params, cfg, h), hidden, batch["labels"],
                                   batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
@@ -101,9 +101,11 @@ def mamba_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) ->
     }
 
 
-def mamba_decode_step(params: MambaLM, cache: Cache, tokens: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Cache]:
+def mamba_decode_step(params: MambaLM, cache: Cache, tokens: Tensor, cfg: ModelConfig,
+                      rt: Optional[T.ParallelRuntime] = None) -> Tuple[Tensor, Cache]:
     """One decode step.  tokens: (B, 1) -> logits (B, 1, V) float32 and the
-    cache, its states written in place and ``t`` advanced."""
+    cache, its states written in place and ``t`` advanced.  ``rt`` changes
+    nothing: the states split over the batch only."""
     x = T._embed(params, tokens, cfg)
     for i, lp in enumerate(params.layers):
         h = L.rms_norm(x, lp.ln, cfg.norm_eps)
@@ -118,7 +120,8 @@ def mamba_decode_step(params: MambaLM, cache: Cache, tokens: Tensor, cfg: ModelC
 
 
 def mamba_prefill(
-    params: MambaLM, tokens: Tensor, cfg: ModelConfig, *, max_seq: Optional[int] = None
+    params: MambaLM, tokens: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None, *,
+    max_seq: Optional[int] = None,
 ) -> Tuple[Tensor, Cache]:
     """Sequence-parallel prefill: one chunked SSD per layer with
     ``return_state=True``; last-position logits (B, 1, V) float32 and the

@@ -18,9 +18,18 @@ them) and summed in that fixed order.  No atomic is involved, so a CUDA
 device repeats its bits from run to run.  The expert products are three
 ``torch.bmm`` (the reference's einsums, outside any Pallas kernel).
 
-Expert parallelism (``moe_ffn(axis=...)``) waits for ``parallel/``
-(ROADMAP.md Queue 1); ``moe_ffn_local`` already takes the local expert
-slice (``expert_offset``, ``n_local_experts``) the sharded path calls.
+Expert parallelism: ``moe_ffn(axis=group)`` runs on each rank of the
+process group (the mesh's ``model`` axis) ``moe_ffn_local`` over its
+E/m experts (``expert_offset = rank * E/m``; the stacks hold only those)
+and sums the partial outputs over the group.  The input is the same on
+every rank of the group, so the sum is a pair of autograd functions
+(:class:`_CopyToGroup` on the input and the router, identity forward and
+all-reduce backward; :class:`_ReduceFromGroup` on the output, all-reduce
+forward and identity backward): each rank's cotangent of the input, and
+of the router, covers only its own experts' lanes.
+(``torch.distributed.nn.functional.all_reduce`` would all-reduce the
+output's cotangent again in its backward, which is already the same on
+every rank, and make every gradient m times too large.)
 ``router_aux_loss`` is the reference's load-balancing loss; as there, no
 training loss adds it.
 """
@@ -217,15 +226,62 @@ def moe_ffn_local(
     return combined.to(x2d.dtype)
 
 
-def moe_ffn(p, x: Tensor, cfg: ModelConfig, *, axis: Optional[str] = None) -> Tensor:
-    """MoE FFN over (B, S, D) activations, shared experts included."""
-    if axis is not None:
-        raise NotImplementedError(
-            "expert parallelism (moe_ffn(axis=...)) waits for parallel/ "
-            "(ROADMAP.md Queue 1, 'LM stack, still to port')"
-        )
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward; the cotangent all-reduced over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        import torch.distributed as dist
+
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """The partial outputs all-reduced over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, group) -> Tensor:
+        import torch.distributed as dist
+
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g, None
+
+
+def moe_ffn(p, x: Tensor, cfg: ModelConfig, *, axis=None) -> Tensor:
+    """MoE FFN over (B, S, D) activations, shared experts included.
+
+    ``axis`` is the process group the experts are split over (expert
+    parallelism; ``p``'s stacks hold this rank's E/m experts), None for
+    every expert on this rank."""
     b, s, d = x.shape
-    out = moe_ffn_local(p, x.reshape(b * s, d), cfg).reshape(b, s, d)
+    x2d = x.reshape(b * s, d)
+    if axis is None:
+        out = moe_ffn_local(p, x2d, cfg)
+    else:
+        import torch.distributed as dist
+
+        if isinstance(axis, str):
+            raise TypeError(f"moe_ffn's axis is the process group the experts are split over "
+                            f"(mesh.get_group({axis!r})), not the axis name")
+        e_loc = cfg.moe_num_experts // dist.get_world_size(axis)
+        local = {k: p[k] for k in ("w_gate", "w_up", "w_down")}
+        local["router"] = _CopyToGroup.apply(p["router"], axis)
+        out = moe_ffn_local(local, _CopyToGroup.apply(x2d, axis), cfg,
+                            expert_offset=dist.get_rank(axis) * e_loc, n_local_experts=e_loc)
+        out = _ReduceFromGroup.apply(out, axis)
+    out = out.reshape(b, s, d)
     if cfg.moe_shared_experts and "shared" in p:
         sp = p["shared"]
         h = torch.nn.functional.silu((x @ sp["w_gate"]).float()).to(x.dtype)

@@ -5,8 +5,10 @@ of the reference: the decoder families ``dense``, ``vlm``, ``moe`` and
 ``mla_moe``, the Mamba2 family ``ssm``, the hybrid ``hybrid`` and the
 encoder-decoder ``encdec`` (whose prefill and loss take
 ``batch["frames"]``); an unknown family raises :class:`ValueError`.
-``loss(params, batch, cfg, backend=None)`` is the family's training loss
-(``batch``: ``tokens``, ``labels``, ``mask`` and the family's extras).
+``loss(params, batch, cfg, rt=None, backend=None)`` is the family's
+training loss (``batch``: ``tokens``, ``labels``, ``mask`` and the
+family's extras).  Every entry takes the mesh runtime ``rt``
+(``transformer.ParallelRuntime``) fourth, as the reference's lambdas do.
 ``loss`` and ``prefill`` take ``backend`` (where GQA attention runs); the
 families that reach no kernel ignore it.
 """
@@ -34,12 +36,12 @@ def _decoder_api() -> ModelApi:
     return ModelApi(
         init=T.decoder_init,
         loss=T.lm_loss,
-        prefill=lambda params, batch, cfg, max_seq=None, backend=None: T.prefill(
-            params, batch["tokens"], cfg, max_seq=max_seq, backend=backend,
+        prefill=lambda params, batch, cfg, rt=None, max_seq=None, backend=None: T.prefill(
+            params, batch["tokens"], cfg, rt, max_seq=max_seq, backend=backend,
             vision_embeds=batch.get("vision_embeds"),
         ),
-        decode_step=lambda params, cache, batch, cfg: T.decode_step(
-            params, cache, batch["tokens"], cfg
+        decode_step=lambda params, cache, batch, cfg, rt=None: T.decode_step(
+            params, cache, batch["tokens"], cfg, rt
         ),
         init_cache=T.init_cache,
     )
@@ -49,11 +51,11 @@ def _mamba_api() -> ModelApi:
     return ModelApi(
         init=MB.mamba_init,
         loss=MB.mamba_loss,
-        prefill=lambda params, batch, cfg, max_seq=None, backend=None: MB.mamba_prefill(
-            params, batch["tokens"], cfg, max_seq=max_seq
+        prefill=lambda params, batch, cfg, rt=None, max_seq=None, backend=None: MB.mamba_prefill(
+            params, batch["tokens"], cfg, rt, max_seq=max_seq
         ),
-        decode_step=lambda params, cache, batch, cfg: MB.mamba_decode_step(
-            params, cache, batch["tokens"], cfg
+        decode_step=lambda params, cache, batch, cfg, rt=None: MB.mamba_decode_step(
+            params, cache, batch["tokens"], cfg, rt
         ),
         init_cache=MB.mamba_init_cache,
     )
@@ -63,11 +65,11 @@ def _zamba_api() -> ModelApi:
     return ModelApi(
         init=Z.zamba_init,
         loss=Z.zamba_loss,
-        prefill=lambda params, batch, cfg, max_seq=None, backend=None: Z.zamba_prefill(
-            params, batch["tokens"], cfg, max_seq=max_seq, backend=backend
+        prefill=lambda params, batch, cfg, rt=None, max_seq=None, backend=None: Z.zamba_prefill(
+            params, batch["tokens"], cfg, rt, max_seq=max_seq, backend=backend
         ),
-        decode_step=lambda params, cache, batch, cfg: Z.zamba_decode_step(
-            params, cache, batch["tokens"], cfg
+        decode_step=lambda params, cache, batch, cfg, rt=None: Z.zamba_decode_step(
+            params, cache, batch["tokens"], cfg, rt
         ),
         init_cache=Z.zamba_init_cache,
     )
@@ -77,11 +79,11 @@ def _whisper_api() -> ModelApi:
     return ModelApi(
         init=W.whisper_init,
         loss=W.whisper_loss,
-        prefill=lambda params, batch, cfg, max_seq=None, backend=None: W.whisper_prefill(
-            params, batch["tokens"], batch.get("frames"), cfg, max_seq=max_seq, backend=backend
+        prefill=lambda params, batch, cfg, rt=None, max_seq=None, backend=None: W.whisper_prefill(
+            params, batch["tokens"], batch.get("frames"), cfg, rt, max_seq=max_seq, backend=backend
         ),
-        decode_step=lambda params, cache, batch, cfg: W.whisper_decode_step(
-            params, cache, batch["tokens"], cfg
+        decode_step=lambda params, cache, batch, cfg, rt=None: W.whisper_decode_step(
+            params, cache, batch["tokens"], cfg, rt
         ),
         init_cache=W.whisper_init_cache,
     )

@@ -26,6 +26,14 @@ attention, in training and prefill, runs on the flash kernel through
 autograd); ``backend="torch"`` runs its plain version instead, on any
 device.  MLA and the MoE FFN reach no kernel, as in the reference.
 
+The mesh runtime ``rt`` (:class:`ParallelRuntime`, None on one device)
+is threaded through ``decoder_hidden``, ``lm_loss``, ``prefill`` and
+``decode_step`` as in the reference.  With ``rt.active`` the MoE FFN
+runs expert-parallel over ``rt.tp_axis`` (``moe.moe_ffn(axis=...)``),
+and with ``rt.seq_axis`` decode attends over a sequence-split cache
+(``parallel.sp_attention``).  Everything else is the single-device code:
+a rank's activations are its local tensors (``shard_act`` is a no-op).
+
 ``vlm`` (llava) is the dense decoder with patch embeddings ``(B, P, D)``
 spliced into the prompt: they replace the first P token embeddings, cast
 to the compute dtype, and positions run over the whole prompt.  The
@@ -34,7 +42,7 @@ vision tower is a stub in the reference too; decode takes tokens only.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -48,6 +56,29 @@ from repro_torch.models import moe as M
 Tensor = torch.Tensor
 Cache = Dict[str, Tensor]
 FAMILIES = ("dense", "vlm", "moe", "mla_moe")
+
+
+class ParallelRuntime(NamedTuple):
+    """Mesh context threaded through model calls (None = single device)."""
+
+    mesh: Any = None                # a DeviceMesh
+    dp_axes: Tuple[str, ...] = ()   # batch-sharding axes, e.g. ("pod","data")
+    tp_axis: str = ""               # expert-parallel axis ("model")
+    seq_axis: str = ""              # cache-sequence split axis for decode
+                                    # (sp_attention flash combine); "" = off
+    decode_batch_spec: Any = None   # the reference's decode batch entry (unused:
+                                    # a rank's rows are local tensors)
+    pin_attn_seq: bool = True       # the reference's GSPMD pin; no effect here
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None
+
+
+def shard_act(x: Tensor, rt: Optional[ParallelRuntime], *axes) -> Tensor:
+    """The reference's activation sharding constraint: a no-op, since a
+    rank's activations are its local tensors already."""
+    return x
 
 
 class DecoderLayer(nn.Module):
@@ -152,20 +183,26 @@ def _splice_patches(x: Tensor, vision_embeds: Tensor) -> Tensor:
     return torch.cat([vision_embeds.to(x.dtype), x[:, npatch:]], dim=1)
 
 
-def _ffn_apply(lp: DecoderLayer, x: Tensor, cfg: ModelConfig) -> Tensor:
+def _ffn_apply(lp: DecoderLayer, x: Tensor, cfg: ModelConfig, rt: Optional[ParallelRuntime] = None) -> Tensor:
+    """The layer's FFN; under an active runtime with a ``tp_axis`` the MoE
+    FFN is expert-parallel over that axis's group (the layer's expert
+    stacks hold this rank's experts)."""
     if lp.ffn_kind == "moe":
-        return M.moe_ffn(lp.ffn, x, cfg)
+        ep = rt is not None and rt.active and rt.tp_axis
+        return M.moe_ffn(lp.ffn, x, cfg, axis=rt.mesh.get_group(rt.tp_axis) if ep else None)
     return mlp_apply(lp.ffn, x)
 
 
-def _layer_body(lp: DecoderLayer, x: Tensor, cfg: ModelConfig, *, backend: Optional[str]) -> Tensor:
+def _layer_body(lp: DecoderLayer, x: Tensor, cfg: ModelConfig, rt: Optional[ParallelRuntime] = None, *,
+                backend: Optional[str]) -> Tensor:
     h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
     if lp.attn_kind == "mla":
-        x = x + A.mla_attn(lp.attn, h, cfg, causal=True)
+        x = x + A.mla_attn(lp.attn, h, cfg, causal=True, rt=rt)
     else:
-        x = x + A.gqa_attn(lp.attn, h, cfg, causal=True, backend=backend)
+        x = x + A.gqa_attn(lp.attn, h, cfg, causal=True, backend=backend, rt=rt)
+    x = shard_act(x, rt, rt.dp_axes if rt else None, None, None)
     h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-    return x + _ffn_apply(lp, h, cfg)
+    return x + _ffn_apply(lp, h, cfg, rt)
 
 
 _aten = torch.ops.aten
@@ -199,8 +236,8 @@ def _remat(fn: Callable[[Tensor], Tensor], cfg: ModelConfig) -> Callable[[Tensor
 
 
 def decoder_hidden(
-    params: Decoder, tokens: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None,
-    vision_embeds: Optional[Tensor] = None,
+    params: Decoder, tokens: Tensor, cfg: ModelConfig, rt: Optional[ParallelRuntime] = None, *,
+    backend: Optional[str] = None, vision_embeds: Optional[Tensor] = None,
 ) -> Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D).  ``vlm`` needs
     ``vision_embeds`` (B, P, D).  Each layer of ``layers`` runs under
@@ -210,10 +247,11 @@ def decoder_hidden(
         if vision_embeds is None:
             raise ValueError(f"{cfg.name}: the vlm family needs vision_embeds")
         x = _splice_patches(x, vision_embeds)
+    x = shard_act(x, rt, rt.dp_axes if rt else None, None, None)
     if params.first_layer is not None:
-        x = _layer_body(params.first_layer, x, cfg, backend=backend)
+        x = _layer_body(params.first_layer, x, cfg, rt, backend=backend)
     for lp in params.layers:
-        x = _remat(lambda xx, lp=lp: _layer_body(lp, xx, cfg, backend=backend), cfg)(x)
+        x = _remat(lambda xx, lp=lp: _layer_body(lp, xx, cfg, rt, backend=backend), cfg)(x)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -222,13 +260,13 @@ def logits_fn(params: Decoder, cfg: ModelConfig, hidden: Tensor) -> Tensor:
     return hidden @ w.to(hidden.dtype)
 
 
-def lm_loss(params: Decoder, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-            backend: Optional[str] = None) -> Tensor:
+def lm_loss(params: Decoder, batch: Dict[str, Tensor], cfg: ModelConfig,
+            rt: Optional[ParallelRuntime] = None, *, backend: Optional[str] = None) -> Tensor:
     """Next-token cross entropy (a 0-d float32 tensor) of ``batch``
     (``tokens``, ``labels``, ``mask``, and for ``vlm`` ``vision_embeds``),
     the vocab projection per ``min(cfg.logit_chunk, S)`` positions.  As in
     the reference, no MoE auxiliary loss is added."""
-    hidden = decoder_hidden(params, batch["tokens"], cfg, backend=backend,
+    hidden = decoder_hidden(params, batch["tokens"], cfg, rt, backend=backend,
                             vision_embeds=batch.get("vision_embeds"))
     return L.chunked_softmax_xent(lambda h: logits_fn(params, cfg, h), hidden, batch["labels"],
                                   batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
@@ -263,21 +301,22 @@ def _layer_caches(cache: Cache, params: Decoder, cfg: ModelConfig):
 
 
 def decode_step(
-    params: Decoder, cache: Cache, tokens: Tensor, cfg: ModelConfig
+    params: Decoder, cache: Cache, tokens: Tensor, cfg: ModelConfig, rt: Optional[ParallelRuntime] = None,
 ) -> Tuple[Tensor, Cache]:
     """One decode step.  tokens: (B, 1) -> logits (B, 1, V) float32 and the
-    cache, written in place at position ``t`` with ``t`` advanced."""
+    cache, written in place at position ``t`` with ``t`` advanced.  With
+    ``rt.seq_axis`` the caches are this rank's sequence slices."""
     x = _embed(params, tokens, cfg)
     t = int(cache["t"])
     for lp, (c0, c1) in zip(_all_layers(params), _layer_caches(cache, params, cfg)):
         h = L.rms_norm(x, lp.ln1, cfg.norm_eps)
         if lp.attn_kind == "mla":
-            att, _, _ = A.mla_decode(lp.attn, h, cfg, c0, c1, t)
+            att, _, _ = A.mla_decode(lp.attn, h, cfg, c0, c1, t, rt=rt)
         else:
-            att, _, _ = A.gqa_decode(lp.attn, h, cfg, c0, c1, t)
+            att, _, _ = A.gqa_decode(lp.attn, h, cfg, c0, c1, t, rt=rt)
         x = x + att
         h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = x + _ffn_apply(lp, h, cfg)
+        x = x + _ffn_apply(lp, h, cfg, rt)
     new_cache = dict(cache)
     new_cache["t"] = torch.tensor(t + 1, dtype=torch.int32)
     x = L.rms_norm(x, params.final_norm, cfg.norm_eps)
@@ -285,7 +324,7 @@ def decode_step(
 
 
 def prefill(
-    params: Decoder, tokens: Tensor, cfg: ModelConfig, *,
+    params: Decoder, tokens: Tensor, cfg: ModelConfig, rt: Optional[ParallelRuntime] = None, *,
     max_seq: Optional[int] = None, backend: Optional[str] = None,
     vision_embeds: Optional[Tensor] = None,
 ) -> Tuple[Tensor, Cache]:
@@ -318,7 +357,7 @@ def prefill(
             att = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim) @ lp.attn["wo"]
         x = x + att
         h = L.rms_norm(x, lp.ln2, cfg.norm_eps)
-        x = x + _ffn_apply(lp, h, cfg)
+        x = x + _ffn_apply(lp, h, cfg, rt)
     cache["t"] = torch.tensor(s, dtype=torch.int32)
     x = L.rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return logits_fn(params, cfg, x).float(), cache

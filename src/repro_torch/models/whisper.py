@@ -112,7 +112,8 @@ def whisper_init(gen: torch.Generator, cfg: ModelConfig) -> Whisper:
     return Whisper(cfg, frontend, enc, enc_norm, embed, pos_embed, dec, ln())
 
 
-def encode(params: Whisper, frames: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None) -> Tensor:
+def encode(params: Whisper, frames: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None, *,
+           backend: Optional[str] = None) -> Tensor:
     """frames (B, S_enc, D) -> the encoder's output (B, S_enc, D) in the
     compute dtype.  Each layer's self-attention is one bidirectional
     ``attention_dispatch``."""
@@ -163,7 +164,8 @@ def _logits(params: Whisper, x: Tensor) -> Tensor:
 
 
 def decode_hidden(
-    params: Whisper, tokens: Tensor, memory: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None
+    params: Whisper, tokens: Tensor, memory: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None, *,
+    backend: Optional[str] = None,
 ) -> Tensor:
     """Token ids (B, S) and the encoder output (B, S_enc, D) -> the
     decoder's final hidden states (B, S, D)."""
@@ -182,13 +184,13 @@ def _dec_layer(lp, x: Tensor, memory: Tensor, cfg: ModelConfig, backend: Optiona
     return x + T.mlp_apply(lp["mlp"], h)
 
 
-def whisper_loss(params: Whisper, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-                 backend: Optional[str] = None) -> Tensor:
+def whisper_loss(params: Whisper, batch: Dict[str, Tensor], cfg: ModelConfig,
+                 rt: Optional[T.ParallelRuntime] = None, *, backend: Optional[str] = None) -> Tensor:
     """Next-token cross entropy of ``batch`` (``frames`` (B, encoder_seq,
     D), ``tokens``, ``labels``, ``mask``) through the encoder and the
     decoder, the output projection tied to ``embed``."""
-    memory = encode(params, batch["frames"], cfg, backend=backend)
-    hidden = decode_hidden(params, batch["tokens"], memory, cfg, backend=backend)
+    memory = encode(params, batch["frames"], cfg, rt, backend=backend)
+    hidden = decode_hidden(params, batch["tokens"], memory, cfg, rt, backend=backend)
     return L.chunked_softmax_xent(lambda h: h @ params.embed.T.to(h.dtype), hidden, batch["labels"],
                                   batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
@@ -203,8 +205,8 @@ def whisper_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) 
 
 
 def whisper_prefill(
-    params: Whisper, tokens: Tensor, frames: Optional[Tensor], cfg: ModelConfig, *,
-    max_seq: Optional[int] = None, backend: Optional[str] = None,
+    params: Whisper, tokens: Tensor, frames: Optional[Tensor], cfg: ModelConfig,
+    rt: Optional[T.ParallelRuntime] = None, *, max_seq: Optional[int] = None, backend: Optional[str] = None,
 ) -> Tuple[Tensor, Cache]:
     """Encode ``frames`` (B, encoder_seq, D), then prefill the decoder over
     ``tokens`` (B, S): last-position logits (B, 1, V) float32 and a cache
@@ -216,7 +218,7 @@ def whisper_prefill(
         got = None if frames is None else tuple(frames.shape)
         raise ValueError(f"{cfg.name}: prefill needs frames of shape {want}, got {got}")
     max_seq = max_seq or s
-    memory = encode(params, frames, cfg, backend=backend)
+    memory = encode(params, frames, cfg, rt, backend=backend)
     cache = whisper_init_cache(cfg, b, max_seq, device=tokens.device)
     x = _embed_tokens(params, tokens, cfg, 0)
     for i, lp in enumerate(params.dec_layers):
@@ -237,15 +239,18 @@ def whisper_prefill(
     return _logits(params, _ln(x[:, -1:], params.dec_norm, cfg.norm_eps)), cache
 
 
-def whisper_decode_step(params: Whisper, cache: Cache, tokens: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Cache]:
+def whisper_decode_step(params: Whisper, cache: Cache, tokens: Tensor, cfg: ModelConfig,
+                        rt: Optional[T.ParallelRuntime] = None) -> Tuple[Tensor, Cache]:
     """One decode step.  tokens: (B, 1) -> logits (B, 1, V) float32 and the
     cache, self-attention K/V written in place at position ``t`` (a host
-    int, as ``gqa_decode`` takes it) with ``t`` advanced."""
+    int, as ``gqa_decode`` takes it) with ``t`` advanced.  With
+    ``rt.seq_axis`` the self-attention caches are this rank's sequence
+    slices; the cross caches stay whole."""
     t = int(cache["t"])
     x = _embed_tokens(params, tokens, cfg, t)
     for i, lp in enumerate(params.dec_layers):
         h = _ln(x, lp["ln1"], cfg.norm_eps)
-        att, _, _ = A.gqa_decode(lp["self_attn"], h, cfg, cache["k"][i], cache["v"][i], t, rope=False)
+        att, _, _ = A.gqa_decode(lp["self_attn"], h, cfg, cache["k"][i], cache["v"][i], t, rope=False, rt=rt)
         x = x + att
         h = _ln(x, lp["ln2"], cfg.norm_eps)
         x = x + _cross_attend(lp["cross_attn"], h, cache["xk"][i], cache["xv"][i], cfg)

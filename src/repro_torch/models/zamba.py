@@ -87,9 +87,9 @@ def _mamba_block(lp: MB.MambaLayer, x: Tensor, cfg: ModelConfig) -> Tensor:
     return x + S.ssd_forward(lp.mamba, L.rms_norm(x, lp.ln, cfg.norm_eps), cfg)
 
 
-def _shared_block(sp: SharedBlock, x: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None) -> Tensor:
+def _shared_block(sp: SharedBlock, x: Tensor, cfg: ModelConfig, rt=None, *, backend: Optional[str] = None) -> Tensor:
     h = L.rms_norm(x, sp.ln1, cfg.norm_eps)
-    x = x + A.gqa_attn(sp.attn, h, cfg, causal=True, backend=backend)
+    x = x + A.gqa_attn(sp.attn, h, cfg, causal=True, backend=backend, rt=rt)
     h = L.rms_norm(x, sp.ln2, cfg.norm_eps)
     return x + T.mlp_apply(sp.mlp, h)
 
@@ -100,22 +100,23 @@ def _app_layers(params: Zamba, cfg: ModelConfig, a: int):
     return [(i, params.mamba_layers[i]) for i in range(a * k, (a + 1) * k)]
 
 
-def zamba_hidden(params: Zamba, tokens: Tensor, cfg: ModelConfig, *, backend: Optional[str] = None) -> Tensor:
+def zamba_hidden(params: Zamba, tokens: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None, *,
+                 backend: Optional[str] = None) -> Tensor:
     """Token ids (B, S) -> final hidden states (B, S, D)."""
     x = T._embed(params, tokens, cfg)
     for a in range(_n_apps(cfg)):
         for _, lp in _app_layers(params, cfg, a):
             x = T._remat(lambda xx, lp=lp: _mamba_block(lp, xx, cfg), cfg)(x)
-        x = _shared_block(params.shared, x, cfg, backend=backend)
+        x = _shared_block(params.shared, x, cfg, rt, backend=backend)
     return L.rms_norm(x, params.final_norm, cfg.norm_eps)
 
 
-def zamba_loss(params: Zamba, batch: Dict[str, Tensor], cfg: ModelConfig, *,
-               backend: Optional[str] = None) -> Tensor:
+def zamba_loss(params: Zamba, batch: Dict[str, Tensor], cfg: ModelConfig,
+               rt: Optional[T.ParallelRuntime] = None, *, backend: Optional[str] = None) -> Tensor:
     """Next-token cross entropy of ``batch`` (``tokens``, ``labels``,
     ``mask``), as ``transformer.lm_loss``; the shared block's attention
     on the flash kernel (``backend`` as in ``zamba_hidden``)."""
-    hidden = zamba_hidden(params, batch["tokens"], cfg, backend=backend)
+    hidden = zamba_hidden(params, batch["tokens"], cfg, rt, backend=backend)
     return L.chunked_softmax_xent(lambda h: T.logits_fn(params, cfg, h), hidden, batch["labels"],
                                   batch["mask"].float(), min(cfg.logit_chunk, hidden.shape[1]))
 
@@ -132,7 +133,7 @@ def zamba_init_cache(cfg: ModelConfig, batch: int, max_seq: int, device=None) ->
 
 
 def zamba_prefill(
-    params: Zamba, tokens: Tensor, cfg: ModelConfig, *,
+    params: Zamba, tokens: Tensor, cfg: ModelConfig, rt: Optional[T.ParallelRuntime] = None, *,
     max_seq: Optional[int] = None, backend: Optional[str] = None,
 ) -> Tuple[Tensor, Cache]:
     """Sequence-parallel prefill: a chunked SSD with state extraction per
@@ -165,9 +166,12 @@ def zamba_prefill(
     return T.logits_fn(params, cfg, x).float(), cache
 
 
-def zamba_decode_step(params: Zamba, cache: Cache, tokens: Tensor, cfg: ModelConfig) -> Tuple[Tensor, Cache]:
+def zamba_decode_step(params: Zamba, cache: Cache, tokens: Tensor, cfg: ModelConfig,
+                      rt: Optional[T.ParallelRuntime] = None) -> Tuple[Tensor, Cache]:
     """One decode step.  tokens: (B, 1) -> logits (B, 1, V) float32 and the
-    cache, written in place (K/V at position ``t``) with ``t`` advanced."""
+    cache, written in place (K/V at position ``t``) with ``t`` advanced.
+    With ``rt.seq_axis`` the shared block's K/V caches are this rank's
+    sequence slices (``attention.gqa_decode``'s hook)."""
     x = T._embed(params, tokens, cfg)
     t = int(cache["t"])
     sp = params.shared
@@ -179,7 +183,7 @@ def zamba_decode_step(params: Zamba, cache: Cache, tokens: Tensor, cfg: ModelCon
             cache["ssm"][i].copy_(ssm_st)
             x = x + out
         h = L.rms_norm(x, sp.ln1, cfg.norm_eps)
-        att, _, _ = A.gqa_decode(sp.attn, h, cfg, cache["k"][a], cache["v"][a], t)
+        att, _, _ = A.gqa_decode(sp.attn, h, cfg, cache["k"][a], cache["v"][a], t, rt=rt)
         x = x + att
         h = L.rms_norm(x, sp.ln2, cfg.norm_eps)
         x = x + T.mlp_apply(sp.mlp, h)

@@ -84,6 +84,13 @@ def _entry(fn, rank, world_size, store_path, payload, out_path, backend) -> None
     Path(out_path).write_bytes(pickle.dumps(result))
 
 
+def in_turn(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """Several of the functions below on one group, in turn: ``payload``
+    maps a key to (function name, its payload); returns their results by
+    key."""
+    return {key: globals()[name](rank, world_size, part) for key, (name, part) in payload.items()}
+
+
 def _np(t) -> np.ndarray:
     return t.detach().cpu().numpy()
 
@@ -224,4 +231,213 @@ def map_step_counts(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict
         out[name] = {"n_local": len(ranges), "valid_in_block": int(lv.sum()),
                      "counts_equal": counts_equal, "covered": covered, "step_equal": step_equal,
                      "plain_workspace": isinstance(ws, ref.PlainMapStepWorkspace)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the parallel/ slice: a DeviceMesh over the group
+# ---------------------------------------------------------------------------
+
+
+def _rank_device() -> str:
+    import torch.distributed as dist
+
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def _cfg(arch: str, overrides: Dict[str, Any], reduced: bool = True):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg.reduced() if reduced else cfg, **overrides)
+
+
+def _tensors(tree, device: str, grad: bool = False):
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tensors(v, device, grad) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree)).to(device).requires_grad_(grad)
+
+
+def parallel_model(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The model-side pieces of ``parallel/`` on a ``("model",)`` mesh of
+    every rank.
+
+    * ``payload["gqa"]`` / ``["mla"]``: sequence-parallel decode.  Keys
+      ``arch``, ``overrides`` (config fields), ``params`` (the attention
+      block's arrays), ``x`` (B, 1, D), the whole caches (``k``/``v`` or
+      ``ckv``/``krope``) and ``ts``: for each t, ``gqa_decode`` /
+      ``mla_decode`` with a runtime whose ``seq_axis`` is ``model``, on
+      this rank's sequence slice of fresh caches.  Returns per t the
+      output and this rank's cache slices.
+    * ``payload["ep"]``: per name (``arch``, ``overrides``, ``params``:
+      the MoE block's arrays with the whole expert stacks, ``x`` (B, S, D)
+      and ``w``, the weights of the scalar loss ``sum(y * w)``):
+      ``moe_ffn(axis=model group)`` on this rank's experts; returns y and
+      the gradients of x, the router, this rank's expert blocks and the
+      shared experts.
+    * ``payload["int8"]``: ``g`` (world_size, N) float32, one row per rank,
+      and ``seeds``: ``int8_stochastic_allreduce`` over the group per seed
+      (the generator seeded by seed * world_size + rank); returns every
+      result.
+    * the mesh layout: ``make_mesh`` of (world_size // 2, 2) named
+      (data, model) gives each rank its row-major coordinates, and the
+      production mesh and a mesh of the wrong size raise.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    from repro_torch.models.transformer import ParallelRuntime
+    from repro_torch.training import compression
+
+    dev = _rank_device()
+    mesh = mesh_mod.make_mesh((world_size,), ("model",))
+    rt = ParallelRuntime(mesh=mesh, tp_axis="model", seq_axis="model")
+    out: Dict[str, Any] = {"model_rank": mesh.get_local_rank("model")}
+    with torch.no_grad():
+        for kind in ("gqa", "mla"):
+            if kind not in payload:
+                continue
+            spec = payload[kind]
+            cfg = _cfg(spec["arch"], spec["overrides"])
+            p = _tensors(spec["params"], dev)
+            x = _tensors(spec["x"], dev)
+            rows = {}
+            for t in spec["ts"]:
+                if kind == "gqa":
+                    s_loc = spec["k"].shape[2] // world_size
+                    kc = _tensors(spec["k"][:, :, rank * s_loc:(rank + 1) * s_loc], dev).clone()
+                    vc = _tensors(spec["v"][:, :, rank * s_loc:(rank + 1) * s_loc], dev).clone()
+                    y, kc, vc = A.gqa_decode(p, x, cfg, kc, vc, t, rt=rt)
+                else:
+                    s_loc = spec["ckv"].shape[1] // world_size
+                    kc = _tensors(spec["ckv"][:, rank * s_loc:(rank + 1) * s_loc], dev).clone()
+                    vc = _tensors(spec["krope"][:, :, rank * s_loc:(rank + 1) * s_loc], dev).clone()
+                    y, kc, vc = A.mla_decode(p, x, cfg, kc, vc, t, rt=rt)
+                rows[t] = {"y": _np(y), "c0": _np(kc), "c1": _np(vc)}
+            out[kind] = rows
+
+    out["ep"] = {}
+    for name, spec in payload.get("ep", {}).items():
+        cfg = _cfg(spec["arch"], spec["overrides"])
+        e_loc = cfg.moe_num_experts // world_size
+        params = dict(spec["params"])
+        for w in ("w_gate", "w_up", "w_down"):
+            params[w] = params[w][rank * e_loc:(rank + 1) * e_loc]
+        p = _tensors(params, dev, grad=True)
+        x = _tensors(spec["x"], dev, grad=True)
+        y = M.moe_ffn(p, x, cfg, axis=mesh.get_group("model"))
+        torch.sum(y * _tensors(spec["w"], dev)).backward()
+        grads = {k: _np(t.grad) for k, t in p.items() if not isinstance(t, dict)}
+        grads.update({f"shared/{k}": _np(t.grad) for k, t in p.get("shared", {}).items()})
+        out["ep"][name] = {"y": _np(y), "dx": _np(x.grad), "grads": grads}
+
+    if "int8" in payload:
+        g = {"g": torch.from_numpy(payload["int8"]["g"][rank]).to(dev)}
+        results = []
+        for seed in payload["int8"]["seeds"]:
+            gen = torch.Generator(device=dev).manual_seed(seed * world_size + rank)
+            results.append(_np(compression.int8_stochastic_allreduce(g, dist.group.WORLD, gen)["g"]))
+        out["int8"] = np.stack(results)
+
+    grid = mesh_mod.make_mesh((world_size // 2, 2), ("data", "model"))
+    out["grid"] = (grid.get_local_rank("data"), grid.get_local_rank("model"))
+    out["raises"] = []
+    for make in (lambda: mesh_mod.make_production_mesh(), lambda: mesh_mod.make_mesh((world_size + 1,), ("data",))):
+        try:
+            make()
+            out["raises"].append(None)
+        except ValueError as e:
+            out["raises"].append(str(e))
+    return out
+
+
+def parallel_train(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """The sharded train step and its checkpoints on meshes of every rank.
+
+    ``payload["runs"]``: a list of dicts with ``name``, ``arch``,
+    ``overrides``, ``mesh`` ((shape, axes)), ``codec``, ``optimizer``
+    (``AdamWConfig`` fields), ``seed``, ``batches`` (numpy batch dicts),
+    and optionally ``save`` (a directory: the state after the steps is
+    saved there with its specs) or ``restore`` (a directory: instead of
+    stepping, the newest save there is restored into a state built from
+    ``seed``).  Returns per run its losses and grad norms, and from rank
+    0 the state's leaves (``checkpoint.state_leaves``, gathered whole)
+    and the ``state_specs`` spec strings."""
+    import torch
+
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.training import checkpoint as CK
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig, make_sharded_train_state, make_train_step
+
+    dev = _rank_device()
+    out: Dict[str, Any] = {}
+    for run in payload["runs"]:
+        cfg = _cfg(run["arch"], run["overrides"], run.get("reduced", True))
+        mesh = mesh_mod.make_mesh(*run["mesh"])
+        ts = TrainStepConfig(optimizer=AdamWConfig(**run["optimizer"]), grad_codec=run["codec"], seed=run["seed"])
+        state, specs = make_sharded_train_state(cfg, mesh, ts, device=dev)
+        losses, norms = [], []
+        if "restore" in run:
+            _, state, _ = CK.restore_checkpoint(run["restore"], state)
+        else:
+            step = make_train_step(cfg, mesh, ts)
+            for b in run["batches"]:
+                state, metrics = step(state, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+                losses.append(float(metrics["loss"]))
+                norms.append(float(metrics["grad_norm"]))
+        if "save" in run:
+            CK.save_checkpoint(run["save"], len(run["batches"]), state, specs=specs, mesh=mesh)
+        leaves = CK.state_leaves(state)
+        out[run["name"]] = {"losses": losses, "grad_norms": norms, "step": int(state["opt"].step)}
+        if rank == 0:
+            out[run["name"]]["leaves"] = {n: CK._to_numpy(t)[0] for n, t in leaves}
+            out[run["name"]]["spec_strings"] = CK.spec_strings(specs)
+    return out
+
+
+def parallel_card(rank: int, world_size: int, payload: Dict[str, Any]) -> Dict[str, Any]:
+    """``testing.parallel_checks`` on every rank of a several-card NCCL
+    group: ``train_pair`` (``payload["train"]``: ``arch``, ``n_layers``,
+    ``batch``, ``seq``, ``steps``, ``optimizer``) on a ``("data",)`` mesh
+    of every rank; ``ep_check`` (``payload["ep"]``: ``arch``,
+    ``n_layers``, ``batch``, ``seq``) and ``sp_check``
+    (``payload["sp"]``: ``batch``, ``max_seq``, ``t``) on a ``("model",)``
+    mesh of every rank.  Each rank computes its own single-device side.
+    ``payload["reduced"]`` takes the configs' reduced variants (a CPU
+    rehearsal)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.testing import parallel_checks as PC
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_step import TrainStepConfig
+
+    def config(arch: str, **kw):
+        cfg = get_config(arch)
+        return dataclasses.replace(cfg.reduced() if payload.get("reduced") else cfg, **kw)
+
+    dev = _rank_device()
+    out: Dict[str, Any] = {}
+    tr = payload["train"]
+    cfg = config(tr["arch"], n_layers=tr["n_layers"])
+    ts = TrainStepConfig(optimizer=AdamWConfig(**tr["optimizer"]))
+    out["train"] = PC.train_pair(cfg, mesh_mod.make_mesh((world_size,), ("data",)), ts,
+                                 PC.batches(cfg, tr["batch"], tr["seq"], tr["steps"], dev), dev)
+    model_mesh = mesh_mod.make_mesh((world_size,), ("model",))
+    ep = payload["ep"]
+    cfg = config(ep["arch"], n_layers=ep["n_layers"])
+    out["ep"] = PC.ep_check(cfg, model_mesh, dev, PC.batches(cfg, ep["batch"], ep["seq"], 1, dev)[0])
+    sp = payload["sp"]
+    f32 = dict(param_dtype="float32", compute_dtype="float32")
+    out["sp"] = PC.sp_check(config("qwen2-1.5b", **f32), config("deepseek-v2-lite-16b", **f32), model_mesh, dev,
+                            batch=sp["batch"], max_seq=sp["max_seq"], t=sp["t"])
     return out

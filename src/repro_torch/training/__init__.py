@@ -1,7 +1,7 @@
 """Training substrate of the port: optimizer, train step, data pipeline,
-checkpointing and fault tolerance, in PyTorch (no external optimizer or
-checkpoint library).  Counterpart of ``repro.training``; its gradient
-compression waits for ``parallel/`` (ROADMAP.md Queue 1)."""
+checkpointing, fault tolerance and the cross-pod gradient codecs, in
+PyTorch (no external optimizer or checkpoint library), on one device or
+a DeviceMesh.  Counterpart of ``repro.training``."""
 
 from repro_torch.training.optimizer import (  # noqa: F401
     AdamWConfig,

@@ -1,8 +1,8 @@
-"""Atomic checkpoints in the reference's layout (no external library).
+"""Atomic, elastic checkpoints in the reference's layout (no external
+library).
 
-Counterpart of ``repro.training.checkpoint``, on one device.  The layout
-is the reference's, so a checkpoint of either package restores in the
-other::
+Counterpart of ``repro.training.checkpoint``.  The layout is the
+reference's, so a checkpoint of either package restores in the other::
 
     <dir>/step_000120/
         manifest.json      # step, extra metadata, and per leaf its name,
@@ -17,8 +17,19 @@ path's keys joined by ``_`` (``params_layers_attn_wq``, ``opt_step``,
 stacked on a leading axis (``models.convert.reference_tree``).  A state
 whose ``params`` is the port's model is laid out so; any other nested
 dict of tensors or arrays is flattened as the reference flattens a dict
-(keys sorted).  The spec strings are empty and ``mesh_shape`` null: the
-port saves from one device.
+(keys sorted).
+
+* **elastic re-mesh** — leaves are saved whole, with the spec strings of
+  ``specs`` (the reference's JSON form; empty for a leaf ``specs`` does
+  not name, or without ``specs``) and the mesh's ``mesh_shape`` (null
+  without one).  A state on a mesh (``params`` a
+  ``parallel.sharding.ShardedParams``) is gathered on every rank (a
+  collective: every rank calls ``save``) and rank 0 writes it.  Restore
+  keeps this rank's block: of a ``ShardedParams`` leaf by the target
+  state's own spec on its mesh, of any other tensor leaf (with ``mesh``)
+  by its saved spec projected onto the mesh's axes, as the reference
+  places it.  So a save on (data=2, model=2) restores onto (data=2), or
+  onto one device.
 
 * **atomic commit** — leaves are written to a temp dir, fsync'd, renamed,
   and only then is the COMMITTED marker created; restore ignores a step
@@ -57,6 +68,8 @@ import torch
 from torch import nn
 
 from repro_torch.models import convert
+from repro_torch.parallel import sharding as SH
+from repro_torch.parallel.sharding import ShardedParams
 from repro_torch.training.optimizer import AdamWState
 
 Leaves = List[Tuple[str, Any]]
@@ -80,26 +93,52 @@ def _host(x) -> Any:
     return np.array(x, copy=True)
 
 
+class _Whole(dict):
+    """Blocks by parameter name, each gathered whole when it is read."""
+
+    def __init__(self, sp: ShardedParams, values):
+        super().__init__(values)
+        self.sp = sp
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        sp = self.sp
+        return SH.gather_leaf(super().__getitem__(name), sp.specs[name], sp.mesh)
+
+
+def _model_tree(model, values=None):
+    """``convert.reference_tree`` of a model, or of a ``ShardedParams``'s
+    blocks gathered whole (a collective)."""
+    if isinstance(model, ShardedParams):
+        return convert.reference_tree(model.model, _Whole(model, model.blocks if values is None else values))
+    return convert.reference_tree(model, values)
+
+
+def _params(node, model):
+    """The state's model (or ``ShardedParams``), if ``node`` holds one."""
+    return node["params"] if isinstance(node.get("params"), (nn.Module, ShardedParams)) else model
+
+
 def state_leaves(state) -> Leaves:
     """``state``'s leaves as host copies, named and ordered as the
-    reference's ``_flatten`` names and orders them."""
+    reference's ``_flatten`` names and orders them.  A ``ShardedParams``
+    state is gathered whole, so every rank of its mesh must call this."""
     out: Leaves = []
 
     def walk(node, path, model):
-        if isinstance(node, nn.Module):
-            for p, t in sorted(convert.reference_tree(node).items()):
+        if isinstance(node, (nn.Module, ShardedParams)):
+            for p, t in sorted(_model_tree(node).items()):
                 out.append((_name(path + p), t))
         elif isinstance(node, AdamWState):
             walk(node.step, path + ("step",), model)
             for field in _MODEL_FIELDS:
                 values = getattr(node, field)
                 if values is not None and model is not None:
-                    for p, t in sorted(convert.reference_tree(model, values).items()):
+                    for p, t in sorted(_model_tree(model, values).items()):
                         out.append((_name(path + (field,) + p), t))
                 elif values is not None:
                     walk(values, path + (field,), None)
         elif isinstance(node, dict):
-            model = node["params"] if isinstance(node.get("params"), nn.Module) else model
+            model = _params(node, model)
             for key in sorted(node):
                 walk(node[key], path + (str(key),), model)
         else:
@@ -107,6 +146,42 @@ def state_leaves(state) -> Leaves:
 
     walk(state, (), None)
     return out
+
+
+def spec_strings(specs) -> Dict[str, str]:
+    """Each leaf's spec string (the reference's JSON form) by leaf name,
+    from a specs tree laid out like the state (``state_specs``)."""
+    out: Dict[str, str] = {}
+
+    def walk(node, path):
+        if isinstance(node, SH.PartitionSpec):
+            out[_name(path)] = node.to_json()
+        elif isinstance(node, AdamWState):
+            walk(node.step, path + ("step",))
+            for field in _MODEL_FIELDS:
+                if getattr(node, field) is not None:
+                    walk(getattr(node, field), path + (field,))
+        elif isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], path + (str(key),))
+
+    if specs is not None:
+        walk(specs, ())
+    return out
+
+
+def _mesh_of(state, mesh):
+    if mesh is None and isinstance(state, dict) and isinstance(state.get("params"), ShardedParams):
+        return state["params"].mesh
+    return mesh
+
+
+def _writes(mesh) -> bool:
+    """Whether this process writes: rank 0 of a mesh's job, or any process
+    without one."""
+    import torch.distributed as dist
+
+    return mesh is None or not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _to_numpy(x) -> Tuple[np.ndarray, str]:
@@ -146,21 +221,39 @@ def save_checkpoint(
     step: int,
     state,
     *,
+    specs=None,
+    mesh=None,
     keep_last: int = 3,
     extra: Optional[Dict[str, Any]] = None,
 ) -> Path:
-    """Atomically persist ``state`` for ``step``.  Returns the commit dir."""
-    return _write(directory, step, state_leaves(state), keep_last, extra)
+    """Atomically persist ``state`` for ``step``.  Returns the commit dir.
+    ``specs`` (``state_specs``) gives the leaves' spec strings; ``mesh``
+    (default: a sharded state's) its ``mesh_shape``.  On a mesh every
+    rank calls this; rank 0 writes, and all return after its commit."""
+    import torch.distributed as dist
+
+    mesh = _mesh_of(state, mesh)
+    leaves = state_leaves(state)
+    directory = Path(directory)
+    final = directory / f"step_{step:08d}"
+    if _writes(mesh):
+        final = _write(directory, step, leaves, keep_last, extra, spec_strings(specs), mesh)
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()
+    return final
 
 
-def _write(directory, step: int, leaves: Leaves, keep_last: int, extra) -> Path:
+def _write(directory, step: int, leaves: Leaves, keep_last: int, extra,
+           specs: Optional[Dict[str, str]] = None, mesh=None) -> Path:
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
     marker = directory / f"step_{step:08d}.COMMITTED"
 
     tmp = Path(tempfile.mkdtemp(prefix=".ckpt_tmp_", dir=directory))
-    manifest: Dict[str, Any] = {"step": step, "mesh_shape": None, "extra": extra or {}, "leaves": []}
+    manifest: Dict[str, Any] = {"step": step, "mesh_shape": SH.axis_sizes(mesh) if mesh is not None else None,
+                                "extra": extra or {}, "leaves": []}
+    specs = specs or {}
 
     def write_leaf(name: str, leaf) -> Dict[str, Any]:
         arr, dtype_name = _to_numpy(leaf)
@@ -171,7 +264,7 @@ def _write(directory, step: int, leaves: Leaves, keep_last: int, extra) -> Path:
             f.flush()
             os.fsync(f.fileno())
         return {"name": name, "file": fname, "dtype": dtype_name, "shape": list(arr.shape),
-                "sha256": w.sha.hexdigest(), "spec": ""}
+                "sha256": w.sha.hexdigest(), "spec": specs.get(name, "")}
 
     try:
         with ThreadPoolExecutor(max_workers=WRITERS) as pool:
@@ -220,16 +313,20 @@ def restore_checkpoint(
     like,
     *,
     step: Optional[int] = None,
+    mesh=None,
     verify: bool = True,
 ) -> Tuple[int, Any, Dict[str, Any]]:
     """Restore the committed ``step`` (default: the latest) into the
     structure of ``like``.  Returns (step, state, extra-metadata).
 
-    The port's model and the optimizer's moments and master in ``like``
-    are written in place; other leaves come back as new tensors (on the
-    device of ``like``'s leaf) or numpy arrays.  A missing leaf raises
-    :class:`KeyError`, a digest that does not match :class:`IOError`, a
-    shape that does not match :class:`ValueError`."""
+    The port's model (or a ``ShardedParams``'s blocks) and the
+    optimizer's moments and master in ``like`` are written in place;
+    other leaves come back as new tensors (on the device of ``like``'s
+    leaf; with ``mesh``, this rank's block by the saved spec projected
+    onto the mesh) or numpy arrays.  ``like``'s leaves have the saved,
+    whole shapes.  A missing leaf raises :class:`KeyError`, a digest that
+    does not match :class:`IOError`, a shape that does not match
+    :class:`ValueError`."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -257,28 +354,51 @@ def restore_checkpoint(
             leaves = dict(zip(paths, pool.map(lambda p: load(path + p), paths)))
         convert.load_reference_tree(model, leaves, targets)
 
+    def load_sharded(sp: ShardedParams, path, targets):
+        """This rank's blocks of the saved leaves, by the state's specs."""
+        layout = convert.reference_layout(sp.model)
+        paths = sorted({p for p, _ in layout.values()})
+        with ThreadPoolExecutor(max_workers=WRITERS) as pool:
+            leaves = dict(zip(paths, pool.map(lambda p: load(path + p), paths)))
+        with torch.no_grad():
+            for name, (p, index) in layout.items():
+                whole = leaves[p] if index is None else leaves[p][index]
+                if tuple(whole.shape) != sp.full_shape(name):
+                    raise ValueError(f"leaf {_name(path + p)} holds {name} of the shape {tuple(whole.shape)}, "
+                                     f"the state wants {sp.full_shape(name)}")
+                targets[name].copy_(SH.local_slice(whole, sp.specs[name], sp.mesh))
+
+    def load_params(model, path, targets=None):
+        if isinstance(model, ShardedParams):
+            load_sharded(model, path, model.blocks if targets is None else targets)
+        else:
+            load_model(model, path, targets)
+
     def walk(node, path, model):
-        if isinstance(node, nn.Module):
-            load_model(node, path)
+        if isinstance(node, (nn.Module, ShardedParams)):
+            load_params(node, path)
             return node
         if isinstance(node, AdamWState):
             fields = {"step": walk(node.step, path + ("step",), model)}
             for field in _MODEL_FIELDS:
                 values = getattr(node, field)
                 if values is not None and model is not None:
-                    load_model(model, path + (field,), values)
+                    load_params(model, path + (field,), values)
                     fields[field] = values
                 else:
                     fields[field] = None if values is None else walk(values, path + (field,), None)
             return AdamWState(**fields)
         if isinstance(node, dict):
-            model = node["params"] if isinstance(node.get("params"), nn.Module) else model
+            model = _params(node, model)
             return {key: walk(node[key], path + (str(key),), model) for key in node}
         got = load(path)
         want = tuple(np.shape(node))
         if tuple(got.shape) != want:
             raise ValueError(f"shape mismatch for {_name(path)}: ckpt {tuple(got.shape)} vs model {want}")
         if isinstance(node, torch.Tensor):
+            if mesh is not None:
+                spec = SH.project_spec(SH.PartitionSpec.from_json(by_name[_name(path)]["spec"]), mesh)
+                got = SH.shard_leaf(got, spec, mesh)
             return got.to(node.device)
         return got.numpy() if got.dtype != torch.bfloat16 else got
 
@@ -305,16 +425,21 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, step: int, state, *, extra: Optional[Dict[str, Any]] = None) -> None:
+    def save(self, step: int, state, *, specs=None, mesh=None, extra: Optional[Dict[str, Any]] = None) -> None:
+        """As ``save_checkpoint``, the write on a worker thread; on a mesh
+        every rank snapshots (the gather) and rank 0 writes."""
         self.wait()
+        mesh = _mesh_of(state, mesh)
         t0 = time.perf_counter()
         leaves = state_leaves(state)
         snapshot_s = time.perf_counter() - t0
+        if not _writes(mesh):
+            return
 
         def work():
             try:
                 t1 = time.perf_counter()
-                final = _write(self.directory, step, leaves, self.keep_last, extra)
+                final = _write(self.directory, step, leaves, self.keep_last, extra, spec_strings(specs), mesh)
                 self.saves.append({"step": step, "snapshot_s": snapshot_s, "write_s": time.perf_counter() - t1,
                                    "bytes": sum(f.stat().st_size for f in final.iterdir())})
             except BaseException as e:  # surfaced on the next wait()

@@ -18,6 +18,11 @@ gains and biases ((L, D)) decay there, while ``final_norm`` ((D,)) does
 not.  The port holds one tensor per layer, so the rank is taken from
 the reference's leaf (``models.convert.reference_layout``): a tensor's
 own rank, plus one inside a stacked group.
+
+On a mesh the parameters are a ``parallel.sharding.ShardedParams``: the
+update runs on this rank's blocks (master, m and v are blocks too), and
+the clipping norm is the whole gradient's (:func:`global_norm` with the
+mesh), so that every rank clips by the same, single-device scale.
 """
 
 from __future__ import annotations
@@ -30,9 +35,10 @@ import torch
 from torch import nn
 
 from repro_torch.models import convert
+from repro_torch.parallel.sharding import ShardedParams, axis_sizes, spec_axes
 
 Tensor = torch.Tensor
-Params = Union[nn.Module, Mapping[str, Tensor]]
+Params = Union[nn.Module, Mapping[str, Tensor], ShardedParams]
 _F32 = np.float32
 
 
@@ -58,7 +64,8 @@ class AdamWState(NamedTuple):
 
 
 def named_params(params: Params) -> Dict[str, Tensor]:
-    """The parameters by name: a module's ``named_parameters``, or the dict."""
+    """The parameters by name: a module's ``named_parameters``, or the
+    mapping (a ``ShardedParams``: its blocks)."""
     return dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
 
 
@@ -66,6 +73,8 @@ def reference_ranks(params: Params) -> Dict[str, int]:
     """Each parameter's rank in the reference's tree: a module's layer
     tensors count their stacked layer axis; a dict's tensors their own
     rank."""
+    if isinstance(params, ShardedParams):
+        params = params.model
     if not isinstance(params, nn.Module):
         return {name: t.dim() for name, t in params.items()}
     dims = {name: p.dim() for name, p in params.named_parameters()}
@@ -95,10 +104,31 @@ def lr_schedule(step, config: AdamWConfig) -> float:
     return float(_F32(config.lr) * warm * (floor + _F32(1.0 - config.min_lr_frac) * cos))
 
 
-def global_norm(tensors) -> Tensor:
+def global_norm(tensors, mesh=None, specs=None) -> Tensor:
     """sqrt of the sum of squares of every tensor (float32, 0-d, on the
-    tensors' device)."""
-    return torch.sqrt(torch.sum(torch.stack([torch.sum(torch.square(t.float())) for t in tensors])))
+    tensors' device).
+
+    With a ``mesh``, ``tensors`` are this rank's blocks and ``specs`` their
+    specs (in the same order): each rank sums the squares of its blocks,
+    a block replicated over an axis counting only on that axis's
+    coordinate 0, and one all-reduce over the mesh's ranks gives the
+    whole gradient's norm."""
+    tensors = list(tensors)
+    device = tensors[0].device if tensors else None
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        zero = {a: mesh.get_local_rank(a) == 0 for a in sizes}
+        tensors = [t for t, spec in zip(tensors, specs)
+                   if all(zero[a] for a in sizes if a not in spec_axes(spec))]
+    if not tensors:
+        total = torch.zeros((), dtype=torch.float32, device=device)
+    else:
+        total = torch.sum(torch.stack([torch.sum(torch.square(t.float())) for t in tensors]))
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def _clip_scale(norm: Tensor, max_norm: float) -> Tensor:
@@ -127,7 +157,10 @@ def adamw_update(
     ranks = reference_ranks(params)
     # clip_by_global_norm's scale, applied tensor by tensor below (no
     # float32 copy of every gradient at once)
-    norm = global_norm(grads.values())
+    if isinstance(params, ShardedParams):
+        norm = global_norm([grads[n] for n in named], params.mesh, [params.specs[n] for n in named])
+    else:
+        norm = global_norm(grads.values())
     scale = _clip_scale(norm, config.grad_clip)
 
     step = int(state.step) + 1

@@ -263,11 +263,14 @@ def test_training_reduces_loss_quickly():
 
 
 def test_mesh_and_grad_codec_wait_for_parallel():
+    """``parallel/`` is ported: a mesh must be a DeviceMesh (the sharded
+    step's tests are tests/test_torch_parallel_train.py), and without a
+    mesh the codec is not used, as in the reference."""
     _, cfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_train_step(cfg, object(), TrainStepConfig())
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        make_sharded_train_state(cfg, None, TrainStepConfig(grad_codec="int8"), device="cpu")
+    state, specs = make_sharded_train_state(cfg, None, TrainStepConfig(grad_codec="int8"), device="cpu")
+    assert specs is None and isinstance(state["params"], torch.nn.Module)
 
 
 # ---------------------------------------------------------------------------

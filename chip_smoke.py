@@ -7,7 +7,7 @@ Run from the root of a checkout, on a machine with one CUDA card::
 
 It builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/repro_torch_kernels``), holds each kernel against its plain
-PyTorch version on the card, and drives these paths (training last):
+PyTorch version on the card, and drives these paths (the launchers last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
@@ -172,6 +172,26 @@ PyTorch version on the card, and drives these paths (training last):
   the final state bit for bit (``train_resume``).  (d) and (e) run under
   ``torch.use_deterministic_algorithms(True)``.  Then a flash ``timing``
   line at the training call, and ``train_seconds``.
+* the mesh path (``run_parallel``, after training): qwen2-1.5b whole
+  through the sharded train step on a one-rank NCCL DeviceMesh, its
+  checkpoint, the codecs, EP and SP decode (``parallel_*`` lines).
+* the launchers and the examples (``run_launch``, the last): (a) ``python
+  -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape train_4k`` in a
+  child on the host (rank 0 of the fake (data=16, model=16) mesh; its
+  roofline terms, peak estimate, collective counts and
+  ``useful_flops_ratio``); (b) the dry run's roofline of qwen2-1.5b's
+  prefill (B = 4, S = 1024) and train step (B = 8, S = 512) at mesh None,
+  in a second child on the host, against the card running the same
+  ``specs.build_step``: median wall ms of 5 runs after 2, device-busy ms
+  from a fresh child under ``device_profile``, MFU, peak GB against
+  ``torch.cuda.max_memory_allocated``; every flash launch (28 a prefill,
+  56 a step) on the tensor cores, and the dry run's products outside
+  attention within 0.1 % of ``FlopCounterMode``'s count of the card run
+  (the flash kernel, a ``ctypes`` call, is invisible to it); (c)
+  ``examples/torch_quickstart.py`` and ``torch_segment_volume.py`` on the
+  card, their tick and ``segment_reduce`` launches counted, every slice
+  bit for bit its plan's plain solve on the CPU (``launch`` lines, then
+  ``launch_seconds``).
 
 For each path it sets the launch counts to 0 just before and reads them
 just after, checks that the path went through its kernels, and holds it
@@ -545,6 +565,19 @@ PARALLEL_EP = dict(arch="qwen3-moe-235b-a22b", n_layers=2, batch=4, seq=256)
 PARALLEL_SP = dict(batch=4, max_seq=1024, t=1023, tol=2e-4)
 PARALLEL_MULTI = dict(n_layers=2, steps=2, tol=1e-3)  # (f) on 2 NCCL ranks: (a) at 2 layers, (c), (d)
 PARALLEL_CKPT_DIR = ROOT / "build" / "parallel_ckpt"
+# The launch phase (launch/: specs, op_cost, roofline, dryrun; the examples):
+# (a) the dry run of qwen2-1.5b's train_4k for rank 0 of the fake 16x16 mesh,
+# on the host; (b) the dry run's roofline of two single-card cells of
+# qwen2-1.5b whole against the card running the same step; (c) the two
+# segmentation examples on the card against their plans solved on the CPU.
+LAUNCH_DRYRUN = ("--arch", "qwen2-1.5b", "--shape", "train_4k")
+LAUNCH_ARCH = "qwen2-1.5b"
+LAUNCH_CELLS = (("prefill", 4, 1024), ("train", 8, 512))  # (kind, B, S)
+LAUNCH_FLASH = {"prefill": 28, "train": 56}  # flash launches a step makes, every one on the tensor cores
+LAUNCH_WARM, LAUNCH_TIMED = 2, 5  # warm runs, then timed runs (their median)
+LAUNCH_DOT_TOL = 1e-3  # products outside attention: the dry run against FlopCounterMode on the card
+LAUNCH_EXAMPLES = ("torch_quickstart", "torch_segment_volume")
+LAUNCH_CHILD_TIMEOUT_S = 300
 
 
 def emit(obj) -> None:
@@ -5519,6 +5552,244 @@ def run_parallel(torch, ops, dev, profile: bool, smi_line: str) -> dict:
             **counts}
 
 
+def launch_child(code: str, cpu: bool) -> subprocess.Popen:
+    """``python -c code`` from the repository root with ``src`` on the path;
+    ``cpu``: with no card visible."""
+    env = dict(os.environ, PYTHONPATH=str(SRC) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    if cpu:
+        env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def launch_collect(proc: subprocess.Popen, what: str) -> str:
+    """The child's standard output; fails if it failed or outlived its time."""
+    try:
+        out, err = proc.communicate(timeout=LAUNCH_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"launch: {what} ran past {LAUNCH_CHILD_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"launch: {what} exited {proc.returncode}: {err[-3000:]}")
+    return out
+
+
+def launch_shape(kind: str, b: int, s: int):
+    from repro_torch.configs import ShapeSpec
+
+    return ShapeSpec(f"{kind}_{b}x{s}", s, b, kind)
+
+
+def launch_terms() -> None:
+    """(b)'s dry run, in a child on the host: each of ``LAUNCH_CELLS`` at
+    mesh None, one JSON line of ``dryrun.cost_cell`` records by kind."""
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(LAUNCH_ARCH)
+    print(json.dumps({kind: dryrun.cost_cell(cfg, launch_shape(kind, b, s))
+                      for kind, b, s in LAUNCH_CELLS}), flush=True)
+
+
+def launch_step(torch, dev, kind: str, b: int, s: int):
+    """The cell's step on the card through ``specs.build_step`` (the same
+    builder as the dry run's), fed the training pipeline's batch or a
+    seeded prompt in place of the builder's zeros: (run, model flops)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline, specs
+    from repro_torch.training import data as data_mod
+
+    cfg = get_config(LAUNCH_ARCH)
+    cell = specs.build_step(cfg, launch_shape(kind, b, s), None, device=dev)
+    if kind == "train":
+        dcfg = data_mod.DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=0)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in data_mod.make_batch(dcfg, 0).items()}
+    else:
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)}
+    args = (cell.args[0], batch)
+    tokens = b * s
+    return (lambda: cell.fn(*args)), roofline.model_flops_for(kind, cell.n_params, cell.n_active_params, tokens)
+
+
+def launch_profile_child() -> None:
+    """(b)'s device time, in a fresh child on the card: each cell's step
+    warmed, then one run under ``device_profile``; one JSON line by kind
+    (busy ms, the lead records the profiler lost)."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    out = {}
+    for kind, b, s in LAUNCH_CELLS:
+        run, _ = launch_step(torch, dev, kind, b, s)
+        for _ in range(LAUNCH_WARM):
+            run()
+        prof = device_profile(torch, run)
+        out[kind] = {"device_busy_ms": prof["device_busy_us"] * 1e-3, "device_ops": prof["device_ops"],
+                     "lead_records_lost": PROFILER_LEAD_RECORDS + 2 - prof["spins_seen"],
+                     "top": prof["top"][:4]}
+        del run
+        gc_cuda(torch)
+    print(json.dumps(out), flush=True)
+
+
+def launch_card(torch, ops, dev, kind: str, b: int, s: int) -> dict:
+    """One cell on the card: flash launches of one run (and their
+    tensor-core share), the median wall ms of ``LAUNCH_TIMED`` runs after
+    ``LAUNCH_WARM``, the peak bytes above what was allocated before the
+    state was built, and ``FlopCounterMode``'s products of one run (the
+    flash kernel, called through ``ctypes``, is invisible to it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.kernels import flash_attention
+
+    gc_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    run, model_flops = launch_step(torch, dev, kind, b, s)
+    for _ in range(LAUNCH_WARM):
+        run()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    launches, launches_tc = ops.launch_counts()["flash_attention"], flash_attention.launches_tc
+    walls = [synced_ms(torch, run) for _ in range(LAUNCH_TIMED)]
+    with FlopCounterMode(display=False) as counter:
+        run()
+    torch.cuda.synchronize()
+    card_dots = float(counter.get_total_flops())
+    del run
+    gc_cuda(torch)
+    return {"flash_launches": launches, "flash_launches_tc": launches_tc, "wall_ms": spread(walls),
+            "peak_bytes": peak, "card_dot_flops": card_dots, "model_flops": model_flops}
+
+
+def launch_example(name: str) -> dict:
+    import runpy
+
+    return runpy.run_path(str(ROOT / "examples" / f"{name}.py"), run_name=name)
+
+
+def launch_examples(torch, ops, dev, smi_line: str) -> dict:
+    """(c): each segmentation example's ``run`` on the card with the launch
+    counts set to 0 just before and read just after; every slice it
+    segmented solved again from its plan on the plain path on the CPU
+    (``plain_solve_on_cpu``, as the slice checks do): the same status,
+    EM and MAP iterations and labels, bit for bit."""
+    from repro_torch.kernels import em_tick
+
+    rows = {}
+    quick = launch_example("torch_quickstart")
+    ops.reset_launch_counts()
+    q = quick["run"](dev)
+    launches = ops.launch_counts()
+    res, cpu = q["result"], plain_solve_on_cpu(q["plan"], q["config"], q["seed"])
+    same = [trajectory_and_labels(res) == trajectory_and_labels(cpu)]
+    rows["torch_quickstart"] = {"em_iters": res.em_iters, "map_iters": res.map_iters, "status": res.status,
+                                "accuracy": q["ours"].accuracy, "threshold_accuracy": q["threshold"].accuracy,
+                                "fused_em_tick": launches["fused_em_tick"],
+                                "segment_reduce": launches["segment_reduce"], "cpu_same": same[0]}
+    if launches["fused_em_tick"] != res.map_iters or launches["segment_reduce"] < 1:
+        fail(f"torch_quickstart on the card: launches {launches} for {res.map_iters} MAP iterations")
+
+    vol = launch_example("torch_segment_volume")
+    ops.reset_launch_counts()
+    v = vol["run"](dev, log=lambda *_: None)
+    launches, batched = ops.launch_counts(), em_tick.launches_batched
+    lanes = []
+    for d in v["datasets"]:
+        for image, r in zip(d["images"], d["results"]):
+            cpu = plain_solve_on_cpu(v["session"].plan(image.to(dev)), v["config"], 0)
+            lanes.append(trajectory_and_labels(r) == trajectory_and_labels(cpu))
+    rows["torch_segment_volume"] = {
+        "slices": len(lanes), "fused_em_tick": launches["fused_em_tick"], "batched_launches": batched,
+        "segment_reduce": launches["segment_reduce"], "cpu_same": lanes,
+        "metrics": {d["name"]: d["metrics"] for d in v["datasets"]}}
+    if batched < 1 or batched != launches["fused_em_tick"] or launches["segment_reduce"] < 1:
+        fail(f"torch_segment_volume on the card: launches {launches}, {batched} batched")
+    same += lanes
+    emit({"phase": "launch", "part": "examples", **rows, "nvidia_smi": smi_line})
+    if not all(same):
+        fail(f"launch examples: a slice differs from its plan's plain solve on the CPU: {rows}")
+    return rows
+
+
+def trajectory_and_labels(r) -> tuple:
+    return (r.status, r.em_iters, r.map_iters, np.asarray(r.segmentation).tobytes())
+
+
+def run_launch(torch, ops, dev, smi_line: str) -> dict:
+    """The launch phase: (a) and (b)'s dry runs in two children on the
+    host while (c) runs on the card; once they are done (the timed runs
+    share the host with nothing), (b)'s card runs, then a fresh child
+    profiles (b)'s cells."""
+    t0 = time.perf_counter()
+    dry = launch_child(f"from repro_torch.launch import dryrun; dryrun.main(['--force', *{list(LAUNCH_DRYRUN)!r}])",
+                       cpu=True)
+    terms = launch_child("import chip_smoke; chip_smoke.launch_terms()", cpu=True)
+    examples = launch_examples(torch, ops, dev, smi_line)
+    launch_collect(dry, "the dry run")
+    terms = json.loads(launch_collect(terms, "the single-card dry runs").strip().splitlines()[-1])
+
+    # (a) the dry run's record
+    from repro_torch.launch import dryrun
+
+    rec = json.loads(dryrun.artifact_path(LAUNCH_ARCH, LAUNCH_DRYRUN[-1], False).read_text())
+    if rec.get("status") != "ok":
+        fail(f"launch dry run: status {rec.get('status')}")
+    emit({"phase": "launch", "part": "dryrun", "cell": f"{LAUNCH_ARCH} x {LAUNCH_DRYRUN[-1]} x {rec['mesh']}",
+          "roofline": rec["roofline"], "peak_bytes_estimate": rec["memory"]["peak_bytes_estimate"],
+          "collectives": rec["collectives"]["count_by_op"],
+          "useful_flops_ratio": rec["roofline"]["useful_flops_ratio"],
+          "seconds": rec["lower_s"] + rec["compile_s"], "nvidia_smi": smi_line})
+
+    card = {kind: launch_card(torch, ops, dev, kind, b, s) for kind, b, s in LAUNCH_CELLS}
+    gc_cuda(torch)
+    prof = json.loads(launch_collect(launch_child("import chip_smoke; chip_smoke.launch_profile_child()",
+                                                  cpu=False), "the profile child").strip().splitlines()[-1])
+
+    # (b) each cell's roofline against the card
+    rows = {}
+    for kind, b, s in LAUNCH_CELLS:
+        t, c, p = terms[kind], card[kind], prof[kind]
+        r = t["roofline"]
+        wall_s = c["wall_ms"]["median"] * 1e-3
+        dots = t["non_attention_dot_flops"]
+        rows[kind] = {
+            "B": b, "S": s, "step_s": r["step_s"], "bound": r["bound"], "compute_s": r["compute_s"],
+            "memory_s": r["memory_s"], "memory_portable_s": r["memory_portable_s"], "mfu_at_roofline": r["mfu"],
+            "wall_ms": c["wall_ms"], "device_busy_ms": p["device_busy_ms"],
+            "lead_records_lost": p["lead_records_lost"], "measured_over_step": wall_s / r["step_s"],
+            "mfu_measured": c["model_flops"] / (r["n_chips"] * BF16_OPS_PER_S * wall_s),
+            "peak_gb_dryrun": t["memory"]["peak_bytes_estimate"] / 1e9, "peak_gb_card": c["peak_bytes"] / 1e9,
+            "flash_launches": c["flash_launches"], "launches_tc": c["flash_launches_tc"],
+            "non_attention_dot_flops": dots, "card_dot_flops": c["card_dot_flops"],
+            "dot_rel_diff": abs(dots - c["card_dot_flops"]) / max(c["card_dot_flops"], 1.0),
+            "dryrun_s": t["lower_s"] + t["compile_s"], "device_top": p["top"],
+        }
+        emit({"phase": "launch", "part": "roofline", "cell": f"{LAUNCH_ARCH} {kind} B={b} S={s}",
+              **rows[kind], "nvidia_smi": smi_line})
+    for kind, row in rows.items():
+        if row["flash_launches"] != LAUNCH_FLASH[kind] or row["launches_tc"] != row["flash_launches"]:
+            fail(f"launch {kind}: {row['flash_launches']} flash launches, {row['launches_tc']} on the tensor "
+                 f"cores; want {LAUNCH_FLASH[kind]}, all")
+        if row["dot_rel_diff"] > LAUNCH_DOT_TOL:
+            fail(f"launch {kind}: the dry run's products outside attention {row['non_attention_dot_flops']} "
+                 f"against the card's {row['card_dot_flops']}")
+    seconds = time.perf_counter() - t0
+    emit({"phase": "launch_seconds", "seconds": seconds, "nvidia_smi": smi_line})
+    return {"dryrun": rec, "cells": rows, "examples": examples, "seconds": seconds,
+            "flash_launches": sum(r["flash_launches"] for r in rows.values()),
+            "launches_tc": sum(r["launches_tc"] for r in rows.values())}
+
+
 def flash_sass_hgmma() -> dict:
     """Count ``HGMMA`` (wgmma) instructions in the built flash_attention
     library's SASS with ``cuobjdump``; empty where the tool is absent."""
@@ -5896,6 +6167,13 @@ def main(argv=None) -> int:
     gc_cuda(torch)
     parallel = run_parallel(torch, ops, dev, profile, smi_line)
 
+    # Ninth path: launch/ and the examples — the dry run on the host, its
+    # roofline of qwen2-1.5b's prefill and train step against the card
+    # (every flash launch on the tensor cores), the segmentation examples
+    # on the card against the CPU.
+    gc_cuda(torch)
+    launch = run_launch(torch, ops, dev, smi_line)
+
     launches = slice2["launches"]
     sharded_launches = sharded[2]["launches"]
     tick_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms")
@@ -5979,6 +6257,9 @@ def main(argv=None) -> int:
          "parallel": {"launches": parallel["launches"], "launches_tensor_cores": parallel["launches_tc"],
                       "per_step": parallel["per_step"], "mesh": {"data": 1, "model": 1},
                       "steps": PARALLEL["steps"], "shape": list(TRAIN_FLASH_SHAPE), "causal": True},
+         "launch": {"launches": launch["flash_launches"], "launches_tensor_cores": launch["launches_tc"],
+                    "cells": {k: {"B": r["B"], "S": r["S"], "flash_launches": r["flash_launches"]}
+                              for k, r in launch["cells"].items()}},
          "ragged_row_relative_err": ragged_err,
          **analysis_entry(kpass, "flash_attention")},
     ]})

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
+from typing import Dict
+
 import numpy as np
 import torch
 
@@ -25,6 +27,15 @@ class SegMetrics:
     accuracy: float
     porosity: float
     porosity_true: float
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "precision": self.precision,
+            "recall": self.recall,
+            "accuracy": self.accuracy,
+            "porosity": self.porosity,
+            "porosity_true": self.porosity_true,
+        }
 
 
 def evaluate(pred, truth) -> SegMetrics:

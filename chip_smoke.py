@@ -42,7 +42,14 @@ PyTorch version on the card, and drives these paths (the launchers last):
   launches are ``segment_reduce``'s); the K = 2 slice in all three modes
   against the port's NumPy oracle (``reference.golden_em``); then the
   fallback phase: ``FallbackPolicy`` under the chaos harness's compile
-  and execute faults, on one solve and on a mode's stack;
+  and execute faults, on one solve and on a mode's stack, and a live
+  pool's switch to the plain route (``fallback_live_pool``, a
+  ``live_pool`` line in ``static-pallas`` and one in ``faithful``: the
+  pool switches once under ``FallbackPolicy(backend="torch")`` after a
+  tick with lanes resident, no kernel of the route launches after the
+  switch, every completion has the clean solve's labels, counts and
+  status with mu and sigma within 1e-5 of its, since the card's plain
+  route sums by atomics; the default policy raises ``FallbackError``);
 * the sharded route: ``run_em_sharded`` on the same plans over a
   one-rank NCCL process group made in this process, on the rank's
   ``MapStepWorkspace`` (per MAP iteration one ``fused_map_step`` launch,
@@ -303,6 +310,13 @@ Tolerances (kernel against plain version, same inputs, on the card):
   write to one slot leaving every other slot's buffers as they were.
   ``serve_cpu_check``: every launch of a 6-request stream through 3 slots
   (``tick_iters=3``, so lanes are admitted mid-stream) held the same way.
+  ``serve_launcher``: ``repro_torch.launch.serve.main``, the reference
+  CI's ``--check --latency-gate 5`` command (5 40x40 requests, 2 slots,
+  the adaptive ladder: the healthy residence p50 at most 5x the warm
+  serial p50; ``serial_p50_s`` and ``latency_gate_x`` printed), and the
+  stream's 24 512x512 requests through 8 slots with ``--chaos
+  --chaos-seed 3 --check`` (the dispositions printed); either failing
+  fails the phase.
   Printed: ticks, micro-steps, pool launches, occupancy, steps saved by
   the early exit, requests/s, p50/p99 latency, the stack's and the serial
   solve times; the pool launch at B = 8 (ms back to back, ms per
@@ -525,6 +539,13 @@ STACK_REPEATS = 5  # timed drains of the K = 2 stack, batched and serial
 SERVE_REQUESTS, SERVE_SLOTS, SERVE_TICK = 24, 8, 4  # the serve phase's K = 2 stream and engine
 SERVE_MIXED = 4  # K = 2 and as many K = 3 requests in the mixed-K pool
 SERVE_CPU_REQUESTS, SERVE_CPU_SLOTS, SERVE_CPU_TICK = 6, 3, 3  # serve_cpu_check's stream
+# launch.serve on the card: the reference CI's gated command (5 requests,
+# 40x40, grid 6, 2 slots, the adaptive ladder, --latency-gate 5), and the
+# serve stream's size under --chaos.
+SERVE_LAUNCH_GATE = ("--requests", "5", "--shape", "40", "--grid", "6", "--max-batch", "2",
+                     "--tick-iters", "auto", "--check", "--latency-gate", "5")
+SERVE_LAUNCH_CHAOS = ("--requests", "24", "--shape", "512", "--grid", "32", "--max-batch", "8",
+                      "--tick-iters", "4", "--chaos", "--chaos-seed", "3", "--check")
 POOL_CHECK_SIZES = (1, 3, 8)  # slots at which the pool entry is held to its plain version
 POOL_CHECK_MAP_ITERS = 6  # the pool check's MAP cap: every lane reaches it inside the check
 NEVER_STOP = 1 << 30  # MAP cap of the timing pool (with tolerance 0 its lanes never stop)
@@ -533,6 +554,14 @@ MODES_LOCKSTEP_K = (2, 3)  # slices whose modes solves are held to the CPU at ev
 FLAT_LOCKSTEP_LANES = 3  # lanes of the modes' stack held to the CPU at every flat step
 ORACLE_AGREEMENT = 0.995  # pixel agreement of each mode's K = 2 solve with golden_em
 FALLBACK_STACK_LANES = 4  # lanes of the K = 2 stack in the fallback phase's mode stacks
+FALLBACK_POOL_SLOTS, FALLBACK_POOL_TICK = 2, 4  # the live pool that switches routes
+FALLBACK_POOL_REQUESTS = 3  # the third is admitted after the switch
+# mu, sigma of a completion whose pool switched, against the clean solve's:
+# after the switch the card's plain route sums in another order than the
+# kernels (atomics), and sigma's sqrt(E[y^2] - mu^2) loses digits to
+# cancellation, so float32 sums of the slice's 262,144 pixels differ there
+# in the fifth digit (8.4e-5 in the first run on the H100).
+FALLBACK_POOL_RTOL = 1e-3
 PLAN_REPEATS = 5  # warm solves (or stack solves) per mode or route in the planning phase
 PLAN_ROUTE_TOLERANCE = 0.10  # the autotuned stack route may be at most this much slower
 # The training path: qwen2-1.5b whole through launch.train.build and
@@ -2215,6 +2244,51 @@ def serve_cpu_check(torch, ops, em_mod, seg, plans, bucket, serial) -> None:
           "max_abs_err": lock.max_abs_err, "ok": True})
 
 
+def serve_launcher() -> dict:
+    """``repro_torch.launch.serve.main`` on the card, as a user runs it:
+    ``SERVE_LAUNCH_GATE``, the reference CI's gated command (``--check
+    --latency-gate 5`` on the adaptive ladder: the healthy residence p50 at
+    most 5x the warm serial p50), and ``SERVE_LAUNCH_CHAOS``, the serve
+    stream's 24 512x512 requests through 8 slots with ``--chaos
+    --chaos-seed 3 --check`` (every healthy completion bit for bit its
+    serial ``execute``, every faulted one its disposition).  One ``serve`` line each: the gate's figures, the
+    dispositions, throughput and latency; a run whose check or gate fails
+    fails the phase."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launch_serve
+
+    out = {}
+    for what, argv in (("latency_gate", list(SERVE_LAUNCH_GATE)), ("chaos", list(SERVE_LAUNCH_CHAOS))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            code = launch_serve.main(argv)
+        seconds = time.perf_counter() - t0
+        lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+        report, comps = lines[-1], lines[:-1]
+        dispositions = {}
+        for c in comps:
+            dispositions[c["status"]] = dispositions.get(c["status"], 0) + 1
+        row = {"phase": "serve", "what": f"launch.serve {' '.join(argv)}", "exit_code": code,
+               "check": report.get("check"), "dispositions": dispositions,
+               **{k: report.get(k) for k in ("serial_p50_s", "latency_gate_x", "residence_p50_s",
+                                              "latency_p50_s", "latency_p99_s", "throughput_rps",
+                                              "ticks", "total_steps", "tick_switches", "fallbacks")},
+               "seconds": seconds}
+        if what == "chaos":
+            row["chaos"] = {k: report["chaos"][k] for k in ("seed", "faults", "rejected_rids",
+                                                            "statuses")}
+        emit(row)
+        if code != 0 or report.get("check") != "ok":
+            fail(f"serve: launch.serve {' '.join(argv)} exited {code}: {report.get('check')}")
+        if what == "latency_gate" and report.get("latency_gate_x") is None:
+            fail("serve: launch.serve --latency-gate reported no latency_gate_x")
+        out[what] = row
+    return out
+
+
 def serve_plans(api, synthetic, dev):
     """The serve stream: ``SERVE_REQUESTS`` 512x512 K = 2 slices of the
     synthetic volume planned in a quantile-init session, their joint
@@ -2286,6 +2360,7 @@ def run_serve(torch, api, synthetic, ops, em_mod, dev, profile: bool) -> dict:
     serve_mixed_k(torch, api, synthetic, ops, em_mod, dev, config, plans, serial)
     serve_chaos(torch, ops, em_mod, seg, plans, bucket, serial)
     serve_cpu_check(torch, ops, em_mod, seg, plans, bucket, serial)
+    out["launcher"] = serve_launcher()
     out["timing"] = time_pool_step(torch, ops, em_mod, seg, plans, bucket, SERVE_SLOTS, profile)
     if profile:
         serve_profile(torch, ops, seg, plans, bucket)
@@ -3428,6 +3503,108 @@ def run_fallback(torch, api, ops, sl, stack) -> dict:
     if len(comps) != 2 or not all(equal) or engine.stats()["tick_retries"] != 1:
         fail(f"fallback: the replayed engine tick gave {out['engine_tick']}")
     out["modes_stack"] = {m: fallback_mode_stack(torch, api, ops, stack, m) for m in MODES}
+    emit(out)
+    out["live_pool"] = {m: fallback_live_pool(torch, api, ops, plan, config, clean[m], m)
+                        for m in ("static-pallas", "faithful")}
+    return out
+
+
+def fallback_live_pool(torch, api, ops, plan, config, clean, mode: str) -> dict:
+    """A live pool's switch to the plain route, in ``mode``: a
+    ``SegmentationEngine`` of ``FALLBACK_POOL_SLOTS`` slots at
+    ``FALLBACK_POOL_TICK`` micro-steps a tick, fed ``FALLBACK_POOL_REQUESTS``
+    requests of the K = 2 slice's plan, runs one tick on the kernel route
+    with lanes resident; then every tick on the kernel route fails
+    (``chaos.ChaosConfig(exec_fail_backends=("cuda",))``).  Under
+    ``FallbackPolicy(backend="torch")`` the pool switches once (one
+    ``fallback_events`` entry, one ``RuntimeWarning``, ``stats()["fallbacks"]``
+    1), no kernel of the route launches after the switch (``fused_em_tick``,
+    or in the modes ``segment_reduce``), and every completion has the clean
+    solve's labels, segmentation, iteration counts and status, with mu and
+    sigma within ``FALLBACK_POOL_RTOL`` of its (the card's plain route sums
+    by atomics, so its bits are not the kernels'; ``bits_equal_clean`` says
+    whether they are, and ``plain_solve_max_rel_err`` gives the whole plain
+    route solve's distance from the clean one for scale).  Under the default policy the tick raises
+    ``FallbackError`` and no plain pool is built.  One line per mode."""
+    import warnings
+
+    from repro_torch.serving import SegmentationEngine
+    from repro_torch.testing import chaos
+
+    seed, dev = SLICE["seed"], plan.problem.hoods.vertex.device
+    kernel = "fused_em_tick" if mode == "static-pallas" else "segment_reduce"
+    out = {"phase": "fallback", "part": "live_pool", "mode": mode}
+
+    def started(policy):
+        seg = api.Segmenter(config.with_(mode=mode, fallback=policy), device=dev)
+        engine = SegmentationEngine(seg, max_batch=FALLBACK_POOL_SLOTS, tick_iters=FALLBACK_POOL_TICK)
+        for rid in range(FALLBACK_POOL_REQUESTS):
+            engine.submit(plan, rid=rid, seed=seed)
+        ops.reset_launch_counts()
+        engine.step()
+        torch.cuda.synchronize()
+        if not engine.active() or engine._exe.key.backend != "cuda":
+            fail(f"fallback live pool {mode}: no lane resident on the kernel route after a tick")
+        return seg, engine, ops.launch_counts()[kernel]
+
+    plain = api.Segmenter(config.with_(mode=mode, backend="torch"), device=dev).execute(plan, seed=seed)
+    seg, engine, first = started(api.FallbackPolicy(backend="torch"))
+    builds = ops.WORKSPACE_BUILDS
+    t0 = time.perf_counter()
+    with chaos.inject(chaos.ChaosConfig(exec_fail_backends=("cuda",))), \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        comps = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = ops.launch_counts()[kernel]
+
+    def rel_err(r) -> float:
+        return max(float(np.max(np.abs(np.asarray(getattr(r, f), np.float64) - getattr(clean, f))
+                                / np.maximum(np.abs(getattr(clean, f)), 1e-30)))
+                   for f in ("mu", "sigma"))
+
+    exact = [bool((c.result.region_labels == clean.region_labels).all()
+                  and (c.result.segmentation == clean.segmentation).all())
+             and (c.result.em_iters, c.result.map_iters, c.result.status) == (
+                 clean.em_iters, clean.map_iters, clean.status) for c in comps]
+    rel = max(rel_err(c.result) for c in comps)
+    st = engine.stats()
+    out["torch_policy"] = {
+        "events": [{k: e[k] for k in ("stage", "from", "to")} for e in engine.fallback_events],
+        "warnings": sum(w.category is RuntimeWarning for w in caught), "fallbacks": st["fallbacks"],
+        "route_after": engine._exe.key.backend, "plain_pool_builds": ops.WORKSPACE_BUILDS - builds,
+        f"{kernel}_launches_first_tick": first, f"{kernel}_launches_after_switch": launched - first,
+        "completions": len(comps), "labels_counts_status_equal_clean": exact,
+        "mu_sigma_max_rel_err": rel, "plain_solve_max_rel_err": rel_err(plain),
+        "bits_equal_clean": [result_bits(c.result) == result_bits(clean)
+                                                           for c in comps],
+        "ticks": st["ticks"], "wall_s_after_first_tick": wall}
+    if len(engine.fallback_events) != 1 or out["torch_policy"]["warnings"] != 1 or \
+            st["fallbacks"] != 1 or engine._exe.key.backend != "torch":
+        fail(f"fallback live pool {mode}: backend='torch' gave {out['torch_policy']}")
+    if first < 1 or launched != first:
+        fail(f"fallback live pool {mode}: {kernel} launched {first} times before the switch and "
+             f"{launched - first} after it")
+    if len(comps) != FALLBACK_POOL_REQUESTS or not all(exact) or rel > FALLBACK_POOL_RTOL:
+        fail(f"fallback live pool {mode}: the switched pool's completions differ from the clean "
+             f"solve: {out['torch_policy']}")
+
+    seg, engine, _ = started(api.FallbackPolicy())
+    builds = ops.WORKSPACE_BUILDS
+    with chaos.inject(chaos.ChaosConfig(exec_fail_backends=("cuda",))):
+        try:
+            engine.run()
+            fail(f"fallback live pool {mode}: the default policy did not raise")
+        except api.FallbackError as e:
+            if not isinstance(e.__cause__, chaos.ChaosError):
+                fail(f"fallback live pool {mode}: FallbackError without the injected cause: {e!r}")
+    plain_keys = [k for k in seg.cache_keys if k.backend != "cuda"]
+    out["default_policy"] = {"raised": "FallbackError", "events": len(engine.fallback_events),
+                             "plain_keys": len(plain_keys), "builds": ops.WORKSPACE_BUILDS - builds}
+    if engine.fallback_events or plain_keys or ops.WORKSPACE_BUILDS != builds:
+        fail(f"fallback live pool {mode}: the default policy took the plain route: "
+             f"{out['default_policy']}")
     emit(out)
     return out
 

@@ -440,7 +440,7 @@ class Segmenter:
 
     def compile_ticked(
         self, target: Union[Plan, BucketKey, Tuple[int, int, int]], *, batch: int,
-        tick_iters: int = 8,
+        tick_iters: int = 8, backend: Optional[str] = None,
     ) -> Executable:
         """The ticked serving executable of a ``batch``-slot pool of a
         bucket: ``em.run_em_ticked`` at ``tick_iters``, called on the pool's
@@ -450,10 +450,11 @@ class Segmenter:
         pool runs on the one pool workspace, built at the first compile,
         so switching tick sizes builds nothing.  A failing build follows
         ``config.fallback``; a fallback executable runs on the plain
-        route's pool workspace."""
+        route's pool workspace.  ``backend`` overrides the session's route,
+        as :meth:`compile`'s (a live pool's switch uses it)."""
         bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
         self._check_ticked(batch, tick_iters)
-        key = self._key_for(bucket, batch)._replace(tick_iters=tick_iters)
+        key = self._key_for(bucket, batch, backend)._replace(tick_iters=tick_iters)
         return self._get_or_build(key, lambda route: (
             self._pool_workspace(bucket, batch, route), self._em_config_for(route)))
 
@@ -467,6 +468,17 @@ class Segmenter:
         bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
         self._check_ticked(batch)
         return em_mod.blank_tick_state(self._pool_workspace(bucket, batch, backend))
+
+    def carry_pool(self, state: em_mod.TickState, target, *, backend: str,
+                   snapshot: Optional[em_mod.TickSnapshot] = None) -> em_mod.TickState:
+        """``state``'s pool of a bucket carried onto the pool workspace of
+        the route ``backend`` (``em.carry_tick_state``; that workspace is
+        built on first use, as :meth:`ticked_pool`'s): the state a live pool
+        goes on from when it switches routes, at ``snapshot`` if given."""
+        bucket = BucketKey(*(target.bucket if isinstance(target, Plan) else target))
+        self._check_ticked(state.batch)
+        return em_mod.carry_tick_state(state, self._pool_workspace(bucket, state.batch, backend),
+                                       snapshot)
 
     def lane_inputs(self, plan: Plan, *, bucket: Optional[BucketKey] = None, seed: int = 0):
         """One request's padded inputs for a ticked pool: ``(hoods, model,

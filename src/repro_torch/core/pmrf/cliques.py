@@ -109,3 +109,21 @@ def enumerate_maximal_cliques(
         sizes[r : r + c.shape[0]] = c.shape[1]
         r += c.shape[0]
     return CliqueSet(members=out, sizes=sizes)
+
+
+def verify_maximal_cliques(graph: RegionGraph, cliques: CliqueSet) -> bool:
+    """Oracle check used by tests: every row is a clique, and no row can be
+    extended by any vertex (maximality)."""
+    adj = graph.adj
+    for row, size in zip(cliques.members, cliques.sizes):
+        mem = row[:size]
+        for i in range(size):
+            for j in range(i + 1, size):
+                if not adj[mem[i], mem[j]]:
+                    return False
+        common = np.ones(graph.n_regions, dtype=bool)
+        for v in mem:
+            common &= adj[v]
+        if common.any():
+            return False
+    return True

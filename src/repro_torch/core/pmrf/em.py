@@ -75,7 +75,7 @@ from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import TickShape
+from repro_torch.kernels.ref import PlainPoolTickWorkspace, TickShape
 
 Tensor = torch.Tensor
 _MAP, _EM = _census.MAP_ITERATION, _census.EM_BOUNDARY
@@ -957,6 +957,120 @@ def blank_tick_state(workspace) -> TickState:
     )
     workspace.owner = weakref.ref(state)
     return state
+
+
+# What a pool workspace holds for its lanes, by the mode's family: the
+# inputs a tick only reads, and the state it writes.  Both routes' pools of
+# one family have these names (the kernel pool's ``labels``, ``votes``,
+# ``active`` and ``map_i`` are views of its parity-swapped buffers and
+# words); the kernel pool keeps its hood runs as ``offsets`` where the
+# plain one keeps ``hood_id``.
+_POOL_INPUTS = {
+    "static-pallas": ("y", "w", "nall", "valid", "vertex", "region_mean", "region_weight", "beta"),
+    "dpp": ("vertex", "hood_id", "valid", "rep_old_index", "rep_test_label", "rep_hood_id",
+            "rep_valid", "region_mean", "region_weight", "beta", "sigma_min", "reseed_mu",
+            "reseed_sigma"),
+}
+_POOL_STATE = {
+    "static-pallas": ("labels", "votes", "ring", "hood_e", "stats", "active", "map_i", "mu",
+                      "sigma"),
+    "dpp": ("labels", "ring", "hood_e", "active", "map_i", "mu", "sigma", "_flags", "_stats",
+            "_stopped"),
+}
+#: A DPP pool's host attributes: the M-step read's bookkeeping.
+_DPP_ATTRS = ("_stale", "m_steps", "log_sigma")
+
+
+def _family(ws) -> str:
+    return "static-pallas" if ws.mode == "static-pallas" else "dpp"
+
+
+@dataclass(eq=False)
+class TickSnapshot:
+    """A copy of everything a tick writes in a pool: the workspace's lane
+    state (``buffers``, and a DPP pool's host attributes), and the
+    :class:`TickState` with its tensors cloned and its host lists copied
+    (``state``, no workspace).  :func:`carry_tick_state` takes it up."""
+
+    buffers: dict
+    attrs: dict
+    state: TickState
+
+
+def _state_copy(state: TickState, workspace) -> TickState:
+    """``state`` on ``workspace``, its tensors cloned and host lists copied."""
+    return TickState(
+        workspace=workspace, mu=state.mu.clone(), sigma=state.sigma.clone(),
+        total_hist=state.total_hist.clone(), sigma_min=state.sigma_min.clone(),
+        reseed_mu=state.reseed_mu.clone(), reseed_sigma=state.reseed_sigma.clone(),
+        em_i=list(state.em_i), map_i=list(state.map_i), map_total=list(state.map_total),
+        done=list(state.done), status=list(state.status), micro_steps=state.micro_steps)
+
+
+def tick_snapshot(state: TickState) -> TickSnapshot:
+    """The pool's state as it stands, copied: the point a failed tick is
+    replayed from (:func:`carry_tick_state`).  Device copies of the lanes'
+    written buffers, none of their inputs (a tick does not write them)."""
+    ws = state.workspace
+    family = _family(ws)
+    return TickSnapshot(
+        buffers={n: getattr(ws, n).clone() for n in _POOL_STATE[family]},
+        attrs={n: getattr(ws, n) for n in _DPP_ATTRS} if family == "dpp" else {},
+        state=_state_copy(state, None),
+    )
+
+
+def hood_ids(offsets: Tensor, valid: Tensor, n_hoods: int) -> Tensor:
+    """Each element's hood (``Hoods.hood_id``, ``n_hoods`` for an invalid
+    element) from the hood runs ``offsets`` ((..., n_hoods + 1)) and the
+    element mask ``valid`` ((..., capacity), bool or float): the kernel
+    pool keeps the runs, the plain one the ids."""
+    ends = offsets[..., 1:].contiguous()
+    elems = torch.arange(valid.shape[-1], dtype=offsets.dtype, device=offsets.device)
+    hid = torch.searchsorted(ends, elems.expand(valid.shape).contiguous(), right=True)
+    return torch.where(valid.bool(), hid.to(torch.int32), n_hoods)
+
+
+def carry_tick_state(state: TickState, workspace, snapshot: Optional[TickSnapshot] = None) -> TickState:
+    """``state``'s pool carried onto ``workspace``, another route's pool of
+    the same bucket, slots, K, mode, precision and MAP cap: every lane's
+    inputs (the element or hood arrays, the region arrays, ``beta``) from
+    ``state``'s workspace, and every lane's written state (labels, ring,
+    hood energies, M-step sums, active word, MAP counter, parameters) with
+    the host counters, health and ``micro_steps`` from ``snapshot`` (the
+    point a failed tick is replayed from), or from ``state`` as it stands.
+    Returns the new :class:`TickState`, which takes ``workspace`` over
+    (``workspace.owner``, as :func:`blank_tick_state`); each lane then goes
+    on bit for bit as it would have on ``state``'s route, where the two
+    routes' steps agree.  The target must be a pool whose buffers are its
+    own tensors (the plain pool, or a DPP pool): the plain route is the one
+    a pool falls back to."""
+    src = state.workspace
+    family = _family(src)
+    if not isinstance(workspace, (PlainPoolTickWorkspace, DppPoolWorkspace)):
+        raise ValueError(f"a pool is carried onto a plain or DPP pool, not {type(workspace).__name__}")
+    if workspace is src:
+        raise ValueError("carry_tick_state needs another pool workspace")
+    mine = (src.mode, src.precision, tuple(src.shape), src.batch, src.max_map_iters)
+    theirs = (workspace.mode, workspace.precision, tuple(workspace.shape), workspace.batch,
+              workspace.max_map_iters)
+    if mine != theirs:
+        raise ValueError(f"pool of (mode, precision, shape, slots, MAP cap) {mine} carried onto "
+                         f"one of {theirs}")
+    snap = snapshot if snapshot is not None else tick_snapshot(state)
+    for name in _POOL_INPUTS[family]:
+        getattr(workspace, name).copy_(getattr(src, name))
+    if family == "static-pallas":
+        hid = src.hood_id if hasattr(src, "hood_id") else hood_ids(src.offsets, src.valid,
+                                                                  src.shape.n_hoods)
+        workspace.hood_id.copy_(hid)
+    for name, t in snap.buffers.items():
+        getattr(workspace, name).copy_(t)
+    for name, v in snap.attrs.items():
+        setattr(workspace, name, v)
+    new = _state_copy(snap.state, workspace)
+    workspace.owner = weakref.ref(new)
+    return new
 
 
 def init_tick_lane(

@@ -14,8 +14,19 @@ serial ``execute`` and exits 1 unless each completion equals it bit for
 bit (labels, segmentation, mu, sigma, iteration counts, status).
 ``--chaos`` assigns ``--poison-rate`` of the stream a fault round-robin
 (``nan_image``: refused at submit; ``bad_init``, ``nan_data``: retire
-``diverged``; ``never_converge``: evicted); with ``--check`` each faulted
-request must get that disposition.
+``diverged``; ``never_converge``: evicted), drawn from ``--chaos-seed``
+(the fault harness's seed too); with ``--check`` each faulted request
+must get that disposition.
+
+``--backend torch`` serves on the plain route (``auto``: the kernels on
+the card).  ``--deadline-spread S`` gives request ``rid`` the deadline
+``S * rid / max(n - 1, 1)`` seconds, which orders admission.
+``--latency-gate N`` (with ``--check``) warms every tick size, the
+bucket's executable, each plan's lane state and one throwaway
+single-request drive before the timed window, times each healthy
+request's serial ``execute`` (the bit-for-bit check's), and fails the run
+when the healthy residence p50 exceeds N times the serial p50; the report
+gains ``serial_p50_s`` and ``latency_gate_x``.
 
 Usage::
 
@@ -23,6 +34,8 @@ Usage::
         --max-batch 8 --tick-iters 4 --init quantile --check
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --check
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --check --mode faithful
+    PYTHONPATH=src python -m repro_torch.launch.serve --requests 24 --shape 512 --grid 32 \\
+        --tick-iters 4 --check --latency-gate 5
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import numpy as np
 
 from repro_torch import api, resolve_device
 from repro_torch.core import synthetic
+from repro_torch.kernels import ops as kops
 from repro_torch.serving import SegmentationEngine
 from repro_torch.serving.engine import DEFAULT_TICK_LADDER
 from repro_torch.testing import chaos as chaos_mod
@@ -71,14 +85,23 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=8, help="engine slot count")
     ap.add_argument("--tick-iters", default="8",
                     help="micro-steps per engine tick: an int, or 'auto' (the adaptive ladder)")
+    ap.add_argument("--backend", default="auto", choices=kops.BACKENDS,
+                    help="'auto': the kernels on the card, the plain versions on the CPU; "
+                         "'torch': the plain versions on any device")
     ap.add_argument("--mode", default="static-pallas", choices=("static-pallas", "static", "faithful"),
                     help="EM mode (em.MODES): the fused route, or the paper's primitive sequence")
     ap.add_argument("--labels", type=int, default=2, metavar="K",
                     help="label count K; K > 2 serves a K-phase synthetic stream")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--deadline-spread", type=float, default=0.0, metavar="S",
+                    help="stagger request deadlines over S seconds (deadline-ordered admission)")
     ap.add_argument("--check", action="store_true",
                     help="hold every healthy completion to serial execute bit for bit; exit 1 if not")
+    ap.add_argument("--latency-gate", type=float, default=0.0, metavar="N",
+                    help="with --check: fail when the healthy residence p50 (admission to "
+                         "retirement) exceeds N x the warm serial p50 (0: off)")
     ap.add_argument("--chaos", action="store_true", help="inject deterministic request faults")
+    ap.add_argument("--chaos-seed", type=int, default=0, help="seed of the fault draw under --chaos")
     ap.add_argument("--poison-rate", type=float, default=0.25,
                     help="fraction of requests assigned a fault under --chaos")
     ap.add_argument("--init", default="quantile", choices=("random", "quantile"))
@@ -95,10 +118,14 @@ def main(argv=None) -> int:
             tick_iters = int(args.tick_iters)
         except ValueError:
             ap.error(f"--tick-iters must be an int or 'auto', got {args.tick_iters!r}")
+    if args.latency_gate < 0:
+        ap.error("--latency-gate must be >= 0")
+    if args.latency_gate and not args.check:
+        ap.error("--latency-gate requires --check")
     device = resolve_device(args.device)
 
     cfg = api.ExecutionConfig(
-        mode=args.mode, overseg_grid=(args.grid, args.grid),
+        backend=args.backend, mode=args.mode, overseg_grid=(args.grid, args.grid),
         capacity_bucket=4096, n_labels=args.labels, init=args.init,
     )
     sess = api.Segmenter(cfg, device=device)
@@ -111,9 +138,9 @@ def main(argv=None) -> int:
                                               device=device)
     imgs = list(vol.images)
 
-    faults = assign_faults(args.requests, args.poison_rate, args.seed) if args.chaos else {}
+    faults = assign_faults(args.requests, args.poison_rate, args.chaos_seed) if args.chaos else {}
     chaos_cfg = chaos_mod.ChaosConfig(
-        seed=args.seed,
+        seed=args.chaos_seed,
         **{f"{name}_rids": tuple(r for r, f in faults.items() if f == name)
            for name in chaos_mod.REQUEST_FAULTS},
     )
@@ -127,18 +154,32 @@ def main(argv=None) -> int:
         bucket = api.BucketKey(*(max(p.bucket[d] for p in plans.values()) for d in range(3)))
         for t in DEFAULT_TICK_LADDER if tick_iters == "auto" else (tick_iters,):
             sess.compile_ticked(bucket, batch=args.max_batch, tick_iters=t)
+        if args.latency_gate:
+            # What the gate's two sides would otherwise pay inside it: the
+            # bucket's executable (serial execute), each plan's padding and
+            # element arrays (admission), and the pool's first drive.
+            sess.compile(bucket)
+            for p in plans.values():
+                sess.lane_state(p, bucket=bucket, seed=args.seed)
+            warm = SegmentationEngine(sess, max_batch=args.max_batch, tick_iters=tick_iters,
+                                      bucket=bucket)
+            warm.submit(next(iter(plans.values())), rid=0, seed=args.seed)
+            warm.run()
     engine = SegmentationEngine(sess, max_batch=args.max_batch, tick_iters=tick_iters, bucket=bucket)
     rejected = []
     with chaos_mod.inject(chaos_cfg) as monkey:
         t0 = time.perf_counter()
         for rid in range(args.requests):
+            deadline = (None if args.deadline_spread <= 0
+                        else args.deadline_spread * rid / max(args.requests - 1, 1))
             if faults.get(rid) == "nan_image":
                 try:
-                    engine.submit(monkey.poison_image(imgs[rid], rid), rid=rid, seed=args.seed)
+                    engine.submit(monkey.poison_image(imgs[rid], rid), rid=rid, seed=args.seed,
+                                  deadline_s=deadline)
                 except api.ServingError:
                     rejected.append(rid)
                 continue
-            engine.submit(plans[rid], rid=rid, seed=args.seed)
+            engine.submit(plans[rid], rid=rid, seed=args.seed, deadline_s=deadline)
         completions = engine.run()
         wall = time.perf_counter() - t0
 
@@ -153,6 +194,7 @@ def main(argv=None) -> int:
     lat = [c.latency_s for c in completions]
     report = {
         "requests": len(completions), "labels": args.labels, "max_batch": args.max_batch,
+        "backend": args.backend,
         "tick_policy": "auto" if tick_iters == "auto" else "fixed", "device": str(device),
         "bucket": list(engine.bucket) if engine.bucket else None, "wall_s": wall,
         "throughput_rps": len(completions) / wall, "healthy_rps": len(healthy) / wall,
@@ -164,7 +206,7 @@ def main(argv=None) -> int:
     }
     if args.chaos:
         report["chaos"] = {
-            "seed": args.seed, "poison_rate": args.poison_rate,
+            "seed": args.chaos_seed, "poison_rate": args.poison_rate,
             "faults": {str(r): f for r, f in sorted(faults.items())}, "rejected_rids": rejected,
             "statuses": {str(c.rid): c.status for c in completions if not c.ok},
             "injections": len(monkey.events),
@@ -172,9 +214,16 @@ def main(argv=None) -> int:
 
     failures = []
     if args.check:
-        # Healthy lanes against serial execute, outside the chaos context.
+        # Healthy lanes against serial execute, outside the chaos context;
+        # the same executes, timed, are the latency gate's serial side.
+        serial_s = []
+        if args.latency_gate and healthy:
+            sess.execute(plans[healthy[0].rid], seed=args.seed)  # the serial executable, warm
         for c in sorted(healthy, key=lambda c: c.rid):
-            if not _same(c.result, sess.execute(plans[c.rid], seed=args.seed)):
+            t1 = time.perf_counter()
+            want = sess.execute(plans[c.rid], seed=args.seed)
+            serial_s.append(time.perf_counter() - t1)
+            if not _same(c.result, want):
                 failures.append(f"rid {c.rid}: not bit for bit its serial execute")
         want = {"bad_init": "diverged", "nan_data": "diverged", "never_converge": "evicted"}
         for rid, fault in sorted(faults.items()):
@@ -186,6 +235,18 @@ def main(argv=None) -> int:
             elif by_rid[rid].status != want[fault]:
                 failures.append(f"rid {rid}: {fault} lane status {by_rid[rid].status!r}, "
                                 f"want {want[fault]!r}")
+        # The gate holds what the engine controls, the residence (admission
+        # to retirement: tick granularity, early exit, host overhead per
+        # tick); the queue wait of a stream submitted at once is set by the
+        # requests-to-slots ratio.
+        if args.latency_gate and healthy:
+            serial_p50 = float(np.percentile(serial_s, 50))
+            res_p50 = float(np.percentile([c.residence_s for c in healthy], 50))
+            report["serial_p50_s"] = serial_p50
+            report["latency_gate_x"] = res_p50 / max(serial_p50, 1e-9)
+            if res_p50 > args.latency_gate * serial_p50:
+                failures.append(f"latency gate: healthy residence p50 {res_p50:.6f} s > "
+                                f"{args.latency_gate} x serial p50 {serial_p50:.6f} s")
         report["check"] = "ok" if not failures else failures
     print(json.dumps(report))
     if failures:

@@ -41,15 +41,27 @@ ordinary path as a :class:`SegCompletion` with that error status; a lane
 that never converges is evicted once its micro-step residency budget runs
 out.  Healthy co-resident lanes are untouched bit for bit.  Tick times
 feed a :class:`~repro_torch.training.fault.StragglerWatchdog`.  A failed
-tick follows the session's ``FallbackPolicy`` on its own route: it is
+tick follows the session's ``FallbackPolicy``.  On its own route it is
 replayed (up to ``max_retries`` times, with the policy's backoff) only
 when it failed before its first launch, as the chaos harness's execute
 faults do, since a tick that launched has written the pool's state in
-place; then :class:`~repro_torch.api.errors.FallbackError` (the original
-error with the policy disabled).  A live pool does not switch to the plain
-route, whatever the policy: that waits for a later slice (ROADMAP.md
-Queue 1, 'Ticked serving').  A pool whose executables' build fell back
-(``FallbackPolicy(backend="torch")``) starts on the plain route.
+place.  Then, under ``FallbackPolicy(backend="torch")``, the live pool
+switches to the plain route on the same device, as the reference's
+engine moves its pool to its fallback backend: the pool's state is
+carried onto the plain route's pool workspace as it stood before the
+failed tick (a snapshot taken before every tick while the policy names a
+fallback, ``em.tick_snapshot``), every tick size of the ladder is pointed
+at the plain route, the tick is replayed there, and the pool never
+switches back; one ``fallback_events`` entry (the reference's keys) and
+one ``RuntimeWarning`` record it, and ``stats()["fallbacks"]`` counts it.
+Every resident lane stays resident and goes on from where it stood.
+Otherwise (the default policy, an engine already on the plain route, or
+a failure after which the plain replay fails too) the tick raises
+:class:`~repro_torch.api.errors.FallbackError` (the original error with
+the policy disabled).  A CUDA error (``api.config.is_cuda_error``) never
+switches: it may have poisoned the context, so it raises
+``FallbackError`` whatever the policy.  A pool whose executables' build
+fell back starts on the plain route.
 
 Mixed K: the pool runs at the session's ``n_labels``; a request with
 fewer labels is label-padded with inert labels (its real labels take the
@@ -61,6 +73,7 @@ from __future__ import annotations
 import heapq
 import math
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -68,7 +81,7 @@ import torch
 
 from repro_torch import planning as planning_mod
 from repro_torch.analysis import budget as budget_mod
-from repro_torch.api.config import ExecutionConfig
+from repro_torch.api.config import ExecutionConfig, is_cuda_error
 from repro_torch.api.errors import FallbackError, RequestError
 from repro_torch.api.session import BucketKey, Plan, Segmenter
 from repro_torch.core.pmrf import em as em_mod
@@ -215,6 +228,7 @@ class SegmentationEngine:
         self._auto_rid = 0
         self._live_rids: set = set()   # queued and resident
         self._exe = None
+        self._route: Optional[str] = None   # the plain route, once the pool switched to it
         self._state: Optional[em_mod.TickState] = None
         self.slot_req: List[Optional[SegRequest]] = [None] * max_batch
         self._slot_admit_s = [0.0] * max_batch
@@ -231,6 +245,7 @@ class SegmentationEngine:
         self.steps_saved = 0           # tick_iters - steps (early tick exits)
         self.tick_retries = 0          # ticks replayed after a failure before their first launch
         self.tick_switches: List[Tuple[int, int, int]] = []  # (tick, from, to)
+        self.fallback_events: List[Dict] = []   # a live pool's route switch
         # Per-tick cost: host-phase timers and the decayed affine fit of
         # cost(t) = a + b*t over (steps executed, tick seconds).
         self._phase_s = {"admit": 0.0, "advance": 0.0, "retire": 0.0}
@@ -526,7 +541,7 @@ class SegmentationEngine:
         self.tick_iters = desired
         self._desired_streak = (desired, 0)
         self._exe = self.session.compile_ticked(self.bucket, batch=self.max_batch,
-                                                tick_iters=desired)
+                                                tick_iters=desired, backend=self._route)
 
     # ------------------------------------------------------------------
     # the tick
@@ -535,12 +550,25 @@ class SegmentationEngine:
     def _advance_pool(self):
         """One ticked-executable call under the session's fallback policy:
         a failed tick is replayed on the same route while it had launched
-        nothing (the pool's micro-step count did not move), then raises
+        nothing (the pool's micro-step count did not move); then, under a
+        policy that names the plain route and for an error that is not a
+        CUDA error, the pool switches to it (:meth:`_switch_route`); else
         :class:`FallbackError` (or, with the policy disabled, the original
-        error).  Returns ``(state, steps_executed)``."""
+        error).  Returns ``(state, steps_executed)``.
+
+        The switch replays the whole tick from a snapshot taken before it
+        (``em.tick_snapshot``), not from where the failure left the pool: a
+        micro-step writes the pool in place at several points (the step's
+        buffers, then the boundary's parameters and counters), so no point
+        inside a failed micro-step is known to be whole.  The snapshot is
+        taken only while the policy names a fallback the pool can still
+        take, so a tick under the default policy does the work it did."""
         policy = self.session.config.fallback
         issued = self._state.micro_steps
         attempts = 0
+        switchable = (policy.enabled and policy.backend is not None
+                      and self._exe.key.backend != policy.backend)
+        snapshot = em_mod.tick_snapshot(self._state) if switchable else None
 
         def tick():
             nonlocal attempts
@@ -553,15 +581,48 @@ class SegmentationEngine:
         except Exception as e:
             if not policy.enabled:
                 raise
+            if switchable and not is_cuda_error(e):
+                self.tick_retries += attempts - 1
+                return self._switch_route(e, snapshot)
             launched = self._state.micro_steps != issued
             raise FallbackError(
                 f"tick {self.ticks} failed on route {self._exe.key.backend!r} "
                 + ("after its first launch, so it was not replayed" if launched
                    else f"after {attempts - 1} replay(s)")
-                + "; a live pool does not switch routes"
+                + ("; a CUDA error never switches routes" if is_cuda_error(e) else
+                   "; the policy takes no other route (FallbackPolicy(backend='torch') "
+                   "asks for the plain one)")
             ) from e
         self.tick_retries += attempts - 1
         return out
+
+    def _switch_route(self, error: Exception, snapshot: em_mod.TickSnapshot):
+        """Move the live pool to the policy's plain route and replay the
+        failed tick there: an event and a warning, every ladder size
+        compiled on that route (the current one becomes the executable),
+        the pool's state carried onto that route's pool workspace at
+        ``snapshot``, and the tick run again.  :class:`FallbackError` if the
+        replay fails too."""
+        route = self.session.config.fallback.backend
+        frm = self._exe.key.backend
+        self.fallback_events.append({"stage": "tick", "from": frm, "to": route, "error": repr(error)})
+        warnings.warn(f"tick {self.ticks} on route {frm!r} failed ({error!r}); the pool "
+                      f"switches to {route!r}", RuntimeWarning, stacklevel=4)
+        self._route = route
+        for size in self.tick_ladder:
+            exe = self.session.compile_ticked(self.bucket, batch=self.max_batch, tick_iters=size,
+                                              backend=route)
+            if size == self.tick_iters:
+                self._exe = exe
+        self._state = self.session.carry_pool(self._state, self.bucket, backend=route,
+                                              snapshot=snapshot)
+        try:
+            chaos_mod.on_execute(route)
+            return self._exe(self._state)
+        except Exception as fb_e:
+            raise FallbackError(
+                f"tick {self.ticks} failed on route {frm!r} and on the fallback route {route!r}"
+            ) from fb_e
 
     def step(self) -> int:
         """One engine tick: admit, advance every live lane by up to
@@ -647,6 +708,7 @@ class SegmentationEngine:
             "evicted": self.evicted,
             "error_completions": self.error_completions,
             "tick_retries": self.tick_retries,
+            "fallbacks": len(self.fallback_events),
             "straggler_events": len(self.watchdog.events),
             "tick_cost": {
                 "phase_s": {k: round(v, 6) for k, v in self._phase_s.items()},

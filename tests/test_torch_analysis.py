@@ -31,6 +31,9 @@ import pytest
 
 from repro.analysis import findings as ref_findings
 from repro_torch.analysis import cli, findings, kernel_check, registry
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_TABLE = ROOT / "src/repro_torch/planning/calibration.json"

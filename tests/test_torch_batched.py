@@ -19,6 +19,12 @@ version ``ref.fused_map_iteration_batched``) on the CPU.
 
 A test marked ``cuda`` holds the kernel's batched workspace to the plain
 one on the card and skips without one.
+
+The K = 9 stack's cases of the two solve tests are in
+``tests/test_torch_batched_k9.py``, so that two test workers share the
+JAX references: each stack's three JAX problems (planned by the JAX
+package, a few hundred small compiles each) and its JAX solve cost as
+much as the rest of this file's tests together.
 """
 
 import jax
@@ -38,9 +44,13 @@ from repro_torch.core.pmrf import em as torch_em
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import pad_hoods, stack_hoods
 from repro_torch.kernels import ops, ref
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # K -> (phases, seed, grid): three 48x48 slices each.
 STACKS = {2: (2, 4, 6), 3: (3, 4, 6), 9: (3, 0, 7)}
+HERE = (2, 3)  # the stacks whose solves this file holds; K = 9's: test_torch_batched_k9.py
 N_SLICES = 3
 MAX_EM, MAX_MAP = 20, 10
 _cache = {}
@@ -140,8 +150,14 @@ def test_stack_hoods_needs_one_bucket():
         stack_hoods([loaded[1].hoods, other])
 
 
-@pytest.mark.parametrize("n_labels", sorted(STACKS))
+@pytest.mark.parametrize("n_labels", HERE)
 def test_run_em_batched_matches_jax(n_labels):
+    check_run_em_batched_matches_jax(n_labels)
+
+
+def check_run_em_batched_matches_jax(n_labels):
+    """Every lane of the K stack's ``run_em_batched`` against the JAX
+    package's (this docstring's tiers)."""
     stacked, _, _ = _jax_stack(n_labels)
     want = jax_em.run_em_batched(*stacked, jax_em.EMConfig(backend="xla", **_config("f32")))
     inputs, _ = _torch_stack(n_labels)
@@ -169,8 +185,12 @@ def test_run_em_batched_bf16_drift_tier_vs_jax():
 
 
 @pytest.mark.parametrize("precision", ["f32", "bf16"])
-@pytest.mark.parametrize("n_labels", sorted(STACKS))
+@pytest.mark.parametrize("n_labels", HERE)
 def test_every_lane_equals_its_serial_run(n_labels, precision):
+    check_every_lane_equals_its_serial_run(n_labels, precision)
+
+
+def check_every_lane_equals_its_serial_run(n_labels, precision):
     """Each lane bit for bit the serial ``run_em`` of its problem; the stack
     has lanes whose MAP loops stop before others' and whose EM finishes
     first, so the lockstep freezes them as the reference's vmap does."""

@@ -23,6 +23,9 @@ from repro_torch.analysis import budget
 from repro_torch.core import synthetic
 from repro_torch.kernels import ops
 from repro_torch.serving import SegmentationEngine
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 
 def _script(mod):

@@ -25,6 +25,9 @@ import torch
 
 from repro_torch.analysis import census, cli, findings, registry
 from repro_torch.kernels import ops
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 BASELINE = json.loads((Path(__file__).resolve().parents[1]
                        / "src/repro_torch/analysis/ANALYSIS.json").read_text())

@@ -27,6 +27,9 @@ from repro_torch.core.pmrf import em as em_mod
 from repro_torch.serving import SegmentationEngine
 from repro_torch.serving.engine import SegCompletion
 from repro_torch.testing import chaos
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 
 def _session():

@@ -21,6 +21,9 @@ import jax.numpy as jnp
 from repro.core import dpp as jdpp
 
 from repro_torch.core import dpp
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # No subnormals: XLA on the CPU flushes them to zero, PyTorch keeps them.
 _values = st.lists(st.floats(-100, 100, allow_nan=False, allow_subnormal=False, width=32),

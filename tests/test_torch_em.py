@@ -27,6 +27,9 @@ from repro.core.pmrf import reference
 
 from repro_torch.core.pmrf import convert
 from repro_torch.core.pmrf import em as torch_em
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 CASES = {
     2: dict(seed=0, shape=(48, 48), grid=(6, 6)),

@@ -38,6 +38,9 @@ from repro_torch.core.pmrf import em as em_mod
 from repro_torch.kernels import ops
 from repro_torch.serving import SegmentationEngine
 from repro_torch.testing import chaos
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 NO_WAIT = dict(backoff_s=0.0, max_backoff_s=0.0)
 

@@ -27,6 +27,9 @@ from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.models import attention as torch_attention
 from repro_torch.testing import flash_cases as fc
 from repro_torch.testing import flash_faults
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 SHAPES = [
     (1, 2, 2, 128, 32),   # MHA

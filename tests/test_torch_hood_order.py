@@ -28,6 +28,9 @@ from repro_torch.core.pmrf import distributed as D
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf import pipeline
 from repro_torch.kernels import map_step, ref
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 WARP = 32
 HOOD_SIZES = (1, 31, 32, 33, 100, 300)

@@ -29,6 +29,9 @@ from repro_torch.core import oversegment
 from repro_torch.core.pmrf import em as torch_em
 from repro_torch.core.pmrf import hoods as torch_hoods
 from repro_torch.core.pmrf import pipeline as torch_pipeline
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # The problems of tests/test_golden.py (48x48 slices).
 CASES = {
@@ -120,6 +123,32 @@ def test_graph_and_cliques_match_jax(n_labels):
     np.testing.assert_allclose(tg.region_mean.numpy(), jg.region_mean, rtol=1e-6)
     np.testing.assert_array_equal(tp.cliques.members, jp.cliques.members)
     np.testing.assert_array_equal(tp.cliques.sizes, jp.cliques.sizes)
+
+
+@pytest.mark.parametrize("n_labels", PLAN_CASES)
+def test_verify_maximal_cliques_matches_jax(n_labels):
+    """``verify_maximal_cliques`` on the port's cliques (maximal), on a set
+    with one row cut short (a clique that is not maximal) and on one with
+    a row that is no clique, against the reference's verdict on the same
+    graph and sets."""
+    from repro.core.pmrf import cliques as jax_cliques
+
+    from repro_torch.core.pmrf import cliques as torch_cliques
+
+    _, jp, tp = _problems(n_labels)
+    members, sizes = tp.cliques.members, tp.cliques.sizes
+    row = int(np.argmax(sizes))
+    assert sizes[row] >= 3, "test premise: a clique of three or more"
+    cut = members.copy(), sizes.copy()
+    cut[0][row, sizes[row] - 1], cut[1][row] = -1, sizes[row] - 1
+    strangers = np.flatnonzero(~tp.graph.adj[members[row, 0]])
+    far = int(np.setdiff1d(strangers, members[row, :sizes[row]])[0])  # not adjacent to member 0
+    broken = members.copy(), sizes.copy()
+    broken[0][row, 1] = far
+    for (m, s), want in (((members, sizes), True), (cut, False), (broken, False)):
+        got = torch_cliques.verify_maximal_cliques(tp.graph, torch_cliques.CliqueSet(m, s))
+        ref = jax_cliques.verify_maximal_cliques(jp.graph, jax_cliques.CliqueSet(m, s))
+        assert got == ref == want
 
 
 @pytest.mark.parametrize("n_labels", PLAN_CASES)

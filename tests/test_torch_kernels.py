@@ -37,6 +37,9 @@ from repro_torch.testing.tick_problems import (
     random_tick_problem,
     sorted_tick_problem,
 )
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 SEGMENT_SIZES = [1, 7, 1024, 2500]
 SEGMENT_COUNTS = [1, 5, 513, 5000]

@@ -38,6 +38,9 @@ from repro_torch.core import metrics
 from repro_torch.launch import dryrun, mesh as mesh_mod, op_cost, roofline, specs
 from repro_torch.models import convert
 from repro_torch.parallel import sharding as SH
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ROOT = Path(__file__).resolve().parents[1]
 H100 = {"PEAK_FLOPS_BF16": 989e12, "HBM_BW": 3.35e12, "ICI_BW": 50e9}

@@ -35,6 +35,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.registry import ModelApi, get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine, sample_logits
 from repro_torch.serving import sampler
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 GREEDY = SamplerConfig(temperature=0.0)

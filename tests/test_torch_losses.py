@@ -36,6 +36,9 @@ from repro_torch.models import convert, layers
 from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_api
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # one architecture per family
 FAMILIES = {

@@ -33,6 +33,9 @@ from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf import pipeline
 from repro_torch.kernels import _build, em_tick, ops, ref
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # (K, phases, seed, size, grid): K = 9 on a three-phase image is the
 # CUDA tick's runtime-K variant.

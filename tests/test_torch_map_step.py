@@ -26,6 +26,9 @@ from repro_torch.kernels.map_step import fused_map_step_cuda
 from repro_torch.kernels.mrf_energy import mrf_min_energy_cuda
 from repro_torch.testing import segsum
 from repro_torch.testing.tick_problems import long_hood_map_step_problem
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 N_HOODS, N_VERTICES = 57, 81
 

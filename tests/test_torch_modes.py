@@ -33,6 +33,9 @@ from repro_torch.core.pmrf import convert, pipeline
 from repro_torch.core.pmrf import em as torch_em
 from repro_torch.core.pmrf import energy as torch_energy
 from repro_torch.launch import segment as launch_segment
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # K: (seed, size, grid)
 CASES = {2: (0, 48, 6), 3: (0, 48, 6), 5: (1, 48, 7)}

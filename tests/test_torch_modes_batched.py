@@ -36,6 +36,9 @@ from repro_torch.core.pmrf import em as torch_em
 from repro_torch.core.pmrf import energy as E
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import TickShape
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 MODES = ("static", "faithful")
 MAX_EM, MAX_MAP = 20, 10

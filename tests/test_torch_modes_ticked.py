@@ -19,7 +19,16 @@ every live lane per micro-step, each lane at its own iteration) and the
   ``nan_data`` diverged, ``never_converge`` evicted, the healthy lanes bit
   for bit), and a tick replayed under ``FallbackPolicy`` after a transient
   execute failure.  No workspace is built after the pool's setup.
-* ``launch.serve --mode static|faithful --check`` exits 0.
+* A live pool's switch to the plain route (``FallbackPolicy(backend=
+  "torch")``, the session's route labelled ``"cuda"`` and failed by the
+  chaos harness or by a micro-step that raises after the tick's first):
+  the engine's completions bit for bit serial ``execute``; a pool carried
+  onto another pool workspace after its first tick (``em.carry_tick_state``)
+  finishes bit for bit as the JAX ``run_em_ticked`` fixture's lanes and
+  serial ``run_em``.
+* ``launch.serve --mode static|faithful --check`` exits 0, and the
+  reference's flags: ``--backend``, ``--deadline-spread``, ``--chaos-seed``
+  and ``--latency-gate``.
 """
 
 import jax
@@ -41,6 +50,9 @@ from repro_torch.testing import chaos
 
 from test_torch_modes_batched import (MAX_EM, MAX_MAP, MODES, TOL, _assert_same, _config,
                                       _jax_stack, _lane_hoods, _stack)
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 
 def _lanes(n_labels):
@@ -227,6 +239,95 @@ def test_engine_tick_replayed_under_fallback_policy(mode):
         _same(comps[rid].result, sess.execute(p, seed=0))
 
 
+def test_carried_pool_matches_jax(jax_ticked):
+    """The K = 2 lanes through a two-slot pool that is carried onto a fresh
+    pool workspace after its first tick, at the tick's snapshot and as it
+    stands: every lane bit for bit its serial ``run_em`` and within the
+    JAX fixture's tolerance of its ``run_em_ticked``."""
+    mode, want = jax_ticked
+    lanes, cfg = _lanes(2), _config(mode)
+    shape = TickShape.of(lanes[0][0], lanes[0][1])
+    for at_snapshot in (True, False):
+        ws = torch_em.make_workspace(shape, cfg, device="cpu", batch=2, pool=True)
+        state = torch_em.blank_tick_state(ws)
+        for b in range(2):
+            torch_em.init_tick_lane(state, b, *lanes[b])
+        snap = torch_em.tick_snapshot(state) if at_snapshot else None
+        state, _ = torch_em.run_em_ticked(state, cfg, 3)
+        if at_snapshot:  # replay the first tick on the new pool
+            assert state.micro_steps == 3
+        other = torch_em.make_workspace(shape, cfg._replace(backend="torch"), device="cpu",
+                                        batch=2, pool=True)
+        state = torch_em.carry_tick_state(state, other, snap)
+        assert state.workspace is other and other.owner() is state
+        assert state.micro_steps == (0 if at_snapshot else 3)
+        queue, slots, got = [2], [0, 1], {}
+        while any(s is not None for s in slots):
+            state, _ = torch_em.run_em_ticked(state, cfg, 3)
+            for b in range(2):
+                if slots[b] is not None and state.done[b]:
+                    got[slots[b]] = torch_em.tick_result(state, b)
+                    slots[b] = queue.pop(0) if queue else None
+                    if slots[b] is not None:
+                        torch_em.init_tick_lane(state, b, *lanes[slots[b]])
+        for b in range(3):
+            what = f"{mode} lane {b} (snapshot: {at_snapshot})"
+            _assert_same(got[b], torch_em.run_em(*lanes[b], cfg), what)
+            np.testing.assert_array_equal(got[b].labels.numpy(), np.asarray(want.labels[b]), what)
+            assert (got[b].em_iters, got[b].map_iters, got[b].status) == (
+                int(want.em_iters[b]), int(want.map_iters[b]), int(want.status[b])), what
+            for f in ("mu", "sigma", "hood_energy", "total_energy"):
+                np.testing.assert_allclose(getattr(got[b], f).numpy(),
+                                           np.asarray(getattr(want, f)[b]), err_msg=f"{what} {f}",
+                                           **TOL)
+    with pytest.raises(ValueError, match="carried onto"):
+        torch_em.carry_tick_state(state, torch_em.make_workspace(
+            shape, cfg, device="cpu", batch=3, pool=True))
+
+
+@pytest.mark.parametrize("fault", ["before_first_micro_step", "after_first_micro_step"])
+@pytest.mark.parametrize("mode", MODES)
+def test_engine_switches_routes_mid_stream(mode, fault, monkeypatch):
+    """A mode's pool whose kernel route fails from its second tick on
+    switches once to the plain route (one event, one warning, the plain
+    pool built once); every completion equals its serial ``execute`` bit
+    for bit."""
+    monkeypatch.setattr(api.ExecutionConfig, "resolved_backend",
+                        lambda self, device: "torch" if self.backend == "torch" else "cuda")
+    sess = _engine_session(mode, fallback=api.FallbackPolicy(backend="torch", backoff_s=0.0))
+    plans = _stream(sess, n=4)
+    serial = [sess.execute(p, seed=0) for p in plans]
+    engine = SegmentationEngine(sess, max_batch=2, tick_iters=3)
+    for rid, p in enumerate(plans):
+        engine.submit(p, rid=rid, seed=0)
+    engine.step()
+    builds = ops.WORKSPACE_BUILDS
+    faults = dict(exec_fail_backends=("cuda",))
+    if fault == "after_first_micro_step":
+        real, kernel_pool, seen = torch_em._tick_micro, engine._state.workspace, []
+
+        def micro(state, config):
+            if state.workspace is kernel_pool:
+                seen.append(1)
+                if len(seen) == 2:
+                    raise RuntimeError("allocator pressure")
+            return real(state, config)
+
+        monkeypatch.setattr(torch_em, "_tick_micro", micro)
+        faults = {}
+    with pytest.warns(RuntimeWarning, match="switches to 'torch'") as caught:
+        comps, _ = _run(engine, [], faults)
+    assert sum(w.category is RuntimeWarning for w in caught) == 1
+    [event] = engine.fallback_events
+    assert (event["stage"], event["from"], event["to"]) == ("tick", "cuda", "torch")
+    assert engine.stats()["fallbacks"] == 1 and engine._exe.key.backend == "torch"
+    assert ops.WORKSPACE_BUILDS == builds + 1
+    assert isinstance(engine._state.workspace, torch_em.DppPoolWorkspace)
+    assert engine._state.workspace.backend == "torch"
+    for rid, want in enumerate(serial):
+        _same(comps[rid].result, want)
+
+
 @pytest.mark.parametrize("mode", MODES)
 def test_launch_serve_mode_flag_checks(mode, capsys):
     """``launch.serve --mode`` serves a stream in the mode and ``--check``
@@ -237,3 +338,96 @@ def test_launch_serve_mode_flag_checks(mode, capsys):
             "--tick-iters", "3", "--device", "cpu", "--check", "--mode", mode]
     assert launch_serve.main(args) == 0
     assert '"check": "ok"' in capsys.readouterr().out
+
+
+SERVE_ARGS = ["--requests", "4", "--shape", "40", "--grid", "5", "--max-batch", "2",
+              "--tick-iters", "3", "--device", "cpu"]
+
+
+def _serve_main(args, capsys):
+    """``launch.serve.main(args)``: its exit code, its completion lines in
+    print order and its report."""
+    import json
+
+    from repro_torch.launch import serve as launch_serve
+
+    code = launch_serve.main(SERVE_ARGS + args)
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    return code, lines[:-1], lines[-1]
+
+
+def test_launch_serve_deadline_spread_orders_admission(monkeypatch, capsys):
+    """``--deadline-spread S``: request ``rid`` is submitted with the
+    deadline ``S * rid / (n - 1)`` seconds (the reference's), and one slot
+    admits the stream in deadline order."""
+    submitted = {}
+    real_submit = SegmentationEngine.submit
+
+    def submit(self, image_or_plan, *, rid=None, deadline_s=None, **kw):
+        submitted[rid] = deadline_s
+        return real_submit(self, image_or_plan, rid=rid, deadline_s=deadline_s, **kw)
+
+    monkeypatch.setattr(SegmentationEngine, "submit", submit)
+    code, comps, report = _serve_main(["--max-batch", "1", "--deadline-spread", "6"], capsys)
+    assert code == 0 and submitted == {rid: 6.0 * rid / 3 for rid in range(4)}
+    assert [c["rid"] for c in comps] == sorted(submitted, key=submitted.get)
+    assert report["requests"] == 4
+
+
+def test_launch_serve_chaos_seed_draws_the_references_faults(capsys):
+    """``--chaos --chaos-seed N``: the fault map is the reference's
+    ``assign_faults`` draw for N (not ``--seed``'s, whose draw differs),
+    and ``--check`` holds every faulted request to its disposition."""
+    from repro.launch import serve as jax_serve
+
+    from repro_torch.launch import serve as launch_serve
+
+    code, _, report = _serve_main(["--requests", "8", "--chaos", "--poison-rate", "0.5",
+                                   "--chaos-seed", "3", "--check", "--max-batch", "3"], capsys)
+    want = jax_serve.assign_faults(8, 0.5, 3)
+    assert want != jax_serve.assign_faults(8, 0.5, 0), "test premise: the seeds draw apart"
+    assert launch_serve.assign_faults(8, 0.5, 3) == want
+    assert code == 0 and report["check"] == "ok" and report["chaos"]["seed"] == 3
+    assert report["chaos"]["faults"] == {str(r): f for r, f in sorted(want.items())}
+
+
+def test_launch_serve_latency_gate(capsys):
+    """``--latency-gate``: refused without ``--check`` and below 0 (the
+    reference's checks); a gate wide enough passes and reports
+    ``serial_p50_s`` and ``latency_gate_x``."""
+    from repro_torch.launch import serve as launch_serve
+
+    for bad in (["--latency-gate", "5"], ["--latency-gate", "-1", "--check"]):
+        with pytest.raises(SystemExit) as err:
+            launch_serve.main(SERVE_ARGS + bad)
+        assert err.value.code == 2
+    assert "--latency-gate" in capsys.readouterr().err
+    code, comps, report = _serve_main(["--check", "--latency-gate", "1000"], capsys)
+    assert code == 0 and report["check"] == "ok" and len(comps) == 4
+    assert report["serial_p50_s"] > 0.0 and 0.0 < report["latency_gate_x"] < 1000
+
+
+def test_launch_serve_backend_torch_serves_the_plain_route(monkeypatch, capsys):
+    """``--backend torch``: the session's config asks for the plain route
+    and every executable it builds is keyed ``"torch"`` (with the route
+    labelled ``"cuda"`` otherwise, as on the card)."""
+    from repro_torch.launch import serve as launch_serve
+
+    monkeypatch.setattr(api.ExecutionConfig, "resolved_backend",
+                        lambda self, device: "torch" if self.backend == "torch" else "cuda")
+    sessions = []
+    real = launch_serve.api.Segmenter
+
+    def segmenter(*args, **kw):
+        sessions.append(real(*args, **kw))
+        return sessions[-1]
+
+    monkeypatch.setattr(launch_serve.api, "Segmenter", segmenter)
+    for backend, route in (("torch", "torch"), ("auto", "cuda")):
+        sessions.clear()
+        code, _, report = _serve_main(["--check", "--backend", backend, "--requests", "2"],
+                                      capsys)
+        assert code == 0 and report["backend"] == backend
+        [sess] = sessions
+        assert sess.config.backend == backend
+        assert {k.backend for k in sess.cache_keys} == {route}

@@ -37,6 +37,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ARCHS = ("qwen3-moe-235b-a22b", "deepseek-v2-lite-16b")
 TOL = dict(rtol=1e-4, atol=1e-4)

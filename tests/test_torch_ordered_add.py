@@ -17,6 +17,9 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import segment_reduce as sr
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 
 def _sequential(values, ids, n_seg):

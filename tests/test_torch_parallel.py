@@ -51,6 +51,9 @@ from repro_torch.training import checkpoint as CK
 from repro_torch.training import compression
 from repro_torch.training import optimizer as opt
 from repro_torch.training import train_step as ts_mod
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 RANK_TIMEOUT_S = 120
 FAMILY_ARCHS = ("qwen2-1.5b", "llava-next-34b", "qwen3-moe-235b-a22b", "deepseek-v2-lite-16b",

@@ -54,6 +54,9 @@ from repro_torch.training import checkpoint as CK
 from repro_torch.training import data as data_mod
 from repro_torch.training.optimizer import AdamWConfig
 from repro_torch.training.train_step import TrainStepConfig, make_sharded_train_state, make_train_step
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 RANK_TIMEOUT_S = 240
 ARCHS = {"dense": "qwen2-1.5b", "moe": "qwen3-moe-235b-a22b"}

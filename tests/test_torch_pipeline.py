@@ -27,6 +27,9 @@ from repro_torch import api
 from repro_torch.core import metrics, synthetic
 from repro_torch.kernels import ops
 from repro_torch.launch import segment as launch_segment
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

@@ -37,6 +37,9 @@ from repro_torch.planning import costmodel as cm
 from repro_torch.planning.lsq import nnls
 from repro_torch.serving import SegmentationEngine
 from repro_torch.serving.engine import TICK_COST_PRIOR
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 PLATFORMS = ("cpu", "gpu", "tpu")
 WIDTHS = (1, 2, 4, 8)

@@ -25,6 +25,9 @@ from repro.core.pmrf import reference as jax_reference
 from repro_torch.core import synthetic
 from repro_torch.core.pmrf import convert, pipeline
 from repro_torch.core.pmrf import reference
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 SHORT = dict(max_em_iters=3, max_map_iters=4)
 

@@ -22,6 +22,9 @@ import pytest
 from repro.kernels import ref as jax_ref
 
 from repro_torch.testing import segsum
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 PAD_ID = 2**30
 

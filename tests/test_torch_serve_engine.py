@@ -10,6 +10,20 @@ engine's completion of the same image (``ExecutionConfig(mode=
 "static-pallas", backend="xla")``, run once per module): labels,
 iterations and status exactly, mu, sigma and energy within rtol/atol 1e-5.
 
+A live pool whose kernel route keeps failing switches to the plain route
+under ``FallbackPolicy(backend="torch")``, as the reference's engine moves
+its pool to its fallback backend: one event in the reference's keys, one
+``RuntimeWarning``, one plain pool built, and every completion still bit
+for bit its serial ``execute`` and the JAX engine's, for a fault before a
+tick's first micro-step and one after it, at a fixed tick and partway up
+an adaptive ladder, and at K = 3.  On the CPU both routes are the plain
+versions: the tests label the session's route ``"cuda"`` (a
+``monkeypatch`` of ``ExecutionConfig.resolved_backend``) and the chaos
+harness or a failing micro-step fails it; the pool's state is still
+carried onto the other route's pool workspace and the tick replayed
+there.  The default policy, an engine already on the plain route and a
+CUDA error raise ``FallbackError`` and build no plain pool.
+
 The reference counts traces; the port's counterpart is that no workspace
 is built once the pool is up (``kernels.ops.WORKSPACE_BUILDS``), across
 admissions, retirements and tick-size switches.  The adaptive policy's
@@ -20,11 +34,13 @@ engine serves plans that carry the same arrays (``_jax_plan``: planning
 these slices in the JAX package takes about a minute on the CPU).
 """
 
+import warnings
 from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import api as jax_api
 from repro.core import synthetic as jax_synthetic
@@ -38,6 +54,10 @@ from repro_torch.core.pmrf import convert
 from repro_torch.core.pmrf import em as em_mod
 from repro_torch.kernels import ops
 from repro_torch.serving import SegmentationEngine
+from repro_torch.testing import chaos
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 CFG = dict(overseg_grid=(6, 6), capacity_bucket=2048, init="quantile")
 SEED, N_REQUESTS = 7, 5
@@ -300,3 +320,194 @@ def test_engine_rejects_oversized_and_sharded():
         SegmentationEngine(sess, tick_iters="fast")
     with pytest.raises(RuntimeError, match="no bucket"):
         SegmentationEngine(sess)._ensure_pool()
+
+
+NO_WAIT = dict(backoff_s=0.0, max_backoff_s=0.0)
+TO_TORCH = api.FallbackPolicy(backend="torch", **NO_WAIT)
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    """Label the session's route "cuda" where the config does not ask for
+    the plain one (``tests/test_torch_fallback.py``'s fixture)."""
+    monkeypatch.setattr(api.ExecutionConfig, "resolved_backend",
+                        lambda self, device: "torch" if self.backend == "torch" else "cuda")
+
+
+def _fail_micro_step(monkeypatch, workspace, at, error="allocator pressure"):
+    """Make the ``at``-th micro-step (from now) on ``workspace``'s pool
+    raise ``RuntimeError(error)`` before it steps; micro-steps on any other
+    pool run as they are.  Returns the list of failures raised."""
+    real, seen, raised = em_mod._tick_micro, [0], []
+
+    def micro(state, config):
+        if state.workspace is workspace:
+            seen[0] += 1
+            if seen[0] == at:
+                raised.append(error)
+                raise RuntimeError(error)
+        return real(state, config)
+
+    monkeypatch.setattr(em_mod, "_tick_micro", micro)
+    return raised
+
+
+def _started(sess, plans, **engine_kw):
+    """An engine on ``sess`` with every request submitted and one tick run
+    (the pool up, lanes resident on the session's route)."""
+    engine = SegmentationEngine(sess, **engine_kw)
+    for rid, plan in enumerate(plans):
+        engine.submit(plan, rid=rid, seed=0)
+    engine.step()
+    assert engine.active() and engine._exe.key.backend == "cuda"
+    return engine
+
+
+def _run_switching(engine, fault_cfg=None):
+    """The rest of the stream, every tick on the kernel route failing from
+    now on (``fault_cfg``, by default ``exec_fail_backends=("cuda",)``):
+    the completions by rid and the warnings' messages."""
+    cfg = fault_cfg if fault_cfg is not None else chaos.ChaosConfig(exec_fail_backends=("cuda",))
+    with chaos.inject(cfg), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        completions = engine.run()
+    return {c.rid: c for c in completions}, [str(w.message) for w in caught
+                                              if w.category is RuntimeWarning]
+
+
+def _assert_switched(engine, sess, builds, messages):
+    [event] = engine.fallback_events
+    assert (event["stage"], event["from"], event["to"]) == ("tick", "cuda", "torch")
+    assert set(event) == {"stage", "from", "to", "error"}
+    assert engine.stats()["fallbacks"] == 1 and len(messages) == 1
+    assert "switches to 'torch'" in messages[0]
+    assert ops.WORKSPACE_BUILDS == builds + 1, "the plain pool, built once"
+    assert engine._exe.key.backend == "torch" and engine._state.workspace.owner() is engine._state
+    assert not sess.fallback_events
+
+
+@pytest.mark.parametrize("fault", ["before_first_micro_step", "after_first_micro_step"])
+def test_live_pool_switches_to_the_plain_route(fault, kernel_route, monkeypatch):
+    """The kernel route fails from the second tick on: before a tick's
+    first micro-step (the chaos harness's execute fault, retried once) or
+    after it (a micro-step that raises once the tick has stepped the pool);
+    the pool switches once, and every completion is bit for bit its serial
+    ``execute`` and the JAX engine's."""
+    sess = _session(fallback=TO_TORCH)
+    plans = [sess.plan(img) for img in _images()]
+    serial = [sess.execute(p, seed=0) for p in plans]
+    engine = _started(sess, plans, max_batch=2, tick_iters=3)
+    builds = ops.WORKSPACE_BUILDS
+    if fault == "after_first_micro_step":
+        raised = _fail_micro_step(monkeypatch, engine._state.workspace, at=2)
+        comps, messages = _run_switching(engine, chaos.ChaosConfig())
+        assert raised and engine.tick_retries == 0  # a tick that stepped is not replayed in place
+        assert "allocator pressure" in engine.fallback_events[0]["error"]
+    else:
+        comps, messages = _run_switching(engine)
+        assert engine.tick_retries == 1
+    _assert_switched(engine, sess, builds, messages)
+    want = _jax_completions()
+    assert sorted(comps) == list(range(N_REQUESTS))
+    for rid, c in comps.items():
+        _assert_matches_serial(c, serial[rid])
+        _assert_matches_jax(c, want[rid])
+
+
+def test_adaptive_engine_switches_partway_up_its_ladder(kernel_route):
+    """``tick_iters="auto"`` (the fixed cost model of
+    ``test_adaptive_tick_sizes_share_one_pool``): the pool switches on its
+    third tick, at a size between the ladder's ends; every size after it
+    runs on the plain route (the kernel route keeps failing, and the pool
+    never returns to it), every size is compiled there, and the
+    completions equal serial ``execute`` and the JAX engine's."""
+    sess = _session(fallback=TO_TORCH)
+    plans = [sess.plan(img) for img in _images()]
+    serial = [sess.execute(p, seed=0) for p in plans]
+    ladder = (1, 2, 4)
+    engine = _started(sess, plans, max_batch=2, tick_iters="auto", tick_ladder=ladder,
+                      tick_hysteresis=1)
+    engine.cost_model = lambda: (1e-1, 1e-3) if engine.ticks < 3 else (1e-6, 1e-3)
+    engine.step()
+    assert engine.tick_iters == ladder[-1] and engine.tick_switches
+    builds = ops.WORKSPACE_BUILDS
+    comps, messages = _run_switching(engine)
+    _assert_switched(engine, sess, builds, messages)
+    assert engine.tick_switches[-1][2] == ladder[0], "the ladder moved after the switch"
+    assert sorted(k.tick_iters for k in sess.cache_keys
+                  if k.backend == "torch" and k.batch == 2) == list(ladder)
+    want = _jax_completions()
+    for rid, c in comps.items():
+        _assert_matches_serial(c, serial[rid])
+        _assert_matches_jax(c, want[rid])
+
+
+def test_live_pool_switch_at_k3(kernel_route, monkeypatch):
+    """A K = 3 pool (three three-phase slices and a K = 2 request) switches
+    after a tick's first micro-step; every completion equals its serial
+    ``execute`` (the K = 2 request its own K's)."""
+    imgs = [np.asarray(im) for im in jax_synthetic.make_kary_volume(
+        seed=5, n_slices=3, shape=(44, 44), n_phases=3).images]
+    sess3, sess2 = _session(n_labels=3, fallback=TO_TORCH), _session()
+    plans = [sess3.plan(im) for im in imgs] + [sess2.plan(_images(1)[0])]
+    serial = [sess3.execute(p, seed=0) for p in plans[:3]] + [sess2.execute(plans[3], seed=0)]
+    engine = _started(sess3, plans, max_batch=2, tick_iters=4)
+    builds = ops.WORKSPACE_BUILDS
+    _fail_micro_step(monkeypatch, engine._state.workspace, at=3)
+    comps, messages = _run_switching(engine, chaos.ChaosConfig())
+    _assert_switched(engine, sess3, builds, messages)
+    for rid in range(3):
+        _assert_matches_serial(comps[rid], serial[rid])
+    got, want = comps[3].result, serial[3]
+    np.testing.assert_array_equal(got.region_labels, want.region_labels)
+    np.testing.assert_array_equal(got.mu[:2], want.mu)
+    np.testing.assert_array_equal(got.sigma[:2], want.sigma)
+    assert (got.em_iters, got.map_iters, got.status) == (want.em_iters, want.map_iters, want.status)
+
+
+@pytest.mark.parametrize("case", ["default_policy", "already_plain", "cuda_error"])
+def test_live_pool_that_does_not_switch(case, kernel_route, monkeypatch):
+    """No switch, and ``FallbackError`` with the failure as its cause:
+    under the default policy (the kernel route keeps failing), on an engine
+    whose pool is already on the plain route, and on a CUDA error (which
+    may have poisoned the context) under ``backend="torch"``.  No plain
+    pool is built and no event is logged."""
+    sess = _session(fallback=api.FallbackPolicy(**NO_WAIT) if case == "default_policy" else TO_TORCH,
+                    **({"backend": "torch"} if case == "already_plain" else {}))
+    plans = [sess.plan(img) for img in _images(3)]
+    engine = SegmentationEngine(sess, max_batch=2, tick_iters=3)
+    for rid, plan in enumerate(plans):
+        engine.submit(plan, rid=rid, seed=0)
+    engine.step()
+    builds = ops.WORKSPACE_BUILDS
+    fault = chaos.ChaosConfig(exec_fail_backends=(engine._exe.key.backend,))
+    if case == "cuda_error":
+        _fail_micro_step(monkeypatch, engine._state.workspace, at=1,
+                         error="repro_em_tick_step_pool: CUDA error 700 (an illegal memory access)")
+        fault = chaos.ChaosConfig()
+    with chaos.inject(fault), pytest.raises(api.FallbackError) as err:
+        engine.run()
+    assert isinstance(err.value.__cause__, (chaos.ChaosError, RuntimeError))
+    if case == "cuda_error":
+        assert "CUDA error never switches" in str(err.value)
+    assert not engine.fallback_events and engine.stats()["fallbacks"] == 0
+    assert ops.WORKSPACE_BUILDS == builds
+    assert [k.backend for k in sess.cache_keys if k.tick_iters] == [
+        "torch" if case == "already_plain" else "cuda"]
+
+
+def test_hood_ids_from_the_kernel_pools_offsets():
+    """``em.hood_ids``: the plain pool's ``hood_id`` from the kernel pool's
+    hood runs (``offsets``) and element mask, on the stream's plans as
+    planned and padded into a pool's bucket, one lane and a stack."""
+    sess = _session()
+    plans = [sess.plan(img) for img in _images(3)]
+    bucket = api.BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
+    hoods = [p.problem.hoods for p in plans] + [sess.lane_inputs(p, bucket=bucket)[0] for p in plans]
+    for h in hoods:
+        got = em_mod.hood_ids(h.offsets, h.valid, h.n_hoods)
+        assert got.dtype == torch.int32 and torch.equal(got, h.hood_id)
+    padded = hoods[len(plans):]
+    stacked = em_mod.hood_ids(torch.stack([h.offsets for h in padded]),
+                              torch.stack([h.valid.float() for h in padded]), bucket.n_hoods)
+    assert torch.equal(stacked, torch.stack([h.hood_id for h in padded]))

@@ -11,6 +11,12 @@ counts and status exactly; mu and sigma within rtol 1e-5, the tiers of
 ``tests/test_torch_em.py``).  Images are 40-64 px with grids of 6-8, made
 by the JAX package's ``synthetic`` (numpy underneath) so both packages see
 the same pixels.
+
+The K = 3 case of ``test_segment_stack_batched_equals_serial_and_jax`` is
+in ``tests/test_torch_session_k3.py``, so that two test workers share the
+JAX session's stacks: each plans four slices in the JAX package (a few
+hundred small compiles a slice) and compiles its batched solve, about as
+long as the rest of this file's tests together.
 """
 
 import warnings
@@ -26,6 +32,9 @@ from repro_torch import api
 from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import pipeline
 from repro_torch.kernels import ops
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 
 def _images(n=2, shape=(44, 44), seed=3):
@@ -197,8 +206,12 @@ def test_drain_failure_requeues_unprocessed():
     assert len(seg.drain()) == 1
 
 
-@pytest.mark.parametrize("n_labels", [2, 3])
+@pytest.mark.parametrize("n_labels", [2])
 def test_segment_stack_batched_equals_serial_and_jax(n_labels):
+    check_segment_stack_batched_equals_serial_and_jax(n_labels)
+
+
+def check_segment_stack_batched_equals_serial_and_jax(n_labels):
     """``segment_stack(batch="always")`` (one batched solve under the joint
     bucket) against ``"never"`` (each slice alone, in its own bucket), bit
     for bit, and against the JAX session's ``segment_stack`` on the same

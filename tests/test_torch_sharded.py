@@ -46,6 +46,9 @@ from repro_torch.core.pmrf import hoods as torch_hoods
 from repro_torch.core.pmrf import pipeline as torch_pipeline
 from repro_torch.launch import segment as launch_segment
 from repro_torch.testing import ranks
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 CASES = {
     2: dict(seed=0, shape=(48, 48), grid=(6, 6)),
@@ -254,17 +257,53 @@ def test_run_em_sharded_one_rank_matches_jax(n_labels, one_rank_group):
     assert got.status == torch_em.STATUS_CONVERGED
 
 
-def test_dpp_sharded_primitives_on_two_ranks(tmp_path):
+def _dpp_payload():
     rng = np.random.default_rng(5)
     n, segs = 1001, 37
-    payload = dict(
+    return dict(
         values=rng.normal(0.0, 1.0, n).astype(np.float32),
         ids=rng.integers(0, segs + 4, n).astype(np.int32),
         ints=rng.integers(-3, 9, n).astype(np.int32),
         num_segments=segs,
         flags=np.array([True, False]),
     )
-    out = ranks.run_ranks(ranks.dpp_primitives, 2, tmp_path, payload, timeout=RANK_TIMEOUT_S)
+
+
+LAUNCHER_ARGV = ["--size", "48", "--grid", "6", "--labels", "3", "--seed", "1", "--device", "cpu"]
+
+
+def _sharded_em_payload(world_size):
+    """``ranks.sharded_em``'s payload: every case on this package's and the
+    reference's partition; with two ranks also the launcher and the
+    mismatched problem."""
+    problems = {
+        f"K={k}": (_problem_dict(k),
+                   _hoods_dict(jax_dist.partition_hoods(_jax_problem(k)[0].hoods, world_size)),
+                   _torch_config())
+        for k in sorted(CASES)
+    }
+    payload = {"problems": problems}
+    if world_size == 2:
+        payload.update(launcher=LAUNCHER_ARGV + ["--shards", "2"], mismatch=True)
+    return payload
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """One spawn of two gloo ranks for this file's two-rank tests, which
+    run in turn on the one group (``ranks.in_turn``): the DPP primitives
+    (``"dpp"``) and the sharded solves (``"em"``).  A process start costs
+    seconds a rank."""
+    payload = {"dpp": ("dpp_primitives", _dpp_payload()),
+               "em": ("sharded_em", _sharded_em_payload(2))}
+    return ranks.run_ranks(ranks.in_turn, 2, tmp_path_factory.mktemp("two_ranks"), payload,
+                           timeout=RANK_TIMEOUT_S)
+
+
+def test_dpp_sharded_primitives_on_two_ranks(two_ranks):
+    payload = _dpp_payload()
+    segs = payload["num_segments"]
+    out = [o["dpp"] for o in two_ranks]
     v, ids, ints = payload["values"], payload["ids"], payload["ints"]
     assert [o["bounds"] for o in out] == [(0, 501), (501, 1001)]
     scan = np.concatenate([o["scan"] for o in out])
@@ -292,22 +331,17 @@ def test_dpp_sharded_primitives_on_two_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("world_size", [2, 4])
-def test_run_em_sharded_spawned_ranks_match_jax(world_size, tmp_path):
+def test_run_em_sharded_spawned_ranks_match_jax(world_size, tmp_path, request):
     """Every rank, on its own partition and on the reference's carried
-    across, matches JAX run_em_sharded and run_em; with two ranks the
-    launcher's sharded route also matches its single-device route, and
-    ranks that hold different problems raise instead of hanging."""
-    problems = {
-        f"K={k}": (_problem_dict(k),
-                   _hoods_dict(jax_dist.partition_hoods(_jax_problem(k)[0].hoods, world_size)),
-                   _torch_config())
-        for k in sorted(CASES)
-    }
-    argv = ["--size", "48", "--grid", "6", "--labels", "3", "--seed", "1", "--device", "cpu"]
-    payload = {"problems": problems}
+    across, matches JAX run_em_sharded and run_em; with two ranks (the
+    module's two-rank spawn) the launcher's sharded route also matches its
+    single-device route, and ranks that hold different problems raise
+    instead of hanging."""
     if world_size == 2:
-        payload.update(launcher=argv + ["--shards", "2"], mismatch=True)
-    out = ranks.run_ranks(ranks.sharded_em, world_size, tmp_path, payload, timeout=RANK_TIMEOUT_S)
+        out = [o["em"] for o in request.getfixturevalue("two_ranks")]
+    else:
+        out = ranks.run_ranks(ranks.sharded_em, world_size, tmp_path,
+                              _sharded_em_payload(world_size), timeout=RANK_TIMEOUT_S)
     for k in sorted(CASES):
         sharded, single = _jax_runs(k)
         for rank, o in enumerate(out):
@@ -317,7 +351,7 @@ def test_run_em_sharded_spawned_ranks_match_jax(world_size, tmp_path):
                 _assert_matches(got, single, what + " vs JAX run_em")
     if world_size == 2:
         assert all("different problems" in (o["mismatch"] or "") for o in out)
-        (want,) = launch_segment.main(argv)
+        (want,) = launch_segment.main(LAUNCHER_ARGV)
         for o in out:
             (row,) = o["launcher"]
             assert row["shards"] == 2 and want["shards"] == 1

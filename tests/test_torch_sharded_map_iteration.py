@@ -35,6 +35,9 @@ from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf import pipeline
 from repro_torch.kernels import _build, map_step, ops, ref
 from repro_torch.testing import ranks
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # K: (phases, seed, size, grid)
 PROBLEMS = {2: (2, 0, 48, 6), 3: (3, 0, 48, 6), 5: (5, 1, 48, 7)}

@@ -38,6 +38,9 @@ from repro_torch.models import ssm as S
 from repro_torch.models import zamba as Z
 from repro_torch.models.registry import get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ARCHS = ("mamba2-130m", "zamba2-2.7b")
 BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)

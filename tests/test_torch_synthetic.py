@@ -28,6 +28,9 @@ from repro.core import synthetic as ref_synthetic
 
 from repro_torch.core import oversegment, synthetic
 from repro_torch.launch import segment as launch_segment
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 _erf = np.vectorize(math.erf)
 CORRUPT = dict(gaussian_sigma=60.0, salt_pepper_frac=0.03, ringing_amplitude=20.0, ringing_period=9.0)

@@ -40,6 +40,9 @@ from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf import pipeline
 from repro_torch.core.pmrf.hoods import pad_hoods
 from repro_torch.kernels import ops, ref
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 # K -> (phases, seed, grid): three 48x48 slices each.
 STACKS = {2: (2, 4, 6), 3: (3, 4, 6), 9: (3, 0, 7)}

@@ -40,6 +40,9 @@ from repro_torch.training import data as data_mod
 from repro_torch.training import optimizer as opt
 from repro_torch.training.fault import run_training
 from repro_torch.training.train_step import TrainStepConfig, make_sharded_train_state, make_train_step
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ARCH = "qwen2-1.5b"
 TIGHT = dict(rtol=1e-6, atol=1e-6)

@@ -30,6 +30,9 @@ from repro_torch.models import convert
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ARCH = "llava-next-34b"
 TOL = dict(rtol=1e-4, atol=1e-4)

@@ -36,6 +36,9 @@ from repro_torch.models import whisper as W
 from repro_torch.models.registry import ModelApi, get_api
 from repro_torch.serving import Request, SamplerConfig, ServingEngine
 from repro_torch.serving.lm import _write_slot
+from repro_torch.testing.threads import one_intra_op_thread
+
+one_intra_op_thread()
 
 ARCH = "whisper-large-v3"
 TOL = dict(rtol=1e-4, atol=1e-4)

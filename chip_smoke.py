@@ -11,13 +11,30 @@ PyTorch version on the card, and drives these paths (the launchers last):
 
 * the single-device segmentation path on 512x512 synthetic slices (K = 2,
   then K = 3, then K = 9 labels on the three-phase image, which runs the
-  tick's runtime-K variant), planned and solved through the session API
-  (one ``fused_em_tick`` launch and one flag read per MAP iteration, on
-  the bucket's ``TickWorkspace``);
+  tick's runtime-K variant), planned and solved through the session API:
+  the compiled EM program, one launch of the bucket's CUDA graph (one
+  ``fused_em_tick`` lane-entry launch per MAP iteration and one
+  ``em_boundary`` launch per EM iteration inside it, in conditional
+  loops) and one host read per solve, on the bucket's ``TickWorkspace``;
 * slice stacks: 16 K = 2 and 4 K = 3 slices of 512x512 through
   ``Segmenter.segment_stack(batch="always")``, one ``run_em_batched`` per
-  stack (per lockstep MAP iteration one launch of the tick's lane axis for
-  every running lane, on the bucket's ``BatchTickWorkspace``);
+  stack (the stack's graph: per lockstep MAP iteration one launch of the
+  tick's lane axis for every running lane, per EM iteration one launch of
+  the boundary's lane form, on the bucket's ``BatchTickWorkspace``);
+* the program (``run_program``, after the stacks): (a) the card's CUDA
+  driver and runtime versions and a nested conditional WHILE graph,
+  printed right after the build; (b) the boundary kernel, both forms,
+  against its plain version on the card over ``testing.boundary_cases``;
+  (c) the K = 2, 3, 9 f32 and K = 2 bf16 slices through ``execute``
+  against the CPU's plain solve and the host-stepped route
+  (``testing.host_loop``), and both stacks against serial ``execute``;
+  (d) the census of a warm solve and a warm drain (one graph launch, one
+  host read, no build; ``registry.PROGRAM_CARD``) and, in a fresh child,
+  the kernels' own launch counts, the graph's event-timed device time and
+  the profiler's records; (e) the K = 2 slice's warm ``optimize_s``
+  through the program and through the host-stepped route, the compile
+  and graph-build seconds, and the tick's single entry (host controls)
+  against its lane entry at B = 1 (device controls, what the graph runs);
 * serving: 24 K = 2 requests (512x512 slices) through
   ``SegmentationEngine(max_batch=8)``, with ``tick_iters=4`` and
   ``"auto"``: per micro-step one launch of the tick's pool entry
@@ -1289,9 +1306,13 @@ class TickLockstep:
 
 def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
     """A whole single-device solve of a slice's plan (f32) on a
-    ``TickLockstep``: every launch bit for bit the plain MAP iteration on
-    the CPU from the kernel's state; the solve gives the main path's
-    status, iteration counts and labels."""
+    ``TickLockstep``, stepped from the host (``testing.host_loop``, the
+    single entry with the host's controls): every launch bit for bit the
+    plain MAP iteration on the CPU from the kernel's state; the solve gives
+    the main path's (the compiled program's) status, iteration counts and
+    labels."""
+    from repro_torch.testing import host_loop
+
     plan, config = sl["plan"], sl["config"]
     prob = plan.problem
     cfg = config.em_config()
@@ -1303,7 +1324,7 @@ def check_tick_solve_against_cpu(torch, ops, em_mod, pipeline, sl) -> dict:
                                  device=prob.hoods.vertex.device)
     ws = TickLockstep(torch, kern, cpu)
     labels0, mu0, sigma0 = pipeline.initial_params(prob, SLICE["seed"], config.init)
-    res = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, cfg, workspace=ws)
+    res = host_loop.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, cfg, workspace=ws)
     single = sl["result"]
     trajectory = [em_mod.STATUS_NAMES.get(res.status, "running"), res.em_iters, res.map_iters]
     row = {"phase": "tick_solve_cpu_check", "K": sl["K"], "ok": True, "launches": ws.launches,
@@ -1456,6 +1477,7 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
     plan = seg.plan(vol.images[0])
     res = seg.execute(plan, seed=seed)
     launches = ops.launch_counts()
+    program_launches = ops.program_launch_counts()
 
     hoods = plan.problem.hoods
     sizes = {"n_regions": hoods.n_regions, "n_hoods": hoods.n_hoods,
@@ -1481,7 +1503,7 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
         "phase": "slice", "K": n_labels, "phases": n_phases, "size": size, "grid": grid,
         "plan_s": plan.init_seconds, "optimize_s": res.optimize_seconds,
         "em_iters": res.em_iters, "map_iters": res.map_iters, "status": res.status,
-        "accuracy": acc, "launches": launches,
+        "accuracy": acc, "launches": launches, "program_launches": program_launches,
         "plain_optimize_s": res_p.optimize_seconds, "plain_em_iters": res_p.em_iters,
         "plain_map_iters": res_p.map_iters, "plain_status": res_p.status,
         "plain_accuracy": acc_p, "pixel_agreement": agree,
@@ -1489,6 +1511,8 @@ def run_slice(torch, api, metrics, synthetic, ops, dev, n_labels: int, n_phases:
     emit(out)
     if launches["fused_em_tick"] != res.map_iters:
         fail(f"fused_em_tick launched {launches['fused_em_tick']} times for {res.map_iters} MAP iterations")
+    if program_launches != {"graph": 1, "em_boundary": res.em_iters}:
+        fail(f"the solve made {program_launches} program launches for {res.em_iters} EM iterations")
     if launches["segment_reduce"] < 1:
         fail("segment_reduce never launched on the main path")
     if res.status not in ("converged", "max_iters"):
@@ -1674,6 +1698,7 @@ def run_stack(torch, api, synthetic, ops, E, em_mod, dev, n_labels: int, n_slice
     results, mean_opt = seg.segment_stack(vol.images, seed=seed, batch="always")
     wall = time.perf_counter() - t0
     launches, batched_launches = ops.launch_counts(), em_tick.launches_batched
+    program_launches = ops.program_launch_counts()
 
     plans = [seg.plan(img) for img in vol.images]
     joint = api.BucketKey(*(max(p.bucket[d] for p in plans) for d in range(3)))
@@ -1722,7 +1747,7 @@ def run_stack(torch, api, synthetic, ops, E, em_mod, dev, n_labels: int, n_slice
            "wall_s": wall, "mean_optimize_s": mean_opt,
            "plan_s_mean": float(np.mean([p.init_seconds for p in plans])),
            "launches": launches, "batched_launches": batched_launches,
-           "lockstep_map_iterations": again.steps, "serial_launches": serial_launches,
+           "program_launches": program_launches, "lockstep_map_iterations": again.steps, "serial_launches": serial_launches,
            "em_iters": [r.em_iters for r in results], "map_iters": [r.map_iters for r in results],
            "status": sorted({r.status for r in results}), "mean_accuracy": float(np.mean(acc)),
            "lanes_equal_serial_and_cpu": True, "warm_workspace_builds": warm_builds,
@@ -6007,7 +6032,444 @@ def ptxas_report(name: str) -> dict:
 
 
 #: chip_smoke's kernel names to their sources under kernels/csrc.
-KERNEL_SOURCES = {"fused_em_tick": "em_tick", "segment_reduce": "segment_reduce",
+# ---------------------------------------------------------------------------
+# The compiled EM program (static-pallas, one device): a bucket's whole
+# solve as one CUDA graph, one launch and one host read per solve.
+# ---------------------------------------------------------------------------
+
+#: (K, precision) of the slices the program phase holds to the CPU, and the
+#: EM / MAP iterations the K = 2, 3 and 9 f32 slices take on the CPU's plain
+#: path (the bf16 slice's come from its own CPU solve).
+PROGRAM_SLICES = ((2, "f32"), (3, "f32"), (9, "f32"), (2, "bf16"))
+PROGRAM_ITERATIONS = {2: (7, 32), 3: (10, 46), 9: (17, 99)}
+PROGRAM_WARMUP = 5   # warm solves before the timed ones
+PROGRAM_TIMED = 20   # timed warm solves of each route
+PROGRAM_BOUNDARY_B = 16  # lanes of the boundary's lane-form timing (the K = 2 stack's)
+
+
+def program_probe() -> dict:
+    """(a) The card's CUDA driver and runtime versions, and a graph with a
+    conditional WHILE node nested in another (``em_tick.graph_probe``): each
+    of two launches must run exactly 3 x 5 steps and 3 outer iterations."""
+    from repro_torch.kernels import em_tick
+
+    out = em_tick.graph_probe(3, 5)
+    row = {"phase": "program", "part": "probe", **out, "ok": out["counts"] == out["want"]}
+    emit(row)
+    if not row["ok"]:
+        fail(f"program probe: a nested conditional WHILE graph ran {out['counts']}, want {out['want']}")
+    return row
+
+
+def boundary_bytes(batch: int, n_labels: int, n_hoods: int, rows: int = 4) -> int:
+    """Bytes a boundary launch must move: each lane's M-step sums, hood
+    energies, model scalars and reseed means, ring of totals and words read
+    once; its EM-level and tick parameters, the zeroed history ring, the
+    ring of totals and its words written once (a lane that goes on)."""
+    read = 3 * n_labels + n_hoods + 2 + n_labels + rows + 8
+    write = 4 * n_labels + rows * n_hoods + rows + 8
+    return 4 * batch * (read + write) + 4 * 8 * 2
+
+
+def program_boundary_check(torch, ops, dev, n_hoods: int) -> dict:
+    """(b) The boundary kernel against its plain version on the card, bit
+    for bit (a NaN as a NaN), over the CPU test's cases
+    (``testing.boundary_cases``: every branch, K = 2, 3, 9, EM iterations
+    around the window and the cap, with and without a MAP loop): the lane
+    form against ``ref.em_boundary_lanes``, the single form against
+    ``ref.em_boundary`` on each lane.  Against the plain version on the CPU
+    it may differ only in sigma, by one unit in the last place: the CPU's
+    float32 ``torch.sqrt`` is not always correctly rounded, the card's is
+    (the cases where it differs are listed).  Then its times at the K = 2
+    slice's shapes (``n_hoods``): the single form and the lane form at B =
+    ``PROGRAM_BOUNDARY_B``, back to back (CUDA events), the plain version's
+    on the card, and the bound (bytes at 3.35 TB/s)."""
+    from repro_torch.kernels import ref
+    from repro_torch.testing import boundary_cases as bc
+
+    def sigma_ulps(a, b) -> int:
+        """The largest bit distance of two states' sigmas (NaN pairs 0)."""
+        worst = 0
+        for x, y in ((a.em_sigma, b.em_sigma), (a.sigma, b.sigma)):
+            x, y = x.cpu(), y.cpu()
+            both = torch.isnan(x) & torch.isnan(y)
+            d = (x.view(torch.int32).long() - y.view(torch.int32).long()).abs()[~both]
+            worst = max(worst, int(d.max()) if d.numel() else 0)
+        return worst
+
+    checked, cpu_cases, cpu_ulps = 0, [], 0
+    for name, st in bc.cases():
+        for max_map in (bc.MAX_MAP_ITERS, 0):
+            kw = dict(max_em_iters=bc.MAX_EM_ITERS, max_map_iters=max_map)
+            card = bc.clone(st, dev)
+            ops.em_boundary_lanes(card, **kw)
+            plain_card = bc.clone(st, dev)
+            ops.em_boundary_lanes(plain_card, **kw, backend="torch")
+            diff = bc.unequal(card, plain_card)
+            if diff:
+                fail(f"em_boundary lanes {name} max_map={max_map}: {diff} differ from the plain "
+                     "version on the card")
+            for b in range(st.lane.shape[1]):
+                one = bc.clone(bc.lane_state(st, b), dev)
+                ops.em_boundary(one, **kw)
+                want = bc.clone(bc.lane_state(st, b), dev)
+                ops.em_boundary(want, **kw, backend="torch")
+                diff = bc.unequal(one, want)
+                if diff:
+                    fail(f"em_boundary single {name} lane {b}: {diff} differ from ref.em_boundary "
+                         "on the card")
+            # On the CPU the plain version's float32 sqrt is not always the
+            # correctly rounded one the card's is: only sigma may differ, by
+            # one unit in its last place.
+            cpu = bc.clone(st)
+            ref.em_boundary_lanes(cpu, **kw)
+            diff = bc.unequal(card, cpu)
+            if diff:
+                ulps = sigma_ulps(card, cpu)
+                if set(diff) - {"em_sigma", "sigma"} or ulps > 1:
+                    fail(f"em_boundary lanes {name} max_map={max_map}: {diff} differ from the CPU "
+                         f"by {ulps} ulp")
+                cpu_cases.append(f"{name} max_map={max_map}")
+                cpu_ulps = max(cpu_ulps, ulps)
+            checked += 1
+    torch.cuda.synchronize()
+    timing = {}
+    for what, batch, run in (("single", 1, ops.em_boundary), ("lanes", PROGRAM_BOUNDARY_B,
+                                                                ops.em_boundary_lanes)):
+        # Lanes of the plain kind that never stop (tolerance 0, no cap): every
+        # call does a whole boundary's work.
+        st = bc.boundary_state(11, 2, n_hoods=n_hoods, em_i=1)
+        lanes = bc.clone(ref.BoundaryState(*(
+            t if t is st.ctl else t[:, [0] * batch] if t is st.lane else t[[0] * batch]
+            for t in st)), dev)
+        state = bc.lane_state(lanes, 0) if batch == 1 else lanes
+        kw = dict(max_em_iters=1 << 30, max_map_iters=bc.MAX_MAP_ITERS, conv_tol=0.0)
+        row = {"B": batch, "ms": time_ms(lambda: run(state, **kw)),
+               "plain_ms": time_ms(lambda: run(state, **kw, backend="torch"), iters=5, warmup=1)}
+        prof = device_profile(torch, lambda: [run(state, **kw) for _ in range(MAP_STEPS)],
+                              match=("em_boundary_kernel",))["matched"]["em_boundary_kernel"]
+        row["device_us"] = prof["us"] / max(prof["count"], 1)
+        row["profiled_launches"] = prof["count"]
+        n_bytes = boundary_bytes(batch, 2, n_hoods)
+        row["bound_ms"], row["bound_by"] = bound(n_bytes, batch * (2 * n_hoods + 40))
+        row["bytes"] = n_bytes
+        timing[what] = row
+    out = {"phase": "program", "part": "boundary_check", "cases": checked,
+           "lanes_per_case": len(bc.LANE_KINDS), "bitwise_equal_plain_on_card": True,
+           "max_abs_err": 0.0, "cases_sigma_unequal_cpu": cpu_cases,
+           "sigma_max_ulps_cpu": cpu_ulps, "timing": timing}
+    emit(out)
+    return out
+
+
+def program_result_bits(torch, r) -> dict:
+    """An EMResult's tensors as bits (CPU int32 views) and its counts."""
+    return {"labels": r.labels.cpu(), "mu": r.mu.cpu().view(torch.int32),
+            "sigma": r.sigma.cpu().view(torch.int32),
+            "hood_energy": r.hood_energy.cpu().view(torch.int32),
+            "counts": (r.em_iters, r.map_iters, r.status)}
+
+
+def program_slice(torch, api, ops, em_mod, sl, precision: str) -> dict:
+    """(c) One slice solved through ``Segmenter.execute`` (its plan's bucket,
+    the compiled program) against the plain solve of the same padded inputs
+    on the CPU and against the host-stepped route on the card
+    (``testing.host_loop``, the port's solve before the program): labels,
+    mu and sigma bit for bit the CPU's, iterations and status the CPU's and
+    the known ones; hood energies bit for bit the host-stepped route's, and
+    against the CPU equal or, where not, the largest difference (the
+    card's ``logf`` of a sigma may differ from the host's in its last bit,
+    as ``tick_solve_cpu_check`` shows launch by launch)."""
+    from repro_torch.testing import host_loop
+
+    plan, k = sl["plan"], sl["K"]
+    config = sl["config"].with_(precision=precision)
+    seg = api.Segmenter(config, device=plan.problem.hoods.vertex.device)
+    exe = seg.compile(plan)
+    inputs = seg.lane_inputs(plan, seed=SLICE["seed"])
+    before = (ops.launch_counts()["fused_em_tick"], ops.program_launch_counts())
+    card = exe(*inputs)
+    after = (ops.launch_counts()["fused_em_tick"], ops.program_launch_counts())
+    cpu = em_mod.run_em(*inputs_on_cpu(inputs), config.em_config(backend="torch"))
+    host = host_loop.run_em(*inputs, config.em_config())
+    c, p, h = (program_result_bits(torch, r) for r in (card, cpu, host))
+    eq = {f: bool(torch.equal(c[f], p[f])) for f in ("labels", "mu", "sigma", "hood_energy")}
+    eq_host = {f: bool(torch.equal(c[f], h[f])) for f in ("labels", "mu", "sigma", "hood_energy")}
+    launches = {"graph": after[1]["graph"] - before[1]["graph"],
+                "tick": after[0] - before[0],
+                "em_boundary": after[1]["em_boundary"] - before[1]["em_boundary"]}
+    row = {"phase": "program", "part": "slice", "K": k, "precision": precision,
+           "card": list(c["counts"]), "cpu": list(p["counts"]), "host_stepped": list(h["counts"]),
+           "equal_cpu": eq, "equal_host_stepped": eq_host, "launches": launches,
+           "hood_energy_max_abs_diff_cpu": float((card.hood_energy.cpu() - cpu.hood_energy).abs().max())}
+    emit(row)
+    want = PROGRAM_ITERATIONS.get(k) if precision == "f32" else None
+    if c["counts"] != p["counts"] or (want and tuple(c["counts"][:2]) != want):
+        fail(f"program K={k} {precision}: {c['counts']}, CPU {p['counts']}, known {want}")
+    if not (eq["labels"] and eq["mu"] and eq["sigma"]) or not all(eq_host.values()):
+        fail(f"program K={k} {precision}: not bit for bit: CPU {eq}, host-stepped {eq_host}")
+    launches["counted_on_device"] = exe.workspace.program_launches
+    if launches != {"graph": 1, "tick": card.map_iters, "em_boundary": card.em_iters,
+                    "counted_on_device": {"tick": card.map_iters, "em_boundary": card.em_iters}}:
+        fail(f"program K={k} {precision}: launches {launches} for {card.em_iters} EM and "
+             f"{card.map_iters} MAP iterations")
+    return row
+
+
+def program_stack(torch, api, ops, em_mod, st) -> dict:
+    """(c) A stack through ``drain`` (the stack's compiled program) against
+    every lane's serial ``execute`` in the joint bucket, bit for bit
+    (labels, mu, sigma, hood energies, counts, status)."""
+    seg, plans, joint = st["seg"], st["plans"], st["joint"]
+    n, seed = len(plans), SLICE["seed"]
+    exe = seg.compile(joint, batch=n)
+    inputs = seg.stacked_inputs(plans, bucket=joint, seeds=[seed] * n)
+    before = ops.program_launch_counts()["graph"]
+    res = exe(*inputs)
+    graphs = ops.program_launch_counts()["graph"] - before
+    one = seg.compile(joint)
+    unequal = []
+    for b, p in enumerate(plans):
+        want = program_result_bits(torch, one(*seg.lane_inputs(p, bucket=joint, seed=seed)))
+        got = program_result_bits(torch, res.lane(b))
+        if any(not torch.equal(got[f], want[f]) for f in ("labels", "mu", "sigma", "hood_energy")) \
+                or got["counts"] != want["counts"]:
+            unequal.append(b)
+    row = {"phase": "program", "part": "stack", "K": st["K"], "slices": n,
+           "lockstep_map_iterations": res.steps, "em_iters": list(res.em_iters),
+           "map_iters": list(res.map_iters), "graph_launches": graphs,
+           "lanes_equal_serial_execute": not unequal}
+    emit(row)
+    if unequal or graphs != 1:
+        fail(f"program stack K={st['K']}: lanes {unequal} differ from serial execute, "
+             f"{graphs} graph launches")
+    return row
+
+
+def program_census(torch, api, ops, sl, st) -> list:
+    """(d) The census of a warm ``execute`` of the K = 2 slice and of a warm
+    ``drain`` of the 16-slice stack on the card: exactly one graph launch
+    (beside the neighbourhood sizes' ``segment_reduce``), one host read, no
+    MAP or EM scope seen by the host, no workspace or program built; held
+    to ``registry.PROGRAM_CARD``."""
+    from repro_torch.analysis import census, registry
+
+    seed = SLICE["seed"]
+    seg = api.Segmenter(sl["config"], device=torch.device(DEVICE))
+    plans, joint = st["plans"], st["joint"]
+    stack = api.Segmenter(st["seg"].config, device=torch.device(DEVICE))
+
+    def drain():
+        for p in plans:
+            stack.submit(p, seed=seed, bucket=joint)
+        return stack.drain()
+
+    rows = []
+    for driver, solve in (("run_em", lambda: seg.execute(sl["plan"], seed=seed)),
+                          ("run_em_batched", drain)):
+        solve()
+        builds, programs = ops.WORKSPACE_BUILDS, ops.PROGRAM_BUILDS
+        graphs = ops.program_launch_counts()["graph"]
+        with census.take() as cen:
+            solve()
+        card = cen.summary()
+        want = registry.PROGRAM_CARD[(driver, "static-pallas")]
+        got = {s: card[s]["max"] if card[s]["instances"] else None for s in census.SCOPES}
+        row = {"phase": "program", "part": "census", "driver": driver, "K": 2,
+               "card": {s: {"instances": card[s]["instances"], "max": card[s]["max"]}
+                        for s in census.SCOPES},
+               "graph_launches": ops.program_launch_counts()["graph"] - graphs,
+               "builds": {"workspace": ops.WORKSPACE_BUILDS - builds,
+                          "program": ops.PROGRAM_BUILDS - programs},
+               "equal_registry": got == want}
+        emit(row)
+        if got != want or row["graph_launches"] != 1 or any(row["builds"].values()):
+            fail(f"program census {driver}: {got}, registry {want}, {row['graph_launches']} graph "
+                 f"launches, builds {row['builds']}")
+        rows.append(row)
+    return rows
+
+
+def program_profile_child() -> None:
+    """In a fresh process: plan the K = 2 slice, warm its program, then
+    (1) ``SOLVES`` unprofiled warm executes (``optimize_s``); (2) the
+    launches the graph's kernels counted of themselves on the device in a
+    warm solve (``workspace.program_launches``); (3) the graph's device
+    time, CUDA events around its launch alone, over ``SOLVES`` solves; (4)
+    one warm solve under ``torch.profiler``, which records each kernel node
+    of a graph once however often a conditional loop runs it, so it shows
+    the nodes (tick, boundary, init) and the solve's other device
+    operations.  The idle share is one less the graph's device time and
+    the other operations' busy time over the best unprofiled solve.
+    Prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    from repro_torch import api
+    from repro_torch.core import synthetic
+    from repro_torch.core.pmrf import energy
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    vol = synthetic.make_synthetic_volume(seed=SLICE["seed"], n_slices=1,
+                                          shape=(SLICE["size"],) * 2, device=dev)
+    seg = api.Segmenter(api.ExecutionConfig(n_labels=2, overseg_grid=(SLICE["grid"],) * 2,
+                                            init="quantile"), device=dev)
+    plan = seg.plan(vol.images[0])
+    solve = lambda: seg.execute(plan, seed=SLICE["seed"])  # noqa: E731
+    res = solve()
+    walls = spread([solve().optimize_seconds for _ in range(SOLVES)])
+    ws = seg.compile(plan).workspace
+    counted = dict(ws.program_launches)
+    hoods, model, labels0, mu0, sigma0 = seg.lane_inputs(plan, seed=SLICE["seed"])
+    sctx = energy.make_static_context(hoods, model)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    graph_ms = []
+    for _ in range(SOLVES):
+        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0, mu0, sigma0)
+        start.record()
+        ws.launch_program()
+        end.record()
+        ws.program_result()
+        graph_ms.append(start.elapsed_time(end))
+    graph_ms = spread(graph_ms)
+    nodes = ("tick_kernel_batched", "em_boundary_kernel", "program_init")
+    prof = device_profile(torch, solve, match=nodes)
+    m = prof["matched"]
+    outside_us = prof["device_busy_us"] - sum(m[n]["us"] for n in nodes)
+    print(json.dumps({
+        "phase": "program", "part": "profile", "em_iters": res.em_iters,
+        "map_iters": res.map_iters, "launches_counted_on_device": counted,
+        "profiler_node_records": {n: m[n] for n in nodes},
+        "graph_device_ms": graph_ms, "other_ops_device_us": outside_us,
+        "optimize_s_unprofiled": walls,
+        "device_idle_share": 1.0 - (graph_ms["min"] * 1e-3 + outside_us * 1e-6) / walls["min"],
+        "device_ops_outside_graph": prof["device_ops"] - sum(m[n]["count"] for n in nodes),
+        "top": prof["top"], "spins_seen": prof["spins_seen"],
+        "profiler_lead": {"lead_records": PROFILER_LEAD_RECORDS + 2,
+                          "traces_by_records_lost": {str(k): v for k, v in PROFILE_LEAD_LOST.items()}},
+    }), flush=True)
+
+
+def program_profile() -> dict:
+    """(d) ``program_profile_child`` in a fresh process: the kernels must
+    have counted ``map_iters`` tick launches and ``em_iters`` boundary
+    launches in one warm solve, and the profiler must show each of the
+    graph's kernel nodes."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.program_profile_child()"],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join([str(ROOT), str(SRC)])})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"program profile child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    row = json.loads(lines[-1])
+    emit(row)
+    counted = row["launches_counted_on_device"]
+    if (counted["tick"], counted["em_boundary"]) != (row["map_iters"], row["em_iters"]) or any(
+            not r["count"] for r in row["profiler_node_records"].values()):
+        fail(f"program profile: the kernels counted {counted} for {row['map_iters']} MAP and "
+             f"{row['em_iters']} EM iterations; the profiler saw {row['profiler_node_records']}")
+    return row
+
+
+def program_timing(torch, api, ops, em_mod, sl, smi_line: str) -> dict:
+    """(e) The K = 2 slice's warm ``optimize_s`` through ``execute`` (the
+    program) and through the host-stepped route in the same process
+    (``testing.host_loop.run_em`` on a workspace of the bucket, timed as
+    ``execute`` times a solve: synchronised, on the host clock): min,
+    median and max of ``PROGRAM_TIMED`` after ``PROGRAM_WARMUP``; the
+    seconds a compile takes (a fresh session's miss: the workspace and its
+    graph) and of the graph's build alone; the tick's single entry with
+    the host's controls against its lane entry at B = 1 with the device's
+    (what the graph runs), back to back on the same state."""
+    from repro_torch.core.pmrf import energy as E
+    from repro_torch.testing import host_loop
+
+    plan, config, seed = sl["plan"], sl["config"], SLICE["seed"]
+    dev = plan.problem.hoods.vertex.device
+    t0 = time.perf_counter()
+    seg = api.Segmenter(config, device=dev)
+    exe = seg.compile(plan)
+    compile_s = time.perf_counter() - t0
+    shape = em_mod.TickShape(*(plan.bucket[0], plan.bucket[1], plan.bucket[2] + 1, 2))
+    t0 = time.perf_counter()
+    bare = ops.tick_workspace(shape, device=dev, max_em_iters=None, conv_tol=em_mod.CONV_TOL,
+                              window=em_mod.WINDOW)
+    bare_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ops.tick_workspace(shape, device=dev, max_em_iters=config.max_em_iters,
+                       max_map_iters=config.max_map_iters, conv_tol=em_mod.CONV_TOL,
+                       window=em_mod.WINDOW)
+    with_graph_s = time.perf_counter() - t0
+    inputs = seg.lane_inputs(plan, seed=seed)
+    emc = config.em_config()
+
+    def timed(fn):
+        for _ in range(PROGRAM_WARMUP):
+            fn()
+        out = []
+        for _ in range(PROGRAM_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+        return spread(out)
+
+    program = timed(lambda: exe(*inputs))
+    host = timed(lambda: host_loop.run_em(*inputs, emc, workspace=bare))
+    execute = spread([seg.execute(plan, seed=seed).optimize_seconds
+                      for _ in range(PROGRAM_WARMUP + PROGRAM_TIMED)][PROGRAM_WARMUP:])
+    # The tick: the single entry (host controls) and the lane entry at B = 1
+    # (device controls: the pool entry, which the graph runs), same state.
+    st = real_map_state(torch, plan, E, em_mod)
+    single = map_step_workspace(ops, em_mod, plan.problem.hoods, plan.problem.model, st)
+    single_ms = time_ms(lambda: single.step(False))
+    lane = ops.tick_workspace(shape, device=dev, batch=1, pool=True, max_map_iters=NEVER_STOP,
+                              conv_tol=0.0, window=em_mod.WINDOW)
+    state = em_mod.blank_tick_state(lane)
+    em_mod.init_tick_lane(state, 0, *seg.lane_state(plan, seed=seed))
+    lane_ms = time_ms(state.workspace.step)
+    prof_single = device_profile(torch, lambda: [single.step(False) for _ in range(MAP_STEPS)],
+                                 match=("tick_kernel",))
+    prof_lane = device_profile(torch, lambda: [state.workspace.step() for _ in range(MAP_STEPS)],
+                               match=("tick_kernel_batched",))
+    row = {"phase": "program", "part": "timing", "K": 2, "card": smi_line,
+           "optimize_s": {"program": program, "host_stepped": host, "execute": execute},
+           "compile_s": compile_s, "workspace_build_s": bare_s,
+           "workspace_and_graph_build_s": with_graph_s,
+           "tick_single_entry_host_controls": {
+               "ms": single_ms, "device_us": prof_single["matched"]["tick_kernel"]["us"]
+               / max(prof_single["matched"]["tick_kernel"]["count"], 1)},
+           "tick_lane_entry_b1_device_controls": {
+               "ms": lane_ms, "device_us": prof_lane["matched"]["tick_kernel_batched"]["us"]
+               / max(prof_lane["matched"]["tick_kernel_batched"]["count"], 1)}}
+    emit(row)
+    return row
+
+
+def run_program(torch, api, ops, em_mod, slices: dict, stacks: dict, probe: dict,
+                smi_line: str) -> dict:
+    """The program phase: (a) the probe line (printed after the build), (b) the boundary kernel
+    against its plain version, (c) the K = 2, 3, 9 f32 and K = 2 bf16
+    slices and both stacks through the compiled program, held to the CPU
+    and to serial execute, (d) the census and the profiler of a warm
+    solve, (e) the timings.  Prints the phase's seconds."""
+    t0 = time.perf_counter()
+    sl2 = slices[2]
+    boundary = program_boundary_check(torch, ops, torch.device(DEVICE), sl2["plan"].bucket[1])
+    rows = [program_slice(torch, api, ops, em_mod, slices[k], p) for k, p in PROGRAM_SLICES]
+    stack_rows = [program_stack(torch, api, ops, em_mod, stacks[k]) for k in sorted(stacks)]
+    census_rows = program_census(torch, api, ops, sl2, stacks[2])
+    profile = program_profile()
+    timing = program_timing(torch, api, ops, em_mod, sl2, smi_line)
+    emit({"phase": "program", "part": "seconds", "total_s": time.perf_counter() - t0})
+    return {"probe": probe, "boundary": boundary, "slices": rows, "stacks": stack_rows,
+            "census": census_rows, "profile": profile, "timing": timing}
+
+
+KERNEL_SOURCES = {"fused_em_tick": "em_tick", "em_boundary": "em_tick", "segment_reduce": "segment_reduce",
                   "fused_map_step": "map_step", "mrf_min_energy": "mrf_energy",
                   "flash_attention": "flash_attention"}
 ANALYSIS_BASELINE = SRC / "repro_torch" / "analysis" / "ANALYSIS.json"
@@ -6018,16 +6480,28 @@ def census_row(torch, census, baseline, driver: str, mode: str, what: str, solve
     """The census of one warm ``solve`` on the card against the CPU's counts
     of the same driver and mode at K = 2 in the committed baseline
     (``analysis/ANALYSIS.json``), scope by scope (each count's maximum and
-    minimum over the scope's instances); beside it the profiler's device
+    minimum over the scope's instances), or, for the compiled program
+    (static-pallas ``run_em`` and ``run_em_batched``), against its card
+    rows (``registry.PROGRAM_CARD``); beside it the profiler's device
     operations of the same solve over its MAP iterations (the census's
     MAP-iteration instances: a stack's lockstep iterations).  Fails on any
     difference."""
+    from repro_torch.analysis import registry
+
     solve()
     with census.take() as cen:
         solve()
     card = cen.summary()
-    (entry,) = [e for e in baseline["census"] if (e["driver"], e["mode"], e["k"]) == (driver, mode, 2)]
-    cpu = entry["census"]
+    if (driver, mode) in registry.PROGRAM_CARD:
+        # The compiled program: its loops are in the graph, where the host
+        # sees nothing; its card rows are the registry's.
+        want = registry.PROGRAM_CARD[(driver, mode)]
+        cpu = {s: {"max": want[s] or dict.fromkeys(census.COUNTERS, 0),
+                   "min": want[s] or dict.fromkeys(census.COUNTERS, 0)} for s in census.SCOPES}
+    else:
+        (entry,) = [e for e in baseline["census"]
+                    if (e["driver"], e["mode"], e["k"]) == (driver, mode, 2)]
+        cpu = entry["census"]
     diff = [scope for scope in census.SCOPES
             if (card[scope]["max"], card[scope]["min"]) != (cpu[scope]["max"], cpu[scope]["min"])]
     prof = device_profile(torch, solve)
@@ -6151,6 +6625,9 @@ def main(argv=None) -> int:
     emit({"phase": "build", "build_s": _build.build_all(_build.CSRC, kernel_check.FIXTURES,
                                                         kernel_check.GUARD_SRC),
           "dir": str(_build.BUILD_DIR)})
+    # (a) of the program phase: the card's CUDA versions and its nested
+    # conditional WHILE graphs, first.
+    probe = program_probe()
     tick_ptxas = ptxas_report("em_tick")
     emit({"phase": "ptxas", **tick_ptxas})
     step_ptxas = ptxas_report("map_step")
@@ -6212,6 +6689,12 @@ def main(argv=None) -> int:
     batched_err = max(check_batched_entry(torch, ops, E, em_mod, st2["seg"], st2["plans"],
                                           st2["joint"], b)["max_abs_err"]
                       for b in BATCHED_CHECK_SIZES)
+
+    # The compiled EM program: the boundary kernel against its plain
+    # version, the slices and stacks through the graph against the CPU and
+    # serial execute, the census and profile of a warm solve, the timings.
+    program = run_program(torch, api, ops, em_mod, {2: slice2, 3: slice3, 9: slice9}, stacks,
+                          probe, smi_line)
 
     # Third path: the sharded route's kernels at the slices' operands.
     from repro_torch.core.pmrf import collectives
@@ -6369,6 +6852,12 @@ def main(argv=None) -> int:
          "ptxas": {"spill_bytes": tick_ptxas["spill_bytes"],
                    "registers": {k["kernel"]: k.get("registers") for k in tick_ptxas["kernels"]}},
          "jax_signature_entry": {k: tick2[k] for k in tick_keys if k in tick2},
+         "program": {"graph_launches": slice2["program_launches"]["graph"],
+                     "in_graph": "lane entry at B = 1, controls from the device",
+                     **{k: program["timing"][k] for k in (
+                         "tick_single_entry_host_controls", "tick_lane_entry_b1_device_controls",
+                         "optimize_s", "compile_s", "workspace_and_graph_build_s")},
+                     "device_idle_share": program["profile"]["device_idle_share"]},
          "K9": {"launches": slice9["launches"]["fused_em_tick"], **{k: step9[k] for k in step_keys},
                 "jax_signature_entry": {k: tick9[k] for k in tick_keys if k in tick9}},
          "batched_entry": {"launches": st2["batched_launches"], "B": bstep["B"],
@@ -6381,6 +6870,16 @@ def main(argv=None) -> int:
                         **{k: ptime[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                  "ms_per_micro_step") + ("device_ms",) * profile},
                         "library_ms": None}},
+        {"name": "em_boundary", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/em_boundary.cuh",
+         "replaces": "src/repro/core/pmrf/em.py:386 (em_body, XLA-compiled; no pl.pallas_call)",
+         "launches": slice2["program_launches"]["em_boundary"], "max_abs_err": 0.0,
+         **{k: program["boundary"]["timing"]["single"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+         "library_ms": None, "cases_bitwise_equal": program["boundary"]["cases"],
+         "lane_form": {"launches": st2["program_launches"]["em_boundary"],
+                       **program["boundary"]["timing"]["lanes"], "library_ms": None},
+         **analysis_entry(kpass, "em_boundary")},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",

@@ -16,10 +16,15 @@ modes over the solve:
   only as the ``_local_scalar_dense`` of ``item``, and a read of mapped
   pinned memory not at all, so the function mode is the one that counts.
 
-Counts go to the innermost open *scope*.  The drivers mark two
-(``core.pmrf.em``): ``map_iteration``, one MAP iteration of a loop, and
+Counts go to the innermost open *scope*.  The drivers mark three
+(``core.pmrf.em``): ``map_iteration``, one MAP iteration of a loop,
 ``em_boundary``, the rest of an EM iteration (M-step, tests, the
-boundary's host read, the next iteration's start).  A marker reads
+boundary's host read, the next iteration's start), and ``solve``, what a
+compiled EM program's solve does outside its loops (``em._run_program``:
+the element arrays, ``start``, the program's launch, the read of its
+counters, the result's copies).  On the card the program's loops run
+inside its graph, where no host sees them: its census has no MAP or EM
+instance, and its solve counts the one graph launch and the one read.  A marker reads
 :data:`ACTIVE` once per driver call and tests a local per scope, so a
 solve with no census runs no extra host work.  Each scope keeps one
 count per instance; :meth:`Census.summary` gives each count's maximum
@@ -53,6 +58,7 @@ __all__ = [
     "ACTIVE",
     "MAP_ITERATION",
     "EM_BOUNDARY",
+    "SOLVE",
     "SCOPES",
     "COUNTERS",
     "Census",
@@ -66,7 +72,8 @@ ACTIVE: Optional["Census"] = None
 
 MAP_ITERATION = "map_iteration"
 EM_BOUNDARY = "em_boundary"
-SCOPES: Tuple[str, ...] = (MAP_ITERATION, EM_BOUNDARY)
+SOLVE = "solve"
+SCOPES: Tuple[str, ...] = (MAP_ITERATION, EM_BOUNDARY, SOLVE)
 COUNTERS: Tuple[str, ...] = (
     "device_ops", "scatters", "gathers", "launches", "host_reads", "h2d_copies",
 )
@@ -88,12 +95,17 @@ _FACTORIES = frozenset({torch.tensor, torch.as_tensor})
 #: The kernel entries of ``kernels.ops``: each call is one launch.
 OPS_ENTRIES: Tuple[str, ...] = (
     "segment_reduce", "fused_em_tick", "fused_map_step", "mrf_min_energy", "flash_attention",
+    "em_boundary", "em_boundary_lanes",
 )
-#: Workspace methods by what a call counts.
+#: Workspace methods by what a call counts: a compiled program's graph
+#: launch, and each step of its plain version (the start, a MAP iteration,
+#: a boundary), one launch; the read of its counters one host read.
 _WS_COUNTS = {
     "step": "launches", "flag": "host_reads", "flags": "host_reads", "start": "device_ops",
     "begin_em": "device_ops", "begin_lanes": "device_ops", "admit": "device_ops",
-    "retire": "device_ops",
+    "retire": "device_ops", "launch_program": "launches", "program_begin": "launches",
+    "program_step": "launches", "program_boundary": "launches",
+    "program_result": "host_reads",
 }
 
 
@@ -272,10 +284,14 @@ def take() -> Iterator[Census]:
         setattr(ops, name, _opaque_call(cen, fn, "launches", name))
     for cls in kernel_workspaces():
         for meth, counter in _WS_COUNTS.items():
-            fn = cls.__dict__.get(meth)
-            if fn is not None:
-                undo.append((cls, meth, fn))
-                setattr(cls, meth, _opaque_call(cen, fn, counter, f"{cls.__name__}.{meth}"))
+            # A method the class inherits (the program's, from its base) is
+            # wrapped on the class itself and the wrapper deleted after.
+            owner = next((c for c in cls.__mro__ if meth in c.__dict__), None)
+            if owner is None or owner is object:
+                continue
+            fn = owner.__dict__[meth]
+            undo.append((cls, meth, fn if owner is cls else None))
+            setattr(cls, meth, _opaque_call(cen, fn, counter, f"{cls.__name__}.{meth}"))
     try:
         with _FunctionMode(cen), _DispatchMode(cen):
             ACTIVE = cen
@@ -283,14 +299,17 @@ def take() -> Iterator[Census]:
     finally:
         ACTIVE = None
         for owner, name, fn in reversed(undo):
-            setattr(owner, name, fn)
+            if fn is None:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, fn)
 
 
 def check(summary: Dict[str, Dict], site: str, budget: Optional[Dict[str, Dict[str, int]]]
           ) -> List[Finding]:
     """The PT detectors over one census summary.  ``budget`` is the
-    registry's row (per scope, per counter) or None (census only: PT001
-    and PT003 still apply)."""
+    registry's row (per scope, per counter; a scope it leaves out is not
+    gated) or None (census only: PT001 and PT003 still apply)."""
     out: List[Finding] = []
     for scope in SCOPES:
         ops = summary[scope].get("float64")
@@ -304,6 +323,8 @@ def check(summary: Dict[str, Dict], site: str, budget: Optional[Dict[str, Dict[s
     if budget is None:
         return out
     for scope in SCOPES:
+        if budget.get(scope) is None:
+            continue
         for counter in COUNTERS:
             if scope == MAP_ITERATION and counter == "h2d_copies":
                 continue  # PT003

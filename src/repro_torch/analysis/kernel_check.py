@@ -95,7 +95,7 @@ DEVICE = "cuda"
 # Parsing
 # ---------------------------------------------------------------------------
 
-_LAUNCH = re.compile(r"<<<|\bcuda(LaunchKernel|LaunchKernelEx|LaunchCooperativeKernel)\b"
+_LAUNCH = re.compile(r"<<<|\bcuda(LaunchKernel|LaunchKernelEx|LaunchCooperativeKernel|GraphLaunch)\b"
                      r"|\bcuLaunchKernel\b")
 _BARRIER = re.compile(r"\b__syncthreads(_or|_and|_count)?\s*\(")
 _WARP_BARRIER = re.compile(r"\b__syncwarp\s*\(")
@@ -494,15 +494,50 @@ def _case_tick_jax_signature(torch, k, precision):
 
 
 def _case_tick_solve(torch, k, precision):
+    from repro_torch.testing import host_loop
+
+    seg, (plan,), _ = _plan(torch, k, precision)
+    r = host_loop.run_em(*seg.lane_inputs(plan), seg.config.em_config())
+    return [r.labels, r.mu, r.sigma]
+
+
+def _case_tick_stack(torch, k):
+    from repro_torch.testing import host_loop
+
+    seg, plans, _ = _plan(torch, k, n=3)
+    joint = tuple(max(p.bucket[d] for p in plans) for d in range(3))
+    inputs = seg.stacked_inputs(plans, bucket=joint, seeds=[0, 1, 2])
+    return [host_loop.run_em_batched(*inputs, seg.config.em_config()).labels]
+
+
+def _case_program_solve(torch, k, precision):
     seg, (plan,), _ = _plan(torch, k, precision)
     r = seg.execute(plan)
     return [r.region_labels, r.mu, r.sigma]
 
 
-def _case_tick_stack(torch, k):
+def _case_program_stack(torch, k):
     seg, _, images = _plan(torch, k, n=3)
     results, _ = seg.segment_stack(images, batch="always")
     return [r.region_labels for r in results]
+
+
+def _case_em_boundary(torch, lanes):
+    from repro_torch.kernels import ops
+    from repro_torch.testing import boundary_cases
+
+    st = boundary_cases.clone(boundary_cases.boundary_state(7, 3, em_i=4), DEVICE)
+    if not lanes:
+        st = boundary_cases.lane_state(st, 0)
+    run = ops.em_boundary_lanes if lanes else ops.em_boundary
+    run(st, max_em_iters=boundary_cases.MAX_EM_ITERS, max_map_iters=boundary_cases.MAX_MAP_ITERS)
+    return list(st)
+
+
+def _case_graph_probe(torch):
+    from repro_torch.kernels import em_tick
+
+    return [torch.tensor(em_tick.graph_probe(3, 5)["counts"])]
 
 
 def _case_tick_pool(torch, k):
@@ -586,6 +621,10 @@ CASE_RUNNERS = {
     "tick_solve": _case_tick_solve,
     "tick_stack": _case_tick_stack,
     "tick_pool": _case_tick_pool,
+    "program_solve": _case_program_solve,
+    "program_stack": _case_program_stack,
+    "em_boundary": _case_em_boundary,
+    "graph_probe": _case_graph_probe,
     "map_step_jax_signature": _case_map_step_jax_signature,
     "map_step_iteration": _case_map_step_iteration,
     "mrf_min_energy": _case_mrf_min_energy,

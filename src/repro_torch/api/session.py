@@ -10,22 +10,30 @@ Counterpart of ``repro.api.session.Segmenter``.
   :meth:`Segmenter.cost_model`, ``repro_torch.planning``).
 * :meth:`Segmenter.compile`: the executable of one bucket (and batch
   size), built from its shapes alone and kept in an LRU cache keyed by
-  :class:`ExecutableKey`.  PyTorch runs eagerly, so what a compile builds
-  is the MAP loop's workspace (``kernels.ops.tick_workspace``, every buffer
-  of the route's kernel) and binds the driver to it; a warm hit builds no
-  workspace (``kernels.ops.WORKSPACE_BUILDS`` counts them; the budget
-  ledger's ``"compile"`` section counts misses and hits).  In the modes
+  :class:`ExecutableKey`.  In mode ``static-pallas`` a compile builds the
+  bucket's workspace (``kernels.ops.tick_workspace``: every buffer of the
+  route's kernels, the solve's inputs included) and its compiled EM
+  program over those buffers: on the card one CUDA graph of the whole
+  solve (the MAP loop's tick launches and the EM boundary kernel in two
+  conditional loops), the counterpart of the reference's
+  ``.lower(...).compile()``; on the plain route the plain program.  A warm
+  hit builds neither (``kernels.ops.WORKSPACE_BUILDS`` and
+  ``kernels.ops.PROGRAM_BUILDS`` count them; the budget ledger's
+  ``"compile"`` section counts misses and hits).  In the modes
   ``static`` and ``faithful`` a one-request executable binds the driver
   alone; a batched one binds it to the stack's ``em.DppBatchWorkspace``.
 * :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
-  the plan) and solved by the bucket's executable.  Padding lanes are
+  the plan) and solved by the bucket's executable: in mode
+  ``static-pallas`` on the card one launch of its graph and one host read
+  of the solve's counters.  Padding lanes are
   invalid elements, empty phantom hoods and weight-0 vertices, which add
   nothing to any sum, so a padded solve equals the natural one bit for
   bit.
 * :meth:`Segmenter.submit` / :meth:`Segmenter.drain`: pending requests of
-  one bucket run as one ``run_em_batched`` (per lockstep MAP iteration one
-  batched tick launch in mode ``static-pallas``, one flat MAP iteration of
-  every lane in the modes ``static`` and ``faithful``); each lane equals
+  one bucket run as one ``run_em_batched`` (in mode ``static-pallas`` one
+  launch of the batch size's graph, per lockstep MAP iteration one batched
+  tick launch inside it; in the modes ``static`` and ``faithful`` one flat
+  MAP iteration of every lane per lockstep iteration); each lane equals
   its serial :meth:`execute` bit for bit.
   :meth:`Segmenter.segment_stack` submits a volume's slices under their
   joint bucket, or solves them one by one, as :meth:`choose_batch`
@@ -44,10 +52,12 @@ executable's key (which carries ``shards``); ``drain`` runs such requests
 serially.
 
 Failures of a compile or an execute follow ``config.fallback``
-(:class:`~repro_torch.api.config.FallbackPolicy`): retries on the same
-route, then, only where the policy names the plain route, a recompile
-there (``fallback_events``, a ``RuntimeWarning``, and a redirect of the
-failed key); otherwise :class:`~repro_torch.api.errors.FallbackError`.
+(:class:`~repro_torch.api.config.FallbackPolicy`), a graph's build and
+launch among them: retries on the same route, then, only where the policy
+names the plain route, a recompile there (``fallback_events``, a
+``RuntimeWarning``, and a redirect of the failed key); otherwise
+:class:`~repro_torch.api.errors.FallbackError`.  No failure is taken to
+the host-stepped loop or to another device.
 The chaos harness's ``on_compile`` and ``on_execute`` hooks sit inside the
 attempts.
 
@@ -146,8 +156,9 @@ class Plan:
 @dataclass
 class Executable:
     """The EM program of one bucket (and batch size): the driver bound to a
-    workspace built from the bucket's shapes (none for one request in the
-    modes ``static`` and ``faithful``).  On the sharded route the
+    workspace built from the bucket's shapes (in mode ``static-pallas``
+    holding the compiled program; none for one request in the modes
+    ``static`` and ``faithful``).  On the sharded route the
     static-pallas workspace is the rank's and depends on the plan's
     partition, so the executable keeps one per plan (``shard_workspaces``,
     LRU)."""
@@ -315,7 +326,8 @@ class Segmenter:
     ) -> Executable:
         """The executable of a bucket, built on a miss from its shapes alone
         (no data): the bucket's MAP-iteration workspace (``batch``: for
-        that many lanes) bound to the EM driver.  LRU-cached by
+        that many lanes) and, in mode ``static-pallas``, its compiled EM
+        program, bound to the EM driver.  LRU-cached by
         :class:`ExecutableKey`; a hit builds nothing.  Eviction drops the
         least recently used executable once the cache passes
         ``config.max_cached_executables``.  ``backend`` overrides the

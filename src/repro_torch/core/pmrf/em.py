@@ -15,13 +15,20 @@ float sums of these modes go through ``segment_reduce``'s element-order
 ``add``, so on the card they are the CPU plain path's bits.
 ``static-pallas`` fuses the iteration into one kernel launch.
 
-There is one driver for one problem (:func:`_em_driver`), parametrised by
-a collective context (``collectives.ReduceCtx``): :func:`run_em` binds
-the single-device context, where in mode ``static-pallas`` each MAP
-iteration is one ``fused_em_tick`` launch on a workspace of the
-problem's bucket (label gather, history ring, convergence and finiteness
-flags, and in the launch that stops the MAP loop the M-step sums, all in
-the kernel); ``distributed.run_em_sharded`` binds a sharded context,
+In mode ``static-pallas`` on one device :func:`run_em` and
+:func:`run_em_batched` run the **compiled EM program** of the problem's
+bucket (:func:`_run_program`), the reference's ``Segmenter.compile``
+executable: a workspace built from the bucket's shapes and the EM limits
+(``make_workspace``) holds, on the card, one CUDA graph of the whole
+solve (the MAP loop's tick launches and the EM boundary kernel, each loop
+a conditional node), so a solve is one graph launch and one host read of
+its counters; on the CPU, or with ``backend="torch"``, the same control
+structure runs as the plain program (``kernels.ref.run_program``).
+
+The modes ``static`` and ``faithful``, and the sharded route, run one
+driver for one problem (:func:`_em_driver`), parametrised by a
+collective context (``collectives.ReduceCtx``): :func:`run_em` binds the
+single-device context; ``distributed.run_em_sharded`` binds a sharded context,
 where in mode ``static-pallas`` each MAP iteration is one
 ``fused_map_step`` launch on the rank's workspace (the
 last step's labels and tests, this step's counts, energies, hood sums and
@@ -32,14 +39,18 @@ sums the M-step's per-label terms in vertex order (the keyed sums of
 through the context, so all ranks take the same trajectory.
 
 :func:`run_em_batched` runs a stack of problems padded to one bucket in
-lockstep, the reference's vmapped ``run_em``: per MAP iteration one step
-of the stack's workspace for every lane still running and one read of
-the B flag words; per EM iteration one vectorised boundary and one host
-read.  :func:`run_em_ticked` advances a pool of slots (:class:`TickState`,
+lockstep, the reference's vmapped ``run_em``: in mode ``static-pallas``
+the stack's compiled program (per lockstep MAP iteration one launch of
+the tick's lane entry, per EM iteration one launch of the boundary's lane
+form, one graph launch and one read per solve); in the modes per MAP
+iteration one step of the stack's workspace for every lane still running
+and one read of the B flag words, per EM iteration one vectorised
+boundary and one host read.  :func:`run_em_ticked` advances a pool of slots (:class:`TickState`,
 on a pool workspace) by micro-steps, each lane at its own MAP iteration,
 the reference's continuous-batching driver: per micro-step one step of
 the pool and one read of the B flag words, and, only where some lane's
-MAP loop stopped, the EM boundary of those lanes and one host read.  In
+MAP loop stopped, the EM boundary of those lanes (one launch of the
+boundary kernel's lane form) and one host read.  In
 both, each lane's result equals its own :func:`run_em`'s bit for bit.
 
 In mode ``static-pallas`` a step is one launch of the tick's batched or
@@ -51,9 +62,10 @@ lane-offset keys, so its operation count does not grow with the lanes.
 That is the flat counterpart of the reference's ``vmap`` of ``run_em``
 and of its static pool micro-step (``_pool_tick_micro``).
 
-The JAX driver's ``while_loop``s are Python loops here.  The loop
-conditions need the MAP ``done`` flag on the host, so each MAP iteration
-reads one flag word from the device, and each EM boundary reads three.
+Outside the compiled program the JAX driver's ``while_loop``s are Python
+loops: their conditions need the MAP ``done`` flag on the host, so each
+MAP iteration reads one flag word from the device, and each EM boundary
+reads three.
 
 Every driver marks its hot scopes for the auditor's census
 (``repro_torch.analysis.census``): each MAP iteration and each EM
@@ -75,10 +87,11 @@ from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import PlainPoolTickWorkspace, TickShape
+from repro_torch.kernels.ref import (ACTIVE, CTL_WORDS, EM_ITERS, MAP_ITERS, STATUS, BoundaryState,
+                                     PlainPoolTickWorkspace, TickShape)
 
 Tensor = torch.Tensor
-_MAP, _EM = _census.MAP_ITERATION, _census.EM_BOUNDARY
+_MAP, _EM, _SOLVE = _census.MAP_ITERATION, _census.EM_BOUNDARY, _census.SOLVE
 
 CONV_TOL = 1.0e-4
 WINDOW = 3  # the paper's L
@@ -213,8 +226,9 @@ def _boundary_status(
 def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None, pool=False):
     """The MAP-iteration workspace for problems of ``shape`` under
     ``config``, built from the shapes alone: in mode ``static-pallas``
-    (``kernels.ops.tick_workspace``) for :func:`run_em`, with ``batch=B``
-    for :func:`run_em_batched`, or with ``batch=B, pool=True`` the slot
+    (``kernels.ops.tick_workspace``, with the compiled EM program of
+    ``config``'s limits) for :func:`run_em`, with ``batch=B`` for
+    :func:`run_em_batched`, or with ``batch=B, pool=True`` the slot
     pool of :func:`run_em_ticked`; in the modes ``static`` and
     ``faithful``, whose one-problem solve takes none, a
     :class:`DppBatchWorkspace` (``batch=B``) or a :class:`DppPoolWorkspace`
@@ -224,7 +238,8 @@ def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None, po
     if config.mode == "static-pallas":
         return kops.tick_workspace(
             shape, device=device, batch=batch, pool=pool, max_map_iters=config.max_map_iters,
-            precision=config.precision, conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
+            max_em_iters=None if pool else config.max_em_iters, precision=config.precision,
+            conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
         )
     if batch is None:
         raise ValueError(f"mode {config.mode!r} takes no workspace for one problem; "
@@ -243,6 +258,53 @@ def _check_workspace(ws, config: EMConfig, n_labels: int) -> None:
             f"K = {ws.n_labels}, the solve has {config.mode!r}, {config.precision!r} and "
             f"K = {n_labels}"
         )
+    if config.mode == "static-pallas":
+        limits = (getattr(ws, "max_em_iters", None), getattr(ws, "max_map_iters", None))
+        if limits != (config.max_em_iters, config.max_map_iters):
+            raise ValueError(
+                f"workspace built with the EM program of (max_em_iters, max_map_iters) "
+                f"{limits}, the solve has {(config.max_em_iters, config.max_map_iters)}")
+
+
+def _run_program(hoods: Hoods, model: E.EnergyModel, labels0: Tensor, mu0: Tensor,
+                 sigma0: Tensor, config: EMConfig, workspace, batch: Optional[int]):
+    """The compiled EM program of mode ``static-pallas`` on one device:
+    the element arrays (``energy.make_static_context``, one
+    ``segment_reduce`` launch), ``start`` (the solve's arrays copied into
+    the workspace), the program (on the card one graph launch, on the
+    plain route the plain program) and one read of its counters; then the
+    result, copied out of the workspace.  ``batch`` None for one problem,
+    else the stack's lanes.  Returns ``(outputs, em_iters, map_iters,
+    status, steps)``: ``outputs`` (labels, mu, sigma, hood energies,
+    total energies) with a lane axis, the counts one int per lane."""
+    validate_config(config)
+    dev = labels0.device
+    n_labels = model.n_labels
+    ws = workspace if workspace is not None else make_workspace(
+        TickShape.of(hoods, model), config, device=dev, batch=batch)
+    _check_workspace(ws, config, n_labels)
+    if batch is not None and ws.batch != batch:
+        raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
+    cen = _census.ACTIVE
+    if cen is not None:
+        cen.enter(_SOLVE)
+    if batch is None:
+        sctx = E.make_static_context(hoods, model, backend=config.backend)
+    else:
+        sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
+    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0, mu0, sigma0)
+    ws.run_program(cen)
+    em_iters, map_iters, status, steps = ws.program_result()
+    labels, mu, sigma, hood_e, total_hist = ws.program_views()
+    n_hoods = hood_e.shape[-1]
+    # One copy of the float outputs out of the workspace (its buffers
+    # belong to the bucket); the labels' gather is a copy of its own.
+    flat = torch.cat([mu, sigma, hood_e, total_hist[:, :1]], dim=1)
+    outputs = (labels, flat[:, :n_labels], flat[:, n_labels:2 * n_labels],
+               flat[:, 2 * n_labels:2 * n_labels + n_hoods], flat[:, -1])
+    if cen is not None:
+        cen.leave(_SOLVE)
+    return outputs, em_iters, map_iters, status, steps
 
 
 def map_step(
@@ -551,38 +613,34 @@ def _em_driver(
     ctx: collectives.ReduceCtx,
     workspace=None,
 ) -> EMResult:
-    """The EM driver of every mode and both routes; only the MAP loop and
-    the collective context differ.
+    """The EM driver of the modes ``static`` and ``faithful`` on either
+    route and of mode ``static-pallas`` on the sharded route; only the MAP
+    loop and the collective context differ.  (Mode ``static-pallas`` on
+    one device is the compiled program, :func:`_run_program`.)
 
     When ``ctx`` is sharded, ``hoods`` is this rank's element block (with
     globally indexed ``vertex``/``hood_id``) while ``model``, ``labels0``,
     ``mu0`` and ``sigma0`` are the same on every rank, and so is all label
-    and parameter state after each step.  In mode ``static-pallas`` on one
-    device each MAP iteration is ``workspace.step`` (a
-    ``kernels.ops.tick_workspace``) and one flag read, nothing else;
-    sharded, ``workspace`` is the rank's ``kernels.ops.map_step_workspace``
+    and parameter state after each step.  In mode ``static-pallas``,
+    ``workspace`` is the rank's ``kernels.ops.map_step_workspace``
     (``distributed.make_workspace``): one step, one flag read and one
-    all-reduce, with the AND of the flag word past the window.  The modes
-    ``static`` and ``faithful`` take no workspace (:func:`_map_loop`).
+    all-reduce per MAP iteration, with the AND of the flag word past the
+    window.  The modes take no workspace (:func:`_map_loop`).
     """
     validate_config(config)
     n_hoods = hoods.n_hoods
     dev = labels0.device
     f32 = torch.float32
     fused = config.mode == "static-pallas"
-    fused_tick = fused and not ctx.sharded
+    if fused and not ctx.sharded:
+        raise ValueError("mode 'static-pallas' on one device runs the compiled EM program "
+                         "(run_em), not this driver")
     if not fused:
         if workspace is not None:
             raise ValueError(f"mode {config.mode!r} takes no workspace")
         labels = labels0
     else:
         sctx = E.make_static_context(hoods, model, backend=config.backend, ctx=ctx)
-    if fused_tick:
-        ws = workspace if workspace is not None else make_workspace(
-            TickShape.of(hoods, model), config, device=dev)
-        _check_workspace(ws, config, model.n_labels)
-        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
-    elif fused:
         if workspace is None:
             raise ValueError("the sharded route needs its rank's workspace (distributed.make_workspace)")
         ws = workspace
@@ -606,26 +664,6 @@ def _em_driver(
             labels, hood_energy, i, map_div = _map_loop(hoods, model, labels, mu, sigma, config, ctx)
             mu, sigma, sum_w = E.update_parameters_stats(model, labels, config.mode,
                                                          backend=config.backend)
-        elif fused_tick:
-            # MAP loop: one launch and one flag read per iteration; the
-            # launch that stops the loop takes the M-step sums.
-            flag = 0
-            ws.begin_em(mu, torch.maximum(sigma, model.sigma_min))
-            while i < config.max_map_iters and not flag:
-                if cen is not None:
-                    cen.enter(_MAP)
-                i += 1
-                ws.step(i > WINDOW, i == config.max_map_iters)
-                flag = ws.flag()
-            if cen is not None:
-                cen.leave(_MAP)
-            if i:
-                hood_energy, msums = ws.hood_e, ws.stats
-            else:
-                hood_energy = torch.zeros((n_hoods,), dtype=f32, device=dev)
-                msums = torch.zeros((3, mu.shape[0]), dtype=f32, device=dev)
-            mu, sigma, sum_w = E.params_from_stats(model, msums[0], msums[1], msums[2])
-            map_div = bool(flag & kops.FLAG_DIVERGED)
         else:
             # MAP loop: per iteration one launch (the head tests iteration
             # i, the step computes i + 1), the AND of the flag word past
@@ -696,10 +734,18 @@ def run_em(
     workspace=None,
 ) -> EMResult:
     """EM on one problem, on the device its tensors live on.  In mode
-    ``static-pallas`` ``workspace`` (``make_workspace``) carries the MAP
-    loop's buffers across solves of one bucket; without it the solve builds
-    its own.  The modes ``static`` and ``faithful`` take none."""
-    return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)
+    ``static-pallas`` the compiled EM program of ``workspace``
+    (``make_workspace``: the bucket's buffers and program, carried across
+    its solves; without it the solve builds its own): on the card one graph
+    launch and one host read.  The modes ``static`` and ``faithful`` take
+    no workspace."""
+    if config.mode != "static-pallas":
+        return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)
+    (labels, mu, sigma, hood_e, total), em_iters, map_iters, status, _ = _run_program(
+        hoods, model, labels0, mu0, sigma0, config, workspace, None)
+    return EMResult(labels=labels[0], mu=mu[0], sigma=sigma[0], hood_energy=hood_e[0],
+                    total_energy=total[0], em_iters=em_iters[0], map_iters=map_iters[0],
+                    status=status[0])
 
 
 class BatchedEMResult(NamedTuple):
@@ -739,13 +785,16 @@ def run_em_batched(
     The EM loop runs while any lane runs, and each EM iteration's MAP loop
     while any lane's MAP loop runs; a lane whose MAP loop stopped is
     inactive until the next EM iteration, and a lane whose EM finished
-    stays inactive.  Per MAP iteration: one step of the workspace for the
-    running lanes (a batched tick launch in mode ``static-pallas``, one
-    flat MAP iteration of every lane in the modes ``static`` and
-    ``faithful``) and one read of the B flag words.  Per EM iteration: the
-    boundary over every lane at once (``params_from_stats`` on (B, 3, K),
-    the divergence and degeneracy tests, the total-energy rings) and one
-    host read.  Each lane's result is its own :func:`run_em`'s bit for bit.
+    stays inactive.  In mode ``static-pallas`` that is the stack's compiled
+    program (:func:`_run_program`; on the card one graph launch: per
+    lockstep MAP iteration one launch of the tick's lane entry, per EM
+    iteration one of the boundary's lane form, and one host read).  In the
+    modes ``static`` and ``faithful``, per MAP iteration one flat MAP
+    iteration of every lane on the workspace and one read of the B flag
+    words; per EM iteration the boundary over every lane at once
+    (``params_from_stats`` on (B, 3, K), the divergence and degeneracy
+    tests, the total-energy rings) and one host read.  Each lane's result
+    is its own :func:`run_em`'s bit for bit.
     ``workspace`` (``make_workspace(..., batch=B)``) carries the buffers
     across solves of one bucket and batch size.
     """
@@ -753,22 +802,22 @@ def run_em_batched(
     n_hoods = hoods.n_hoods
     batch, dev, f32 = int(labels0.shape[0]), labels0.device, torch.float32
     n_labels = model.n_labels
-    fused = config.mode == "static-pallas"
+    if config.mode == "static-pallas":
+        (labels, mu, sigma, hood_e, total), em_iters, map_iters, status, steps = _run_program(
+            hoods, model, labels0, mu0, sigma0, config, workspace, batch)
+        return BatchedEMResult(labels=labels, mu=mu, sigma=sigma, hood_energy=hood_e,
+                               total_energy=total, em_iters=tuple(em_iters),
+                               map_iters=tuple(map_iters), status=tuple(status), steps=steps)
     ws = workspace if workspace is not None else make_workspace(
         TickShape.of(hoods, model), config, device=dev, batch=batch)
     _check_workspace(ws, config, n_labels)
     if ws.batch != batch:
         raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
-    if fused:
-        sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
-        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0)
-    else:
-        ws.start(hoods, model, labels0)
+    ws.start(hoods, model, labels0)
 
     mu, sigma = mu0, sigma0
     hood_energy = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
     total_hist = torch.zeros((batch, WINDOW + 1), dtype=f32, device=dev)
-    zeros_stats = torch.zeros((batch, 3, n_labels), dtype=f32, device=dev)
     em_iters, map_iters = [0] * batch, [0] * batch
     status = [STATUS_OK] * batch
     running = [True] * batch   # lanes whose EM has not finished
@@ -804,7 +853,7 @@ def run_em_batched(
         else:
             # No MAP iteration: the modes' M-step still reads the labels.
             he = hood_energy.new_zeros(hood_energy.shape)
-            msums = zeros_stats if fused else torch.stack(
+            msums = torch.stack(
                 E.m_step_sums_lanes(model, ws.labels, config.mode, backend=config.backend), dim=1)
         new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
         div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
@@ -859,9 +908,10 @@ def run_em_batched(
 # pool (a launch of the tick's pool entry in mode static-pallas, one flat
 # MAP iteration of every lane in the modes static and faithful), in which
 # each active lane runs its own next MAP iteration, and one read of the B
-# flag words.  Where a lane's MAP loop stopped, the host runs that
-# lane's EM boundary (as ``_em_driver`` does) and starts its next EM
-# iteration, or marks it done.  Between calls the caller retires done
+# flag words.  Where a lane's MAP loop stopped, one launch of the boundary
+# kernel's lane form runs that lane's EM boundary at its own EM iteration
+# (``_tick_boundary``), and the host reads the words it wrote and starts the
+# lane's next EM iteration, or marks it done.  Between calls the caller retires done
 # lanes and admits new requests into the freed slots (``init_tick_lane``);
 # the pool's buffers never change shape, so no workspace is built.
 
@@ -900,13 +950,6 @@ class TickState:
     @property
     def batch(self) -> int:
         return len(self.done)
-
-    def model(self) -> E.EnergyModel:
-        """The boundary's view of the lanes' models (the region arrays and
-        ``beta`` are the workspace's)."""
-        ws = self.workspace
-        return E.EnergyModel(ws.region_mean, ws.region_weight, ws.beta, self.sigma_min,
-                             self.reseed_mu, self.reseed_sigma)
 
     def begin(self, slots: Sequence[int]) -> None:
         """Start an EM iteration of ``slots`` on the workspace: their
@@ -1125,44 +1168,40 @@ def tick_result(state: TickState, slot: int) -> EMResult:
 
 
 def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config: EMConfig) -> None:
-    """The EM boundary of the lanes whose MAP loop just stopped, vectorised
-    over the pool as ``run_em_batched``'s (``params_from_stats``, the
-    divergence and degeneracy tests, the total-energy rings) and selected
-    into those lanes, then one host read; the lanes that go on start their
-    next EM iteration."""
+    """The EM boundary of the lanes whose MAP loop just stopped: the
+    boundary kernel's lane form over the pool (``kops.em_boundary_lanes``,
+    on the plain route ``ref.em_boundary_lanes``: ``params_from_stats``,
+    the divergence and degeneracy tests, the total-energy rings, the
+    status, each lane at its own EM iteration) with those lanes running,
+    from one copy of their words to the device; then one host read of the
+    words it wrote, and the lanes that go on start their next EM
+    iteration."""
     cen = _census.ACTIVE
     if cen is not None:
         cen.enter(_EM)
-    ws, dev = state.workspace, state.mu.device
-    msums = ws.stats
-    model = state.model()
-    new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
-    div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
-    deg_t = _degenerate_components(model, new_sigma, sum_w)
-    new_hist = torch.cat([_total_energy(ws.hood_e)[:, None], state.total_hist[:, :-1]], dim=1)
-    conv_t = _window_converged(new_hist.T)
-    on = torch.zeros((state.batch, 1), dtype=torch.bool)
-    on[lanes] = True
-    on = on.to(dev)
-    state.mu = torch.where(on, new_mu, state.mu)
-    state.sigma = torch.where(on, new_sigma, state.sigma)
-    state.total_hist = torch.where(on, new_hist, state.total_hist)
-    div_l, deg_l, conv_l = torch.stack([div_t, deg_t, conv_t]).tolist()
+    ws, dev, batch = state.workspace, state.mu.device, state.batch
+    stopped = [0] * batch
+    for b in lanes:
+        stopped[b] = 1
+    words = torch.tensor([[0] * batch, state.map_i, flags, stopped, state.em_i, state.map_total,
+                          state.status, [0] * batch], dtype=torch.int32).to(dev)
+    ctl = torch.zeros((len(CTL_WORDS),), dtype=torch.int32, device=dev)
+    kops.em_boundary_lanes(
+        BoundaryState(ws.stats, ws.hood_e, words, ctl, state.mu, state.sigma, ws.mu, ws.sigma,
+                      ws.ring, state.total_hist, state.sigma_min, state.reseed_mu,
+                      state.reseed_sigma),
+        max_em_iters=config.max_em_iters, max_map_iters=config.max_map_iters, conv_tol=CONV_TOL,
+        backend=config.backend)
+    rows = words.tolist()
+    go, em_iters, map_iters, status = (rows[r] for r in (ACTIVE, EM_ITERS, MAP_ITERS, STATUS))
     go_on = []
     for b in lanes:
-        em_i = state.em_i[b] + 1
-        div = div_l[b] or bool(flags[b] & kops.FLAG_DIVERGED)
-        em_conv = em_i > WINDOW and conv_l[b]
-        state.em_i[b] = em_i
-        state.map_total[b] += state.map_i[b]
+        state.em_i[b], state.map_total[b], state.status[b] = em_iters[b], map_iters[b], status[b]
         state.map_i[b] = 0
-        finished = div or not (em_i < config.max_em_iters and not em_conv)
-        state.status[b] = _boundary_status(div, deg_l[b], finished, em_conv, em_i,
-                                           config.max_em_iters)
-        if finished:
-            state.done[b] = True
-        else:
+        if go[b]:
             go_on.append(b)
+        else:
+            state.done[b] = True
     if go_on:
         state.begin(go_on)
     if cen is not None:

@@ -110,8 +110,66 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <vector>
+
+#include "em_boundary.cuh"
 #include "flagword.cuh"
 #include "plainsum.cuh"
+
+// Graph building blocks: a conditional WHILE node, and one kernel launch
+// captured into a graph after given nodes.
+namespace graphs {
+
+inline cudaError_t nodes_of(cudaGraph_t g, std::vector<cudaGraphNode_t>* out) {
+  size_t n = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &n);
+  if (err != cudaSuccess || n == 0) return err;
+  out->resize(n);
+  return cudaGraphGetNodes(g, out->data(), &n);
+}
+
+// Add a conditional WHILE node on `handle` to `g` after `deps`; its node
+// and its (empty) body graph out.
+inline cudaError_t add_while(cudaGraph_t g, const cudaGraphNode_t* deps, size_t n_deps,
+                             cudaGraphConditionalHandle handle, cudaGraphNode_t* node,
+                             cudaGraph_t* body) {
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = handle;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  const cudaError_t err = cudaGraphAddNode(node, g, deps, n_deps, &p);
+  if (err == cudaSuccess) *body = p.conditional.phGraph_out[0];
+  return err;
+}
+
+// Capture what `launch(stream)` issues on `s` into `g`, after `deps`; the
+// one node it adds out.  `launch` returns a cudaError_t.
+template <typename Launch>
+cudaError_t capture(cudaGraph_t g, const cudaGraphNode_t* deps, size_t n_deps, cudaStream_t s,
+                    cudaGraphNode_t* node, Launch launch) {
+  std::vector<cudaGraphNode_t> before;
+  cudaError_t err = nodes_of(g, &before);
+  if (err != cudaSuccess) return err;
+  err = cudaStreamBeginCaptureToGraph(s, g, deps, nullptr, n_deps,
+                                      cudaStreamCaptureModeThreadLocal);
+  if (err != cudaSuccess) return err;
+  const cudaError_t launched = launch(s);
+  cudaGraph_t captured = nullptr;
+  err = cudaStreamEndCapture(s, &captured);
+  if (launched != cudaSuccess) return launched;
+  if (err != cudaSuccess) return err;
+  std::vector<cudaGraphNode_t> after;
+  if ((err = nodes_of(g, &after)) != cudaSuccess) return err;
+  if (after.size() != before.size() + 1) return cudaErrorStreamCaptureUnsupported;
+  for (cudaGraphNode_t n : after) {
+    if (std::find(before.begin(), before.end(), n) == before.end()) *node = n;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace graphs
 
 // A stack of B problems padded to one bucket, filled in by the caller once
 // per solve (the pointers) and read by every batched step.  Lane b's
@@ -122,7 +180,8 @@
 // hist_rows, n_hoods); hood_e (B, n_hoods); stats (B, 3, n_labels); sync
 // (B, 2) zero; flag_dev, flag_host_dev (the device view of B mapped host
 // words), parity and active (B,); map_i (B,), the pool entry's per-lane MAP
-// counters, or null for the lockstep entry; max_map_iters, the pool's cap.
+// counters, or null for the lockstep entry; max_map_iters, the pool's cap
+// (and the program's); map_live, map_cond and conditional, the program's.
 struct TickBatchPlan {
   const float* y;
   const float* w;
@@ -158,6 +217,14 @@ struct TickBatchPlan {
   int device;
   int max_map_iters;
   float conv_tol;
+  // The compiled EM program's lane entry (em_boundary.cuh): map_live counts
+  // the lanes still in the MAP loop, and the launch that stops the last of
+  // them sets the inner loop's condition (map_cond) to 0.  Null and 0 off
+  // the graph.
+  unsigned int* map_live;
+  unsigned long long map_cond;
+  int conditional;
+  unsigned int* launch_count;  // the program's: the tick's launches, counted by its first block
 };
 
 namespace {
@@ -215,6 +282,9 @@ struct TickParams {
   float conv_tol;
   int* lane_map_i;         // pool entry: the lane's MAP counter, set to map_i here; else nullptr
   int map_i;               // pool entry: the MAP iteration this launch runs for the lane
+  unsigned int* map_live;  // program: lanes still in the MAP loop; else nullptr
+  unsigned long long map_cond;  // program: the inner loop's conditional handle
+  int conditional;         // program: 1 when map_cond is live (in a graph)
 };
 
 template <bool BF16>
@@ -283,10 +353,17 @@ __device__ __forceinline__ bool stops(const TickParams& p, int word) {
 // Last block, one thread, after the sums: publish the flag word, reset the
 // ticket, and on the batched entry flip the lane's parity and retire a
 // lane that stopped; on the pool entry also count the lane's iteration.
+// In the compiled EM program the lane that stops last ends the MAP loop:
+// it sets the inner loop's condition to 0.
 __device__ __forceinline__ void finish(const TickParams& p, int word) {
   flagword::publish_word(p.sync, word, p.flag_dev, p.flag_host);
   if (p.lane_parity != nullptr) *p.lane_parity ^= 1;
-  if (p.lane_active != nullptr && stops(p, word)) *p.lane_active = 0;
+  if (p.lane_active != nullptr && stops(p, word)) {
+    *p.lane_active = 0;
+    if (p.map_live != nullptr && atomicSub(p.map_live, 1u) == 1u && p.conditional) {
+      cudaGraphSetConditional(p.map_cond, 0u);
+    }
+  }
   if (p.lane_map_i != nullptr) *p.lane_map_i = p.map_i;
 }
 
@@ -544,10 +621,12 @@ __device__ __forceinline__ bool lane_params(const TickBatchPlan& t, int b, int h
                   t.mu + b * k, t.sigma + b * k, t.beta + b, labels + q * nv,
                   t.ring + b * t.hist_rows * nh, labels + (1 - q) * nv, t.hood_e + b * nh,
                   votes + q * k * nv, votes + (1 - q) * k * nv, t.stats + b * 3 * k,
-                  t.sync + 2 * b, t.flag_dev + b, t.flag_host_dev + b, t.parity + b,
+                  t.sync + 2 * b, t.flag_dev + b,
+                  t.flag_host_dev != nullptr ? t.flag_host_dev + b : nullptr, t.parity + b,
                   t.active + b, t.hist_rows, head, /*ring_write=*/1, gate, cap, t.n_hoods,
                   t.n_vertices, t.n_labels, t.conv_tol,
-                  t.map_i != nullptr ? t.map_i + b : nullptr, i};
+                  t.map_i != nullptr ? t.map_i + b : nullptr, i, t.map_live, t.map_cond,
+                  t.conditional};
   return true;
 }
 
@@ -557,9 +636,17 @@ __global__ void __launch_bounds__(kTemplThreads) tick_kernel(const TickParams p)
 }
 
 // The batched entry: grid (blocks per lane, B), lane b = blockIdx.y.
+// The program counts the tick's launches on the device (its first block).
+__device__ __forceinline__ void count_launch(const TickBatchPlan& t) {
+  if (t.launch_count != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) {
+    atomicAdd(t.launch_count, 1u);
+  }
+}
+
 template <int K, bool BF16>
 __global__ void __launch_bounds__(kTemplThreads)
     tick_kernel_batched(const TickBatchPlan t, int head, int gate, int cap) {
+  count_launch(t);
   TickParams p;
   if (lane_params(t, blockIdx.y, head, gate, cap, &p)) tick_body<K, BF16>(p);
 }
@@ -572,6 +659,7 @@ __global__ void __launch_bounds__(kThreads) tick_kernel_rt(const TickParams p) {
 template <bool BF16>
 __global__ void __launch_bounds__(kThreads)
     tick_kernel_rt_batched(const TickBatchPlan t, int head, int gate, int cap) {
+  count_launch(t);
   TickParams p;
   if (lane_params(t, blockIdx.y, head, gate, cap, &p)) tick_body_rt<BF16>(p);
 }
@@ -813,6 +901,275 @@ int repro_em_tick_host_word(void** host, void** device, int n) {
 
 int repro_em_tick_free_host_word(void* host) {
   return static_cast<int>(cudaFreeHost(host));
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The device's graph support, probed: the driver's and the runtime's
+// versions, and a graph with a conditional WHILE node nested in another
+// (init -> WHILE(outer) { WHILE(inner) { step } -> tail }) run twice, each
+// launch counted.  The step counts and sets the inner loop's handle; the
+// tail counts the outer iterations, re-arms the inner handle and sets the
+// outer one; the init (in the top graph) sets the outer handle, and the
+// inner one starts each launch at its default.  The EM program is built in
+// this shape (em_boundary.cuh).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+__global__ void probe_init(int* c, cudaGraphConditionalHandle outer, int n_outer) {
+  c[0] = c[1] = c[2] = 0;
+  cudaGraphSetConditional(outer, n_outer > 0 ? 1u : 0u);
+}
+
+__global__ void probe_step(int* c, cudaGraphConditionalHandle inner, int m) {
+  c[0] += 1;
+  c[2] += 1;
+  cudaGraphSetConditional(inner, c[2] < m ? 1u : 0u);
+}
+
+__global__ void probe_tail(int* c, cudaGraphConditionalHandle outer,
+                           cudaGraphConditionalHandle inner, int n) {
+  c[1] += 1;
+  c[2] = 0;
+  cudaGraphSetConditional(inner, 1u);
+  cudaGraphSetConditional(outer, c[1] < n ? 1u : 0u);
+}
+
+}  // namespace
+
+extern "C" {
+
+// versions: [driver, runtime]; counts: [steps, outer iterations] of each
+// of the two launches (4 ints).  Returns a CUDA error code, and in `where`
+// the stage that failed (0: none).
+int repro_em_graph_probe(int n_outer, int n_inner, int* versions, int* counts, int* where) {
+  *where = 0;
+  cudaError_t e = cudaDriverGetVersion(versions);
+  if (e == cudaSuccess) e = cudaRuntimeGetVersion(versions + 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int* c = nullptr;
+  cudaStream_t s = nullptr;
+  cudaGraph_t g = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  int rc = 0;
+  auto step = [&](int stage, cudaError_t err) {
+    if (rc == 0 && err != cudaSuccess) {
+      rc = static_cast<int>(err);
+      *where = stage;
+    }
+    return rc == 0;
+  };
+  do {
+    if (!step(1, cudaMalloc(&c, 4 * sizeof(int)))) break;
+    if (!step(2, cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking))) break;
+    if (!step(3, cudaGraphCreate(&g, 0))) break;
+    cudaGraphConditionalHandle outer, inner;
+    if (!step(4, cudaGraphConditionalHandleCreate(&outer, g, 0, 0))) break;
+    cudaGraphNode_t init_node, outer_node, inner_node;
+    if (!step(5, graphs::capture(g, nullptr, 0, s, &init_node, [&](cudaStream_t cs) {
+          probe_init<<<1, 1, 0, cs>>>(c, outer, n_outer);
+          return cudaGetLastError();
+        })))
+      break;
+    cudaGraph_t outer_body, inner_body;
+    if (!step(6, graphs::add_while(g, &init_node, 1, outer, &outer_node, &outer_body))) break;
+    if (!step(7, cudaGraphConditionalHandleCreate(&inner, outer_body, 1,
+                                                  cudaGraphCondAssignDefault)))
+      break;
+    if (!step(8, graphs::add_while(outer_body, nullptr, 0, inner, &inner_node, &inner_body))) break;
+    cudaGraphNode_t n1, n2;
+    if (!step(9, graphs::capture(inner_body, nullptr, 0, s, &n1, [&](cudaStream_t cs) {
+          probe_step<<<1, 1, 0, cs>>>(c, inner, n_inner);
+          return cudaGetLastError();
+        })))
+      break;
+    if (!step(10, graphs::capture(outer_body, &inner_node, 1, s, &n2, [&](cudaStream_t cs) {
+          probe_tail<<<1, 1, 0, cs>>>(c, outer, inner, n_outer);
+          return cudaGetLastError();
+        })))
+      break;
+    if (!step(11, cudaGraphInstantiate(&exec, g, 0))) break;
+    for (int run = 0; run < 2; ++run) {
+      if (!step(12, cudaGraphLaunch(exec, s))) break;
+      if (!step(13, cudaStreamSynchronize(s))) break;
+      int host[4];
+      if (!step(14, cudaMemcpy(host, c, sizeof(host), cudaMemcpyDeviceToHost))) break;
+      counts[2 * run] = host[0];
+      counts[2 * run + 1] = host[1];
+    }
+  } while (false);
+  if (exec != nullptr) cudaGraphExecDestroy(exec);
+  if (g != nullptr) cudaGraphDestroy(g);
+  if (s != nullptr) cudaStreamDestroy(s);
+  if (c != nullptr) cudaFree(c);
+  return rc;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// The compiled EM program: a workspace's whole static-pallas solve as one
+// CUDA graph, the counterpart of the reference's Segmenter.compile
+// executable (two lax.while_loops lowered into one device program):
+//
+//   program_init -> WHILE(em_cond) {
+//                     WHILE(map_cond) { tick (lane entry, device controls) }
+//                     -> em_boundary_kernel
+//                   }
+//
+// The tick runs every active lane's own next MAP iteration from the lane
+// block's words (its MAP counter gives its ring head, gate and cap, as the
+// pool entry does); the lane that stops last sets map_cond to 0.  The
+// boundary closes the EM iteration and sets em_cond while some lane goes
+// on, and re-arms map_cond.  max_em_iters == 0 builds the init alone,
+// max_map_iters == 0 an outer loop of boundaries alone.  Every operand is
+// a buffer of the workspace, fixed for its life, so the graph is built
+// once from the shapes and limits and replayed by every solve: one graph
+// launch, and one wait for the result words (em_boundary.cuh).
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct ProgramGraph {
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+};
+
+cudaError_t launch_init(const em_program::ProgramPlan& p, cudaStream_t s) {
+  em_program::program_init<<<p.batch, em_program::kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_boundary(const em_program::ProgramPlan& p, cudaStream_t s) {
+  em_program::em_boundary_kernel<<<p.batch, em_program::kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tick(const TickBatchPlan& t, cudaStream_t s) {
+  TickParams shape{};
+  shape.n_hoods = t.n_hoods;
+  shape.n_labels = t.n_labels;
+  return static_cast<cudaError_t>(dispatch(Launch{&shape, &t, 0, 0, 0}, t.bf16, s));
+}
+
+cudaError_t build_program(TickBatchPlan* tick, em_program::ProgramPlan* prog, ProgramGraph* out,
+                          cudaStream_t s) {
+  cudaError_t err;
+  if ((err = cudaGraphCreate(&out->graph, 0)) != cudaSuccess) return err;
+  cudaGraph_t g = out->graph;
+  const bool em_loop = prog->max_em_iters > 0, map_loop = prog->max_map_iters > 0;
+  cudaGraphConditionalHandle em_h = 0, map_h = 0;
+  // The outer handle is set by program_init; the inner one starts every
+  // launch at 1 and is re-armed by each boundary.
+  if (em_loop && (err = cudaGraphConditionalHandleCreate(&em_h, g, 0, 0)) != cudaSuccess) return err;
+  prog->em_cond = em_h;
+  prog->conditional = em_loop ? 1 : 0;
+  cudaGraphNode_t init_node;
+  err = graphs::capture(g, nullptr, 0, s, &init_node,
+                        [&](cudaStream_t cs) { return launch_init(*prog, cs); });
+  if (err != cudaSuccess || !em_loop) return err;
+  cudaGraphNode_t outer_node;
+  cudaGraph_t outer_body;
+  if ((err = graphs::add_while(g, &init_node, 1, em_h, &outer_node, &outer_body)) != cudaSuccess) {
+    return err;
+  }
+  cudaGraphNode_t inner_node;
+  if (map_loop) {
+    if ((err = cudaGraphConditionalHandleCreate(&map_h, outer_body, 1,
+                                                cudaGraphCondAssignDefault)) != cudaSuccess) {
+      return err;
+    }
+    cudaGraph_t inner_body;
+    if ((err = graphs::add_while(outer_body, nullptr, 0, map_h, &inner_node, &inner_body)) !=
+        cudaSuccess) {
+      return err;
+    }
+    tick->map_cond = map_h;
+    tick->conditional = 1;
+    cudaGraphNode_t tick_node;
+    err = graphs::capture(inner_body, nullptr, 0, s, &tick_node,
+                          [&](cudaStream_t cs) { return launch_tick(*tick, cs); });
+    if (err != cudaSuccess) return err;
+  }
+  prog->map_cond = map_h;
+  prog->conditional = 1 | (map_loop ? 2 : 0);
+  cudaGraphNode_t boundary_node;
+  err = graphs::capture(outer_body, map_loop ? &inner_node : nullptr, map_loop ? 1 : 0, s,
+                        &boundary_node, [&](cudaStream_t cs) { return launch_boundary(*prog, cs); });
+  return err;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Build a workspace's program (above).  `tick` is its lane-entry tick plan
+// (map_i and map_live set, flag_host_dev null) and `prog` its boundary
+// plan, both filled in by the caller with the workspace's buffers; this
+// writes the conditional handles into both before it captures them.  The
+// graph's owner out in `graph` (repro_em_program_destroy frees it).
+int repro_em_program_build(TickBatchPlan* tick, em_program::ProgramPlan* prog, void** graph) {
+  *graph = nullptr;
+  if (tick->map_i == nullptr || tick->map_live == nullptr || tick->batch != prog->batch) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return on_device(tick->device, [&] {
+    cudaStream_t s = nullptr;
+    cudaError_t err = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ProgramGraph* pg = new ProgramGraph;
+    err = build_program(tick, prog, pg, s);
+    if (err == cudaSuccess) err = cudaGraphInstantiate(&pg->exec, pg->graph, 0);
+    cudaStreamDestroy(s);
+    if (err != cudaSuccess) {
+      if (pg->exec != nullptr) cudaGraphExecDestroy(pg->exec);
+      if (pg->graph != nullptr) cudaGraphDestroy(pg->graph);
+      delete pg;
+      return static_cast<int>(err);
+    }
+    *graph = pg;
+    return 0;
+  });
+}
+
+// One solve: one launch of the program on `stream`.
+int repro_em_program_launch(void* graph, void* stream) {
+  return static_cast<int>(cudaGraphLaunch(static_cast<ProgramGraph*>(graph)->exec,
+                                          static_cast<cudaStream_t>(stream)));
+}
+
+// Wait for `stream` and copy the `n` result words (mapped host memory).
+int repro_em_program_wait(void* stream, const int* host_words, int n, int* out) {
+  const cudaError_t err = cudaStreamSynchronize(static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const volatile int* words = host_words;
+  for (int j = 0; j < n; ++j) out[j] = words[j];
+  return 0;
+}
+
+int repro_em_program_destroy(void* graph) {
+  ProgramGraph* pg = static_cast<ProgramGraph*>(graph);
+  if (pg == nullptr) return 0;
+  cudaError_t err = cudaGraphExecDestroy(pg->exec);
+  const cudaError_t err2 = cudaGraphDestroy(pg->graph);
+  delete pg;
+  return static_cast<int>(err != cudaSuccess ? err : err2);
+}
+
+// The EM boundary of one problem (the single form: prog->batch == 1), one
+// launch on `stream`, outside any graph (prog->conditional 0).
+int repro_em_boundary(const em_program::ProgramPlan* prog, void* stream) {
+  if (prog->batch != 1 || prog->conditional != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_boundary(*prog, static_cast<cudaStream_t>(stream)));
+}
+
+// The EM boundary of a stack's B lanes (one block each), one launch on
+// `stream`, outside any graph.
+int repro_em_boundary_lanes(const em_program::ProgramPlan* prog, void* stream) {
+  if (prog->batch < 1 || prog->conditional != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_boundary(*prog, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

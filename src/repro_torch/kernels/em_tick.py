@@ -9,17 +9,22 @@ arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
 (``Hoods.offsets``).  Three entry points launch the same kernel body:
 
 * :class:`TickWorkspace`, the EM driver's: built from a bucket's shapes
-  alone (``ref.TickShape``: all buffers), bound to a solve's hoods, model
-  and element arrays in :meth:`~TickWorkspace.start` (every operand check),
-  it runs one MAP iteration per :meth:`~TickWorkspace.step` (one ``ctypes``
-  call, one launch: the label gather, the history ring and the finiteness
-  test are in the kernel) and reads the flag word with one wait in
+  alone (``ref.TickShape``: all buffers, the solve's inputs too) and the
+  EM limits, with its compiled EM program (:class:`SolveGraph`: the whole
+  solve as one CUDA graph, the tick's lane entry at B = 1 and the EM
+  boundary kernel of ``csrc/em_boundary.cuh`` in two conditional loops);
+  :meth:`~TickWorkspace.start` checks a solve's operands and copies them
+  in, ``run_program`` launches the graph, ``program_result`` reads the
+  counters with one wait.  Host-stepped, it runs one MAP iteration per
+  :meth:`~TickWorkspace.step` (one launch of the single entry, its
+  controls from the host) and reads the flag word with one wait in
   :meth:`~TickWorkspace.flag`.  ``ref.PlainTickWorkspace`` is its plain
   version.
 * :class:`BatchTickWorkspace`, the batched driver's: the same for a stack
-  of B problems padded to one bucket, one launch per MAP iteration for
-  every lane still running (the kernel's lane axis), one wait for the B
-  flag words.  ``ref.PlainBatchTickWorkspace`` is its plain version.
+  of B problems padded to one bucket, one launch of the lane entry per
+  lockstep MAP iteration for every lane still running, in its graph or
+  host-stepped (one wait for the B flag words).
+  ``ref.PlainBatchTickWorkspace`` is its plain version.
 * :class:`PoolTickWorkspace`, the continuous-batching driver's
   (``em.run_em_ticked``): a pool of B slots that owns its lanes' inputs,
   whose lanes sit at different MAP iterations; one launch per micro-step
@@ -30,6 +35,10 @@ arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
 * :func:`fused_em_tick_cuda`, with the JAX kernel's signature (``xf`` and
   ``hist`` given), allocating its outputs per call.  ``ref.fused_em_tick``
   is its plain version.
+
+:func:`em_boundary_cuda` launches the boundary kernel alone (its single or
+lane form; ``ref.em_boundary``/``em_boundary_lanes``), and
+:func:`graph_probe` the card's nested conditional graph probe.
 
 The kernel adds each hood's energies in the plain versions' element
 order and its M-step sums in vertex order, at every K
@@ -45,7 +54,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, ref
 from repro_torch.kernels.ref import FLAG_CONVERGED, FLAG_DIVERGED  # noqa: F401 (bits of the flag word)
 from repro_torch.kernels.ref import TickShape
 
@@ -58,10 +67,18 @@ SMEM_PER_BLOCK = 232_448
 MAX_LABELS = SMEM_PER_BLOCK // (4 * (3 + 8))
 
 #: Launches of the kernel in this process (``ops.launch_counts``), and
-#: how many of them were the batched entry's and the pool entry's.
+#: how many of them were the batched entry's and the pool entry's.  The
+#: launches a compiled program makes inside its graph are counted when the
+#: solve's result is read (``program_result``): the tick's (the lockstep
+#: MAP iterations) here and, for a stack, in ``launches_batched``; the EM
+#: boundary's (one per lockstep EM iteration) in ``launches_boundary``,
+#: beside those of its standalone entries; the graph launches themselves
+#: in ``launches_graph``.
 launches = 0
 launches_batched = 0
 launches_pool = 0
+launches_boundary = 0
+launches_graph = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -105,6 +122,10 @@ class _TickBatchPlan(ctypes.Structure):
             "batch", "capacity", "hist_rows", "n_hoods", "n_vertices", "n_labels", "bf16",
             "device", "max_map_iters")),
         ("conv_tol", ctypes.c_float),
+        ("map_live", _P),
+        ("map_cond", ctypes.c_ulonglong),
+        ("conditional", _I),
+        ("launch_count", _P),
     ]
 
 
@@ -117,6 +138,12 @@ _SIGNATURES = {
     "repro_em_tick_wait": [_P, _P],                 # plan, flag out
     "repro_em_tick_wait_batched": [_P, _P],         # plan, B flags out
     "repro_em_tick_host_word": [_P, _P, _I],        # host, device address out, words
+    "repro_em_program_build": [_P, _P, _P],         # tick plan, program plan, graph out
+    "repro_em_program_launch": [_P, _P],            # graph, stream
+    "repro_em_program_wait": [_P, _P, _I, _P],      # stream, host words, n, out
+    "repro_em_boundary": [_P, _P],                  # program plan (B = 1), stream
+    "repro_em_boundary_lanes": [_P, _P],            # program plan, stream
+    "repro_em_graph_probe": [_I, _I, _P, _P, _P],   # outer, inner, versions, counts, stage out
 }
 
 
@@ -220,6 +247,55 @@ def fused_em_tick_cuda(
     return labels, hood_e, votes, conv, stats[0], stats[1], stats[2]
 
 
+def em_boundary_cuda(state: ref.BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                     conv_tol: float = 1.0e-4, lanes: bool = False) -> None:
+    """The boundary kernel outside a program, in place on ``state``'s CUDA
+    tensors (``ref.BoundaryState``; with ``lanes`` the lane form, else the
+    single form, one problem without the lane axis): one launch on the
+    current stream, no loop condition set.  The contract is
+    ``ref.em_boundary`` / ``ref.em_boundary_lanes``."""
+    global launches_boundary
+    st = state if lanes else state.lanes()
+    dev = st.hood_e.device
+    if not st.hood_e.is_cuda:
+        raise ValueError(f"em_boundary_cuda needs CUDA tensors, got {dev}")
+    batch, k = int(st.em_mu.shape[0]), int(st.em_mu.shape[1])
+    nh, rows = int(st.hood_e.shape[1]), int(st.total_hist.shape[1])
+    f32, i32 = torch.float32, torch.int32
+    req = functools.partial(_build.require, "em_boundary_cuda")
+    for name, shape in (("stats", (batch, 3, k)), ("hood_e", (batch, nh)), ("em_mu", (batch, k)),
+                        ("em_sigma", (batch, k)), ("mu", (batch, k)), ("sigma", (batch, k)),
+                        ("ring", (batch, rows, nh)), ("total_hist", (batch, rows)),
+                        ("sigma_min", (batch,)), ("reseed_mu", (batch, k)),
+                        ("reseed_sigma", (batch,))):
+        req(getattr(st, name), name, f32, shape, dev)
+    req(st.lane, "lane", i32, (len(ref.LANE_WORDS), batch), dev)
+    req(st.ctl, "ctl", i32, (len(ref.CTL_WORDS),), dev)
+    g = _ProgramPlan()
+    for name in ("stats", "hood_e", "lane", "ctl", "em_mu", "em_sigma", "mu", "sigma", "ring",
+                 "total_hist", "sigma_min", "reseed_mu", "reseed_sigma"):
+        setattr(g, name, getattr(st, name).data_ptr())
+    g.batch, g.n_hoods, g.n_labels, g.window = batch, nh, k, rows - 1
+    g.max_em_iters, g.max_map_iters, g.conv_tol = max_em_iters, max_map_iters, conv_tol
+    entry = _entry("repro_em_boundary_lanes" if lanes else "repro_em_boundary")
+    with torch.cuda.device(dev):
+        entry(ctypes.addressof(g), torch.cuda.current_stream(dev).cuda_stream)
+    launches_boundary += 1
+
+
+def graph_probe(n_outer: int = 3, n_inner: int = 5) -> dict:
+    """The card's graph support (``repro_em_graph_probe``): the driver's and
+    the runtime's CUDA versions and the counts of a graph with a
+    conditional WHILE node nested in another, launched twice (each launch
+    must run ``n_outer`` x ``n_inner`` steps and ``n_outer`` outer
+    iterations)."""
+    versions, counts, where = (ctypes.c_int * 2)(), (ctypes.c_int * 4)(), ctypes.c_int(0)
+    _entry("repro_em_graph_probe")(n_outer, n_inner, ctypes.addressof(versions),
+                                   ctypes.addressof(counts), ctypes.addressof(where))
+    return {"driver_version": versions[0], "runtime_version": versions[1],
+            "counts": list(counts), "want": [n_outer * n_inner, n_outer] * 2}
+
+
 class _HostWord:
     """``n`` words of pinned host memory mapped into the card's address
     space, zeroed, freed with the object."""
@@ -265,49 +341,260 @@ def _check_problem(require, shape: TickShape, hoods, model, lead: tuple, dev) ->
     require(model.region_weight, "region_weight", f32, lead + (shape.n_vertices,), dev)
 
 
-class TickWorkspace:
+class SolveGraph:
+    """A workspace's compiled EM program (``repro_em_program_build``): the
+    owner of its CUDA graph, freed with the object.  ``launch`` replays it
+    on a stream: one graph launch per solve."""
+
+    ptr = None
+
+    def __init__(self, tick_plan: _TickBatchPlan, prog_plan: "_ProgramPlan"):
+        out = ctypes.c_void_p()
+        _entry("repro_em_program_build")(ctypes.addressof(tick_plan), ctypes.addressof(prog_plan),
+                                         ctypes.addressof(out))
+        self.ptr = out.value
+        self._launch = _entry("repro_em_program_launch")
+        self._destroy = _build.load("em_tick").repro_em_program_destroy
+        self._destroy.argtypes = [_P]
+
+    def launch(self, stream: int) -> None:
+        self._launch(self.ptr, stream)
+
+    def __del__(self):
+        if self.ptr:
+            self._destroy(self.ptr)
+            self.ptr = None
+
+
+class _ProgramPlan(ctypes.Structure):
+    """``struct em_program::ProgramPlan`` of ``csrc/em_boundary.cuh``."""
+
+    _fields_ = [
+        *((name, _P) for name in (
+            "stats", "hood_e", "lane", "ctl", "em_mu", "em_sigma", "mu", "sigma", "ring",
+            "total_hist", "sigma_min", "reseed_mu", "reseed_sigma", "mu0", "sigma0", "labels0",
+            "labels", "votes", "result_host")),
+        ("em_cond", ctypes.c_ulonglong),
+        ("map_cond", ctypes.c_ulonglong),
+        *((name, _I) for name in (
+            "batch", "n_hoods", "n_vertices", "n_labels", "window", "max_em_iters",
+            "max_map_iters", "conditional")),
+        ("conv_tol", ctypes.c_float),
+    ]
+
+
+class _Lanes:
+    """The buffers of ``batch`` lanes of one bucket on the card, the one
+    layout both tick workspaces keep (a single problem is one lane): the
+    solve's inputs, owned and filled in by ``start`` (so every kernel, and
+    the program's graph, reads fixed addresses), the MAP iteration's state
+    (two label and two vote buffers per lane swapped by its parity word,
+    the history ring, ``hood_e``, the M-step sums, the parameters), the
+    EM boundary's (the EM-level parameters, the total-energy ring), the
+    lane block and the program's words (``ref.LANE_WORDS``,
+    ``ref.CTL_WORDS``), the tickets, and the mapped result words.
+
+    Built with the EM limits (``max_em_iters`` not None) it compiles the
+    program (:class:`SolveGraph`) from these buffers; :meth:`run_program`
+    replays it (one graph launch) and :meth:`program_result` reads the
+    solve's counters (one wait, no copy)."""
+
+    max_em_iters = None
+
+    def _alloc(self, shape: TickShape, batch: int, dev, precision: str, conv_tol: float,
+               window: int, max_em_iters, max_map_iters) -> None:
+        self.capacity, nh, nv, k = shape
+        f32, i32 = torch.float32, torch.int32
+        z = lambda *s, dtype=f32: torch.zeros((batch, *s), dtype=dtype, device=dev)  # noqa: E731
+        one = lambda *s: torch.ones((batch, *s), dtype=f32, device=dev)  # noqa: E731
+        self._inputs = {
+            "y": z(self.capacity), "w": z(self.capacity), "nall": z(self.capacity),
+            "valid": z(self.capacity), "vertex": z(self.capacity, dtype=i32),
+            "offsets": z(nh + 1, dtype=i32), "region_mean": z(nv), "region_weight": z(nv),
+            "beta": z(), "sigma_min": z(), "reseed_mu": z(k), "reseed_sigma": one(),
+            "mu0": z(k), "sigma0": one(k), "labels0": z(nv, dtype=i32),
+        }
+        self._labels = z(2, nv, dtype=i32)
+        self._votes = z(2, k, nv)
+        self._ring = z(window + 1, nh)
+        self._hood_e = z(nh)
+        self._stats = z(3, k)
+        self._mu, self._sigma = z(k), one(k)
+        self._em_mu, self._em_sigma = z(k), one(k)
+        self._total_hist = z(window + 1)
+        self._lane = torch.zeros((len(ref.LANE_WORDS), batch), dtype=i32, device=dev)
+        self._ctl = torch.zeros((len(ref.CTL_WORDS),), dtype=i32, device=dev)
+        self._sync = z(2, dtype=i32)
+        self._lane_ix = torch.arange(batch, device=dev)
+        self._window, self._conv_tol = window, conv_tol
+        self._graph = None
+        self._stream = None
+        if max_em_iters is not None:
+            self._build_program(batch, precision, max_em_iters, max_map_iters)
+
+    def _tick_plan(self, batch: int, precision: str, max_map_iters: int) -> _TickBatchPlan:
+        """The lane entry's plan over these buffers (the host-stepped
+        stack's, or with the MAP counters the program's)."""
+        p = _TickBatchPlan()
+        for name, t in self._inputs.items():
+            if hasattr(p, name):
+                setattr(p, name, t.data_ptr())
+        p.mu, p.sigma = self._mu.data_ptr(), self._sigma.data_ptr()
+        p.labels, p.votes, p.ring = self._labels.data_ptr(), self._votes.data_ptr(), self._ring.data_ptr()
+        p.hood_e, p.stats, p.sync = self._hood_e.data_ptr(), self._stats.data_ptr(), self._sync.data_ptr()
+        lane = self._lane
+        p.flag_dev, p.parity, p.active = (lane[i].data_ptr() for i in (ref.FLAG, ref.PARITY, ref.ACTIVE))
+        p.batch, p.capacity, p.hist_rows = batch, self.capacity, self._window + 1
+        p.n_hoods, p.n_vertices, p.n_labels = self.n_hoods, self.n_vertices, self.n_labels
+        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), self.device.index, self._conv_tol
+        p.max_map_iters = max_map_iters
+        return p
+
+    def _build_program(self, batch: int, precision: str, max_em_iters: int, max_map_iters: int):
+        if max_em_iters < 0 or max_map_iters < 0:
+            raise ValueError(f"the EM limits must be >= 0, got {max_em_iters} and {max_map_iters}")
+        self.max_em_iters, self.max_map_iters = max_em_iters, max_map_iters
+        self._result = _HostWord(3 * batch + 3)
+        self._result_out = (ctypes.c_int * (3 * batch + 3))()
+        t = self._gplan = self._tick_plan(batch, precision, max_map_iters)
+        t.map_i = self._lane[ref.MAP_I].data_ptr()
+        t.map_live = self._ctl[ref.MAP_LIVE].data_ptr()
+        t.launch_count = self._ctl[ref.TICK_LAUNCHES].data_ptr()
+        g = self._pplan = _ProgramPlan()
+        for name, buf in (("stats", self._stats), ("hood_e", self._hood_e), ("lane", self._lane),
+                          ("ctl", self._ctl), ("em_mu", self._em_mu), ("em_sigma", self._em_sigma),
+                          ("mu", self._mu), ("sigma", self._sigma), ("ring", self._ring),
+                          ("total_hist", self._total_hist), ("labels", self._labels),
+                          ("votes", self._votes)):
+            setattr(g, name, buf.data_ptr())
+        for name in ("sigma_min", "reseed_mu", "reseed_sigma", "mu0", "sigma0", "labels0"):
+            setattr(g, name, self._inputs[name].data_ptr())
+        g.result_host = self._result.device
+        g.batch, g.n_hoods, g.n_vertices, g.n_labels = batch, self.n_hoods, self.n_vertices, self.n_labels
+        g.window, g.max_em_iters, g.max_map_iters = self._window, max_em_iters, max_map_iters
+        g.conv_tol = self._conv_tol
+        with torch.cuda.device(self.device):
+            self._graph = SolveGraph(t, g)
+        self._wait_program = _entry("repro_em_program_wait")
+
+    def _bind(self, require, lead: tuple, hoods, model, y, w, nall_e, valid, labels0,
+              mu0=None, sigma0=None) -> None:
+        """The operand checks, then one copy of the solve's arrays into the
+        workspace's own (on the current stream)."""
+        dev, f32, k = self.device, torch.float32, self.n_labels
+        _check_problem(require, self.shape, hoods, model, lead, dev)
+        for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
+            require(t, name, f32, lead + (self.capacity,), dev)
+        require(labels0, "labels0", torch.int32, lead + (self.n_vertices,), dev)
+        srcs = {"y": y, "w": w, "nall": nall_e, "valid": valid, "vertex": hoods.vertex,
+                "offsets": hoods.offsets, "region_mean": model.region_mean,
+                "region_weight": model.region_weight, "beta": model.beta,
+                "sigma_min": model.sigma_min, "reseed_mu": model.reseed_mu,
+                "reseed_sigma": model.reseed_sigma, "labels0": labels0}
+        for name in ("beta", "sigma_min", "reseed_sigma"):
+            require(srcs[name].reshape(lead), name, f32, lead, dev)
+        require(model.reseed_mu, "reseed_mu", f32, lead + (k,), dev)
+        if mu0 is not None:
+            require(mu0, "mu0", f32, lead + (k,), dev)
+            require(sigma0, "sigma0", f32, lead + (k,), dev)
+            srcs.update(mu0=mu0, sigma0=sigma0)
+        dst = [self._inputs[n] for n in srcs]
+        torch._foreach_copy_(dst, [t.reshape(d.shape) for t, d in zip(srcs.values(), dst)])
+
+    def run_program(self, marks=None) -> None:
+        """The solve bound by ``start`` (with ``mu0`` and ``sigma0``): one
+        launch of the program on the current stream.  ``marks`` is the
+        plain program's census hook; the graph's loops are on the card."""
+        if self._graph is None:
+            raise ValueError("this workspace was built without the EM limits: it has no program")
+        self.launch_program()
+
+    def launch_program(self) -> None:
+        global launches_graph
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
+        self._graph.launch(self._stream)
+        launches_graph += 1
+
+    def program_result(self) -> tuple:
+        """Wait for the program and read the solve's counters from the
+        mapped result words: each lane's EM iterations, MAP iterations and
+        status, and the lockstep MAP iterations.  The launch counts take
+        the graph's kernels as the kernels counted themselves on the device
+        (``program_launches``: the tick's and the boundary's)."""
+        global launches, launches_batched, launches_boundary
+        out, n = self._result_out, len(self._result_out)
+        self._wait_program(self._stream, self._result.host, n, ctypes.addressof(out))
+        words = list(out)
+        b = (n - 3) // 3
+        em, maps, status = words[0:3 * b:3], words[1:3 * b:3], words[2:3 * b:3]
+        steps, ticks, boundaries = words[3 * b:]
+        self.program_launches = {"tick": ticks, "em_boundary": boundaries}
+        launches += ticks
+        if self._batched:
+            launches_batched += ticks
+        launches_boundary += boundaries
+        return em, maps, status, steps
+
+    def program_views(self) -> tuple:
+        """(B, ...) views of the program's outputs: labels (gathered by the
+        parity words: a new tensor), the EM-level mu and sigma, the hood
+        energies and the total-energy ring."""
+        labels = self._labels[self._lane_ix, self._lane[ref.PARITY].long()]
+        return labels, self._em_mu, self._em_sigma, self._hood_e, self._total_hist
+
+
+class TickWorkspace(_Lanes):
     """The single-device EM driver's MAP-iteration state on the card, for
     one bucket: built from its shapes alone and reused by every solve of a
     problem of those shapes.
 
-    Built once per (``ref.TickShape``, precision, device): two label
-    buffers and two vote fields (each step reads one and writes the other;
-    the vote field it does not use it zeroes), the (window + 1, n_hoods)
-    history ring, ``hood_e``, the M-step sums, the kernel's ticket and flag
-    words, and a mapped pinned host word for the flag.  Every operand check
-    runs in :meth:`start` (the solve's hoods, model and element arrays) and
-    in :meth:`begin_em` (the parameters), never in the MAP loop.
+    Built once per (``ref.TickShape``, precision, device, EM limits): the
+    buffers of one lane (:class:`_Lanes`: the solve's inputs, two label
+    buffers and two vote fields, each step reading one and writing the
+    other and zeroing the vote field it does not use, the (window + 1,
+    n_hoods) history ring, ``hood_e``, the M-step sums, the words), a
+    mapped pinned host word for the flag and, with the EM limits, the
+    compiled EM program.  ``start`` checks the solve's operands and copies
+    them in.
 
-    A solve calls :meth:`start` once, :meth:`begin_em` at each EM
-    iteration, then per MAP iteration ``step(gate, cap)`` (one ``ctypes``
-    call, one launch) and :meth:`flag` (one wait; the bits are
-    ``ref.FLAG_*``).  ``labels``, ``hood_e`` and ``votes`` are views of the
-    buffers after the last step, valid until the next; ``stats`` holds the
-    M-step sums of the last launch that stopped a MAP loop.
+    The program (``em.run_em``): :meth:`start` with ``mu0`` and ``sigma0``,
+    :meth:`run_program` (one graph launch: the tick's lane entry at B = 1
+    with its controls from the device, the boundary kernel, their loops
+    conditional nodes), :meth:`program_result` (one wait).
+
+    Host-stepped (the per-launch checks, ``testing.host_loop``):
+    :meth:`start` without ``mu0``, :meth:`begin_em` at each EM iteration,
+    then per MAP iteration ``step(gate, cap)`` (one ``ctypes`` call, one
+    launch of the single entry, its parity, head, gate and cap from the
+    host) and :meth:`flag` (one wait; the bits are ``ref.FLAG_*``).
+    ``labels``, ``hood_e`` and ``votes`` are views of the buffers after the
+    last step, valid until the next; ``stats`` holds the M-step sums of the
+    last launch that stopped a MAP loop.
     """
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
+    _batched = False
 
     def __init__(self, shape: TickShape, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_em_iters=None,
+                 max_map_iters: int = 10):
         dev = _check_shape("TickWorkspace", shape, precision, device)
         self.shape, self.device, self.precision = shape, dev, precision
         self.capacity, nh, nv, n_labels = shape
         self.n_hoods, self.n_vertices, self.n_labels = nh, nv, n_labels
-        f32, i32 = torch.float32, torch.int32
-        self._labels = torch.zeros((2, nv), dtype=i32, device=dev)
-        self._votes = torch.zeros((2, n_labels, nv), dtype=f32, device=dev)
-        self.ring = torch.zeros((window + 1, nh), dtype=f32, device=dev)
-        self.hood_e = torch.zeros((nh,), dtype=f32, device=dev)
-        self.stats = torch.zeros((3, n_labels), dtype=f32, device=dev)
-        self._words = torch.zeros((3,), dtype=i32, device=dev)  # flag, ticket, accumulator
+        self._alloc(shape, 1, dev, precision, conv_tol, window, max_em_iters, max_map_iters)
+        self.ring, self.hood_e, self.stats = self._ring[0], self._hood_e[0], self._stats[0]
         self._host = _HostWord()
         self._plan = p = _TickPlan()
-        p.labels[0], p.labels[1] = self._labels[0].data_ptr(), self._labels[1].data_ptr()
-        p.votes[0], p.votes[1] = self._votes[0].data_ptr(), self._votes[1].data_ptr()
+        for name, t in self._inputs.items():
+            if hasattr(p, name):
+                setattr(p, name, t.data_ptr())
+        p.mu, p.sigma = self._mu.data_ptr(), self._sigma.data_ptr()
+        p.labels[0], p.labels[1] = self._labels[0, 0].data_ptr(), self._labels[0, 1].data_ptr()
+        p.votes[0], p.votes[1] = self._votes[0, 0].data_ptr(), self._votes[0, 1].data_ptr()
         p.ring, p.hood_e, p.stats = self.ring.data_ptr(), self.hood_e.data_ptr(), self.stats.data_ptr()
-        p.flag_dev, p.sync = self._words.data_ptr(), self._words[1:].data_ptr()
+        p.flag_dev, p.sync = self._lane[ref.FLAG].data_ptr(), self._sync.data_ptr()
         p.flag_host_dev, p.flag_host = self._host.device, self._host.host
         p.hist_rows, p.n_hoods, p.n_vertices, p.n_labels = window + 1, nh, nv, n_labels
         p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index, conv_tol
@@ -320,35 +607,27 @@ class TickWorkspace:
         self.parity = 0  # labels[parity] holds the current labels, votes[parity] is zero
         self.head = 0    # ring row of the newest hood energies
 
-    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
-        """Bind a solve: its hoods' ``vertex`` and ``offsets``, its model's
-        region arrays and ``beta``, its element arrays
-        (``energy.StaticMapContext``); copy its initial labels in.  The MAP
-        loop runs on the current stream."""
-        dev, f32 = self.device, torch.float32
-        _check_problem(_require_ws, self.shape, hoods, model, (), dev)
-        for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
-            _require_ws(t, name, f32, (self.capacity,), dev)
-        _require_ws(labels0, "labels0", torch.int32, (self.n_vertices,), dev)
-        beta = model.beta.to(f32).reshape(1).contiguous()
-        _require_ws(beta, "beta", f32, (1,), dev)
-        self._keep = (hoods.vertex, hoods.offsets, model.region_mean, model.region_weight, beta,
-                      y, w, nall_e, valid)
-        p = self._plan
-        p.vertex, p.offsets = hoods.vertex.data_ptr(), hoods.offsets.data_ptr()
-        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
-        p.beta = beta.data_ptr()
-        p.y, p.w, p.nall, p.valid = (t.data_ptr() for t in (y, w, nall_e, valid))
-        p.stream = torch.cuda.current_stream(dev).cuda_stream
-        self.labels.copy_(labels0)
+    def start(self, hoods, model, y, w, nall_e, valid, labels0, mu0=None, sigma0=None) -> None:
+        """Bind a solve: check its hoods' ``vertex`` and ``offsets``, its
+        model's region arrays and scalars, its element arrays
+        (``energy.StaticMapContext``) and initial labels, and copy them into
+        the workspace's buffers.  With ``mu0`` and ``sigma0`` it is the
+        program's solve; without, a host-stepped one, whose labels start in
+        buffer 0.  Everything runs on the current stream."""
+        self._bind(_require_ws, (), hoods, model, y, w, nall_e, valid, labels0, mu0, sigma0)
+        self._plan.stream = torch.cuda.current_stream(self.device).cuda_stream
+        if mu0 is None:
+            self.parity = 0
+            self._labels[0, 0].copy_(labels0)
+            self._votes[0, 0].zero_()
 
     def begin_em(self, mu, sigma) -> None:
         """An EM iteration's parameters (``sigma`` already clamped at
-        ``sigma_min``); empties the history ring."""
+        ``sigma_min``), copied in; empties the history ring."""
         for name, t in (("mu", mu), ("sigma", sigma)):
             _require_ws(t, name, torch.float32, (self.n_labels,), self.device)
-        self._params = (mu, sigma)
-        self._plan.mu, self._plan.sigma = mu.data_ptr(), sigma.data_ptr()
+        self._mu[0].copy_(mu)
+        self._sigma[0].copy_(sigma)
         self.ring.zero_()
         self.head = 0
 
@@ -370,68 +649,59 @@ class TickWorkspace:
 
     @property
     def labels(self) -> torch.Tensor:
-        return self._labels[self.parity]
+        return self._labels[0, self.parity]
 
     @property
     def votes(self) -> torch.Tensor:
         """The last step's votes (zeroed by the next step)."""
-        return self._votes[self.parity ^ 1]
+        return self._votes[0, self.parity ^ 1]
 
 
-class BatchTickWorkspace:
+class BatchTickWorkspace(_Lanes):
     """The batched EM driver's MAP-iteration state on the card: the state of
     :class:`TickWorkspace` for each of ``batch`` lanes of one bucket, one
     launch per MAP iteration for every lane still running.
 
-    Per lane the buffers are rows of stacked tensors; each lane has its own
-    ticket, flag word, parity word (flipped by the launch, so a lane that
-    stops keeps its labels where they are) and active word (set by
-    :meth:`begin_em` for the lanes that run that EM iteration, cleared by
-    the launch that stops a lane's MAP loop).  The ring's ``head`` is
-    shared: every running lane starts each EM iteration together, and a
-    stopped lane writes nothing.
+    Per lane the buffers are rows of stacked tensors (:class:`_Lanes`);
+    each lane has its own ticket, flag word, parity word (flipped by the
+    launch, so a lane that stops keeps its labels where they are) and
+    active word (cleared by the launch that stops the lane's MAP loop).
 
-    A solve calls :meth:`start` once with the stack (``Hoods`` and
-    ``EnergyModel`` whose tensors carry a leading lane axis, the element
-    arrays ``(B, capacity)``, the labels ``(B, n_vertices)``),
-    :meth:`begin_em` at each EM iteration with ``(B, K)`` parameters and the
-    lanes that run it, then per MAP iteration ``step(gate, cap)`` and
-    :meth:`flags` (one wait, B words; a word is the last launch's only for
-    a lane that ran in it).  ``labels``, ``votes``, ``hood_e``, ``ring``
-    and ``stats`` are the lanes' views as :class:`TickWorkspace` has them.
+    The program (``em.run_em_batched``): :meth:`start` with ``mu0`` and
+    ``sigma0`` (B, K), :meth:`run_program` (one graph launch: per lockstep
+    MAP iteration one launch of the tick's lane entry, each lane's ring
+    head, gate and cap from its own MAP counter, and per EM iteration one
+    launch of the boundary's lane form), :meth:`program_result` (one wait
+    for every lane's counters).
+
+    Host-stepped: :meth:`start` without ``mu0``, :meth:`begin_em` at each
+    EM iteration with ``(B, K)`` parameters and the lanes that run it, then
+    per MAP iteration ``step(gate, cap)`` (the ring's ``head`` shared: every
+    running lane starts each EM iteration together) and :meth:`flags` (one
+    wait, B words; a word is the last launch's only for a lane that ran in
+    it).  ``labels``, ``votes``, ``hood_e``, ``ring`` and ``stats`` are the
+    lanes' views as :class:`TickWorkspace` has them.
     """
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
+    _batched = True
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_em_iters=None,
+                 max_map_iters: int = 10):
         dev = _check_shape("BatchTickWorkspace", shape, precision, device)
         if batch < 1:
             raise ValueError(f"BatchTickWorkspace needs batch >= 1, got {batch}")
         self.shape, self.batch, self.device, self.precision = shape, batch, dev, precision
         self.capacity, nh, nv, n_labels = shape
         self.n_hoods, self.n_vertices, self.n_labels = nh, nv, n_labels
-        f32, i32 = torch.float32, torch.int32
-        self._labels = torch.zeros((batch, 2, nv), dtype=i32, device=dev)
-        self._votes = torch.zeros((batch, 2, n_labels, nv), dtype=f32, device=dev)
-        self.ring = torch.zeros((batch, window + 1, nh), dtype=f32, device=dev)
-        self.hood_e = torch.zeros((batch, nh), dtype=f32, device=dev)
-        self.stats = torch.zeros((batch, 3, n_labels), dtype=f32, device=dev)
-        # Per lane: flag, parity, active.
-        self._words = torch.zeros((3, batch), dtype=i32, device=dev)
-        self._sync = torch.zeros((batch, 2), dtype=i32, device=dev)
-        self._active_host = torch.zeros((batch,), dtype=i32).pin_memory()
+        self._alloc(shape, batch, dev, precision, conv_tol, window, max_em_iters, max_map_iters)
+        self.ring, self.hood_e, self.stats = self._ring, self._hood_e, self._stats
+        self._active_host = torch.zeros((batch,), dtype=torch.int32).pin_memory()
         self._host = _HostWord(batch)
-        self._lane = torch.arange(batch, device=dev)
-        self._plan = p = _TickBatchPlan()
-        p.labels, p.votes, p.ring = self._labels.data_ptr(), self._votes.data_ptr(), self.ring.data_ptr()
-        p.hood_e, p.stats, p.sync = self.hood_e.data_ptr(), self.stats.data_ptr(), self._sync.data_ptr()
-        p.flag_dev, p.parity, p.active = (self._words[i].data_ptr() for i in range(3))
+        self._plan = p = self._tick_plan(batch, precision, 0)
         p.flag_host_dev, p.flag_host = self._host.device, self._host.host
-        p.batch, p.capacity, p.hist_rows = batch, self.capacity, window + 1
-        p.n_hoods, p.n_vertices, p.n_labels = nh, nv, n_labels
-        p.bf16, p.device, p.conv_tol = int(precision == "bf16"), dev.index, conv_tol
         self._addr = ctypes.addressof(p)
         self._step = _entry("repro_em_tick_step_batched")
         self._wait = _entry("repro_em_tick_wait_batched")
@@ -440,40 +710,32 @@ class BatchTickWorkspace:
         self._rows = window + 1
         self.head = 0
 
-    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+    def start(self, hoods, model, y, w, nall_e, valid, labels0, mu0=None, sigma0=None) -> None:
         """Bind a stack's solve (every tensor with a leading lane axis of
-        ``batch``) and copy its initial labels in; every lane inactive until
-        :meth:`begin_em`.  The MAP loop runs on the current stream."""
-        dev, f32, lead = self.device, torch.float32, (self.batch,)
-        _check_problem(_require_batch, self.shape, hoods, model, lead, dev)
-        for name, t in (("y", y), ("w", w), ("nall_e", nall_e), ("valid", valid)):
-            _require_batch(t, name, f32, lead + (self.capacity,), dev)
-        _require_batch(labels0, "labels0", torch.int32, lead + (self.n_vertices,), dev)
-        beta = model.beta.to(f32).reshape(self.batch).contiguous()
-        _require_batch(beta, "beta", f32, lead, dev)
-        self._keep = (hoods.vertex, hoods.offsets, model.region_mean, model.region_weight, beta,
-                      y, w, nall_e, valid)
-        p = self._plan
-        p.vertex, p.offsets = hoods.vertex.data_ptr(), hoods.offsets.data_ptr()
-        p.region_mean, p.region_weight = model.region_mean.data_ptr(), model.region_weight.data_ptr()
-        p.beta = beta.data_ptr()
-        p.y, p.w, p.nall, p.valid = (t.data_ptr() for t in (y, w, nall_e, valid))
-        p.stream = torch.cuda.current_stream(dev).cuda_stream
-        # Each lane keeps its parity from the last solve: the vote buffer
-        # it points at was zeroed by that solve's last launch.
-        self._words[2].zero_()  # every lane inactive until begin_em
-        self._labels[self._lane, self._words[1].long()] = labels0
+        ``batch``): check it and copy it into the workspace's buffers.  With
+        ``mu0`` and ``sigma0`` it is the program's solve; without, a
+        host-stepped one: the labels go to each lane's current buffer and
+        every lane is inactive until :meth:`begin_em`.  Everything runs on
+        the current stream."""
+        self._bind(_require_batch, (self.batch,), hoods, model, y, w, nall_e, valid, labels0,
+                   mu0, sigma0)
+        self._plan.stream = torch.cuda.current_stream(self.device).cuda_stream
+        if mu0 is None:
+            # Each lane keeps its parity from the last solve: the vote buffer
+            # it points at was zeroed by that solve's last launch.
+            self._lane[ref.ACTIVE].zero_()  # every lane inactive until begin_em
+            self._labels[self._lane_ix, self._lane[ref.PARITY].long()] = labels0
 
     def begin_em(self, mu, sigma, active) -> None:
         """An EM iteration's ``(B, K)`` parameters (``sigma`` already
-        clamped at ``sigma_min``) and the lanes that run it (``active``, B
-        booleans on the host); empties the history rings."""
+        clamped at ``sigma_min``), copied in, and the lanes that run it
+        (``active``, B booleans on the host); empties the history rings."""
         for name, t in (("mu", mu), ("sigma", sigma)):
             _require_batch(t, name, torch.float32, (self.batch, self.n_labels), self.device)
-        self._params = (mu, sigma)
-        self._plan.mu, self._plan.sigma = mu.data_ptr(), sigma.data_ptr()
+        self._mu.copy_(mu)
+        self._sigma.copy_(sigma)
         self._active_host.copy_(torch.as_tensor([bool(a) for a in active], dtype=torch.int32))
-        self._words[2].copy_(self._active_host, non_blocking=True)
+        self._lane[ref.ACTIVE].copy_(self._active_host, non_blocking=True)
         self.ring.zero_()
         self.head = 0
 
@@ -494,17 +756,17 @@ class BatchTickWorkspace:
     @property
     def active(self) -> torch.Tensor:
         """The lanes' active words (1: the lane runs the next step)."""
-        return self._words[2]
+        return self._lane[ref.ACTIVE]
 
     @property
     def labels(self) -> torch.Tensor:
         """(B, n_vertices): each lane's current labels."""
-        return self._labels[self._lane, self._words[1].long()]
+        return self._labels[self._lane_ix, self._lane[ref.PARITY].long()]
 
     @property
     def votes(self) -> torch.Tensor:
         """(B, K, n_vertices): each lane's last step's votes."""
-        return self._votes[self._lane, (self._words[1] ^ 1).long()]
+        return self._votes[self._lane_ix, (self._lane[ref.PARITY] ^ 1).long()]
 
 
 class PoolTickWorkspace:

@@ -16,7 +16,8 @@ version's recompute as its backward.  Each kernel module counts its launches;
 zeroes them (``flash_attention.launches_tc`` too, the tensor-core share
 of the flash launches, ``em_tick.launches_batched`` and
 ``em_tick.launches_pool``, the batched and the pool entry's shares of the
-tick's, and ``segment_reduce.launches_ordered`` and ``launches_min``, the
+tick's, the compiled program's graph and boundary launches
+(:func:`program_launch_counts`), and ``segment_reduce.launches_ordered`` and ``launches_min``, the
 element-order ``add``'s and ``min``'s shares of ``segment_reduce``'s;
 :func:`segment_reduce_launches` splits them; :data:`LANE_STEPS` counts
 the steps of the modes' DPP workspaces, whose launches are
@@ -51,6 +52,13 @@ TickShape = ref.TickShape
 #: counted by ``count_workspace_build``).  ``WORKSPACE_BUILDS`` (a module
 #: attribute, read through ``__getattr__``) is its total.
 BUILDS = _budget.LEDGER.section("trace", keys=("tick", "batch_tick", "pool_tick", "map_step", "dpp"))
+#: Compiled EM programs built in this process, by kind: the ledger's
+#: ``"program"`` section (``PROGRAM_BUILDS`` is its total).  A
+#: static-pallas workspace built with the EM limits compiles its program
+#: beside its buffers (on the card a CUDA graph, on the plain route the
+#: plain program bound to the workspace), so a session builds one per
+#: bucket (and batch size) and a warm solve adds none.
+PROGRAMS = _budget.LEDGER.section("program", keys=("solve", "stack"))
 #: Steps of the modes' DPP workspaces (``em.DppBatchWorkspace``,
 #: ``em.DppPoolWorkspace``) since the last ``reset_launch_counts``: one flat
 #: MAP iteration of every lane each, whose kernel launches are
@@ -61,6 +69,8 @@ LANE_STEPS = 0
 def __getattr__(name: str):
     if name == "WORKSPACE_BUILDS":
         return _budget.LEDGER.total("trace")
+    if name == "PROGRAM_BUILDS":
+        return _budget.LEDGER.total("program")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -112,8 +122,18 @@ def reset_launch_counts() -> None:
     _flash_attention.launches_tc = 0
     _em_tick.launches_batched = 0
     _em_tick.launches_pool = 0
+    _em_tick.launches_boundary = 0
+    _em_tick.launches_graph = 0
     _segment_reduce.launches_ordered = 0
     _segment_reduce.launches_min = 0
+
+
+def program_launch_counts() -> Dict[str, int]:
+    """The compiled EM program's launches so far: ``graph`` the graph
+    launches (one per solve), ``em_boundary`` the boundary kernel's (one per
+    lockstep EM iteration inside a graph, and each standalone call); the
+    tick's launches inside a graph are ``launch_counts()["fused_em_tick"]``'s."""
+    return {"graph": _em_tick.launches_graph, "em_boundary": _em_tick.launches_boundary}
 
 
 def segment_reduce_launches() -> Dict[str, int]:
@@ -190,6 +210,7 @@ def tick_workspace(
     batch: Optional[int] = None,
     pool: bool = False,
     max_map_iters: int = 10,
+    max_em_iters: Optional[int] = 20,
     precision: str = "f32",
     conv_tol: float = 1.0e-4,
     window: int = 3,
@@ -207,22 +228,57 @@ def tick_workspace(
     continuous-batching driver's pool of B slots, each lane at its own MAP
     iteration and stopping at ``max_map_iters``
     (:class:`em_tick.PoolTickWorkspace`, one launch per micro-step; else
-    :class:`ref.PlainPoolTickWorkspace`)."""
+    :class:`ref.PlainPoolTickWorkspace`).
+
+    The single and batched workspaces also compile the EM program of the
+    limits ``max_em_iters`` and ``max_map_iters`` (the defaults are
+    ``em.EMConfig``'s; ``max_em_iters=None`` builds none) over their
+    buffers (``em.run_em`` and ``em.run_em_batched`` run it; a pool takes
+    none): on the card one CUDA graph (``em_tick.SolveGraph``), on the
+    plain route the plain program (``ref.run_program``);
+    ``PROGRAM_BUILDS`` counts them."""
     kernel = _use_kernel(backend, device)
     kw = dict(device=device, precision=precision, conv_tol=conv_tol, window=window)
     if pool and batch is None:
         raise ValueError("a pool workspace needs batch=B")
+    limits = dict(max_em_iters=max_em_iters, max_map_iters=max_map_iters)
     if batch is None:
         cls = _em_tick.TickWorkspace if kernel else ref.PlainTickWorkspace
-        ws, kind = cls(TickShape(*shape), **kw), "tick"
+        ws, kind = cls(TickShape(*shape), **kw, **limits), "tick"
     elif pool:
         cls = _em_tick.PoolTickWorkspace if kernel else ref.PlainPoolTickWorkspace
         ws, kind = cls(TickShape(*shape), batch, max_map_iters=max_map_iters, **kw), "pool_tick"
     else:
         cls = _em_tick.BatchTickWorkspace if kernel else ref.PlainBatchTickWorkspace
-        ws, kind = cls(TickShape(*shape), batch, **kw), "batch_tick"
+        ws, kind = cls(TickShape(*shape), batch, **kw, **limits), "batch_tick"
     count_workspace_build(kind)
+    if max_em_iters is not None and not pool:
+        _budget.LEDGER.bump("program", "solve" if batch is None else "stack")
     return ws
+
+
+def em_boundary(state: ref.BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                conv_tol: float = 1.0e-4, backend: Optional[str] = None) -> None:
+    """The EM boundary of one problem, in place (``ref.BoundaryState``
+    without the lane axis): the boundary kernel's single form, or
+    ``ref.em_boundary``.  Outside a program it sets no loop condition."""
+    if _use_kernel(backend, state.hood_e):
+        return _em_tick.em_boundary_cuda(state, max_em_iters=max_em_iters,
+                                         max_map_iters=max_map_iters, conv_tol=conv_tol)
+    return ref.em_boundary(state, max_em_iters=max_em_iters, max_map_iters=max_map_iters,
+                           conv_tol=conv_tol)
+
+
+def em_boundary_lanes(state: ref.BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                      conv_tol: float = 1.0e-4, backend: Optional[str] = None) -> None:
+    """The EM boundary of a stack's lanes, in place: the boundary kernel's
+    lane form (one block per lane), or ``ref.em_boundary_lanes``."""
+    if _use_kernel(backend, state.hood_e):
+        return _em_tick.em_boundary_cuda(state, max_em_iters=max_em_iters,
+                                         max_map_iters=max_map_iters, conv_tol=conv_tol,
+                                         lanes=True)
+    return ref.em_boundary_lanes(state, max_em_iters=max_em_iters, max_map_iters=max_map_iters,
+                                 conv_tol=conv_tol)
 
 
 def map_step_workspace(

@@ -302,19 +302,75 @@ def fused_map_iteration(
     return new_labels, hood_e, votes, flag, sum_w, sum_wy, sum_wyy
 
 
-class PlainTickWorkspace:
+class _PlainProgram:
+    """The plain program of a workspace built with the EM limits
+    (``max_em_iters`` not None): the lane block, the program's words, the
+    EM-level parameters and the total-energy ring beside the MAP
+    iteration's buffers, and the steps :func:`run_program` drives.  A
+    subclass gives :meth:`_program` (its tensors with a lane axis)."""
+
+    max_em_iters = None
+
+    def _program_buffers(self, batch: int, window: int, max_em_iters, max_map_iters) -> None:
+        self.max_em_iters, self.max_map_iters = max_em_iters, max_map_iters
+        k, dev, f32 = self.n_labels, self.device, torch.float32
+        lead = () if batch is None else (batch,)
+        self.lane = torch.zeros((len(LANE_WORDS),) + lead, dtype=torch.int32, device=dev)
+        self.ctl = torch.zeros((len(CTL_WORDS),), dtype=torch.int32, device=dev)
+        self.em_mu = torch.zeros(lead + (k,), dtype=f32, device=dev)
+        self.em_sigma = torch.ones(lead + (k,), dtype=f32, device=dev)
+        self.mu = torch.zeros(lead + (k,), dtype=f32, device=dev)
+        self.sigma = torch.ones(lead + (k,), dtype=f32, device=dev)
+        self.total_hist = torch.zeros(lead + (window + 1,), dtype=f32, device=dev)
+
+    def program_begin(self) -> None:
+        program_begin(self._program(), max_em_iters=self.max_em_iters,
+                      max_map_iters=self.max_map_iters)
+
+    def program_step(self) -> None:
+        program_map_iteration(self._program(), max_map_iters=self.max_map_iters,
+                              n_hoods=self.shape.n_hoods, n_vertices=self.shape.n_vertices,
+                              precision=self.precision, conv_tol=self._conv_tol)
+
+    def program_boundary(self) -> None:
+        em_boundary_lanes(self._program().boundary, max_em_iters=self.max_em_iters,
+                          max_map_iters=self.max_map_iters, conv_tol=self._conv_tol)
+
+    def run_program(self, marks=None) -> None:
+        """The solve bound by ``start``: the plain program (:func:`run_program`)."""
+        if self.max_em_iters is None:
+            raise ValueError("this workspace was built without the EM limits: it has no program")
+        run_program(self, marks)
+
+    def program_result(self) -> Tuple[list, list, list, int]:
+        """The last solve's counters (:func:`program_result`), one read."""
+        lane = self.lane if self.lane.dim() == 2 else self.lane[:, None]
+        return program_result(lane, self.ctl)
+
+    def program_views(self) -> tuple:
+        """(B, ...) views of the program's outputs: labels, the EM-level mu
+        and sigma, the hood energies and the total-energy ring."""
+        p = self._program()
+        b = p.boundary
+        return p.labels, b.em_mu, b.em_sigma, b.hood_e, b.total_hist
+
+
+class PlainTickWorkspace(_PlainProgram):
     """The plain version of ``em_tick.TickWorkspace`` (same methods and
     views), one :func:`fused_map_iteration` per step: the single-device
     EM driver's route on the CPU, or on the card with ``backend="torch"``.
     Its ``stats`` are every step's M-step sums (the kernel's only those of
     a step that stops the MAP loop, which are the ones the driver reads).
+    Built with the EM limits it also runs the compiled EM program's plain
+    version (:meth:`run_program`) on the solve :meth:`start` binds.
     """
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
 
     def __init__(self, shape: TickShape, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_em_iters=None,
+                 max_map_iters=None):
         self.shape, self.device, self.precision = shape, torch.device(device), precision
         self.n_labels, self._conv_tol = shape.n_labels, conv_tol
         f32 = torch.float32
@@ -325,14 +381,31 @@ class PlainTickWorkspace:
         self.stats = torch.zeros((3, shape.n_labels), dtype=f32, device=self.device)
         self.head = 0
         self._flag = torch.zeros((), dtype=torch.int32)
+        if max_em_iters is not None:
+            self._program_buffers(None, window, max_em_iters, max_map_iters)
 
-    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+    def start(self, hoods, model, y, w, nall_e, valid, labels0, mu0=None, sigma0=None) -> None:
+        """Bind a solve; ``mu0`` and ``sigma0`` are the program's start."""
         if TickShape.of(hoods, model) != self.shape:
             raise ValueError(f"a problem of {TickShape.of(hoods, model)}; the workspace was "
                              f"built for {self.shape}")
         self._hoods, self._model = hoods, model
         self._elements = (y, w, nall_e, valid)
+        self._start = (labels0, mu0, sigma0)
         self.labels = labels0.clone()
+
+    def _program(self) -> ProgramState:
+        h, m = self._hoods, self._model
+        labels0, mu0, sigma0 = self._start
+        one = lambda t: t.reshape(1, *t.shape)  # noqa: E731
+        scalar = lambda t: t.reshape(1)  # noqa: E731
+        bnd = BoundaryState(
+            one(self.stats), one(self.hood_e), self.lane[:, None], self.ctl, one(self.em_mu),
+            one(self.em_sigma), one(self.mu), one(self.sigma), one(self.ring),
+            one(self.total_hist), scalar(m.sigma_min), one(m.reseed_mu), scalar(m.reseed_sigma))
+        return ProgramState(*(one(t) for t in self._elements), one(h.hood_id), one(h.vertex),
+                            one(m.region_mean), one(m.region_weight), scalar(m.beta), one(mu0),
+                            one(sigma0), one(labels0), one(self.labels), one(self.votes), bnd)
 
     def begin_em(self, mu, sigma, log_sigma=None) -> None:
         """``log_sigma``, when given, stands for ``torch.log(sigma)``
@@ -355,6 +428,254 @@ class PlainTickWorkspace:
 
     def flag(self) -> int:
         return int(self._flag)
+
+
+# ---------------------------------------------------------------------------
+# The compiled EM program's plain version (``csrc/em_boundary.cuh`` and the
+# graph of ``csrc/em_tick.cu``).
+# ---------------------------------------------------------------------------
+
+#: Rows of a program's lane block ((len(LANE_WORDS), B) int32), as
+#: ``csrc/em_boundary.cuh`` numbers them.  The plain workspaces keep the
+#: parity row at 0 (their label buffers are not swapped).
+LANE_WORDS = ("active", "map_i", "flag", "running", "em_iters", "map_iters", "status", "parity")
+ACTIVE, MAP_I, FLAG, RUNNING, EM_ITERS, MAP_ITERS, STATUS, PARITY = range(len(LANE_WORDS))
+#: A program's words ((len(CTL_WORDS),) int32): the lockstep EM iteration,
+#: the lockstep MAP iterations, the lanes still in the MAP loop, the two
+#: loops' conditions, the boundary's join scratch, and the launches of the
+#: tick and of the boundary in the solve (each counted by the kernel).
+CTL_WORDS = ("em_i", "steps", "map_live", "em_cond", "map_cond", "ticket", "step_max", "go_on",
+             "tick_launches", "boundary_launches")
+EM_I, STEPS, MAP_LIVE, EM_COND, MAP_COND = range(5)
+TICK_LAUNCHES, BOUNDARY_LAUNCHES = 8, 9
+
+# The health codes (``em.STATUS_*``) and the M-step's constants
+# (``energy.params_from_stats``, ``energy.label_total``, ``energy.INERT_MU``).
+_OK, _CONVERGED, _MAX_ITERS, _DIVERGED, _DEGENERATE = range(5)
+_SEQUENTIAL_LABELS = 8
+_INERT_MU = 1.0e8
+
+
+class BoundaryState(NamedTuple):
+    """What an EM boundary reads and writes, with a leading lane axis
+    (the single form: the same tensors without it, ``lane`` (8,)).  Every
+    tensor is written in place."""
+
+    stats: Tensor         # (B, 3, K): each lane's stopping launch's M-step sums
+    hood_e: Tensor        # (B, n_hoods)
+    lane: Tensor          # (len(LANE_WORDS), B) int32
+    ctl: Tensor           # (len(CTL_WORDS),) int32
+    em_mu: Tensor         # (B, K): the EM-level parameters (the solve's result)
+    em_sigma: Tensor      # (B, K)
+    mu: Tensor            # (B, K): the tick's parameters
+    sigma: Tensor         # (B, K): the tick's, clamped at sigma_min
+    ring: Tensor          # (B, window + 1, n_hoods): the tick's history ring
+    total_hist: Tensor    # (B, window + 1): the total-energy ring, newest first
+    sigma_min: Tensor     # (B,)
+    reseed_mu: Tensor     # (B, K)
+    reseed_sigma: Tensor  # (B,)
+
+    def lanes(self) -> "BoundaryState":
+        """The single form's state as one lane (views)."""
+        return BoundaryState(*(t if t is self.ctl else t[:, None] if t is self.lane else t[None]
+                               for t in self))
+
+
+def _label_total(sum_w: Tensor) -> Tensor:
+    """``energy.label_total``."""
+    n_labels = int(sum_w.shape[-1])
+    if n_labels > _SEQUENTIAL_LABELS:
+        return torch.sum(sum_w, dim=-1, keepdim=True, dtype=torch.float64).to(torch.float32)
+    total = sum_w[..., :1]
+    for l in range(1, n_labels):
+        total = total + sum_w[..., l:l + 1]
+    return total
+
+
+def _window_ok(hist: Tensor, conv_tol: float) -> Tensor:
+    """The window test of each row of ``hist`` (newest first)."""
+    deltas = torch.abs(hist[:, :-1] - hist[:, 1:])
+    scale = torch.clamp_min(torch.abs(hist[:, :1]), 1.0)
+    return torch.all(deltas < conv_tol * scale, dim=1)
+
+
+def em_boundary_lanes(st: BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                      conv_tol: float = 1.0e-4) -> None:
+    """The EM boundary of every lane that ran the EM iteration (its
+    ``running`` word set), each at its own EM iteration (its ``em_iters``
+    word plus one: in a stack every running lane's is the program's, in a
+    pool each lane's own), in place: the plain version of the boundary
+    kernel, the counterpart of the reference's ``em_body``.
+
+    For such a lane: the M-step's closed form from its stopping launch's
+    sums (zeros when its MAP loop ran no iteration) with the cluster-death
+    reseed (``energy.params_from_stats``), the divergence test (with the
+    MAP loop's ``FLAG_DIVERGED``), the degeneracy test, the total energy
+    (float64 sum, rounded once) into its ring, the window test past
+    ``window`` EM iterations, its counters and status (``em._boundary_status``),
+    and, if it goes on, its next parameters (sigma clamped), an empty
+    history ring and its MAP words re-armed.  Then the program's words:
+    the EM iteration, the lockstep MAP iterations, the lanes that go on
+    (the next MAP loop's live count) and the two loops' conditions."""
+    lane, ctl = st.lane, st.ctl
+    window = int(st.total_hist.shape[1]) - 1
+    run = lane[RUNNING] != 0
+    i = lane[MAP_I].clone()
+    stats = torch.where((i > 0)[:, None, None], st.stats, 0.0)
+    sum_w, sum_wy, sum_wyy = stats[:, 0], stats[:, 1], stats[:, 2]
+    safe_w = torch.clamp_min(sum_w, 1e-6)
+    mu = sum_wy / safe_w
+    var = (sum_wyy / safe_w).double() - mu.double() * mu.double()
+    var = torch.clamp_min(var.float(), 0.0)
+    sigma = torch.maximum(torch.sqrt(var), st.sigma_min[:, None])
+    dead = sum_w < 1e-3 * _label_total(sum_w)
+    mu = torch.where(dead, st.reseed_mu, mu)
+    sigma = torch.where(dead, st.reseed_sigma[:, None], sigma)
+    div = ~torch.all(torch.isfinite(mu), dim=-1) | ~torch.all(torch.isfinite(sigma), dim=-1)
+    deg = torch.any(dead & (st.reseed_mu < _INERT_MU) & (sigma <= st.sigma_min[:, None]), dim=-1)
+    total = torch.sum(st.hood_e, dim=-1, dtype=torch.float64).to(torch.float32)
+    hist = torch.cat([total[:, None], st.total_hist[:, :-1]], dim=1)
+    em_i = lane[EM_ITERS] + 1  # each lane's own EM iteration (a pool's differ)
+    conv = (em_i > window) & _window_ok(hist, conv_tol)
+    div = div | ((lane[FLAG] & FLAG_DIVERGED) != 0)
+    finished = div | ~((em_i < max_em_iters) & ~conv)
+    status = torch.where(div, _DIVERGED, torch.where(finished & deg, _DEGENERATE, torch.where(
+        conv, _CONVERGED, torch.where(em_i >= max_em_iters, _MAX_ITERS, _OK)))).to(torch.int32)
+    go = run & ~finished
+    on = run[:, None]
+    st.em_mu.copy_(torch.where(on, mu, st.em_mu))
+    st.em_sigma.copy_(torch.where(on, sigma, st.em_sigma))
+    st.total_hist.copy_(torch.where(on, hist, st.total_hist))
+    st.mu.copy_(torch.where(go[:, None], mu, st.mu))
+    st.sigma.copy_(torch.where(go[:, None], torch.maximum(sigma, st.sigma_min[:, None]), st.sigma))
+    st.ring.masked_fill_(go[:, None, None], 0.0)
+    lane[EM_ITERS] = torch.where(run, em_i, lane[EM_ITERS])
+    lane[MAP_ITERS] += torch.where(run, i, 0)
+    lane[STATUS] = torch.where(run, status, lane[STATUS])
+    lane[RUNNING] = torch.where(run, (~(conv | div)).to(torch.int32), lane[RUNNING])
+    lane[MAP_I] = torch.where(go, 0, i)
+    lane[FLAG] = torch.where(go, 0, lane[FLAG])
+    lane[ACTIVE] = torch.where(go, int(max_map_iters > 0), lane[ACTIVE])
+    n_go = go.sum().to(torch.int32)
+    ctl[STEPS] += torch.max(torch.where(run, i, 0))
+    ctl[BOUNDARY_LAUNCHES] += 1
+    ctl[EM_I] += 1
+    ctl[MAP_LIVE] = n_go
+    ctl[EM_COND] = (n_go > 0).to(torch.int32)
+    ctl[MAP_COND] = int(max_map_iters > 0)
+
+
+def em_boundary(st: BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                conv_tol: float = 1.0e-4) -> None:
+    """:func:`em_boundary_lanes` of one problem (``st`` without the lane
+    axis, ``lane`` (8,)): the single form."""
+    em_boundary_lanes(st.lanes(), max_em_iters=max_em_iters, max_map_iters=max_map_iters,
+                      conv_tol=conv_tol)
+
+
+class ProgramState(NamedTuple):
+    """A plain program's tensors, with a leading lane axis: the solve's
+    inputs, the MAP iteration's state and the EM boundary's."""
+
+    y: Tensor
+    w: Tensor
+    nall: Tensor
+    valid: Tensor
+    hood_id: Tensor
+    vertex: Tensor
+    region_mean: Tensor
+    region_weight: Tensor
+    beta: Tensor           # (B,)
+    mu0: Tensor
+    sigma0: Tensor
+    labels0: Tensor
+    labels: Tensor         # (B, n_vertices)
+    votes: Tensor          # (B, K, n_vertices)
+    boundary: BoundaryState
+
+
+def program_begin(p: ProgramState, *, max_em_iters: int, max_map_iters: int) -> None:
+    """The start of a solve, in place: the plain version of the program's
+    init kernel (every lane's initial labels, empty rings and hood
+    energies, parameters from ``mu0``/``sigma0``, every lane running and,
+    if the MAP loop runs at all, active; the program's words)."""
+    b = p.boundary
+    p.labels.copy_(p.labels0)
+    b.hood_e.zero_()
+    b.ring.zero_()
+    b.total_hist.zero_()
+    b.em_mu.copy_(p.mu0)
+    b.em_sigma.copy_(p.sigma0)
+    b.mu.copy_(p.mu0)
+    b.sigma.copy_(torch.maximum(p.sigma0, b.sigma_min[:, None]))
+    b.lane.zero_()
+    b.lane[ACTIVE] = int(max_em_iters > 0 and max_map_iters > 0)
+    b.lane[RUNNING] = 1
+    b.ctl.zero_()
+    b.ctl[MAP_LIVE] = int(b.lane.shape[1]) if max_map_iters > 0 else 0
+    b.ctl[EM_COND] = int(max_em_iters > 0)
+    b.ctl[MAP_COND] = int(max_map_iters > 0)
+
+
+def program_map_iteration(p: ProgramState, *, max_map_iters: int, n_hoods: int, n_vertices: int,
+                          precision: str = "f32", conv_tol: float = 1.0e-4) -> None:
+    """One MAP iteration of every active lane, in place: the plain version
+    of the tick's lane entry in the program (each lane's ring head, gate
+    and cap from its MAP counter, as :func:`fused_map_iteration_batched`
+    with ``map_i`` takes them); the lanes that stop leave the live count,
+    and the last to stop ends the MAP loop (``map_cond`` 0)."""
+    b = p.boundary
+    active = b.lane[ACTIVE]
+    before = active.clone()
+    fused_map_iteration_batched(
+        p.y, p.w, p.nall, p.valid, p.hood_id, p.vertex, p.region_mean, p.region_weight, b.ring, 0,
+        p.labels, p.votes, b.hood_e, b.stats, b.lane[FLAG], active, b.mu, b.sigma, p.beta,
+        gate=False, cap=False, n_hoods=n_hoods, n_vertices=n_vertices, precision=precision,
+        conv_tol=conv_tol, map_i=b.lane[MAP_I], max_map_iters=max_map_iters)
+    b.ctl[MAP_LIVE] -= (before - active).sum().to(torch.int32)
+    b.ctl[MAP_COND] = (b.ctl[MAP_LIVE] > 0).to(torch.int32)
+    b.ctl[TICK_LAUNCHES] += 1
+
+
+def run_program(ws, marks=None, map_scope: str = "map_iteration",
+                em_scope: str = "em_boundary") -> None:
+    """The compiled EM program's control structure on a plain workspace
+    (``ws``: ``program_begin``, ``program_step``, ``program_boundary`` and
+    its ``ctl`` words), the plain version of the graph: the loops the graph
+    holds (none when ``max_em_iters`` is 0, no MAP loop when
+    ``max_map_iters`` is 0), each steered by the condition word the step
+    or the boundary wrote, read after it, as a graph's WHILE node reads its
+    handle.  ``marks`` (a census, or None) gets a scope per MAP iteration
+    and per EM boundary."""
+    ctl = ws.ctl
+    ws.program_begin()
+    if ws.max_em_iters <= 0:
+        return
+    while True:
+        if ws.max_map_iters > 0:
+            while True:
+                if marks is not None:
+                    marks.enter(map_scope)
+                ws.program_step()
+                if not int(ctl[MAP_COND]):
+                    break
+            if marks is not None:
+                marks.leave(map_scope)
+        if marks is not None:
+            marks.enter(em_scope)
+        ws.program_boundary()
+        if not int(ctl[EM_COND]):
+            break
+    if marks is not None:
+        marks.leave(em_scope)
+
+
+def program_result(lane: Tensor, ctl: Tensor) -> Tuple[list, list, list, int]:
+    """A program's counters, one host read: each lane's EM iterations, MAP
+    iterations and status, and the lockstep MAP iterations."""
+    words = torch.cat([lane[EM_ITERS:STATUS + 1].reshape(-1), ctl[STEPS:STEPS + 1]]).tolist()
+    n = int(lane.shape[1])
+    return words[:n], words[n:2 * n], words[2 * n:3 * n], words[3 * n]
 
 
 def lane_controls(map_i: int, rows: int, max_map_iters: int) -> Tuple[int, bool, bool]:
@@ -430,17 +751,19 @@ def fused_map_iteration_batched(
             active[b] = False
 
 
-class PlainBatchTickWorkspace:
+class PlainBatchTickWorkspace(_PlainProgram):
     """The plain version of ``em_tick.BatchTickWorkspace`` (same methods
     and views), one :func:`fused_map_iteration_batched` per step: the
     batched EM driver's route on the CPU, or on the card with
-    ``backend="torch"``."""
+    ``backend="torch"``; built with the EM limits, the plain program of a
+    stack (:meth:`run_program`)."""
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_em_iters=None,
+                 max_map_iters=None):
         self.shape, self.batch = shape, batch
         self.device, self.precision = torch.device(device), precision
         self.n_labels, self._conv_tol = shape.n_labels, conv_tol
@@ -453,16 +776,30 @@ class PlainBatchTickWorkspace:
         self.active = torch.zeros((batch,), dtype=torch.bool, device=dev)
         self._flags = torch.zeros((batch,), dtype=torch.int32, device=dev)
         self.head = 0
+        if max_em_iters is not None:
+            self._program_buffers(batch, window, max_em_iters, max_map_iters)
 
-    def start(self, hoods, model, y, w, nall_e, valid, labels0) -> None:
+    def start(self, hoods, model, y, w, nall_e, valid, labels0, mu0=None, sigma0=None) -> None:
+        """Bind a stack's solve; ``mu0`` and ``sigma0`` (B, K) are the
+        program's start."""
         if TickShape.of(hoods, model) != self.shape or labels0.shape[0] != self.batch:
             raise ValueError(f"a stack of {labels0.shape[0]} problems of "
                              f"{TickShape.of(hoods, model)}; the workspace was built for "
                              f"{self.batch} of {self.shape}")
         self._hoods, self._model = hoods, model
         self._elements = (y, w, nall_e, valid)
+        self._start = (labels0, mu0, sigma0)
         self.labels.copy_(labels0)
         self.active.zero_()
+
+    def _program(self) -> ProgramState:
+        h, m = self._hoods, self._model
+        labels0, mu0, sigma0 = self._start
+        bnd = BoundaryState(self.stats, self.hood_e, self.lane, self.ctl, self.em_mu,
+                            self.em_sigma, self.mu, self.sigma, self.ring, self.total_hist,
+                            m.sigma_min, m.reseed_mu, m.reseed_sigma)
+        return ProgramState(*self._elements, h.hood_id, h.vertex, m.region_mean, m.region_weight,
+                            m.beta, mu0, sigma0, labels0, self.labels, self.votes, bnd)
 
     def begin_em(self, mu, sigma, active, log_sigma=None) -> None:
         """``log_sigma`` (B, K), when given, stands for ``torch.log(sigma)``."""

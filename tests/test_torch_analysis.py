@@ -146,7 +146,8 @@ LAUNCHING = {
     "repro_fused_em_tick", "repro_em_tick_step", "repro_em_tick_step_batched",
     "repro_em_tick_step_pool", "repro_fused_map_step", "repro_map_step_iteration",
     "repro_mrf_min_energy", "repro_segment_reduce_f32", "repro_segment_reduce_ordered_f32",
-    "repro_flash_attention",
+    "repro_flash_attention", "repro_em_program_build", "repro_em_program_launch",
+    "repro_em_boundary", "repro_em_boundary_lanes", "repro_em_graph_probe",
 }
 
 
@@ -156,7 +157,8 @@ def test_exports_launching_and_not():
     quiet = {f"{k}:{e}" for k, ents in table.items() for e, l in ents.items() if not l}
     assert launching == LAUNCHING
     assert {"em_tick:repro_em_tick_wait", "em_tick:repro_em_tick_wait_batched",
-            "em_tick:repro_em_tick_host_word", "em_tick:repro_em_tick_free_host_word"} <= quiet
+            "em_tick:repro_em_tick_host_word", "em_tick:repro_em_tick_free_host_word",
+            "em_tick:repro_em_program_wait", "em_tick:repro_em_program_destroy"} <= quiet
     assert {f"{k}:repro_error_string" for k in table} <= quiet
 
 

@@ -15,6 +15,14 @@
   the 32x32 plan.
 * Exactly one host read per MAP iteration in every driver and mode, and
   one launch per MAP iteration for ``static-pallas`` under ``run_em``.
+* The compiled EM program (``static-pallas`` ``run_em`` and
+  ``run_em_batched``): on the CPU its plain version's rows (one launch and
+  one read of a condition word per MAP iteration and per EM boundary, no
+  device op there; per solve two launches, the neighbourhood sizes and the
+  start, and one read of the counters); its card rows
+  (``registry.PROGRAM_CARD``: no MAP or EM scope, the solve's counts the
+  CPU's but for the labels' gather by the device's parity words) and the
+  graph's kernels per iteration (``registry.PROGRAM_GRAPH``).
 """
 
 import json
@@ -154,3 +162,32 @@ def test_one_host_read_per_map_iteration(driver, mode):
         if mode == "static-pallas":
             assert m["min"]["launches"] == m["max"]["launches"] == 1
             assert m["max"]["device_ops"] == 0
+
+
+PROGRAM = [("run_em", "static-pallas"), ("run_em_batched", "static-pallas")]
+
+
+@pytest.mark.parametrize("driver,mode", PROGRAM)
+def test_plain_program_rows(driver, mode):
+    for k in registry.KS:
+        s = _baseline(driver, mode, k)
+        for scope in (census.MAP_ITERATION, census.EM_BOUNDARY):
+            mx, mn = s[scope]["max"], s[scope]["min"]
+            assert mx == mn and (mx["launches"], mx["host_reads"], mx["device_ops"]) == (1, 1, 0)
+        solve = s[census.SOLVE]
+        assert solve["instances"] == 1
+        assert (solve["max"]["launches"], solve["max"]["host_reads"], solve["max"]["h2d_copies"]) \
+            == (2, 1, 0)
+        # The audit's solve runs to its EM cap: one boundary per EM iteration.
+        assert s[census.EM_BOUNDARY]["instances"] == registry.AUDIT_MAX_EM_ITERS
+
+
+@pytest.mark.parametrize("driver,mode", PROGRAM)
+def test_program_card_rows(driver, mode):
+    card = registry.PROGRAM_CARD[(driver, mode)]
+    assert card[census.MAP_ITERATION] is None and card[census.EM_BOUNDARY] is None
+    cpu = _baseline(driver, mode)[census.SOLVE]["max"]
+    want = dict(cpu, device_ops=cpu["device_ops"] + 2, gathers=cpu["gathers"] + 1)
+    assert card[census.SOLVE] == want
+    assert registry.PROGRAM_GRAPH == {"tick_per_map_iteration": 1, "boundary_per_em_iteration": 1,
+                                      "init_per_solve": 1, "host_reads": 0}

@@ -1,6 +1,8 @@
 """The single-device MAP iteration of the port: ``ref.fused_map_iteration``
-(the plain version of the CUDA ``TickWorkspace``) and the EM driver that
-runs it on a plan-owned workspace.
+(the plain version of the CUDA ``TickWorkspace``) and the EM drivers that
+run it on a plan-owned workspace: the host-stepped loop
+(``testing.host_loop``, one step and one flag read per MAP iteration),
+which the compiled program (``em.run_em``) must equal bit for bit.
 
 * Over whole solves at K = 2, 3 and 9, f32 and bf16, the ring-and-head
   iteration gives the same bits at every MAP iteration as the composition
@@ -33,6 +35,7 @@ from repro_torch.core.pmrf import em as em_mod
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf import pipeline
 from repro_torch.kernels import _build, em_tick, ops, ref
+from repro_torch.testing import host_loop
 from repro_torch.testing.threads import one_intra_op_thread
 
 one_intra_op_thread()
@@ -70,8 +73,8 @@ class _Lockstep(ref.PlainTickWorkspace):
     the driver ran before it had a workspace, which keeps its own labels
     and its own history (rolled with ``torch.cat``)."""
 
-    def start(self, hoods, model, y, w, nall_e, valid, labels0):
-        super().start(hoods, model, y, w, nall_e, valid, labels0)
+    def start(self, hoods, model, y, w, nall_e, valid, labels0, mu0=None, sigma0=None):
+        super().start(hoods, model, y, w, nall_e, valid, labels0, mu0, sigma0)
         self.old_labels = labels0.clone()
         self.steps = 0
 
@@ -116,12 +119,16 @@ def test_map_iteration_equals_old_composition_over_a_solve(n_labels, precision):
     config = em_mod.EMConfig(precision=precision)
     ws = _Lockstep(ref.TickShape.of(prob.hoods, prob.model), device="cpu", precision=precision,
                    conv_tol=em_mod.CONV_TOL, window=em_mod.WINDOW)
-    res = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, config, workspace=ws)
+    res = host_loop.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, config, workspace=ws)
     assert ws.steps == res.map_iters > em_mod.WINDOW
     assert res.status in (em_mod.STATUS_CONVERGED, em_mod.STATUS_MAX_ITERS)
     # The result owns its tensors: the workspace's buffers stay the plan's.
     assert res.labels.data_ptr() != ws.labels.data_ptr()
     assert torch.equal(res.labels, ws.labels)
+    # The compiled program takes the same trajectory, bit for bit.
+    prog = em_mod.run_em(prob.hoods, prob.model, labels0, mu0, sigma0, config)
+    for got, want in zip(prog, res):
+        assert _same(got, want) if isinstance(got, torch.Tensor) else got == want
 
 
 def test_map_iteration_ring_and_flag_bits():
@@ -189,9 +196,11 @@ def test_nan_ends_the_solve_as_diverged(where):
 
     ws = Watch(ref.TickShape.of(prob.hoods, model), device="cpu", conv_tol=em_mod.CONV_TOL,
                window=em_mod.WINDOW)
-    res = em_mod.run_em(prob.hoods, model, labels0, mu0, sigma0, em_mod.EMConfig(), workspace=ws)
+    res = host_loop.run_em(prob.hoods, model, labels0, mu0, sigma0, em_mod.EMConfig(), workspace=ws)
     assert seen == [ref.FLAG_DIVERGED]
     assert (res.status, res.em_iters, res.map_iters) == (em_mod.STATUS_DIVERGED, 1, 1)
+    prog = em_mod.run_em(prob.hoods, model, labels0, mu0, sigma0, em_mod.EMConfig())
+    assert (prog.status, prog.em_iters, prog.map_iters) == (em_mod.STATUS_DIVERGED, 1, 1)
 
 
 def test_solves_on_one_plan_share_the_workspace_without_leaks():

@@ -35,10 +35,21 @@ PyTorch version on the card, and drives these paths (the launchers last):
   through the program and through the host-stepped route, the compile
   and graph-build seconds, and the tick's single entry (host controls)
   against its lane entry at B = 1 (device controls, what the graph runs);
+  (k) the control kernels (``csrc/em_control.cuh``) against their plain
+  versions; (f) the served pool's compiled tick (``pool_tick``, K = 2
+  and 3: one graph launch and one read per tick, each tick held to a
+  second pool ticked by the host-stepped tick, the launches the device
+  counted to the host's, every completion its serial solve); (g)-(i) the
+  modes' solve, stack and tick as graphs (``modes_slice`` K = 2, 3, 9,
+  ``modes_stack``, ``modes_pool``: the captured flat step and M-step as
+  child graphs, held to the host-stepped drivers bit for bit); (j) the
+  modes' warm K = 2 ``optimize_s`` through the program and the
+  host-stepped driver, and the graph's device time;
 * serving: 24 K = 2 requests (512x512 slices) through
   ``SegmentationEngine(max_batch=8)``, with ``tick_iters=4`` and
-  ``"auto"``: per micro-step one launch of the tick's pool entry
-  (``PoolTickWorkspace``), every lane at its own MAP iteration, and
+  ``"auto"``: per tick one launch of the pool's compiled tick (per
+  micro-step one launch of the tick's pool entry, ``PoolTickWorkspace``,
+  every lane at its own MAP iteration, inside it) and one host read, and
   between ticks admission into freed slots; then a mixed-K pool (4 K = 2
   and 4 K = 3 requests, K = 3 pool of 4 slots) and a chaos stream (a
   ``bad_init``, a ``nan_data`` and a ``never_converge`` request among 8);
@@ -563,6 +574,11 @@ SERVE_LAUNCH_GATE = ("--requests", "5", "--shape", "40", "--grid", "6", "--max-b
                      "--tick-iters", "auto", "--check", "--latency-gate", "5")
 SERVE_LAUNCH_CHAOS = ("--requests", "24", "--shape", "512", "--grid", "32", "--max-batch", "8",
                       "--tick-iters", "4", "--chaos", "--chaos-seed", "3", "--check")
+# The gate's ratio at the served stream's full size (24 512x512 requests, 8
+# slots, the adaptive ladder), printed beside the CI size's; its gate is
+# wide (it records the ratio; the CI size's gate of 5 is the check).
+SERVE_LAUNCH_FULL = ("--requests", "24", "--shape", "512", "--grid", "32", "--max-batch", "8",
+                     "--tick-iters", "auto", "--check", "--latency-gate", "1000")
 POOL_CHECK_SIZES = (1, 3, 8)  # slots at which the pool entry is held to its plain version
 POOL_CHECK_MAP_ITERS = 6  # the pool check's MAP cap: every lane reaches it inside the check
 NEVER_STOP = 1 << 30  # MAP cap of the timing pool (with tolerance 0 its lanes never stop)
@@ -1840,7 +1856,12 @@ class PoolLockstep:
     MAP counters, active words, and the flag words of the lanes that ran.
     ``launches`` counts the launches held, ``stopping`` the lanes whose MAP
     loop a launch stopped (their M-step sums held).  Everything else is the
-    kernel pool's."""
+    kernel pool's.  Its ticks take the plain tick's control (``em``'s
+    ``_tick_program`` without a graph) so that each launch is a host call to
+    hold."""
+
+    graph_tick = False
+    program = None
 
     def __init__(self, torch, kern, cpu):
         self.torch, self.kern, self.cpu = torch, kern, cpu
@@ -1854,6 +1875,14 @@ class PoolLockstep:
     def admit(self, slot, hoods, model, y, w, nall_e, valid, labels0):
         self.kern.admit(slot, hoods, model, y, w, nall_e, valid, labels0)
         self.cpu.hood_id[slot] = hoods.hood_id.cpu()
+
+    def program_step(self):
+        """The plain tick's step: :meth:`step` while some lane is active.
+        The plain tick runs its micro-steps to the tick's size with the
+        loop's condition as a mask; once every lane is done the card's tick
+        has left its loop, so those steps launch nothing here."""
+        if bool(self.kern.active.any()):
+            self.step()
 
     def step(self):
         torch, k, c = self.torch, self.kern, self.cpu
@@ -2002,7 +2031,8 @@ def serve_stream(torch, ops, seg, plans, bucket, tick_iters, max_batch: int, **e
             "pool_launches": em_tick.launches_pool, "builds": ops.WORKSPACE_BUILDS - builds,
             "wall_s": wall, "engine": engine, "lane_steps": ops.LANE_STEPS,
             "segment_reduce": ops.segment_reduce_launches(),
-            "m_steps": getattr(pool_ws, "m_steps", 0) - m0}
+            "m_steps": getattr(pool_ws, "m_steps", 0) - m0,
+            "control": ops.control_launch_counts(), "graphs": ops.program_launch_counts()["graph"]}
 
 
 def serve_row(what: str, run: dict, serial: list) -> dict:
@@ -2019,6 +2049,12 @@ def serve_row(what: str, run: dict, serial: list) -> dict:
              f"({run['pool_launches']} pool) for {st['total_steps']} micro-steps")
     if run["builds"]:
         fail(f"serve {what}: {run['builds']} workspaces built after the pool was set up")
+    control = run["control"]
+    if run["graphs"] != st["ticks"] or control["tick_init"] != st["ticks"] \
+            or control["tick_publish"] != st["ticks"] or control["tick_stops"] != st["total_steps"] \
+            or control["tick_tail"] != st["total_steps"]:
+        fail(f"serve {what}: {run['graphs']} graph launches and control launches {run['control']} "
+             f"for {st['ticks']} ticks and {st['total_steps']} micro-steps")
     lat = sorted(c.latency_s for c in comps.values())
     row = {"phase": "serve", "what": what, "requests": len(comps), "ticks": st["ticks"],
            "micro_steps": st["total_steps"], "pool_launches": run["pool_launches"],
@@ -2029,7 +2065,7 @@ def serve_row(what: str, run: dict, serial: list) -> dict:
            "residence_p50_s": float(np.percentile([c.residence_s for c in comps.values()], 50)),
            "lane_map_iters": sum(r.map_iters for r in serial), "launches": run["launches"],
            "statuses": sorted({c.status for c in comps.values()}), "bitwise_serial": True,
-           "tick_cost": st["tick_cost"]}
+           "tick_cost": st["tick_cost"], "graph_launches": run["graphs"], "control": run["control"]}
     emit(row)
     return row
 
@@ -2038,9 +2074,11 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
     """The pool entry at ``batch`` lanes of the serve stream, on a pool that
     no lane can leave (convergence tolerance 0 and a MAP cap of
     ``NEVER_STOP``, the same arithmetic and bytes as the served pool's): ms
-    per launch back to back (CUDA events), ms per micro-step as
-    ``run_em_ticked`` runs it (launch, flag read and the host's
-    bookkeeping; host clock), the plain pool step's ms on the card, and the
+    per launch back to back (CUDA events), ms per micro-step as the
+    host-stepped tick runs it (launch, flag read and the host's
+    bookkeeping; ``testing.host_loop``) and as the compiled tick does (a
+    tick of ``MAP_STEPS`` micro-steps, one graph launch and one read; both
+    on the host clock), the plain pool step's ms on the card, and the
     bound: the lanes' MAP-step bytes and operations.  With ``profile``:
     the device us per launch and the device operations of ``MAP_STEPS``
     micro-steps (one kernel each, no memset, no copy); a trace that shows
@@ -2053,7 +2091,8 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
 
     def fresh(backend=None):
         ws = ops.tick_workspace(shape, device=dev, batch=batch, pool=True, max_map_iters=NEVER_STOP,
-                                conv_tol=0.0, window=em_mod.WINDOW, backend=backend)
+                                max_em_iters=cfg.max_em_iters, conv_tol=0.0, window=em_mod.WINDOW,
+                                backend=backend)
         state = em_mod.blank_tick_state(ws)
 
         def reset():
@@ -2062,14 +2101,25 @@ def time_pool_step(torch, ops, em_mod, seg, plans, bucket, batch: int, profile: 
         reset()
         return state, reset
 
+    from repro_torch.testing import host_loop
+
     state, reset = fresh()
-    micro = lambda: em_mod._tick_micro(state, cfg)  # noqa: E731
+    # A micro-step as the host-stepped tick runs it (launch, flag read, the
+    # host's bookkeeping), and as the compiled tick runs it (a tick of
+    # MAP_STEPS micro-steps, one graph launch and one read, per micro-step).
+    micro = lambda: host_loop.run_em_ticked(state, cfg, 1)  # noqa: E731
     n = 10 * MAP_STEPS
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
         micro()
-    out = {"B": batch, "ms_per_micro_step": (time.perf_counter() - t0) / n * 1e3,
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        em_mod.run_em_ticked(state, cfg, MAP_STEPS)
+    program_ms = (time.perf_counter() - t0) / (10 * MAP_STEPS) * 1e3
+    out = {"B": batch, "ms_per_micro_step": host_ms, "ms_per_micro_step_program": program_ms,
            "ms": time_ms(state.workspace.step)}
     if any(state.done):
         fail(f"pool timing B={batch}: a lane stopped")
@@ -2276,7 +2326,9 @@ def serve_launcher() -> dict:
     most 5x the warm serial p50), and ``SERVE_LAUNCH_CHAOS``, the serve
     stream's 24 512x512 requests through 8 slots with ``--chaos
     --chaos-seed 3 --check`` (every healthy completion bit for bit its
-    serial ``execute``, every faulted one its disposition).  One ``serve`` line each: the gate's figures, the
+    serial ``execute``, every faulted one its disposition), and
+    ``SERVE_LAUNCH_FULL``, the gate's ratio at the served stream's full size
+    (printed; its gate of 1000 records it).  One ``serve`` line each: the gate's figures, the
     dispositions, throughput and latency; a run whose check or gate fails
     fails the phase."""
     import contextlib
@@ -2285,7 +2337,8 @@ def serve_launcher() -> dict:
     from repro_torch.launch import serve as launch_serve
 
     out = {}
-    for what, argv in (("latency_gate", list(SERVE_LAUNCH_GATE)), ("chaos", list(SERVE_LAUNCH_CHAOS))):
+    for what, argv in (("latency_gate", list(SERVE_LAUNCH_GATE)), ("chaos", list(SERVE_LAUNCH_CHAOS)),
+                       ("latency_gate_full_size", list(SERVE_LAUNCH_FULL))):
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -2308,8 +2361,8 @@ def serve_launcher() -> dict:
         emit(row)
         if code != 0 or report.get("check") != "ok":
             fail(f"serve: launch.serve {' '.join(argv)} exited {code}: {report.get('check')}")
-        if what == "latency_gate" and report.get("latency_gate_x") is None:
-            fail("serve: launch.serve --latency-gate reported no latency_gate_x")
+        if what.startswith("latency_gate") and report.get("latency_gate_x") is None:
+            fail(f"serve: launch.serve {' '.join(argv)} reported no latency_gate_x")
         out[what] = row
     return out
 
@@ -2917,8 +2970,12 @@ def run_modes(torch, api, ops, em_mod, E, slices, profile: bool) -> dict:
     launches by variant, warm ``optimize_s`` (best and median of
     ``SOLVES``), and with ``profile`` the device operations and idle share
     of one warm solve; once, one profiled faithful K = 2 solve's
-    ``DppProfile`` totals per primitive (the paper's section 4.3.2)."""
+    ``DppProfile`` totals per primitive (the paper's section 4.3.2).  The
+    executes run the modes' compiled program; the lockstep and the profile
+    step the host-stepped driver (``testing.host_loop.run_em``), whose
+    primitives are host calls."""
     from repro_torch.core import dpp
+    from repro_torch.testing import host_loop
 
     seed = SLICE["seed"]
     out = {}
@@ -2952,8 +3009,10 @@ def run_modes(torch, api, ops, em_mod, E, slices, profile: bool) -> dict:
                      f"{[res.status, res.em_iters, res.map_iters]} differ from the CPU plain path's "
                      f"{row['cpu_plain']}")
             if k in MODES_LOCKSTEP_K:
+                # The host-stepped driver (the program's parity reference):
+                # its MAP iterations and M-steps are host calls to hold.
                 with DppLockstep(torch, em_mod, E, cfg.max_map_iters) as ls:
-                    got = em_mod.run_em(*seg.lane_inputs(plan, seed=seed), cfg.em_config())
+                    got = host_loop.run_em(*seg.lane_inputs(plan, seed=seed), cfg.em_config())
                 row.update(lockstep_launches=ls.launches, lockstep_equal_launches=ls.equal_launches,
                            lockstep_m_steps=ls.m_steps, launches_log_sigma_unequal_cpu=ls.log_unequal)
                 trajectory = [em_mod.STATUS_NAMES[got.status], got.em_iters, got.map_iters]
@@ -2971,9 +3030,11 @@ def run_modes(torch, api, ops, em_mod, E, slices, profile: bool) -> dict:
                 profile_solve(torch, f"K={k} {mode} solve (execute)",
                               lambda: seg.execute(plan, seed=seed))
             if k == 2 and mode == "faithful":
+                # Per primitive: the host-stepped driver's calls (inside the
+                # program's graph no primitive is a host call).
                 with dpp.profiled() as prof:
-                    seg.execute(plan, seed=seed)
-                emit({"phase": "dpp_profile", "K": k, "mode": mode,
+                    host_loop.run_em(*seg.lane_inputs(plan, seed=seed), cfg.em_config())
+                emit({"phase": "dpp_profile", "K": k, "mode": mode, "driver": "host_stepped",
                       "seconds": prof.totals(), "calls": prof.counts()})
             results[mode] = res
             out[(k, mode)] = row
@@ -3072,9 +3133,12 @@ def flat_lockstep_check(torch, api, em_mod, seg, plans, joint, mode: str, want: 
     cfg = seg.config.em_config()
     inputs = seg.stacked_inputs(plans[:n], bucket=joint, seeds=[SLICE["seed"]] * n)
     shape = TickShape.of(inputs[0], inputs[1])
+    from repro_torch.testing import host_loop
+
     ls = FlatLockstep(torch, em_mod.make_workspace(shape, cfg, device=inputs[0].vertex.device, batch=n),
                       em_mod.make_workspace(shape, cfg, device="cpu", batch=n))
-    got = em_mod.run_em_batched(*inputs, cfg, workspace=ls)
+    # The host-stepped stack (the program's parity reference) on the wrapper.
+    got = host_loop.run_em_batched(*inputs, cfg, workspace=ls)
     from repro_torch.core.pmrf import pipeline
 
     for b in range(n):
@@ -6248,45 +6312,47 @@ def program_stack(torch, api, ops, em_mod, st) -> dict:
 
 def program_census(torch, api, ops, sl, st) -> list:
     """(d) The census of a warm ``execute`` of the K = 2 slice and of a warm
-    ``drain`` of the 16-slice stack on the card: exactly one graph launch
-    (beside the neighbourhood sizes' ``segment_reduce``), one host read, no
-    MAP or EM scope seen by the host, no workspace or program built; held
-    to ``registry.PROGRAM_CARD``."""
+    ``drain`` of the 16-slice stack on the card, in every mode: exactly one
+    graph launch (in mode static-pallas beside the neighbourhood sizes'
+    ``segment_reduce``), one host read, no MAP or EM scope seen by the
+    host, no workspace or program built; held to ``registry.PROGRAM_CARD``.
+    (A tick's census is taken in ``program_pool_run``.)"""
     from repro_torch.analysis import census, registry
 
     seed = SLICE["seed"]
-    seg = api.Segmenter(sl["config"], device=torch.device(DEVICE))
     plans, joint = st["plans"], st["joint"]
-    stack = api.Segmenter(st["seg"].config, device=torch.device(DEVICE))
-
-    def drain():
-        for p in plans:
-            stack.submit(p, seed=seed, bucket=joint)
-        return stack.drain()
-
     rows = []
-    for driver, solve in (("run_em", lambda: seg.execute(sl["plan"], seed=seed)),
-                          ("run_em_batched", drain)):
-        solve()
-        builds, programs = ops.WORKSPACE_BUILDS, ops.PROGRAM_BUILDS
-        graphs = ops.program_launch_counts()["graph"]
-        with census.take() as cen:
+    for mode in ("static-pallas",) + MODES:
+        seg = api.Segmenter(sl["config"].with_(mode=mode), device=torch.device(DEVICE))
+        stack = api.Segmenter(st["seg"].config.with_(mode=mode), device=torch.device(DEVICE))
+
+        def drain():
+            for p in plans:
+                stack.submit(p, seed=seed, bucket=joint)
+            return stack.drain()
+
+        for driver, solve in (("run_em", lambda: seg.execute(sl["plan"], seed=seed)),
+                              ("run_em_batched", drain)):
             solve()
-        card = cen.summary()
-        want = registry.PROGRAM_CARD[(driver, "static-pallas")]
-        got = {s: card[s]["max"] if card[s]["instances"] else None for s in census.SCOPES}
-        row = {"phase": "program", "part": "census", "driver": driver, "K": 2,
-               "card": {s: {"instances": card[s]["instances"], "max": card[s]["max"]}
-                        for s in census.SCOPES},
-               "graph_launches": ops.program_launch_counts()["graph"] - graphs,
-               "builds": {"workspace": ops.WORKSPACE_BUILDS - builds,
-                          "program": ops.PROGRAM_BUILDS - programs},
-               "equal_registry": got == want}
-        emit(row)
-        if got != want or row["graph_launches"] != 1 or any(row["builds"].values()):
-            fail(f"program census {driver}: {got}, registry {want}, {row['graph_launches']} graph "
-                 f"launches, builds {row['builds']}")
-        rows.append(row)
+            builds, programs = ops.WORKSPACE_BUILDS, ops.PROGRAM_BUILDS
+            graphs = ops.program_launch_counts()["graph"]
+            with census.take() as cen:
+                solve()
+            card = cen.summary()
+            want = registry.PROGRAM_CARD[(driver, mode)]
+            got = {s: card[s]["max"] if card[s]["instances"] else None for s in census.SCOPES}
+            row = {"phase": "program", "part": "census", "driver": driver, "mode": mode, "K": 2,
+                   "card": {s: {"instances": card[s]["instances"], "max": card[s]["max"]}
+                            for s in census.SCOPES},
+                   "graph_launches": ops.program_launch_counts()["graph"] - graphs,
+                   "builds": {"workspace": ops.WORKSPACE_BUILDS - builds,
+                              "program": ops.PROGRAM_BUILDS - programs},
+                   "equal_registry": got == want}
+            emit(row)
+            if got != want or row["graph_launches"] != 1 or any(row["builds"].values()):
+                fail(f"program census {driver} {mode}: {got}, registry {want}, "
+                     f"{row['graph_launches']} graph launches, builds {row['builds']}")
+            rows.append(row)
     return rows
 
 
@@ -6449,6 +6515,376 @@ def program_timing(torch, api, ops, em_mod, sl, smi_line: str) -> dict:
     return row
 
 
+#: (K, slots, tick size) of the pool_tick and modes_pool parts: the stack
+#: phase's 16 K = 2 and 4 K = 3 plans through a pool of their joint bucket.
+PROGRAM_POOLS = ((2, 4, 3), (3, 2, 8))
+PROGRAM_MODE_SLICES = (2, 3, 9)  # K of the modes_slice part (the slice phase's plans)
+
+
+def _pool_words(em_tick, ops):
+    """The launch counts a tick moves: the pool entry's, the boundary's,
+    the graphs', and ``segment_reduce``'s by variant."""
+    sr = ops.segment_reduce_launches()
+    return (em_tick.launches_pool, em_tick.launches_boundary, ops.program_launch_counts()["graph"],
+            sr["add"], sr["ordered_add"], sr["min"])
+
+
+def program_pool_run(torch, em_mod, ops, lanes, cfg, slots: int, tick_iters: int, dev) -> dict:
+    """``lanes`` (admission inputs) through two pools of ``slots`` slots fed
+    the same requests: one ticked by the compiled tick (``run_em_ticked``),
+    one by the host-stepped tick (``testing.host_loop.run_em_ticked``).
+    After every tick the two pools' host lists and micro-steps are held
+    equal, and the tick's graph launches (1), pool launches, boundary
+    launches and a mode's ``segment_reduce`` launches (counted on the
+    device, read back) to the host-stepped tick's (counted by the host).  One tick mid-stream is taken under the census.
+    Returns the completions by lane and the counts."""
+    from repro_torch.analysis import census
+    from repro_torch.kernels import em_tick
+    from repro_torch.testing import host_loop
+
+    shape = em_mod.TickShape.of(lanes[0][0], lanes[0][1])
+    pools = {}
+    for what in ("program", "host"):
+        ws = em_mod.make_workspace(shape, cfg, device=dev, batch=slots, pool=True)
+        pools[what] = em_mod.blank_tick_state(ws)
+    queue, slot_of, results = list(range(len(lanes))), [None] * slots, {}
+    ticks = graphs = 0
+    counted = {"pool_launches": [0, 0], "boundaries": [0, 0], "flat_steps": [0, 0],
+               "segment_reduce_add": [0, 0], "segment_reduce_ordered_add": [0, 0],
+               "segment_reduce_min": [0, 0]}
+    census_row = None
+    while queue or any(s is not None for s in slot_of):
+        for b in range(slots):
+            if slot_of[b] is None and queue:
+                slot_of[b] = queue.pop(0)
+                for st in pools.values():
+                    em_mod.init_tick_lane(st, b, *lanes[slot_of[b]])
+        for i, (what, fn) in enumerate((("program", em_mod.run_em_ticked),
+                                        ("host", host_loop.run_em_ticked))):
+            before, steps0 = _pool_words(em_tick, ops), ops.LANE_STEPS
+            if what == "program" and ticks == 2 and census_row is None:
+                with census.take() as cen:
+                    fn(pools[what], cfg, tick_iters)
+                summary = cen.summary()
+                census_row = {sc: {"instances": summary[sc]["instances"], "max": summary[sc]["max"]}
+                              for sc in census.SCOPES}
+            else:
+                fn(pools[what], cfg, tick_iters)
+            after = _pool_words(em_tick, ops)
+            counted["pool_launches"][i] += after[0] - before[0]
+            counted["boundaries"][i] += after[1] - before[1]
+            counted["flat_steps"][i] += ops.LANE_STEPS - steps0
+            for j, name in enumerate(("add", "ordered_add", "min")):
+                counted[f"segment_reduce_{name}"][i] += after[3 + j] - before[3 + j]
+            if what == "program":
+                graphs += after[2] - before[2]
+        ticks += 1
+        p, h = pools["program"], pools["host"]
+        if (p.em_i, p.map_i, p.map_total, p.done, p.status, p.micro_steps) != (
+                h.em_i, h.map_i, h.map_total, h.done, h.status, h.micro_steps):
+            fail(f"pool tick {cfg.mode} tick {ticks}: the program's lists {p.em_i} {p.map_total} "
+                 f"{p.done} differ from the host-stepped tick's {h.em_i} {h.map_total} {h.done}")
+        for b in range(slots):
+            if slot_of[b] is not None and p.done[b]:
+                results[slot_of[b]] = (em_mod.tick_result(p, b), em_mod.tick_result(h, b))
+                slot_of[b] = None
+    return {"results": results, "ticks": ticks, "graph_launches": graphs, "counted": counted,
+            "micro_steps": pools["program"].micro_steps, "census": census_row}
+
+
+def program_pool_check(what: str, run: dict, serial: list, mode: str) -> dict:
+    """The ``pool_tick`` / ``modes_pool`` line: one graph launch per tick,
+    the device-counted launches equal to the host-stepped tick's, every
+    completion bit for bit the host-stepped tick's and its serial solve,
+    and the census of one tick held to ``registry.PROGRAM_CARD``."""
+    import torch
+
+    from repro_torch.analysis import registry
+
+    unequal = []
+    for b, want in enumerate(serial):
+        got, host = run["results"][b]
+        g, h, w = (program_result_bits(torch, r) for r in (got, host, want))
+        if any(not (torch.equal(g[f], h[f]) and torch.equal(g[f], w[f]))
+               for f in ("labels", "mu", "sigma", "hood_energy")) or not g["counts"] == h["counts"] == w["counts"]:
+            unequal.append(b)
+    want_card = registry.PROGRAM_CARD[("run_em_ticked", mode)]
+    got_card = {s: (v["max"] if v["instances"] else None) for s, v in run["census"].items()}
+    row = {"phase": "program", "part": what, "mode": mode, "requests": len(serial),
+           "ticks": run["ticks"], "micro_steps": run["micro_steps"],
+           "graph_launches": run["graph_launches"], "counted_program_vs_host": run["counted"],
+           "census_one_tick": run["census"], "census_equal_registry": got_card == want_card,
+           "completions_equal_serial_and_host_stepped": not unequal}
+    emit(row)
+    c = run["counted"]
+    if unequal or run["graph_launches"] != run["ticks"] or any(a != b for a, b in c.values()) \
+            or got_card != want_card:
+        fail(f"program {what} {mode}: lanes {unequal} differ, {run['graph_launches']} graph "
+             f"launches for {run['ticks']} ticks, counts {c}, census {got_card} (registry {want_card})")
+    return row
+
+
+def program_pool_tick(torch, api, ops, em_mod, stacks: dict) -> list:
+    """(f) The served pool's compiled tick in mode static-pallas, K = 2 and
+    3 (``PROGRAM_POOLS``): the stack phase's plans through a pool of their
+    joint bucket, program against host-stepped tick by tick, every
+    completion its serial ``execute``'s solve in the joint bucket."""
+    rows = []
+    for k, slots, tick in PROGRAM_POOLS:
+        st = stacks[k]
+        seg, plans, joint, seed = st["seg"], st["plans"], st["joint"], SLICE["seed"]
+        cfg = seg.config.em_config()
+        lanes = [seg.lane_state(p, bucket=joint, seed=seed) for p in plans]
+        one = seg.compile(joint)
+        serial = [one(*seg.lane_inputs(p, bucket=joint, seed=seed)) for p in plans]
+        run = program_pool_run(torch, em_mod, ops, lanes, cfg, slots, tick, torch.device(DEVICE))
+        row = program_pool_check("pool_tick", run, serial, "static-pallas")
+        row.update(K=k, slots=slots, tick_iters=tick)
+        rows.append(row)
+    return rows
+
+
+def program_modes_slice(torch, api, ops, em_mod, slices: dict) -> list:
+    """(g) The modes' solve as one graph: each slice (K = 2, 3, 9) in modes
+    static and faithful through ``compile`` and the executable, against the
+    host-stepped driver (``testing.host_loop.run_em``) in the same process,
+    bit for bit (labels, mu, sigma, hood energies, counts, status), the
+    known trajectories (``PROGRAM_ITERATIONS``), one graph launch, and the
+    flat steps and boundaries the device counted equal to the MAP and EM
+    iterations.  (The phase ``modes`` holds the same executes to the CPU's
+    plain program bit for bit.)"""
+    from repro_torch.testing import host_loop
+
+    rows = []
+    for k in PROGRAM_MODE_SLICES:
+        sl = slices[k]
+        for mode in MODES:
+            config = sl["config"].with_(mode=mode)
+            seg = api.Segmenter(config, device=torch.device(DEVICE))
+            t0 = time.perf_counter()
+            exe = seg.compile(sl["plan"])
+            compile_s = time.perf_counter() - t0
+            inputs = seg.lane_inputs(sl["plan"], seed=SLICE["seed"])
+            graphs = ops.program_launch_counts()["graph"]
+            card = exe(*inputs)
+            graphs = ops.program_launch_counts()["graph"] - graphs
+            host = host_loop.run_em(*inputs, config.em_config())
+            c, h = program_result_bits(torch, card), program_result_bits(torch, host)
+            eq = {f: bool(torch.equal(c[f], h[f])) for f in ("labels", "mu", "sigma", "hood_energy")}
+            counted = dict(exe.workspace.program_launches)
+            row = {"phase": "program", "part": "modes_slice", "K": k, "mode": mode,
+                   "card": list(c["counts"]), "host_stepped": list(h["counts"]),
+                   "equal_host_stepped": eq, "graph_launches": graphs,
+                   "counted_on_device": counted, "compile_s": compile_s}
+            emit(row)
+            want = PROGRAM_ITERATIONS[k]
+            if c["counts"] != h["counts"] or tuple(c["counts"][:2]) != want or not all(eq.values()):
+                fail(f"program modes_slice K={k} {mode}: {c['counts']} against the host-stepped "
+                     f"{h['counts']} (known {want}), bits {eq}")
+            if graphs != 1 or counted != {"step": card.map_iters, "em_boundary": card.em_iters}:
+                fail(f"program modes_slice K={k} {mode}: {graphs} graph launches, counted {counted}")
+            rows.append(row)
+    return rows
+
+
+def program_modes_stack(torch, api, ops, em_mod, stacks: dict) -> list:
+    """(h) The modes' stack as one graph: each stack (16 K = 2, 4 K = 3
+    plans) in modes static and faithful through its batch size's
+    executable: one graph launch, every lane bit for bit the host-stepped
+    stack's (``testing.host_loop.run_em_batched``) and its serial solve in
+    the joint bucket, the lockstep iterations the host-stepped stack's."""
+    from repro_torch.testing import host_loop
+
+    rows = []
+    for k in sorted(stacks):
+        st = stacks[k]
+        plans, joint, n, seed = st["plans"], st["joint"], len(st["plans"]), SLICE["seed"]
+        for mode in MODES:
+            seg = api.Segmenter(st["seg"].config.with_(mode=mode), device=torch.device(DEVICE))
+            exe = seg.compile(joint, batch=n)
+            inputs = seg.stacked_inputs(plans, bucket=joint, seeds=[seed] * n)
+            graphs = ops.program_launch_counts()["graph"]
+            res = exe(*inputs)
+            graphs = ops.program_launch_counts()["graph"] - graphs
+            host = host_loop.run_em_batched(*inputs, exe.em_config)
+            one = seg.compile(joint)
+            unequal = []
+            for b, p in enumerate(plans):
+                want = program_result_bits(torch, one(*seg.lane_inputs(p, bucket=joint, seed=seed)))
+                got, hb = program_result_bits(torch, res.lane(b)), program_result_bits(torch, host.lane(b))
+                if any(not (torch.equal(got[f], want[f]) and torch.equal(got[f], hb[f]))
+                       for f in ("labels", "mu", "sigma", "hood_energy")) \
+                        or not got["counts"] == want["counts"] == hb["counts"]:
+                    unequal.append(b)
+            row = {"phase": "program", "part": "modes_stack", "K": k, "mode": mode, "slices": n,
+                   "lockstep_map_iterations": res.steps, "host_stepped_lockstep": host.steps,
+                   "graph_launches": graphs, "counted_on_device": dict(exe.workspace.program_launches),
+                   "lanes_equal_serial_and_host_stepped": not unequal}
+            emit(row)
+            if unequal or graphs != 1 or res.steps != host.steps:
+                fail(f"program modes_stack K={k} {mode}: lanes {unequal} differ, {graphs} graph "
+                     f"launches, lockstep {res.steps} against {host.steps}")
+            rows.append(row)
+    return rows
+
+
+def program_modes_pool(torch, api, ops, em_mod, stacks: dict) -> list:
+    """(i) The modes' pool tick as one graph: ``PROGRAM_POOLS`` in modes
+    static and faithful, as ``program_pool_tick`` holds the fused route's."""
+    rows = []
+    for k, slots, tick in PROGRAM_POOLS:
+        st = stacks[k]
+        plans, joint, seed = st["plans"], st["joint"], SLICE["seed"]
+        for mode in MODES:
+            seg = api.Segmenter(st["seg"].config.with_(mode=mode), device=torch.device(DEVICE))
+            cfg = seg.config.em_config()
+            lanes = [seg.lane_state(p, bucket=joint, seed=seed)[:5] for p in plans]
+            one = seg.compile(joint)
+            serial = [one(*seg.lane_inputs(p, bucket=joint, seed=seed)) for p in plans]
+            run = program_pool_run(torch, em_mod, ops, lanes, cfg, slots, tick, torch.device(DEVICE))
+            row = program_pool_check("modes_pool", run, serial, mode)
+            row.update(K=k, slots=slots, tick_iters=tick)
+            rows.append(row)
+    return rows
+
+
+def program_modes_timing(torch, api, ops, em_mod, sl, smi_line: str) -> dict:
+    """(j) The K = 2 slice's warm ``optimize_s`` in modes static and
+    faithful through the program (the executable, as ``execute`` calls it)
+    and through the host-stepped driver (``testing.host_loop.run_em``) in
+    the same process, synchronised, on the host clock: min, median and max
+    of ``PROGRAM_TIMED`` after ``PROGRAM_WARMUP``; and the graph's device
+    time, CUDA events around its launch alone."""
+    from repro_torch.testing import host_loop
+
+    out = {}
+    for mode in MODES:
+        config = sl["config"].with_(mode=mode)
+        seg = api.Segmenter(config, device=torch.device(DEVICE))
+        exe = seg.compile(sl["plan"])
+        inputs = seg.lane_inputs(sl["plan"], seed=SLICE["seed"])
+        emc = config.em_config()
+
+        def timed(fn):
+            for _ in range(PROGRAM_WARMUP):
+                fn()
+            walls = []
+            for _ in range(PROGRAM_TIMED):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+            return spread(walls)
+
+        program = timed(lambda: exe(*inputs))
+        host = timed(lambda: host_loop.run_em(*inputs, emc))
+        ws = exe.workspace
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        graph_ms = []
+        for _ in range(PROGRAM_TIMED):
+            ws.start(*inputs)
+            start.record()
+            ws.launch_program()
+            end.record()
+            ws.program_result()
+            graph_ms.append(start.elapsed_time(end))
+        out[mode] = {"optimize_s": {"program": program, "host_stepped": host},
+                     "graph_device_ms": spread(graph_ms)}
+    row = {"phase": "program", "part": "modes_timing", "K": 2, "card": smi_line, **out}
+    emit(row)
+    return row
+
+
+#: Bytes each control kernel must move over B lanes (each word read once,
+#: each written once): the lane rows, the tick's and the program's words,
+#: the mapped in- and out-words.
+CONTROL_BYTES = {
+    "tick_init": lambda b: 4 * ((1 + 3 * b) + b + 4 * b + 4 + 8),
+    "tick_stops": lambda b: 4 * (3 * b + b + 4),
+    "tick_tail": lambda b: 4 * (b + b + 3),
+    "tick_publish": lambda b: 4 * (5 * b + 10 + 5 * b + 10 + 3),
+    "map_ctl": lambda b: 4 * (b + 2),
+}
+
+
+def program_control_check(torch, em_mod, dev) -> dict:
+    """(k) The control kernels (``csrc/em_control.cuh``) standalone against
+    their plain versions (``kernels.ref``) from the same words, bit for bit:
+    a pool of 8 lanes in every state (active or not, flag set or not, MAP
+    counter at the cap or not), the sequence init, stops, map_ctl, tail,
+    publish, twice (the counts each kernel keeps of itself, and publish
+    setting them back); then each kind's time per launch, its words and
+    mapped words allocated once: ``ms`` the device time of one launch in a
+    CUDA graph of 100 (CUDA events around the replay), ``ms_host_issued``
+    back-to-back launches from the host, its plain version's, and the
+    bound from the words that kind moves."""
+    from repro_torch.kernels import em_tick, ref
+
+    g = torch.Generator(device="cpu")
+    g.manual_seed(11)
+    b, cap = 8, 6
+    lane = torch.randint(0, 2, (len(ref.LANE_WORDS), b), generator=g, dtype=torch.int32)
+    lane[ref.MAP_I] = torch.randint(0, cap + 1, (b,), generator=g, dtype=torch.int32)
+    in_words = torch.randint(0, 50, (1 + 3 * b,), generator=g, dtype=torch.int32)
+    in_words[0] = 5
+    ctl = torch.zeros((len(ref.CTL_WORDS),), dtype=torch.int32)
+    tick = torch.zeros((len(ref.TICK_WORDS),), dtype=torch.int32)
+    kinds = ("tick_init", "tick_stops", "map_ctl", "tick_tail", "tick_publish")
+    card = [t.to(dev) for t in (lane, ctl, tick)]
+    control = em_tick.ControlKernels(*card, in_words.tolist(), cap)
+    flat, out_card = [], []
+    for _ in range(2):
+        control.launch(kinds)
+        out_card.append(control.read())
+        ref.tick_init(lane, ctl, tick, in_words)
+        ref.tick_stops(lane, tick, cap)
+        ref.map_ctl(lane, ctl)
+        ref.tick_tail(lane, tick)
+        out_cpu = ref.tick_publish(lane, ctl, tick)
+        flat.append([w for lane_words in out_cpu["lanes"] for w in lane_words] + [
+            out_cpu[k] for k in ref.TICK_OUT])
+    # The plain versions keep the conditions the card sets on its handles as
+    # words (map_ctl's in ctl's map_cond, the tick's in words 3 and 4):
+    # compare the words both keep.
+    keep = [w for w in range(len(ref.CTL_WORDS)) if w != ref.MAP_COND]
+    tick_keep = [w for w in range(len(ref.TICK_WORDS)) if w not in (ref.T_LOOP, ref.T_STOP)]
+    self_counts = dict(zip(ref.TICK_OUT[4:7], out_card[1][5 * b + 4:5 * b + 7]))
+    equal = {"lane": bool(torch.equal(card[0].cpu(), lane)),
+             "ctl": bool(torch.equal(card[1].cpu()[keep], ctl[keep])),
+             "tick_words": bool(torch.equal(card[2].cpu()[tick_keep], tick[tick_keep])),
+             "out_words": out_card == flat,
+             "self_counts": self_counts == {"tick_init": 1, "tick_stops": 1, "tick_publish": 1}}
+    timing = {}
+    words = [t.to(dev) for t in (lane, ctl, tick)]
+    timed = em_tick.ControlKernels(*words, in_words.tolist(), cap)
+    n_graph = 100
+    for kind in kinds:
+        host_ms = time_ms(lambda: timed.launch((kind,)), iters=200, warmup=5)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n_graph):
+                timed.launch((kind,))
+        ms = time_ms(graph.replay, iters=10, warmup=2) / n_graph
+        plain = {"tick_init": lambda: ref.tick_init(*words, in_words),
+                 "tick_stops": lambda: ref.tick_stops(words[0], words[2], cap),
+                 "map_ctl": lambda: ref.map_ctl(words[0], words[1]),
+                 "tick_tail": lambda: ref.tick_tail(words[0], words[2]),
+                 "tick_publish": lambda: ref.tick_publish(*words)}[kind]
+        plain_ms = time_ms(plain, iters=20, warmup=2)
+        n_bytes = CONTROL_BYTES[kind](b)
+        bound_ms, by = bound(n_bytes, b)
+        timing[kind] = {"ms": ms, "ms_host_issued": host_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": by, "bytes": n_bytes}
+        del graph
+    row = {"phase": "program", "part": "control_check", "lanes": b, "equal_plain": equal,
+           "timing_standalone": timing, "launches_per_graph": n_graph}
+    emit(row)
+    if not all(equal.values()):
+        fail(f"program control_check: the control kernels differ from their plain versions: {equal}")
+    return row
+
+
 def run_program(torch, api, ops, em_mod, slices: dict, stacks: dict, probe: dict,
                 smi_line: str) -> dict:
     """The program phase: (a) the probe line (printed after the build), (b) the boundary kernel
@@ -6464,12 +6900,21 @@ def run_program(torch, api, ops, em_mod, slices: dict, stacks: dict, probe: dict
     census_rows = program_census(torch, api, ops, sl2, stacks[2])
     profile = program_profile()
     timing = program_timing(torch, api, ops, em_mod, sl2, smi_line)
+    control = program_control_check(torch, em_mod, torch.device(DEVICE))
+    pool_rows = program_pool_tick(torch, api, ops, em_mod, stacks)
+    modes_rows = program_modes_slice(torch, api, ops, em_mod, slices)
+    modes_stack_rows = program_modes_stack(torch, api, ops, em_mod, stacks)
+    modes_pool_rows = program_modes_pool(torch, api, ops, em_mod, stacks)
+    modes_timing = program_modes_timing(torch, api, ops, em_mod, sl2, smi_line)
     emit({"phase": "program", "part": "seconds", "total_s": time.perf_counter() - t0})
     return {"probe": probe, "boundary": boundary, "slices": rows, "stacks": stack_rows,
-            "census": census_rows, "profile": profile, "timing": timing}
+            "census": census_rows, "profile": profile, "timing": timing, "control": control,
+            "pool_tick": pool_rows, "modes_slice": modes_rows, "modes_stack": modes_stack_rows,
+            "modes_pool": modes_pool_rows, "modes_timing": modes_timing}
 
 
-KERNEL_SOURCES = {"fused_em_tick": "em_tick", "em_boundary": "em_tick", "segment_reduce": "segment_reduce",
+KERNEL_SOURCES = {"fused_em_tick": "em_tick", "em_boundary": "em_tick", "em_control": "em_tick",
+                  "segment_reduce": "segment_reduce",
                   "fused_map_step": "map_step", "mrf_min_energy": "mrf_energy",
                   "flash_attention": "flash_attention"}
 ANALYSIS_BASELINE = SRC / "repro_torch" / "analysis" / "ANALYSIS.json"
@@ -6854,6 +7299,9 @@ def main(argv=None) -> int:
          "jax_signature_entry": {k: tick2[k] for k in tick_keys if k in tick2},
          "program": {"graph_launches": slice2["program_launches"]["graph"],
                      "in_graph": "lane entry at B = 1, controls from the device",
+                     "pool_tick": {f"K={r['K']}": {"ticks": r["ticks"], "graph_launches": r["graph_launches"],
+                                                   "pool_launches": r["counted_program_vs_host"]["pool_launches"][0]}
+                                   for r in program["pool_tick"]},
                      **{k: program["timing"][k] for k in (
                          "tick_single_entry_host_controls", "tick_lane_entry_b1_device_controls",
                          "optimize_s", "compile_s", "workspace_and_graph_build_s")},
@@ -6879,7 +7327,21 @@ def main(argv=None) -> int:
          "library_ms": None, "cases_bitwise_equal": program["boundary"]["cases"],
          "lane_form": {"launches": st2["program_launches"]["em_boundary"],
                        **program["boundary"]["timing"]["lanes"], "library_ms": None},
+         "in_pool_ticks": {f"K={r['K']} {r['mode']}": r["counted_program_vs_host"]["boundaries"][0]
+                           for r in program["pool_tick"] + program["modes_pool"]},
          **analysis_entry(kpass, "em_boundary")},
+        {"name": "em_control", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/em_control.cuh",
+         "replaces": "src/repro/core/pmrf/em.py:1021 (run_em_ticked's while_loop and its "
+                     "conditions, XLA-compiled; no pl.pallas_call)",
+         "launches": sum(served["cold"]["control"].values()),
+         "launches_by_kernel": served["cold"]["control"],
+         "max_abs_err": 0.0 if all(program["control"]["equal_plain"].values()) else None,
+         **program["control"]["timing_standalone"]["tick_stops"], "library_ms": None,
+         "timing_by_kernel": program["control"]["timing_standalone"],
+         "map_ctl_per_modes_solve": {f"K={r['K']} {r['mode']}": r["counted_on_device"]["step"]
+                                     for r in program["modes_slice"]},
+         **analysis_entry(kpass, "em_control")},
         {"name": "segment_reduce", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/segment_reduce.cu",
          "replaces": "src/repro/kernels/segment_reduce.py:71",
@@ -6896,6 +7358,8 @@ def main(argv=None) -> int:
              f"{m} tick_iters={t}": {"micro_steps": row["micro_steps"], **row["segment_reduce"]}
              for (m, t), row in served["modes"].items() if t != "mixed"},
          "flat_step_calls": {w: flat_sr[w] for w in ("add", "ordered_add", "min")},
+         "modes_program_flat_steps": {f"K={r['K']} {r['mode']}": r["counted_on_device"]
+                                      for r in program["modes_slice"] + program["modes_stack"]},
          "ordered_add": {"max_abs_err": ordered["max_abs_err"],
                          "solve_calls_checked": ordered["solve_calls_checked"],
                          **{w: ordered[w] for w in ("hood_sums", "m_step")}, "library": "index_add_"}},

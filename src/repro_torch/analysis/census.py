@@ -34,9 +34,16 @@ Kernel entries are opaque.  A call of a ``kernels.ops`` entry counts one
 launch, and a kernel workspace's ``step`` (or its plain version's) one
 launch; ``flag``/``flags`` count one host read (the card's read of a
 mapped pinned word is invisible to both modes); a workspace's other
-methods write its own buffers and count one device op.  The plain
-versions behind them run with both modes off, so the CPU counts what
-the card launches and the two censuses agree.
+methods write its own buffers and count one device op.  The modes' DPP
+workspaces count so too: their step (the captured flat MAP iteration on
+the card) and M-step one launch each.  A compiled tick's launch
+(``launch_tick``) counts one launch and its read (``tick_result``) one
+host read; the plain versions of the programs' control kernels
+(``kernels.ref.tick_init``, ``tick_stops``, ``tick_tail``, ``map_ctl``)
+one launch each and the read of a plain tick's words
+(``ref.tick_publish``) one host read.  The plain versions behind them
+run with both modes off, so the CPU counts what the card launches and
+the two censuses agree.
 
 Only torch, numpy and the standard library.
 """
@@ -105,18 +112,26 @@ _WS_COUNTS = {
     "begin_em": "device_ops", "begin_lanes": "device_ops", "admit": "device_ops",
     "retire": "device_ops", "launch_program": "launches", "program_begin": "launches",
     "program_step": "launches", "program_boundary": "launches",
-    "program_result": "host_reads",
+    "program_result": "host_reads", "launch_tick": "launches", "tick_result": "host_reads",
+    "program_mstep": "launches",
 }
+#: The plain versions of the programs' control kernels (``kernels.ref``):
+#: each call one launch, as on the card; the read of a tick's words one
+#: host read.
+_CONTROL_COUNTS = {"tick_init": "launches", "tick_stops": "launches", "tick_tail": "launches",
+                   "map_ctl": "launches", "tick_publish": "host_reads"}
 
 
 def kernel_workspaces() -> Tuple[type, ...]:
     """The kernel workspaces and their plain versions, whose methods the
     census treats as opaque."""
+    from repro_torch.core.pmrf import em
     from repro_torch.kernels import em_tick, map_step, ref
 
     return (em_tick.TickWorkspace, em_tick.BatchTickWorkspace, em_tick.PoolTickWorkspace,
             map_step.MapStepWorkspace, ref.PlainTickWorkspace, ref.PlainBatchTickWorkspace,
-            ref.PlainPoolTickWorkspace, ref.PlainMapStepWorkspace)
+            ref.PlainPoolTickWorkspace, ref.PlainMapStepWorkspace, em.DppBatchWorkspace,
+            em.DppPoolWorkspace)
 
 
 class Census:
@@ -274,7 +289,7 @@ def take() -> Iterator[Census]:
     global ACTIVE
     if ACTIVE is not None:
         raise RuntimeError("a census is already being taken")
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
 
     cen = Census()
     undo = []
@@ -282,6 +297,10 @@ def take() -> Iterator[Census]:
         fn = getattr(ops, name)
         undo.append((ops, name, fn))
         setattr(ops, name, _opaque_call(cen, fn, "launches", name))
+    for name, counter in _CONTROL_COUNTS.items():
+        fn = getattr(ref, name)
+        undo.append((ref, name, fn))
+        setattr(ref, name, _opaque_call(cen, fn, counter, name))
     for cls in kernel_workspaces():
         for meth, counter in _WS_COUNTS.items():
             # A method the class inherits (the program's, from its base) is

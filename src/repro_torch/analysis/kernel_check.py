@@ -540,18 +540,85 @@ def _case_graph_probe(torch):
     return [torch.tensor(em_tick.graph_probe(3, 5)["counts"])]
 
 
-def _case_tick_pool(torch, k):
+def _pool_labels(torch, seg, plans, tick):
+    """Three plans through a 3-slot pool of their joint bucket, each tick
+    ``tick(exe, state)``: every lane's final labels."""
     from repro_torch.core.pmrf import em
 
-    seg, plans, _ = _plan(torch, k, n=3)
     joint = tuple(max(p.bucket[d] for p in plans) for d in range(3))
     exe = seg.compile_ticked(joint, batch=3, tick_iters=4)
     state = seg.ticked_pool(joint, batch=3)
     for b, p in enumerate(plans):
         em.init_tick_lane(state, b, *seg.lane_state(p, bucket=joint, seed=b))
     while not all(state.done):
-        state, _ = exe(state)
+        state, _ = tick(exe, state)
     return [em.tick_result(state, b).labels for b in range(3)]
+
+
+def _case_tick_pool(torch, k):
+    """The pool entry stepped from the host (``testing.host_loop``)."""
+    from repro_torch.testing import host_loop
+
+    seg, plans, _ = _plan(torch, k, n=3)
+    return _pool_labels(torch, seg, plans,
+                        lambda exe, st: host_loop.run_em_ticked(st, exe.em_config, 4))
+
+
+def _case_program_pool_tick(torch, k):
+    """The pool's compiled tick (one graph per tick)."""
+    seg, plans, _ = _plan(torch, k, n=3)
+    return _pool_labels(torch, seg, plans, lambda exe, st: exe(st))
+
+
+def _case_control_kernels(torch):
+    """The control kernels standalone on a 5-lane block of every state."""
+    from repro_torch.kernels import em_tick, ref
+
+    g = _seeded(torch, 5)
+    lane = torch.randint(0, 3, (len(ref.LANE_WORDS), 5), generator=g, dtype=torch.int32)
+    lane[ref.MAP_I] = torch.tensor([0, 3, 6, 6, 2], dtype=torch.int32)
+    lane, ctl = lane.to(DEVICE), torch.zeros((len(ref.CTL_WORDS),), dtype=torch.int32, device=DEVICE)
+    tick = torch.zeros((len(ref.TICK_WORDS),), dtype=torch.int32, device=DEVICE)
+    kernels = em_tick.ControlKernels(lane, ctl, tick, list(range(3, 19)), 6)
+    kernels.launch(("tick_init", "tick_stops", "map_ctl", "tick_tail", "tick_publish"))
+    return [lane, ctl, tick[:3], torch.tensor(kernels.read())]
+
+
+def _case_modes_parts(torch, mode):
+    """The modes' program's parts outside its graph, on a DPP stack of three
+    slices (a PyTorch capture cannot take its pool from the guard's
+    pluggable allocator, so the graph itself runs in no case): the plain
+    start, then per MAP iteration the flat step (its ``segment_reduce``
+    launches) and ``map_ctl`` on the stack's words, per EM iteration the
+    M-step and the boundary kernel's lane form, to the end of the solve."""
+    from repro_torch.core.pmrf import em
+    from repro_torch.kernels import em_tick, ops, ref
+
+    seg, plans, _ = _plan(torch, 2, n=3)
+    joint = tuple(max(p.bucket[d] for p in plans) for d in range(3))
+    hoods, model, labels0, mu0, sigma0 = seg.stacked_inputs(plans, bucket=joint, seeds=[0, 1, 2])
+    cfg = seg.config.em_config()
+    # Built without the EM limits, so nothing is captured; the plain start
+    # then reads them.
+    ws = em.DppBatchWorkspace(ops.TickShape.of(hoods, model), 3, mode=mode,
+                              device=hoods.vertex.device, backend=None,
+                              max_map_iters=cfg.max_map_iters, max_em_iters=None)
+    ws.max_em_iters = cfg.max_em_iters
+    ws.start(hoods, model, labels0, mu0, sigma0)
+    ws.program_begin()
+    control = em_tick.ControlKernels(ws.lane, ws.ctl, ws.tick, [0] * 10, cfg.max_map_iters)
+    while True:
+        while True:
+            ws._lane_step()
+            control.launch(("map_ctl",))
+            if not bool(ws.active.any()):
+                break
+        ws._mstep_core()
+        ops.em_boundary_lanes(ws.boundary_state(), max_em_iters=cfg.max_em_iters,
+                              max_map_iters=cfg.max_map_iters)
+        if not int(ws.ctl[ref.EM_COND]):
+            break
+    return [ws.labels, ws.em_mu, ws.em_sigma, ws.lane]
 
 
 def _case_map_step_jax_signature(torch, k):
@@ -621,6 +688,9 @@ CASE_RUNNERS = {
     "tick_solve": _case_tick_solve,
     "tick_stack": _case_tick_stack,
     "tick_pool": _case_tick_pool,
+    "program_pool_tick": _case_program_pool_tick,
+    "control_kernels": _case_control_kernels,
+    "modes_parts": _case_modes_parts,
     "program_solve": _case_program_solve,
     "program_stack": _case_program_stack,
     "em_boundary": _case_em_boundary,

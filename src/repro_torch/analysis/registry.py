@@ -78,37 +78,38 @@ DRIVERS: Tuple[str, ...] = ("run_em", "run_em_batched", "run_em_ticked")
 # Census budgets (PT002 / PT005).
 #
 # Measured with ``python -m repro_torch.analysis`` on the CPU (torch 2.13),
-# the maximum over a scope's instances, maxed over K in {2, 3, 5}:
-#   - map_iteration, static-pallas: one launch and one host read, no
-#     device op, no copy, in every driver: run_em and run_em_batched run
-#     the compiled EM program, here its plain version (one plain MAP
-#     iteration of the lanes and one read of the MAP loop's condition word;
-#     on the card these are inside the graph, see PROGRAM_CARD);
-#     run_em_ticked one launch of the pool entry and one read of the flag
-#     words.
-#   - map_iteration, static / faithful: the paper's primitive sequence:
-#     one problem 97-165 device ops (growing with K: the per-label
-#     energies), a stack or pool's flat step 107-133 whatever K; three
-#     segment_reduce launches (four in faithful: its ReduceByKey(Min)), the
-#     votes' one scatter, one host read (the window and finiteness test,
-#     em.py's ``tolist``, or the lanes' flag words); no copy.
-#   - em_boundary: the M-step (the modes take three ordered ``add``
-#     launches; the pool reads the stopping launch's sums), the tests, the
-#     total-energy ring and one host read.  The batched and ticked
-#     boundaries also copy from the host which lanes go on (an
-#     ``as_tensor`` of a list, a ``to`` of a host mask).  The pool's
-#     (run_em_ticked, every mode) is one launch of the boundary kernel's
-#     lane form over the pool (the modes' pools first take their M-step
-#     sums, three ordered ``add``), from one copy of the stopped lanes'
-#     words to the device, then one read of the words it wrote and the
-#     next EM iteration's start of the lanes that go on.  The program's
-#     (static-pallas run_em, run_em_batched): one launch of the plain
-#     boundary and one read of the EM loop's condition word, no device op.
-#   - solve (the compiled program's solve outside its loops, static-pallas
-#     run_em and run_em_batched): the element arrays (one segment_reduce
-#     launch and their gathers), ``start`` (one copy of the solve's arrays
-#     into the workspace), the program's start (the plain init: one
-#     launch), one host read of the counters, and the result's copies.
+# the maximum over a scope's instances, maxed over K in {2, 3, 5}.  Every
+# driver runs a compiled program, here its plain version, whose steps the
+# census counts as the card launches them (``census``'s opaque workspace
+# methods and control functions):
+#   - map_iteration, run_em and run_em_batched, every mode: one launch (a
+#     plain MAP iteration of the lanes: the tick's, or the modes' flat
+#     step with its control, ``ref.map_ctl``) and one host read of the MAP
+#     loop's condition word; no device op, no copy.  On the card these are
+#     inside the graph (see PROGRAM_CARD).
+#   - map_iteration, run_em_ticked, every mode: a micro-step of the plain
+#     tick, run to ``tick_iters`` with the loop's condition as a mask: the
+#     pool's step, the stop test (``ref.tick_stops``) and the tail
+#     (``ref.tick_tail``), three launches; the mask's ten device ops (the
+#     condition, three held words and their three selects and copies); no
+#     host read, no copy.
+#   - em_boundary, run_em and run_em_batched: one launch (the plain
+#     boundary; in the modes with its M-step) and one read of the EM loop's
+#     condition word.  run_em_ticked, every micro-step (the IF body under
+#     its condition as a mask): the modes' M-step (one launch) and the
+#     boundary kernel's lane form, and the mask's four device ops (the held
+#     program words, the condition, a select and a copy); no host read, no
+#     copy (the host-stepped tick copied the stopped lanes' words to the
+#     device).
+#   - solve (a program's solve outside its loops): run_em and
+#     run_em_batched in mode static-pallas the element arrays (one
+#     segment_reduce launch and their gathers), ``start`` (one copy of the
+#     solve's arrays into the workspace), the program's start (the plain
+#     init: one launch), one host read of the counters, and the result's
+#     copies; in the modes ``start``, the plain init, the read and the two
+#     copies of the result.  run_em_ticked: the tick's start
+#     (``ref.tick_init``, its in-words from the host's lists) and the one
+#     read of its words (``ref.tick_publish``).
 # A (driver, mode) without a row is taken as a census with no gate (its
 # entry's ``budget`` is null in the report).
 # ---------------------------------------------------------------------------
@@ -126,19 +127,21 @@ def _c(device_ops, scatters, gathers, launches, host_reads, h2d_copies) -> Dict[
 
 #                                   map_iteration:                  em_boundary:
 #                                   ops  sc ga la hr h2d            ops sc ga la hr h2d
-#                                   (solve, where a row has it, after them)
+#                                   (solve after them)
+_MODES_PROGRAM = _row(_c(0, 0, 0, 1, 1, 0), _c(0, 0, 0, 1, 1, 0), _c(3, 0, 0, 1, 1, 0))
 _BUDGETS: Dict[Tuple[str, str], Dict[str, Dict[str, int]]] = {
-    ("run_em", "faithful"): _row(_c(165, 1, 8, 4, 1, 0), _c(65, 0, 2, 3, 1, 0)),
-    ("run_em_batched", "faithful"): _row(_c(129, 1, 8, 4, 1, 0), _c(79, 0, 2, 3, 1, 2)),
-    ("run_em_ticked", "faithful"): _row(_c(133, 1, 8, 4, 1, 0), _c(28, 5, 5, 4, 1, 3)),
-    ("run_em", "static"): _row(_c(151, 1, 6, 3, 1, 0), _c(62, 0, 0, 3, 1, 0)),
-    ("run_em_batched", "static"): _row(_c(107, 1, 6, 3, 1, 0), _c(76, 0, 0, 3, 1, 2)),
-    ("run_em_ticked", "static"): _row(_c(111, 1, 6, 3, 1, 0), _c(25, 5, 3, 4, 1, 3)),
+    ("run_em", "faithful"): _MODES_PROGRAM,
+    ("run_em_batched", "faithful"): _MODES_PROGRAM,
+    ("run_em", "static"): _MODES_PROGRAM,
+    ("run_em_batched", "static"): _MODES_PROGRAM,
     ("run_em", "static-pallas"): _row(_c(0, 0, 0, 1, 1, 0), _c(0, 0, 0, 1, 1, 0),
                                       _c(9, 0, 3, 2, 1, 0)),
     ("run_em_batched", "static-pallas"): _row(_c(0, 0, 0, 1, 1, 0), _c(0, 0, 0, 1, 1, 0),
                                               _c(13, 0, 3, 2, 1, 0)),
-    ("run_em_ticked", "static-pallas"): _row(_c(0, 0, 0, 1, 1, 0), _c(6, 0, 3, 1, 1, 2)),
+    **{("run_em_ticked", mode): _row(_c(10, 0, 0, 3, 0, 0),
+                                     _c(4, 0, 0, 1 if mode == "static-pallas" else 2, 0, 0),
+                                     _c(0, 0, 0, 1, 1, 0))
+       for mode in MODES},
 }
 
 
@@ -147,48 +150,57 @@ def census_budget(driver: str, mode: str) -> Optional[Dict[str, Dict[str, int]]]
 
 
 # ---------------------------------------------------------------------------
-# The compiled EM program on the card (static-pallas run_em, run_em_batched).
+# The compiled programs on the card: every mode's run_em and run_em_batched,
+# and every mode's run_em_ticked (a tick).
 #
-# The CPU's census above is the plain program's: its loops on the host.  On
-# the card the loops are conditional nodes of one CUDA graph, where no host
-# sees them, so a warm solve's census there has no map_iteration and no
-# em_boundary instance, and its solve scope counts the graph launch and the
-# neighbourhood sizes' segment_reduce (2 launches) and one host read (the
-# mapped result words).  Its device operations are the CPU's solve's, plus
-# the labels' gather by the device's parity words (``.long()`` and an
-# index).  Inside the graph (``chip_smoke.py``'s profiler, ``program``
-# phase): one tick launch per lockstep MAP iteration, one boundary launch
-# per lockstep EM iteration, one init launch per solve, no host read.
+# The CPU's census above is the plain programs': their loops on the host.
+# On the card the loops are conditional nodes of one CUDA graph, where no
+# host sees them, so a warm call's census there has no map_iteration and no
+# em_boundary instance, and its solve scope counts one graph launch and one
+# host read (the mapped result words), no copy and no build.  In mode
+# static-pallas the solve also has the neighbourhood sizes' segment_reduce
+# (2 launches) and its device operations are the CPU's solve's plus the
+# labels' gather by the device's parity words (``.long()`` and an index).
+# In the modes: ``start``, the labels' copy and the result's (3 device
+# ops).  A tick: its launch and its read alone.  Inside the graph
+# (``chip_smoke.py``'s ``program`` phase): one step per lockstep MAP
+# iteration (the tick's launch, or the modes' captured flat step and its
+# control kernel), one boundary launch per lockstep EM iteration (after
+# the modes' captured M-step), one init launch per solve; a tick runs its
+# init, per micro-step the pool's step, the stop test and the tail, the
+# boundary (after the modes' M-step) in the micro-steps where some lane
+# stopped, and the publish; no host read.
 # ---------------------------------------------------------------------------
+_CARD_TICK = {"map_iteration": None, "em_boundary": None, "solve": _c(0, 0, 0, 1, 1, 0)}
+_CARD_MODES = {"map_iteration": None, "em_boundary": None, "solve": _c(3, 0, 0, 1, 1, 0)}
 PROGRAM_CARD: Dict[Tuple[str, str], Dict[str, Optional[Dict[str, int]]]] = {
     ("run_em", "static-pallas"): {"map_iteration": None, "em_boundary": None,
                                   "solve": _c(11, 0, 4, 2, 1, 0)},
     ("run_em_batched", "static-pallas"): {"map_iteration": None, "em_boundary": None,
                                           "solve": _c(15, 0, 4, 2, 1, 0)},
+    **{(driver, mode): _CARD_MODES for driver in ("run_em", "run_em_batched")
+       for mode in ("static", "faithful")},
+    **{("run_em_ticked", mode): _CARD_TICK for mode in MODES},
 }
-#: Kernel launches inside one replay of the program's graph.
+#: Kernel launches inside one replay of a program's graph.
 PROGRAM_GRAPH = {"tick_per_map_iteration": 1, "boundary_per_em_iteration": 1,
                  "init_per_solve": 1, "host_reads": 0}
+#: And of a tick's graph (per micro-step; the boundary per micro-step in
+#: which some lane stopped).
+TICK_GRAPH = {"init_per_tick": 1, "step_per_micro_step": 1, "stops_per_micro_step": 1,
+              "tail_per_micro_step": 1, "publish_per_tick": 1, "host_reads": 0}
 
 
 # ---------------------------------------------------------------------------
 # Suppressions: every exemption cites its reason.
 # ---------------------------------------------------------------------------
-SUPPRESSIONS: Tuple[Suppression, ...] = (
-    Suppression(
-        code="PT001",
-        site_pattern="run_em*/em_boundary",
-        reason=(
-            "deliberate: the EM boundary rounds twice through float64 to fix "
-            "its bits whatever the device's reduction order: "
-            "energy.params_from_stats forms E[y^2] - mu^2 with one rounding "
-            "(float32 operands are exact in float64, as the reference's "
-            "fused multiply-add forms it) and em._total_energy sums the hood "
-            "energies in float64 and rounds once; both round back to float32 "
-            "at once and neither runs in a MAP iteration"
-        ),
-    ),
-)
+#: None: every driver's float64 rounding (the EM boundary's, deliberate:
+#: ``energy.params_from_stats`` and ``em._total_energy`` each round once)
+#: now runs inside the boundary kernel or its plain version, which the
+#: census counts as one opaque launch; the modes' host boundary that made
+#: it visible (the suppression this tuple held) is the sharded route's alone, which
+#: the census does not take.
+SUPPRESSIONS: Tuple[Suppression, ...] = ()
 
 # ---------------------------------------------------------------------------
 # Kernel cases (the kernel pass, KC codes).
@@ -212,6 +224,7 @@ def _case(name, kernel, entries, run, **params) -> KernelCase:
 
 _TICK_SOLVE = ("repro_em_tick_step",)
 _PROGRAM = ("repro_em_program_build", "repro_em_program_launch")
+_NODES = ("repro_prog_node", "repro_em_program_launch")
 KERNEL_CASES: Tuple[KernelCase, ...] = (
     # The tick: its JAX-signature entry, one problem's host-stepped solve
     # (step and the launch that stops each MAP loop), a host-stepped stack
@@ -237,6 +250,19 @@ KERNEL_CASES: Tuple[KernelCase, ...] = (
     _case("em_program/graph_probe", "em_tick", ("repro_em_graph_probe",), "graph_probe"),
     *(_case(f"em_tick/pool/K={k}", "em_tick", ("repro_em_tick_step_pool",), "tick_pool", k=k)
       for k in (2, 3)),
+    # The programs assembled node by node: a pool's compiled tick (K = 2,
+    # 3), and the control kernels standalone.  The modes' programs capture
+    # PyTorch ops into a private memory pool, which the guard fallback's
+    # pluggable allocator cannot give, so their graphs run in no case: their
+    # parts do, a whole DPP stack solve of uncaptured steps, map_ctl and
+    # boundaries on the stack's words.
+    *(_case(f"em_program/pool_tick/K={k}", "em_tick", _NODES, "program_pool_tick", k=k)
+      for k in (2, 3)),
+    _case("em_control/standalone", "em_tick", ("repro_prog_launch_kind",), "control_kernels"),
+    *(_case(f"em_program/modes_parts/{m}", "em_tick",
+            ("repro_prog_launch_kind", "repro_em_boundary_lanes", "repro_segment_reduce_f32",
+             "repro_segment_reduce_ordered_f32"), "modes_parts", mode=m)
+      for m in ("static", "faithful")),
     # The sharded route's MAP step: the JAX-signature entry and the
     # workspace's iteration (steps, and the launch that only tests).
     *(_case(f"map_step/jax_signature/K={k}", "map_step", ("repro_fused_map_step",),

@@ -10,30 +10,27 @@ Counterpart of ``repro.api.session.Segmenter``.
   :meth:`Segmenter.cost_model`, ``repro_torch.planning``).
 * :meth:`Segmenter.compile`: the executable of one bucket (and batch
   size), built from its shapes alone and kept in an LRU cache keyed by
-  :class:`ExecutableKey`.  In mode ``static-pallas`` a compile builds the
-  bucket's workspace (``kernels.ops.tick_workspace``: every buffer of the
-  route's kernels, the solve's inputs included) and its compiled EM
-  program over those buffers: on the card one CUDA graph of the whole
-  solve (the MAP loop's tick launches and the EM boundary kernel in two
-  conditional loops), the counterpart of the reference's
+  :class:`ExecutableKey`.  In every mode a compile builds the bucket's
+  workspace (``em.make_workspace``: every buffer of the route's step, the
+  solve's inputs included) and its compiled EM program over those
+  buffers: on the card one CUDA graph of the whole solve (the MAP loop's
+  steps, in mode ``static-pallas`` the tick's launches, in the modes
+  ``static`` and ``faithful`` the captured flat step, and the EM boundary
+  kernel in two conditional loops), the counterpart of the reference's
   ``.lower(...).compile()``; on the plain route the plain program.  A warm
   hit builds neither (``kernels.ops.WORKSPACE_BUILDS`` and
   ``kernels.ops.PROGRAM_BUILDS`` count them; the budget ledger's
-  ``"compile"`` section counts misses and hits).  In the modes
-  ``static`` and ``faithful`` a one-request executable binds the driver
-  alone; a batched one binds it to the stack's ``em.DppBatchWorkspace``.
+  ``"compile"`` section counts misses and hits).
 * :meth:`Segmenter.execute`: the plan padded into its bucket (memoised on
-  the plan) and solved by the bucket's executable: in mode
-  ``static-pallas`` on the card one launch of its graph and one host read
-  of the solve's counters.  Padding lanes are
+  the plan) and solved by the bucket's executable: on the card one launch
+  of its graph and one host read of the solve's counters.  Padding lanes are
   invalid elements, empty phantom hoods and weight-0 vertices, which add
   nothing to any sum, so a padded solve equals the natural one bit for
   bit.
 * :meth:`Segmenter.submit` / :meth:`Segmenter.drain`: pending requests of
-  one bucket run as one ``run_em_batched`` (in mode ``static-pallas`` one
-  launch of the batch size's graph, per lockstep MAP iteration one batched
-  tick launch inside it; in the modes ``static`` and ``faithful`` one flat
-  MAP iteration of every lane per lockstep iteration); each lane equals
+  one bucket run as one ``run_em_batched`` (one launch of the batch
+  size's graph; per lockstep MAP iteration one batched tick launch inside
+  it, in the modes one flat MAP iteration of every lane); each lane equals
   its serial :meth:`execute` bit for bit.
   :meth:`Segmenter.segment_stack` submits a volume's slices under their
   joint bucket, or solves them one by one, as :meth:`choose_batch`
@@ -41,8 +38,9 @@ Counterpart of ``repro.api.session.Segmenter``.
 * :meth:`Segmenter.compile_ticked` / :meth:`Segmenter.ticked_pool` /
   :meth:`Segmenter.lane_state`: the continuous-batching engine's pool
   (``repro_torch.serving.engine``): one pool workspace per (bucket,
-  slots), ``em.run_em_ticked`` at any tick size on it, and each request's
-  admission-ready lane, memoised on its plan; in every mode.
+  slots), ``em.run_em_ticked`` at any tick size on it (on the card one
+  graph launch and one host read per tick: the pool's compiled tick), and
+  each request's admission-ready lane, memoised on its plan; in every mode.
 
 On the sharded route (``config.shards > 1``) every rank of the default
 ``torch.distributed`` group calls :meth:`execute` with the same plan and
@@ -345,7 +343,7 @@ class Segmenter:
 
         def build(route: str):
             em_config = self._em_config_for(route)
-            if shards > 1 or (batch is None and self.config.mode != "static-pallas"):
+            if shards > 1:
                 return None, em_config
             return em_mod.make_workspace(self._shape(bucket), em_config, device=self.device,
                                          batch=batch), em_config

@@ -9,63 +9,60 @@ The execution ``mode`` selects the MAP iteration.  ``static`` and
 ``faithful`` are the paper's primitive sequence (:func:`map_step`: counts,
 energies, the per-element minimum by an axis-min or by the paper's
 Gather / SortByKey / ReduceByKey(Min), hood sums, votes), each primitive
-its own operation, with one host read of the iteration's convergence and
-divergence; the EM boundary takes ``energy.update_parameters_stats``.  The
-float sums of these modes go through ``segment_reduce``'s element-order
-``add``, so on the card they are the CPU plain path's bits.
+its own operation; the EM boundary takes ``energy.update_parameters_stats``.
+The float sums of these modes go through ``segment_reduce``'s
+element-order ``add``, so on the card they are the CPU plain path's bits.
 ``static-pallas`` fuses the iteration into one kernel launch.
 
-In mode ``static-pallas`` on one device :func:`run_em` and
-:func:`run_em_batched` run the **compiled EM program** of the problem's
-bucket (:func:`_run_program`), the reference's ``Segmenter.compile``
-executable: a workspace built from the bucket's shapes and the EM limits
-(``make_workspace``) holds, on the card, one CUDA graph of the whole
-solve (the MAP loop's tick launches and the EM boundary kernel, each loop
-a conditional node), so a solve is one graph launch and one host read of
-its counters; on the CPU, or with ``backend="torch"``, the same control
-structure runs as the plain program (``kernels.ref.run_program``).
+On one device every driver is a **compiled program**, as every driver of
+the reference is one ``jit`` with its loops on the device: a workspace
+built from the bucket's shapes and the EM limits (:func:`make_workspace`)
+holds, on the card, one CUDA graph, so a call is one graph launch and one
+host read of mapped result words; on the CPU, or with ``backend="torch"``,
+the same control structure runs as a plain program on the host.
 
-The modes ``static`` and ``faithful``, and the sharded route, run one
-driver for one problem (:func:`_em_driver`), parametrised by a
-collective context (``collectives.ReduceCtx``): :func:`run_em` binds the
-single-device context; ``distributed.run_em_sharded`` binds a sharded context,
-where in mode ``static-pallas`` each MAP iteration is one
-``fused_map_step`` launch on the rank's workspace (the
-last step's labels and tests, this step's counts, energies, hood sums and
-votes), one all-reduce of the step's hood sums and votes and, past the
-window, the AND of the flag word; the launch that stops the MAP loop also
-sums the M-step's per-label terms in vertex order (the keyed sums of
-``energy.update_parameters_stats``).  Every convergence decision goes
-through the context, so all ranks take the same trajectory.
+* :func:`run_em` and :func:`run_em_batched` (:func:`_run_program`): the
+  reference's ``Segmenter.compile`` executable, a stack's the vmapped
+  ``run_em``: the MAP loop and the EM loop as two conditional nodes.  In
+  mode ``static-pallas`` the MAP step is one launch of the tick's lane
+  entry (``kernels.em_tick``; plain program ``kernels.ref.run_program``);
+  in the modes it is one flat MAP iteration of every lane
+  (:func:`map_step_lanes` on a :class:`DppBatchWorkspace`, one problem
+  being one lane), captured with PyTorch's graph capture and cloned into
+  the program (``em_tick.ModesProgram``), followed by the MAP loop's
+  control kernel; each EM iteration then runs the captured M-step (the
+  modes) and the boundary kernel's lane form (``csrc/em_boundary.cuh``).
+* :func:`run_em_ticked` (:func:`_tick_program`): the reference's
+  continuous-batching driver, a tick of a slot pool whose lanes sit at
+  different EM and MAP iterations.  The tick is one graph
+  (``em_tick.TickProgram``, ``csrc/em_control.cuh``): per micro-step the
+  pool's step (the tick's pool entry, or the modes' captured flat step),
+  the stop test, and, where some lane's MAP loop stopped, an IF node with
+  the modes' M-step and the boundary kernel's lane form, each lane at its
+  own EM iteration; its loop exits early once every lane is done.  The
+  plain tick runs the same kernels' plain versions (``kernels.ref.tick_init``,
+  ``tick_stops``, ``tick_tail``, ``tick_publish``) with no read inside: its
+  ``tick_iters`` micro-steps (:func:`_tick_micro`) take the loop's and the
+  IF node's conditions as masks, and its one read is the publish.
 
-:func:`run_em_batched` runs a stack of problems padded to one bucket in
-lockstep, the reference's vmapped ``run_em``: in mode ``static-pallas``
-the stack's compiled program (per lockstep MAP iteration one launch of
-the tick's lane entry, per EM iteration one launch of the boundary's lane
-form, one graph launch and one read per solve); in the modes per MAP
-iteration one step of the stack's workspace for every lane still running
-and one read of the B flag words, per EM iteration one vectorised
-boundary and one host read.  :func:`run_em_ticked` advances a pool of slots (:class:`TickState`,
-on a pool workspace) by micro-steps, each lane at its own MAP iteration,
-the reference's continuous-batching driver: per micro-step one step of
-the pool and one read of the B flag words, and, only where some lane's
-MAP loop stopped, the EM boundary of those lanes (one launch of the
-boundary kernel's lane form) and one host read.  In
-both, each lane's result equals its own :func:`run_em`'s bit for bit.
+In each, every lane's result equals its own :func:`run_em`'s bit for bit.
+``testing.host_loop`` keeps the host-stepped drivers (per MAP iteration
+one step and one read of the flag words, per EM iteration the host's
+boundary and its read) as the programs' parity reference.
 
-In mode ``static-pallas`` a step is one launch of the tick's batched or
-pool entry.  In the modes ``static`` and ``faithful`` it is one flat MAP
-iteration of every lane (:func:`map_step_lanes`, on a
-:class:`DppBatchWorkspace` or :class:`DppPoolWorkspace`): the paper's
-primitive sequence once over all lanes' elements, each keyed reduction on
-lane-offset keys, so its operation count does not grow with the lanes.
-That is the flat counterpart of the reference's ``vmap`` of ``run_em``
-and of its static pool micro-step (``_pool_tick_micro``).
-
-Outside the compiled program the JAX driver's ``while_loop``s are Python
-loops: their conditions need the MAP ``done`` flag on the host, so each
-MAP iteration reads one flag word from the device, and each EM boundary
-reads three.
+The sharded route (``distributed.run_em_sharded``) still steps from the
+host: one driver for one problem (:func:`_em_driver`), parametrised by a
+collective context (``collectives.ReduceCtx``).  In mode
+``static-pallas`` each MAP iteration is one ``fused_map_step`` launch on
+the rank's workspace (the last step's labels and tests, this step's
+counts, energies, hood sums and votes), one all-reduce of the step's hood
+sums and votes and, past the window, the AND of the flag word; the launch
+that stops the MAP loop also sums the M-step's per-label terms in vertex
+order.  In the modes, :func:`_map_loop` runs :func:`map_step` through the
+context.  Every convergence decision goes through the context, so all
+ranks take the same trajectory; its ``while_loop``s are Python loops that
+read the MAP ``done`` flag once per MAP iteration and three words per EM
+boundary.
 
 Every driver marks its hot scopes for the auditor's census
 (``repro_torch.analysis.census``): each MAP iteration and each EM
@@ -87,8 +84,9 @@ from repro_torch.core.pmrf import collectives
 from repro_torch.core.pmrf import energy as E
 from repro_torch.core.pmrf.hoods import Hoods
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import (ACTIVE, CTL_WORDS, EM_ITERS, MAP_ITERS, STATUS, BoundaryState,
-                                     PlainPoolTickWorkspace, TickShape)
+from repro_torch.kernels import ref
+from repro_torch.kernels.ref import (ACTIVE, CTL_WORDS, FLAG, LANE_WORDS, MAP_I, TICK_WORDS,
+                                     BoundaryState, PlainPoolTickWorkspace, TickShape)
 
 Tensor = torch.Tensor
 _MAP, _EM, _SOLVE = _census.MAP_ITERATION, _census.EM_BOUNDARY, _census.SOLVE
@@ -225,55 +223,59 @@ def _boundary_status(
 
 def make_workspace(shape: TickShape, config: EMConfig, *, device, batch=None, pool=False):
     """The MAP-iteration workspace for problems of ``shape`` under
-    ``config``, built from the shapes alone: in mode ``static-pallas``
-    (``kernels.ops.tick_workspace``, with the compiled EM program of
-    ``config``'s limits) for :func:`run_em`, with ``batch=B`` for
-    :func:`run_em_batched`, or with ``batch=B, pool=True`` the slot
-    pool of :func:`run_em_ticked`; in the modes ``static`` and
-    ``faithful``, whose one-problem solve takes none, a
-    :class:`DppBatchWorkspace` (``batch=B``) or a :class:`DppPoolWorkspace`
-    (``batch=B, pool=True``).  A session keeps one per bucket (and per
-    pool) and every solve of the bucket reuses it (``workspace=``);
-    ``kernels.ops.WORKSPACE_BUILDS`` counts every build."""
+    ``config``, built from the shapes alone, with the compiled EM program
+    of ``config``'s limits: for :func:`run_em`, with ``batch=B`` for
+    :func:`run_em_batched`, or with ``batch=B, pool=True`` the slot pool of
+    :func:`run_em_ticked` (its program is the tick).  In mode
+    ``static-pallas`` a tick workspace (``kernels.ops.tick_workspace``); in
+    the modes ``static`` and ``faithful`` a :class:`DppBatchWorkspace` (one
+    problem is one lane) or a :class:`DppPoolWorkspace`.  On the card the
+    program is one CUDA graph, on the plain route the same control run by
+    the host.  A session keeps one per bucket (and per pool) and every solve
+    of the bucket reuses it (``workspace=``); ``kernels.ops.WORKSPACE_BUILDS``
+    counts every build and ``kernels.ops.PROGRAM_BUILDS`` every program."""
     if config.mode == "static-pallas":
         return kops.tick_workspace(
             shape, device=device, batch=batch, pool=pool, max_map_iters=config.max_map_iters,
-            max_em_iters=None if pool else config.max_em_iters, precision=config.precision,
+            max_em_iters=config.max_em_iters, precision=config.precision,
             conv_tol=CONV_TOL, window=WINDOW, backend=config.backend,
         )
-    if batch is None:
-        raise ValueError(f"mode {config.mode!r} takes no workspace for one problem; "
-                         "pass batch=B for a stack or a pool")
+    if pool and batch is None:
+        raise ValueError("a pool workspace needs batch=B")
     cls = DppPoolWorkspace if pool else DppBatchWorkspace
-    ws = cls(TickShape(*shape), batch, mode=config.mode, device=device, backend=config.backend,
-             max_map_iters=config.max_map_iters)
+    ws = cls(TickShape(*shape), 1 if batch is None else batch, mode=config.mode, device=device,
+             backend=config.backend, max_map_iters=config.max_map_iters,
+             max_em_iters=config.max_em_iters)
     kops.count_workspace_build()
+    kops.count_program_build("pool" if pool else "solve" if batch is None else "stack")
     return ws
 
 
 def _check_workspace(ws, config: EMConfig, n_labels: int) -> None:
+    if not all(hasattr(ws, a) for a in ("mode", "precision", "n_labels", "run_program")):
+        raise ValueError(f"a {type(ws).__name__} is not a workspace of the compiled EM program "
+                         "(make_workspace)")
     if (ws.mode, ws.precision, ws.n_labels) != (config.mode, config.precision, n_labels):
         raise ValueError(
             f"workspace built for mode {ws.mode!r}, precision {ws.precision!r} and "
             f"K = {ws.n_labels}, the solve has {config.mode!r}, {config.precision!r} and "
             f"K = {n_labels}"
         )
-    if config.mode == "static-pallas":
-        limits = (getattr(ws, "max_em_iters", None), getattr(ws, "max_map_iters", None))
-        if limits != (config.max_em_iters, config.max_map_iters):
-            raise ValueError(
-                f"workspace built with the EM program of (max_em_iters, max_map_iters) "
-                f"{limits}, the solve has {(config.max_em_iters, config.max_map_iters)}")
+    limits = (getattr(ws, "max_em_iters", None), getattr(ws, "max_map_iters", None))
+    if limits != (config.max_em_iters, config.max_map_iters):
+        raise ValueError(
+            f"workspace built with the EM program of (max_em_iters, max_map_iters) "
+            f"{limits}, the solve has {(config.max_em_iters, config.max_map_iters)}")
 
 
 def _run_program(hoods: Hoods, model: E.EnergyModel, labels0: Tensor, mu0: Tensor,
                  sigma0: Tensor, config: EMConfig, workspace, batch: Optional[int]):
-    """The compiled EM program of mode ``static-pallas`` on one device:
-    the element arrays (``energy.make_static_context``, one
-    ``segment_reduce`` launch), ``start`` (the solve's arrays copied into
-    the workspace), the program (on the card one graph launch, on the
-    plain route the plain program) and one read of its counters; then the
-    result, copied out of the workspace.  ``batch`` None for one problem,
+    """The compiled EM program on one device, in every mode: in mode
+    ``static-pallas`` the element arrays (``energy.make_static_context``,
+    one ``segment_reduce`` launch) first; ``start`` (the solve's arrays
+    copied into the workspace), the program (on the card one graph launch,
+    on the plain route the plain program) and one read of its counters;
+    then the result, copied out of the workspace.  ``batch`` None for one problem,
     else the stack's lanes.  Returns ``(outputs, em_iters, map_iters,
     status, steps)``: ``outputs`` (labels, mu, sigma, hood energies,
     total energies) with a lane axis, the counts one int per lane."""
@@ -283,16 +285,20 @@ def _run_program(hoods: Hoods, model: E.EnergyModel, labels0: Tensor, mu0: Tenso
     ws = workspace if workspace is not None else make_workspace(
         TickShape.of(hoods, model), config, device=dev, batch=batch)
     _check_workspace(ws, config, n_labels)
-    if batch is not None and ws.batch != batch:
-        raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
+    lanes = 1 if batch is None else batch
+    if getattr(ws, "batch", lanes) != lanes:
+        raise ValueError(f"workspace built for {ws.batch} lanes, the solve has {lanes}")
     cen = _census.ACTIVE
     if cen is not None:
         cen.enter(_SOLVE)
-    if batch is None:
+    if config.mode != "static-pallas":
+        ws.start(hoods, model, labels0, mu0, sigma0)
+    elif batch is None:
         sctx = E.make_static_context(hoods, model, backend=config.backend)
+        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0, mu0, sigma0)
     else:
         sctx = E.make_static_context_batched(hoods, model, backend=config.backend)
-    ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0, mu0, sigma0)
+        ws.start(hoods, model, sctx.y, sctx.w, sctx.nall_e, sctx.validf, labels0, mu0, sigma0)
     ws.run_program(cen)
     em_iters, map_iters, status, steps = ws.program_result()
     labels, mu, sigma, hood_e, total_hist = ws.program_views()
@@ -398,26 +404,41 @@ def map_step_lanes(
 
 class _DppLanes:
     """The state both workspaces of the modes ``static`` and ``faithful``
-    keep per lane (labels, history ring, last hood sums, M-step sums,
-    parameters, active word, flag word) and their step: one flat MAP
-    iteration (:func:`map_step_lanes`) of every lane, then, per lane, the
-    history ring, the window test past the gate and the finiteness test; a
-    lane whose MAP loop stops (flag word set, or the cap) leaves the active
-    lanes.  A lane that is not active is frozen bit for bit: its compute is
-    thrown away.  The step's operation count does not depend on the lanes;
-    its one host read is :meth:`flags`.
+    keep per lane, and their step.  Every buffer is the workspace's own,
+    fixed for its life, so the captured step of the compiled program reads
+    and writes the same addresses at every replay: the lanes' problems
+    (hood arrays, the K = 2 replication arrays, region arrays, model
+    scalars; empty lanes gather the sentinel vertex and hood and keep mu 0
+    and sigma 1, so their thrown-away compute stays finite), labels,
+    history ring, last hood sums, M-step sums, parameters, the lane block
+    (``kernels.ref.LANE_WORDS``: the active word, MAP counter and flag word
+    are views of its rows, ``active``, ``map_i`` and ``_flags``) and the
+    program's words and EM level (``em_mu``, ``em_sigma``, ``total_hist``).
+
+    The step is one flat MAP iteration (:func:`map_step_lanes`) of every
+    lane, then, per lane, the history ring, the window test past the gate
+    and the finiteness test; a lane whose MAP loop stops (flag word set, or
+    the cap) leaves the active lanes.  A lane that is not active is frozen
+    bit for bit: its compute is thrown away.  Every result is written in
+    place (``copy_``), and the step's operation count does not depend on the
+    lanes.  Host-stepped, its one host read is :meth:`flags`.
 
     :attr:`stats` holds the M-step sums of the lanes whose MAP loop
-    stopped.  A stopped lane's labels stay as its last step left them, so
-    its sums are taken when the driver reads them, at its EM boundary: one
-    ``energy.m_step_sums_lanes`` (three ordered ``add`` launches) for every
-    lane that stopped since the last read, however many there are
-    (``m_steps`` counts them)."""
+    stopped: the first read after a step takes them for every lane that
+    stopped since the last read, in one ``energy.m_step_sums_lanes`` (three
+    ordered ``add`` launches; ``m_steps`` counts them).
+
+    Built with the EM limits (``max_em_iters`` not None) a workspace also
+    holds its compiled program: on the card (the kernel route) one CUDA
+    graph with the step and the M-step captured into it
+    (``kernels.em_tick.ModesProgram``, or a pool's ``TickProgram``), on the
+    plain route the same control structure run by the host
+    (``kernels.ref.run_program``; the pool's plain tick)."""
 
     precision = "f32"
 
     def __init__(self, shape: TickShape, batch: int, *, mode: str, device,
-                 backend: Optional[str] = None, max_map_iters: int = 10):
+                 backend: Optional[str] = None, max_map_iters: int = 10, max_em_iters=None):
         if mode not in ("static", "faithful"):
             raise ValueError(f"a DPP workspace runs mode 'static' or 'faithful', got {mode!r}")
         if batch < 1:
@@ -426,41 +447,109 @@ class _DppLanes:
         E.check_lane_key_spaces(batch, cap, n_hoods, n_vert, k)
         self.shape, self.batch, self.mode, self.backend = shape, batch, mode, backend
         self.n_labels, self.max_map_iters = k, max_map_iters
-        self.device = dev = torch.device(device)
-        f32 = torch.float32
-        self.labels = torch.zeros((batch, n_vert), dtype=torch.int32, device=dev)
-        self.ring = torch.zeros((batch, WINDOW + 1, n_hoods), dtype=f32, device=dev)
-        self.hood_e = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
-        self.mu = torch.zeros((batch, k), dtype=f32, device=dev)
-        self.sigma = torch.ones((batch, k), dtype=f32, device=dev)
-        self.active = torch.zeros((batch,), dtype=torch.bool, device=dev)
-        self._flags = torch.zeros((batch,), dtype=torch.int32, device=dev)
-        self._stats = torch.zeros((batch, 3, k), dtype=f32, device=dev)
-        self._stopped = torch.zeros((batch,), dtype=torch.bool, device=dev)  # sums not yet taken
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        f32, i32 = torch.float32, torch.int32
+        z = lambda *s, dtype=f32: torch.zeros((batch, *s), dtype=dtype, device=dev)  # noqa: E731
+        one = lambda *s: torch.ones((batch, *s), dtype=f32, device=dev)  # noqa: E731
+        rep = 2 * cap if k == 2 else 0  # the replication arrays serve faithful K = 2
+        self.vertex = torch.full((batch, cap), n_vert - 1, dtype=i32, device=dev)
+        self.hood_id = torch.full((batch, cap), n_hoods, dtype=i32, device=dev)
+        self.valid = z(cap, dtype=torch.bool)
+        self.rep_old_index = torch.full((batch, rep), cap - 1, dtype=i32, device=dev)
+        self.rep_test_label = z(rep, dtype=i32)
+        self.rep_hood_id = torch.full((batch, rep), n_hoods, dtype=i32, device=dev)
+        self.rep_valid = z(rep, dtype=torch.bool)
+        self.region_mean, self.region_weight = z(n_vert), z(n_vert)
+        self.beta, self.sigma_min, self.reseed_sigma = z(), one(), one()
+        self.reseed_mu = z(k)
+        self.labels = z(n_vert, dtype=i32)
+        self.ring = z(WINDOW + 1, n_hoods)
+        self.hood_e = z(n_hoods)
+        self.mu, self.sigma = z(k), one(k)
+        self._stats = z(3, k)
+        self._stopped = z(dtype=torch.bool)  # stopped lanes whose sums are not yet taken
+        self.lane = torch.zeros((len(LANE_WORDS), batch), dtype=i32, device=dev)
+        self.ctl = torch.zeros((len(CTL_WORDS),), dtype=i32, device=dev)
+        self.tick = torch.zeros((len(TICK_WORDS),), dtype=i32, device=dev)
+        self.active, self.map_i, self._flags = self.lane[ACTIVE], self.lane[MAP_I], self.lane[FLAG]
+        self.em_mu, self.em_sigma, self.total_hist = z(k), one(k), z(WINDOW + 1)
+        self.mu0, self.sigma0 = z(k), one(k)
         self._stale = False  # a step ran since the last read of ``stats``
-        self.m_steps = 0     # M-step sums taken (``stats`` reads after a step)
+        self.m_steps = 0     # M-step sums taken
         #: (B, K), or None: stands for ``torch.log`` of the clamped sigma
-        #: (``energy.label_energies``'s ``log_sigma``).
+        #: (``energy.label_energies``'s ``log_sigma``); host-stepped only.
         self.log_sigma = None
+        self._hoods = Hoods(
+            vertex=self.vertex, hood_id=self.hood_id, valid=self.valid, sizes=None,
+            offsets=None, n_hoods=n_hoods, n_regions=n_vert - 1, n_elements=-1,
+            rep_old_index=self.rep_old_index, rep_test_label=self.rep_test_label,
+            rep_hood_id=self.rep_hood_id, rep_valid=self.rep_valid)
+        self._model = E.EnergyModel(self.region_mean, self.region_weight, self.beta,
+                                    self.sigma_min, self.reseed_mu, self.reseed_sigma)
+        self.max_em_iters = max_em_iters
+        self.program = None
+        self._captured = None
+        self.program_launches = {}
 
-    def _step(self, hoods: Hoods, model: E.EnergyModel, gate, cap) -> None:
-        """``gate`` and ``cap``: bools, or (B,) bool tensors."""
-        act = self.active
-        new, hood_e = map_step_lanes(hoods, model, self.mode, self.labels, self.mu, self.sigma,
-                                     backend=self.backend, log_sigma=self.log_sigma)
+    # -- the lanes' problems --------------------------------------------------
+
+    def _inputs(self, hoods: Hoods, model: E.EnergyModel) -> list:
+        pairs = [(self.vertex, hoods.vertex), (self.hood_id, hoods.hood_id),
+                 (self.valid, hoods.valid), (self.region_mean, model.region_mean),
+                 (self.region_weight, model.region_weight), (self.beta, model.beta),
+                 (self.sigma_min, model.sigma_min), (self.reseed_mu, model.reseed_mu),
+                 (self.reseed_sigma, model.reseed_sigma)]
+        if self.n_labels == 2:
+            pairs += [(self.rep_old_index, hoods.rep_old_index),
+                      (self.rep_test_label, hoods.rep_test_label),
+                      (self.rep_hood_id, hoods.rep_hood_id), (self.rep_valid, hoods.rep_valid)]
+        return pairs
+
+    def _kernel_route(self) -> bool:
+        return kops._use_kernel(self.backend, self.device)
+
+    # -- the step and the M-step (device work only) ---------------------------
+
+    def _step_core(self, gate, cap, i: Optional[Tensor] = None) -> None:
+        """One flat MAP iteration of the active lanes, in place; ``gate`` and
+        ``cap`` bools or (B,) bool tensors, ``i`` (B,) the iteration each
+        lane runs (its MAP counter's next value) or None."""
+        act = self.active != 0
+        new, hood_e = map_step_lanes(self._hoods, self._model, self.mode, self.labels, self.mu,
+                                     self.sigma, backend=self.backend, log_sigma=self.log_sigma)
         ring = torch.cat([hood_e[:, None], self.ring[:, :-1]], dim=1)
         conv = torch.all(_window_converged(ring.transpose(0, 1)), dim=1) & gate
         div = ~torch.all(torch.isfinite(hood_e), dim=1)
         flag = conv.to(torch.int32) * kops.FLAG_CONVERGED | div.to(torch.int32) * kops.FLAG_DIVERGED
         stop = act & ((flag != 0) | cap)
-        self.labels = torch.where(act[:, None], new, self.labels)
-        self.hood_e = torch.where(act[:, None], hood_e, self.hood_e)
-        self.ring = torch.where(act[:, None, None], ring, self.ring)
-        self._flags = torch.where(act, flag, 0)
-        self.active = act & ~stop
-        self._stopped = self._stopped | stop
-        self._stale = True
-        kops.count_lane_step()
+        self.labels.copy_(torch.where(act[:, None], new, self.labels))
+        self.hood_e.copy_(torch.where(act[:, None], hood_e, self.hood_e))
+        self.ring.copy_(torch.where(act[:, None, None], ring, self.ring))
+        self._flags.copy_(torch.where(act, flag, 0))
+        self.active.copy_(act & ~stop)
+        torch.logical_or(self._stopped, stop, out=self._stopped)
+        if i is not None:
+            self.map_i.copy_(torch.where(act, i, self.map_i))
+
+    def _lane_step(self) -> None:
+        """:meth:`_step_core` with each lane at its own MAP iteration, its
+        gate and cap from its counter (the pool's step, and the program's)."""
+        i = self.map_i + 1
+        self._step_core(i > WINDOW, i == self.max_map_iters, i)
+
+    def _mstep_core(self, every_lane: bool = False) -> None:
+        """The M-step sums of the stopped lanes (``every_lane``: of every
+        lane, the modes' M-step when no MAP iteration ran) into ``_stats``,
+        in place; no lane is left stopped."""
+        sums = E.m_step_sums_lanes(self._model, self.labels, self.mode,
+                                   lanes=None if every_lane else self._stopped, backend=self.backend)
+        sums = torch.stack(sums, dim=1)
+        self._stats.copy_(sums if every_lane else torch.where(self._stopped[:, None, None], sums,
+                                                               self._stats))
+        self._stopped.zero_()
 
     @property
     def stats(self) -> Tensor:
@@ -469,92 +558,203 @@ class _DppLanes:
         after a step takes them for the lanes that stopped since the last
         one (their rows change, no other lane's)."""
         if self._stale:
-            sums = E.m_step_sums_lanes(self._model, self.labels, self.mode, lanes=self._stopped,
-                                       backend=self.backend)
-            self._stats = torch.where(self._stopped[:, None, None], torch.stack(sums, dim=1),
-                                      self._stats)
-            self._stopped = torch.zeros_like(self._stopped)
+            self._mstep_core()
             self._stale = False
             self.m_steps += 1
         return self._stats
 
     def flags(self) -> list:
         """The B flag words (``kernels.ops.FLAG_*``; 0 for a lane that was
-        not active): the step's one host read."""
+        not active): the host-stepped step's one host read."""
         return self._flags.tolist()
+
+    def boundary_state(self) -> BoundaryState:
+        """The boundary kernel's tensors over the lanes (its lane form)."""
+        return BoundaryState(self._stats, self.hood_e, self.lane, self.ctl, self.em_mu,
+                             self.em_sigma, self.mu, self.sigma, self.ring, self.total_hist,
+                             self.sigma_min, self.reseed_mu, self.reseed_sigma)
+
+    # -- the compiled program on the card -------------------------------------
+
+    def _capture(self) -> tuple:
+        """The step and the M-step captured once (``em_tick.CapturedOps``,
+        their ``segment_reduce`` launches counted on the device in
+        ``ctl``'s last three words): the nodes every program of this
+        workspace takes."""
+        if self._captured is None:
+            from repro_torch.kernels import em_tick
+
+            every = self.max_map_iters == 0
+            words = self.ctl[ref.SEG_ADD].data_ptr()
+            with torch.cuda.device(self.device):
+                self._captured = (
+                    em_tick.CapturedOps(self._lane_step, self.device, words),
+                    em_tick.CapturedOps(lambda: self._mstep_core(every), self.device, words))
+        return self._captured
+
+    def count_program(self, steps: int, msteps: int) -> None:
+        """The host's step counts of a program or tick: ``steps`` flat steps
+        and ``msteps`` M-steps, as its words counted them."""
+        kops.count_lane_step(steps)
+        self.m_steps += msteps
 
 
 class DppBatchWorkspace(_DppLanes):
-    """:func:`run_em_batched`'s workspace in the modes ``static`` and
-    ``faithful`` (``make_workspace(..., batch=B)``), with the interface of
-    the tick's ``BatchTickWorkspace``: :meth:`start` binds a stack,
+    """:func:`run_em` and :func:`run_em_batched`'s workspace in the modes
+    ``static`` and ``faithful`` (``make_workspace``, ``batch=B`` for a
+    stack; one problem is one lane), with the interface of the tick's
+    ``BatchTickWorkspace``.
+
+    The program (``make_workspace`` builds it with the config's EM limits):
+    :meth:`start` with ``mu0`` and ``sigma0`` copies the solve in,
+    :meth:`run_program` runs it (on the card one graph launch: per lockstep
+    MAP iteration the captured flat step and the MAP loop's control kernel,
+    per EM iteration the captured M-step and the boundary kernel's lane
+    form), :meth:`program_result` reads its counters (one wait).
+
+    Host-stepped (``testing.host_loop``): :meth:`start` without ``mu0``,
     :meth:`begin_em` starts an EM iteration of the given lanes, each
-    :meth:`step` is one flat MAP iteration of the active lanes, the
-    iteration ``i`` of each (``gate``: ``i > WINDOW``; ``cap``: ``i ==
+    :meth:`step` is one flat MAP iteration of the active lanes at the
+    lockstep iteration ``i`` (``gate``: ``i > WINDOW``; ``cap``: ``i ==
     max_map_iters``)."""
 
-    def start(self, hoods: Hoods, model: E.EnergyModel, labels0: Tensor) -> None:
-        if TickShape.of(hoods, model) != self.shape or labels0.shape[0] != self.batch:
+    def __init__(self, shape: TickShape, batch: int, **kw):
+        super().__init__(shape, batch, **kw)
+        if self.max_em_iters is not None and self._kernel_route():
+            from repro_torch.kernels import em_tick
+
+            step, mstep = self._capture()
+            self.program = em_tick.ModesProgram(
+                self.device, self.boundary_state(), self.mu0, self.sigma0, step, mstep,
+                max_em_iters=self.max_em_iters, max_map_iters=self.max_map_iters,
+                conv_tol=CONV_TOL, n_vertices=self.shape.n_vertices)
+
+    def start(self, hoods: Hoods, model: E.EnergyModel, labels0: Tensor, mu0=None,
+              sigma0=None) -> None:
+        """Copy a stack's problems (or one problem's, as lane 0) into the
+        workspace.  With ``mu0`` and ``sigma0`` it is the program's solve;
+        without, a host-stepped one (every lane inactive until
+        :meth:`begin_em`)."""
+        lead = (self.batch,)
+        if TickShape.of(hoods, model) != self.shape or labels0.reshape(lead + (-1,)).shape[0] != self.batch:
             raise ValueError(f"a stack of {labels0.shape[0]} problems of "
                              f"{TickShape.of(hoods, model)}; the workspace was built for "
                              f"{self.batch} of {self.shape}")
-        self._hoods, self._model = hoods, model
-        self.labels = labels0.clone()
-        self.active = torch.zeros_like(self.active)
-        self._stopped = torch.zeros_like(self._stopped)
+        pairs = self._inputs(hoods, model) + [(self.labels, labels0)]
+        if mu0 is not None:
+            pairs += [(self.mu0, mu0), (self.sigma0, sigma0)]
+        for dst, src in pairs:
+            dst.copy_(src.reshape(dst.shape))
+        self._stopped.zero_()
         self._stale = False
+        if mu0 is None:
+            self.active.zero_()
 
     def begin_em(self, mu: Tensor, sigma: Tensor, active, log_sigma=None) -> None:
         """The EM iteration's parameters ((B, K), ``sigma`` clamped) and the
         lanes that run it; their rings restart.  ``log_sigma`` as the
         attribute's."""
-        self.mu, self.sigma, self.log_sigma = mu, sigma, log_sigma
-        self.active = torch.as_tensor([bool(a) for a in active], device=self.device)
-        self.ring = self.ring.masked_fill(self.active[:, None, None], 0.0)
+        self.mu.copy_(mu)
+        self.sigma.copy_(sigma)
+        self.log_sigma = log_sigma
+        self.active.copy_(torch.as_tensor([bool(a) for a in active], device=self.device))
+        self.ring.masked_fill_(self.active[:, None, None] != 0, 0.0)
 
     def step(self, gate: bool, cap: bool = False) -> None:
-        self._step(self._hoods, self._model, gate, cap)
+        self._step_core(gate, cap)
+        self._stale = True
+        kops.count_lane_step()
+
+    # -- the program ----------------------------------------------------------
+
+    def program_begin(self) -> None:
+        """The plain program's start (``ref.program_begin``; the labels are
+        in place already)."""
+        ref.program_begin(ref.ProgramState(*(None,) * 9, self.mu0, self.sigma0, None,
+                                           self.labels, None, self.boundary_state()),
+                          max_em_iters=self.max_em_iters, max_map_iters=self.max_map_iters)
+
+    def program_step(self) -> None:
+        """The plain program's MAP iteration: the lanes' step and the MAP
+        loop's control (``ref.map_ctl``)."""
+        self._lane_step()
+        ref.map_ctl(self.lane, self.ctl)
+        kops.count_lane_step()
+
+    def program_boundary(self) -> None:
+        """The plain program's EM boundary: the M-step, then the boundary's
+        lane form (``ref.em_boundary_lanes``)."""
+        self._mstep_core(self.max_map_iters == 0)
+        self.m_steps += 1
+        ref.em_boundary_lanes(self.boundary_state(), max_em_iters=self.max_em_iters,
+                              max_map_iters=self.max_map_iters, conv_tol=CONV_TOL,
+                              stats_at_zero=True)
+
+    def run_program(self, marks=None) -> None:
+        """The solve bound by :meth:`start` (with ``mu0``): on the card one
+        graph launch on the current stream, else the plain program
+        (``ref.run_program``; ``marks`` its census hook)."""
+        if self.max_em_iters is None:
+            raise ValueError("this workspace was built without the EM limits: it has no program")
+        if self.log_sigma is not None:
+            raise ValueError("the program takes no log_sigma")
+        if self.program is None:
+            ref.run_program(self, marks)
+        else:
+            self.launch_program()
+
+    def launch_program(self) -> None:
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
+        self.program.launch(self._stream)
+
+    def program_result(self) -> tuple:
+        """The solve's counters, one read: each lane's EM iterations, MAP
+        iterations and status, and the lockstep MAP iterations.  On the
+        card the host's launch counts take the graph's flat steps and
+        M-steps as the device counted them (``program_launches``)."""
+        if self.program is None:
+            return ref.program_result(self.lane, self.ctl)
+        em, maps, status, steps, flat, boundaries = self.program.result(self._stream)
+        self.program_launches = {"step": flat, "em_boundary": boundaries}
+        self.count_program(flat, boundaries)
+        kops.count_boundaries(boundaries)
+        return em, maps, status, steps
+
+    def program_views(self) -> tuple:
+        """(B, ...) views of the program's outputs: labels (a copy: the
+        result's own), the EM-level mu and sigma, the hood energies and the
+        total-energy ring."""
+        return self.labels.clone(), self.em_mu, self.em_sigma, self.hood_e, self.total_hist
 
 
 class DppPoolWorkspace(_DppLanes):
     """:func:`run_em_ticked`'s slot pool in the modes ``static`` and
     ``faithful`` (``make_workspace(..., batch=B, pool=True)``), with the
     interface of the tick's ``PoolTickWorkspace``: it owns each slot's
-    problem (hood arrays, the K = 2 replication arrays, region arrays and
-    model scalars) and MAP counter (``map_i``); :meth:`admit` writes one
-    slot's rows, :meth:`begin_lanes` starts an EM iteration of some slots,
+    problem and MAP counter (``map_i``); :meth:`admit` writes one slot's
+    rows, :meth:`begin_lanes` starts an EM iteration of some slots,
     :meth:`retire` stops one, and each :meth:`step` is one flat MAP
     iteration of the active lanes, each at its own iteration (gate and cap
-    from its counter).  Empty slots gather the sentinel vertex and hood and
-    keep mu 0 and sigma 1, so their thrown-away compute stays finite."""
+    from its counter).  On the card, built with the EM limits, it holds the
+    compiled tick (``em_tick.TickProgram`` with the captured step and
+    M-step): :meth:`launch_tick`, then :meth:`tick_result`."""
 
     def __init__(self, shape: TickShape, batch: int, **kw):
         super().__init__(shape, batch, **kw)
-        cap, n_hoods, n_vert, k = shape
-        dev, i32, f32 = self.device, torch.int32, torch.float32
-        rep = 2 * cap if k == 2 else 0  # the replication arrays serve faithful K = 2
-        self.vertex = torch.full((batch, cap), n_vert - 1, dtype=i32, device=dev)
-        self.hood_id = torch.full((batch, cap), n_hoods, dtype=i32, device=dev)
-        self.valid = torch.zeros((batch, cap), dtype=torch.bool, device=dev)
-        self.rep_old_index = torch.full((batch, rep), cap - 1, dtype=i32, device=dev)
-        self.rep_test_label = torch.zeros((batch, rep), dtype=i32, device=dev)
-        self.rep_hood_id = torch.full((batch, rep), n_hoods, dtype=i32, device=dev)
-        self.rep_valid = torch.zeros((batch, rep), dtype=torch.bool, device=dev)
-        self.region_mean = torch.zeros((batch, n_vert), dtype=f32, device=dev)
-        self.region_weight = torch.zeros((batch, n_vert), dtype=f32, device=dev)
-        self.beta = torch.zeros((batch,), dtype=f32, device=dev)
-        self.sigma_min = torch.zeros((batch,), dtype=f32, device=dev)
-        self.reseed_mu = torch.zeros((batch, k), dtype=f32, device=dev)
-        self.reseed_sigma = torch.ones((batch,), dtype=f32, device=dev)
-        self.map_i = torch.zeros((batch,), dtype=i32, device=dev)
         self.owner = None
-        self._hoods = Hoods(
-            vertex=self.vertex, hood_id=self.hood_id, valid=self.valid, sizes=None,
-            offsets=None, n_hoods=n_hoods, n_regions=n_vert - 1, n_elements=-1,
-            rep_old_index=self.rep_old_index, rep_test_label=self.rep_test_label,
-            rep_hood_id=self.rep_hood_id, rep_valid=self.rep_valid)
-        self._model = E.EnergyModel(self.region_mean, self.region_weight, self.beta,
-                                    self.sigma_min, self.reseed_mu, self.reseed_sigma)
+        if self.max_em_iters is not None and self._kernel_route():
+            from repro_torch.kernels import em_tick
+
+            step, mstep = self._capture()
+            with torch.cuda.device(self.device):
+                self.program = em_tick.TickProgram(
+                    self, lambda pb, g: pb.child(g, step), lambda pb, g: pb.child(g, mstep),
+                    max_em_iters=self.max_em_iters, conv_tol=CONV_TOL, stats_at_zero=True)
+
+    @property
+    def graph_tick(self) -> bool:
+        """True when the tick runs as the compiled graph (the kernel route)."""
+        return self._kernel_route()
 
     def _check_slot(self, slot: int) -> int:
         if not 0 <= slot < self.batch:
@@ -568,17 +768,8 @@ class DppPoolWorkspace(_DppLanes):
         if TickShape.of(hoods, model) != self.shape:
             raise ValueError(f"a problem of {TickShape.of(hoods, model)}; the pool was built "
                              f"for {self.shape}")
-        self.active[slot] = False
-        pairs = [(self.vertex, hoods.vertex), (self.hood_id, hoods.hood_id),
-                 (self.valid, hoods.valid), (self.region_mean, model.region_mean),
-                 (self.region_weight, model.region_weight), (self.beta, model.beta),
-                 (self.sigma_min, model.sigma_min), (self.reseed_mu, model.reseed_mu),
-                 (self.reseed_sigma, model.reseed_sigma), (self.labels, labels0)]
-        if self.n_labels == 2:
-            pairs += [(self.rep_old_index, hoods.rep_old_index),
-                      (self.rep_test_label, hoods.rep_test_label),
-                      (self.rep_hood_id, hoods.rep_hood_id), (self.rep_valid, hoods.rep_valid)]
-        for dst, src in pairs:
+        self.active[slot] = 0
+        for dst, src in self._inputs(hoods, model) + [(self.labels, labels0)]:
             dst[slot].copy_(src)
         self.map_i[slot] = 0
         self._stopped[slot] = False
@@ -591,16 +782,38 @@ class DppPoolWorkspace(_DppLanes):
         self.sigma[idx] = sigma
         self.ring[idx] = 0.0
         self.map_i[idx] = 0
-        self.active[idx] = True
+        self.active[idx] = 1
 
     def retire(self, slot: int) -> None:
-        self.active[self._check_slot(slot)] = False
+        self.active[self._check_slot(slot)] = 0
 
     def step(self) -> None:
-        i = self.map_i + 1
-        act = self.active
-        self._step(self._hoods, self._model, i > WINDOW, i == self.max_map_iters)
-        self.map_i = torch.where(act, i, self.map_i)
+        self._lane_step()
+        self._stale = True
+        kops.count_lane_step()
+
+    def program_step(self) -> None:
+        """The plain tick's step (counted from the tick's words)."""
+        self._lane_step()
+
+    def program_mstep(self) -> None:
+        """The plain tick's M-step of the lanes that stopped, before their
+        boundary (counted from the tick's words)."""
+        self._mstep_core()
+
+    def launch_tick(self, tick_iters: int, em_iters, map_iters, status) -> None:
+        """One tick of the compiled program on the current stream: its
+        in-words written, one graph launch."""
+        self._stream = torch.cuda.current_stream(self.device).cuda_stream
+        self.program.launch(self._stream, tick_iters, em_iters, map_iters, status)
+
+    def tick_result(self) -> dict:
+        """Wait for the tick (one wait): ``TickProgram.result``, the host's
+        counts taking what the graph ran."""
+        out = self.program.result(self._stream)
+        self.count_program(out["steps"], out["stops"])
+        kops.count_boundaries(out["boundaries"])
+        return out
 
 
 def _em_driver(
@@ -733,14 +946,11 @@ def run_em(
     *,
     workspace=None,
 ) -> EMResult:
-    """EM on one problem, on the device its tensors live on.  In mode
-    ``static-pallas`` the compiled EM program of ``workspace``
-    (``make_workspace``: the bucket's buffers and program, carried across
-    its solves; without it the solve builds its own): on the card one graph
-    launch and one host read.  The modes ``static`` and ``faithful`` take
-    no workspace."""
-    if config.mode != "static-pallas":
-        return _em_driver(hoods, model, labels0, mu0, sigma0, config, collectives.LOCAL, workspace)
+    """EM on one problem, on the device its tensors live on: the compiled
+    EM program of ``workspace`` (``make_workspace``: the bucket's buffers
+    and program, carried across its solves; without it the solve builds its
+    own), in every mode: on the card one graph launch and one host read.
+    (``testing.host_loop.run_em`` steps the same solve from the host.)"""
     (labels, mu, sigma, hood_e, total), em_iters, map_iters, status, _ = _run_program(
         hoods, model, labels0, mu0, sigma0, config, workspace, None)
     return EMResult(labels=labels[0], mu=mu[0], sigma=sigma[0], hood_energy=hood_e[0],
@@ -785,117 +995,23 @@ def run_em_batched(
     The EM loop runs while any lane runs, and each EM iteration's MAP loop
     while any lane's MAP loop runs; a lane whose MAP loop stopped is
     inactive until the next EM iteration, and a lane whose EM finished
-    stays inactive.  In mode ``static-pallas`` that is the stack's compiled
-    program (:func:`_run_program`; on the card one graph launch: per
-    lockstep MAP iteration one launch of the tick's lane entry, per EM
-    iteration one of the boundary's lane form, and one host read).  In the
-    modes ``static`` and ``faithful``, per MAP iteration one flat MAP
-    iteration of every lane on the workspace and one read of the B flag
-    words; per EM iteration the boundary over every lane at once
-    (``params_from_stats`` on (B, 3, K), the divergence and degeneracy
-    tests, the total-energy rings) and one host read.  Each lane's result
-    is its own :func:`run_em`'s bit for bit.
+    stays inactive.  That is the stack's compiled program
+    (:func:`_run_program`; on the card one graph launch and one host read):
+    per lockstep MAP iteration one launch of the tick's lane entry in mode
+    ``static-pallas``, one flat MAP iteration of every lane in the modes
+    ``static`` and ``faithful``; per EM iteration (the modes' M-step, then)
+    one launch of the boundary's lane form.  Each lane's result is its own
+    :func:`run_em`'s bit for bit.
     ``workspace`` (``make_workspace(..., batch=B)``) carries the buffers
     across solves of one bucket and batch size.
     """
     validate_config(config)
-    n_hoods = hoods.n_hoods
-    batch, dev, f32 = int(labels0.shape[0]), labels0.device, torch.float32
-    n_labels = model.n_labels
-    if config.mode == "static-pallas":
-        (labels, mu, sigma, hood_e, total), em_iters, map_iters, status, steps = _run_program(
-            hoods, model, labels0, mu0, sigma0, config, workspace, batch)
-        return BatchedEMResult(labels=labels, mu=mu, sigma=sigma, hood_energy=hood_e,
-                               total_energy=total, em_iters=tuple(em_iters),
-                               map_iters=tuple(map_iters), status=tuple(status), steps=steps)
-    ws = workspace if workspace is not None else make_workspace(
-        TickShape.of(hoods, model), config, device=dev, batch=batch)
-    _check_workspace(ws, config, n_labels)
-    if ws.batch != batch:
-        raise ValueError(f"workspace built for {ws.batch} lanes, the stack has {batch}")
-    ws.start(hoods, model, labels0)
-
-    mu, sigma = mu0, sigma0
-    hood_energy = torch.zeros((batch, n_hoods), dtype=f32, device=dev)
-    total_hist = torch.zeros((batch, WINDOW + 1), dtype=f32, device=dev)
-    em_iters, map_iters = [0] * batch, [0] * batch
-    status = [STATUS_OK] * batch
-    running = [True] * batch   # lanes whose EM has not finished
-    em_i = 0                   # every running lane is at the same EM iteration
-    steps = 0
-    cen = _census.ACTIVE
-    while em_i < config.max_em_iters and any(running):
-        if cen is not None:
-            cen.enter(_EM)
-        lanes = list(running)
-        ws.begin_em(mu, torch.maximum(sigma, model.sigma_min[:, None]), lanes)
-        # MAP loop: per iteration one launch for the running lanes and one
-        # read of their flag words; a lane's stopping launch takes its
-        # M-step sums and retires it until the next EM iteration.
-        in_map, flags, lane_map = list(lanes), [0] * batch, [0] * batch
-        i = 0
-        while i < config.max_map_iters and any(in_map):
-            if cen is not None:
-                cen.enter(_MAP)
-            i += 1
-            cap = i == config.max_map_iters
-            ws.step(i > WINDOW, cap)
-            steps += 1
-            words = ws.flags()
-            for b in range(batch):
-                if in_map[b]:
-                    lane_map[b], flags[b] = i, words[b]
-                    in_map[b] = not (words[b] or cap)
-        if cen is not None:
-            cen.leave(_MAP)
-        if i:
-            he, msums = ws.hood_e, ws.stats
-        else:
-            # No MAP iteration: the modes' M-step still reads the labels.
-            he = hood_energy.new_zeros(hood_energy.shape)
-            msums = torch.stack(
-                E.m_step_sums_lanes(model, ws.labels, config.mode, backend=config.backend), dim=1)
-        new_mu, new_sigma, sum_w = E.params_from_stats(model, msums[:, 0], msums[:, 1], msums[:, 2])
-        div_t = ~torch.all(torch.isfinite(new_mu), dim=-1) | ~torch.all(torch.isfinite(new_sigma), dim=-1)
-        deg_t = _degenerate_components(model, new_sigma, sum_w)
-        new_hist = torch.cat([_total_energy(he)[:, None], total_hist[:, :-1]], dim=1)
-        em_i += 1
-        if em_i > WINDOW:
-            conv_t = _window_converged(new_hist.T)
-        else:
-            conv_t = torch.zeros_like(div_t)
-        on = torch.as_tensor(lanes, device=dev)[:, None]
-        mu = torch.where(on, new_mu, mu)
-        sigma = torch.where(on, new_sigma, sigma)
-        hood_energy = torch.where(on, he, hood_energy)
-        total_hist = torch.where(on, new_hist, total_hist)
-        div_l, deg_l, conv_l = torch.stack([div_t, deg_t, conv_t]).tolist()
-        for b in range(batch):
-            if not lanes[b]:
-                continue
-            div = div_l[b] or bool(flags[b] & kops.FLAG_DIVERGED)
-            em_conv = conv_l[b]
-            em_iters[b] = em_i
-            map_iters[b] += lane_map[b]
-            finished = div or not (em_i < config.max_em_iters and not em_conv)
-            running[b] = not (em_conv or div)
-            status[b] = _boundary_status(div, deg_l[b], finished, em_conv, em_i,
-                                         config.max_em_iters)
-    if cen is not None:
-        cen.leave(_EM)
-
-    labels, hood_energy = ws.labels.clone(), hood_energy.clone()
-    return BatchedEMResult(
-        labels=labels,
-        mu=mu,
-        sigma=sigma,
-        hood_energy=hood_energy,
-        total_energy=_total_energy(hood_energy),
-        em_iters=tuple(em_iters),
-        map_iters=tuple(map_iters),
-        status=tuple(status),
-        steps=steps,
-    )
+    batch = int(labels0.shape[0])
+    (labels, mu, sigma, hood_e, total), em_iters, map_iters, status, steps = _run_program(
+        hoods, model, labels0, mu0, sigma0, config, workspace, batch)
+    return BatchedEMResult(labels=labels, mu=mu, sigma=sigma, hood_energy=hood_e,
+                           total_energy=total, em_iters=tuple(em_iters),
+                           map_iters=tuple(map_iters), status=tuple(status), steps=steps)
 
 
 # ---------------------------------------------------------------------------
@@ -907,13 +1023,14 @@ def run_em_batched(
 # EM and MAP iterations, and advances it by micro-steps: one step of the
 # pool (a launch of the tick's pool entry in mode static-pallas, one flat
 # MAP iteration of every lane in the modes static and faithful), in which
-# each active lane runs its own next MAP iteration, and one read of the B
-# flag words.  Where a lane's MAP loop stopped, one launch of the boundary
-# kernel's lane form runs that lane's EM boundary at its own EM iteration
-# (``_tick_boundary``), and the host reads the words it wrote and starts the
-# lane's next EM iteration, or marks it done.  Between calls the caller retires done
-# lanes and admits new requests into the freed slots (``init_tick_lane``);
-# the pool's buffers never change shape, so no workspace is built.
+# each active lane runs its own next MAP iteration; where a lane's MAP loop
+# stopped, the boundary kernel's lane form runs that lane's EM boundary at
+# its own EM iteration and starts its next EM iteration, or leaves it done.
+# A tick is the pool's compiled program (``_tick_program``): on the card one
+# graph launch and one read of the words it wrote, from which the host's
+# lists are taken.  Between calls the caller retires done lanes and admits
+# new requests into the freed slots (``init_tick_lane``); the pool's
+# buffers never change shape, so no workspace is built.
 
 
 @dataclass(eq=False)
@@ -921,11 +1038,13 @@ class TickState:
     """A slot pool's state (the reference's per-lane ``TickState`` for
     every slot).  The device half lives in ``workspace`` (a pool workspace,
     ``make_workspace(..., pool=True)``): each lane's labels, history ring,
-    last hood energies, M-step sums, active word and MAP counter.  The
-    rest is here: the EM-level parameters and total-energy rings (on the
-    device, (B, K) and (B, WINDOW + 1)), the model terms the EM boundary
-    reads (``sigma_min``, ``reseed_mu``, ``reseed_sigma``, with a lane
-    axis), and on the host each lane's counters and health.
+    last hood energies, M-step sums, active word and MAP counter, and the
+    EM level the tensors here are views of (the workspace's own buffers,
+    which the compiled tick reads and writes): the EM-level parameters and
+    total-energy rings ((B, K) and (B, WINDOW + 1)) and the model terms the
+    EM boundary reads (``sigma_min``, ``reseed_mu``, ``reseed_sigma``, with
+    a lane axis).  On the host: each lane's counters and health, taken
+    from the one read of each tick.
 
     Between micro-steps every lane that is not ``done`` is inside its MAP
     loop, about to run its next iteration, and active in the workspace; a
@@ -977,29 +1096,32 @@ class TickState:
         self.begin([slot])
 
 
+def _state_on(workspace, lists: dict) -> TickState:
+    """A :class:`TickState` whose tensors are ``workspace``'s EM-level
+    buffers (the compiled tick reads and writes them at fixed addresses),
+    with the host lists ``lists``; it takes the workspace over
+    (``workspace.owner``, a weak reference, so that a pool dropped by its
+    engine frees its pinned host words at once)."""
+    ws = workspace
+    state = TickState(workspace=ws, mu=ws.em_mu, sigma=ws.em_sigma, total_hist=ws.total_hist,
+                      sigma_min=ws.sigma_min, reseed_mu=ws.reseed_mu, reseed_sigma=ws.reseed_sigma,
+                      **lists)
+    ws.owner = weakref.ref(state)
+    return state
+
+
 def blank_tick_state(workspace) -> TickState:
     """An all-empty slot pool on ``workspace``: every lane ``done`` and
     inactive, with benign parameters (sigma 1).  The workspace is taken
-    over by the new state (``workspace.owner``, a weak reference, so that
-    a pool dropped by its engine frees its pinned host words at once); a
-    state that lost it may not step."""
-    batch, k = workspace.batch, workspace.n_labels
-    dev, f32 = workspace.mu.device, torch.float32
+    over by the new state; a state that lost it may not step."""
+    batch = workspace.batch
     for b in range(batch):
         workspace.retire(b)
-    state = TickState(
-        workspace=workspace,
-        mu=torch.zeros((batch, k), dtype=f32, device=dev),
-        sigma=torch.ones((batch, k), dtype=f32, device=dev),
-        total_hist=torch.zeros((batch, WINDOW + 1), dtype=f32, device=dev),
-        sigma_min=torch.ones((batch,), dtype=f32, device=dev),
-        reseed_mu=torch.zeros((batch, k), dtype=f32, device=dev),
-        reseed_sigma=torch.ones((batch,), dtype=f32, device=dev),
-        em_i=[0] * batch, map_i=[0] * batch, map_total=[0] * batch,
-        done=[True] * batch, status=[STATUS_OK] * batch,
-    )
-    workspace.owner = weakref.ref(state)
-    return state
+    for name, value in (("em_mu", 0.0), ("em_sigma", 1.0), ("total_hist", 0.0),
+                        ("sigma_min", 1.0), ("reseed_mu", 0.0), ("reseed_sigma", 1.0)):
+        getattr(workspace, name).fill_(value)
+    return _state_on(workspace, dict(em_i=[0] * batch, map_i=[0] * batch, map_total=[0] * batch,
+                                     done=[True] * batch, status=[STATUS_OK] * batch))
 
 
 # What a pool workspace holds for its lanes, by the mode's family: the
@@ -1111,8 +1233,15 @@ def carry_tick_state(state: TickState, workspace, snapshot: Optional[TickSnapsho
         getattr(workspace, name).copy_(t)
     for name, v in snap.attrs.items():
         setattr(workspace, name, v)
-    new = _state_copy(snap.state, workspace)
-    workspace.owner = weakref.ref(new)
+    st = snap.state
+    for name, t in (("em_mu", st.mu), ("em_sigma", st.sigma), ("total_hist", st.total_hist),
+                    ("sigma_min", st.sigma_min), ("reseed_mu", st.reseed_mu),
+                    ("reseed_sigma", st.reseed_sigma)):
+        getattr(workspace, name).copy_(t)
+    new = _state_on(workspace, dict(em_i=list(st.em_i), map_i=list(st.map_i),
+                                    map_total=list(st.map_total), done=list(st.done),
+                                    status=list(st.status)))
+    new.micro_steps = st.micro_steps
     return new
 
 
@@ -1167,70 +1296,100 @@ def tick_result(state: TickState, slot: int) -> EMResult:
     )
 
 
-def _tick_boundary(state: TickState, lanes: List[int], flags: List[int], config: EMConfig) -> None:
-    """The EM boundary of the lanes whose MAP loop just stopped: the
-    boundary kernel's lane form over the pool (``kops.em_boundary_lanes``,
-    on the plain route ``ref.em_boundary_lanes``: ``params_from_stats``,
-    the divergence and degeneracy tests, the total-energy rings, the
-    status, each lane at its own EM iteration) with those lanes running,
-    from one copy of their words to the device; then one host read of the
-    words it wrote, and the lanes that go on start their next EM
-    iteration."""
+def _take_tick(state: TickState, lanes) -> None:
+    """The host lists from one read of the tick's words: per lane
+    ``(em_iters, map_iters, status, map_i, active)``; a lane that was not
+    done and is no longer active finished (its MAP counter 0, as the
+    host-stepped tick leaves it)."""
+    for b, (em_i, map_total, status, map_i, active) in enumerate(lanes):
+        if state.done[b]:
+            continue
+        state.em_i[b], state.map_total[b], state.status[b] = em_i, map_total, status
+        state.map_i[b] = map_i if active else 0
+        state.done[b] = not active
+
+
+def _tick_boundary(state: TickState, config: EMConfig) -> None:
+    """The plain tick's IF body, under its condition as a mask: a DPP
+    pool's M-step first (three ordered ``add``; a lane that did not stop
+    keeps its sums), then the boundary's lane form over the pool
+    (``kops.em_boundary_lanes``: ``params_from_stats``, the divergence and
+    degeneracy tests, the total-energy rings, the status, each lane at its
+    own EM iteration, and the next EM iteration's start of the lanes that
+    go on), in place on the pool's words.  Only the lanes that stopped
+    (their ``running`` words) move; the program's words keep the
+    boundary's writes only where some lane stopped, as the card's IF node
+    runs the body only then."""
     cen = _census.ACTIVE
     if cen is not None:
         cen.enter(_EM)
-    ws, dev, batch = state.workspace, state.mu.device, state.batch
-    stopped = [0] * batch
-    for b in lanes:
-        stopped[b] = 1
-    words = torch.tensor([[0] * batch, state.map_i, flags, stopped, state.em_i, state.map_total,
-                          state.status, [0] * batch], dtype=torch.int32).to(dev)
-    ctl = torch.zeros((len(CTL_WORDS),), dtype=torch.int32, device=dev)
-    kops.em_boundary_lanes(
-        BoundaryState(ws.stats, ws.hood_e, words, ctl, state.mu, state.sigma, ws.mu, ws.sigma,
-                      ws.ring, state.total_hist, state.sigma_min, state.reseed_mu,
-                      state.reseed_sigma),
-        max_em_iters=config.max_em_iters, max_map_iters=config.max_map_iters, conv_tol=CONV_TOL,
-        backend=config.backend)
-    rows = words.tolist()
-    go, em_iters, map_iters, status = (rows[r] for r in (ACTIVE, EM_ITERS, MAP_ITERS, STATUS))
-    go_on = []
-    for b in lanes:
-        state.em_i[b], state.map_total[b], state.status[b] = em_iters[b], map_iters[b], status[b]
-        state.map_i[b] = 0
-        if go[b]:
-            go_on.append(b)
-        else:
-            state.done[b] = True
-    if go_on:
-        state.begin(go_on)
+    ws = state.workspace
+    ctl = ws.ctl.clone()
+    if _family(ws) == "dpp":
+        ws.program_mstep()
+    kops.em_boundary_lanes(ws.boundary_state(), max_em_iters=config.max_em_iters,
+                           max_map_iters=config.max_map_iters, conv_tol=CONV_TOL,
+                           backend=config.backend)
+    ws.ctl.copy_(torch.where(ws.tick[ref.T_STOP] != 0, ws.ctl, ctl))
     if cen is not None:
         cen.leave(_EM)
 
 
 def _tick_micro(state: TickState, config: EMConfig) -> None:
-    """One micro-step: one step of the pool (every lane not done runs its
-    next MAP iteration) and one read of the flag words; the host mirrors
-    each lane's stopping rule (flag word set, or the cap), as the step
-    applies it, and runs the EM boundary of the lanes that stopped."""
+    """One micro-step of the plain tick, the WHILE body under the loop's
+    condition as a mask (no host read): one step of the pool (every active
+    lane runs its next MAP iteration), the stop test (``ref.tick_stops``),
+    the IF body (:func:`_tick_boundary`) and the tail.  Once the condition
+    is down no lane is active, so the step and the boundary move no lane;
+    what they would still write (the flag words, the program's and the
+    tick's words) is put back."""
     cen = _census.ACTIVE
     if cen is not None:
         cen.enter(_MAP)
     ws = state.workspace
-    state.micro_steps += 1
-    ws.step()
-    words = ws.flags()
-    stopped = []
-    for b in range(state.batch):
-        if state.done[b]:
-            continue
-        state.map_i[b] += 1
-        if words[b] or state.map_i[b] == config.max_map_iters:
-            stopped.append(b)
+    go = ws.tick[ref.T_LOOP] != 0
+    held = [t.clone() for t in (ws.lane[FLAG], ws.ctl, ws.tick)]
+    ws.program_step()
+    ref.tick_stops(ws.lane, ws.tick, ws.max_map_iters)
+    _tick_boundary(state, config)
+    ref.tick_tail(ws.lane, ws.tick)
+    for t, h in zip((ws.lane[FLAG], ws.ctl, ws.tick), held):
+        t.copy_(torch.where(go, t, h))
     if cen is not None:
         cen.leave(_MAP)
-    if stopped:
-        _tick_boundary(state, stopped, words, config)
+
+
+def _tick_program(state: TickState, config: EMConfig, tick_iters: int) -> int:
+    """One tick of the pool's compiled program: on the card one graph
+    launch and one wait (``ws.launch_tick`` then ``ws.tick_result``); on
+    the plain route the same program as plain operations with no read
+    inside (``ref.tick_init``, ``tick_iters`` micro-steps with the loop's
+    condition as a mask, :func:`_tick_micro`) and one read of the words
+    (``ref.tick_publish``).  The host lists are taken from that one read;
+    returns the micro-steps the loop's condition let run."""
+    ws = state.workspace
+    cen = _census.ACTIVE
+    if cen is not None:
+        cen.enter(_SOLVE)
+    if ws.graph_tick:
+        ws.launch_tick(tick_iters, state.em_i, state.map_total, state.status)
+        state.micro_steps += 1  # launched: a failure from here on is not replayed
+        out = ws.tick_result()
+    else:
+        words = torch.tensor([tick_iters, *state.em_i, *state.map_total, *state.status],
+                             dtype=torch.int32)
+        ref.tick_init(ws.lane, ws.ctl, ws.tick, words)
+        state.micro_steps += 1  # stepping: a failure from here on is not replayed
+        for _ in range(tick_iters):
+            _tick_micro(state, config)
+        out = ref.tick_publish(ws.lane, ws.ctl, ws.tick)
+        if _family(ws) == "dpp":
+            ws.count_program(out["steps"], out["stops"])
+    state.micro_steps += out["steps"] - 1
+    _take_tick(state, out["lanes"])
+    if cen is not None:
+        cen.leave(_SOLVE)
+    return out["steps"]
 
 
 def run_em_ticked(
@@ -1239,10 +1398,13 @@ def run_em_ticked(
     """Advance a slot pool by up to ``tick_iters`` micro-steps (one tick);
     returns ``(state, steps_executed)``.
 
-    The tick exits early once every lane is done: the remaining
-    micro-steps would change nothing, and the caller gets control back at
-    the convergence boundary, so ``steps_executed`` (at most
-    ``tick_iters``) counts the launches actually issued.  Between calls
+    The tick is the pool's compiled program (:func:`_tick_program`: on
+    the card one graph launch and one host read, whatever ``tick_iters``;
+    one graph per pool serves every tick size).  It exits early once every
+    lane is done: the remaining micro-steps would change nothing, and the
+    caller gets control back at the convergence boundary, so
+    ``steps_executed`` (at most ``tick_iters``) counts the micro-steps
+    actually run.  Between calls
     the caller retires done lanes (``TickState.retire``, or just reading
     them with :func:`tick_result`) and admits requests into free slots
     (:func:`init_tick_lane`) without disturbing the lanes in flight.  Each
@@ -1259,14 +1421,13 @@ def run_em_ticked(
     ws = state.workspace
     if ws.owner is None or ws.owner() is not state:
         raise ValueError("the pool workspace belongs to another TickState (blank_tick_state)")
-    if (ws.mode, ws.precision, ws.max_map_iters) != (
-            config.mode, config.precision, config.max_map_iters):
+    if (ws.mode, ws.precision, ws.max_em_iters, ws.max_map_iters) != (
+            config.mode, config.precision, config.max_em_iters, config.max_map_iters):
         raise ValueError(
-            f"pool built for mode {ws.mode!r}, precision {ws.precision!r} and max_map_iters "
-            f"{ws.max_map_iters}, the config has {config.mode!r}, {config.precision!r} and "
+            f"pool built for mode {ws.mode!r}, precision {ws.precision!r}, max_em_iters "
+            f"{ws.max_em_iters} and max_map_iters {ws.max_map_iters}, the config has "
+            f"{config.mode!r}, {config.precision!r}, {config.max_em_iters} and "
             f"{config.max_map_iters}")
-    steps = 0
-    while steps < tick_iters and not all(state.done):
-        _tick_micro(state, config)
-        steps += 1
-    return state, steps
+    if all(state.done):
+        return state, 0
+    return state, _tick_program(state, config, tick_iters)

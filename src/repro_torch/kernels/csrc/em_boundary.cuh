@@ -83,8 +83,16 @@ enum CtlWord : int {
   kGoOn = 7,     // the boundary's scratch: lanes that go on
   kTickLaunches = 8,      // tick launches of this solve, counted by the tick itself
   kBoundaryLaunches = 9,  // boundary launches of this solve, counted by the boundary
-  kCtlWords = 10,
+  kSegAdd = 10,      // segment_reduce launches inside the graph (a mode's captured step and
+  kSegOrdered = 11,  // M-step), counted by the kernels themselves: the order-free add, the
+  kSegMin = 12,      // element-order add and min
+  kCtlWords = 13,
 };
+
+// The program's words after the lanes' in the mapped result: the lockstep
+// MAP iterations, the tick's and the boundary's launches, and the
+// segment_reduce launches by variant (kSegAdd, kSegOrdered, kSegMin).
+constexpr int kResultWords = 6;
 
 enum Status : int { kOk = 0, kConvergedS = 1, kMaxIters = 2, kDiverged = 3, kDegenerate = 4 };
 
@@ -115,7 +123,7 @@ struct ProgramPlan {
   const int* labels0;         // (B, n_vertices)
   int* labels;                // (B, 2, n_vertices): the tick's label buffers
   float* votes;               // (B, 2, K, n_vertices): the tick's vote buffers
-  int* result_host;           // device view of 3 B + 3 mapped host words, or null
+  int* result_host;           // device view of 3 B + kResultWords mapped host words, or null
   unsigned long long em_cond;   // cudaGraphConditionalHandle of the outer loop
   unsigned long long map_cond;  // of the inner loop
   int batch;
@@ -126,6 +134,8 @@ struct ProgramPlan {
   int max_em_iters;
   int max_map_iters;
   int conditional;  // bit 0: em_cond is live (in a graph), bit 1: map_cond is
+  int stats_at_zero;  // 1: a lane's M-step sums are read even when its MAP loop ran no
+                      // iteration (the modes' M-step reads the labels it starts from)
   float conv_tol;
 };
 
@@ -156,11 +166,13 @@ __global__ void __launch_bounds__(kThreads) program_init(const ProgramPlan p) {
   const int b = blockIdx.x;
   const int B = p.batch, K = p.n_labels, nv = p.n_vertices, nh = p.n_hoods;
   const int rows = p.window + 1;
-  const int q = lane_word(p, kParity, b) & 1;
-  int* labels = p.labels + (2LL * b + q) * nv;
-  float* votes = p.votes + (2LL * b + q) * K * static_cast<long long>(nv);
-  for (int v = threadIdx.x; v < nv; v += blockDim.x) labels[v] = p.labels0[static_cast<long long>(b) * nv + v];
-  for (long long j = threadIdx.x; j < static_cast<long long>(K) * nv; j += blockDim.x) votes[j] = 0.0f;
+  if (p.labels != nullptr) {  // the tick's parity-swapped buffers (the modes' start copies theirs)
+    const int q = lane_word(p, kParity, b) & 1;
+    int* labels = p.labels + (2LL * b + q) * nv;
+    float* votes = p.votes + (2LL * b + q) * K * static_cast<long long>(nv);
+    for (int v = threadIdx.x; v < nv; v += blockDim.x) labels[v] = p.labels0[static_cast<long long>(b) * nv + v];
+    for (long long j = threadIdx.x; j < static_cast<long long>(K) * nv; j += blockDim.x) votes[j] = 0.0f;
+  }
   for (int h = threadIdx.x; h < nh; h += blockDim.x) p.hood_e[static_cast<long long>(b) * nh + h] = 0.0f;
   for (long long j = threadIdx.x; j < static_cast<long long>(rows) * nh; j += blockDim.x) {
     p.ring[static_cast<long long>(b) * rows * nh + j] = 0.0f;
@@ -190,8 +202,9 @@ __global__ void __launch_bounds__(kThreads) program_init(const ProgramPlan p) {
       p.ctl[kMapCond] = p.max_map_iters > 0 ? 1 : 0;
       p.ctl[kTicket] = p.ctl[kStepMax] = p.ctl[kGoOn] = 0;
       p.ctl[kTickLaunches] = p.ctl[kBoundaryLaunches] = 0;
+      p.ctl[kSegAdd] = p.ctl[kSegOrdered] = p.ctl[kSegMin] = 0;
       if (p.result_host != nullptr) {
-        for (int j = 0; j < 3; ++j) p.result_host[3 * B + j] = 0;
+        for (int j = 0; j < kResultWords; ++j) p.result_host[3 * B + j] = 0;
       }
       if (p.conditional & 1) cudaGraphSetConditional(p.em_cond, p.max_em_iters > 0 ? 1u : 0u);
     }
@@ -214,7 +227,8 @@ __global__ void __launch_bounds__(kThreads) em_boundary_kernel(const ProgramPlan
     // program's (kEmI), in a served pool each lane's own.
     const int em_i = lane_word(p, kEmIters, b) + 1;
     const float* st = p.stats + 3LL * b * K;
-    auto sum_w = [&](int l) { return i > 0 ? st[l] : 0.0f; };
+    const bool sums = i > 0 || p.stats_at_zero;
+    auto sum_w = [&](int l) { return sums ? st[l] : 0.0f; };
     // The label total (energy.label_total): up to kSequentialLabels labels
     // added in label order, above that in float64, rounded once.
     if (threadIdx.x == 0) {
@@ -245,8 +259,8 @@ __global__ void __launch_bounds__(kThreads) em_boundary_kernel(const ProgramPlan
     int div = 0, deg = 0;
     for (int l = threadIdx.x; l < K; l += blockDim.x) {
       const float sw = sum_w(l);
-      const float swy = i > 0 ? st[K + l] : 0.0f;
-      const float swyy = i > 0 ? st[2 * K + l] : 0.0f;
+      const float swy = sums ? st[K + l] : 0.0f;
+      const float swyy = sums ? st[2 * K + l] : 0.0f;
       const float safe_w = clamp_lo(sw, kSafeW);
       float m = __fdiv_rn(swy, safe_w);
       const double md = static_cast<double>(m);
@@ -338,6 +352,7 @@ __global__ void __launch_bounds__(kThreads) em_boundary_kernel(const ProgramPlan
     out[0] = steps;
     out[1] = atomicAdd(p.ctl + kTickLaunches, 0);
     out[2] = atomicAdd(p.ctl + kBoundaryLaunches, 0);
+    for (int j = 0; j < 3; ++j) out[3 + j] = p.ctl[kSegAdd + j];
   }
   if (p.conditional & 1) cudaGraphSetConditional(p.em_cond, n_go > 0 ? 1u : 0u);
   if (p.conditional & 2) cudaGraphSetConditional(p.map_cond, 1u);

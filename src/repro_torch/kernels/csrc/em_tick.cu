@@ -114,6 +114,7 @@
 #include <vector>
 
 #include "em_boundary.cuh"
+#include "em_control.cuh"
 #include "flagword.cuh"
 #include "plainsum.cuh"
 
@@ -1170,6 +1171,214 @@ int repro_em_boundary(const em_program::ProgramPlan* prog, void* stream) {
 int repro_em_boundary_lanes(const em_program::ProgramPlan* prog, void* stream) {
   if (prog->batch < 1 || prog->conditional != 0) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_boundary(*prog, static_cast<cudaStream_t>(stream)));
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Programs assembled node by node (em_control.cuh): the served pool's tick
+// and the modes' solve, stack and tick.  A builder holds a graph and its
+// conditional bodies (graph 0 is the top graph, each WHILE or IF node adds
+// its body), and appends to each graph a chain: every node depends on the
+// one added before it in that graph.  A node is one of the port's kernels,
+// captured with its plan's values, or a child graph: the captured
+// PyTorch ops of a mode's MAP step or M-step (torch.cuda.CUDAGraph, kept
+// alive with its memory pool by the workspace), cloned into the body.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+struct Builder {
+  std::vector<cudaGraph_t> graphs;      // [0] the top graph (owned), then the bodies
+  std::vector<cudaGraphNode_t> last;    // each graph's last node, or null
+  cudaStream_t stream = nullptr;        // the capture stream
+  int device = 0;
+};
+
+enum NodeKind : int {
+  kProgramInit = 0,   // em_program::program_init (ProgramPlan)
+  kBoundary = 1,      // em_program::em_boundary_kernel, lane form (ProgramPlan)
+  kTickLanes = 2,     // the tick's lane entry (TickBatchPlan; the pool's with map_i set)
+  kTickInit = 3,      // em_control::tick_init (TickCtlPlan)
+  kTickStops = 4,     // em_control::tick_stops
+  kTickTail = 5,      // em_control::tick_tail
+  kTickPublish = 6,   // em_control::tick_publish
+  kMapCtl = 7,        // em_control::map_ctl
+};
+
+bool valid_graph(const Builder* b, int graph) {
+  return b != nullptr && graph >= 0 && graph < static_cast<int>(b->graphs.size());
+}
+
+cudaError_t add_conditional(Builder* b, int graph, unsigned long long handle,
+                            cudaGraphConditionalNodeType type, int* body) {
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = handle;
+  p.conditional.type = type;
+  p.conditional.size = 1;
+  cudaGraphNode_t node;
+  const cudaGraphNode_t dep = b->last[graph];
+  const cudaError_t err = cudaGraphAddNode(&node, b->graphs[graph], dep ? &dep : nullptr,
+                                           dep ? 1 : 0, &p);
+  if (err != cudaSuccess) return err;
+  b->last[graph] = node;
+  b->graphs.push_back(p.conditional.phGraph_out[0]);
+  b->last.push_back(nullptr);
+  *body = static_cast<int>(b->graphs.size()) - 1;
+  return cudaSuccess;
+}
+
+template <typename Kernel, typename Plan>
+cudaError_t launch_control(Kernel kernel, const Plan& p, cudaStream_t s) {
+  kernel<<<1, em_control::kThreads, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_kind(int kind, const void* plan, cudaStream_t s) {
+  using em_control::TickCtlPlan;
+  switch (kind) {
+    case kProgramInit: return launch_init(*static_cast<const em_program::ProgramPlan*>(plan), s);
+    case kBoundary: return launch_boundary(*static_cast<const em_program::ProgramPlan*>(plan), s);
+    case kTickLanes: return launch_tick(*static_cast<const TickBatchPlan*>(plan), s);
+    case kTickInit:
+      return launch_control(em_control::tick_init, *static_cast<const TickCtlPlan*>(plan), s);
+    case kTickStops:
+      return launch_control(em_control::tick_stops, *static_cast<const TickCtlPlan*>(plan), s);
+    case kTickTail:
+      return launch_control(em_control::tick_tail, *static_cast<const TickCtlPlan*>(plan), s);
+    case kTickPublish:
+      return launch_control(em_control::tick_publish, *static_cast<const TickCtlPlan*>(plan), s);
+    case kMapCtl:
+      return launch_control(em_control::map_ctl, *static_cast<const TickCtlPlan*>(plan), s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// A new builder on `device`: an empty top graph (graph 0).
+int repro_prog_new(int device, void** out) {
+  *out = nullptr;
+  return on_device(device, [&] {
+    Builder* b = new Builder;
+    b->device = device;
+    cudaGraph_t g = nullptr;
+    cudaError_t err = cudaGraphCreate(&g, 0);
+    if (err == cudaSuccess) err = cudaStreamCreateWithFlags(&b->stream, cudaStreamNonBlocking);
+    if (err != cudaSuccess) {
+      if (g != nullptr) cudaGraphDestroy(g);
+      delete b;
+      return static_cast<int>(err);
+    }
+    b->graphs.push_back(g);
+    b->last.push_back(nullptr);
+    *out = b;
+    return 0;
+  });
+}
+
+// A conditional handle of `graph` (the graph its node goes in): `assign` 1
+// gives it `dflt` at every launch of the program.
+int repro_prog_handle(void* builder, int graph, unsigned int dflt, int assign,
+                      unsigned long long* handle) {
+  Builder* b = static_cast<Builder*>(builder);
+  if (!valid_graph(b, graph)) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(b->device, [&] {
+    cudaGraphConditionalHandle h = 0;
+    const cudaError_t err = cudaGraphConditionalHandleCreate(
+        &h, b->graphs[graph], dflt, assign ? cudaGraphCondAssignDefault : 0);
+    *handle = h;
+    return static_cast<int>(err);
+  });
+}
+
+// A WHILE (`type` 0) or IF (`type` 1) node on `handle` after `graph`'s last
+// node; its body's graph id out.
+int repro_prog_conditional(void* builder, int graph, unsigned long long handle, int type,
+                           int* body) {
+  Builder* b = static_cast<Builder*>(builder);
+  if (!valid_graph(b, graph) || type < 0 || type > 1) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(b->device, [&] {
+    return static_cast<int>(add_conditional(
+        b, graph, handle, type == 0 ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf, body));
+  });
+}
+
+// A child graph node (a clone of `child`, a cudaGraph_t) after `graph`'s
+// last node.
+int repro_prog_child(void* builder, int graph, void* child) {
+  Builder* b = static_cast<Builder*>(builder);
+  if (!valid_graph(b, graph) || child == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(b->device, [&] {
+    cudaGraphNode_t node;
+    const cudaGraphNode_t dep = b->last[graph];
+    const cudaError_t err = cudaGraphAddChildGraphNode(
+        &node, b->graphs[graph], dep ? &dep : nullptr, dep ? 1 : 0, static_cast<cudaGraph_t>(child));
+    if (err == cudaSuccess) b->last[graph] = node;
+    return static_cast<int>(err);
+  });
+}
+
+// One launch of the kernel `kind` (NodeKind) with `plan`'s values, captured
+// after `graph`'s last node.
+int repro_prog_node(void* builder, int graph, int kind, const void* plan) {
+  Builder* b = static_cast<Builder*>(builder);
+  if (!valid_graph(b, graph) || plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(b->device, [&] {
+    cudaGraphNode_t node;
+    const cudaGraphNode_t dep = b->last[graph];
+    const cudaError_t err = graphs::capture(b->graphs[graph], dep ? &dep : nullptr, dep ? 1 : 0,
+                                            b->stream, &node,
+                                            [&](cudaStream_t cs) { return launch_kind(kind, plan, cs); });
+    if (err == cudaSuccess) b->last[graph] = node;
+    return static_cast<int>(err);
+  });
+}
+
+// Instantiate the builder's program and free the builder: the program's
+// owner out in `graph` (repro_em_program_launch launches it,
+// repro_em_program_destroy frees it), or null with the error.
+int repro_prog_finish(void* builder, void** graph) {
+  *graph = nullptr;
+  Builder* b = static_cast<Builder*>(builder);
+  if (b == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return on_device(b->device, [&] {
+    ProgramGraph* pg = new ProgramGraph;
+    pg->graph = b->graphs[0];
+    cudaError_t err = cudaGraphInstantiate(&pg->exec, pg->graph, 0);
+    cudaStreamDestroy(b->stream);
+    delete b;
+    if (err != cudaSuccess) {
+      if (pg->exec != nullptr) cudaGraphExecDestroy(pg->exec);
+      cudaGraphDestroy(pg->graph);
+      delete pg;
+      return static_cast<int>(err);
+    }
+    *graph = pg;
+    return 0;
+  });
+}
+
+// Free a builder that will not be finished (a failed build).
+int repro_prog_abandon(void* builder) {
+  Builder* b = static_cast<Builder*>(builder);
+  if (b == nullptr) return 0;
+  return on_device(b->device, [&] {
+    cudaGraphDestroy(b->graphs[0]);
+    cudaStreamDestroy(b->stream);
+    delete b;
+    return 0;
+  });
+}
+
+// One kernel of `kind` outside any graph, on `stream` (its handles must not
+// be live): the control kernels' standalone entry, for their checks.
+int repro_prog_launch_kind(int kind, const void* plan, void* stream) {
+  if (plan == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_kind(kind, plan, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

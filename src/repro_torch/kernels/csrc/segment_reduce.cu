@@ -94,7 +94,9 @@ __global__ void span_pass(const float* __restrict__ values, const int* __restric
 // lane takes part costs one ballot.
 __global__ void ordered_sum_pass(const float* __restrict__ values, const int* __restrict__ ids,
                                  int num_segments, const unsigned* __restrict__ first,
-                                 const int* __restrict__ last, float* __restrict__ out) {
+                                 const int* __restrict__ last, float* __restrict__ out,
+                                 int* count) {
+  segsum::count_launch(count);
   const int lane = threadIdx.x & 31;
   const int warps = gridDim.x * (blockDim.x >> 5);
   for (int s = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5); s < num_segments; s += warps) {
@@ -127,11 +129,13 @@ const char* repro_error_string(int code) {
 
 // op: 0 = add, 1 = min.  For add, `workspace` holds 16 bytes a segment
 // (zeroed here, on the stream) and `out` needs no initial value; for min,
-// `out` holds +inf and the workspace is unused.  Returns
-// cudaGetLastError() after the launches.
+// `out` holds +inf and the workspace is unused.  `count`, when not null, is
+// a device word the last kernel of the call adds one to (a launch inside a
+// graph, counted on the device).  Returns cudaGetLastError() after the
+// launches.
 int repro_segment_reduce_f32(const float* values, const int* ids, float* out,
                              long long n, int num_segments, int op, void* workspace,
-                             void* stream) {
+                             int* count, void* stream) {
   if (op != 0 && op != 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const segsum::Keyed src{values, ids, num_segments};
@@ -142,18 +146,19 @@ int repro_segment_reduce_f32(const float* values, const int* ids, float* out,
     if (n > 0) {
       segsum::exponent_pass<<<segsum::grid_blocks(n), segsum::kThreads, 0, s>>>(src, n, ws);
     }
-    segsum::launch_sum(src, n, num_segments, ws, out, s);
+    segsum::launch_sum(src, n, num_segments, ws, out, s, count);
   } else if (num_segments > 0 && n > 0) {
-    segsum::min_pass<<<segsum::grid_blocks(n), segsum::kThreads, 0, s>>>(src, n, out);
+    segsum::min_pass<<<segsum::grid_blocks(n), segsum::kThreads, 0, s>>>(src, n, out, count);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The ordered add.  `workspace` holds 8 bytes a segment (set here, on the
-// stream); n < 2^31.  Returns cudaGetLastError() after the launches.
+// stream); n < 2^31; `count` as above.  Returns cudaGetLastError() after the
+// launches.
 int repro_segment_reduce_ordered_f32(const float* values, const int* ids, float* out,
                                      long long n, int num_segments, void* workspace,
-                                     void* stream) {
+                                     int* count, void* stream) {
   if (num_segments <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   unsigned* first = static_cast<unsigned*>(workspace);
@@ -169,7 +174,7 @@ int repro_segment_reduce_ordered_f32(const float* values, const int* ids, float*
   long long blocks = (static_cast<long long>(num_segments) + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 132 * 16) blocks = 132 * 16;
   ordered_sum_pass<<<static_cast<unsigned>(blocks), segsum::kThreads, 0, s>>>(
-      values, ids, num_segments, first, last, out);
+      values, ids, num_segments, first, last, out, count);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -217,14 +217,23 @@ __global__ void __launch_bounds__(kThreads) sum_pass(Src src, long long n, int f
   });
 }
 
+// `count`, when not null, is a device word that block 0's thread 0 adds one
+// to: a launch counted by the kernel itself (segment_reduce's, inside a graph).
+__device__ __forceinline__ void count_launch(int* count) {
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *count += 1;
+}
+
 __global__ void __launch_bounds__(kThreads) readout_pass(Workspace ws, int segments, int fbits,
-                                                         float* __restrict__ out) {
+                                                         float* __restrict__ out, int* count) {
+  count_launch(count);
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
   if (s < segments) out[s] = readout(ws.acc[s], ws.key[s], ws.flags[s], fbits);
 }
 
 template <class Src>
-__global__ void __launch_bounds__(kThreads) min_pass(Src src, long long n, float* __restrict__ out) {
+__global__ void __launch_bounds__(kThreads) min_pass(Src src, long long n, float* __restrict__ out,
+                                                     int* count = nullptr) {
+  count_launch(count);
   for_each_element(n, [&](long long e, int lane) {
     float v = __uint_as_float(0x7f800000u);  // +inf: the identity
     const int key = e < n ? src(e, &v) : -1;
@@ -237,12 +246,13 @@ __global__ void __launch_bounds__(kThreads) min_pass(Src src, long long n, float
 // Sum and read-out passes (the exponent pass has run): n elements of `src`
 // into `segments` outputs.
 template <class Src>
-void launch_sum(Src src, long long n, int segments, Workspace ws, float* out, cudaStream_t stream) {
+void launch_sum(Src src, long long n, int segments, Workspace ws, float* out, cudaStream_t stream,
+                int* count = nullptr) {
   const int fbits = frac_bits(n);
   if (n > 0) sum_pass<<<grid_blocks(n), kThreads, 0, stream>>>(src, n, fbits, ws);
   if (segments > 0) {
     readout_pass<<<(segments + kThreads - 1) / kThreads, kThreads, 0, stream>>>(ws, segments,
-                                                                                   fbits, out);
+                                                                                   fbits, out, count);
   }
 }
 

@@ -26,19 +26,32 @@ arrays, so it takes ``offsets``, the (n_hoods + 1,) run boundaries
   host-stepped (one wait for the B flag words).
   ``ref.PlainBatchTickWorkspace`` is its plain version.
 * :class:`PoolTickWorkspace`, the continuous-batching driver's
-  (``em.run_em_ticked``): a pool of B slots that owns its lanes' inputs,
-  whose lanes sit at different MAP iterations; one launch per micro-step
-  runs every active lane's own next iteration (the kernel's per-lane MAP
-  counters), one wait reads the B flag words.  Slot writes (``admit``,
-  ``begin_lanes``, ``retire``) touch only that slot's rows.
+  (``em.run_em_ticked``): a pool of B slots that owns its lanes' inputs
+  and EM level, whose lanes sit at different MAP iterations; one launch
+  per micro-step runs every active lane's own next iteration (the
+  kernel's per-lane MAP counters).  Built with the EM limits it holds the
+  compiled tick (:class:`TickProgram`: one graph launch and one wait per
+  tick); host-stepped, one wait reads the B flag words after each launch.
+  Slot writes (``admit``, ``begin_lanes``, ``retire``) touch only that
+  slot's rows.
   ``ref.PlainPoolTickWorkspace`` is its plain version.
 * :func:`fused_em_tick_cuda`, with the JAX kernel's signature (``xf`` and
   ``hist`` given), allocating its outputs per call.  ``ref.fused_em_tick``
   is its plain version.
 
+The pool's compiled tick and the modes' programs are assembled node by
+node (:class:`ProgramBuilder`, ``repro_prog_*``): :class:`TickProgram`, a
+served pool's tick as one graph (the control kernels of
+``csrc/em_control.cuh`` around the pool's step and, in an IF node, the
+boundary kernel's lane form; built with the pool), and
+:class:`ModesProgram`, a solve or stack of the modes ``static`` and
+``faithful`` (the solve's graph with their flat step and M-step, PyTorch ops
+captured once as :class:`CapturedOps` and cloned in as child graphs).
+
 :func:`em_boundary_cuda` launches the boundary kernel alone (its single or
-lane form; ``ref.em_boundary``/``em_boundary_lanes``), and
-:func:`graph_probe` the card's nested conditional graph probe.
+lane form; ``ref.em_boundary``/``em_boundary_lanes``),
+:class:`ControlKernels` the control kernels alone, and :func:`graph_probe`
+the card's nested conditional graph probe.
 
 The kernel adds each hood's energies in the plain versions' element
 order and its M-step sums in vertex order, at every K
@@ -55,6 +68,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels import segment_reduce as _segment_reduce
 from repro_torch.kernels.ref import FLAG_CONVERGED, FLAG_DIVERGED  # noqa: F401 (bits of the flag word)
 from repro_torch.kernels.ref import TickShape
 
@@ -79,6 +93,11 @@ launches_batched = 0
 launches_pool = 0
 launches_boundary = 0
 launches_graph = 0
+#: The control kernels' launches inside programs (``csrc/em_control.cuh``),
+#: as each kernel counted itself on the device, added when a program's
+#: result is read (``ops.control_launch_counts``).
+launches_control = dict.fromkeys(("tick_init", "tick_stops", "tick_tail", "tick_publish",
+                                  "map_ctl"), 0)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -144,6 +163,14 @@ _SIGNATURES = {
     "repro_em_boundary": [_P, _P],                  # program plan (B = 1), stream
     "repro_em_boundary_lanes": [_P, _P],            # program plan, stream
     "repro_em_graph_probe": [_I, _I, _P, _P, _P],   # outer, inner, versions, counts, stage out
+    "repro_prog_new": [_I, _P],                     # device, builder out
+    "repro_prog_handle": [_P, _I, ctypes.c_uint, _I, _P],  # builder, graph, default, assign, out
+    "repro_prog_conditional": [_P, _I, ctypes.c_ulonglong, _I, _P],  # builder, graph, handle, type, body out
+    "repro_prog_child": [_P, _I, _P],               # builder, graph, cudaGraph_t
+    "repro_prog_node": [_P, _I, _I, _P],            # builder, graph, kind, plan
+    "repro_prog_finish": [_P, _P],                  # builder, program out
+    "repro_prog_abandon": [_P],                     # builder
+    "repro_prog_launch_kind": [_I, _P, _P],         # kind, plan, stream
 }
 
 
@@ -271,12 +298,7 @@ def em_boundary_cuda(state: ref.BoundaryState, *, max_em_iters: int, max_map_ite
         req(getattr(st, name), name, f32, shape, dev)
     req(st.lane, "lane", i32, (len(ref.LANE_WORDS), batch), dev)
     req(st.ctl, "ctl", i32, (len(ref.CTL_WORDS),), dev)
-    g = _ProgramPlan()
-    for name in ("stats", "hood_e", "lane", "ctl", "em_mu", "em_sigma", "mu", "sigma", "ring",
-                 "total_hist", "sigma_min", "reseed_mu", "reseed_sigma"):
-        setattr(g, name, getattr(st, name).data_ptr())
-    g.batch, g.n_hoods, g.n_labels, g.window = batch, nh, k, rows - 1
-    g.max_em_iters, g.max_map_iters, g.conv_tol = max_em_iters, max_map_iters, conv_tol
+    g = program_plan(st, max_em_iters=max_em_iters, max_map_iters=max_map_iters, conv_tol=conv_tol)
     entry = _entry("repro_em_boundary_lanes" if lanes else "repro_em_boundary")
     with torch.cuda.device(dev):
         entry(ctypes.addressof(g), torch.cuda.current_stream(dev).cuda_stream)
@@ -341,18 +363,16 @@ def _check_problem(require, shape: TickShape, hoods, model, lead: tuple, dev) ->
     require(model.region_weight, "region_weight", f32, lead + (shape.n_vertices,), dev)
 
 
-class SolveGraph:
-    """A workspace's compiled EM program (``repro_em_program_build``): the
-    owner of its CUDA graph, freed with the object.  ``launch`` replays it
-    on a stream: one graph launch per solve."""
+class Program:
+    """A compiled program's owner: its instantiated CUDA graph (freed with
+    the object) and what its nodes need alive, the captured PyTorch ops
+    (:class:`CapturedOps`) whose memory pools hold their temporaries.
+    ``launch`` replays it on a stream: one graph launch."""
 
     ptr = None
 
-    def __init__(self, tick_plan: _TickBatchPlan, prog_plan: "_ProgramPlan"):
-        out = ctypes.c_void_p()
-        _entry("repro_em_program_build")(ctypes.addressof(tick_plan), ctypes.addressof(prog_plan),
-                                         ctypes.addressof(out))
-        self.ptr = out.value
+    def __init__(self, ptr, keep=()):
+        self.ptr, self.keep = ptr, tuple(keep)
         self._launch = _entry("repro_em_program_launch")
         self._destroy = _build.load("em_tick").repro_em_program_destroy
         self._destroy.argtypes = [_P]
@@ -364,6 +384,17 @@ class SolveGraph:
         if self.ptr:
             self._destroy(self.ptr)
             self.ptr = None
+
+
+class SolveGraph(Program):
+    """A static-pallas workspace's compiled EM program
+    (``repro_em_program_build``): one graph launch per solve."""
+
+    def __init__(self, tick_plan: "_TickBatchPlan", prog_plan: "_ProgramPlan"):
+        out = ctypes.c_void_p()
+        _entry("repro_em_program_build")(ctypes.addressof(tick_plan), ctypes.addressof(prog_plan),
+                                         ctypes.addressof(out))
+        super().__init__(out.value)
 
 
 class _ProgramPlan(ctypes.Structure):
@@ -378,9 +409,312 @@ class _ProgramPlan(ctypes.Structure):
         ("map_cond", ctypes.c_ulonglong),
         *((name, _I) for name in (
             "batch", "n_hoods", "n_vertices", "n_labels", "window", "max_em_iters",
-            "max_map_iters", "conditional")),
+            "max_map_iters", "conditional", "stats_at_zero")),
         ("conv_tol", ctypes.c_float),
     ]
+
+
+class _TickCtlPlan(ctypes.Structure):
+    """``struct em_control::TickCtlPlan`` of ``csrc/em_control.cuh``."""
+
+    _fields_ = [
+        *((name, _P) for name in ("lane", "ctl", "tick", "in_host", "out_host")),
+        ("loop_cond", ctypes.c_ulonglong),
+        ("stop_cond", ctypes.c_ulonglong),
+        *((name, _I) for name in ("batch", "max_map_iters", "conditional")),
+    ]
+
+
+#: The kernels a program's node launches (``NodeKind`` of ``csrc/em_tick.cu``).
+NODES = {"program_init": 0, "boundary": 1, "tick_lanes": 2, "tick_init": 3, "tick_stops": 4,
+         "tick_tail": 5, "tick_publish": 6, "map_ctl": 7}
+#: Conditional node types of :meth:`ProgramBuilder.conditional`.
+WHILE, IF = 0, 1
+#: Out-words of a tick: per lane (``em_control::kOutPerLane``), and after
+#: the lanes (``kTickOut``, named by ``ref.TICK_OUT``).
+TICK_OUT_PER_LANE = 5
+TICK_OUT = ref.TICK_OUT
+#: Result words of a solve's program after the lanes' (``em_program::kResultWords``).
+RESULT_OUT = ("steps", "ticks", "boundaries", "seg_add", "seg_ordered", "seg_min")
+
+
+def program_plan(st: ref.BoundaryState, *, max_em_iters: int, max_map_iters: int,
+                 conv_tol: float, stats_at_zero: bool = False, n_vertices: int = 0,
+                 **pointers) -> "_ProgramPlan":
+    """The boundary kernel's plan over ``st``'s tensors (a lane axis),
+    and ``pointers`` for its other fields (``mu0``, ``result_host``, ...)."""
+    g = _ProgramPlan()
+    for name in ref.BoundaryState._fields:
+        setattr(g, name, getattr(st, name).data_ptr())
+    for name, value in pointers.items():
+        setattr(g, name, value)
+    g.batch, g.n_labels = int(st.em_mu.shape[0]), int(st.em_mu.shape[1])
+    g.n_hoods, g.n_vertices = int(st.hood_e.shape[1]), n_vertices
+    g.window = int(st.total_hist.shape[1]) - 1
+    g.max_em_iters, g.max_map_iters, g.conv_tol = max_em_iters, max_map_iters, conv_tol
+    g.stats_at_zero = int(stats_at_zero)
+    return g
+
+
+class ProgramBuilder:
+    """A program assembled node by node (``repro_prog_*``): graph 0 is the
+    top graph, each conditional node adds its body's graph; every node
+    goes after the one added before it in its graph.  Used as a context
+    manager: :meth:`finish` inside it, or the builder is freed on the way
+    out."""
+
+    def __init__(self, device: torch.device):
+        out = ctypes.c_void_p()
+        _entry("repro_prog_new")(device.index, ctypes.addressof(out))
+        self._b, self._keep = out.value, []
+
+    def __enter__(self) -> "ProgramBuilder":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._b:
+            _entry("repro_prog_abandon")(self._b)
+            self._b = None
+
+    def handle(self, graph: int, default: int = 0, assign: bool = False) -> int:
+        """A conditional handle of ``graph`` (``assign``: ``default`` at every launch)."""
+        h = ctypes.c_ulonglong(0)
+        _entry("repro_prog_handle")(self._b, graph, default, int(assign), ctypes.addressof(h))
+        return h.value
+
+    def conditional(self, graph: int, handle: int, kind: int) -> int:
+        """A ``WHILE`` or ``IF`` node on ``handle``; returns its body's graph."""
+        body = ctypes.c_int(0)
+        _entry("repro_prog_conditional")(self._b, graph, handle, kind, ctypes.addressof(body))
+        return body.value
+
+    def child(self, graph: int, ops: "CapturedOps") -> None:
+        """``ops``'s captured graph as a child node (kept alive by the program)."""
+        _entry("repro_prog_child")(self._b, graph, ops.graph_ptr)
+        self._keep.append(ops)
+
+    def node(self, graph: int, kind: str, plan: ctypes.Structure) -> None:
+        """One launch of kernel ``kind`` (:data:`NODES`) with ``plan``'s values."""
+        _entry("repro_prog_node")(self._b, graph, NODES[kind], ctypes.addressof(plan))
+
+    def finish(self) -> Program:
+        out, b = ctypes.c_void_p(), self._b
+        self._b = None
+        _entry("repro_prog_finish")(b, ctypes.addressof(out))
+        return Program(out.value, self._keep)
+
+
+class ControlKernels:
+    """The control kernels launched one by one outside any graph (no
+    handle), on the CUDA words ``lane`` (8, B), ``ctl`` and ``tick``, with
+    mapped in- and out-words allocated once: the kernels' checks against
+    their plain versions in ``ref``, and their timing.  ``in_words`` are
+    the host's in-words (1 + 3 B ints)."""
+
+    def __init__(self, lane: torch.Tensor, ctl: torch.Tensor, tick: torch.Tensor, in_words,
+                 max_map_iters: int):
+        b = int(lane.shape[1])
+        self.device = lane.device
+        self._in = _HostWord(1 + 3 * b)
+        (ctypes.c_int * (1 + 3 * b)).from_address(self._in.host)[:] = list(in_words)
+        self._out = _ResultWords(TICK_OUT_PER_LANE * b + len(TICK_OUT))
+        c = self._plan = _TickCtlPlan()
+        c.lane, c.ctl, c.tick = lane.data_ptr(), ctl.data_ptr(), tick.data_ptr()
+        c.in_host, c.out_host = self._in.device, self._out.words.device
+        c.batch, c.max_map_iters, c.conditional = b, max_map_iters, 0
+        self._addr = ctypes.addressof(c)
+        self._launch = _entry("repro_prog_launch_kind")
+
+    def launch(self, kinds) -> None:
+        """One launch of each kernel of ``kinds`` (of ``tick_init``,
+        ``tick_stops``, ``tick_tail``, ``tick_publish``, ``map_ctl``), in
+        that order, on the current stream of the words' device (a graph's
+        capture stream too); no wait."""
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        for kind in kinds:
+            self._launch(NODES[kind], self._addr, stream)
+
+    def read(self) -> list:
+        """Wait for the current stream, and read the out-words
+        ``tick_publish`` last wrote (5 B + ``len(TICK_OUT)`` ints)."""
+        return self._out.read(torch.cuda.current_stream(self.device).cuda_stream)
+
+
+class CapturedOps:
+    """PyTorch operations captured as a CUDA graph that is never replayed by
+    itself: programs take it as a child graph node
+    (:meth:`ProgramBuilder.child`).  ``fn`` runs once on a side stream (its
+    libraries and kernels loaded), then once under capture into a
+    ``torch.cuda.CUDAGraph(keep_graph=True)``, whose private memory pool
+    holds the temporaries for as long as this object lives; ``fn`` must
+    write its results into tensors allocated before (fixed addresses), do
+    no host synchronisation and use one stream.  Its ``segment_reduce``
+    launches count themselves on the device, into the three int32 words at
+    ``count_words`` (``segment_reduce.counting_on_device``), in the warm-up
+    and on every replay: the program zeroes them at its start and publishes
+    them with its result."""
+
+    def __init__(self, fn, device: torch.device, count_words: int):
+        cur = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        with _segment_reduce.counting_on_device(count_words):
+            with torch.cuda.stream(side):
+                fn()
+            cur.wait_stream(side)
+            torch.cuda.synchronize(device)
+            self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(self.graph, stream=side):
+                fn()
+        self.graph_ptr = self.graph.raw_cuda_graph()
+
+
+class _ResultWords:
+    """``n`` mapped result words and their read: one wait on a stream, no copy."""
+
+    def __init__(self, n: int):
+        self.n, self.words = n, _HostWord(n)
+        self.view = (ctypes.c_int * n).from_address(self.words.host)
+        self._out = (ctypes.c_int * n)()
+        self._wait = _entry("repro_em_program_wait")
+
+    def read(self, stream: int) -> list:
+        self._wait(stream, self.words.host, self.n, ctypes.addressof(self._out))
+        return list(self._out)
+
+
+class TickProgram:
+    """A served pool's tick as one CUDA graph (``csrc/em_control.cuh``):
+
+        tick_init -> WHILE { step -> tick_stops -> IF { [M-step] -> boundary }
+                             -> tick_tail } -> tick_publish
+
+    ``step`` and ``mstep`` append the pool's step (the tick's pool entry, or
+    a mode's captured flat step) and, for the modes, the captured M-step
+    into a body of the builder: ``step(builder, graph)``.  The pool's words
+    and buffers are ``ws``'s: ``lane``, ``ctl``, ``tick`` and the boundary's
+    (``ws.boundary_state()``).  ``tick_iters`` and each lane's EM counters
+    and status go in through mapped in-words before the launch (the host's
+    ``TickState`` lists), the results come back through mapped out-words:
+    one graph launch, one wait.  Built once per pool and EM limit: every
+    tick size replays it."""
+
+    def __init__(self, ws, step, mstep, *, max_em_iters: int, conv_tol: float,
+                 stats_at_zero: bool = False):
+        b = ws.batch
+        self.batch, self.max_em_iters = b, max_em_iters
+        self._in = _HostWord(1 + 3 * b)
+        self._in_view = (ctypes.c_int * (1 + 3 * b)).from_address(self._in.host)
+        self._out = _ResultWords(TICK_OUT_PER_LANE * b + len(TICK_OUT))
+        c = self._ctl = _TickCtlPlan()
+        c.lane, c.ctl, c.tick = ws.lane.data_ptr(), ws.ctl.data_ptr(), ws.tick.data_ptr()
+        c.in_host, c.out_host = self._in.device, self._out.words.device
+        c.batch, c.max_map_iters, c.conditional = b, ws.max_map_iters, 1
+        g = program_plan(ws.boundary_state(), max_em_iters=max_em_iters,
+                         max_map_iters=ws.max_map_iters, conv_tol=conv_tol,
+                         stats_at_zero=stats_at_zero, n_vertices=ws.shape.n_vertices)
+        with ProgramBuilder(ws.device) as pb:
+            c.loop_cond = pb.handle(0)
+            pb.node(0, "tick_init", c)
+            body = pb.conditional(0, c.loop_cond, WHILE)
+            c.stop_cond = pb.handle(body)
+            step(pb, body)
+            pb.node(body, "tick_stops", c)
+            stopped = pb.conditional(body, c.stop_cond, IF)
+            if mstep is not None:
+                mstep(pb, stopped)
+            pb.node(stopped, "boundary", g)
+            pb.node(body, "tick_tail", c)
+            pb.node(0, "tick_publish", c)
+            self._program = pb.finish()
+
+    def launch(self, stream: int, tick_iters: int, em_iters, map_iters, status) -> None:
+        """Write the in-words and launch the tick on ``stream``."""
+        global launches_graph
+        b, w = self.batch, self._in_view
+        w[0] = tick_iters
+        w[1:1 + b], w[1 + b:1 + 2 * b], w[1 + 2 * b:1 + 3 * b] = em_iters, map_iters, status
+        self._program.launch(stream)
+        launches_graph += 1
+
+    def result(self, stream: int) -> dict:
+        """Wait for the tick and read its out-words: per lane ``(em_iters,
+        map_iters, status, map_i, active)`` under ``"lanes"``, and
+        :data:`TICK_OUT`: the micro-steps, the step kernel's launches (0 for
+        a mode's captured step), the boundary's launches, the micro-steps in
+        which some lane stopped, the control kernels' launches and the
+        captured ``segment_reduce`` launches, every launch as the kernel
+        counted itself on the device.  The control kernels' and
+        ``segment_reduce``'s are added to this process's counts."""
+        words, b, n = self._out.read(stream), self.batch, TICK_OUT_PER_LANE
+        out = dict(zip(TICK_OUT, words[n * b:]))
+        out["lanes"] = [tuple(words[n * j:n * j + n]) for j in range(b)]
+        for kind in ("tick_init", "tick_stops", "tick_publish"):
+            launches_control[kind] += out[kind]
+        launches_control["tick_tail"] += out["steps"]
+        _segment_reduce.count_device(out["seg_add"], out["seg_ordered"], out["seg_min"])
+        return out
+
+
+class ModesProgram:
+    """A solve or stack of the modes ``static`` and ``faithful`` as one CUDA
+    graph, the static-pallas solve's program with the modes' step:
+
+        program_init -> WHILE(em) { WHILE(map) { step -> map_ctl }
+                                    -> M-step -> boundary }
+
+    ``step`` and ``mstep`` are :class:`CapturedOps` of the workspace's flat
+    MAP step (each lane's gate and cap from its own MAP counter) and of its
+    M-step; ``st`` the boundary's tensors, ``lane``/``ctl`` its words,
+    ``mu0``/``sigma0`` the solve's start (the labels are copied in by the
+    workspace's ``start``).  One launch, one wait for the 3 B +
+    ``len(RESULT_OUT)`` result words (the boundary kernel's)."""
+
+    def __init__(self, device: torch.device, st: ref.BoundaryState, mu0, sigma0, step, mstep, *,
+                 max_em_iters: int, max_map_iters: int, conv_tol: float, n_vertices: int):
+        b = int(st.em_mu.shape[0])
+        self.batch = b
+        self._out = _ResultWords(3 * b + len(RESULT_OUT))
+        g = program_plan(st, max_em_iters=max_em_iters, max_map_iters=max_map_iters,
+                         conv_tol=conv_tol, stats_at_zero=True, n_vertices=n_vertices,
+                         mu0=mu0.data_ptr(), sigma0=sigma0.data_ptr(),
+                         result_host=self._out.words.device)
+        c = _TickCtlPlan()
+        c.lane, c.ctl, c.batch, c.max_map_iters = st.lane.data_ptr(), st.ctl.data_ptr(), b, max_map_iters
+        with ProgramBuilder(device) as pb:
+            g.em_cond, g.conditional = (pb.handle(0), 1) if max_em_iters > 0 else (0, 0)
+            pb.node(0, "program_init", g)
+            if max_em_iters > 0:
+                outer = pb.conditional(0, g.em_cond, WHILE)
+                if max_map_iters > 0:
+                    g.map_cond = c.loop_cond = pb.handle(outer, 1, assign=True)
+                    c.conditional = 1
+                    inner = pb.conditional(outer, g.map_cond, WHILE)
+                    pb.child(inner, step)
+                    pb.node(inner, "map_ctl", c)
+                pb.child(outer, mstep)
+                g.conditional = 1 | (2 if max_map_iters > 0 else 0)
+                pb.node(outer, "boundary", g)
+            self._program = pb.finish()
+        self._keep = (step, mstep)
+
+    def launch(self, stream: int) -> None:
+        global launches_graph
+        self._program.launch(stream)
+        launches_graph += 1
+
+    def result(self, stream: int) -> tuple:
+        """One wait: each lane's EM iterations, MAP iterations and status,
+        the lockstep MAP iterations, the flat steps (``map_ctl``'s launches)
+        and the boundaries, each launch counted by its kernel on the device;
+        ``map_ctl``'s and the captured ``segment_reduce`` launches are added
+        to this process's counts."""
+        words, b = self._out.read(stream), self.batch
+        em, maps, status = words[0:3 * b:3], words[1:3 * b:3], words[2:3 * b:3]
+        out = dict(zip(RESULT_OUT, words[3 * b:]))
+        launches_control["map_ctl"] += out["ticks"]
+        _segment_reduce.count_device(out["seg_add"], out["seg_ordered"], out["seg_min"])
+        return em, maps, status, out["steps"], out["ticks"], out["boundaries"]
 
 
 class _Lanes:
@@ -454,28 +788,22 @@ class _Lanes:
         if max_em_iters < 0 or max_map_iters < 0:
             raise ValueError(f"the EM limits must be >= 0, got {max_em_iters} and {max_map_iters}")
         self.max_em_iters, self.max_map_iters = max_em_iters, max_map_iters
-        self._result = _HostWord(3 * batch + 3)
-        self._result_out = (ctypes.c_int * (3 * batch + 3))()
+        self._result = _ResultWords(3 * batch + len(RESULT_OUT))
         t = self._gplan = self._tick_plan(batch, precision, max_map_iters)
         t.map_i = self._lane[ref.MAP_I].data_ptr()
         t.map_live = self._ctl[ref.MAP_LIVE].data_ptr()
         t.launch_count = self._ctl[ref.TICK_LAUNCHES].data_ptr()
-        g = self._pplan = _ProgramPlan()
-        for name, buf in (("stats", self._stats), ("hood_e", self._hood_e), ("lane", self._lane),
-                          ("ctl", self._ctl), ("em_mu", self._em_mu), ("em_sigma", self._em_sigma),
-                          ("mu", self._mu), ("sigma", self._sigma), ("ring", self._ring),
-                          ("total_hist", self._total_hist), ("labels", self._labels),
-                          ("votes", self._votes)):
-            setattr(g, name, buf.data_ptr())
-        for name in ("sigma_min", "reseed_mu", "reseed_sigma", "mu0", "sigma0", "labels0"):
-            setattr(g, name, self._inputs[name].data_ptr())
-        g.result_host = self._result.device
-        g.batch, g.n_hoods, g.n_vertices, g.n_labels = batch, self.n_hoods, self.n_vertices, self.n_labels
-        g.window, g.max_em_iters, g.max_map_iters = self._window, max_em_iters, max_map_iters
-        g.conv_tol = self._conv_tol
+        inp = self._inputs
+        st = ref.BoundaryState(self._stats, self._hood_e, self._lane, self._ctl, self._em_mu,
+                               self._em_sigma, self._mu, self._sigma, self._ring, self._total_hist,
+                               inp["sigma_min"], inp["reseed_mu"], inp["reseed_sigma"])
+        g = self._pplan = program_plan(
+            st, max_em_iters=max_em_iters, max_map_iters=max_map_iters, conv_tol=self._conv_tol,
+            n_vertices=self.n_vertices, **{n: inp[n].data_ptr() for n in ("mu0", "sigma0", "labels0")},
+            labels=self._labels.data_ptr(), votes=self._votes.data_ptr(),
+            result_host=self._result.words.device)
         with torch.cuda.device(self.device):
             self._graph = SolveGraph(t, g)
-        self._wait_program = _entry("repro_em_program_wait")
 
     def _bind(self, require, lead: tuple, hoods, model, y, w, nall_e, valid, labels0,
               mu0=None, sigma0=None) -> None:
@@ -522,12 +850,10 @@ class _Lanes:
         the graph's kernels as the kernels counted themselves on the device
         (``program_launches``: the tick's and the boundary's)."""
         global launches, launches_batched, launches_boundary
-        out, n = self._result_out, len(self._result_out)
-        self._wait_program(self._stream, self._result.host, n, ctypes.addressof(out))
-        words = list(out)
-        b = (n - 3) // 3
+        words, n = self._result.read(self._stream), self._result.n
+        b = (n - len(RESULT_OUT)) // 3
         em, maps, status = words[0:3 * b:3], words[1:3 * b:3], words[2:3 * b:3]
-        steps, ticks, boundaries = words[3 * b:]
+        steps, ticks, boundaries = words[3 * b:3 * b + 3]
         self.program_launches = {"tick": ticks, "em_boundary": boundaries}
         launches += ticks
         if self._batched:
@@ -803,9 +1129,12 @@ class PoolTickWorkspace:
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
+    #: Its tick runs as the compiled graph (``em._tick_program``).
+    graph_tick = True
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10,
+                 max_em_iters=None):
         dev = _check_shape("PoolTickWorkspace", shape, precision, device)
         if batch < 1 or max_map_iters < 1:
             raise ValueError(f"PoolTickWorkspace needs batch >= 1 and max_map_iters >= 1, got "
@@ -827,18 +1156,30 @@ class PoolTickWorkspace:
         self.ring = z(window + 1, nh)
         self.hood_e = z(nh)
         self.stats = z(3, n_labels)
-        # Per lane: flag, parity, active, MAP counter.
-        self._words = torch.zeros((4, batch), dtype=i32, device=dev)
+        # The EM level of each lane (em.TickState's tensors are these) and the
+        # model terms its boundary reads.
+        self.em_mu, self.em_sigma = z(n_labels), torch.ones((batch, n_labels), dtype=f32, device=dev)
+        self.total_hist = z(window + 1)
+        self.sigma_min, self.reseed_sigma = torch.ones((batch,), dtype=f32, device=dev), torch.ones(
+            (batch,), dtype=f32, device=dev)
+        self.reseed_mu = z(n_labels)
+        # The lane block (ref.LANE_WORDS: the tick's active, MAP-counter, flag
+        # and parity words among them), the boundary's words and the tick's.
+        self.lane = torch.zeros((len(ref.LANE_WORDS), batch), dtype=i32, device=dev)
+        self.ctl = torch.zeros((len(ref.CTL_WORDS),), dtype=i32, device=dev)
+        self.tick = torch.zeros((len(ref.TICK_WORDS),), dtype=i32, device=dev)
+        self._conv_tol = conv_tol
         self._sync = z(2, dtype=i32)
         self._host = _HostWord(batch)
-        self._lane = torch.arange(batch, device=dev)
+        self._lane_ix = torch.arange(batch, device=dev)
         self._stream = torch.cuda.current_stream(dev)
         self._plan = p = _TickBatchPlan()
         for name in ("y", "w", "nall", "valid", "vertex", "offsets", "region_mean",
                      "region_weight", "beta", "mu", "sigma", "ring", "hood_e", "stats"):
             setattr(p, name, getattr(self, name).data_ptr())
         p.labels, p.votes, p.sync = self._labels.data_ptr(), self._votes.data_ptr(), self._sync.data_ptr()
-        p.flag_dev, p.parity, p.active, p.map_i = (self._words[i].data_ptr() for i in range(4))
+        p.flag_dev, p.parity, p.active, p.map_i = (
+            self.lane[i].data_ptr() for i in (ref.FLAG, ref.PARITY, ref.ACTIVE, ref.MAP_I))
         p.flag_host_dev, p.flag_host = self._host.device, self._host.host
         p.stream = self._stream.cuda_stream
         p.batch, p.capacity, p.hist_rows = batch, self.capacity, window + 1
@@ -851,6 +1192,38 @@ class PoolTickWorkspace:
         self._flags = (ctypes.c_int * batch)()
         self._flags_addr = ctypes.addressof(self._flags)
         self.owner = None  # a weak reference to the pool state (em.TickState) driving the slots
+        self.program, self.max_em_iters = None, max_em_iters
+        if max_em_iters is not None:
+            # The pool's tick (TickProgram): its step one launch of the pool
+            # entry, counting itself in ctl.
+            t = self._tick_graph_plan = _TickBatchPlan.from_buffer_copy(p)
+            t.flag_host_dev = None
+            t.launch_count = self.ctl[ref.TICK_LAUNCHES].data_ptr()
+            with torch.cuda.device(dev):
+                self.program = TickProgram(self, lambda pb, g: pb.node(g, "tick_lanes", t), None,
+                                           max_em_iters=max_em_iters, conv_tol=conv_tol)
+
+    def boundary_state(self) -> ref.BoundaryState:
+        """The boundary kernel's tensors over the pool (its lane form)."""
+        return ref.BoundaryState(self.stats, self.hood_e, self.lane, self.ctl, self.em_mu,
+                                 self.em_sigma, self.mu, self.sigma, self.ring, self.total_hist,
+                                 self.sigma_min, self.reseed_mu, self.reseed_sigma)
+
+    def launch_tick(self, tick_iters: int, em_iters, map_iters, status) -> None:
+        """One tick of the compiled program on the pool's stream: its
+        in-words written, one graph launch."""
+        self.program.launch(self._stream.cuda_stream, tick_iters, em_iters, map_iters, status)
+
+    def tick_result(self) -> dict:
+        """Wait for the tick (one wait): :meth:`TickProgram.result`, with the
+        launches the kernels counted of themselves added to this module's
+        counts."""
+        global launches, launches_pool, launches_boundary
+        out = self.program.result(self._stream.cuda_stream)
+        launches += out["ticks"]
+        launches_pool += out["ticks"]
+        launches_boundary += out["boundaries"]
+        return out
 
     def _check_slot(self, slot: int) -> int:
         if not 0 <= slot < self.batch:
@@ -871,7 +1244,7 @@ class PoolTickWorkspace:
         _require_pool(labels0, "labels0", torch.int32, (self.n_vertices,), dev)
         _require_pool(model.beta.reshape(()), "beta", f32, (), dev)
         with torch.cuda.stream(self._stream):
-            self._words[2, b] = 0
+            self.lane[ref.ACTIVE, b] = 0
             for dst, src in ((self.y, y), (self.w, w), (self.nall, nall_e), (self.valid, valid),
                              (self.vertex, hoods.vertex), (self.offsets, hoods.offsets),
                              (self.region_mean, model.region_mean),
@@ -880,7 +1253,7 @@ class PoolTickWorkspace:
                 dst[b].copy_(src)
             self._labels[b].copy_(labels0.expand(2, self.n_vertices))
             self._votes[b].zero_()
-            self._words[3, b] = 0
+            self.lane[ref.MAP_I, b] = 0
 
     def begin_lanes(self, slots, mu, sigma) -> None:
         """Start an EM iteration of the lanes in ``slots``: their ``(n, K)``
@@ -896,14 +1269,14 @@ class PoolTickWorkspace:
             self.mu.index_copy_(0, idx, mu)
             self.sigma.index_copy_(0, idx, sigma)
             self.ring.index_fill_(0, idx, 0.0)
-            self._words[3].index_fill_(0, idx, 0)
-            self._words[2].index_fill_(0, idx, 1)
+            self.lane[ref.MAP_I].index_fill_(0, idx, 0)
+            self.lane[ref.ACTIVE].index_fill_(0, idx, 1)
 
     def retire(self, slot: int) -> None:
         """Clear ``slot``'s active word: the lane runs no further launch."""
         b = self._check_slot(slot)
         with torch.cuda.stream(self._stream):
-            self._words[2, b] = 0
+            self.lane[ref.ACTIVE, b] = 0
 
     def step(self) -> None:
         """One MAP iteration of every active lane, each its own: one launch."""
@@ -920,19 +1293,19 @@ class PoolTickWorkspace:
     @property
     def active(self) -> torch.Tensor:
         """The lanes' active words (1: the lane runs the next step)."""
-        return self._words[2]
+        return self.lane[ref.ACTIVE]
 
     @property
     def map_i(self) -> torch.Tensor:
         """The lanes' MAP counters: iterations of the current MAP loop."""
-        return self._words[3]
+        return self.lane[ref.MAP_I]
 
     @property
     def labels(self) -> torch.Tensor:
         """(B, n_vertices): each lane's current labels."""
-        return self._labels[self._lane, self._words[1].long()]
+        return self._labels[self._lane_ix, self.lane[ref.PARITY].long()]
 
     @property
     def votes(self) -> torch.Tensor:
         """(B, K, n_vertices): each lane's last step's votes."""
-        return self._votes[self._lane, (self._words[1] ^ 1).long()]
+        return self._votes[self._lane_ix, (self.lane[ref.PARITY] ^ 1).long()]

@@ -58,7 +58,7 @@ BUILDS = _budget.LEDGER.section("trace", keys=("tick", "batch_tick", "pool_tick"
 #: beside its buffers (on the card a CUDA graph, on the plain route the
 #: plain program bound to the workspace), so a session builds one per
 #: bucket (and batch size) and a warm solve adds none.
-PROGRAMS = _budget.LEDGER.section("program", keys=("solve", "stack"))
+PROGRAMS = _budget.LEDGER.section("program", keys=("solve", "stack", "pool"))
 #: Steps of the modes' DPP workspaces (``em.DppBatchWorkspace``,
 #: ``em.DppPoolWorkspace``) since the last ``reset_launch_counts``: one flat
 #: MAP iteration of every lane each, whose kernel launches are
@@ -79,10 +79,21 @@ def count_workspace_build(kind: str = "dpp") -> None:
     _budget.LEDGER.bump("trace", kind)
 
 
-def count_lane_step() -> None:
-    """Count one step of a DPP workspace (``LANE_STEPS``)."""
+def count_lane_step(n: int = 1) -> None:
+    """Count ``n`` steps of a DPP workspace (``LANE_STEPS``)."""
     global LANE_STEPS
-    LANE_STEPS += 1
+    LANE_STEPS += n
+
+
+def count_program_build(kind: str) -> None:
+    """Count a compiled program built outside this module (``"solve"``,
+    ``"stack"`` or ``"pool"``)."""
+    _budget.LEDGER.bump("program", kind)
+
+
+def count_boundaries(n: int) -> None:
+    """Add ``n`` boundary launches a graph made (counted on the device)."""
+    _em_tick.launches_boundary += n
 
 
 def _use_kernel(backend: Optional[str], where) -> bool:
@@ -124,6 +135,8 @@ def reset_launch_counts() -> None:
     _em_tick.launches_pool = 0
     _em_tick.launches_boundary = 0
     _em_tick.launches_graph = 0
+    for kind in _em_tick.launches_control:
+        _em_tick.launches_control[kind] = 0
     _segment_reduce.launches_ordered = 0
     _segment_reduce.launches_min = 0
 
@@ -134,6 +147,12 @@ def program_launch_counts() -> Dict[str, int]:
     lockstep EM iteration inside a graph, and each standalone call); the
     tick's launches inside a graph are ``launch_counts()["fused_em_tick"]``'s."""
     return {"graph": _em_tick.launches_graph, "em_boundary": _em_tick.launches_boundary}
+
+
+def control_launch_counts() -> Dict[str, int]:
+    """The programs' control kernels' launches so far, by kernel (counted on
+    the device inside the graphs, ``em_tick.launches_control``)."""
+    return dict(_em_tick.launches_control)
 
 
 def segment_reduce_launches() -> Dict[str, int]:
@@ -247,13 +266,14 @@ def tick_workspace(
         ws, kind = cls(TickShape(*shape), **kw, **limits), "tick"
     elif pool:
         cls = _em_tick.PoolTickWorkspace if kernel else ref.PlainPoolTickWorkspace
-        ws, kind = cls(TickShape(*shape), batch, max_map_iters=max_map_iters, **kw), "pool_tick"
+        ws, kind = cls(TickShape(*shape), batch, max_map_iters=max_map_iters,
+                       max_em_iters=max_em_iters, **kw), "pool_tick"
     else:
         cls = _em_tick.BatchTickWorkspace if kernel else ref.PlainBatchTickWorkspace
         ws, kind = cls(TickShape(*shape), batch, **kw, **limits), "batch_tick"
     count_workspace_build(kind)
-    if max_em_iters is not None and not pool:
-        _budget.LEDGER.bump("program", "solve" if batch is None else "stack")
+    if max_em_iters is not None:
+        _budget.LEDGER.bump("program", "pool" if pool else "solve" if batch is None else "stack")
     return ws
 
 

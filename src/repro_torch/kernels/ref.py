@@ -442,12 +442,14 @@ LANE_WORDS = ("active", "map_i", "flag", "running", "em_iters", "map_iters", "st
 ACTIVE, MAP_I, FLAG, RUNNING, EM_ITERS, MAP_ITERS, STATUS, PARITY = range(len(LANE_WORDS))
 #: A program's words ((len(CTL_WORDS),) int32): the lockstep EM iteration,
 #: the lockstep MAP iterations, the lanes still in the MAP loop, the two
-#: loops' conditions, the boundary's join scratch, and the launches of the
-#: tick and of the boundary in the solve (each counted by the kernel).
+#: loops' conditions, the boundary's join scratch, the launches of the
+#: tick and of the boundary in the solve, and the ``segment_reduce``
+#: launches a mode's captured step and M-step made in the graph (by
+#: variant), each counted by the kernel.
 CTL_WORDS = ("em_i", "steps", "map_live", "em_cond", "map_cond", "ticket", "step_max", "go_on",
-             "tick_launches", "boundary_launches")
+             "tick_launches", "boundary_launches", "seg_add", "seg_ordered", "seg_min")
 EM_I, STEPS, MAP_LIVE, EM_COND, MAP_COND = range(5)
-TICK_LAUNCHES, BOUNDARY_LAUNCHES = 8, 9
+TICK_LAUNCHES, BOUNDARY_LAUNCHES, SEG_ADD, SEG_ORDERED, SEG_MIN = range(8, 13)
 
 # The health codes (``em.STATUS_*``) and the M-step's constants
 # (``energy.params_from_stats``, ``energy.label_total``, ``energy.INERT_MU``).
@@ -500,7 +502,7 @@ def _window_ok(hist: Tensor, conv_tol: float) -> Tensor:
 
 
 def em_boundary_lanes(st: BoundaryState, *, max_em_iters: int, max_map_iters: int,
-                      conv_tol: float = 1.0e-4) -> None:
+                      conv_tol: float = 1.0e-4, stats_at_zero: bool = False) -> None:
     """The EM boundary of every lane that ran the EM iteration (its
     ``running`` word set), each at its own EM iteration (its ``em_iters``
     word plus one: in a stack every running lane's is the program's, in a
@@ -516,12 +518,14 @@ def em_boundary_lanes(st: BoundaryState, *, max_em_iters: int, max_map_iters: in
     and, if it goes on, its next parameters (sigma clamped), an empty
     history ring and its MAP words re-armed.  Then the program's words:
     the EM iteration, the lockstep MAP iterations, the lanes that go on
-    (the next MAP loop's live count) and the two loops' conditions."""
+    (the next MAP loop's live count) and the two loops' conditions.
+    ``stats_at_zero`` reads a lane's sums even when its MAP loop ran no
+    iteration (the modes, whose M-step reads the labels it starts from)."""
     lane, ctl = st.lane, st.ctl
     window = int(st.total_hist.shape[1]) - 1
     run = lane[RUNNING] != 0
     i = lane[MAP_I].clone()
-    stats = torch.where((i > 0)[:, None, None], st.stats, 0.0)
+    stats = st.stats if stats_at_zero else torch.where((i > 0)[:, None, None], st.stats, 0.0)
     sum_w, sum_wy, sum_wyy = stats[:, 0], stats[:, 1], stats[:, 2]
     safe_w = torch.clamp_min(sum_w, 1e-6)
     mu = sum_wy / safe_w
@@ -598,9 +602,12 @@ def program_begin(p: ProgramState, *, max_em_iters: int, max_map_iters: int) -> 
     """The start of a solve, in place: the plain version of the program's
     init kernel (every lane's initial labels, empty rings and hood
     energies, parameters from ``mu0``/``sigma0``, every lane running and,
-    if the MAP loop runs at all, active; the program's words)."""
+    if the MAP loop runs at all, active; the program's words).  With no
+    ``labels0`` the labels are left as they are (the modes' ``start``
+    copies them in)."""
     b = p.boundary
-    p.labels.copy_(p.labels0)
+    if p.labels0 is not None:
+        p.labels.copy_(p.labels0)
     b.hood_e.zero_()
     b.ring.zero_()
     b.total_hist.zero_()
@@ -676,6 +683,92 @@ def program_result(lane: Tensor, ctl: Tensor) -> Tuple[list, list, list, int]:
     words = torch.cat([lane[EM_ITERS:STATUS + 1].reshape(-1), ctl[STEPS:STEPS + 1]]).tolist()
     n = int(lane.shape[1])
     return words[:n], words[n:2 * n], words[2 * n:3 * n], words[3 * n]
+
+
+#: A tick's words (``csrc/em_control.cuh``'s ``TickWord``): the micro-steps
+#: taken (``tick_tail``'s count), the tick's size, the micro-steps in which
+#: some lane stopped, the plain version's WHILE and IF conditions (on the
+#: card the handles), and the launches of ``tick_init``, ``tick_stops`` and
+#: ``tick_publish``, each counted by the kernel and set back to 0 once
+#: published.
+TICK_WORDS = ("steps", "iters", "stops", "loop_cond", "stop_cond", "init_runs", "stop_runs",
+              "publish_runs")
+T_STEPS, T_ITERS, T_STOPS, T_LOOP, T_STOP, T_INIT_RUNS, T_STOP_RUNS, T_PUBLISH_RUNS = range(
+    len(TICK_WORDS))
+#: What :func:`tick_publish` reads after the lanes' words (``em_tick.TICK_OUT``).
+TICK_OUT = ("steps", "ticks", "boundaries", "stops", "tick_init", "tick_stops", "tick_publish",
+            "seg_add", "seg_ordered", "seg_min")
+
+
+def tick_init(lane: Tensor, ctl: Tensor, tick: Tensor, in_words: Tensor) -> None:
+    """The plain version of ``em_control::tick_init``: each lane's EM
+    counters and status from ``in_words`` ((1 + 3 B,) int32 on the host:
+    the tick's size, then ``em_iters``, ``map_iters`` and ``status`` of
+    every lane; the card's are mapped host words),
+    every active lane running the next step, the tick's words and the
+    program's counters zeroed, its own launch counted, the loop's
+    condition."""
+    b = int(lane.shape[1])
+    in_words = in_words.to(lane.device)
+    for row, j in ((EM_ITERS, 1), (MAP_ITERS, 1 + b), (STATUS, 1 + 2 * b)):
+        lane[row].copy_(in_words[j:j + b])
+    act = lane[ACTIVE] != 0
+    lane[RUNNING].copy_(act)
+    tick[:T_INIT_RUNS].zero_()
+    tick[T_ITERS] = in_words[0]
+    tick[T_INIT_RUNS] += 1
+    ctl[5:].zero_()  # the boundary's join scratch and the launch counts
+    tick[T_LOOP] = (in_words[0] > 0) & act.any()
+
+
+def tick_stops(lane: Tensor, tick: Tensor, max_map_iters: int) -> None:
+    """The plain version of ``em_control::tick_stops``: a lane that ran the
+    step stops its MAP loop when its flag word is set or its counter is at
+    the cap; ``running`` is left set for those lanes alone, and the IF
+    condition is set when there is one; its own launch counted."""
+    stop = (lane[RUNNING] != 0) & ((lane[FLAG] != 0) | (lane[MAP_I] == max_map_iters))
+    lane[RUNNING].copy_(stop)
+    some = stop.any()
+    tick[T_STOP_RUNS] += 1
+    tick[T_STOPS] += some
+    tick[T_STOP] = some
+
+
+def tick_tail(lane: Tensor, tick: Tensor) -> None:
+    """The plain version of ``em_control::tick_tail``: one more micro-step,
+    every active lane running the next, and the loop's condition (steps
+    below the tick's size and some lane active)."""
+    act = lane[ACTIVE] != 0
+    lane[RUNNING].copy_(act)
+    tick[T_STEPS] += 1
+    tick[T_LOOP] = (tick[T_STEPS] < tick[T_ITERS]) & act.any()
+
+
+def tick_publish(lane: Tensor, ctl: Tensor, tick: Tensor) -> dict:
+    """The plain version of ``em_control::tick_publish`` and of its read:
+    its own launch counted, then one host read of every lane's
+    ``(em_iters, map_iters, status, map_i, active)`` (under ``"lanes"``)
+    and of :data:`TICK_OUT` (the micro-steps, the step's and the
+    boundary's launches, the micro-steps in which some lane stopped, the
+    control kernels' and the ``segment_reduce`` launches); the control
+    kernels' counts are set back to 0."""
+    b = int(lane.shape[1])
+    tick[T_PUBLISH_RUNS] += 1
+    per_lane = torch.stack([lane[EM_ITERS], lane[MAP_ITERS], lane[STATUS], lane[MAP_I],
+                            lane[ACTIVE]], dim=1).reshape(-1)
+    words = torch.cat([per_lane, tick[T_STEPS:T_STEPS + 1], ctl[TICK_LAUNCHES:BOUNDARY_LAUNCHES + 1],
+                       tick[T_STOPS:T_STOPS + 1], tick[T_INIT_RUNS:], ctl[SEG_ADD:]]).tolist()
+    tick[T_INIT_RUNS:].zero_()
+    out = dict(zip(TICK_OUT, words[5 * b:]))
+    out["lanes"] = [tuple(words[5 * j:5 * j + 5]) for j in range(b)]
+    return out
+
+
+def map_ctl(lane: Tensor, ctl: Tensor) -> None:
+    """The plain version of ``em_control::map_ctl``: the step's count and
+    the MAP loop's condition (some lane still active)."""
+    ctl[TICK_LAUNCHES] += 1
+    ctl[MAP_COND] = (lane[ACTIVE] != 0).any()
 
 
 def lane_controls(map_i: int, rows: int, max_map_iters: int) -> Tuple[int, bool, bool]:
@@ -835,9 +928,14 @@ class PlainPoolTickWorkspace:
 
     #: The EM mode whose MAP iteration the workspace steps.
     mode = "static-pallas"
+    #: Its tick is the plain program's (``em._tick_program``), not a graph.
+    graph_tick = False
+    program = None
 
     def __init__(self, shape: TickShape, batch: int, *, device, precision: str = "f32",
-                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10):
+                 conv_tol: float = 1.0e-4, window: int = 3, max_map_iters: int = 10,
+                 max_em_iters=None):
+        self.max_em_iters = max_em_iters
         if batch < 1 or max_map_iters < 1:
             raise ValueError(f"PlainPoolTickWorkspace needs batch >= 1 and max_map_iters >= 1, "
                              f"got {batch} and {max_map_iters}")
@@ -858,9 +956,17 @@ class PlainPoolTickWorkspace:
         self.ring = z(window + 1, nh)
         self.hood_e = z(nh)
         self.stats = z(3, k)
-        self.active = z(dtype=torch.bool)
-        self.map_i = z(dtype=i32)
-        self._flags = z(dtype=i32)
+        self.em_mu, self.em_sigma = z(k), torch.ones((batch, k), dtype=f32, device=dev)
+        self.total_hist = z(window + 1)
+        self.sigma_min, self.reseed_sigma = (torch.ones((batch,), dtype=f32, device=dev)
+                                             for _ in range(2))
+        self.reseed_mu = z(k)
+        # The lane block: the step's active word, MAP counter and flag word
+        # are views of its rows.
+        self.lane = torch.zeros((len(LANE_WORDS), batch), dtype=i32, device=dev)
+        self.ctl = torch.zeros((len(CTL_WORDS),), dtype=i32, device=dev)
+        self.tick = torch.zeros((len(TICK_WORDS),), dtype=i32, device=dev)
+        self.active, self.map_i, self._flags = self.lane[ACTIVE], self.lane[MAP_I], self.lane[FLAG]
         self.owner = None
 
     def admit(self, slot: int, hoods, model, y, w, nall_e, valid, labels0) -> None:
@@ -887,6 +993,10 @@ class PlainPoolTickWorkspace:
     def retire(self, slot: int) -> None:
         self.active[slot] = False
 
+    def program_step(self) -> None:
+        """The plain tick's step (:meth:`step`)."""
+        self.step()
+
     def step(self) -> None:
         nh, nv = self.shape.n_hoods, self.shape.n_vertices
         fused_map_iteration_batched(
@@ -899,6 +1009,12 @@ class PlainPoolTickWorkspace:
 
     def flags(self) -> list:
         return self._flags.tolist()
+
+    def boundary_state(self) -> BoundaryState:
+        """The boundary's tensors over the pool (its lane form)."""
+        return BoundaryState(self.stats, self.hood_e, self.lane, self.ctl, self.em_mu,
+                             self.em_sigma, self.mu, self.sigma, self.ring, self.total_hist,
+                             self.sigma_min, self.reseed_mu, self.reseed_sigma)
 
 
 class PlainMapStepWorkspace:

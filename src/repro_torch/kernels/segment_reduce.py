@@ -13,6 +13,7 @@ version.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -22,15 +23,21 @@ from repro_torch.kernels import _build
 _OPS = {"add": 0, "min": 1}
 
 #: Launches of the kernel in this process (``ops.launch_counts``), and the
-#: shares of the element-order ``add`` and of ``min`` in them.
+#: shares of the element-order ``add`` and of ``min`` in them.  A launch
+#: inside a CUDA graph is counted by the kernel on the device
+#: (:func:`counting_on_device`) and added here when the graph's words are
+#: read (:func:`count_device`).
 launches = 0
 launches_ordered = 0
 launches_min = 0
+#: Address of three device int32 words (order-free add, ordered add, min)
+#: that the launches count themselves into, or None (counted here).
+_device_words = None
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P]
-_ORDERED_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P]
+_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _P, _P, _P]
+_ORDERED_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P]
 _WORKSPACE_BYTES = 16  # per segment, for ``add``: int64 sum, exponent key, flags
 _ORDERED_WORKSPACE_BYTES = 8  # per segment, for the ordered ``add``: first and last index
 _kernel = None
@@ -52,6 +59,41 @@ def _bind_ordered():
     return _ordered_kernel
 
 
+@contextlib.contextmanager
+def counting_on_device(words: int):
+    """Within the block, each launch adds one to its variant's word of the
+    three device int32 words at address ``words`` (order-free ``add``,
+    ordered ``add``, ``min``) instead of to this module's counts: the
+    launches a graph captures, which the kernel counts on every replay."""
+    global _device_words
+    saved, _device_words = _device_words, words
+    try:
+        yield
+    finally:
+        _device_words = saved
+
+
+def count_device(add: int, ordered: int, minimum: int) -> None:
+    """Add launches the kernel counted on the device (read from the words
+    of :func:`counting_on_device`) to this module's counts."""
+    global launches, launches_ordered, launches_min
+    launches += add + ordered + minimum
+    launches_ordered += ordered
+    launches_min += minimum
+
+
+def _count(variant: int):
+    """The count word of ``variant`` (0 add, 1 ordered add, 2 min) while
+    counting on the device, else None after counting the launch here."""
+    global launches, launches_ordered, launches_min
+    if _device_words is not None:
+        return _device_words + 4 * variant
+    launches += 1
+    launches_ordered += variant == 1
+    launches_min += variant == 2
+    return None
+
+
 def segment_reduce_cuda(
     values: torch.Tensor, segment_ids: torch.Tensor, num_segments: int, op: str = "add",
     *, ordered: bool = False,
@@ -62,7 +104,6 @@ def segment_reduce_cuda(
     a contiguous (n,) int32 tensor on the same device; anything else raises.
     ``ordered=True`` (``add`` only) sums each segment in element order.
     """
-    global launches, launches_ordered, launches_min
     if op not in _OPS:
         raise ValueError(f"unknown segment_reduce op {op!r}; have {tuple(_OPS)}")
     if ordered and op != "add":
@@ -96,9 +137,8 @@ def segment_reduce_cuda(
         kernel = _bind_ordered()
         with torch.cuda.device(dev):
             kernel(values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(), values.numel(),
-                   num_segments, workspace.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        launches += 1
-        launches_ordered += 1
+                   num_segments, workspace.data_ptr(), _count(1),
+                   torch.cuda.current_stream().cuda_stream)
         return out
     if op == "add":
         out = torch.empty((num_segments,), dtype=torch.float32, device=dev)
@@ -111,9 +151,7 @@ def segment_reduce_cuda(
     with torch.cuda.device(dev):
         kernel(
             values.data_ptr(), segment_ids.data_ptr(), out.data_ptr(),
-            values.numel(), num_segments, _OPS[op], ws_ptr,
+            values.numel(), num_segments, _OPS[op], ws_ptr, _count(2 if op == "min" else 0),
             torch.cuda.current_stream().cuda_stream,
         )
-    launches += 1
-    launches_min += op == "min"
     return out

@@ -148,6 +148,8 @@ LAUNCHING = {
     "repro_mrf_min_energy", "repro_segment_reduce_f32", "repro_segment_reduce_ordered_f32",
     "repro_flash_attention", "repro_em_program_build", "repro_em_program_launch",
     "repro_em_boundary", "repro_em_boundary_lanes", "repro_em_graph_probe",
+    # The programs assembled node by node and their control kernels standalone.
+    "repro_prog_node", "repro_prog_launch_kind",
 }
 
 
@@ -223,7 +225,10 @@ def test_check_is_clean_against_committed_baseline(capsys):
     assert "analysis: OK" in out
     report = json.loads((ROOT / "src/repro_torch/analysis/ANALYSIS.json").read_text())
     assert report["unsuppressed_findings"] == [] and report["stale_suppressions"] == []
-    assert {f["code"] for f in report["suppressed_findings"]} == {"PT001"}
+    # The EM boundary's float64 rounding runs inside the boundary kernel (or
+    # its plain version), one opaque launch, in every driver: nothing left
+    # to suppress.
+    assert report["suppressed_findings"] == []
 
 
 def test_kernels_without_a_card_exits_nonzero(capsys):

@@ -157,11 +157,25 @@ def test_one_host_read_per_map_iteration(driver, mode):
     runs = [_census_48(driver, mode)] + [_baseline(driver, mode, k) for k in registry.KS]
     for s in runs:
         m = s[census.MAP_ITERATION]
-        assert m["min"]["host_reads"] == m["max"]["host_reads"] == 1
         assert m["max"]["h2d_copies"] == 0
-        if mode == "static-pallas":
-            assert m["min"]["launches"] == m["max"]["launches"] == 1
-            assert m["max"]["device_ops"] == 0
+        if driver == "run_em_ticked":
+            # A tick's plain program runs its micro-steps with the loop's
+            # condition as a mask: the step, the stop test and the tail, the
+            # mask's device ops, and no read; its one read is the tick's own
+            # (the solve scope's), of every word at once.
+            assert m["min"]["host_reads"] == m["max"]["host_reads"] == 0
+            assert m["min"]["launches"] == m["max"]["launches"] == 3
+            assert s[census.EM_BOUNDARY]["max"]["host_reads"] == 0
+            tick = s[census.SOLVE]
+            assert tick["min"]["host_reads"] == tick["max"]["host_reads"] == 1
+            assert tick["max"]["h2d_copies"] == 0
+            continue
+        # Every other driver runs its program (here the plain version): a
+        # MAP iteration is the step (one launch) and one read of the loop's
+        # condition word; no device op outside them.
+        assert m["min"]["host_reads"] == m["max"]["host_reads"] == 1
+        assert (m["min"]["launches"], m["max"]["launches"]) == (1, 1)
+        assert m["max"]["device_ops"] == 0
 
 
 PROGRAM = [("run_em", "static-pallas"), ("run_em_batched", "static-pallas")]

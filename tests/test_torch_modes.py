@@ -204,7 +204,7 @@ def test_iteration_caps_and_max_map_zero():
         assert res.status == torch_em.STATUS_MAX_ITERS
         none = torch_em.run_em(*problem, torch_em.EMConfig(mode=mode, max_em_iters=2, max_map_iters=0))
         assert none.map_iters == 0 and torch.equal(none.labels, problem.labels0)
-    with pytest.raises(ValueError, match="no workspace"):
+    with pytest.raises(ValueError, match="not a workspace"):
         torch_em.run_em(*problem, torch_em.EMConfig(mode="static"), workspace=object())
 
 
@@ -266,7 +266,8 @@ def test_session_runs_the_modes():
         assert (got.em_iters, got.map_iters, got.status) == (want.em_iters, want.map_iters, want.status)
         np.testing.assert_array_equal(got.region_labels, want.region_labels)
         exe = seg.compile(p)
-        assert exe.workspace is None and exe.key.mode == mode
+        assert isinstance(exe.workspace, torch_em.DppBatchWorkspace) and exe.key.mode == mode
+        assert exe.workspace.batch == 1
         seg.execute(p, seed=0)
         assert seg.stats.misses == 1 and seg.stats.hits >= 2
         seg.submit(p)
